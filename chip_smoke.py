@@ -4,15 +4,30 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from csrc/ and prints the build time;
-3. holds each kernel against its plain PyTorch version in bf16 at the shapes
-   the serving slice gives it, with the max error and both times;
-4. drives the slice: Qwen2.5-VL-7B at full width in bf16 with seeded random
+2. builds the CUDA kernels from csrc/ (one nvcc per source, all started
+   together) and prints the build time and each kernel's registers / spills;
+3. serving kernels: holds the forward kernels against their plain PyTorch
+   versions in bf16 at the serving slice's shapes, with the max error, both
+   times, the card's bound and the time of one library call
+   (F.scaled_dot_product_attention with the same mask);
+4. serving slice: Qwen2.5-VL-7B at full width in bf16 with seeded random
    weights, a DemoRunner answering 3 video questions (8 synthetic frames of
-   392x392 each, 32 greedy tokens), with the kernels' launch counts set to 0
-   before and read after;
+   392x392 each, 32 greedy tokens), with the launch counts set to 0 before
+   and read after;
 5. times prefill and decode, and holds the last-token logits of the kernel
-   path against the plain path (ViT "xla", decoder "xla").
+   path against the plain path (ViT "xla", decoder "xla");
+6. training kernels: at the training batch's shapes (decoder B=2 at its
+   padded width, causal, ragged lengths; the ViT's full-attention groups
+   with segments; its windows) the forward with LSE, the dq and dk/dv
+   kernels and the window backward against their plain versions, with the
+   library call's forward and backward times;
+7. training slice: LoRA SFT (r=64, alpha=64) on 2 records of 16 synthetic
+   frames at 392x392 (grid (8, 28, 28), 1568 video tokens each) with a
+   think-style question and answer: step-1 loss and adapter gradients of
+   the kernel path against the plain path, for the frozen tower and for
+   adapters in the tower; then apps/train_sft.train takes 3 steps with the
+   tower frozen and 1 with adapters in the tower, with the launch counts set
+   to 0 before and read after.
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -22,6 +37,8 @@ non-zero and that line is not printed. Without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -32,16 +49,77 @@ DEVICE = "cuda:0"
 N_REQUESTS = 3
 N_FRAMES, FRAME_HW = 8, 392       # grid (4, 28, 28): 784 video tokens
 NEW_TOKENS = 32
-# kernel vs plain: |kernel - plain| <= ATOL + RTOL * |plain| elementwise, for
-# unit-normal bf16 inputs. Both outputs round to bf16 (a step is 2**-8 to
-# 2**-7 of the value) and the kernel also rounds P to bf16 before P @ V.
+TRAIN_FRAMES = 16                 # grid (8, 28, 28): 1568 video tokens
+TRAIN_STEPS = 3
+# kernel vs plain, for unit-normal bf16 inputs:
+# - outputs: |kernel - plain| <= ATOL + RTOL |plain| elementwise: both round
+#   to bf16 (a step is 2**-8 to 2**-7 of the value) and the kernel also
+#   rounds P to bf16 before P @ V;
+# - the LSE: |kernel - plain| <= 1e-3 (fp32 sums of the same bf16 products);
+# - gradients: relative L2 <= 1e-2 per tensor (the kernels round P and dS
+#   to bf16 before their products, the plain versions keep fp32).
 KERNEL_ATOL, KERNEL_RTOL = 1e-2, 1e-2
+LSE_ATOL = 1e-3
+GRAD_REL_L2 = 1e-2
 LOGITS_TOL = 5e-2    # relative L2 of last-token logits, kernel vs plain path:
                      # bf16 rounding differs at every attention output over
                      # 32 ViT + 28 decoder layers
+# training step 1, kernel path vs plain path (bf16 rounding differs at every
+# attention output and its gradient, over 28 decoder layers, 32 ViT layers)
+PATH_LOSS_RTOL = 1e-2
+PATH_GRAD_REL_L2 = 5e-2
+# the least time: the larger of bytes / 3.35 TB/s and operations / 989
+# TFLOP/s bf16 (H100 SXM data sheet, dense)
+PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
 QUESTIONS = ("What is happening in this video?",
              "How many objects move from left to right?",
              "What changes between the first and the last frame?")
+TRAIN_QA = (
+    ("What is the person in the video doing?",
+     "<think>Let me think. The person walks to the table, picks up a red cup, "
+     "and lifts it. Wait, the cup is raised to the face, so they drink from "
+     "it. Let me verify with the last frames: the cup goes back down on the "
+     "table.</think><answer>The person drinks from a red cup.</answer>"),
+    ("How many objects move from left to right?",
+     "<think>Hmm, let's break it down. A ball rolls from the left edge to the "
+     "right, a car crosses behind it, and a bird flies the same way near the "
+     "top. Nothing else moves.</think><answer>3</answer>"),
+)
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_attention": ("video_r2_tpu_torch/csrc/flash_attn.cu",
+                        "video_r2_tpu/ops/flash.py:80"),
+    "window_attention": ("video_r2_tpu_torch/csrc/vit_window_attn.cu",
+                         "video_r2_tpu/ops/vit_window_attention.py:36"),
+    "flash_attention_fwd_lse": ("video_r2_tpu_torch/csrc/flash_attn.cu",
+                                "video_r2_tpu/ops/flash.py:99"),
+    "flash_bwd_dq": ("video_r2_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "video_r2_tpu/ops/flash.py:116"),
+    "flash_bwd_dkv": ("video_r2_tpu_torch/csrc/flash_attn_bwd.cu",
+                      "video_r2_tpu/ops/flash.py:164"),
+    "window_attention_bwd": ("video_r2_tpu_torch/csrc/vit_window_attn_bwd.cu",
+                             "video_r2_tpu/ops/vit_window_attention.py:90"),
+}
+
+
+def counters() -> dict:
+    """{kernel name: the wrapper whose .launches counts it}."""
+    from video_r2_tpu_torch.ops import flash, vit_window_attention as win
+
+    return {"flash_attention": flash.flash_attention,
+            "window_attention": win.window_attention,
+            "flash_attention_fwd_lse": flash.flash_attention_fwd_lse,
+            "flash_bwd_dq": flash.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": flash.flash_bwd_dkv_cuda,
+            "window_attention_bwd": win.window_attention_bwd}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -59,6 +137,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    t_ops, t_mem = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
 def compare(out, ref, rows=None) -> tuple[float, float]:
     """(max |out - ref|, max of |out - ref| / (ATOL + RTOL |ref|)) on `rows`."""
     out, ref = out.float(), ref.float()
@@ -68,55 +152,342 @@ def compare(out, ref, rows=None) -> tuple[float, float]:
     return float(d.max()), float((d / (KERNEL_ATOL + KERNEL_RTOL * ref.abs())).max())
 
 
-def check_kernels(gen, S, layout, device):
-    """Phase 3: each kernel vs its plain version at the slice's shapes."""
+def rel_l2(out, ref) -> float:
+    out, ref = out.float(), ref.float()
+    return float((out - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def admitted(lengths, Sq, Sk, causal, seg):
+    """[B, Sq, Sk] bool: the keys each query row admits (q_offset 0)."""
     import torch
 
-    from video_r2_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    key = torch.arange(Sk, device=lengths.device)
+    ok = (key[None, None, :] < lengths[:, None, None]).expand(len(lengths), Sq, Sk)
+    if causal:
+        ok = ok & (key[None, :] <= torch.arange(Sq, device=key.device)[:, None])[None]
+    if seg is not None:
+        ok = ok & (seg[:, :, None] == seg[:, None, :])
+    return ok
+
+
+def library_calls(q, k, v, mask, dout):
+    """Forward and backward of F.scaled_dot_product_attention (GQA, boolean
+    mask [B, 1, Sq, Sk]) on head-major copies of q / k / v: one call each
+    (the backward is one autograd call over the kept forward graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dt = dout.transpose(1, 2).contiguous()
+    bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dt, retain_graph=True)  # noqa: E731
+    return cuda_ms(fwd), cuda_ms(bwd, iters=10)
+
+
+def report(name: str, what: str, shape, **r) -> None:
+    extra = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in r.items())
+    print(f"kernel {name} [{what}] shape={shape}: {extra}", flush=True)
+
+
+def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict:
+    """The flash kernels at one shape against their plain versions. Serving:
+    the forward. Training: the forward with LSE, then dq and dk/dv from the
+    plain forward's (out, lse) and one dout, so each kernel is held alone."""
+    import torch
+
+    from video_r2_tpu_torch.ops.flash import (
+        attention_delta,
+        flash_attention,
+        flash_attention_bwd_plain,
+        flash_attention_fwd_lse,
+        flash_attention_fwd_lse_plain,
+        flash_attention_plain,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+    )
+
+    B, Sq, nh, hd = q.shape
+    Sk, kh = k.shape[1], k.shape[2]
+    ok = admitted(lengths, Sq, Sk, causal, seg)
+    pairs = float(ok.sum()) * nh                 # admitted (row, key) pairs, all heads
+    q_bytes = 2.0 * q.numel()
+    kv_bytes = 2.0 * 2 * float(lengths.clamp(max=Sk).sum()) * kh * hd   # k, v rows read
+    row_bytes = 4.0 * B * nh * Sq                # one fp32 per row (lse or delta)
+    rows = None if seg is None else seg == 1     # pad rows are never read downstream
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    lib_fwd_ms, lib_bwd_ms = library_calls(q, k, v, ok[:, None], dout)
+    shape = (B, Sq, Sk, nh, kh, hd)
+    if not training:
+        run = lambda: flash_attention(q, k, v, kv_lengths=lengths, causal=causal,  # noqa: E731
+                                      segment_ids=seg)
+        plain = lambda: flash_attention_plain(q, k, v, lengths, causal, 0, seg)  # noqa: E731
+        err, excess = compare(run(), plain(), rows)
+        r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(run),
+             "plain_ms": cuda_ms(plain), "library_ms": lib_fwd_ms,
+             **bound(4 * hd * pairs, 2 * q_bytes + kv_bytes)}
+        report("flash_attention", what, shape, **r)
+        if not excess <= 1.0:
+            raise AssertionError(f"flash_attention [{what}] disagrees with its plain "
+                                 f"version: {excess} x the tolerance")
+        return {"flash_attention": r}
+
+    args = (q, k, v, lengths, causal, 0, seg)
+    run = lambda: flash_attention_fwd_lse(*args)  # noqa: E731
+    plain = lambda: flash_attention_fwd_lse_plain(*args)  # noqa: E731
+    (out, lse), (ref_out, ref_lse) = run(), plain()
+    err, excess = compare(out, ref_out, rows)
+    has_key = ok.any(-1)[:, None, :].expand(B, nh, Sq)
+    lse_err = float((lse - ref_lse)[has_key].abs().max())
+    fwd = {"max_abs_err": err, "excess": excess, "lse_max_abs_err": lse_err,
+           "ms": cuda_ms(run), "plain_ms": cuda_ms(plain), "library_ms": lib_fwd_ms,
+           **bound(4 * hd * pairs, 2 * q_bytes + kv_bytes + row_bytes)}
+    report("flash_attention_fwd_lse", what, shape, **fwd)
+    if not (excess <= 1.0 and lse_err <= LSE_ATOL):
+        raise AssertionError(f"flash_attention_fwd_lse [{what}] disagrees with its "
+                             f"plain version: out {excess} x the tolerance, lse {lse_err}")
+
+    delta = attention_delta(ref_out, dout)
+    bargs = (q, k, v, dout, ref_lse, delta, lengths, causal, 0, seg)
+    dq, (dk, dv) = flash_bwd_dq_cuda(*bargs), flash_bwd_dkv_cuda(*bargs)
+    plain_bwd = lambda: flash_attention_bwd_plain(q, k, v, ref_out, dout, ref_lse,  # noqa: E731
+                                                  lengths, causal, 0, seg)
+    ref = plain_bwd()
+    rels = [rel_l2(a, b) for a, b in zip((dq, dk, dv), ref)]
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip((dq, dk, dv), ref)]
+    plain_ms = cuda_ms(plain_bwd, iters=5)      # one plain version computes all three
+    dq_r = {"max_abs_err": errs[0], "rel_l2": rels[0],
+            "ms": cuda_ms(lambda: flash_bwd_dq_cuda(*bargs)), "plain_ms": plain_ms,
+            "library_ms": lib_bwd_ms,
+            **bound(6 * hd * pairs, 3 * q_bytes + kv_bytes + 2 * row_bytes)}
+    dkv_r = {"max_abs_err": max(errs[1:]), "rel_l2": max(rels[1:]),
+             "ms": cuda_ms(lambda: flash_bwd_dkv_cuda(*bargs)), "plain_ms": plain_ms,
+             "library_ms": lib_bwd_ms,
+             **bound(8 * hd * pairs, 2 * q_bytes + kv_bytes + 2 * row_bytes
+                     + 2.0 * 2 * B * Sk * kh * hd)}
+    report("flash_bwd_dq", what, shape, **dq_r)
+    report("flash_bwd_dkv", what, shape, dk_rel_l2=rels[1], dv_rel_l2=rels[2], **dkv_r)
+    if not max(rels) <= GRAD_REL_L2:
+        raise AssertionError(f"flash backward [{what}] disagrees with its plain "
+                             f"version: relative L2 dq/dk/dv {rels}")
+    return {"flash_attention_fwd_lse": fwd, "flash_bwd_dq": dq_r, "flash_bwd_dkv": dkv_r}
+
+
+def window_case(gen, what, valid, nh, hd, training: bool) -> dict:
+    """The window kernel (serving) or its backward (training) at one shape,
+    on strided q / k / v views of one qkv, as in the tower."""
+    import torch
+
     from video_r2_tpu_torch.ops.vit_window_attention import (
+        WINDOW,
         window_attention,
+        window_attention_bwd,
+        window_attention_bwd_plain,
         window_attention_plain,
     )
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+    S = valid.shape[0]
+    nw = S // WINDOW
+    qkv = torch.randn(S, 3, nh, hd, generator=gen, device=valid.device).to(torch.bfloat16)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    dout = torch.randn(S, nh, hd, generator=gen, device=valid.device).to(torch.bfloat16)
+    pairs = float(WINDOW * valid.sum()) * nh     # each row attends its window's valid keys
+    io_bytes = 2.0 * S * nh * hd                 # one [S, nh, hd] bf16 tensor
+    # the library call: windows as a batch, keys masked by `valid`
+    win = lambda x: x.reshape(nw, WINDOW, nh, hd)  # noqa: E731
+    mask = valid.reshape(nw, 1, 1, WINDOW).expand(nw, 1, WINDOW, WINDOW)
+    lib_fwd_ms, lib_bwd_ms = library_calls(win(q), win(k), win(v), mask, win(dout))
+    if not training:
+        run = lambda: window_attention(q, k, v, valid)  # noqa: E731
+        plain = lambda: window_attention_plain(q, k, v, valid)  # noqa: E731
+        err, excess = compare(run(), plain(), valid)
+        r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(run),
+             "plain_ms": cuda_ms(plain), "library_ms": lib_fwd_ms,
+             **bound(4 * hd * pairs, 4 * io_bytes + S)}
+        report("window_attention", what, (S, nh, hd), **r)
+        if not excess <= 1.0:
+            raise AssertionError(f"window_attention [{what}] disagrees with its plain "
+                                 f"version: {excess} x the tolerance")
+        return {"window_attention": r}
+    run = lambda: window_attention_bwd(q, k, v, valid, dout)  # noqa: E731
+    plain = lambda: window_attention_bwd_plain(q, k, v, valid, dout)  # noqa: E731
+    grads, ref = run(), plain()
+    rels = [rel_l2(a, b) for a, b in zip(grads, ref)]
+    r = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(grads, ref)),
+         "rel_l2": max(rels), "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, iters=5),
+         "library_ms": lib_bwd_ms, **bound(12 * hd * pairs, 7 * io_bytes + S)}
+    report("window_attention_bwd", what, (S, nh, hd), **r)
+    if not max(rels) <= GRAD_REL_L2:
+        raise AssertionError(f"window_attention_bwd [{what}] disagrees with its plain "
+                             f"version: relative L2 dq/dk/dv {rels}")
+    return {"window_attention_bwd": r}
 
-    results = []
-    # decoder prefill: Sq = padded prompt, Sk = cache width, ragged lengths
-    B, Sk = 3, S + NEW_TOKENS
-    q, k, v = randn(B, S, 28, 128), randn(B, Sk, 4, 128), randn(B, Sk, 4, 128)
-    lengths = torch.tensor([S, S - 97, S // 2], dtype=torch.int32, device=device)
-    run = lambda: flash_attention(q, k, v, kv_lengths=lengths, causal=True)  # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v, lengths, True, 0)  # noqa: E731
-    results.append(("flash_attention", "prefill causal", (B, S, Sk, 28, 4, 128),
-                    compare(run(), plain()), cuda_ms(run), cuda_ms(plain)))
-    # ViT full-attention groups: non-causal, segment ids from the layout
+
+def vit_full_inputs(gen, layout, nh, hd, device):
+    """q / k / v [G, L, nh, hd] and segment ids of the layout's
+    full-attention groups (valid slots 1, pad slots -2), as the tower
+    gathers them."""
+    import torch
+
     fg = torch.as_tensor(layout.full_gather, device=device).long()
     valid = torch.as_tensor(layout.valid, device=device)
     seg = torch.where((fg >= 0) & valid[fg.clamp(min=0)], 1, -2).int()
     G, L = fg.shape
-    q, k, v = (randn(G, L, 16, 80) for _ in range(3))
-    full_len = torch.full((G,), L, dtype=torch.int32, device=device)
-    run = lambda: flash_attention(q, k, v, causal=False, segment_ids=seg)  # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v, full_len, False, 0, seg)  # noqa: E731
-    results.append(("flash_attention", "vit full, segments", (G, L, 16, 80),
-                    compare(run(), plain(), seg == 1), cuda_ms(run), cuda_ms(plain)))
-    # ViT windowed layers: strided q / k / v views of one qkv, as in the tower
-    s_pad = layout.s_pad
-    qkv = randn(s_pad, 3, 16, 80)
-    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-    run = lambda: window_attention(q, k, v, valid)  # noqa: E731
-    plain = lambda: window_attention_plain(q, k, v, valid)  # noqa: E731
-    results.append(("window_attention", "vit windows", (s_pad, 16, 80),
-                    compare(run(), plain(), valid), cuda_ms(run), cuda_ms(plain)))
-    for name, what, shape, (err, excess), ms, plain_ms in results:
-        print(f"kernel {name} [{what}] shape={shape}: max_abs_err={err:.3e} "
-              f"max_err/tol={excess:.3f} (tol {KERNEL_ATOL} + {KERNEL_RTOL}|plain|) "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        if not excess <= 1.0:
-            raise AssertionError(f"{name} [{what}] disagrees with its plain "
-                                 f"version: {excess} x the tolerance")
-    return results
+    q, k, v = (torch.randn(G, L, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    return q, k, v, torch.full((G,), L, dtype=torch.int32, device=device), seg
+
+
+def register_report(log: Path) -> list[str]:
+    """One line per compiled kernel: registers and spill bytes (ptxas -v)."""
+    out, name = [], None
+    spill = ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                      r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            name, spill = f"{m.group(1)}<{m.group(2)}>", ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return out
+
+
+def training_phase(model, cfg, card, device, kernel_results):
+    """Phases 6 and 7. Returns the launch counts of the training run."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.apps.demo import THINK_POST_PROMPT
+    from video_r2_tpu_torch.apps.train_sft import train
+    from video_r2_tpu_torch.config import AppConfig, RunConfig
+    from video_r2_tpu_torch.data.config import DataConfig
+    from video_r2_tpu_torch.data.sft import SFTCollator, SFTDataset
+    from video_r2_tpu_torch.engine.chat import ByteTokenizer
+    from video_r2_tpu_torch.train.lora import (
+        LoRAConfig,
+        attach_lora,
+        detach_lora,
+        init_lora,
+        lora_param_count,
+    )
+    from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
+
+    records = [{"video": np.random.default_rng(100 + i).integers(
+                    0, 256, (TRAIN_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
+                "conversations": [
+                    {"from": "human", "value": f"<video>\n{q}{THINK_POST_PROMPT}"},
+                    {"from": "gpt", "value": a}]}
+               for i, (q, a) in enumerate(TRAIN_QA)]
+    dcfg = DataConfig()
+    dataset = SFTDataset(records, ByteTokenizer(), cfg, dcfg)
+    examples = [dataset[i] for i in range(len(records))]
+    batch = SFTCollator(cfg, dcfg)(examples)
+    layout = batch.video_layout
+    tensors = {k: torch.as_tensor(v, device=device) for k, v in batch.arrays.items()}
+    lengths = tensors["attention_mask"].sum(-1).int()
+    B, S = batch.arrays["input_ids"].shape
+    print(f"training batch: B={B}, padded width {S}, lengths {lengths.tolist()}, "
+          f"video grids {[e.video_grid_thw for e in examples]}, "
+          f"ViT slots {layout.s_pad}, full-attention groups "
+          f"{tuple(layout.full_gather.shape)}", flush=True)
+
+    # phase 6: the training kernels at the batch's shapes
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    tc, vc = cfg.text, cfg.vision
+    randn = lambda *s: torch.randn(*s, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
+    q, k, v = randn(B, S, tc.num_attention_heads, tc.head_dim), *(
+        randn(B, S, tc.num_key_value_heads, tc.head_dim) for _ in range(2))
+    kernel_results.update(flash_case(gen, "decoder training", q, k, v, lengths, True,
+                                     None, training=True))
+    q, k, v, full_len, seg = vit_full_inputs(gen, layout, vc.num_heads, vc.head_dim, device)
+    flash_case(gen, "vit full training", q, k, v, full_len, False, seg, training=True)
+    valid = torch.as_tensor(layout.valid, device=device)
+    kernel_results.update(window_case(gen, "vit windows training", valid, vc.num_heads,
+                                      vc.head_dim, training=True))
+    del q, k, v
+
+    # phase 7a: step-1 loss and adapter gradients, kernel path vs plain path
+    def path_check(lcfg, what):
+        params = attach_lora(model, init_lora(model, lcfg, seed=SEED), lcfg)
+        out = {}
+        for impl, vit_impl in (("flash", "kernel"), ("xla", "xla")):
+            for p in params.values():
+                p.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = sft_loss(model, tensors, SFTConfig(attn_impl=impl, vit_attn_impl=vit_impl),
+                            layout)
+            loss.backward()
+            grads = torch.cat([p.grad.flatten() for p in params.values()])
+            torch.cuda.synchronize()
+            out[impl] = (loss.item(), grads, time.perf_counter() - t0)
+        detach_lora(model)
+        (lk, gk, tk), (lp, gp, tp) = out["flash"], out["xla"]
+        loss_rel, grad_rel = abs(lk - lp) / abs(lp), rel_l2(gk, gp)
+        print(f"step 1 [{what}], {lora_param_count(params) / 1e6:.1f} M adapter params: "
+              f"loss kernel {lk:.6f} plain {lp:.6f} (rel {loss_rel:.3e}, tol "
+              f"{PATH_LOSS_RTOL}); adapter gradients rel L2 {grad_rel:.3e} (tol "
+              f"{PATH_GRAD_REL_L2}), |g| {float(gp.norm()):.4e}; fwd+bwd s kernel "
+              f"{tk:.3f} plain {tp:.3f}", flush=True)
+        if not (np.isfinite(lk) and loss_rel <= PATH_LOSS_RTOL
+                and grad_rel <= PATH_GRAD_REL_L2):
+            raise AssertionError(f"[{what}] kernel path disagrees with the plain path: "
+                                 f"loss rel {loss_rel}, gradient rel L2 {grad_rel}")
+
+    frozen_cfg = LoRAConfig()                    # r=64, alpha=64, tower frozen
+    tower_cfg = LoRAConfig(include_vision=True, include_merger=True)
+    path_check(frozen_cfg, "tower frozen")
+    path_check(tower_cfg, "adapters in the tower")
+
+    # phase 7b: the main path, counted: apps/train_sft.train
+    run_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def app_for(lcfg, steps, name):
+        return AppConfig(run=RunConfig(output_dir=str(run_dir / name), max_steps=steps,
+                                       save_steps=10 ** 6, log_steps=1, use_lora=True,
+                                       seed=SEED, resume=False),
+                         data=dcfg, lora=lcfg)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, history = train(app_for(frozen_cfg, TRAIN_STEPS, "lora"), model, dataset, B)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mid = read_launches()
+    _, tower_history = train(app_for(tower_cfg, 1, "tower"), model, dataset, B)
+    launches = read_launches()
+    detach_lora(model)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    for h in history + tower_history:
+        print(f"train step {h['step']}: loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.6e} s/step {h['s_per_step']:.4f} tokens/s "
+              f"{h['tokens'] / h['s_per_step']:.1f} ({h['tokens']} tokens)", flush=True)
+    tower = {n: launches[n] - mid[n] for n in launches}
+    print(f"LoRA SFT: {TRAIN_STEPS} steps, tower frozen, peak device memory "
+          f"{peak:.2f} GiB; launches {mid}; the tower step launched {tower} | {card}",
+          flush=True)
+    for h in history + tower_history:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"non-finite training step: {h}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the training path launched no {name} kernel")
+    if tower["window_attention_bwd"] <= 0 or tower["flash_bwd_dq"] <= tc.num_hidden_layers:
+        raise AssertionError(f"the tower step ran no ViT backward kernel: {tower}")
+    return launches
 
 
 def main() -> int:
@@ -136,8 +507,6 @@ def main() -> int:
     from video_r2_tpu_torch.models.decoder import KVCache
     from video_r2_tpu_torch.models.loader import init_params, param_count
     from video_r2_tpu_torch.ops import cuda_build
-    from video_r2_tpu_torch.ops.flash import flash_attention
-    from video_r2_tpu_torch.ops.vit_window_attention import window_attention
     from video_r2_tpu_torch.video.api import video_features
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,6 +521,8 @@ def main() -> int:
     lib = cuda_build.kernels()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({Path(lib._name).name})",
           flush=True)
+    for line in register_report(Path(lib._name).with_suffix(".log")):
+        print(f"  {line}", flush=True)
 
     # the slice's inputs (host side), so the kernel checks use its shapes
     cfg = qwen25vl_7b()
@@ -171,12 +542,28 @@ def main() -> int:
           f"prompt lengths {[int(r.lengths[0]) for r in reqs]}, padded width {S}",
           flush=True)
 
+    # phase 3: the serving kernels at the slice's shapes
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernel_results = check_kernels(gen, S, reqs[0].layout, device)
+    tc, vc = cfg.text, cfg.vision
+    kernel_results = {}
+    B, Sk = 3, S + NEW_TOKENS      # prefill: Sq = padded prompt, Sk = cache width
+    q = torch.randn(B, S, tc.num_attention_heads, tc.head_dim, generator=gen,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn(B, Sk, tc.num_key_value_heads, tc.head_dim, generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([S, S - 97, S // 2], dtype=torch.int32, device=device)
+    kernel_results.update(flash_case(gen, "prefill causal", q, k, v, lengths, True, None,
+                                     training=False))
+    q, k, v, full_len, seg = vit_full_inputs(gen, reqs[0].layout, vc.num_heads,
+                                             vc.head_dim, device)
+    flash_case(gen, "vit full, segments", q, k, v, full_len, False, seg, training=False)
+    valid = torch.as_tensor(reqs[0].layout.valid, device=device)
+    kernel_results.update(window_case(gen, "vit windows", valid, vc.num_heads, vc.head_dim,
+                                      training=False))
+    del q, k, v
 
-    # phase 4: the main path, counted
-    flash_attention.launches = 0
-    window_attention.launches = 0
+    # phase 4: the serving path, counted
+    reset_launches()
     latencies, answers = [], []
     for f, q in zip(feats, QUESTIONS):
         torch.cuda.synchronize()
@@ -184,13 +571,12 @@ def main() -> int:
         answers.append(runner.answer(f, q, max_new_tokens=NEW_TOKENS))
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
-    launches = {"flash_attention": flash_attention.launches,
-                "window_attention": window_attention.launches}
+    serving = read_launches()
     print(f"answered {N_REQUESTS} requests: latency_s={[round(x, 4) for x in latencies]} "
-          f"launches={launches} answer_chars={[len(a) for a in answers]}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path launched no {name} kernel")
+          f"launches={serving} answer_chars={[len(a) for a in answers]}", flush=True)
+    for name in ("flash_attention", "window_attention"):
+        if serving[name] <= 0:
+            raise AssertionError(f"the serving path launched no {name} kernel")
 
     # phase 5: phase times and kernel-vs-plain logits on request 0
     req = reqs[0]
@@ -233,12 +619,13 @@ def main() -> int:
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - steps[0]
     hook.remove()
+    del cache
     print(f"kernel path: vit_ms={vit_ms:.2f} prefill_ms={pf_ms:.2f} "
           f"decode_tok_s={len(steps) / dec_s:.2f} ({len(steps)} forward steps "
           f"in {dec_s * 1e3:.1f} ms, B=1) | plain path: vit_ms={vit_ms_p:.2f} "
           f"prefill_ms={pf_ms_p:.2f} | {card}", flush=True)
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    print(f"peak device memory (serving): {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
 
     if logits_k.shape != (1, cfg.text.vocab_size) or not torch.isfinite(logits_k).all():
         raise AssertionError(f"bad logits: shape {tuple(logits_k.shape)}")
@@ -250,17 +637,19 @@ def main() -> int:
     if not rel <= LOGITS_TOL:
         raise AssertionError(f"kernel path logits disagree: {rel} > {LOGITS_TOL}")
 
-    src = {"flash_attention": ("video_r2_tpu_torch/csrc/flash_attn.cu",
-                               "video_r2_tpu/ops/flash.py:80"),
-           "window_attention": ("video_r2_tpu_torch/csrc/vit_window_attn.cu",
-                                "video_r2_tpu/ops/vit_window_attention.py:36")}
+    # phases 6 and 7: training
+    training = training_phase(model, cfg, card, device, kernel_results)
+
     kernels = []
-    for name, (source, replaces) in src.items():
-        rows = [r for r in kernel_results if r[0] == name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(r[3][0] for r in rows),
-                        "ms": rows[0][4], "plain_ms": rows[0][5]})
+    for name, (source, replaces) in KERNELS.items():
+        r = kernel_results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serving[name] if name in ("flash_attention", "window_attention")
+            else training[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,7 +44,7 @@ SPECIALS = {"<|endoftext|>": 0, "<|im_start|>": 300, "<|im_end|>": 1,
 @pytest.fixture(scope="module")
 def models():
     jparams = j_init(j_tiny(), seed=11)
-    model = init_params(tiny_test_config(), seed=0)
+    model = init_params(tiny_test_config(), seed=0, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, jparams))
     return jparams, model
 

@@ -14,6 +14,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from video_r2_tpu import config as japp
+from video_r2_tpu.data import config as jdata_config
+from video_r2_tpu.data import constants as jconstants
+from video_r2_tpu.data import conversion as jconversion
 from video_r2_tpu.engine import chat as jchat
 from video_r2_tpu.evalharness.api import THINK_POST_PROMPT as J_THINK
 from video_r2_tpu.models import config as jconfig
@@ -21,7 +25,11 @@ from video_r2_tpu.models.mrope import get_rope_index as j_get_rope_index
 from video_r2_tpu.models.vision import plan_vision_layout as j_plan
 from video_r2_tpu.video import device_preprocess as jpre
 from video_r2_tpu.video import geometry as jgeo
+from video_r2_tpu_torch import config as app
 from video_r2_tpu_torch.apps.demo import THINK_POST_PROMPT
+from video_r2_tpu_torch.data import config as data_config
+from video_r2_tpu_torch.data import constants
+from video_r2_tpu_torch.data import conversion
 from video_r2_tpu_torch.engine import chat
 from video_r2_tpu_torch.models import config
 from video_r2_tpu_torch.models.mrope import get_rope_index
@@ -174,3 +182,37 @@ def test_plan_vision_layout_copy_matches(grids):
             np.testing.assert_array_equal(a, b, err_msg=f.name)
         else:
             assert a == b, f.name
+
+
+def test_data_copies_match():
+    """data/constants.py, data/config.py and data/conversion.py equal the
+    JAX package's."""
+    names = [n for n in vars(jconstants) if n.isupper()]
+    assert names and all(getattr(constants, n) == getattr(jconstants, n) for n in names)
+    assert (dataclasses.asdict(data_config.DataConfig())
+            == dataclasses.asdict(jdata_config.DataConfig()))
+    conv = [{"from": "human", "value": "<video>\nWhat?\n<image>"},
+            {"from": "gpt", "value": "It is <video> here."}]
+    for is_video in (False, True):
+        for strip in (False, True):
+            assert (conversion.llava_to_openai(conv, is_video, strip)
+                    == jconversion.llava_to_openai(conv, is_video, strip))
+
+
+def test_app_config_copy_matches():
+    """Every field the port's config keeps has the JAX default, and the same
+    command line parses to the same values."""
+    ours, ref = app.AppConfig(), japp.AppConfig()
+    for section in ("run", "data", "optim", "sft", "lora"):
+        a, b = getattr(ours, section), getattr(ref, section)
+        for f in dataclasses.fields(a):
+            assert getattr(a, f.name) == getattr(b, f.name), (section, f.name)
+    argv = ["--run.max_steps", "7", "--run.use_lora=true", "--lora.r", "16",
+            "--optim.vision_lr", "3e-6", "--lora.targets", "attn,q,kernel",
+            "--data.fps", "2.0", "--sft.ce_chunk_size=512"]
+    ours, ref = app.parse_config(argv), japp.parse_config(argv)
+    assert (ours.run.max_steps, ours.run.use_lora, ours.lora.r, ours.optim.vision_lr,
+            ours.lora.targets, ours.data.fps, ours.sft.ce_chunk_size) == (
+        ref.run.max_steps, ref.run.use_lora, ref.lora.r, ref.optim.vision_lr,
+        ref.lora.targets, ref.data.fps, ref.sft.ce_chunk_size)
+    assert ours.model_config() == config.qwen25vl_7b()

@@ -5,23 +5,40 @@ jax nor the tests' conftest, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerance: |kernel - plain| <= 1e-2 + 1e-2 |plain| elementwise on rows read
-downstream, for unit-normal bf16 inputs: both outputs round to bf16 (a step
-is 2**-8 to 2**-7 of the value) and the kernel also rounds P to bf16 before
-P @ V, where the plain version keeps it in fp32. (chip_smoke.py holds the
-kernels to the same bound at the serving shapes.)
+Tolerances, for unit-normal bf16 inputs (chip_smoke.py holds the kernels to
+the same bounds at the serving and training shapes):
+- forward outputs: |kernel - plain| <= 1e-2 + 1e-2 |plain| elementwise on
+  rows read downstream: both round to bf16 (a step is 2**-8 to 2**-7 of the
+  value) and the kernel also rounds P to bf16 before P @ V;
+- the LSE: |kernel - plain| <= 1e-3 (fp32 sums of the same bf16 products);
+- gradients: relative L2 <= 1e-2 per tensor: the kernels round P and dS to
+  bf16 before their products, where the plain versions keep fp32.
 """
 
 import pytest
 import torch
 
-from video_r2_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from video_r2_tpu_torch.ops.flash import (
+    NO_KEY_LSE,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd_lse,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
+    flash_attention_fwd_lse_plain,
+    flash_attention_plain,
+)
 from video_r2_tpu_torch.ops.vit_window_attention import (
     window_attention,
+    window_attention_bwd,
+    window_attention_bwd_plain,
     window_attention_plain,
 )
 
 ATOL = RTOL = 1e-2
+LSE_ATOL = 1e-3
+GRAD_REL_L2 = 1e-2
 
 
 @pytest.fixture
@@ -40,6 +57,11 @@ def _close(out, ref, rows=None):
     if rows is not None:
         out, ref = out[rows], ref[rows]
     return bool(((out - ref).abs() <= ATOL + RTOL * ref.abs()).all())
+
+
+def _rel_l2(out, ref):
+    out, ref = out.float(), ref.float()
+    return float((out - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
 @pytest.mark.cuda
@@ -89,6 +111,91 @@ def test_window_kernel_matches_plain(cuda, hd):
     torch.cuda.synchronize()
     assert _close(out, ref, valid)
     assert window_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("case", ["causal_gqa_ragged", "segments"])
+def test_flash_training_kernels_match_plain(cuda, hd, case):
+    """Forward with LSE, then dq and dk/dv from the same (out, lse, dout)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    B, S, nh, kh = 3, 300, 8, 2
+    qkv = _randn(gen, B, S, nh + 2 * kh, hd)     # strided views of one tensor
+    q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + kh], qkv[:, :, nh + kh:]
+    dout = _randn(gen, B, S, nh, hd)
+    if case == "segments":
+        causal, lengths = False, torch.full((B,), S, dtype=torch.int32, device=cuda)
+        seg = torch.where(torch.rand(B, S, generator=gen, device=cuda) < 0.8, 1, -2).int()
+    else:
+        causal, seg = True, None
+        lengths = torch.tensor([S, 77, 0], dtype=torch.int32, device=cuda)
+    before = (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    out, lse = flash_attention_fwd_lse(q, k, v, lengths, causal, 0, seg)
+    ref_out, ref_lse = flash_attention_fwd_lse_plain(q, k, v, lengths, causal, 0, seg)
+    grads = flash_attention_bwd(q, k, v, ref_out, dout, ref_lse, lengths, causal, 0, seg)
+    ref_grads = flash_attention_bwd_plain(q, k, v, ref_out, dout, ref_lse, lengths,
+                                          causal, 0, seg)
+    torch.cuda.synchronize()
+    rows = None if seg is None else seg == 1
+    assert _close(out, ref_out, rows)
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+    if case != "segments":
+        assert (lse[2] == NO_KEY_LSE).all() and not out[2].any()
+    for name, a, b in zip("qkv", grads, ref_grads):
+        assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+    if case != "segments":
+        assert not grads[1][1, 77:].any() and not grads[2][2].any()
+    assert (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_window_bwd_kernel_matches_plain(cuda, hd):
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    S, nh = 1024, 4
+    qkv = _randn(gen, S, 3, nh, hd)            # strided views, as in the ViT
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    dout = _randn(gen, S, nh, hd)
+    valid = torch.rand(S, generator=gen, device=cuda) < 0.9
+    valid[-64:] = False                        # a fully invalid window
+    before = window_attention_bwd.launches
+    grads = window_attention_bwd(q, k, v, valid, dout)
+    ref = window_attention_bwd_plain(q, k, v, valid, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", grads, ref):
+        assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+        assert not a[-64:].any(), name
+    assert window_attention_bwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_kernels(cuda):
+    """flash_attention / window_attention with gradients on: the forward
+    with LSE and the three backward kernels launch, and the gradients match
+    torch.autograd through the plain forwards."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, 2, 128, n, 128).requires_grad_() for n in (8, 2, 2))
+    lengths = torch.tensor([128, 70], dtype=torch.int32, device=cuda)
+    before = flash_bwd_dkv_cuda.launches
+    dq, dk, dv = torch.autograd.grad(
+        flash_attention(q, k, v, kv_lengths=lengths).float().square().sum(), (q, k, v))
+    ref = torch.autograd.grad(
+        flash_attention_plain(q, k, v, lengths).float().square().sum(), (q, k, v))
+    for a, b in zip((dq, dk, dv), ref):
+        assert _rel_l2(a, b) <= 2 * GRAD_REL_L2
+    assert flash_bwd_dkv_cuda.launches == before + 1
+    w = _randn(gen, 256, 3, 4, 80).requires_grad_()
+    valid = torch.ones(256, dtype=torch.bool, device=cuda)
+    before = window_attention_bwd.launches
+    (gw,) = torch.autograd.grad(
+        window_attention(w[:, 0], w[:, 1], w[:, 2], valid).float().square().sum(), (w,))
+    (ref,) = torch.autograd.grad(
+        window_attention_plain(w[:, 0], w[:, 1], w[:, 2], valid).float().square().sum(),
+        (w,))
+    assert _rel_l2(gw, ref) <= 2 * GRAD_REL_L2
+    assert window_attention_bwd.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -44,7 +44,7 @@ def _close(ours, ref, rel):
 @pytest.fixture(scope="module")
 def models():
     jparams = j_init(j_tiny(), seed=3)
-    model = init_params(tiny_test_config(), seed=0)
+    model = init_params(tiny_test_config(), seed=0, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, jparams))
     return jparams, model
 
@@ -53,10 +53,10 @@ def test_init_params_tree_matches_jax():
     """Same names and per-layer shapes as the JAX initialiser, and seeded."""
     cfg = tiny_test_config()
     flat = flatten_jax_tree(jax.tree.map(np.asarray, j_init(j_tiny(), seed=0)))
-    model = init_params(cfg, seed=5)
+    model = init_params(cfg, seed=5, device="cpu")
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     assert shapes == {n: a.shape for n, a in flat.items()}
-    again = init_params(cfg, seed=5)
+    again = init_params(cfg, seed=5, device="cpu")
     for (n, a), (_, b) in zip(model.named_parameters(), again.named_parameters()):
         assert torch.equal(a, b), n
     assert torch.all(model.model.norm.scale == 1)

@@ -80,6 +80,7 @@ class DemoRunner:
         return DemoRequest(packed.input_ids, packed.lengths, pos, deltas[:, 0],
                            layout, feats.patches)
 
+    @torch.inference_mode()
     def vision_embeds(self, req: DemoRequest, attn_impl: str = "auto") -> torch.Tensor:
         patches = torch.as_tensor(req.patches, device=self.device)
         return vit_forward(self.model.visual, patches, req.layout, attn_impl)

@@ -1,0 +1,146 @@
+"""Typed configuration tree + CLI binding for the port's entry points.
+
+A copy of the parts of ``video_r2_tpu/config.py`` that the SFT trainer
+reads (that module imports the JAX package's trainers): `RunConfig`'s
+run and training-loop fields, `AppConfig` over the run / data / optim /
+sft / lora sections, `parse_config` (``--config file.json`` plus
+``--section.field value``) and `resolve_attn_impl`, whose "auto" picks
+the flash kernels on a CUDA device as the JAX one picks them on the TPU.
+tests/test_torch_host.py holds the copied fields equal to the originals.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, get_args, get_origin
+
+import torch
+
+from .data.config import DataConfig
+from .models.config import ModelConfig, qwen25vl_7b, tiny_test_config
+from .train.lora import LoRAConfig
+from .train.optim import OptimConfig
+from .train.sft import SFTConfig
+
+MODEL_PRESETS = {
+    "qwen25vl-7b": qwen25vl_7b,
+    "tiny-test": tiny_test_config,
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Run options of the training entry point."""
+
+    model_preset: str = "qwen25vl-7b"
+    checkpoint: str = ""              # HF checkpoint dir to load weights from
+    tokenizer: str = ""               # tokenizer path/name ('' = byte fallback)
+    output_dir: str = "output"
+    seed: int = 0
+    dtype: str = "bfloat16"
+    # training loop
+    max_steps: int = 1000
+    save_steps: int = 500
+    save_total_limit: int = 2
+    log_steps: int = 10
+    resume: bool = True
+    use_lora: bool = False
+    attn_impl: str = "auto"           # auto -> flash on a CUDA device, xla elsewhere
+
+
+@dataclass(frozen=True)
+class AppConfig:
+    run: RunConfig = field(default_factory=RunConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    sft: SFTConfig = field(default_factory=SFTConfig)
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+
+    def model_config(self) -> ModelConfig:
+        return dataclasses.replace(MODEL_PRESETS[self.run.model_preset](),
+                                   dtype=self.run.dtype)
+
+
+def _coerce(value: str, typ) -> Any:
+    if get_origin(typ) is not None:
+        args = [a for a in get_args(typ) if a is not type(None)]
+        if args:
+            typ = args[0]
+    if typ is bool:
+        return value.lower() in ("1", "true", "yes", "on")
+    if typ in (int, float, str):
+        return typ(value)
+    if get_origin(typ) in (tuple, list) or typ in (tuple, list):
+        items = [v for v in value.split(",") if v != ""]
+        inner = get_args(typ)[0] if get_args(typ) else str
+        if inner is Ellipsis:
+            inner = str
+        return tuple(_coerce(i, inner) for i in items)
+    return value
+
+
+def _apply_overrides(cfg, overrides: dict[str, str]):
+    """{'section.field': 'value'} applied over the frozen dataclass tree."""
+    by_section: dict[str, dict[str, Any]] = {}
+    for key, val in overrides.items():
+        if "." not in key:
+            raise ValueError(f"override {key!r} must be section.field")
+        section, fname = key.split(".", 1)
+        by_section.setdefault(section, {})[fname] = val
+
+    updates = {}
+    for section, kv in by_section.items():
+        sub = getattr(cfg, section)
+        ftypes = {f.name: f.type for f in dataclasses.fields(sub)}
+        coerced = {}
+        for fname, val in kv.items():
+            if fname not in ftypes:
+                raise ValueError(f"unknown field {section}.{fname}")
+            typ = ftypes[fname]
+            if isinstance(typ, str):
+                import typing
+
+                typ = eval(typ, {**vars(typing), "int": int, "float": float,
+                                 "str": str, "bool": bool, "tuple": tuple})
+            coerced[fname] = _coerce(val, typ) if isinstance(val, str) else val
+        updates[section] = dataclasses.replace(sub, **coerced)
+    return dataclasses.replace(cfg, **updates)
+
+
+def parse_config(argv: list[str] | None = None) -> AppConfig:
+    """--config file.json plus --section.field value / --section.field=value."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = AppConfig()
+    overrides: dict[str, str] = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--config":
+            with open(argv[i + 1]) as f:
+                data = json.load(f)
+            for section, kv in data.items():
+                for k, v in kv.items():
+                    overrides[f"{section}.{k}"] = v
+            i += 2
+        elif arg.startswith("--"):
+            key = arg[2:]
+            if "=" in key:
+                key, val = key.split("=", 1)
+                i += 1
+            else:
+                val = argv[i + 1]
+                i += 2
+            overrides[key] = val
+        else:
+            raise ValueError(f"unexpected argument {arg!r}")
+    return _apply_overrides(cfg, overrides)
+
+
+def resolve_attn_impl(run: RunConfig, device: torch.device) -> str:
+    if run.attn_impl != "auto":
+        return run.attn_impl
+    return "flash" if torch.device(device).type == "cuda" else "xla"

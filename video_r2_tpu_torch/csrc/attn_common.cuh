@@ -1,5 +1,5 @@
-// Shared pieces of the attention kernels: the bf16 tensor-core product and
-// the fragment helpers.
+// Shared pieces of the attention kernels (forward and backward): the bf16
+// tensor-core product and the fragment helpers.
 //
 // Every product is one warp-wide mma.sync.m16n8k16 (bf16 in, fp32 out). With
 // lane = 4 * g + t (g = lane / 4, t = lane % 4) its operands sit as follows:
@@ -36,6 +36,26 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A operand of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a row-major
+// bf16 tile in shared memory; `p` points at tile[r0 + g][c0 + 2t]
+__device__ __forceinline__ void ld_a_frag(uint32_t (&a)[4], const __nv_bfloat16* p,
+                                          int pitch) {
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * pitch);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * pitch + 8);
+}
+
+// The C tiles of two neighbouring 8-column blocks (16 x 16 fp32) rounded to
+// the bf16 A operand of the next product
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // max / sum over the 4 lanes of a quad (the lanes that share a C row)

@@ -5,7 +5,12 @@
 // q head / (nh / kh)); per-batch kv-length prefix; causal with whole-tile
 // skip past the diagonal and an in-tile mask (key <= q_offset + row);
 // optional segment ids (a key is admitted only where its id equals the
-// query's); a row that admits no key emits 0.
+// query's); a row that admits no key emits 0. With an `lse` output it is
+// also the training forward, replacing video_r2_tpu/ops/flash.py::
+// _flash_fwd_kernel (:99): it writes the log-sum-exp of each row's scaled
+// scores in fp32 ([B, nh, Sq]; +1e30 for a row that admits no key, so that
+// the backward's exp(s - lse) is exactly 0 there), from the quad-reduced
+// row sum and the running max it was accumulated against.
 //
 // What bounds it on the card: at the serving shapes (prefill Sq ~1.5k,
 // hd 128; ViT groups L = 1024, hd 80) each (batch, head) reads its K/V rows
@@ -36,6 +41,7 @@ struct FlashParams {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;           // [B, Sq, nh, hd] contiguous
+  float* lse;                 // [B, nh, Sq] or null (serving)
   const int* kv_lengths;      // [B]
   const int* seg;             // [B, Sk] or null (requires Sq == Sk)
   int Sq, Sk, nh, kh;
@@ -191,6 +197,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const FlashParams p
   for (int ri = 0; ri < 2; ++ri) {
     const float tot = vr2::quad_sum(l[ri]);
     inv[ri] = tot > 0.f ? 1.f / tot : 0.f;  // a row with no admitted key emits 0
+    // l is relative to the running max m (finite once a key was admitted)
+    if (p.lse != nullptr && t == 0 && row[ri] < p.Sq)
+      p.lse[((long long)b * p.nh + h) * p.Sq + row[ri]] =
+          tot > 0.f ? m[ri] + logf(tot) : 1e30f;
   }
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
@@ -218,9 +228,10 @@ cudaError_t launch_flash(const FlashParams& p, int B, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Strides are in elements; the
-// output is a contiguous [B, Sq, nh, hd]. Returns a cudaError_t.
+// output is a contiguous [B, Sq, nh, hd]; lse (fp32 [B, nh, Sq]) may be
+// null. Returns a cudaError_t.
 extern "C" int vr2_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const int* kv_lengths,
+    const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_lengths,
     const int* seg, int B, int Sq, int Sk, int nh, int kh, int hd, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int q_offset, float scale,
@@ -230,6 +241,7 @@ extern "C" int vr2_flash_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.kv_lengths = kv_lengths;
   p.seg = seg;
   p.Sq = Sq;

@@ -5,6 +5,9 @@ The JAX package stacks every per-layer leaf on a leading [L, ...] axis under
 `load_jax_params` takes ``jax.tree.map(np.asarray, params)`` (nested dicts of
 numpy arrays, bf16 included) and copies it into a Qwen25VL, splitting the
 stacked leaves, so both packages compute on the same weights in the tests.
+`load_jax_lora` does the same for a JAX adapter tree (``train/lora.py``:
+``{"a": [L, in, r], "b": [L, r, out]}`` under each adapted kernel) onto the
+adapters attached to the port's modules, so both train the same adapters.
 """
 
 from __future__ import annotations
@@ -44,6 +47,29 @@ def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
     missing, extra = params.keys() - flat.keys(), flat.keys() - params.keys()
     if missing or extra:
         raise KeyError(f"parameter trees differ: missing {sorted(missing)}, "
+                       f"unexpected {sorted(extra)}")
+    for name, arr in flat.items():
+        p = params[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(arr.astype(np.float32)).to(p.dtype))
+    return module
+
+
+@torch.no_grad()
+def load_jax_lora(module: nn.Module, lora_tree: dict) -> nn.Module:
+    """Copy a JAX adapter tree (``jax.tree.map(np.asarray, lora)``) into the
+    adapters attached to `module` (train/lora.py::attach_lora); the two sets
+    of adapted kernels must be the same. Returns `module`."""
+    flat = {}
+    for name, arr in flatten_jax_tree(lora_tree).items():
+        kernel, leaf = name.rsplit(".", 1)          # "<module>.kernel", "a" / "b"
+        flat[f"{kernel.rsplit('.', 1)[0]}.lora_{leaf}"] = arr
+    params = {n: p for n, p in module.named_parameters()
+              if n.endswith((".lora_a", ".lora_b"))}
+    missing, extra = params.keys() - flat.keys(), flat.keys() - params.keys()
+    if missing or extra:
+        raise KeyError(f"adapter sets differ: missing {sorted(missing)}, "
                        f"unexpected {sorted(extra)}")
     for name, arr in flat.items():
         p = params[name]

@@ -4,8 +4,10 @@ Port of the bf16 path of ``video_r2_tpu/models/decoder.py``: a ModuleList of
 DecoderLayers over a seq-major KV cache [L, B, Smax, kh, hd]. Prefill writes
 the prompt's rows [0, S) and attends over the whole cache width (kv_lengths
 mask the rest, as the JAX fill mode does); decode writes each step's row at
-one fixed slot for the whole batch. The cache is updated in place. The int8
-and head-major caches and the int4 views are not ported yet.
+one fixed slot for the whole batch. The cache is updated in place. Without
+a cache the decoder is the training forward (``decoder_forward`` with
+``remat``: each layer is recomputed in the backward). The int8 and
+head-major caches and the int4 views are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from .config import TextConfig
@@ -107,14 +110,21 @@ class Decoder(nn.Module):
 
     def forward(self, hidden, cos, sin, bias, cache: KVCache | None = None,
                 cache_position: int = 0, attn_impl: str = "xla",
-                kv_lengths=None, causal: bool = False) -> torch.Tensor:
+                kv_lengths=None, causal: bool = False,
+                remat: bool = False) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
         bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
-        [B, S, H]; `cache` (if given) is updated in place."""
+        [B, S, H]; `cache` (if given) is updated in place. remat: under
+        autograd, keep only each layer's input and recompute the layer in
+        the backward (gradient checkpointing)."""
         for i, layer in enumerate(self.layers):
             kc, vc = (cache.k[i], cache.v[i]) if cache is not None else (None, None)
-            hidden = layer(hidden, cos, sin, bias, kc, vc, cache_position,
-                           attn_impl, kv_lengths, causal)
+            args = (hidden, cos, sin, bias, kc, vc, cache_position, attn_impl,
+                    kv_lengths, causal)
+            if remat and torch.is_grad_enabled():
+                hidden = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                hidden = layer(*args)
         return self.norm(hidden)
 
 

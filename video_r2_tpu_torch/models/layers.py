@@ -4,7 +4,8 @@ Port of the float path of ``video_r2_tpu/models/layers.py``. Numerics match
 HF Qwen2: RMSNorm in fp32 with cast-back-before-scale, gated SiLU MLP,
 rotate-half rotary applied in fp32. Linear weights keep the JAX layout
 ``kernel [in, out]`` so parameters carry across unchanged
-(models/convert.py). The int8 / int4 / LoRA branches are not ported yet.
+(models/convert.py). LoRA adapters attach in the JAX "attach" form
+(train/lora.py); the int8 / int4 branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,15 +19,27 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """y = x @ kernel (+ bias), kernel [in, out]."""
+    """y = x @ kernel (+ bias), kernel [in, out].
+
+    With LoRA adapters attached (fp32 ``lora_a`` [in, r], ``lora_b``
+    [r, out], set by train/lora.py::attach_lora) it computes
+    y = x @ kernel + (x @ A) @ (B * lora_scale) (+ bias), the adapters cast
+    to x's dtype, as the JAX package's attach form: the kernel is never
+    touched and W + AB is never formed."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, *, dtype, device):
         super().__init__()
         self.kernel = _param(d_in, d_out, dtype=dtype, device=device)
         self.bias = _param(d_out, dtype=dtype, device=device) if bias else None
+        self.lora_a: nn.Parameter | None = None
+        self.lora_b: nn.Parameter | None = None
+        self.lora_scale = 1.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.kernel)
+        if self.lora_a is not None:
+            b = (self.lora_b * self.lora_scale).to(x.dtype)
+            y = y + torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), b)
         if self.bias is not None:
             y = y + self.bias
         return y

@@ -20,8 +20,9 @@ from .model import Qwen25VL
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
-                device: str | torch.device = "cpu") -> Qwen25VL:
-    """A Qwen25VL with seeded random weights, built directly on `device`.
+                device: str | torch.device = "cuda") -> Qwen25VL:
+    """A frozen Qwen25VL with seeded random weights, built directly on
+    `device` (the card unless the caller asks for the CPU).
     dtype: a torch dtype or its name ("bfloat16"); default cfg.dtype."""
     dtype = dtype or cfg.dtype
     if isinstance(dtype, str):

@@ -60,13 +60,33 @@ def validate_vision_tokens(input_ids, cfg: ModelConfig,
 
 def embed_inputs(model: Qwen25VL, input_ids: torch.Tensor,
                  video_patches: torch.Tensor | None = None,
-                 video_layout: VisionLayout | None = None) -> torch.Tensor:
-    """Token embeddings with video features merged into their pad slots."""
+                 video_layout: VisionLayout | None = None,
+                 vit_attn_impl: str = "auto") -> torch.Tensor:
+    """Token embeddings with video features merged into their pad slots.
+
+    The training embed path too: when the tower has parameters that train
+    (adapters, or an unfrozen tower) it runs under autograd with per-block
+    recompute; otherwise it runs without autograd, as the JAX step never
+    differentiates a tower that holds nothing it trains."""
     h = model.model.embed_tokens(input_ids)
     if video_patches is not None:
-        vemb = vit_forward(model.visual, video_patches, video_layout)
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in model.visual.parameters()):
+            vemb = vit_forward(model.visual, video_patches, video_layout,
+                               vit_attn_impl, remat=True)
+        else:
+            with torch.no_grad():
+                vemb = vit_forward(model.visual, video_patches, video_layout,
+                                   vit_attn_impl)
         h = merge_vision_embeddings(input_ids, h, vemb, model.cfg.video_token_id)
     return h
+
+
+def lm_head_weight(model: Qwen25VL) -> torch.Tensor:
+    """Dense [H, V] head weight for the chunked CE."""
+    if model.cfg.text.tie_word_embeddings:
+        return model.model.embed_tokens.embedding.T
+    return model.lm_head.kernel
 
 
 def lm_head(model: Qwen25VL, hidden: torch.Tensor) -> torch.Tensor:
@@ -75,7 +95,6 @@ def lm_head(model: Qwen25VL, hidden: torch.Tensor) -> torch.Tensor:
     return model.lm_head(hidden)
 
 
-@torch.inference_mode()
 def forward(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor,
             attention_mask: torch.Tensor | None = None,
             video_patches: torch.Tensor | None = None,

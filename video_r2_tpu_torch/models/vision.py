@@ -25,6 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash import flash_attention
 from ..ops.vit_window_attention import window_attention, window_attention_plain
@@ -257,15 +258,16 @@ class VisionTower(nn.Module):
         self.merger = PatchMerger(cfg, **kw)
 
 
-@torch.inference_mode()
 def vit_forward(tower: VisionTower, patches: torch.Tensor, layout: VisionLayout,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """patches [S_real, C*tps*p*p] -> merged vision embeddings
     [S_real/4, out_hidden] in the order the processor emitted patches.
 
     attn_impl: "auto" runs the kernels when the tower is on a CUDA device
     (the JAX package picks its Pallas kernels on the TPU the same way) and
-    the plain path elsewhere; "xla" / "kernel" force a path."""
+    the plain path elsewhere; "xla" / "kernel" force a path. Both run under
+    autograd (the kernels through their backward kernels). remat: under
+    autograd, recompute each block in the backward."""
     cfg = tower.cfg
     w = tower.patch_embed.kernel
     device = w.device
@@ -284,7 +286,11 @@ def vit_forward(tower: VisionTower, patches: torch.Tensor, layout: VisionLayout,
     cos, sin = _vision_rotary(as_t(layout.pos_hw), cfg.head_dim, cfg.rope_theta)
     full = set(cfg.fullatt_block_indexes)
     for i, block in enumerate(tower.blocks):
-        x = block(x, cos, sin, valid, full_gather, i in full,
-                  layout.window_patches, attn_impl)
+        args = (x, cos, sin, valid, full_gather, i in full,
+                layout.window_patches, attn_impl)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, *args, use_reentrant=False)
+        else:
+            x = block(*args)
     u = tower.merger(x)
     return u[as_t(layout.out_unit_gather).long()]

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
 nvcc (from PATH, else $CUDA_HOME/bin) compiles every source under csrc/ for
-sm_90a into one shared library with a plain C interface, loaded with ctypes.
-The library is named by a hash of the sources and flags, so a stale build is
-never loaded; it lands in <repo>/build/kernels/ (git-ignored). Nothing here
-runs at import time: the CPU tests import every module of the port.
+sm_90a, one nvcc process per source, all started together, and links the
+objects into one shared library with a plain C interface, loaded with
+ctypes. The library is named by a hash of the sources and flags, so a stale
+build is never loaded; it lands in <repo>/build/kernels/ (git-ignored), with
+the compiler's per-kernel register and spill report beside it
+(``<library>.log``, from ``-Xptxas -v``). Nothing here runs at import time:
+the CPU tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -21,17 +24,19 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C"); all return a
 # cudaError_t as int
+_STRIDES = [_L] * 9   # q, k, v: batch, sequence and head strides
 SIGNATURES = {
-    "vr2_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _I, _I, _F, _P],
+    "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _P],
+    "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
 }
 
 
@@ -63,22 +68,32 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build under a temporary name, then rename: a concurrent or interrupted
+    # build in a private directory, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj, log = Path(tmp) / f"{src.stem}.o", Path(tmp) / f"{src.stem}.log"
+            with open(log, "w") as f:
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                         str(src)], stdout=f, stderr=subprocess.STDOUT)
+            jobs.append((src, obj, log, proc))
+        failed = [f"{src.name} (nvcc {proc.wait()}):\n{log.read_text()}"
+                  for src, _, log, proc in jobs if proc.wait() != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = Path(tmp) / out.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                               *(str(obj) for _, obj, _, _ in jobs)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        out.with_suffix(".log").write_text(
+            "".join(log.read_text() for _, _, log, _ in jobs))
+        os.replace(lib, out)
     return out
 
 
