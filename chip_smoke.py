@@ -101,6 +101,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def counters() -> dict:
     """{kernel name: the wrapper whose .launches counts it}."""
     from video_r2_tpu_torch.ops import flash, vit_window_attention as win
@@ -365,12 +372,26 @@ def register_report(log: Path) -> list[str]:
     return out
 
 
+def training_records() -> list[dict]:
+    """The training slice's records: 16 synthetic frames at 392x392 each, a
+    question with the think post-prompt, a think-style answer."""
+    import numpy as np
+
+    from video_r2_tpu_torch.apps.demo import THINK_POST_PROMPT
+
+    return [{"video": np.random.default_rng(100 + i).integers(
+                 0, 256, (TRAIN_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
+             "conversations": [
+                 {"from": "human", "value": f"<video>\n{q}{THINK_POST_PROMPT}"},
+                 {"from": "gpt", "value": a}]}
+            for i, (q, a) in enumerate(TRAIN_QA)]
+
+
 def training_phase(model, cfg, card, device, kernel_results):
     """Phases 6 and 7. Returns the launch counts of the training run."""
     import numpy as np
     import torch
 
-    from video_r2_tpu_torch.apps.demo import THINK_POST_PROMPT
     from video_r2_tpu_torch.apps.train_sft import train
     from video_r2_tpu_torch.config import AppConfig, RunConfig
     from video_r2_tpu_torch.data.config import DataConfig
@@ -385,12 +406,7 @@ def training_phase(model, cfg, card, device, kernel_results):
     )
     from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
 
-    records = [{"video": np.random.default_rng(100 + i).integers(
-                    0, 256, (TRAIN_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
-                "conversations": [
-                    {"from": "human", "value": f"<video>\n{q}{THINK_POST_PROMPT}"},
-                    {"from": "gpt", "value": a}]}
-               for i, (q, a) in enumerate(TRAIN_QA)]
+    records = training_records()
     dcfg = DataConfig()
     dataset = SFTDataset(records, ByteTokenizer(), cfg, dcfg)
     examples = [dataset[i] for i in range(len(records))]
@@ -512,9 +528,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(DEVICE)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
 
     t0 = time.perf_counter()

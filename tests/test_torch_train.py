@@ -46,7 +46,10 @@ from video_r2_tpu.train import lora as jlora
 from video_r2_tpu.train.optim import OptimConfig as JOptimConfig
 from video_r2_tpu.train.optim import make_optimizer as j_make_optimizer
 from video_r2_tpu.train.sft import SFTConfig as JSFTConfig
+from video_r2_tpu.train.sft import init_train_state as j_init_train_state
+from video_r2_tpu.train.sft import make_sft_step as j_make_sft_step
 from video_r2_tpu.train.sft import sft_loss as j_sft_loss
+from video_r2_tpu_torch.apps.demo import DemoRunner
 from video_r2_tpu_torch.apps.train_sft import train
 from video_r2_tpu_torch.config import AppConfig, RunConfig
 from video_r2_tpu_torch.data.config import DataConfig
@@ -69,13 +72,15 @@ from video_r2_tpu_torch.train.lora import (
     lora_param_count,
     merge_lora,
 )
-from video_r2_tpu_torch.train.optim import OptimConfig, make_optimizer
+from video_r2_tpu_torch.train.optim import GroupedAdamW, OptimConfig
 from video_r2_tpu_torch.train.sft import (
     SFTConfig,
     init_train_state,
     make_lora_sft_step,
+    make_sft_step,
     sft_loss,
 )
+from video_r2_tpu_torch.video.api import video_features
 
 T = torch.from_numpy
 # ByteTokenizer with the tiny config's special ids (all below its vocab of 512)
@@ -170,7 +175,7 @@ def test_optimizer_matches_optax(rng, warmup, schedule):
     jopt = j_make_optimizer(JOptimConfig(**kw), jparams)
     jstate = jopt.init(jparams)
     params = {n: torch.nn.Parameter(T(a.copy())) for n, a in init.items()}
-    opt = make_optimizer(OptimConfig(**kw), params.items())
+    opt = GroupedAdamW(OptimConfig(**kw), params.items())
     assert len(opt.optimizer.param_groups) == 3
     for g in grads:
         updates, jstate = jopt.update(jax.tree.map(jnp.asarray, tree(g)), jstate, jparams)
@@ -225,6 +230,9 @@ def test_lora_attach_and_merge_match_jax(base, rng, include_vision):
                np.asarray(ref)[rows], 5e-4)
     assert all(m.lora_a is None for m in merged.modules() if isinstance(m, Linear))
     assert not any(p.requires_grad for p in merged.parameters())
+    feats = video_features(_records(4)[1]["video"][:4], 56, 84, sample_fps=2.0)
+    assert isinstance(DemoRunner(merged, ByteTokenizer(SPECIALS)).answer(
+        feats, "Why?", max_new_tokens=3), str)
     assert model.model.layers[0].attn.q.lora_a is params["model.layers.0.attn.q.lora_a"]
     detach_lora(model)
     assert not any(n.endswith("lora_a") for n, _ in model.named_parameters())
@@ -282,6 +290,47 @@ def test_lora_sft_steps_match_jax(base, include_vision):
     np.testing.assert_allclose(losses[0], jlosses[0], rtol=2e-5)
     np.testing.assert_allclose(losses[1:], jlosses[1:], rtol=1e-4)
     assert state.step == 3 and losses[2] < losses[0]
+
+
+def test_full_parameter_sft_steps_match_jax(base):
+    """Full-parameter SFT (every weight trains, the tower at vision_lr):
+    step-1 gradients of every parameter, then the losses of two steps, the
+    second after one AdamW update of all 6 groups. Gradients: relative L2
+    5e-3 per tensor (the ViT's parameters sit 2.1e-3 from a float64 run of
+    the port in float32, the JAX package's 2.5e-3). Loss of step 2: rtol
+    5e-4 (measured 1.6e-4): Adam's first update moves every element by
+    ~lr whatever its gradient's size, so elements whose gradients sit at
+    that float32 noise move apart by up to 2 lr."""
+    jparams, np_params = base
+    okw = dict(learning_rate=1e-3, vision_lr=1e-4, merger_lr=1e-3, total_steps=2)
+    jb, pb = _batches(_records(5))
+    jbatch = {k: jnp.asarray(v) for k, v in jb.arrays.items()}
+    jscfg = JSFTConfig(ce_chunk_size=64)
+    jgrads = flatten_jax_tree(jax.tree.map(np.asarray, jax.grad(
+        lambda p: j_sft_loss(p, j_tiny(), jbatch, jscfg, jb.video_layout))(jparams)))
+    jopt = j_make_optimizer(JOptimConfig(**okw), jparams)
+    jstep = j_make_sft_step(j_tiny(), jscfg, jopt, video_layout=jb.video_layout,
+                            donate=False)
+    jstate = j_init_train_state(jparams, jopt)
+    jlosses = []
+    for _ in range(2):
+        jstate, m = jstep(jstate, jbatch)
+        jlosses.append(float(m["loss"]))
+
+    model = _port_model(np_params).requires_grad_(True)
+    scfg = SFTConfig(ce_chunk_size=64, attn_impl="flash", vit_attn_impl="kernel")
+    batch = {k: T(v) for k, v in pb.arrays.items()}
+    sft_loss(model, batch, scfg, pb.video_layout).backward()
+    assert {n for n, _ in model.named_parameters()} == jgrads.keys()
+    for n, p in model.named_parameters():
+        want = jgrads[n]
+        assert np.linalg.norm(p.grad.numpy() - want) <= 5e-3 * np.linalg.norm(want), n
+    state = init_train_state(dict(model.named_parameters()), OptimConfig(**okw))
+    assert len(state.optimizer.optimizer.param_groups) == 6
+    step = make_sft_step(model, scfg, pb.video_layout)
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+    np.testing.assert_allclose(losses, jlosses, rtol=5e-4)
+    assert losses[1] < losses[0]
 
 
 def _adapter_names(tree):

@@ -113,10 +113,10 @@ def train(app: AppConfig, model: Qwen25VL, dataset,
     return state, history
 
 
-def main(argv=None, app: AppConfig | None = None, batch_size: int = 4,
-         device: str | torch.device = "cuda") -> TrainState:
-    """The entry point: seeded random weights on `device` (the card unless
-    the caller asks for the CPU), ByteTokenizer, then `train`."""
+def main(argv=None, app: AppConfig | None = None,
+         batch_size: int = 4) -> TrainState:
+    """The entry point: seeded random weights on the card, the
+    ByteTokenizer, then `train`."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     app = app or parse_config(argv)
@@ -124,7 +124,7 @@ def main(argv=None, app: AppConfig | None = None, batch_size: int = 4,
         raise NotImplementedError("loading HF weights and the BPE tokenizer wait "
                                   "for the HF loader port (ROADMAP Queue 1 #4)")
     cfg = app.model_config()
-    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype, device=device)
+    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype)
     dataset = SFTDataset(app.data.data_path, ByteTokenizer(), cfg, app.data)
     state, _ = train(app, model, dataset, batch_size)
     return state

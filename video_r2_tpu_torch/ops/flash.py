@@ -98,8 +98,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, kv_lengths, causal=True,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, kv_lengths,
                                          causal, q_offset, segment_ids)
-    return _flash_bwd_cuda(q, k, v, out, dout, lse, kv_lengths, causal,
-                           q_offset, segment_ids)
+    args = (q, k, v, dout, lse, attention_delta(out, dout), kv_lengths, causal,
+            q_offset, segment_ids)
+    return (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
 
 
 def flash_attention_plain(q, k, v, kv_lengths, causal=True, q_offset=0,
@@ -246,13 +247,6 @@ def attention_delta(out, dout) -> torch.Tensor:
     """delta = rowsum(dout * out) in fp32, [B, nh, Sq] (the backward's row
     term; the JAX package computes it in XLA outside Pallas)."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-
-
-def _flash_bwd_cuda(q, k, v, out, dout, lse, kv_lengths, causal, q_offset,
-                    segment_ids):
-    delta = attention_delta(out, dout)
-    args = (q, k, v, dout, lse, delta, kv_lengths, causal, q_offset, segment_ids)
-    return (flash_bwd_dq_cuda(*args), *flash_bwd_dkv_cuda(*args))
 
 
 def _bwd_operands(q, k, v, dout, lse, delta, kv_lengths, segment_ids):

@@ -125,8 +125,3 @@ class GroupedAdamW:
     def load_state_dict(self, state: dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-
-
-def make_optimizer(cfg: OptimConfig,
-                   named_params: Iterable[tuple[str, torch.Tensor]]) -> GroupedAdamW:
-    return GroupedAdamW(cfg, named_params)

@@ -26,7 +26,7 @@ from ..models.model import Qwen25VL, embed_inputs, lm_head_weight
 from ..models.mrope import mrope_cos_sin
 from ..models.vision import VisionLayout
 from ..ops.fused_ce import fused_linear_cross_entropy
-from .optim import GroupedAdamW, OptimConfig, global_norm, make_optimizer
+from .optim import GroupedAdamW, OptimConfig, global_norm
 
 
 @dataclass(frozen=True)
@@ -40,19 +40,17 @@ class SFTConfig:
 @dataclass
 class TrainState:
     """What trains ({name: parameter}: the adapters for LoRA, the model's
-    parameters for full-parameter SFT), its optimizer, and the step."""
+    parameters for full-parameter SFT; the JAX package's TrainState and
+    LoRATrainState in one), its optimizer, and the step."""
 
     params: dict[str, torch.nn.Parameter]
     optimizer: GroupedAdamW
     step: int = 0
 
 
-LoRATrainState = TrainState
-
-
 def init_train_state(params: dict[str, torch.nn.Parameter],
                      optim_cfg: OptimConfig) -> TrainState:
-    return TrainState(params, make_optimizer(optim_cfg, params.items()), 0)
+    return TrainState(params, GroupedAdamW(optim_cfg, params.items()), 0)
 
 
 def sft_loss(model: Qwen25VL, batch: dict[str, torch.Tensor], scfg: SFTConfig,
