@@ -27,7 +27,24 @@
    the kernel path against the plain path, for the frozen tower and for
    adapters in the tower; then apps/train_sft.train takes 3 steps with the
    tower frozen and 1 with adapters in the tower, with the launch counts set
-   to 0 before and read after.
+   to 0 before and read after;
+8. paged decode kernels: at the batched slice's shapes (B=8 prompts of the
+   admitted lengths plus 64 decode steps, 28/4 heads, hd 128, page size 128,
+   shuffled page tables over a 28-layer pool, each timed launch on the next
+   layer so the pages come cold) the bf16 kernel with W=1 and W=4 (a verify
+   chunk), the int8 kernel and the one-layer entry against their plain
+   versions, with the library call (F.scaled_dot_product_attention over K/V
+   already gathered dense, dequantised for int8; the gather is not timed);
+9. batched serving: the paged continuous-batching engine as the eval
+   backend builds it (8 slots, page size 128, power-of-two buckets from 128
+   to 2048, prefix cache on, bf16 pages) takes 12 video questions (8
+   synthetic frames at 392x392 each, ViT embeds through submit_batch,
+   ragged greedy budgets of 24-128 tokens) and runs step(steps=8) until
+   drained, admitting waiting requests as slots free, with the launch counts
+   set to 0 before and read after; request 0's logits after its first
+   window are held against the contiguous plain path teacher-forced on its
+   tokens, and a 4-request pass with kv_quant="int8" (counted alone) against
+   the bf16 engine after one step.
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -71,6 +88,18 @@ PATH_GRAD_REL_L2 = 5e-2
 # the least time: the larger of bytes / 3.35 TB/s and operations / 989
 # TFLOP/s bf16 (H100 SXM data sheet, dense)
 PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+# batched serving (phase 9)
+SERVE_REQUESTS, SERVE_SLOTS, PAGE_SIZE, DECODE_STEPS = 12, 8, 128, 8
+SERVE_MAX_LEN = 2048
+SERVE_BUCKETS = (128, 256, 512, 1024, 2048)
+SERVE_BUDGETS = (128, 24, 96, 40, 64, 112, 32, 80, 56, 128, 48, 72)
+INT8_REQUESTS = 4
+# int8 pages vs bf16 pages, logits of the same 4 requests after one decode
+# step, relative L2: every cached K/V element is rounded to 1/254 of its
+# (token, head) absmax (about 0.7% RMS of a Gaussian row), which perturbs
+# every attention score and output over 28 layers; 2x the bf16 path's
+# LOGITS_TOL, as an int8 cache is a coarser store than bf16 rounding
+INT8_LOGITS_TOL = 1e-1
 QUESTIONS = ("What is happening in this video?",
              "How many objects move from left to right?",
              "What changes between the first and the last frame?")
@@ -98,6 +127,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       "video_r2_tpu/ops/flash.py:164"),
     "window_attention_bwd": ("video_r2_tpu_torch/csrc/vit_window_attn_bwd.cu",
                              "video_r2_tpu/ops/vit_window_attention.py:90"),
+    "paged_decode_attention_stacked": ("video_r2_tpu_torch/csrc/paged_attn.cu",
+                                       "video_r2_tpu/ops/paged_attention.py:91"),
+    "paged_decode_attention_stacked_quant": ("video_r2_tpu_torch/csrc/paged_attn.cu",
+                                             "video_r2_tpu/ops/paged_attention.py:166"),
+    "paged_decode_attention": ("video_r2_tpu_torch/csrc/paged_attn.cu",
+                               "video_r2_tpu/ops/paged_attention.py:30"),
 }
 
 
@@ -110,14 +145,19 @@ def card_line() -> str:
 
 def counters() -> dict:
     """{kernel name: the wrapper whose .launches counts it}."""
-    from video_r2_tpu_torch.ops import flash, vit_window_attention as win
+    from video_r2_tpu_torch.ops import flash, paged_attention as paged
+    from video_r2_tpu_torch.ops import vit_window_attention as win
 
     return {"flash_attention": flash.flash_attention,
             "window_attention": win.window_attention,
             "flash_attention_fwd_lse": flash.flash_attention_fwd_lse,
             "flash_bwd_dq": flash.flash_bwd_dq_cuda,
             "flash_bwd_dkv": flash.flash_bwd_dkv_cuda,
-            "window_attention_bwd": win.window_attention_bwd}
+            "window_attention_bwd": win.window_attention_bwd,
+            "paged_decode_attention_stacked": paged.paged_decode_attention_stacked,
+            "paged_decode_attention_stacked_quant":
+                paged.paged_decode_attention_stacked_quant,
+            "paged_decode_attention": paged.paged_decode_attention}
 
 
 def reset_launches() -> None:
@@ -359,10 +399,11 @@ def register_report(log: Path) -> list[str]:
     spill = ""
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
-                      r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel)"
-                      r"ILi(\d+)E", line)
+                      r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
+                      r"paged_decode_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
-            name, spill = f"{m.group(1)}<{m.group(2)}>", ""
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            name, spill = f"{m.group(1)}<{args}>", ""
         elif "spill stores" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -498,12 +539,307 @@ def training_phase(model, cfg, card, device, kernel_results):
     for h in history + tower_history:
         if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
             raise AssertionError(f"non-finite training step: {h}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attention", "window_attention", "flash_attention_fwd_lse",
+                 "flash_bwd_dq", "flash_bwd_dkv", "window_attention_bwd"):
+        if launches[name] <= 0:
             raise AssertionError(f"the training path launched no {name} kernel")
     if tower["window_attention_bwd"] <= 0 or tower["flash_bwd_dq"] <= tc.num_hidden_layers:
         raise AssertionError(f"the tower step ran no ViT backward kernel: {tower}")
     return launches
+
+
+def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
+    """The paged decode kernel at one shape against its plain version, with
+    the library call (SDPA over K/V already gathered dense). The pool has
+    the model's 28 layers; each timed launch reads the next layer, so its
+    pages come from device memory, as in the decode step, where each
+    layer's weights pass through the L2 cache between two calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_r2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_stacked,
+        paged_decode_attention_stacked_plain,
+    )
+
+    tc = cfg.text
+    kh, nh, hd, ps, n_layers = (tc.num_key_value_heads, tc.num_attention_heads,
+                                tc.head_dim, PAGE_SIZE, tc.num_hidden_layers)
+    dev = gen.device
+    B = len(lengths)
+    need = [-(-(L + W - 1) // ps) for L in lengths]
+    max_pages, n_pages = max(need), 1 + sum(need)       # page 0: the trash page
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).int()
+    tables = torch.zeros(B, max_pages, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    shape = (n_layers, kh, n_pages, ps, hd)
+    if quant:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    qshape = (B, W, nh, hd) if W > 1 else (B, nh, hd)
+    q = torch.randn(qshape, generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    layer = [0]
+
+    def call(fn):
+        def go():
+            layer[0] = (layer[0] + 1) % n_layers
+            return fn(layer[0])
+        return go
+
+    if one_layer:
+        kernel = lambda l: paged_decode_attention(q, k[l], v[l], tables, lens, ps)  # noqa: E731
+    else:
+        kernel = lambda l: paged_decode_attention_stacked(  # noqa: E731
+            q, k, v, tables, lens, l, ps, ks, vs)
+    plain = lambda l: paged_decode_attention_stacked_plain(  # noqa: E731
+        q, k, v, tables, lens, l, ps, ks, vs)
+    err, excess = compare(kernel(n_layers - 1), plain(n_layers - 1))
+
+    # the library: the same attention over K/V gathered dense per layer
+    # ([L, B, kh, keys, hd], dequantised for int8) and a boolean mask
+    n_keys = max_pages * ps
+
+    def dense(pool, scale):
+        x = pool[:, :, tables.long()]                      # [L, kh, B, P, ps, hd]
+        if scale is not None:
+            x = x.float() * scale[:, :, tables.long()][..., None]
+        return x.to(torch.bfloat16).transpose(1, 2).reshape(n_layers, B, kh, n_keys, hd)
+
+    kd, vd = dense(k, ks), dense(v, vs)
+    qd = (q if W > 1 else q[:, None]).transpose(1, 2)      # [B, nh, W, hd]
+    limit = lens[:, None].long() + torch.arange(W, device=dev)
+    mask = (torch.arange(n_keys, device=dev) < limit[:, :, None])[:, None]
+    library = lambda l: F.scaled_dot_product_attention(  # noqa: E731
+        qd, kd[l], vd[l], attn_mask=mask, enable_gqa=True)
+    with torch.no_grad():
+        lib_ms = cuda_ms(call(library))
+    del kd, vd
+
+    rows = sum(L + W - 1 for L in lengths)              # key rows the last query reads
+    elt = 1 if quant else 2
+    nbytes = (2 * 2.0 * q.numel() + 2.0 * rows * kh * hd * elt
+              + (2 * 4.0 * rows * kh if quant else 0) + 4.0 * (tables.numel() + B))
+    pairs = sum(W * L + W * (W - 1) // 2 for L in lengths)   # admitted (query, key)
+    r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(call(kernel)),
+         "plain_ms": cuda_ms(call(plain), iters=5), "library_ms": lib_ms,
+         **bound(4.0 * nh * hd * pairs, nbytes)}
+    name = ("paged_decode_attention" if one_layer else
+            "paged_decode_attention_stacked_quant" if quant
+            else "paged_decode_attention_stacked")
+    report(name, what, (B, W, nh, kh, hd, ps, max_pages), **r)
+    if not excess <= 1.0:
+        raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
+                             f"{excess} x the tolerance")
+    return {name: r}
+
+
+def serve_requests(runner, cfg):
+    """The batched slice's 12 requests: (DemoRequest, prompt ids, budget)."""
+    import numpy as np
+
+    from video_r2_tpu_torch.video.api import video_features
+
+    out = []
+    for i in range(SERVE_REQUESTS):
+        feats = video_features(np.random.default_rng(200 + i).integers(
+            0, 256, (N_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
+            FRAME_HW, FRAME_HW, sample_fps=2.0)
+        q = f"{QUESTIONS[i % len(QUESTIONS)]} Answer for clip {i} in {4 + i} words."
+        req = runner.prepare(feats, q)
+        out.append((req, [int(t) for t in req.input_ids[0, :int(req.lengths[0])]],
+                    SERVE_BUDGETS[i], feats))
+    return out
+
+
+def submit_item(runner, entry) -> tuple:
+    """One submit_batch item, with its ViT embeds computed now (as the eval
+    backend computes them at admission)."""
+    req, ids, budget, feats = entry
+    vision = (runner.vision_embeds(req), [feats.grid_thw], [feats.second_per_grid_t])
+    return (ids, budget, None, None, None, vision)
+
+
+def serve(eng, runner, requests, steps, first_window=None):
+    """Drive the engine as the eval backend does: waiting requests go in
+    bursts through submit_batch (ViT embeds computed at admission) whenever
+    slots are free, then one step(steps) window. Returns (outputs by request
+    index, wall s, TTFT of the first wave, window s, peak pages in use)."""
+    import torch
+
+    waiting = list(range(len(requests)))
+    rid_of, out, windows = {}, {}, []
+    pc = eng.pcache
+    usable = pc.k.shape[2] - 1
+    peak = 0
+    ttft = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while waiting or eng.num_active:
+        free = eng.num_slots - eng.num_active
+        if waiting and free:
+            take = waiting[:free]
+            rids = eng.submit_batch([submit_item(runner, requests[i]) for i in take])
+            for i, rid in zip(take, rids):
+                if rid is not None:
+                    rid_of[rid] = i
+                    waiting.remove(i)
+            if not eng.num_active:
+                raise AssertionError(f"no request admitted: rids {rids}")
+            peak = max(peak, usable - pc.available_pages())
+        t = time.perf_counter()
+        for rid, toks in eng.step(steps):
+            out[rid_of[rid]] = toks
+        windows.append(time.perf_counter() - t)
+        peak = max(peak, usable - pc.available_pages())
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+            if first_window is not None:
+                first_window(eng, rid_of)
+    return out, time.perf_counter() - t0, ttft, windows, peak
+
+
+def teacher_forced_logits(model, runner, req, tokens):
+    """The contiguous plain path (engine/generate.py prefill, then decode
+    forwards over the cache) fed the given tokens: the logits after them."""
+    import torch
+
+    from video_r2_tpu_torch.engine.generate import NEG_INF, prefill
+    from video_r2_tpu_torch.models.decoder import KVCache
+    from video_r2_tpu_torch.models.model import lm_head
+    from video_r2_tpu_torch.models.mrope import mrope_cos_sin
+
+    cfg, dev = model.cfg, model.device
+    S = req.input_ids.shape[1]
+    length = int(req.lengths[0])
+    cache = KVCache.init(cfg.text, 1, S + len(tokens),
+                         model.model.embed_tokens.embedding.dtype, dev)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill(model, torch.as_tensor(req.input_ids, device=dev).long(),
+                torch.as_tensor(req.position_ids, device=dev).long(), lens, cache,
+                runner.vision_embeds(req, "xla"), cfg.video_token_id, attn_impl="xla")
+        delta = int(req.rope_deltas[0]) + S - length
+        j = torch.arange(cache.k.shape[2], device=dev)
+        for t, tok in enumerate(tokens):
+            emb = model.model.embed_tokens(torch.tensor([tok], device=dev))[:, None]
+            pos3 = torch.full((3, 1, 1), length + t + delta, device=dev)
+            cos, sin = mrope_cos_sin(pos3, cfg, dtype=emb.dtype)
+            allowed = (j < length) | ((j >= S) & (j <= S + t))
+            bias = torch.where(allowed[None, None, None], 0.0, NEG_INF)
+            hidden = model.model(emb, cos, sin, bias, cache=cache, cache_position=S + t)
+        return lm_head(model, hidden[:, 0]).float()[0]
+
+
+def serving_phase(model, runner, requests, card) -> dict:
+    """Phase 9. Returns the launch counts of the bf16 run and of the int8
+    pass."""
+    import torch
+
+    from video_r2_tpu_torch.engine.continuous import PagedContinuousEngine
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+
+    cfg = model.cfg
+    eos = cfg.eos_token_id
+    sp = SamplingParams(eos_token_ids=(eos,), pad_token_id=cfg.pad_token_id)
+
+    def engine(kv_quant=None):
+        return PagedContinuousEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                     sp=sp, attn_impl="flash", prompt_buckets=SERVE_BUCKETS,
+                                     page_size=PAGE_SIZE, kv_quant=kv_quant)
+
+    eng = engine()
+    avail0 = eng.pcache.available_pages()
+    first = {}
+
+    def keep_request0(e, rid_of):
+        slot = next(s for s, r in enumerate(e.slot_req)
+                    if r is not None and rid_of[r.rid] == 0)
+        first["tokens"] = list(e.slot_req[slot].tokens)
+        first["logits"] = e.last_logits[slot].clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, wall, ttft, windows, peak_pages = serve(eng, runner, requests, DECODE_STEPS,
+                                                 keep_request0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = sum(len(t) for t in out.values())
+    full = [w for w in windows[1:]]
+    print(f"batched serving: {len(out)} requests, {SERVE_SLOTS} slots, {n_tok} tokens in "
+          f"{wall:.3f} s: {n_tok / wall:.2f} generated tok/s, {len(out) / wall:.4f} "
+          f"requests/s, TTFT of the first wave {ttft * 1e3:.1f} ms (ViT + prefill + "
+          f"first window), {len(windows)} windows of {DECODE_STEPS} steps, "
+          f"{1e3 * sum(full) / max(len(full), 1):.2f} ms per window after the first "
+          f"(min {1e3 * min(full):.2f}, max {1e3 * max(full):.2f}), peak device memory "
+          f"{peak:.2f} GiB, pool pages in use at most {peak_pages} of "
+          f"{eng.pcache.k.shape[2] - 1}; launches {launches} | {card}", flush=True)
+    for i, (_, _, budget, _) in enumerate(requests):
+        toks = out.get(i)
+        if toks is None or not (len(toks) == budget or (toks and toks[-1] == eos
+                                                        and len(toks) < budget)):
+            raise AssertionError(f"request {i} did not finish within its budget {budget}: "
+                                 f"{None if toks is None else len(toks)} tokens")
+    if launches["paged_decode_attention_stacked"] <= 0:
+        raise AssertionError(f"the serving run launched no paged kernel: {launches}")
+    for name in ("flash_attention", "window_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the serving run launched no {name} kernel")
+    if eng.pcache.available_pages() != avail0:
+        raise AssertionError(f"pages not returned: {eng.pcache.available_pages()} of "
+                             f"{avail0} available after draining")
+
+    # request 0 after its first window vs the contiguous plain path
+    ref = teacher_forced_logits(model, runner, requests[0][0], first["tokens"])
+    got = first["logits"]
+    rel = rel_l2(got, ref)
+    print(f"request 0 after its first window ({len(first['tokens'])} tokens): logits vs "
+          f"the contiguous plain path rel_l2={rel:.3e} (tol {LOGITS_TOL}), argmax "
+          f"{int(got.argmax())} vs {int(ref.argmax())}", flush=True)
+    if not (torch.isfinite(got).all() and got.shape == (cfg.text.vocab_size,)
+            and rel <= LOGITS_TOL):
+        raise AssertionError(f"paged engine logits disagree with the contiguous path: {rel}")
+
+    # int8 pages: the same first requests, one step on each engine
+    def one_step_logits(e):
+        rids = e.submit_batch([submit_item(runner, r) for r in requests[:INT8_REQUESTS]])
+        e.step(1)
+        slots = [next(s for s, r in enumerate(e.slot_req) if r is not None and r.rid == rid)
+                 for rid in rids]
+        return e.last_logits[slots].clone()
+
+    ref8 = one_step_logits(eng)
+    while eng.num_active:
+        eng.step(DECODE_STEPS)
+    del eng
+    reset_launches()
+    eng8 = engine("int8")
+    avail8 = eng8.pcache.available_pages()
+    got8 = one_step_logits(eng8)
+    while eng8.num_active:
+        eng8.step(DECODE_STEPS)
+    launches8 = read_launches()
+    rel8 = rel_l2(got8, ref8)
+    print(f"int8 pages ({INT8_REQUESTS} requests, drained): logits after one step vs "
+          f"the bf16 engine rel_l2={rel8:.3e} (tol {INT8_LOGITS_TOL}); launches "
+          f"{launches8}", flush=True)
+    if launches8["paged_decode_attention_stacked_quant"] <= 0:
+        raise AssertionError(f"the int8 pass launched no quant kernel: {launches8}")
+    if not (torch.isfinite(got8).all() and rel8 <= INT8_LOGITS_TOL):
+        raise AssertionError(f"int8 pages disagree with bf16 pages: {rel8}")
+    if eng8.pcache.available_pages() != avail8:
+        raise AssertionError("int8 pass: pages not returned")
+    return {"bf16": launches, "int8": launches8}
 
 
 def main() -> int:
@@ -654,13 +990,37 @@ def main() -> int:
     # phases 6 and 7: training
     training = training_phase(model, cfg, card, device, kernel_results)
 
+    # phase 8: the paged kernels at the batched slice's decode shapes
+    requests = serve_requests(runner, cfg)
+    prompt_lens = [len(ids) for _, ids, _, _ in requests]
+    print(f"batched slice: {SERVE_REQUESTS} requests, prompt lengths {prompt_lens}, "
+          f"budgets {list(SERVE_BUDGETS)}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    decode_lens = [n + 64 for n in prompt_lens[:SERVE_SLOTS]]
+    kernel_results.update(paged_case(gen, "decode, W=1", cfg, decode_lens, 1, False))
+    paged_case(gen, "verify chunk, W=4", cfg, decode_lens, 4, False)
+    kernel_results.update(paged_case(gen, "int8 pages, W=1", cfg, decode_lens, 1, True))
+    kernel_results.update(paged_case(gen, "one-layer pool, W=1", cfg, decode_lens, 1,
+                                     False, one_layer=True))
+
+    # phase 9: batched serving through the paged engine
+    paged_runs = serving_phase(model, runner, requests, card)
+
+    def launches_of(name):
+        if name in ("flash_attention", "window_attention"):
+            return serving[name]
+        if name == "paged_decode_attention_stacked_quant":
+            return paged_runs["int8"][name]
+        if name.startswith("paged_"):
+            return paged_runs["bf16"][name]     # the one-layer entry: no path runs it
+        return training[name]
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = kernel_results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serving[name] if name in ("flash_attention", "window_attention")
-            else training[name],
+            "launches": launches_of(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})

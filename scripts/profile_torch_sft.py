@@ -21,6 +21,7 @@ from collections import defaultdict
 from pathlib import Path
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
+    ("paged decode", ("paged_decode_kernel",)),
     ("flash fwd (+lse)", ("flash_fwd_kernel",)),
     ("flash bwd dq", ("flash_bwd_dq_kernel",)),
     ("flash bwd dk/dv", ("flash_bwd_dkv_kernel",)),

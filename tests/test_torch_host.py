@@ -46,6 +46,8 @@ import video_r2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("ops.paged_attention", "engine.continuous", "engine.sampling"):
+    assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
 print(len(names))

@@ -12,7 +12,9 @@ the same bounds at the serving and training shapes):
   value) and the kernel also rounds P to bf16 before P @ V;
 - the LSE: |kernel - plain| <= 1e-3 (fp32 sums of the same bf16 products);
 - gradients: relative L2 <= 1e-2 per tensor: the kernels round P and dS to
-  bf16 before their products, where the plain versions keep fp32.
+  bf16 before their products, where the plain versions keep fp32;
+- paged decode: the forward bound; kernel and plain version both compute in
+  fp32 and round the output to bf16.
 """
 
 import pytest
@@ -28,6 +30,12 @@ from video_r2_tpu_torch.ops.flash import (
     flash_bwd_dq_cuda,
     flash_attention_fwd_lse_plain,
     flash_attention_plain,
+)
+from video_r2_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_stacked,
+    paged_decode_attention_stacked_plain,
+    paged_decode_attention_stacked_quant,
 )
 from video_r2_tpu_torch.ops.vit_window_attention import (
     window_attention,
@@ -208,3 +216,79 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     w = torch.zeros(128, 2, 80, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="valid"):
         window_attention(w, w, w, torch.ones(128, device=cuda))
+
+
+def _paged_inputs(gen, lengths, W, hd, ps, quant, kh=4, nh=28, layers=2):
+    """A pool whose page 0 is the trash page; each row's pages are distinct
+    and shuffled, its unread table entries on the trash page. The last row
+    is an inactive slot: every entry on the trash page."""
+    dev = gen.device
+    B = len(lengths)
+    need = [-(-(L + W - 1) // ps) for L in lengths]
+    max_pages = max(need)
+    n_pages = 1 + sum(need[:-1])
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).int()
+    tables = torch.zeros(B, max_pages, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(need[:-1]):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    shape = (layers, kh, n_pages, ps, hd)
+    scales = (None, None)
+    if quant:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+                for _ in range(2))
+        scales = tuple(torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
+                       for _ in range(2))
+    else:
+        k, v = _randn(gen, *shape), _randn(gen, *shape)
+    q = _randn(gen, B, W, nh, hd) if W > 1 else _randn(gen, B, nh, hd)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, tables, lens, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps", [(128, 128), (64, 64)])
+@pytest.mark.parametrize("quant,W", [(False, 1), (False, 4), (True, 1), (True, 4)])
+def test_paged_kernel_matches_plain(cuda, hd, ps, quant, W):
+    """Ragged lengths, exact page boundaries (ps, 2 ps), a row shorter than
+    one page and an inactive slot on the trash page; layer 1 of the pool."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + W)
+    lengths = [1, ps - 3, ps, 2 * ps, 5 * ps + 17, 3 * ps + 1]
+    q, k, v, tables, lens, (ks, vs) = _paged_inputs(gen, lengths, W, hd, ps, quant)
+    counter = (paged_decode_attention_stacked_quant if quant
+               else paged_decode_attention_stacked)
+    before = counter.launches
+    out = paged_decode_attention_stacked(q, k, v, tables, lens, 1, ps, ks, vs)
+    ref = paged_decode_attention_stacked_plain(q, k, v, tables, lens, 1, ps, ks, vs)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _close(out, ref)
+    assert counter.launches == before + 1
+    if not quant and W == 1:      # the one-layer entry over the same pool
+        before = paged_decode_attention.launches
+        out1 = paged_decode_attention(q, k[1], v[1], tables, lens, ps)
+        torch.cuda.synchronize()
+        assert torch.equal(out1, out) and paged_decode_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, tables, lens, _ = _paged_inputs(gen, [200, 100], 1, 128, 128, False)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_attention_stacked(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                                       v[..., :96].contiguous(), tables, lens, 0, 128)
+    with pytest.raises(ValueError, match="page size"):
+        paged_decode_attention_stacked(q, k, v, tables, lens, 0, 48)
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_decode_attention_stacked(q.float(), k, v, tables, lens, 0, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention_stacked(q, k.transpose(0, 1), v.transpose(0, 1), tables,
+                                       lens, 0, 128)
+    with pytest.raises(ValueError, match="query rows"):
+        qw = _randn(gen, 2, 16, 28, 128)               # 16 x 7 rows > 64
+        paged_decode_attention_stacked(qw, k, v, tables, lens, 0, 128)
+    scales = torch.zeros(k.shape[:4], device=cuda)
+    with pytest.raises(TypeError, match="int8"):               # bf16 pages, scales given
+        paged_decode_attention_stacked_quant(q, k, v, scales, scales, tables, lens, 0, 128)

@@ -59,3 +59,38 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     scaled = apply_top_p(scaled, sp.top_p)
     probs = torch.softmax(scaled, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_token_per_slot(logits: torch.Tensor, generator: torch.Generator | None,
+                          temperature: torch.Tensor, top_p: torch.Tensor,
+                          top_k: torch.Tensor, do_sample: torch.Tensor) -> torch.Tensor:
+    """Per-slot sampling for continuous batching: logits [N, V], each slot
+    with its own request's temperature / top_p / top_k / do_sample ([N]
+    each), so greedy and sampled requests share one decode step."""
+    greedy = torch.argmax(logits, dim=-1)
+    filtered = filter_logits_per_slot(logits, temperature, top_p, top_k)
+    sampled = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
+                                generator=generator)[:, 0]
+    return torch.where(do_sample.to(logits.device), sampled, greedy)
+
+
+def filter_logits_per_slot(logits: torch.Tensor, temperature: torch.Tensor,
+                           top_p: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
+    """The per-slot target distribution's logits: temperature, then top-k,
+    then top-p over one descending sort (top-p cumulates over the k-filtered
+    ranks). logits [N, V] or [N, K, V]; the per-slot [N] parameters
+    broadcast over the middle axes."""
+    V = logits.shape[-1]
+    lead = (slice(None),) + (None,) * (logits.dim() - 1)
+    temperature, top_p, top_k = (x.to(logits.device) for x in (temperature, top_p, top_k))
+    scaled = logits.float() / torch.clamp(temperature.float(), min=1e-6)[lead]
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    ranks = torch.arange(V, device=logits.device)
+    k = torch.where(top_k <= 0, V, torch.clamp(top_k, 1, V))
+    in_k = ranks < k[lead]
+    sorted_f = torch.where(in_k, sorted_logits, NEG_INF)
+    probs = torch.softmax(sorted_f, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = ((cum - probs) < top_p.float()[lead]) & in_k
+    thresh = torch.where(keep, sorted_f, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where(scaled < thresh, NEG_INF, scaled)

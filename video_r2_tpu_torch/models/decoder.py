@@ -128,6 +128,15 @@ class Decoder(nn.Module):
         return self.norm(hidden)
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values, float32 absmax scale over hd), the JAX
+    package's scheme: scale = max(absmax, 1e-8) / 127, values rounded half
+    to even (torch.round, like jnp.round)."""
+    x32 = x.float()
+    s = torch.clamp(x32.abs().amax(dim=-1), min=1e-8) / 127.0
+    return torch.round(x32 / s[..., None]).to(torch.int8), s
+
+
 def causal_mask_bias(seq_len: int, attention_mask: torch.Tensor | None,
                      device=None) -> torch.Tensor:
     """[B, 1, S, S] additive bias: causal + padding."""

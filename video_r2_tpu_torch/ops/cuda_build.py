@@ -37,6 +37,7 @@ SIGNATURES = {
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
+    "vr2_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_F, _P],
 }
 
 
