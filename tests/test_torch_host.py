@@ -7,6 +7,7 @@ the same numpy code). The first test proves the port never imports jax.
 """
 
 import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ from video_r2_tpu.evalharness.api import THINK_POST_PROMPT as J_THINK
 from video_r2_tpu.models import config as jconfig
 from video_r2_tpu.models.mrope import get_rope_index as j_get_rope_index
 from video_r2_tpu.models.vision import plan_vision_layout as j_plan
+from video_r2_tpu.rewards import judge as jjudge
 from video_r2_tpu.video import device_preprocess as jpre
 from video_r2_tpu.video import geometry as jgeo
 from video_r2_tpu_torch import config as app
@@ -34,6 +36,7 @@ from video_r2_tpu_torch.engine import chat
 from video_r2_tpu_torch.models import config
 from video_r2_tpu_torch.models.mrope import get_rope_index
 from video_r2_tpu_torch.models.vision import plan_vision_layout
+from video_r2_tpu_torch.rewards import judge
 from video_r2_tpu_torch.video import geometry as geo
 from video_r2_tpu_torch.video import preprocess as pre
 
@@ -46,7 +49,9 @@ import video_r2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("ops.paged_attention", "engine.continuous", "engine.sampling"):
+for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
+             "ops.moe_ragged", "ops.moe_gmm", "models.moe", "models.quant",
+             "engine.server", "rewards.judge"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
@@ -61,7 +66,7 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.strip()) >= 20   # every module was walked
 
 
-@pytest.mark.parametrize("name", ["qwen25vl_7b", "tiny_test_config"])
+@pytest.mark.parametrize("name", ["qwen25vl_7b", "tiny_test_config", "qwen3_moe_30b_a3b"])
 def test_config_copy_matches(name):
     """Every field the port keeps equals the JAX config's, nested ones too."""
     ours, ref = getattr(config, name)(), getattr(jconfig, name)()
@@ -218,3 +223,25 @@ def test_app_config_copy_matches():
         ref.run.max_steps, ref.run.use_lora, ref.lora.r, ref.optim.vision_lr,
         ref.lora.targets, ref.data.fps, ref.sft.ce_chunk_size)
     assert ours.model_config() == config.qwen25vl_7b()
+
+
+def test_judge_copy_matches():
+    """rewards/judge.py's functions and classes are the original's source,
+    line for line, and the server's stop helpers behave alike."""
+    from video_r2_tpu.engine import server as jserver
+    from video_r2_tpu_torch.engine import server
+
+    for name in ("JudgeClient", "OpenAICompatClient", "chat_many", "EngineJudge",
+                 "StaticJudge"):
+        assert inspect.getsource(getattr(judge, name)) == inspect.getsource(
+            getattr(jjudge, name)), name
+    reqs = [("sys", f"user {i}") for i in range(3)]
+    ours, ref = judge.StaticJudge(["a", "b"]), jjudge.StaticJudge(["a", "b"])
+    assert judge.chat_many(ours, reqs) == jjudge.chat_many(ref, reqs) == ["a", "b", "b"]
+    assert ours.calls == ref.calls == reqs
+    for stop in (None, "", "ST", ["ST", "", "x"]):
+        assert server._norm_stop(stop) == jserver._norm_stop(stop)
+        assert (server._apply_stop("a xST b", server._norm_stop(stop))
+                == jserver._apply_stop("a xST b", jserver._norm_stop(stop)))
+    assert (app.AppConfig(run=app.RunConfig(model_preset="qwen3-moe-30b-a3b"))
+            .model_config() == config.qwen3_moe_30b_a3b())

@@ -14,7 +14,11 @@ the same bounds at the serving and training shapes):
 - gradients: relative L2 <= 1e-2 per tensor: the kernels round P and dS to
   bf16 before their products, where the plain versions keep fp32;
 - paged decode: the forward bound; kernel and plain version both compute in
-  fp32 and round the output to bf16.
+  fp32 and round the output to bf16;
+- the grouped MoE FFN: the forward bound, for inputs scaled so every
+  product is O(1): both sum in fp32 (int32 for W8A8) and round h to bf16
+  (W8A8: to int8 per tile, where a value on a half-step may round the other
+  way).
 """
 
 import pytest
@@ -37,6 +41,7 @@ from video_r2_tpu_torch.ops.paged_attention import (
     paged_decode_attention_stacked_plain,
     paged_decode_attention_stacked_quant,
 )
+from video_r2_tpu_torch.ops import moe_gmm, moe_ragged
 from video_r2_tpu_torch.ops.vit_window_attention import (
     window_attention,
     window_attention_bwd,
@@ -292,3 +297,101 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     scales = torch.zeros(k.shape[:4], device=cuda)
     with pytest.raises(TypeError, match="int8"):               # bf16 pages, scales given
         paged_decode_attention_stacked_quant(q, k, v, scales, scales, tables, lens, 0, 128)
+
+
+def _moe_weights(gen, E, H, I, variant):
+    """Expert leaves with unit-scale products: {kernel} bf16, or int8."""
+    from video_r2_tpu_torch.models.quant import quantize_kernel
+
+    leaves = {}
+    for name, (k, n) in (("gate", (H, I)), ("up", (H, I)), ("down", (I, H))):
+        w = torch.randn(E, k, n, generator=gen, device=gen.device) * k ** -0.5
+        leaves[name] = ({"kernel": w.to(torch.bfloat16)} if variant == "bf16"
+                        else quantize_kernel(w))
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
+@pytest.mark.parametrize("C", [8, 16, 24, 40, 128, 200])
+def test_moe_ffn_kernel_matches_plain(cuda, variant, C):
+    """Blocks of experts 0, 3, 3, 5 and two slack blocks (zeros); I = 768
+    gives the W8A8 tile bi = 384, two tiles. C covers every row capacity
+    (16, 32, 64, 128 rows a block) and two 128-row tiles of one block."""
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    E, H, I = 8, 512, 768
+    w = _moe_weights(gen, E, H, I, variant)
+    ids = torch.tensor([0, 3, 3, 5, 7, 7], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([1, 1, 1, 1, 0, 0], dtype=torch.int32, device=cuda)
+    x = _randn(gen, 6, C, H)
+    kw = {}
+    if variant == "w8a8":
+        x, ax = moe_ragged.quantize_rows(x)
+        kw["x_scales"] = ax
+    before = dict(moe_ragged.LAUNCHES)
+    out = moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"],
+                                       blk_valid=valid, **kw)
+    torch.cuda.synchronize()
+    key = f"{variant}_ragged"
+    assert moe_ragged.LAUNCHES[key] == before[key] + 1
+    bi = moe_ragged._block_i(x, moe_ragged._weights(w["gate"], w["up"], w["down"])[1],
+                             kw.get("x_scales"), 512)
+    ref = moe_ragged.ragged_expert_ffn_plain(x, ids, w["gate"], w["up"], w["down"], bi,
+                                             valid, kw.get("x_scales"))
+    assert out.dtype == ref.dtype and out.shape == (6, C, H)
+    assert not out[4:].any()
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
+def test_moe_paths_run_the_kernel(cuda, variant):
+    """moe_mlp_ragged (T = 16) and moe_mlp_gmm (T = 512) through the kernel
+    against their plain FFN (ffn_impl="plain")."""
+    from video_r2_tpu_torch.ops.moe_ragged import moe_mlp_ragged
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    E, H, I, k = 16, 512, 768, 4
+    p = {"router": {"kernel": torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5},
+         "experts": _moe_weights(gen, E, H, I, "bf16" if variant == "bf16" else "int8")}
+    aq = "int8" if variant == "w8a8" else None
+    for T, fn in ((16, moe_mlp_ragged), (512, moe_gmm.moe_mlp_gmm)):
+        x = _randn(gen, T, H)
+        out = fn(p, x, k, True, act_quant=aq)
+        ref = fn(p, x, k, True, act_quant=aq, ffn_impl="plain")
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == (T, H)
+        assert _rel_l2(out, ref) <= 1e-2, (T, variant)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = _moe_weights(gen, 4, 128, 128, "bf16")
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    x = _randn(gen, 2, 8, 128)
+    with pytest.raises(TypeError):                  # float32 activations
+        moe_ragged.ragged_expert_ffn(x.float(), ids, w["gate"], w["up"], w["down"])
+    with pytest.raises(ValueError):                 # hidden not a multiple of 64
+        moe_ragged.ragged_expert_ffn(x[..., :96].contiguous(), ids,
+                                     *(_moe_weights(gen, 4, 96, 128, "bf16")[n]
+                                       for n in ("gate", "up", "down")))
+    with pytest.raises(ValueError):                 # non-contiguous weights
+        t = {"kernel": w["gate"]["kernel"].transpose(1, 2).contiguous().transpose(1, 2)}
+        moe_ragged.ragged_expert_ffn(x, ids, t, w["up"], w["down"])
+    with pytest.raises(ValueError):                 # W8A8 with float weights
+        moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"],
+                                     x_scales=torch.ones(2, 8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 40])
+def test_w8a8_linear_on_the_card_is_exact(cuda, M):
+    """The W8A8 linear's int8 product (torch._int_mm, rows padded past 16)
+    gives the CPU's integer product exactly."""
+    from video_r2_tpu_torch.models.layers import int8_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    a = torch.randint(-127, 128, (M, 256), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (256, 512), generator=gen, device=cuda).to(torch.int8)
+    assert torch.equal(int8_matmul(a, b).cpu(), int8_matmul(a.cpu(), b.cpu()))

@@ -19,13 +19,14 @@ from typing import Any, get_args, get_origin
 import torch
 
 from .data.config import DataConfig
-from .models.config import ModelConfig, qwen25vl_7b, tiny_test_config
+from .models.config import ModelConfig, qwen3_moe_30b_a3b, qwen25vl_7b, tiny_test_config
 from .train.lora import LoRAConfig
 from .train.optim import OptimConfig
 from .train.sft import SFTConfig
 
 MODEL_PRESETS = {
     "qwen25vl-7b": qwen25vl_7b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "tiny-test": tiny_test_config,
 }
 

@@ -39,7 +39,6 @@ import torch
 import torch.nn.functional as F
 
 from ..models.decoder import KVCache, quantize_kv
-from ..models.layers import apply_rotary
 from ..models.model import lm_head, merge_vision_embeddings
 from ..models.mrope import get_rope_index, mrope_cos_sin
 from ..ops.attention import plain_attention
@@ -210,20 +209,12 @@ def _prefill_suffix_into_pages(model, kv, prefix_pids, new_pids, ids, position_i
 
 
 def _decoder_pass(model, x, cos, sin, attend):
-    """The decoder layers over x [N, S, H] (the port's DecoderLayer
-    submodules), each layer's attention done by attend(layer, q, k, v),
-    which also stores k and v. Returns the final-normed hidden."""
-    cfg = model.cfg.text
-    N, S, _ = x.shape
-    nh, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    """The decoder layers over x [N, S, H], through each DecoderLayer's own
+    qkv / finish helpers (qk-norm and the MoE block included), each layer's
+    attention done by attend(layer, q, k, v), which also stores k and v.
+    Returns the final-normed hidden."""
     for l, layer in enumerate(model.model.layers):
-        h = layer.input_layernorm(x)
-        q = layer.attn.q(h).reshape(N, S, nh, hd)
-        k = layer.attn.k(h).reshape(N, S, kh, hd)
-        v = layer.attn.v(h).reshape(N, S, kh, hd)
-        q, k = apply_rotary(q, k, cos[:, :, None, :], sin[:, :, None, :])
-        x = x + layer.attn.o(attend(l, q, k, v).reshape(N, S, nh * hd))
-        x = x + layer.mlp(layer.post_attention_layernorm(x))
+        x = layer.finish(x, attend(l, *layer.qkv(x, cos, sin)))
     return model.model.norm(x)
 
 

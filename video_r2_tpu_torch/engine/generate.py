@@ -10,7 +10,13 @@ Port of ``video_r2_tpu/engine/generate.py`` (bf16 cache, no speculation):
 - the decode loop is a Python loop over single-token forwards (the JAX
   package's lax.scan); finished samples emit pad, and the loop stops once
   every sample has finished (the JAX loop runs on and emits pad);
-- M-RoPE decode positions use the cached rope delta: pos = length + step + delta.
+- M-RoPE decode positions use the cached rope delta: pos = length + step + delta;
+  text-only prompts get equal positions from get_rope_index;
+- act_quant="int8" runs prefill W8A8 on int8 weights (models/quant.py) and
+  decode_act_quant="auto" runs decode W8A8 only from B >= 192, where decode
+  turns compute-bound, as the reference chooses; otherwise decode stays
+  int8 weight-only. The reference's Pallas decode kernel
+  (decode_impl="kernel") is not ported yet, and its "auto" picks "xla".
 """
 
 from __future__ import annotations
@@ -40,9 +46,10 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
             lengths: torch.Tensor, cache: KVCache,
             vision_embeds: torch.Tensor | None = None,
             vision_token_id: int | None = None,
-            attn_impl: str = "xla") -> torch.Tensor:
+            attn_impl: str = "xla", act_quant: str | None = None) -> torch.Tensor:
     """Run the prompt [B, S] and fill rows [0, S) of `cache` in place.
-    Returns the last valid token's logits [B, V] in fp32."""
+    Returns the last valid token's logits [B, V] in fp32 (the head is not
+    W8A8 in prefill, as in the reference)."""
     cfg = model.cfg
     B, S = input_ids.shape
     h = model.model.embed_tokens(input_ids)
@@ -60,7 +67,8 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
         allowed = (j <= i) & (j[None] < lengths[:, None, None])
         bias = torch.where(allowed[:, None], 0.0, NEG_INF)
     hidden = model.model(h, cos, sin, bias, cache=cache, cache_position=0,
-                         attn_impl=attn_impl, kv_lengths=lengths, causal=True)
+                         attn_impl=attn_impl, kv_lengths=lengths, causal=True,
+                         act_quant=act_quant)
     last = hidden[torch.arange(B, device=h.device), lengths.long() - 1]
     return lm_head(model, last).float()
 
@@ -69,9 +77,11 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
 def decode(model: Qwen25VL, sp: SamplingParams, first_logits: torch.Tensor,
            cache: KVCache, lengths: torch.Tensor, rope_deltas: torch.Tensor,
            generator: torch.Generator | None, s_pad: int,
-           attn_impl: str = "xla") -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           attn_impl: str = "xla",
+           act_quant: str | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Up to `sp.max_new_tokens` decode steps. Returns (tokens [B, T],
-    logprobs [B, T], generated lengths [B])."""
+    logprobs [B, T], generated lengths [B]). act_quant: W8A8 decode matmuls
+    and head."""
     cfg = model.cfg
     B = first_logits.shape[0]
     T = sp.max_new_tokens
@@ -102,8 +112,9 @@ def decode(model: Qwen25VL, sp: SamplingParams, first_logits: torch.Tensor,
         allowed = prompt_keys | ((j >= s_pad) & (j <= s_pad + t))
         bias = torch.where(allowed[:, None, None], 0.0, NEG_INF)
         hidden = model.model(emb, cos, sin, bias, cache=cache,
-                             cache_position=s_pad + t, attn_impl=attn_impl)
-        logits = lm_head(model, hidden[:, 0]).float()
+                             cache_position=s_pad + t, attn_impl=attn_impl,
+                             act_quant=act_quant)
+        logits = lm_head(model, hidden[:, 0], act_quant).float()
         cur_len = torch.where(done, cur_len, cur_len + 1)
         done = new_done
     gen_len = (toks != sp.pad_token_id).sum(dim=-1)
@@ -117,14 +128,25 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
              vision_embeds: torch.Tensor | None = None,
              vision_token_id: int | None = None, seed: int = 0,
              attn_impl: str = "xla",
-             prefill_chunk: int | None = None) -> GenerationResult:
+             prefill_chunk: int | None = None,
+             act_quant: str | None = None, decode_impl: str = "auto",
+             decode_act_quant: str | None = "auto") -> GenerationResult:
     """Host-orchestrated batched generation on the model's device.
-    attn_impl="flash" runs prefill attention through the flash kernel."""
+    attn_impl="flash" runs prefill attention through the flash kernel;
+    act_quant="int8": W8A8 prefill; decode_act_quant "auto": int8 iff
+    act_quant is int8 and B >= 192."""
+    if decode_impl == "kernel":
+        raise NotImplementedError("decode_impl='kernel' needs the head-major decode "
+                                  "kernel (ops/decode_attention.py), not ported yet")
+    if decode_impl not in ("auto", "xla"):
+        raise ValueError(f"unknown decode_impl {decode_impl!r}")
     cfg = model.cfg
     device = model.device
     input_ids = np.asarray(input_ids)
     lengths = np.asarray(lengths)
     B, S = input_ids.shape
+    if decode_act_quant == "auto":
+        decode_act_quant = "int8" if (act_quant == "int8" and B >= 192) else None
     if position_ids is None:
         mask = (np.arange(S)[None, :] < lengths[:, None]).astype(np.int64)
         position_ids, deltas = get_rope_index(input_ids, cfg, attention_mask=mask)
@@ -161,16 +183,16 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
                 emb_c = vision_embeds[int(emb_off[s]):int(emb_off[e])]
             parts.append(prefill(model, ids_t[s:e], pos_t[:, s:e], len_t[s:e],
                                  cache.batch_slice(s, e), emb_c,
-                                 vision_token_id, attn_impl))
+                                 vision_token_id, attn_impl, act_quant))
         logits = torch.cat(parts, dim=0)
     else:
         logits = prefill(model, ids_t, pos_t, len_t, cache, vision_embeds,
-                         vision_token_id, attn_impl)
+                         vision_token_id, attn_impl, act_quant)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     toks, logps, gen_len = decode(
         model, sp, logits, cache, len_t,
         torch.as_tensor(rope_deltas, dtype=torch.long, device=device),
-        gen, s_pad=S, attn_impl=attn_impl)
+        gen, s_pad=S, attn_impl=attn_impl, act_quant=decode_act_quant)
     return GenerationResult(toks.cpu().numpy(), gen_len.cpu().numpy(),
                             logps.cpu().numpy())

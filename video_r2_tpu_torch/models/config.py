@@ -1,9 +1,10 @@
-"""Model configuration for the Qwen2.5-VL family.
+"""Model configuration for the Qwen2.5-VL family and the Qwen3-MoE judge.
 
 A copy of the fields of ``video_r2_tpu/models/config.py`` that the port
-reads (that module's package ``__init__`` imports jax); the JAX config's
-MoE, qk-norm and training knobs serve models and paths not ported yet.
-tests/test_torch_host.py holds every field here equal to the original.
+reads (that module's package ``__init__`` imports jax), the Qwen3 / MoE
+fields and the judge preset included; the JAX config's training knobs
+serve paths not ported yet. tests/test_torch_host.py holds every field here
+equal to the original.
 """
 
 from __future__ import annotations
@@ -53,9 +54,29 @@ class TextConfig:
     rope_theta: float = 1_000_000.0
     mrope_section: tuple[int, int, int] = (16, 24, 24)
     tie_word_embeddings: bool = False
+    # Qwen3 family: explicit head_dim, per-head q/k RMS norm, no q/k/v bias
+    head_dim_override: int = 0
+    qk_norm: bool = False
+    attention_bias: bool = True
+    # MoE: num_experts > 0 makes every layer's MLP a sparse MoE block
+    # (models/moe.py); the capacity factor and group size serve the grouped
+    # einsum (0.0 = full capacity, no drops)
+    num_experts: int = 0
+    num_experts_per_tok: int = 8
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    moe_capacity_factor: float = 0.0
+    moe_group_size: int = 256
+    # decode steps of at most 32 tokens read only the routed experts
+    # (ops/moe_ragged.py); other steps take the sorted grouped matmul
+    # (ops/moe_gmm.py): both exact, both through the grouped FFN kernel
+    moe_ragged_decode: bool = False
+    moe_gmm_prefill: bool = False
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override:
+            return self.head_dim_override
         return self.hidden_size // self.num_attention_heads
 
 
@@ -72,11 +93,34 @@ class ModelConfig:
     eos_token_id: int = 151645   # <|im_end|>
     pad_token_id: int = 151643
     dtype: str = "bfloat16"
+    # text-only families (the judge role): no vision tower is built
+    has_vision: bool = True
 
 
 def qwen25vl_7b() -> ModelConfig:
     """Qwen/Qwen2.5-VL-7B-Instruct (the Video-R2 base model)."""
     return ModelConfig()
+
+
+def qwen3_moe_30b_a3b() -> ModelConfig:
+    """Qwen3-30B-A3B (MoE), the judge model served on one card: 48 layers,
+    32 / 4 heads of 128, 128 experts of width 768, top 8, qk-norm, no
+    attention bias, text only. Exact MoE (capacity 0) through the ragged
+    decode and GMM prefill paths."""
+    return ModelConfig(
+        text=TextConfig(
+            vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+            num_hidden_layers=48, num_attention_heads=32,
+            num_key_value_heads=4, head_dim_override=128, qk_norm=True,
+            attention_bias=False, num_experts=128, num_experts_per_tok=8,
+            moe_intermediate_size=768, norm_topk_prob=True,
+            moe_capacity_factor=0.0, moe_ragged_decode=True,
+            moe_gmm_prefill=True,
+            mrope_section=(22, 21, 21),  # text only: plain RoPE (equal positions)
+            rope_theta=1_000_000.0,
+        ),
+        eos_token_id=151645, pad_token_id=151643, has_vision=False,
+    )
 
 
 def tiny_test_config(vocab_size: int = 512) -> ModelConfig:

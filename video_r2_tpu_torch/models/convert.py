@@ -8,6 +8,9 @@ stacked leaves, so both packages compute on the same weights in the tests.
 `load_jax_lora` does the same for a JAX adapter tree (``train/lora.py``:
 ``{"a": [L, in, r], "b": [L, r, out]}`` under each adapted kernel) onto the
 adapters attached to the port's modules, so both train the same adapters.
+The MoE leaves ([L, E, ...]) split on L only, and the int8 leaves of a
+quantized tree ({kernel_q, scale}) load into a model quantized alike
+(models/quant.py), int8 copied as int8.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def flatten_jax_tree(tree: dict, prefix: tuple[str, ...] = ()) -> dict[str, np.n
 @torch.no_grad()
 def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
     """Copy a JAX params tree into `module` (names and shapes must match
-    exactly; values cast to each parameter's dtype). Returns `module`."""
+    exactly; float values cast to each parameter's dtype, int8 copied as
+    is). Returns `module`."""
     flat = flatten_jax_tree(tree)
     params = dict(module.named_parameters())
     missing, extra = params.keys() - flat.keys(), flat.keys() - params.keys()
@@ -52,7 +56,12 @@ def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
         p = params[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(arr.astype(np.float32)).to(p.dtype))
+        if arr.dtype == np.int8:
+            if p.dtype != torch.int8:
+                raise TypeError(f"{name}: int8 leaf for a {p.dtype} parameter")
+            p.copy_(torch.tensor(arr))
+        else:
+            p.copy_(torch.from_numpy(arr.astype(np.float32)).to(p.dtype))
     return module
 
 

@@ -1,13 +1,20 @@
-"""Qwen2.5-VL text decoder.
+"""Text decoder of Qwen2.5-VL and of the Qwen3-MoE judge.
 
-Port of the bf16 path of ``video_r2_tpu/models/decoder.py``: a ModuleList of
-DecoderLayers over a seq-major KV cache [L, B, Smax, kh, hd]. Prefill writes
-the prompt's rows [0, S) and attends over the whole cache width (kv_lengths
-mask the rest, as the JAX fill mode does); decode writes each step's row at
-one fixed slot for the whole batch. The cache is updated in place. Without
-a cache the decoder is the training forward (``decoder_forward`` with
-``remat``: each layer is recomputed in the backward). The int8 and
-head-major caches and the int4 views are not ported yet.
+Port of ``video_r2_tpu/models/decoder.py``: a ModuleList of DecoderLayers
+over a seq-major KV cache [L, B, Smax, kh, hd]. Prefill writes the prompt's
+rows [0, S) and attends over the whole cache width (kv_lengths mask the
+rest, as the JAX fill mode does); decode writes each step's row at one
+fixed slot for the whole batch. The cache is updated in place. Without a
+cache the decoder is the training forward (``decoder_forward`` with
+``remat``: each layer is recomputed in the backward).
+
+Qwen3 layers (cfg.qk_norm, cfg.attention_bias False, cfg.head_dim_override)
+RMS-normalise q and k per head before rotary; cfg.num_experts > 0 makes the
+MLP a sparse MoE block (MoEMLP, models/moe.py). act_quant="int8" runs the
+int8 linears W8A8, q/k/v sharing one activation quantization. Each layer's
+attention inputs (`DecoderLayer.qkv`) and what follows its attention
+(`DecoderLayer.finish`) are the helpers the serving engines reuse. The int8
+and head-major contiguous caches and the int4 views are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from .config import TextConfig
-from .layers import MLP, Linear, RMSNorm, apply_rotary
+from .layers import MLP, ExpertLinear, Linear, RMSNorm, apply_rotary, quantize_act
+from .moe import moe_mlp
 
 
 @dataclass
@@ -57,10 +65,52 @@ class DecoderAttention(nn.Module):
         kw = dict(dtype=dtype, device=device)
         H, hd = cfg.hidden_size, cfg.head_dim
         qd, kvd = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
-        self.q = Linear(H, qd, True, **kw)
-        self.k = Linear(H, kvd, True, **kw)
-        self.v = Linear(H, kvd, True, **kw)
+        bias = cfg.attention_bias
+        self.q = Linear(H, qd, bias, **kw)
+        self.k = Linear(H, kvd, bias, **kw)
+        self.v = Linear(H, kvd, bias, **kw)
         self.o = Linear(qd, H, False, **kw)
+        if cfg.qk_norm:   # Qwen3: per-head RMS norm of q and k, before rotary
+            self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, **kw)
+            self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, **kw)
+
+
+class Experts(nn.Module):
+    def __init__(self, cfg: TextConfig, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        E, H, I = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+        self.gate = ExpertLinear(E, H, I, **kw)
+        self.up = ExpertLinear(E, H, I, **kw)
+        self.down = ExpertLinear(E, I, H, **kw)
+
+
+class MoEMLP(nn.Module):
+    """Sparse MoE block: router [H, E] and experts {gate, up} [E, H, I],
+    down [E, I, H], in the JAX package's leaf names. ffn_impl="plain" runs
+    the grouped FFN's plain version on the card (the reference path)."""
+
+    def __init__(self, cfg: TextConfig, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.cfg = cfg
+        self.router = Linear(cfg.hidden_size, cfg.num_experts, False, **kw)
+        self.experts = Experts(cfg, **kw)
+        self.ffn_impl = "kernel"
+
+    def params(self) -> dict:
+        ex = self.experts
+        return {"router": {"kernel": self.router.kernel},
+                "experts": {"gate": ex.gate.leaf(), "up": ex.up.leaf(),
+                            "down": ex.down.leaf()}}
+
+    def forward(self, x: torch.Tensor, act_quant: str | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        return moe_mlp(self.params(), x, cfg.num_experts_per_tok, cfg.norm_topk_prob,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       group_size=cfg.moe_group_size, act_quant=act_quant,
+                       ragged_decode=cfg.moe_ragged_decode,
+                       gmm_prefill=cfg.moe_gmm_prefill, ffn_impl=self.ffn_impl)
 
 
 class DecoderLayer(nn.Module):
@@ -72,30 +122,49 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, **kw)
         self.attn = DecoderAttention(cfg, **kw)
-        self.mlp = MLP(cfg.hidden_size, cfg.intermediate_size, False, **kw)
+        self.mlp = (MoEMLP(cfg, **kw) if cfg.num_experts
+                    else MLP(cfg.hidden_size, cfg.intermediate_size, False, **kw))
+
+    def qkv(self, x, cos, sin, act_quant: str | None = None):
+        """Attention inputs of x [N, S, H]: the input norm, q / k / v (one
+        shared activation quantization under W8A8), the Qwen3 qk-norm and
+        rotary. Returns q [N, S, nh, hd], k, v [N, S, kh, hd]."""
+        N, S, _ = x.shape
+        cfg, attn = self.cfg, self.attn
+        nh, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        h = self.input_layernorm(x)
+        pq = (quantize_act(h) if act_quant == "int8" and attn.q.kernel_q is not None
+              else None)
+        q = attn.q(h, act_quant, pq).reshape(N, S, nh, hd)
+        k = attn.k(h, act_quant, pq).reshape(N, S, kh, hd)
+        v = attn.v(h, act_quant, pq).reshape(N, S, kh, hd)
+        if cfg.qk_norm:
+            q, k = attn.q_norm(q), attn.k_norm(k)
+        q, k = apply_rotary(q, k, cos[:, :, None, :], sin[:, :, None, :])
+        return q, k, v
+
+    def finish(self, x, attn, act_quant: str | None = None):
+        """The rest of the layer after attention [N, S, nh, hd]: output
+        projection and residual, post-attention norm, MLP and residual."""
+        N, S = x.shape[:2]
+        x = x + self.attn.o(attn.reshape(N, S, -1), act_quant)
+        return x + self.mlp(self.post_attention_layernorm(x), act_quant)
 
     def forward(self, x, cos, sin, bias, k_cache=None, v_cache=None,
                 cache_position: int = 0, attn_impl: str = "xla",
-                kv_lengths=None, causal: bool = False):
+                kv_lengths=None, causal: bool = False, act_quant: str | None = None):
         """k_cache / v_cache: this layer's [B, Smax, kh, hd] cache (written in
         place at [cache_position, cache_position + S)), or None to attend
         over the local k / v."""
-        B, S, _ = x.shape
-        cfg = self.cfg
-        nh, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        h = self.input_layernorm(x)
-        q = self.attn.q(h).reshape(B, S, nh, hd)
-        k = self.attn.k(h).reshape(B, S, kh, hd)
-        v = self.attn.v(h).reshape(B, S, kh, hd)
-        q, k = apply_rotary(q, k, cos[:, :, None, :], sin[:, :, None, :])
+        S = x.shape[1]
+        q, k, v = self.qkv(x, cos, sin, act_quant)
         if k_cache is not None:
             k_cache[:, cache_position:cache_position + S] = k
             v_cache[:, cache_position:cache_position + S] = v
             k, v = k_cache, v_cache
         attn = dot_product_attention(q, k, v, bias=bias, kv_lengths=kv_lengths,
                                      causal=causal, impl=attn_impl)
-        x = x + self.attn.o(attn.reshape(B, S, nh * hd))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return self.finish(x, attn, act_quant)
 
 
 class Decoder(nn.Module):
@@ -111,16 +180,17 @@ class Decoder(nn.Module):
     def forward(self, hidden, cos, sin, bias, cache: KVCache | None = None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, act_quant: str | None = None) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
         bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
         [B, S, H]; `cache` (if given) is updated in place. remat: under
         autograd, keep only each layer's input and recompute the layer in
-        the backward (gradient checkpointing)."""
+        the backward (gradient checkpointing). act_quant="int8": W8A8 on
+        int8 weights."""
         for i, layer in enumerate(self.layers):
             kc, vc = (cache.k[i], cache.v[i]) if cache is not None else (None, None)
             args = (hidden, cos, sin, bias, kc, vc, cache_position, attn_impl,
-                    kv_lengths, causal)
+                    kv_lengths, causal, act_quant)
             if remat and torch.is_grad_enabled():
                 hidden = checkpoint(layer, *args, use_reentrant=False)
             else:

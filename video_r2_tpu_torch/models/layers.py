@@ -1,21 +1,61 @@
 """Shared building blocks: linear, RMSNorm, SwiGLU MLP, rotary.
 
-Port of the float path of ``video_r2_tpu/models/layers.py``. Numerics match
-HF Qwen2: RMSNorm in fp32 with cast-back-before-scale, gated SiLU MLP,
-rotate-half rotary applied in fp32. Linear weights keep the JAX layout
-``kernel [in, out]`` so parameters carry across unchanged
-(models/convert.py). LoRA adapters attach in the JAX "attach" form
-(train/lora.py); the int8 / int4 branches are not ported yet.
+Port of ``video_r2_tpu/models/layers.py``. Numerics match HF Qwen2: RMSNorm
+in fp32 with cast-back-before-scale, gated SiLU MLP, rotate-half rotary
+applied in fp32. Linear weights keep the JAX layout ``kernel [in, out]`` so
+parameters carry across unchanged (models/convert.py). LoRA adapters attach
+in the JAX "attach" form (train/lora.py). After models/quant.py a linear
+holds int8 ``kernel_q`` and fp32 per-output-channel ``scale``: weight-only
+it converts the kernel to x's dtype inside the product (the reference's
+default, its Pallas int8 kernels being off); with act_quant="int8" it runs
+W8A8, per-token int8 activations times the int8 kernel in int32. The
+reference leaves that product to XLA; on the card it goes to
+``torch._int_mm`` (a cuBLASLt int8 GEMM, the one library product the port
+calls: it is a plain matrix product outside any kernel of the reference's),
+on the CPU to the plain integer product. The int4 branch waits for the int4
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token int8: [..., K] -> (int8 [M, K], fp32 scale [M, 1])
+    with rows flattened; scale max(|x|, 1e-6) / 127, round half to even.
+    Computed once per shared matmul input (q/k/v share one, gate/up one)."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    a = torch.clamp(x2.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+    return torch.clamp(torch.round(x2 / a), -127, 127).to(torch.int8), a
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] @ int8 [K, N] -> int32, exact. On the card
+    torch._int_mm, which wants more than 16 rows (fewer are padded with
+    zero rows); on the CPU the plain integer product."""
+    if a.device.type == "cpu":
+        return a.int() @ b.int()
+    M = a.shape[0]
+    if M <= 16:
+        a = F.pad(a, (0, 0, 0, 32 - M))
+    return torch._int_mm(a, b.contiguous())[:M]
+
+
+def _w8a8_linear(wq: torch.Tensor, w_scale: torch.Tensor, x: torch.Tensor,
+                 pre_quant=None) -> torch.Tensor:
+    """Per-token int8 activations x int8 weights, int32 sums, times the row
+    and channel scales; pre_quant: (xq, scale) shared across siblings."""
+    lead = x.shape[:-1]
+    xq, a = quantize_act(x) if pre_quant is None else pre_quant
+    y = (int8_matmul(xq, wq).float() * a * w_scale[None, :]).to(x.dtype)
+    return y.reshape(*lead, wq.shape[-1])
 
 
 class Linear(nn.Module):
@@ -30,19 +70,43 @@ class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, bias: bool, *, dtype, device):
         super().__init__()
         self.kernel = _param(d_in, d_out, dtype=dtype, device=device)
+        self.register_parameter("kernel_q", None)   # int8, set by models/quant.py
+        self.register_parameter("scale", None)
         self.bias = _param(d_out, dtype=dtype, device=device) if bias else None
         self.lora_a: nn.Parameter | None = None
         self.lora_b: nn.Parameter | None = None
         self.lora_scale = 1.0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel)
+    def forward(self, x: torch.Tensor, act_quant: str | None = None,
+                pre_quant=None) -> torch.Tensor:
+        if self.kernel is not None:
+            y = torch.matmul(x, self.kernel)
+        elif act_quant == "int8":
+            y = _w8a8_linear(self.kernel_q, self.scale, x, pre_quant)
+        else:
+            y = torch.matmul(x, self.kernel_q.to(x.dtype)) * self.scale.to(x.dtype)
         if self.lora_a is not None:
             b = (self.lora_b * self.lora_scale).to(x.dtype)
             y = y + torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), b)
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+class ExpertLinear(nn.Module):
+    """Stacked expert kernels [E, in, out] (int8 ``kernel_q`` with ``scale``
+    [E, out] after models/quant.py); the MoE ops take `leaf()`."""
+
+    def __init__(self, experts: int, d_in: int, d_out: int, *, dtype, device):
+        super().__init__()
+        self.kernel = _param(experts, d_in, d_out, dtype=dtype, device=device)
+        self.register_parameter("kernel_q", None)
+        self.register_parameter("scale", None)
+
+    def leaf(self) -> dict:
+        if self.kernel is not None:
+            return {"kernel": self.kernel}
+        return {"kernel_q": self.kernel_q, "scale": self.scale}
 
 
 class RMSNorm(nn.Module):
@@ -65,8 +129,12 @@ class MLP(nn.Module):
         self.up = Linear(dim, hidden, bias, **kw)
         self.down = Linear(hidden, dim, bias, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+    def forward(self, x: torch.Tensor, act_quant: str | None = None) -> torch.Tensor:
+        """Under W8A8 gate and up share one activation quantization."""
+        pq = (quantize_act(x) if act_quant == "int8" and self.gate.kernel_q is not None
+              else None)
+        h = F.silu(self.gate(x, act_quant, pq)) * self.up(x, act_quant, pq)
+        return self.down(h, act_quant)
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Random initialisation of the full model on a device.
 
 `init_params` builds the same parameter tree, with the same shapes, as
-``video_r2_tpu/models/loader.py::init_params``: weights normal with scale
-1/sqrt(fan_in) (embedding and LM head 0.02), norms ones, biases zeros. The
-draws come from a ``torch.Generator`` on the target device, so the 7B model
+``video_r2_tpu/models/loader.py::init_params`` (the MoE, qk-norm and
+bias-free judge tree included, no vision tower for text-only configs):
+weights normal with scale 1/sqrt(fan_in) (embedding and LM head 0.02), norms
+ones, biases zeros. The draws come from a ``torch.Generator`` on the target
+device, directly in the model's dtype, so the 30.5 B-parameter judge
 initialises on the card in seconds. (The JAX initialiser divides stacked
-weights by the layer count, their leading axis; here fan_in is the weight's
-input width.) Loading HF checkpoints comes with the loader port.
+weights by their leading axis, the layer count; here fan_in is the weight's
+input width: H for the router and gate / up experts, I for down.) Loading HF
+checkpoints comes with the loader port.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
         elif leaf == "embedding" or name == "lm_head.kernel":
             p.normal_(0.0, 0.02, generator=gen)
         else:
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=gen)
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[-2]), generator=gen)
     return model
 
 

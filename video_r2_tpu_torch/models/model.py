@@ -2,7 +2,8 @@
 
 Port of ``video_r2_tpu/models/model.py`` for video inputs (image inputs come
 with the image path of a later slice). Vision embeddings go into their
-<|video_pad|> slots by a cumsum-gather, as in the JAX package.
+<|video_pad|> slots by a cumsum-gather, as in the JAX package. Text-only
+configs (cfg.has_vision False: the Qwen3-MoE judge) build no vision tower.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from .config import ModelConfig
 from .decoder import Decoder, causal_mask_bias
 from .layers import Linear
 from .mrope import mrope_cos_sin
+from .quant import dequantize_kernel
 from .vision import VisionLayout, VisionTower, vit_forward
 
 
@@ -25,7 +27,7 @@ class Qwen25VL(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
-        self.visual = VisionTower(cfg.vision, **kw)
+        self.visual = VisionTower(cfg.vision, **kw) if cfg.has_vision else None
         self.model = Decoder(cfg.text, **kw)
         if not cfg.text.tie_word_embeddings:
             self.lm_head = Linear(cfg.text.hidden_size, cfg.text.vocab_size,
@@ -83,16 +85,21 @@ def embed_inputs(model: Qwen25VL, input_ids: torch.Tensor,
 
 
 def lm_head_weight(model: Qwen25VL) -> torch.Tensor:
-    """Dense [H, V] head weight for the chunked CE."""
+    """Dense [H, V] head weight (dequantized if the head is int8) for the
+    chunked CE."""
     if model.cfg.text.tie_word_embeddings:
         return model.model.embed_tokens.embedding.T
-    return model.lm_head.kernel
+    head = model.lm_head
+    if head.kernel is not None:
+        return head.kernel
+    return dequantize_kernel({"kernel_q": head.kernel_q, "scale": head.scale})
 
 
-def lm_head(model: Qwen25VL, hidden: torch.Tensor) -> torch.Tensor:
+def lm_head(model: Qwen25VL, hidden: torch.Tensor,
+            act_quant: str | None = None) -> torch.Tensor:
     if model.cfg.text.tie_word_embeddings:
         return hidden @ model.model.embed_tokens.embedding.T
-    return model.lm_head(hidden)
+    return model.lm_head(hidden, act_quant)
 
 
 def forward(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor,

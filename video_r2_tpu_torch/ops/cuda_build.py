@@ -38,6 +38,7 @@ SIGNATURES = {
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
     "vr2_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "vr2_moe_ffn": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 

@@ -1,0 +1,1 @@
+"""rewards of the PyTorch port (see the package docstring)."""
