@@ -49,23 +49,34 @@
    768, E 128, top 8, the weights of one full layer: seeded, scaled like
    init_params) against its plain version: bf16 ragged decode (T = 16, A =
    128 slots of C = 16), bf16 GMM prefill (T = 4096, 128-row blocks, slack
-   blocks present), int8-weight ragged decode and W8A8 GMM prefill, with
-   the bound and the library call (torch._grouped_mm over the routed rows
-   sorted by expert, where the card's torch takes it; bf16 only);
+   blocks present), int8-weight ragged decode and GMM prefill, and W8A8 GMM
+   prefill, with the bound and the library call (torch._grouped_mm over the
+   routed rows sorted by expert, where the card's torch takes it; bf16
+   only); then at the token counts phase 11 gives it: the bf16 burst's
+   prefill (16 prompts padded to one width), the int8 pass's W8A8 prefill
+   and its decode (T = 4: 32 slots of 8 rows), the paged pass's decode
+   (T = 8: 64 slots of 8 rows);
 11. the judge: every 7B tensor of phases 1-9 freed, Qwen3-30B-A3B
    (qwen3_moe_30b_a3b(), 48 layers, all widths) built in bf16 with seeded
    random weights on the card; EngineJudge(ChatEngine(..., attn_impl=
    "flash"), max_tokens=64).chat_many over 16 TAC-style requests (a rubric
    system prompt and a think/answer excerpt, 512-1024 bytes), greedy, with
-   the launch counts set to 0 before and read after; one decode step under
-   the profiler (kernel launches and device time per step); request 0's
-   last-token logits after its prompt and after one decode step, kernel
-   path (flash, grouped FFN kernel) vs plain path (plain attention, the
-   FFN's plain version); then quantize_params in place and a 4-request pass
-   with act_quant="int8" (W8A8 prefill, int8-weight decode) whose prefill
-   logits are held against the bf16 model's; last, 8 requests through
-   PagedContinuousEngine (8 slots, page size 128) on the int8 model,
-   step(steps=8) until drained.
+   the launch counts set to 0 before and read after (the grouped FFN's
+   split into prefill, GMM blocks, and decode, the ragged table, at the
+   first decode step); one decode step under the profiler (kernel launches
+   and device time per step; the idle share under the profiler and against
+   the burst's unprofiled ms per step); request 0's last-token logits after
+   its prompt and after one decode step, kernel path (flash, grouped FFN
+   kernel) vs plain path (plain attention, the FFN's plain version); then
+   quantize_params in place and a 4-request pass with act_quant="int8"
+   (W8A8 prefill, int8-weight decode) whose prefill logits are held against
+   the bf16 model's; last, 8 requests through PagedContinuousEngine (8
+   slots, page size 128) on the int8 model, step(steps=8) until drained.
+   Every timed pass notes the (variant, A, C) of each grouped FFN call it
+   makes; a short replay of it (the same prompts, 2 new tokens) keeps the
+   operands of the first call of each, must give every shape the timed
+   pass gave, and the kernel is held against its plain version on exactly
+   those inputs. The judge's peak memory is read before the replays.
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -161,6 +172,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "video_r2_tpu/ops/moe_ragged.py:43"),
     "moe_ffn_int8_ragged": ("video_r2_tpu_torch/csrc/moe_ffn.cu",
                             "video_r2_tpu/ops/moe_ragged.py:73"),
+    "moe_ffn_int8_gmm": ("video_r2_tpu_torch/csrc/moe_ffn.cu",
+                         "video_r2_tpu/ops/moe_ragged.py:73"),
     "moe_ffn_w8a8_gmm": ("video_r2_tpu_torch/csrc/moe_ffn.cu",
                          "video_r2_tpu/ops/moe_ragged.py:107"),
 }
@@ -214,21 +227,25 @@ def counters() -> dict:
             "paged_decode_attention": paged.paged_decode_attention}
 
 
-def reset_launches() -> None:
+def ffn_launches() -> dict:
+    """The grouped FFN wrapper's launch counts, {variant: n} (one dict,
+    zeroed in place, so a recording stand-in can share it)."""
     from video_r2_tpu_torch.ops import moe_ragged
 
+    return moe_ragged.ragged_expert_ffn.launches
+
+
+def reset_launches() -> None:
     for fn in counters().values():
         fn.launches = 0
-    for key in moe_ragged.LAUNCHES:
-        moe_ragged.LAUNCHES[key] = 0
+    for variant in ffn_launches():
+        ffn_launches()[variant] = 0
 
 
 def read_launches() -> dict:
-    """Every wrapper's count; the grouped FFN's by variant and layout."""
-    from video_r2_tpu_torch.ops import moe_ragged
-
+    """Every wrapper's count; the grouped FFN's per variant, as moe_ffn_<variant>."""
     out = {name: fn.launches for name, fn in counters().items()}
-    out.update({f"moe_ffn_{key}": n for key, n in moe_ragged.LAUNCHES.items()})
+    out.update({f"moe_ffn_{v}": n for v, n in ffn_launches().items()})
     return out
 
 
@@ -1108,8 +1125,10 @@ def grouped_mm_library(x, topi, leaves, E: int):
     return run
 
 
-def moe_case(gen, what, layer, T: int, layout: str, variant: str) -> dict:
-    """The grouped FFN kernel at one judge shape against its plain version."""
+def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
+    """The grouped FFN kernel at one judge shape (T tokens routed top 8, in
+    the ragged decode table or the GMM prefill blocks) against its plain
+    version, with both times, the library call's and the bound."""
     import torch
 
     from video_r2_tpu_torch.models.moe import route
@@ -1138,8 +1157,8 @@ def moe_case(gen, what, layer, T: int, layout: str, variant: str) -> dict:
         kw["x_scales"] = ax
     g, u, d = (leaves[n] for n in ("gate", "up", "down"))
     bi = _block_i(xs, moe_ragged._weights(g, u, d)[1], kw.get("x_scales"), 512)
-    before = moe_ragged.LAUNCHES[f"{variant}_{layout}"]
-    run = lambda: ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid, layout=layout, **kw)  # noqa: E731
+    before = ffn_launches()[variant]
+    run = lambda: ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid, **kw)  # noqa: E731
     plain = lambda: ragged_expert_ffn_plain(xs, ids, g, u, d, bi, valid,  # noqa: E731
                                             kw.get("x_scales"))
     out, ref = run(), plain()
@@ -1153,20 +1172,25 @@ def moe_case(gen, what, layer, T: int, layout: str, variant: str) -> dict:
          "library_ms": cuda_ms(library) if library is not None else None,
          **moe_bound(T * k, n_exp, H, I, variant)}
     name = f"moe_ffn_{variant}_{layout}"
+    what = f"{variant} {'ragged decode' if layout == 'ragged' else 'GMM prefill'}, T={T}"
     report(name, what, (A, C, H, I), experts=n_exp, slack_blocks=slack, bi=bi,
-           launches=moe_ragged.LAUNCHES[f"{variant}_{layout}"] - before,
+           launches=ffn_launches()[variant] - before,
            **{k_: v for k_, v in r.items() if v is not None})
     if not (torch.isfinite(out).all() and excess <= 1.0 and not out[valid == 0].any()):
         raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
-    return {name: r}
+    return r
 
 
 def moe_kernel_phase(device) -> dict:
     """Phase 10: the grouped FFN at the judge's shapes, one full layer's
-    weights (bf16, and their int8 quantization)."""
+    weights (bf16, and their int8 quantization): first the table's shapes
+    (T = 16 decode, T = 4096 prefill; these give the kernels line), then the
+    token counts phase 11's passes give it (the bf16 burst's prefill, the
+    int8 pass's prefill and decode, the paged pass's decode)."""
     import torch
 
+    from video_r2_tpu_torch.engine.chat import ByteTokenizer, pack_prompts
     from video_r2_tpu_torch.models.config import qwen3_moe_30b_a3b
     from video_r2_tpu_torch.models.quant import quantize_kernel
 
@@ -1180,12 +1204,20 @@ def moe_kernel_phase(device) -> dict:
     layer = {"router": randw(H, E), "bf16": bf16,
              "int8": {n: quantize_kernel(leaf["kernel"]) for n, leaf in bf16.items()}}
     results = {}
-    for what, T, layout, variant in (
-            ("bf16 ragged decode, T=16", MOE_DECODE_T, "ragged", "bf16"),
-            ("bf16 GMM prefill, T=4096", MOE_PREFILL_T, "gmm", "bf16"),
-            ("int8-weight ragged decode, T=16", MOE_DECODE_T, "ragged", "int8"),
-            ("W8A8 GMM prefill, T=4096", MOE_PREFILL_T, "gmm", "w8a8")):
-        results.update(moe_case(gen, what, layer, T, layout, variant))
+    for T, layout, variant in ((MOE_DECODE_T, "ragged", "bf16"),
+                               (MOE_PREFILL_T, "gmm", "bf16"),
+                               (MOE_DECODE_T, "ragged", "int8"),
+                               (MOE_PREFILL_T, "gmm", "int8"),
+                               (MOE_PREFILL_T, "gmm", "w8a8")):
+        results[f"moe_ffn_{variant}_{layout}"] = moe_case(gen, layer, T, layout, variant)
+    # phase 11's token counts: a burst's prompts right-padded to one width
+    ids = judge_prompt_ids(ByteTokenizer(), judge_requests())
+    burst = lambda n: n * pack_prompts(ids[:n], pad_id=0).input_ids.shape[1]  # noqa: E731
+    for T, layout, variant in ((burst(JUDGE_REQUESTS), "gmm", "bf16"),
+                               (burst(JUDGE_INT8_REQUESTS), "gmm", "w8a8"),
+                               (JUDGE_INT8_REQUESTS, "ragged", "int8"),
+                               (JUDGE_PAGED_REQUESTS, "ragged", "int8")):
+        moe_case(gen, layer, T, layout, variant)
     return results
 
 
@@ -1255,9 +1287,93 @@ def set_ffn_impl(model, impl: str) -> None:
         layer.mlp.ffn_impl = impl
 
 
-def profile_decode_step(model, batch: int) -> str:
+class FfnRecorder:
+    """Stands in for the grouped FFN wrapper (ops/moe_ragged.py, and its
+    import in ops/moe_gmm.py) while a judge pass runs: every call goes to
+    the wrapper, and the first call of each (variant, A blocks, C rows) is
+    noted. With keep=True it also keeps that call's operands, so `check`
+    can hold the kernel against its plain version on exactly those inputs;
+    a timed pass runs with keep=False (a dict insert per call, no copies, no
+    memory), and a short replay of it (the same prompts, 2 new tokens: its
+    prefill and a decode step) with keep=True. Shares the wrapper's launch
+    counts."""
+
+    def __init__(self, keep: bool):
+        from video_r2_tpu_torch.ops import moe_ragged
+
+        self.real = moe_ragged.ragged_expert_ffn
+        self.launches = self.real.launches
+        self.keep = keep
+        self.calls = {}
+
+    def __call__(self, x, ids, gate, up, down, block_i=512, blk_valid=None, x_scales=None):
+        variant = "w8a8" if x_scales is not None else "int8" if "kernel_q" in gate else "bf16"
+        key = (variant, *x.shape[:2])
+        if key not in self.calls:
+            keep = lambda t: None if t is None else t.clone()  # noqa: E731
+            self.calls[key] = (keep(x), keep(ids), gate, up, down, block_i,
+                               keep(blk_valid), keep(x_scales)) if self.keep else None
+        return self.real(x, ids, gate, up, down, block_i=block_i, blk_valid=blk_valid,
+                         x_scales=x_scales)
+
+    def _patch(self, fn) -> None:
+        from video_r2_tpu_torch.ops import moe_gmm, moe_ragged
+
+        moe_ragged.ragged_expert_ffn = moe_gmm.ragged_expert_ffn = fn
+
+    def __enter__(self):
+        self._patch(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._patch(self.real)
+
+    def check(self, what: str, timed: FfnRecorder) -> None:
+        """Each kept call through the kernel against the plain version;
+        raises on a disagreement, or where the timed pass gave the kernel a
+        shape this replay did not. Drops the kept operands."""
+        import torch
+
+        if not set(timed.calls) <= set(self.calls):
+            raise AssertionError(f"{what}: the replay gave the grouped FFN "
+                                 f"{sorted(self.calls)}, the timed pass {sorted(timed.calls)}")
+        from video_r2_tpu_torch.ops.moe_ragged import (
+            _block_i,
+            _weights,
+            ragged_expert_ffn_plain,
+        )
+
+        for (variant, A, C), (x, ids, g, u, d, block_i, valid, xs) in sorted(
+                self.calls.items()):
+            out = self.real(x, ids, g, u, d, block_i=block_i, blk_valid=valid, x_scales=xs)
+            bi = _block_i(x, _weights(g, u, d)[1], xs, block_i)
+            ref = ragged_expert_ffn_plain(x, ids, g, u, d, bi, valid, xs)
+            err, excess = compare(out, ref)
+            slack = valid == 0 if valid is not None else torch.zeros(A, dtype=torch.bool,
+                                                                     device=x.device)
+            print(f"{what}: grouped FFN call {variant} [A={A}, C={C}] (its first layer's "
+                  f"operands) vs plain: max_abs_err={err:.4e} ({excess:.3f} x the tolerance), "
+                  f"slack blocks {int(slack.sum())}", flush=True)
+            if not (torch.isfinite(out).all() and excess <= 1.0 and not out[slack].any()):
+                raise AssertionError(f"{what}: grouped FFN {variant} [A={A}, C={C}] disagrees "
+                                     f"with its plain version: {excess} x the tolerance")
+        self.calls.clear()
+
+
+def split_launches(launches: dict, at_decode: dict, variant: str) -> tuple[int, int]:
+    """(prefill, decode) launches of one FFN variant in a pass (launches as
+    read_launches gives them), from its count when the first decode step
+    began: the prefill runs the GMM blocks, the decode steps the ragged
+    table."""
+    total = launches[f"moe_ffn_{variant}"]
+    pre = at_decode.get(variant, total)
+    return pre, total - pre
+
+
+def profile_decode_step(model, batch: int):
     """One decode step of `batch` tokens over a cache of 1088 keys under
-    torch.profiler: (kernel launches, device busy ms, wall ms)."""
+    torch.profiler: (kernel launches, device busy ms, wall ms), or None
+    where the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1289,11 +1405,7 @@ def profile_decode_step(model, batch: int) -> str:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3 if kernels else 0.0
     del cache
-    if not kernels:
-        return f"decode step B={batch}: the profiler saw no device time (not measured)"
-    return (f"decode step B={batch} under the profiler: {len(kernels)} kernel launches, "
-            f"{busy:.3f} ms device busy of {wall * 1e3:.3f} ms wall "
-            f"({100 * (1 - busy / (wall * 1e3)):.1f}% idle)")
+    return (len(kernels), busy, wall * 1e3) if kernels else None
 
 
 def judge_phase(card: str, device) -> dict:
@@ -1330,9 +1442,12 @@ def judge_phase(card: str, device) -> dict:
     # the main path: one burst through EngineJudge -> ChatEngine.chat_batch
     judge = EngineJudge(ChatEngine(model, cfg, tok, attn_impl="flash"),
                         max_tokens=JUDGE_NEW_TOKENS)
-    marks = []
+    marks, at_decode = [], {}
 
     def on_forward(module, args):
+        # generate's first forward is the prefill, the rest are decode steps
+        if len(marks) == 1:
+            at_decode.update(ffn_launches())
         if len(marks) < 2:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
@@ -1340,17 +1455,21 @@ def judge_phase(card: str, device) -> dict:
             marks.append(None)
 
     hook = model.model.register_forward_pre_hook(on_forward)
-    judge.chat_many(requests[:2])              # warm-up (not counted)
-    marks.clear()
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    answers = judge.chat_many(requests)
-    wall = time.perf_counter() - t0
-    launches = read_launches()
+    with FfnRecorder(keep=False) as timed:
+        judge.chat_many(requests[:2])          # warm-up (not counted)
+        marks.clear()
+        at_decode.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = judge.chat_many(requests)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
     hook.remove()
     steps = len(marks) - 1
     prefill_s, decode_s = marks[1] - marks[0], t0 + wall - marks[1]
+    launches["moe_ffn_bf16_gmm"], launches["moe_ffn_bf16_ragged"] = split_launches(
+        launches, at_decode, "bf16")
     per_step = {n: launches[n] / steps for n in ("moe_ffn_bf16_ragged",)}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"judge (bf16): {len(answers)} requests, {steps} decode forwards, prefill "
@@ -1366,7 +1485,24 @@ def judge_phase(card: str, device) -> dict:
     for name in ("moe_ffn_bf16_ragged", "moe_ffn_bf16_gmm", "flash_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"the judge run launched no {name} kernel: {launches}")
-    print(profile_decode_step(model, len(requests)), flush=True)
+    short = EngineJudge(ChatEngine(model, cfg, tok, attn_impl="flash"), max_tokens=2)
+    with FfnRecorder(keep=True) as replay:
+        short.chat_many(requests[:2])
+        short.chat_many(requests)
+    replay.check("judge bf16 burst and its warm-up", timed)
+    torch.cuda.reset_peak_memory_stats()       # the check's own tensors are not the judge's
+    prof = profile_decode_step(model, len(requests))
+    if prof is None:
+        print(f"decode step B={len(requests)}: the profiler saw no device time "
+              f"(idle share not measured)", flush=True)
+    else:
+        n_k, busy, wall_p = prof
+        step_ms = decode_s * 1e3 / steps
+        print(f"decode step B={len(requests)} under the profiler: {n_k} kernel launches, "
+              f"{busy:.3f} ms device busy of {wall_p:.3f} ms wall "
+              f"({100 * (1 - busy / wall_p):.1f}% idle under the profiler); against the "
+              f"unprofiled {step_ms:.2f} ms per step of the burst "
+              f"{100 * max(0.0, 1 - busy / step_ms):.1f}% idle", flush=True)
 
     # request 0: kernel path vs plain path, after the prompt and one step
     ref_tok = None
@@ -1401,12 +1537,21 @@ def judge_phase(card: str, device) -> dict:
     rel8 = rel_l2(got8, ref8)
     judge8 = EngineJudge(ChatEngine(model, cfg, tok, attn_impl="flash", act_quant="int8"),
                          max_tokens=JUDGE_NEW_TOKENS)
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    answers8 = judge8.chat_many(requests[:JUDGE_INT8_REQUESTS])
-    wall8 = time.perf_counter() - t0
-    launches8 = read_launches()
+    marks.clear()
+    at_decode.clear()
+    hook = model.model.register_forward_pre_hook(on_forward)
+    with FfnRecorder(keep=False) as timed8:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers8 = judge8.chat_many(requests[:JUDGE_INT8_REQUESTS])
+        wall8 = time.perf_counter() - t0
+        launches8 = read_launches()
+    hook.remove()
+    # W8A8 in the prefill, int8 weights with bf16 activations in decode
+    launches8["moe_ffn_w8a8_gmm"] = split_launches(launches8, at_decode, "w8a8")[0]
+    launches8["moe_ffn_int8_gmm"], launches8["moe_ffn_int8_ragged"] = split_launches(
+        launches8, at_decode, "int8")
     agree = float((got8.argmax(-1) == ref8.argmax(-1)).float().mean())
     print(f"judge int8 (W8A8 prefill, int8-weight decode): {len(answers8)} requests in "
           f"{wall8:.3f} s; prefill logits vs the bf16 model rel_l2={rel8:.3e} (tol "
@@ -1417,23 +1562,39 @@ def judge_phase(card: str, device) -> dict:
     for name in ("moe_ffn_w8a8_gmm", "moe_ffn_int8_ragged"):
         if launches8[name] <= 0:
             raise AssertionError(f"the int8 pass launched no {name} kernel: {launches8}")
+    if launches8["moe_ffn_int8_gmm"] or launches8["moe_ffn_w8a8"] != launches8["moe_ffn_w8a8_gmm"]:
+        raise AssertionError(f"the int8 pass ran W8A8 in decode or int8 weights with bf16 "
+                             f"activations in prefill: {launches8}")
 
     # the paged engine on the same (int8) model
     sp = SamplingParams(eos_token_ids=(cfg.eos_token_id,), pad_token_id=cfg.pad_token_id)
-    eng = PagedContinuousEngine(model, num_slots=JUDGE_PAGED_REQUESTS, max_len=2048, sp=sp,
-                                attn_impl="flash", page_size=PAGE_SIZE)
-    avail0 = eng.pcache.available_pages()
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids = eng.submit_batch([(x, JUDGE_NEW_TOKENS) for x in ids[:JUDGE_PAGED_REQUESTS]])
-    out, windows = {}, 0
-    while eng.num_active:
-        for rid, toks in eng.step(DECODE_STEPS):
-            out[rid] = toks
-        windows += 1
-    wallp = time.perf_counter() - t0
-    launchesp = read_launches()
+
+    def paged_pass(budget: int):
+        """8 requests through a new paged engine until drained: (engine, its
+        free pages before, rids, FFN launches after the prefill, tokens by
+        rid, windows)."""
+        eng = PagedContinuousEngine(model, num_slots=JUDGE_PAGED_REQUESTS, max_len=2048,
+                                    sp=sp, attn_impl="flash", page_size=PAGE_SIZE)
+        avail0 = eng.pcache.available_pages()
+        rids = eng.submit_batch([(x, budget) for x in ids[:JUDGE_PAGED_REQUESTS]])
+        prefill = dict(ffn_launches())          # submit_batch prefills: the GMM blocks
+        out, windows = {}, 0
+        while eng.num_active:
+            for rid, toks in eng.step(DECODE_STEPS):
+                out[rid] = toks
+            windows += 1
+        return eng, avail0, rids, prefill, out, windows
+
+    with FfnRecorder(keep=False) as timedp:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, avail0, rids, prefill_p, out, windows = paged_pass(JUDGE_NEW_TOKENS)
+        wallp = time.perf_counter() - t0
+        launchesp = read_launches()
+    peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    launchesp["moe_ffn_int8_gmm"], launchesp["moe_ffn_int8_ragged"] = split_launches(
+        launchesp, prefill_p, "int8")
     n_tok = sum(len(t) for t in out.values())
     print(f"judge paged engine (int8 weights, bf16 pages): {len(out)} requests, {n_tok} "
           f"tokens in {wallp:.3f} s ({n_tok / wallp:.2f} tok/s, {windows} windows of "
@@ -1445,11 +1606,20 @@ def judge_phase(card: str, device) -> dict:
     for name in ("paged_decode_attention_stacked", "moe_ffn_int8_ragged", "moe_ffn_int8_gmm"):
         if launchesp[name] <= 0:
             raise AssertionError(f"the paged judge pass launched no {name}: {launchesp}")
-    print(f"peak device memory (judge): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    del eng
+    short8 = EngineJudge(ChatEngine(model, cfg, tok, attn_impl="flash", act_quant="int8"),
+                         max_tokens=2)
+    with FfnRecorder(keep=True) as replay:
+        short8.chat_many(requests[:JUDGE_INT8_REQUESTS])
+    replay.check("judge int8 pass", timed8)
+    with FfnRecorder(keep=True) as replay:
+        paged_pass(2)
+    replay.check("judge paged pass", timedp)
+    print(f"peak device memory (judge passes): {peak:.2f} GiB", flush=True)
     return {"moe_ffn_bf16_ragged": launches["moe_ffn_bf16_ragged"],
             "moe_ffn_bf16_gmm": launches["moe_ffn_bf16_gmm"],
             "moe_ffn_int8_ragged": launches8["moe_ffn_int8_ragged"],
+            "moe_ffn_int8_gmm": launchesp["moe_ffn_int8_gmm"],
             "moe_ffn_w8a8_gmm": launches8["moe_ffn_w8a8_gmm"]}
 
 

@@ -328,12 +328,11 @@ def test_moe_ffn_kernel_matches_plain(cuda, variant, C):
     if variant == "w8a8":
         x, ax = moe_ragged.quantize_rows(x)
         kw["x_scales"] = ax
-    before = dict(moe_ragged.LAUNCHES)
+    before = dict(moe_ragged.ragged_expert_ffn.launches)
     out = moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"],
                                        blk_valid=valid, **kw)
     torch.cuda.synchronize()
-    key = f"{variant}_ragged"
-    assert moe_ragged.LAUNCHES[key] == before[key] + 1
+    assert moe_ragged.ragged_expert_ffn.launches == {**before, variant: before[variant] + 1}
     bi = moe_ragged._block_i(x, moe_ragged._weights(w["gate"], w["up"], w["down"])[1],
                              kw.get("x_scales"), 512)
     ref = moe_ragged.ragged_expert_ffn_plain(x, ids, w["gate"], w["up"], w["down"], bi,

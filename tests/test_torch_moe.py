@@ -170,6 +170,7 @@ def test_ragged_expert_ffn_matches_jax(rng, variant):
         np.testing.assert_array_equal(oa.numpy(), np.asarray(ax))
         x = np.array(xq)
         kw, jkw = dict(x_scales=oa), dict(x_scales=ax)
+    before = dict(moe_ragged.ragged_expert_ffn.launches)
     ours = moe_ragged.ragged_expert_ffn(
         T(x), T(ids), *(_to(p[n], T) for n in ("gate", "up", "down")), block_i=16,
         blk_valid=T(valid), **kw)
@@ -180,6 +181,7 @@ def test_ragged_expert_ffn_matches_jax(rng, variant):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
                                **(W8A8_TOL if variant == "w8a8" else TOL))
     assert not ours[4:].any()                        # slack blocks: zeros
+    assert moe_ragged.ragged_expert_ffn.launches == before   # CPU: plain version
     assert moe_ragged._fit_block_i(512, 16, 2048, 768, 2, 2, 2) == 384   # the judge's bi
 
 

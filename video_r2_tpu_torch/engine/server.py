@@ -6,8 +6,9 @@ renders chats, tokenizes them and runs one batched `generate` per call
 `make_handler` / `serve` put it behind a stdlib HTTP server with
 /v1/chat/completions (stop strings, n, stream) and /metrics. Not ported
 yet, and raising NotImplementedError when asked for: the continuous
-serving loop (continuous=True needs run_loop), speculative decoding, meshes,
-the int8 contiguous KV cache and the Qwen3-Next family.
+serving loop (continuous=True needs run_loop; the continuous engine's
+options, num_slots to prefix_cache, come with it), speculative decoding,
+meshes, the int8 contiguous KV cache and the Qwen3-Next family.
 """
 
 from __future__ import annotations
@@ -51,11 +52,7 @@ class ChatEngine:
     def __init__(self, model, cfg, tokenizer, model_name: str = "video-r2-tpu",
                  max_new_tokens: int = 1024, attn_impl: str = "xla",
                  act_quant: str | None = None, continuous: bool = False,
-                 num_slots: int = 8, max_len: int = 4096, mesh=None,
-                 engine_kind: str = "slots", page_size: int = 128,
-                 kv_quant: str | None = None, spec_decode: int = 0,
-                 decode_window: int = 1, prefill_chunk_tokens: int = 0,
-                 prefix_cache: bool = True):
+                 mesh=None, kv_quant: str | None = None, spec_decode: int = 0):
         if not isinstance(cfg, ModelConfig):
             raise NotImplementedError(f"{type(cfg).__name__} (the Qwen3-Next family) is "
                                       f"not ported to the PyTorch package yet")
@@ -66,8 +63,6 @@ class ChatEngine:
             if asked:
                 raise NotImplementedError(f"{name} is not ported to the PyTorch "
                                           f"ChatEngine yet")
-        if engine_kind != "slots":
-            raise ValueError(f"engine_kind={engine_kind!r} requires continuous=True")
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer

@@ -105,10 +105,9 @@ def _gmm_apply(xt, topv, topi, E: int, gate, up, down, block_rows: int,
     ffn = ragged_expert_ffn if ffn_impl == "kernel" else _plain_ffn
     if act_quant == "int8" and "kernel_q" in gate:
         xq, ax = quantize_rows(xs)
-        y = ffn(xq, blk_expert, gate, up, down, blk_valid=blk_valid, x_scales=ax,
-                layout="gmm")
+        y = ffn(xq, blk_expert, gate, up, down, blk_valid=blk_valid, x_scales=ax)
     else:
-        y = ffn(xs, blk_expert, gate, up, down, blk_valid=blk_valid, layout="gmm")
+        y = ffn(xs, blk_expert, gate, up, down, blk_valid=blk_valid)
     w = topv.reshape(-1).to(y.dtype)
     # slot j belongs to token j // k: the combine is a sum over k, no atomics
     out = (y.reshape(-1, H)[dst] * w[:, None]).reshape(T, k, H).sum(dim=1)

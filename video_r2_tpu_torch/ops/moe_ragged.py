@@ -32,9 +32,6 @@ import torch.nn.functional as F
 from .cuda_build import check, kernels
 
 KERNEL_TILE = 64          # H, I (and the W8A8 bi) must be multiples of this
-# wrapper launches per (variant, layout) on CUDA; the layout is the caller's
-# ("ragged" decode table or "gmm" prefill blocks)
-LAUNCHES = {f"{v}_{l}": 0 for v in ("bf16", "int8", "w8a8") for l in ("ragged", "gmm")}
 
 
 def _fit_block_i(cap: int, C: int, H: int, I: int, xbytes: int,
@@ -79,13 +76,11 @@ def _weights(gate: dict, up: dict, down: dict):
 def ragged_expert_ffn(x_slots: torch.Tensor, active_ids: torch.Tensor, gate: dict,
                       up: dict, down: dict, block_i: int = 512,
                       blk_valid: torch.Tensor | None = None,
-                      x_scales: torch.Tensor | None = None,
-                      layout: str = "ragged") -> torch.Tensor:
+                      x_scales: torch.Tensor | None = None) -> torch.Tensor:
     """Fused SwiGLU over row blocks. x_slots [A, C, H] (int8 with x_scales
     [A, C] for W8A8, which needs int8 weight leaves), active_ids [A] expert
     per block, leaves {"kernel" [E, K, N]} or {"kernel_q" int8, "scale"
-    [E, N]}. Returns [A, C, H] in x's dtype (fp32 for W8A8). layout names
-    the caller for the launch count only."""
+    [E, N]}. Returns [A, C, H] in x's dtype (fp32 for W8A8)."""
     A = x_slots.shape[0]
     quant, wg, *_ = _weights(gate, up, down)
     if x_scales is not None and not quant:
@@ -97,9 +92,13 @@ def ragged_expert_ffn(x_slots: torch.Tensor, active_ids: torch.Tensor, gate: dic
         return ragged_expert_ffn_plain(x_slots, active_ids, gate, up, down, bi,
                                        blk_valid, x_scales)
     out = _moe_ffn_cuda(x_slots, active_ids, gate, up, down, bi, blk_valid, x_scales)
-    variant = "w8a8" if x_scales is not None else "int8" if quant else "bf16"
-    LAUNCHES[f"{variant}_{layout}"] += 1
+    ragged_expert_ffn.launches["w8a8" if x_scales is not None else
+                               "int8" if quant else "bf16"] += 1
     return out
+
+
+# kernel launches per variant: float, int8 weights, W8A8
+ragged_expert_ffn.launches = {"bf16": 0, "int8": 0, "w8a8": 0}
 
 
 def ragged_expert_ffn_plain(x_slots, active_ids, gate: dict, up: dict, down: dict,
@@ -290,7 +289,7 @@ def _ragged_apply(xt, topv, topi, E: int, gate: dict, up: dict, down: dict,
 
 
 def _plain_ffn(x_slots, ids, gate, up, down, block_i: int = 512, blk_valid=None,
-               x_scales=None, layout: str = "ragged"):
+               x_scales=None):
     """ragged_expert_ffn's plain version on any device, with the same tile
     (the plain path chip_smoke.py holds the kernel path against)."""
     bi = _block_i(x_slots, _weights(gate, up, down)[1], x_scales, block_i)
