@@ -77,6 +77,32 @@
    operands of the first call of each, must give every shape the timed
    pass gave, and the kernel is held against its plain version on exactly
    those inputs. The judge's peak memory is read before the replays.
+12. int4 kernels (after phase 9, on the 7B model before it is freed for the
+   judge): the int4 matmul at every (rows, K, N) phase 13 gives it (decode
+   B = 4: q / o, k / v, gate / up, down, the head; the merger's 784 rows a
+   video: fc1 and fc2; B = 1: the head and gate / up), seeded weights
+   quantized with quantize_kernel_int4 and copies enough to exceed the L2
+   cache, so each timed launch reads cold weights as a decode step does,
+   with the library call (torch._weight_int4pack_mm over its own packing,
+   made once, untimed; "none" and the reason where the card's torch does
+   not take it); the head-major decode kernel at phase 13's batch (B = 4,
+   28 / 4 heads of 128, its ragged prompt lengths and padded width, a
+   28-layer cache) at decode step 0, at step 63 and with the window off, on
+   layers other than 0, each timed launch on the next layer, with the
+   library call (F.scaled_dot_product_attention over that layer's K / V,
+   GQA expanded beforehand, with the boolean mask);
+13. int4 serving: request 0..3's bf16 prefill logits first, then
+   quantize_params(model, bits=4) in place (the int4 / int8 / float byte
+   split and the peak memory); 4 video questions (8 frames of 392x392 each,
+   questions of different lengths) prepared one at a time through
+   DemoRunner.prepare / vision_embeds and right-padded into one
+   generate(..., attn_impl="flash", decode_impl="kernel") call of 64 greedy
+   tokens, eos off, with the launch counts set to 0 before and read after;
+   prefill ms, ms per decode step, tok/s; request 0's logits after prefill
+   and after one decode step, kernel path vs plain path (the int4 and
+   decode kernels' plain versions, plain prefill and ViT attention); the
+   batch's logits after one decode step under decode_impl="kernel" vs
+   "xla"; int4 vs bf16 prefill logits (no bound: the weights are random).
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -147,6 +173,14 @@ TRAIN_QA = (
      "right, a car crosses behind it, and a bird flies the same way near the "
      "top. Nothing else moves.</think><answer>3</answer>"),
 )
+# int4 serving (phases 12 and 13)
+INT4_REQUESTS, INT4_NEW_TOKENS = 4, 64
+INT4_QUESTIONS = ("What is happening in this video?",
+                  "How many objects move from left to right, and which way does each go?",
+                  "Why?",
+                  "Describe what changes between the first and the last frame of the "
+                  "clip, and when each change happens.")
+COLD_BYTES = 128 * 2 ** 20        # weight copies past the 50 MB L2 cache
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("video_r2_tpu_torch/csrc/flash_attn.cu",
                         "video_r2_tpu/ops/flash.py:80"),
@@ -176,6 +210,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "video_r2_tpu/ops/moe_ragged.py:73"),
     "moe_ffn_w8a8_gmm": ("video_r2_tpu_torch/csrc/moe_ffn.cu",
                          "video_r2_tpu/ops/moe_ragged.py:107"),
+    "int4_matmul": ("video_r2_tpu_torch/csrc/int4_matmul.cu",
+                    "video_r2_tpu/ops/int4_matmul.py:65"),
+    "decode_attention": ("video_r2_tpu_torch/csrc/decode_attn.cu",
+                         "video_r2_tpu/ops/decode_attention.py:42"),
 }
 # the judge (phases 10 and 11)
 PEAK_INT8 = 1979e12               # int8 tensor-core TOP/s (H100 SXM data sheet)
@@ -212,7 +250,8 @@ def card_line() -> str:
 
 def counters() -> dict:
     """{kernel name: the wrapper whose .launches counts it}."""
-    from video_r2_tpu_torch.ops import flash, paged_attention as paged
+    from video_r2_tpu_torch.ops import decode_attention, flash, int4_matmul
+    from video_r2_tpu_torch.ops import paged_attention as paged
     from video_r2_tpu_torch.ops import vit_window_attention as win
 
     return {"flash_attention": flash.flash_attention,
@@ -224,7 +263,9 @@ def counters() -> dict:
             "paged_decode_attention_stacked": paged.paged_decode_attention_stacked,
             "paged_decode_attention_stacked_quant":
                 paged.paged_decode_attention_stacked_quant,
-            "paged_decode_attention": paged.paged_decode_attention}
+            "paged_decode_attention": paged.paged_decode_attention,
+            "int4_matmul": int4_matmul.int4_matmul,
+            "decode_attention": decode_attention.decode_attention_stacked}
 
 
 def ffn_launches() -> dict:
@@ -480,7 +521,8 @@ def register_report(log: Path) -> list[str]:
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
-                      r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel)I((?:L[ib]\d+E)+)E", line)
+                      r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|int4_matmul_kernel|"
+                      r"decode_attn_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name, spill = f"{m.group(1)}<{args}>", ""
@@ -794,10 +836,8 @@ def teacher_forced_logits(model, runner, req, tokens):
     forwards over the cache) fed the given tokens: the logits after them."""
     import torch
 
-    from video_r2_tpu_torch.engine.generate import NEG_INF, prefill
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, prefill
     from video_r2_tpu_torch.models.decoder import KVCache
-    from video_r2_tpu_torch.models.model import lm_head
-    from video_r2_tpu_torch.models.mrope import mrope_cos_sin
 
     cfg, dev = model.cfg, model.device
     S = req.input_ids.shape[1]
@@ -809,16 +849,12 @@ def teacher_forced_logits(model, runner, req, tokens):
         prefill(model, torch.as_tensor(req.input_ids, device=dev).long(),
                 torch.as_tensor(req.position_ids, device=dev).long(), lens, cache,
                 runner.vision_embeds(req, "xla"), cfg.video_token_id, attn_impl="xla")
-        delta = int(req.rope_deltas[0]) + S - length
-        j = torch.arange(cache.k.shape[2], device=dev)
+        pos0 = int(req.rope_deltas[0]) + S          # rope position of decode step 0
         for t, tok in enumerate(tokens):
-            emb = model.model.embed_tokens(torch.tensor([tok], device=dev))[:, None]
-            pos3 = torch.full((3, 1, 1), length + t + delta, device=dev)
-            cos, sin = mrope_cos_sin(pos3, cfg, dtype=emb.dtype)
-            allowed = (j < length) | ((j >= S) & (j <= S + t))
-            bias = torch.where(allowed[None, None, None], 0.0, NEG_INF)
-            hidden = model.model(emb, cos, sin, bias, cache=cache, cache_position=S + t)
-        return lm_head(model, hidden[:, 0]).float()[0]
+            logits = decode_step_logits(model, torch.tensor([tok], device=dev),
+                                        torch.tensor([pos0 + t], device=dev), cache, lens,
+                                        S, t)
+        return logits[0]
 
 
 def serving_phase(model, runner, requests, card) -> dict:
@@ -920,6 +956,394 @@ def serving_phase(model, runner, requests, card) -> dict:
     if eng8.pcache.available_pages() != avail8:
         raise AssertionError("int8 pass: pages not returned")
     return {"bf16": launches, "int8": launches8}
+
+
+def int4_batch(runner, cfg):
+    """Phase 13's requests: 4 videos (the phase-4 frames, the fourth from
+    the next seed) with questions of different lengths, each prepared alone
+    through DemoRunner.prepare, then right-padded into one batch with rope
+    positions over the batch, as the eval backend builds a batch. Returns
+    (requests, packed prompts, position_ids [3, B, S], rope_deltas [B])."""
+    import numpy as np
+
+    from video_r2_tpu_torch.engine.chat import pack_prompts
+    from video_r2_tpu_torch.models.mrope import get_rope_index
+    from video_r2_tpu_torch.video.api import video_features
+
+    feats = [video_features(np.random.default_rng(SEED + i).integers(
+        0, 256, (N_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
+        FRAME_HW, FRAME_HW, sample_fps=2.0) for i in range(INT4_REQUESTS)]
+    reqs = [runner.prepare(f, q) for f, q in zip(feats, INT4_QUESTIONS)]
+    packed = pack_prompts([[int(t) for t in r.input_ids[0, :int(r.lengths[0])]]
+                           for r in reqs], cfg.pad_token_id)
+    S = packed.input_ids.shape[1]
+    mask = (np.arange(S)[None] < packed.lengths[:, None]).astype(np.int64)
+    pos, deltas = get_rope_index(
+        packed.input_ids, cfg, video_grid_thw=np.array([f.grid_thw for f in feats]),
+        second_per_grid_ts=np.array([f.second_per_grid_t for f in feats]),
+        attention_mask=mask)
+    return reqs, packed, pos, deltas[:, 0]
+
+
+def int4_library(x, K: int, N: int, copies: int):
+    """The library yardstick of the int4 matmul: torch._weight_int4pack_mm
+    (tinygemm) over its own packing of a random int4 [K, N] weight with bf16
+    scales and zeros (group 128), made once and outside the timing, rotating
+    over `copies` copies like the kernel. Returns (callable or None, why
+    not)."""
+    import torch
+
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "this torch has no _weight_int4pack_mm"
+    dev = x.device
+    try:           # a capability probe of the yardstick, not of the port
+        w = torch.randint(0, 16, (N, K), dtype=torch.int32, device=dev)
+        packed = torch._convert_weight_to_int4pack((w[:, ::2] << 4 | w[:, 1::2]).to(torch.uint8),
+                                                   8)
+        del w
+        sz = torch.zeros((K // 128, N, 2), dtype=torch.bfloat16, device=dev)
+        sz[..., 0] = 0.01
+        torch._weight_int4pack_mm(x, packed, 128, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:160]
+    packs = [packed] + [packed.clone() for _ in range(copies - 1)]
+    i = [0]
+
+    def run():
+        i[0] = (i[0] + 1) % copies
+        return torch._weight_int4pack_mm(x, packs[i[0]], 128, sz)
+    return run, ""
+
+
+def int4_case(gen, what: str, M: int, K: int, N: int) -> dict:
+    """The int4 kernel at one shape against its plain version: seeded
+    weights with unit-scale products, quantized by quantize_kernel_int4;
+    copies of them rotate so that each timed launch reads cold weights."""
+    import math
+
+    import torch
+
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    dev = gen.device
+    leaf = quantize_kernel_int4(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5)
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    wq, sc = leaf["kernel_q4"], leaf["scale4"]
+    w_bytes = wq.numel() + 4.0 * sc.numel()
+    copies = max(1, math.ceil(COLD_BYTES / w_bytes))
+    wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
+    scs = [sc] + [sc.clone() for _ in range(copies - 1)]
+    i = [0]
+
+    def rot(fn):
+        def go():
+            i[0] = (i[0] + 1) % copies
+            return fn(x, wqs[i[0]], scs[i[0]])
+        return go
+
+    out, ref = int4_matmul(x, wq, sc), int4_matmul_plain(x, wq, sc)
+    err, excess = compare(out, ref)
+    library, why = int4_library(x, K, N, copies)
+    r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(rot(int4_matmul)),
+         "plain_ms": cuda_ms(rot(int4_matmul_plain), iters=5, warmup=1),
+         "library_ms": cuda_ms(library) if library is not None else None,
+         **bound(2.0 * M * K * N, 2.0 * M * K + w_bytes + 2.0 * M * N)}
+    report("int4_matmul", what, (M, K, N), copies=copies,
+           **{k: v for k, v in r.items() if v is not None},
+           **({} if library is not None else {"library": f"none ({why})"}))
+    if not (torch.isfinite(out).all() and excess <= 1.0):
+        raise AssertionError(f"int4_matmul [{what}] disagrees with its plain version: "
+                             f"{excess} x the tolerance")
+    return r
+
+
+def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int) -> dict:
+    """The head-major decode kernel at one (step, layer) against its plain
+    version; timed launches read the next layer each, so the cache comes
+    from device memory. The library call: SDPA over that layer's K / V (GQA
+    expanded to the query heads beforehand) with the boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_r2_tpu_torch.ops.decode_attention import (
+        decode_attention_stacked,
+        decode_attention_stacked_plain,
+    )
+
+    n_layers, B, kh, smax, hd = k.shape
+    nh = q.shape[1]
+    kernel = lambda l: decode_attention_stacked(q, k, v, lens, slot_end, l, s_pad)  # noqa: E731
+    plain = lambda l: decode_attention_stacked_plain(  # noqa: E731
+        q, k, v, lens, slot_end, l, s_pad)
+    out, ref = kernel(layer), plain(layer)
+    err, excess = compare(out, ref)
+    at = [layer]
+
+    def call(fn):
+        def go():
+            at[0] = (at[0] + 1) % n_layers
+            return fn(at[0])
+        return go
+
+    kpos = torch.arange(smax, device=q.device)
+    valid = (kpos[None] < lens[:, None]) | ((kpos >= s_pad) & (kpos <= slot_end))[None]
+    ke, ve = (x.repeat_interleave(nh // kh, dim=2) for x in (k, v))
+    qd, mask = q[:, :, None], valid[:, None, None]
+    library = lambda l: F.scaled_dot_product_attention(qd, ke[l], ve[l], attn_mask=mask)  # noqa: E731
+    with torch.no_grad():
+        lib_ms = cuda_ms(call(library))
+    del ke, ve
+    keys = float(valid.sum())                   # admitted keys over the batch
+    r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(call(kernel)),
+         "plain_ms": cuda_ms(call(plain), iters=5), "library_ms": lib_ms,
+         **bound(4.0 * nh * hd * keys, 4.0 * q.numel() + 2.0 * 2 * keys * kh * hd
+                 + 4.0 * B)}
+    report("decode_attention", what, (B, nh, kh, hd, smax, layer), keys=int(keys), **r)
+    if not (torch.isfinite(out).all() and excess <= 1.0):
+        raise AssertionError(f"decode_attention [{what}] disagrees with its plain version: "
+                             f"{excess} x the tolerance")
+    return r
+
+
+def int4_kernel_phase(cfg, batch, device) -> dict:
+    """Phase 12: the int4 matmul at every (rows, K, N) phase 13 gives it and
+    the decode kernel at phase 13's batch. Returns the kernels line's rows:
+    decode gate / up at B = 4, and decode step 63 with the window on."""
+    import torch
+
+    from video_r2_tpu_torch.ops.decode_attention import BLOCK_S
+
+    reqs, packed, _, _ = batch
+    tc, vc = cfg.text, cfg.vision
+    B = len(reqs)
+    H, qd, kvd = tc.hidden_size, tc.num_attention_heads * tc.head_dim, \
+        tc.num_key_value_heads * tc.head_dim
+    I, V = tc.intermediate_size, tc.vocab_size
+    D4 = vc.spatial_merge_unit * vc.hidden_size
+    merger_rows = int(reqs[0].layout.seq_len_real) // vc.spatial_merge_unit
+    cases = {}
+    for what, M, K, N in (("decode q", B, H, qd), ("decode k / v", B, H, kvd),
+                          ("decode o", B, qd, H), ("decode gate / up", B, H, I),
+                          ("decode down", B, I, H), ("decode head", B, H, V),
+                          ("merger fc1", merger_rows, D4, D4),
+                          ("merger fc2", merger_rows, D4, vc.out_hidden_size),
+                          ("B=1 head", 1, H, V), ("B=1 gate / up", 1, H, I)):
+        cases.setdefault((M, K, N), []).append(what)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    results = {}
+    for (M, K, N), names in cases.items():
+        results[(M, K, N)] = int4_case(gen, ", ".join(names), M, K, N)
+        torch.cuda.empty_cache()
+
+    S = packed.input_ids.shape[1]
+    smax = -(-(S + INT4_NEW_TOKENS) // BLOCK_S) * BLOCK_S
+    kh, nh, hd, n_layers = (tc.num_key_value_heads, tc.num_attention_heads, tc.head_dim,
+                            tc.num_hidden_layers)
+    k, v = (torch.randn(n_layers, B, kh, smax, hd, generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+    lens = torch.as_tensor(packed.lengths, dtype=torch.int32, device=device)
+    print(f"decode attention: prompt lengths {packed.lengths.tolist()}, padded width {S}, "
+          f"cache width {smax}", flush=True)
+    decode_case(gen, "step 0", q, k, v, lens, S, S, n_layers // 5)
+    last = decode_case(gen, f"step {INT4_NEW_TOKENS - 1}", q, k, v, lens, S,
+                       S + INT4_NEW_TOKENS - 1, n_layers - 1)
+    decode_case(gen, "window off", q, k, v, lens, S, S - 1, n_layers // 2)
+    del k, v
+    torch.cuda.empty_cache()
+    return {"int4_matmul": results[(B, H, I)], "decode_attention": last}
+
+
+def param_split(model) -> dict:
+    """Bytes of the model's parameters by storage: int4 leaves (packed
+    nibbles and their scales), int8 leaves (with their scales), float."""
+    split = {"int4": 0, "int8": 0, "float": 0}
+    for mod in model.modules():
+        int8 = getattr(mod, "kernel_q", None) is not None
+        for leaf, p in mod.named_parameters(recurse=False):
+            kind = ("int4" if leaf in ("kernel_q4", "scale4") else
+                    "int8" if leaf == "kernel_q" or (int8 and leaf == "scale") else "float")
+            split[kind] += p.numel() * p.element_size()
+    return split
+
+
+class plain_int4_path:
+    """Within it, the int4 linears and the decode step run the plain
+    versions of the int4 and decode kernels (the stand-ins are swapped into
+    the modules that call the wrappers, and swapped back on exit)."""
+
+    def __enter__(self):
+        from video_r2_tpu_torch.models import decoder, layers
+        from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked_plain
+        from video_r2_tpu_torch.ops.int4_matmul import int4_matmul_plain
+
+        self.saved = [(layers, "int4_matmul", layers.int4_matmul),
+                      (decoder, "decode_attention_stacked", decoder.decode_attention_stacked)]
+        layers.int4_matmul = int4_matmul_plain
+        decoder.decode_attention_stacked = decode_attention_stacked_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def int4_serving_phase(model, runner, batch, card) -> dict:
+    """Phase 13. Returns the int4 and decode kernels' launches from the
+    counted generate call."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, generate, prefill
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+    from video_r2_tpu_torch.models.decoder import DecodeKVCache, KVCache
+    from video_r2_tpu_torch.models.quant import quantize_params
+    from video_r2_tpu_torch.ops.decode_attention import BLOCK_S
+
+    reqs, packed, pos, deltas = batch
+    cfg, dev = model.cfg, model.device
+    B, S = packed.input_ids.shape
+    T = INT4_NEW_TOKENS
+    smax = -(-(S + T) // BLOCK_S) * BLOCK_S
+    ids_t = torch.as_tensor(packed.input_ids, device=dev).long()
+    pos_t = torch.as_tensor(pos, device=dev).long()
+    len_t = torch.as_tensor(packed.lengths, dtype=torch.int32, device=dev)
+    dec_pos = torch.as_tensor(deltas + S, device=dev).long()   # rope position of step 0
+
+    def embeds():
+        return torch.cat([runner.vision_embeds(r) for r in reqs])
+
+    def first_step(cache, vemb, attn_impl="flash"):
+        """Prefill logits [B, V] and the logits after one decode step of
+        their argmax tokens, over `cache`."""
+        with torch.inference_mode():
+            l0 = prefill(model, ids_t, pos_t, len_t, cache, vemb, cfg.video_token_id,
+                         attn_impl)
+            return l0, decode_step_logits(model, l0.argmax(-1), dec_pos, cache, len_t, S, 0,
+                                          attn_impl)
+
+    # 1. the bf16 model's prefill logits
+    with torch.inference_mode():
+        bf16_logits = prefill(model, ids_t, pos_t, len_t,
+                              DecodeKVCache.init(cfg.text, B, smax, torch.bfloat16, dev),
+                              embeds(), cfg.video_token_id, "flash")
+    before = param_split(model)
+
+    # 2. int4 weights in place
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_params(model, bits=4)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    split = param_split(model)
+    gib = lambda n: n / 2 ** 30  # noqa: E731
+    print(f"int4 quantize_params in place: {q_s:.2f} s, peak {gib(torch.cuda.max_memory_allocated()):.2f} "
+          f"GiB; parameters {gib(sum(before.values())):.3f} GiB before -> int4 "
+          f"{gib(split['int4']):.3f} GiB, int8 {gib(split['int8']):.3f} GiB, float "
+          f"{gib(split['float']):.3f} GiB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the slice: 4 videos, one generate call, counted
+    sp = SamplingParams(max_new_tokens=T, eos_token_ids=(), pad_token_id=cfg.pad_token_id)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vemb = embeds()
+    torch.cuda.synchronize()
+    vit_ms = (time.perf_counter() - t0) * 1e3
+    marks = []
+
+    def on_embed(module, args):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    hook = model.model.embed_tokens.register_forward_pre_hook(on_embed)
+    res = generate(model, packed.input_ids, packed.lengths, sp, position_ids=pos,
+                   rope_deltas=deltas, vision_embeds=vemb,
+                   vision_token_id=cfg.video_token_id, attn_impl="flash",
+                   decode_impl="kernel")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    hook.remove()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(marks) - 1
+    dec_s = t_end - marks[1]
+    n_layers = cfg.text.num_hidden_layers
+    per_step = 7 * n_layers + 1
+    expect_int4 = (T - 1) * per_step + 1 + 2 * B      # + the prefill head, the merger
+    print(f"int4 serving: {B} videos, prompt lengths {packed.lengths.tolist()} padded to "
+          f"{S}, {T} greedy tokens each (eos off): ViT {vit_ms:.1f} ms (4 videos), prefill "
+          f"{(marks[1] - marks[0]) * 1e3:.1f} ms, {steps} decode steps of "
+          f"{dec_s / steps * 1e3:.2f} ms, {B * steps / dec_s:.2f} tok/s ({steps / dec_s:.2f} "
+          f"steps/s), peak device memory {peak:.2f} GiB; launches {launches} (int4 expected "
+          f"{expect_int4}: {T - 1} x {per_step} + 1 prefill head + 2 x {B} merger; decode "
+          f"attention expected {(T - 1) * n_layers}) | {card}", flush=True)
+    if res.sequences.shape != (B, T) or steps != T - 1:
+        raise AssertionError(f"int4 generate: {res.sequences.shape} tokens, {steps} steps")
+    if launches["int4_matmul"] < (T - 1) * per_step + 2 * B:
+        raise AssertionError(f"the int4 slice launched {launches['int4_matmul']} int4 "
+                             f"kernels, fewer than {(T - 1) * per_step + 2 * B}")
+    if launches["decode_attention"] != (T - 1) * n_layers:
+        raise AssertionError(f"the int4 slice launched {launches['decode_attention']} "
+                             f"decode kernels, not {(T - 1) * n_layers}")
+    for name in ("flash_attention", "window_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the int4 slice launched no {name} kernel")
+
+    # 4. request 0 alone: kernel path vs plain path, after prefill and one step
+    req = reqs[0]
+    S0, n0 = req.input_ids.shape[1], int(req.lengths[0])
+    r_ids = torch.as_tensor(req.input_ids, device=dev).long()
+    r_pos = torch.as_tensor(req.position_ids, device=dev).long()
+    r_len = torch.as_tensor(req.lengths, dtype=torch.int32, device=dev)
+    r_dec = torch.as_tensor(req.rope_deltas + S0, device=dev).long()
+    r_max = -(-(S0 + T) // BLOCK_S) * BLOCK_S
+    got = {}
+    for path in ("kernel", "plain"):
+        plain = path == "plain"
+        with plain_int4_path() if plain else contextlib.nullcontext(), torch.inference_mode():
+            cache = DecodeKVCache.init(cfg.text, 1, r_max, torch.bfloat16, dev)
+            l0 = prefill(model, r_ids, r_pos, r_len, cache,
+                         runner.vision_embeds(req, "xla" if plain else "kernel"),
+                         cfg.video_token_id, "xla" if plain else "flash")
+            tok = got["kernel"][0].argmax(-1) if plain else l0.argmax(-1)
+            got[path] = (l0, decode_step_logits(model, tok, r_dec, cache, r_len, S0, 0))
+    rels = [rel_l2(a, b) for a, b in zip(got["kernel"], got["plain"])]
+    print(f"request 0 ({n0} tokens) on the int4 model, kernel vs plain path: logits after "
+          f"prefill rel_l2={rels[0]:.3e}, after one decode step {rels[1]:.3e} (tol "
+          f"{LOGITS_TOL}); argmax {int(got['kernel'][0].argmax())} vs "
+          f"{int(got['plain'][0].argmax())}", flush=True)
+    if not (all(torch.isfinite(x).all() for x in got["kernel"]) and max(rels) <= LOGITS_TOL):
+        raise AssertionError(f"int4 kernel path disagrees with the plain path: {rels}")
+
+    # 5. the batch's first decode step, decode_impl "kernel" vs "xla"
+    lk0, lk1 = first_step(DecodeKVCache.init(cfg.text, B, smax, torch.bfloat16, dev), vemb)
+    lx0, lx1 = first_step(KVCache.init(cfg.text, B, S + T, torch.bfloat16, dev), vemb)
+    rel_kx = rel_l2(lk1, lx1)
+    print(f"int4 batch, logits after one decode step, decode_impl kernel vs xla: "
+          f"rel_l2={rel_kx:.3e} (tol {LOGITS_TOL}); after prefill {rel_l2(lk0, lx0):.3e}",
+          flush=True)
+    if not (torch.isfinite(lk1).all() and rel_kx <= LOGITS_TOL):
+        raise AssertionError(f"decode_impl='kernel' disagrees with 'xla': {rel_kx}")
+
+    # 6. int4 vs bf16 prefill logits, no bound (random weights)
+    agree = int((lk0.argmax(-1) == bf16_logits.argmax(-1)).sum())
+    print(f"int4 vs bf16 prefill logits: rel_l2={rel_l2(lk0, bf16_logits):.3e}, argmax "
+          f"agrees on {agree} of {B}", flush=True)
+    del vemb
+    return {"int4_matmul": launches["int4_matmul"],
+            "decode_attention": launches["decode_attention"]}
 
 
 def video_slices(card: str, device) -> tuple[dict, dict]:
@@ -1070,11 +1494,17 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     # phase 9: batched serving through the paged engine
     paged_runs = serving_phase(model, runner, requests, card)
 
+    # phases 12 and 13: int4 serving through the head-major decode kernel
+    batch = int4_batch(runner, cfg)
+    kernel_results.update(int4_kernel_phase(cfg, batch, device))
+    int4_runs = int4_serving_phase(model, runner, batch, card)
+
     launches = dict(training)
     launches.update({n: serving[n] for n in ("flash_attention", "window_attention")})
     launches.update({n: v for n, v in paged_runs["bf16"].items() if n.startswith("paged_")})
     launches["paged_decode_attention_stacked_quant"] = \
         paged_runs["int8"]["paged_decode_attention_stacked_quant"]
+    launches.update(int4_runs)
     return kernel_results, launches
 
 
@@ -1254,10 +1684,8 @@ def judge_logits(model, ids, attn_impl, act_quant=None, token=None):
     import torch
 
     from video_r2_tpu_torch.engine.chat import pack_prompts
-    from video_r2_tpu_torch.engine.generate import NEG_INF, prefill
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, prefill
     from video_r2_tpu_torch.models.decoder import KVCache
-    from video_r2_tpu_torch.models.model import lm_head
-    from video_r2_tpu_torch.models.mrope import mrope_cos_sin
 
     cfg, dev = model.cfg, model.device
     packed = pack_prompts(ids, pad_id=cfg.pad_token_id)
@@ -1271,15 +1699,8 @@ def judge_logits(model, ids, attn_impl, act_quant=None, token=None):
                          attn_impl=attn_impl, act_quant=act_quant)
         if token is None:
             return logits
-        emb = model.model.embed_tokens(token)[:, None]
-        pos3 = lengths.long().reshape(1, B, 1).expand(3, B, 1)
-        cos, sin = mrope_cos_sin(pos3, cfg, dtype=emb.dtype)
-        j = torch.arange(S + 1, device=dev)
-        allowed = (j[None] < lengths[:, None]) | (j[None] == S)
-        bias = torch.where(allowed[:, None, None], 0.0, NEG_INF)
-        hidden = model.model(emb, cos, sin, bias, cache=cache, cache_position=S,
-                             act_quant=act_quant)
-        return lm_head(model, hidden[:, 0], act_quant).float()
+        return decode_step_logits(model, token, lengths.long(), cache, lengths, S, 0,
+                                  act_quant=act_quant)
 
 
 def set_ffn_impl(model, impl: str) -> None:

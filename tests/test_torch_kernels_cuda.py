@@ -18,7 +18,12 @@ the same bounds at the serving and training shapes):
 - the grouped MoE FFN: the forward bound, for inputs scaled so every
   product is O(1): both sum in fp32 (int32 for W8A8) and round h to bf16
   (W8A8: to int8 per tile, where a value on a half-step may round the other
-  way).
+  way);
+- the int4 matmul: the forward bound, for inputs scaled so every output is
+  O(1): kernel and plain version multiply the same bf16-rounded weights,
+  sum in fp32 in other orders and round the output to bf16;
+- head-major decode attention: the forward bound; both compute in fp32 and
+  round the output to bf16.
 """
 
 import pytest
@@ -394,3 +399,142 @@ def test_w8a8_linear_on_the_card_is_exact(cuda, M):
     a = torch.randint(-127, 128, (M, 256), generator=gen, device=cuda).to(torch.int8)
     b = torch.randint(-127, 128, (256, 512), generator=gen, device=cuda).to(torch.int8)
     assert torch.equal(int8_matmul(a, b).cpu(), int8_matmul(a.cpu(), b.cpu()))
+
+
+# the 7B's int4 linears (K, N): q / o, k / v, gate / up, down, merger fc1 / fc2
+INT4_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (5120, 5120),
+               (5120, 3584)]
+
+
+def _int4_operands(gen, M, K, N):
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+
+    w = torch.randn(K, N, generator=gen, device=gen.device) * K ** -0.5
+    leaf = quantize_kernel_int4(w)
+    return _randn(gen, M, K), leaf["kernel_q4"], leaf["scale4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 784])
+@pytest.mark.parametrize("K,N", INT4_SHAPES)
+def test_int4_matmul_kernel_matches_plain(cuda, M, K, N):
+    """Every row capacity (16, 32 and 64-row blocks; 784 rows are 13 blocks
+    of 64) at the 7B's widths."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int4_operands(gen, M, K, N)
+    before = int4_matmul.launches
+    out = int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    ref = int4_matmul_plain(x, wq, scale)
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 20])
+def test_int4_matmul_kernel_at_the_head(cuda, M):
+    """The 7B head (3584 -> 152064, 2376 column blocks)."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    x, wq, scale = _int4_operands(gen, M, 3584, 152064)
+    assert _close(int4_matmul(x, wq, scale), int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int4_linear_dispatch_by_rows(cuda):
+    """Linear sends 1 to 1024 rows of an int4 leaf to the kernel and more to
+    the dequantised matmul, as the reference's _int4_linear."""
+    from video_r2_tpu_torch.models.layers import Linear
+    from video_r2_tpu_torch.models.quant import quantize_params
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lin = torch.nn.Module()
+    lin.fc1 = Linear(512, 256, True, dtype=torch.bfloat16, device=cuda)
+    lin.requires_grad_(False)
+    lin.fc1.kernel.normal_(0, 512 ** -0.5, generator=gen)
+    lin.fc1.bias.zero_()
+    quantize_params(lin, bits=4)
+    fc1 = lin.fc1
+    assert fc1.kernel is None and fc1.kernel_q4 is not None
+    for rows, launched in ((1, 1), (1024, 1), (1025, 0)):
+        x = _randn(gen, rows, 512)
+        before = int4_matmul.launches
+        y = fc1(x)
+        torch.cuda.synchronize()
+        assert int4_matmul.launches == before + launched, rows
+        assert _close(y, int4_matmul_plain(x, fc1.kernel_q4, fc1.scale4))
+
+
+@pytest.mark.cuda
+def test_int4_matmul_refuses_what_it_does_not_take(cuda):
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, wq, scale = _int4_operands(gen, 4, 512, 128)
+    with pytest.raises(TypeError):                  # float32 activations
+        int4_matmul(x.float(), wq, scale)
+    with pytest.raises(ValueError):                 # group size 64, not 128
+        leaf = quantize_kernel_int4(torch.randn(512, 128, device=cuda), group_size=64)
+        int4_matmul(x, leaf["kernel_q4"], leaf["scale4"])
+    with pytest.raises(ValueError):                 # N not a multiple of 64
+        int4_matmul(x, wq[:, :96].contiguous(), scale[:, :96].contiguous())
+    with pytest.raises(ValueError):                 # more rows than the kernel takes
+        int4_matmul(_randn(gen, 1025, 512), wq, scale)
+
+
+def _decode_inputs(gen, g, hd, layers=3, B=4, kh=4, smax=1536):
+    q = _randn(gen, B, kh * g, hd)
+    k, v = (_randn(gen, layers, B, kh, smax, hd) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["t0", "t63", "off"])
+@pytest.mark.parametrize("g,hd", [(7, 128), (8, 128), (2, 64), (16, 64)])
+def test_decode_attention_kernel_matches_plain(cuda, window, g, hd):
+    """B = 4 ragged prompts padded to 1408 in a 1536-wide cache (the slice's
+    layout), decode slots [1408, 1408 + t] or none, on layer 2 of 3."""
+    from video_r2_tpu_torch.ops.decode_attention import (
+        decode_attention_stacked,
+        decode_attention_stacked_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(g * hd)
+    q, k, v = _decode_inputs(gen, g, hd)
+    lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+    s_pad = 1408
+    slot_end = {"t0": s_pad, "t63": s_pad + 63, "off": s_pad - 1}[window]
+    before = decode_attention_stacked.launches
+    out = decode_attention_stacked(q, k, v, lengths, slot_end, 2, s_pad)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.launches == before + 1
+    ref = decode_attention_stacked_plain(q, k, v, lengths, slot_end, 2, s_pad)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_it_does_not_take(cuda):
+    from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lengths = torch.full((4,), 100, dtype=torch.int32, device=cuda)
+    q, k, v = _decode_inputs(gen, 7, 128, smax=256)
+    with pytest.raises(TypeError):                  # float32 cache
+        decode_attention_stacked(q, k.float(), v.float(), lengths, 99, 0, 100)
+    with pytest.raises(ValueError):                 # width not a multiple of 128
+        decode_attention_stacked(q, k[..., :200, :].contiguous(),
+                                 v[..., :200, :].contiguous(), lengths, 99, 0, 100)
+    with pytest.raises(ValueError):                 # layer past the stack
+        decode_attention_stacked(q, k, v, lengths, 99, 3, 100)
+    with pytest.raises(ValueError):                 # 17 query heads per kv head
+        decode_attention_stacked(_randn(gen, 4, 68, 128), k, v, lengths, 99, 0, 100)
+    q, k, v = _decode_inputs(gen, 2, 80, smax=256)
+    with pytest.raises(ValueError):                 # head dim 80
+        decode_attention_stacked(q, k, v, lengths, 99, 0, 100)

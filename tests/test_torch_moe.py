@@ -401,8 +401,3 @@ def test_options_not_ported_raise(judge):
             ChatEngine(model, cfg, ByteTokenizer(SPECIALS), **kw)
     with pytest.raises(NotImplementedError):
         ChatEngine(model, object(), ByteTokenizer(SPECIALS))
-    with pytest.raises(NotImplementedError):
-        generate(model, np.ones((1, 4), np.int64), np.array([4]),
-                 sampling.SamplingParams(max_new_tokens=2), decode_impl="kernel")
-    with pytest.raises(NotImplementedError):
-        quantize_params(model, bits=4)

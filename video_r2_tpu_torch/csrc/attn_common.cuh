@@ -1,5 +1,6 @@
-// Shared pieces of the attention kernels (forward and backward): the bf16
-// tensor-core product and the fragment helpers.
+// Shared device pieces of the port's kernels: the bf16 tensor-core product
+// and its fragment helpers, ldmatrix, cp.async, warp reductions and the
+// bf16-to-fp32 unpacking of staged rows.
 //
 // Every product is one warp-wide mma.sync.m16n8k16 (bf16 in, fp32 out). With
 // lane = 4 * g + t (g = lane / 4, t = lane % 4) its operands sit as follows:
@@ -56,6 +57,63 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Four 8x8 tiles of 16-byte rows from shared memory; lane l gives the row
+// address of tile l / 8 and receives 32-bit word l % 4 of row l / 4 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16-byte asynchronous copy from device to shared memory (both 16-byte
+// aligned), and its commit / wait of the most recent groups
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of the committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 16 bytes of bf16 (8 values) as fp32, unpacked with shifts so the chunk
+// stays in registers (bf16 widens exactly)
+__device__ __forceinline__ void chunk_to_float(const __nv_bfloat16* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    dst[2 * i] = __uint_as_float(w[i] << 16);              // lower address
+    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 4 consecutive bf16 (8 bytes) as fp32
+__device__ __forceinline__ float4 quad_to_float(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // max / sum over the 4 lanes of a quad (the lanes that share a C row)

@@ -77,15 +77,6 @@ __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8x8 tiles of 16-byte rows from shared memory; lane l gives the row
-// address of tile l / 8 and receives 32-bit word l % 4 of row l / 4 of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const char* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 // Rows [0, BM) of a row-major byte matrix (row r at base + r * row_bytes),

@@ -30,9 +30,8 @@
 // at B = 8 on 7B) fill a quarter of the 132 SMs: splitting a sequence's
 // pages across blocks (flash-decoding) is later work.
 #include <cmath>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "attn_common.cuh"
 
 namespace {
 
@@ -62,30 +61,12 @@ struct PageElem<true> {
   using T = int8_t;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using vr2::chunk_to_float;
+using vr2::cp_async16;
+using vr2::cp_async_commit;
+using vr2::quad_to_float;
+using vr2::warp_max;
+using vr2::warp_sum;
 
 // One page's shared-memory stage: K rows with a pitch of HD + 16 bytes (so
 // the 16-byte row reads of neighbouring threads fall on distinct banks),
@@ -130,18 +111,8 @@ __device__ __forceinline__ void load_page(unsigned char* stage, const PagedParam
   }
 }
 
-// 16 bytes of page values as fp32 (bf16 widens exactly, int8 converts
-// exactly), unpacked with shifts so the chunk stays in registers
-__device__ __forceinline__ void chunk_to_float(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dst[2 * i] = __uint_as_float(w[i] << 16);              // lower address
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
+// 16 bytes of int8 page values as fp32 (int8 converts exactly; the bf16
+// overload is in attn_common.cuh), unpacked with shifts
 __device__ __forceinline__ void chunk_to_float(const int8_t* src, float* dst) {
   const uint4 u = *reinterpret_cast<const uint4*>(src);
   const unsigned w[4] = {u.x, u.y, u.z, u.w};
@@ -153,13 +124,7 @@ __device__ __forceinline__ void chunk_to_float(const int8_t* src, float* dst) {
   }
 }
 
-// 4 consecutive page values as fp32 (8 bytes of bf16, 4 of int8)
-__device__ __forceinline__ float4 quad_to_float(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
+// 4 consecutive int8 page values as fp32
 __device__ __forceinline__ float4 quad_to_float(const int8_t* src) {
   const unsigned w = *reinterpret_cast<const unsigned*>(src);
   return make_float4(static_cast<float>(static_cast<int>(w << 24) >> 24),
@@ -222,7 +187,7 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const PagedParam
       load_page<HD, PS, Quant>(smem + ((pg + 1) & 1) * S::BYTES, p, h, table[pg + 1],
                                min(PS, n_keys - k0 - PS));
     cp_async_commit();
-    cp_async_wait_one();  // this page's group has landed
+    vr2::cp_async_wait<1>();  // this page's group has landed
     __syncthreads();
 
     const T* sk = reinterpret_cast<const T*>(stage);

@@ -15,8 +15,15 @@ Port of ``video_r2_tpu/engine/generate.py`` (bf16 cache, no speculation):
 - act_quant="int8" runs prefill W8A8 on int8 weights (models/quant.py) and
   decode_act_quant="auto" runs decode W8A8 only from B >= 192, where decode
   turns compute-bound, as the reference chooses; otherwise decode stays
-  int8 weight-only. The reference's Pallas decode kernel
-  (decode_impl="kernel") is not ported yet, and its "auto" picks "xla".
+  int8 weight-only. int4 weights (quantize_params(bits=4)) run through the
+  int4 kernel wherever a linear sees at most 1024 rows;
+- decode_impl="kernel" runs the decode through the head-major decode
+  kernel (ops/decode_attention.py): a DecodeKVCache of width
+  ceil((S + T) / BLOCK_S) * BLOCK_S, filled head-major by prefill, and
+  Decoder.decode_step per token (its linears take no act_quant; the head
+  does). "xla" keeps the seq-major cache and the plain decode attention;
+  "auto" picks "xla", as the reference does (its kernel is the opt-in
+  long-context small-batch decode). The kernel cannot take prefill_chunk.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.decoder import KVCache
+from ..models.decoder import DecodeKVCache, KVCache
 from ..models.model import Qwen25VL, lm_head, merge_vision_embeddings
 from ..models.mrope import get_rope_index, mrope_cos_sin
+from ..ops.decode_attention import BLOCK_S
 from .sampling import SamplingParams, sample_token
 
 NEG_INF = -1e30
@@ -43,13 +51,14 @@ class GenerationResult:
 
 @torch.inference_mode()
 def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor,
-            lengths: torch.Tensor, cache: KVCache,
+            lengths: torch.Tensor, cache: KVCache | DecodeKVCache,
             vision_embeds: torch.Tensor | None = None,
             vision_token_id: int | None = None,
             attn_impl: str = "xla", act_quant: str | None = None) -> torch.Tensor:
-    """Run the prompt [B, S] and fill rows [0, S) of `cache` in place.
-    Returns the last valid token's logits [B, V] in fp32 (the head is not
-    W8A8 in prefill, as in the reference)."""
+    """Run the prompt [B, S] and fill rows [0, S) of `cache` in place (a
+    DecodeKVCache by the head-major fill). Returns the last valid token's
+    logits [B, V] in fp32 (the head is not W8A8 in prefill, as in the
+    reference)."""
     cfg = model.cfg
     B, S = input_ids.shape
     h = model.model.embed_tokens(input_ids)
@@ -58,8 +67,11 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
             input_ids, h, vision_embeds,
             cfg.video_token_id if vision_token_id is None else vision_token_id)
     cos, sin = mrope_cos_sin(position_ids, cfg, dtype=h.dtype)
-    if attn_impl == "flash":
-        bias = None   # the kernel masks by kv_lengths and causality itself
+    if attn_impl == "flash" or isinstance(cache, DecodeKVCache):
+        # the flash kernel masks by kv_lengths and causality itself; the
+        # head-major fill attends over the local prompt-width k / v, whose
+        # prefix-causal bias dot_product_attention builds from kv_lengths
+        bias = None
     else:
         # bias spans the whole cache width: causal over the prompt, -inf beyond
         i = torch.arange(S, device=h.device)[:, None]
@@ -74,27 +86,49 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
 
 
 @torch.inference_mode()
+def decode_step_logits(model: Qwen25VL, tok: torch.Tensor, pos: torch.Tensor,
+                       cache: KVCache | DecodeKVCache, lengths: torch.Tensor,
+                       s_pad: int, t: int, attn_impl: str = "xla",
+                       act_quant: str | None = None) -> torch.Tensor:
+    """Forward decode token t: tok [B] at rope positions pos [B], its k / v
+    written at slot s_pad + t of `cache` in place. A DecodeKVCache runs the
+    decode kernel's step (its linears without act_quant); a KVCache the
+    plain masked attention over the cache. Returns the next logits [B, V]
+    in fp32 (act_quant: a W8A8 head)."""
+    cfg = model.cfg
+    B = tok.shape[0]
+    emb = model.model.embed_tokens(tok)[:, None]
+    cos, sin = mrope_cos_sin(pos.reshape(1, B, 1).expand(3, B, 1), cfg, dtype=emb.dtype)
+    if isinstance(cache, DecodeKVCache):
+        hidden = model.model.decode_step(emb, cos, sin, cache, lengths, s_pad, t)
+    else:
+        j = torch.arange(cache.k.shape[2], device=tok.device)[None, :]
+        allowed = (j < lengths[:, None]) | ((j >= s_pad) & (j <= s_pad + t))
+        bias = torch.where(allowed[:, None, None], 0.0, NEG_INF)
+        hidden = model.model(emb, cos, sin, bias, cache=cache, cache_position=s_pad + t,
+                             attn_impl=attn_impl, act_quant=act_quant)
+    return lm_head(model, hidden[:, 0], act_quant).float()
+
+
+@torch.inference_mode()
 def decode(model: Qwen25VL, sp: SamplingParams, first_logits: torch.Tensor,
-           cache: KVCache, lengths: torch.Tensor, rope_deltas: torch.Tensor,
-           generator: torch.Generator | None, s_pad: int,
+           cache: KVCache | DecodeKVCache, lengths: torch.Tensor,
+           rope_deltas: torch.Tensor, generator: torch.Generator | None, s_pad: int,
            attn_impl: str = "xla",
            act_quant: str | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Up to `sp.max_new_tokens` decode steps. Returns (tokens [B, T],
-    logprobs [B, T], generated lengths [B]). act_quant: W8A8 decode matmuls
-    and head."""
-    cfg = model.cfg
+    """Up to `sp.max_new_tokens` decode steps over `cache` (a DecodeKVCache
+    through the decode kernel). Returns (tokens [B, T], logprobs [B, T],
+    generated lengths [B]). act_quant: W8A8 decode matmuls and head (the
+    head only, under the decode kernel)."""
     B = first_logits.shape[0]
     T = sp.max_new_tokens
     device = first_logits.device
-    max_len = cache.k.shape[2]
     toks = torch.full((B, T), sp.pad_token_id, dtype=torch.long, device=device)
     logps = torch.zeros((B, T), dtype=torch.float32, device=device)
     eos = torch.as_tensor(sp.eos_token_ids, dtype=torch.long, device=device)
     logits = first_logits
     cur_len = lengths.long().clone()
     done = torch.zeros(B, dtype=torch.bool, device=device)
-    j = torch.arange(max_len, device=device)[None, :]
-    prompt_keys = j < lengths[:, None]
     for t in range(T):
         tok = sample_token(logits, generator, sp)
         tok = torch.where(done, sp.pad_token_id, tok)
@@ -106,15 +140,8 @@ def decode(model: Qwen25VL, sp: SamplingParams, first_logits: torch.Tensor,
             new_done = done | (tok[:, None] == eos[None, :]).any(dim=-1)
         if t == T - 1 or bool(new_done.all()):
             break   # the next logits would be unused
-        emb = model.model.embed_tokens(tok)[:, None]
-        pos3 = (cur_len + rope_deltas).reshape(1, B, 1).expand(3, B, 1)
-        cos, sin = mrope_cos_sin(pos3, cfg, dtype=emb.dtype)
-        allowed = prompt_keys | ((j >= s_pad) & (j <= s_pad + t))
-        bias = torch.where(allowed[:, None, None], 0.0, NEG_INF)
-        hidden = model.model(emb, cos, sin, bias, cache=cache,
-                             cache_position=s_pad + t, attn_impl=attn_impl,
-                             act_quant=act_quant)
-        logits = lm_head(model, hidden[:, 0], act_quant).float()
+        logits = decode_step_logits(model, tok, cur_len + rope_deltas, cache, lengths,
+                                    s_pad, t, attn_impl, act_quant)
         cur_len = torch.where(done, cur_len, cur_len + 1)
         done = new_done
     gen_len = (toks != sp.pad_token_id).sum(dim=-1)
@@ -134,11 +161,9 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
     """Host-orchestrated batched generation on the model's device.
     attn_impl="flash" runs prefill attention through the flash kernel;
     act_quant="int8": W8A8 prefill; decode_act_quant "auto": int8 iff
-    act_quant is int8 and B >= 192."""
-    if decode_impl == "kernel":
-        raise NotImplementedError("decode_impl='kernel' needs the head-major decode "
-                                  "kernel (ops/decode_attention.py), not ported yet")
-    if decode_impl not in ("auto", "xla"):
+    act_quant is int8 and B >= 192. decode_impl: "kernel" (the head-major
+    decode kernel), "xla" (the plain decode), "auto" ("xla")."""
+    if decode_impl not in ("auto", "xla", "kernel"):
         raise ValueError(f"unknown decode_impl {decode_impl!r}")
     cfg = model.cfg
     device = model.device
@@ -157,9 +182,17 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
     # get_rope_index deltas are relative to the padded width S; the decode
     # loop counts from the true length, so shift by S - length
     rope_deltas = np.asarray(rope_deltas) + (S - lengths)
-    max_cache = S + sp.max_new_tokens
     dtype = model.model.embed_tokens.embedding.dtype
-    cache = KVCache.init(cfg.text, B, max_cache, dtype, device)
+    if decode_impl == "kernel":
+        if prefill_chunk and B > prefill_chunk:
+            raise ValueError("prefill_chunk is incompatible with decode_impl='kernel' "
+                             "(chunked prefill fills the seq-major cache; the kernel "
+                             "reads the head-major one)")
+        # the kernel reads whole blocks of BLOCK_S rows; decode slots start at S
+        max_cache = -(-(S + sp.max_new_tokens) // BLOCK_S) * BLOCK_S
+        cache = DecodeKVCache.init(cfg.text, B, max_cache, dtype, device)
+    else:
+        cache = KVCache.init(cfg.text, B, S + sp.max_new_tokens, dtype, device)
     ids_t = torch.as_tensor(input_ids, dtype=torch.long, device=device)
     pos_t = torch.as_tensor(position_ids, dtype=torch.long, device=device)
     len_t = torch.as_tensor(lengths, dtype=torch.int32, device=device)

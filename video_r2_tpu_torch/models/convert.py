@@ -8,9 +8,10 @@ stacked leaves, so both packages compute on the same weights in the tests.
 `load_jax_lora` does the same for a JAX adapter tree (``train/lora.py``:
 ``{"a": [L, in, r], "b": [L, r, out]}`` under each adapted kernel) onto the
 adapters attached to the port's modules, so both train the same adapters.
-The MoE leaves ([L, E, ...]) split on L only, and the int8 leaves of a
-quantized tree ({kernel_q, scale}) load into a model quantized alike
-(models/quant.py), int8 copied as int8.
+The MoE leaves ([L, E, ...]) split on L only, and the leaves of a
+quantized tree (8-bit {kernel_q, scale}, 4-bit {kernel_q4, scale4}) load
+into a model quantized alike (models/quant.py), int8 copied as int8 and the
+scales as fp32.
 """
 
 from __future__ import annotations

@@ -1,20 +1,32 @@
 """Text decoder of Qwen2.5-VL and of the Qwen3-MoE judge.
 
 Port of ``video_r2_tpu/models/decoder.py``: a ModuleList of DecoderLayers
-over a seq-major KV cache [L, B, Smax, kh, hd]. Prefill writes the prompt's
-rows [0, S) and attends over the whole cache width (kv_lengths mask the
-rest, as the JAX fill mode does); decode writes each step's row at one
-fixed slot for the whole batch. The cache is updated in place. Without a
-cache the decoder is the training forward (``decoder_forward`` with
-``remat``: each layer is recomputed in the backward).
+over one of two contiguous KV caches, updated in place:
+
+- `KVCache`, seq-major [L, B, Smax, kh, hd]: prefill writes the prompt's
+  rows [0, S) and attends over the whole cache width (kv_lengths mask the
+  rest, as the JAX fill mode does); decode writes each step's row at one
+  fixed slot for the whole batch and attends through the plain path;
+- `DecodeKVCache`, head-major [L, B, kh, Smax, hd], for the decode kernel
+  (ops/decode_attention.py): prefill writes each layer's k / v transposed
+  into its [B, kh, Smax, hd] slice and attends over the local prompt-width
+  k / v (the head-major fill); `Decoder.decode_step` writes the new row at
+  slot s_pad + t and reads the layer through the kernel.
+
+Without a cache the decoder is the training forward (``decoder_forward``
+with ``remat``: each layer is recomputed in the backward).
 
 Qwen3 layers (cfg.qk_norm, cfg.attention_bias False, cfg.head_dim_override)
 RMS-normalise q and k per head before rotary; cfg.num_experts > 0 makes the
 MLP a sparse MoE block (MoEMLP, models/moe.py). act_quant="int8" runs the
-int8 linears W8A8, q/k/v sharing one activation quantization. Each layer's
-attention inputs (`DecoderLayer.qkv`) and what follows its attention
-(`DecoderLayer.finish`) are the helpers the serving engines reuse. The int8
-and head-major contiguous caches and the int4 views are not ported yet.
+int8 linears W8A8, q/k/v sharing one activation quantization; int4 linears
+take no act_quant, and neither does the kernel decode step, as in the
+reference. Each layer's attention inputs (`DecoderLayer.qkv`) and what
+follows its attention (`DecoderLayer.finish`) are the helpers the decode
+step and the serving engines reuse. The int8 contiguous cache is not ported
+yet. The reference's index-scan over stacked int4 views
+(``_stacked_quant_view``) has no counterpart: each layer holds its own int4
+leaves, which the int4 kernel reads in place.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
+from ..ops.decode_attention import decode_attention_stacked
 from .config import TextConfig
 from .layers import MLP, ExpertLinear, Linear, RMSNorm, apply_rotary, quantize_act
 from .moe import moe_mlp
@@ -47,6 +60,24 @@ class KVCache:
     def batch_slice(self, start: int, stop: int) -> "KVCache":
         """A view of rows [start, stop): writes through it land in self."""
         return KVCache(self.k[:, start:stop], self.v[:, start:stop])
+
+
+@dataclass
+class DecodeKVCache:
+    """Head-major stacked cache for the decode kernel: one (layer, sequence,
+    kv head) is a contiguous [Smax, hd] run the kernel reads block by block,
+    the layer picked by index, so no per-layer slice is copied."""
+
+    k: torch.Tensor  # [L, B, kv_heads, Smax, head_dim]
+    v: torch.Tensor
+
+    @classmethod
+    def init(cls, cfg: TextConfig, batch: int, max_len: int, dtype,
+             device) -> "DecodeKVCache":
+        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
+                 max_len, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 class Embedding(nn.Module):
@@ -152,13 +183,18 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, bias, k_cache=None, v_cache=None,
                 cache_position: int = 0, attn_impl: str = "xla",
-                kv_lengths=None, causal: bool = False, act_quant: str | None = None):
-        """k_cache / v_cache: this layer's [B, Smax, kh, hd] cache (written in
-        place at [cache_position, cache_position + S)), or None to attend
-        over the local k / v."""
+                kv_lengths=None, causal: bool = False, act_quant: str | None = None,
+                head_major: bool = False):
+        """k_cache / v_cache: this layer's cache, written in place at
+        [cache_position, cache_position + S): seq-major [B, Smax, kh, hd],
+        attended over whole, or (head_major) [B, kh, Smax, hd], with the
+        attention over the local k / v; None attends over the local k / v."""
         S = x.shape[1]
         q, k, v = self.qkv(x, cos, sin, act_quant)
-        if k_cache is not None:
+        if head_major:
+            k_cache[:, :, cache_position:cache_position + S] = k.transpose(1, 2)
+            v_cache[:, :, cache_position:cache_position + S] = v.transpose(1, 2)
+        elif k_cache is not None:
             k_cache[:, cache_position:cache_position + S] = k
             v_cache[:, cache_position:cache_position + S] = v
             k, v = k_cache, v_cache
@@ -177,24 +213,43 @@ class Decoder(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
 
-    def forward(self, hidden, cos, sin, bias, cache: KVCache | None = None,
+    def forward(self, hidden, cos, sin, bias,
+                cache: KVCache | DecodeKVCache | None = None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False,
                 remat: bool = False, act_quant: str | None = None) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
         bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
-        [B, S, H]; `cache` (if given) is updated in place. remat: under
-        autograd, keep only each layer's input and recompute the layer in
-        the backward (gradient checkpointing). act_quant="int8": W8A8 on
-        int8 weights."""
+        [B, S, H]; `cache` (if given) is updated in place (a DecodeKVCache by
+        the head-major fill, with bias None). remat: under autograd, keep
+        only each layer's input and recompute the layer in the backward
+        (gradient checkpointing). act_quant="int8": W8A8 on int8 weights."""
+        head_major = isinstance(cache, DecodeKVCache)
         for i, layer in enumerate(self.layers):
             kc, vc = (cache.k[i], cache.v[i]) if cache is not None else (None, None)
             args = (hidden, cos, sin, bias, kc, vc, cache_position, attn_impl,
-                    kv_lengths, causal, act_quant)
+                    kv_lengths, causal, act_quant, head_major)
             if remat and torch.is_grad_enabled():
                 hidden = checkpoint(layer, *args, use_reentrant=False)
             else:
                 hidden = layer(*args)
+        return self.norm(hidden)
+
+    def decode_step(self, hidden, cos, sin, cache: DecodeKVCache,
+                    lengths: torch.Tensor, s_pad: int, t: int) -> torch.Tensor:
+        """One decode token hidden [B, 1, H] through every layer with the
+        decode kernel: each layer writes its new k / v row at slot s_pad + t
+        of the head-major cache, in place, then attends over keys
+        [0, lengths[b]) and [s_pad, s_pad + t] of that layer. No act_quant,
+        as in the reference. Returns the final-normed hidden [B, 1, H]."""
+        slot = s_pad + t
+        for i, layer in enumerate(self.layers):
+            q, k, v = layer.qkv(hidden, cos, sin)
+            cache.k[i, :, :, slot] = k[:, 0]
+            cache.v[i, :, :, slot] = v[:, 0]
+            attn = decode_attention_stacked(q[:, 0], cache.k, cache.v, lengths,
+                                            slot_end=slot, layer=i, s_pad=s_pad)
+            hidden = layer.finish(hidden, attn[:, None])
         return self.norm(hidden)
 
 

@@ -12,8 +12,12 @@ W8A8, per-token int8 activations times the int8 kernel in int32. The
 reference leaves that product to XLA; on the card it goes to
 ``torch._int_mm`` (a cuBLASLt int8 GEMM, the one library product the port
 calls: it is a plain matrix product outside any kernel of the reference's),
-on the CPU to the plain integer product. The int4 branch waits for the int4
-kernel.
+on the CPU to the plain integer product. An int4 linear (models/quant.py:
+``kernel_q4`` int8 [K/2, N] half-split nibbles, ``scale4`` fp32 [K/g, N])
+takes its branch before act_quant, so W8A8 never applies to it: by the
+reference's rule, at most 1024 rows of activations go to the int4 kernel
+(ops/int4_matmul.py), more are dequantised and multiplied with
+torch.matmul, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.int4_matmul import KERNEL_MAX_ROWS, int4_matmul, int4_matmul_plain
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -58,6 +64,16 @@ def _w8a8_linear(wq: torch.Tensor, w_scale: torch.Tensor, x: torch.Tensor,
     return y.reshape(*lead, wq.shape[-1])
 
 
+def _int4_linear(wq: torch.Tensor, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x [.., K] @ the int4 kernel: 1 to KERNEL_MAX_ROWS rows through the
+    int4 kernel's wrapper, more dequantised and multiplied with
+    torch.matmul (the reference's dispatch, layers.py:_int4_linear)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    fn = int4_matmul if 0 < x2.shape[0] <= KERNEL_MAX_ROWS else int4_matmul_plain
+    return fn(x2, wq, scale).reshape(*lead, wq.shape[-1])
+
+
 class Linear(nn.Module):
     """y = x @ kernel (+ bias), kernel [in, out].
 
@@ -72,6 +88,8 @@ class Linear(nn.Module):
         self.kernel = _param(d_in, d_out, dtype=dtype, device=device)
         self.register_parameter("kernel_q", None)   # int8, set by models/quant.py
         self.register_parameter("scale", None)
+        self.register_parameter("kernel_q4", None)  # int4, set by models/quant.py
+        self.register_parameter("scale4", None)
         self.bias = _param(d_out, dtype=dtype, device=device) if bias else None
         self.lora_a: nn.Parameter | None = None
         self.lora_b: nn.Parameter | None = None
@@ -81,6 +99,8 @@ class Linear(nn.Module):
                 pre_quant=None) -> torch.Tensor:
         if self.kernel is not None:
             y = torch.matmul(x, self.kernel)
+        elif self.kernel_q4 is not None:
+            y = _int4_linear(self.kernel_q4, self.scale4, x)
         elif act_quant == "int8":
             y = _w8a8_linear(self.kernel_q, self.scale, x, pre_quant)
         else:
@@ -130,7 +150,8 @@ class MLP(nn.Module):
         self.down = Linear(hidden, dim, bias, **kw)
 
     def forward(self, x: torch.Tensor, act_quant: str | None = None) -> torch.Tensor:
-        """Under W8A8 gate and up share one activation quantization."""
+        """Under W8A8 gate and up share one activation quantization (not on
+        int4 leaves, which take no act_quant)."""
         pq = (quantize_act(x) if act_quant == "int8" and self.gate.kernel_q is not None
               else None)
         h = F.silu(self.gate(x, act_quant, pq)) * self.up(x, act_quant, pq)

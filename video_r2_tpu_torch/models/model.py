@@ -15,7 +15,7 @@ from .config import ModelConfig
 from .decoder import Decoder, causal_mask_bias
 from .layers import Linear
 from .mrope import mrope_cos_sin
-from .quant import dequantize_kernel
+from .quant import dequantize_kernel, dequantize_kernel_int4
 from .vision import VisionLayout, VisionTower, vit_forward
 
 
@@ -85,13 +85,17 @@ def embed_inputs(model: Qwen25VL, input_ids: torch.Tensor,
 
 
 def lm_head_weight(model: Qwen25VL) -> torch.Tensor:
-    """Dense [H, V] head weight (dequantized if the head is int8) for the
-    chunked CE."""
+    """Dense [H, V] head weight (dequantized to bf16 if the head is int8 or
+    int4) for the chunked CE."""
     if model.cfg.text.tie_word_embeddings:
         return model.model.embed_tokens.embedding.T
     head = model.lm_head
     if head.kernel is not None:
         return head.kernel
+    if head.kernel_q4 is not None:
+        return dequantize_kernel_int4(
+            {"kernel_q4": head.kernel_q4, "scale4": head.scale4},
+            group_size=2 * head.kernel_q4.shape[0] // head.scale4.shape[0])
     return dequantize_kernel({"kernel_q": head.kernel_q, "scale": head.scale})
 
 
