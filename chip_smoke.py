@@ -80,7 +80,9 @@
 12. int4 kernels (after phase 9, on the 7B model before it is freed for the
    judge): the int4 matmul at every (rows, K, N) phase 13 gives it (decode
    B = 4: q / o, k / v, gate / up, down, the head; the merger's 784 rows a
-   video: fc1 and fc2; B = 1: the head and gate / up), seeded weights
+   video: fc1 and fc2; B = 1: the head and gate / up) and at the ViT's
+   widths for a clip of 784 patches (qkv, proj, gate / up: N = 3420, a
+   column tail), seeded weights
    quantized with quantize_kernel_int4 and copies enough to exceed the L2
    cache, so each timed launch reads cold weights as a decode step does,
    with the library call (torch._weight_int4pack_mm over its own packing,
@@ -100,7 +102,9 @@
    tokens, eos off, with the launch counts set to 0 before and read after;
    prefill ms, ms per decode step, tok/s; request 0's logits after prefill
    and after one decode step, kernel path vs plain path (the int4 and
-   decode kernels' plain versions, plain prefill and ViT attention); the
+   decode kernels' plain versions, plain prefill and ViT attention), and
+   the same for a 2-frame clip (784 patches, so the ViT's int4 linears take
+   the kernel too, counted); the
    batch's logits after one decode step under decode_impl="kernel" vs
    "xla"; int4 vs bf16 prefill logits (no bound: the weights are random).
 
@@ -175,6 +179,8 @@ TRAIN_QA = (
 )
 # int4 serving (phases 12 and 13)
 INT4_REQUESTS, INT4_NEW_TOKENS = 4, 64
+SHORT_FRAMES = 2                  # phase 13's clip: grid (1, 28, 28), 784 patches
+SHORT_PATCHES = SHORT_FRAMES // 2 * (FRAME_HW // 14) ** 2
 INT4_QUESTIONS = ("What is happening in this video?",
                   "How many objects move from left to right, and which way does each go?",
                   "Why?",
@@ -1108,8 +1114,9 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
 
 
 def int4_kernel_phase(cfg, batch, device) -> dict:
-    """Phase 12: the int4 matmul at every (rows, K, N) phase 13 gives it and
-    the decode kernel at phase 13's batch. Returns the kernels line's rows:
+    """Phase 12: the int4 matmul at every (rows, K, N) phase 13 gives it
+    (the ViT's at its 2-frame clip) and the decode kernel at phase 13's
+    batch. Returns the kernels line's rows:
     decode gate / up at B = 4, and decode step 63 with the window on."""
     import torch
 
@@ -1129,6 +1136,10 @@ def int4_kernel_phase(cfg, batch, device) -> dict:
                           ("decode down", B, I, H), ("decode head", B, H, V),
                           ("merger fc1", merger_rows, D4, D4),
                           ("merger fc2", merger_rows, D4, vc.out_hidden_size),
+                          ("ViT qkv", SHORT_PATCHES, vc.hidden_size, 3 * vc.hidden_size),
+                          ("ViT proj", SHORT_PATCHES, vc.hidden_size, vc.hidden_size),
+                          ("ViT gate / up", SHORT_PATCHES, vc.hidden_size,
+                           vc.intermediate_size),
                           ("B=1 head", 1, H, V), ("B=1 gate / up", 1, H, I)):
         cases.setdefault((M, K, N), []).append(what)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1169,33 +1180,60 @@ def param_split(model) -> dict:
     return split
 
 
-class plain_int4_path:
-    """Within it, the int4 linears and the decode step run the plain
-    versions of the int4 and decode kernels (the stand-ins are swapped into
-    the modules that call the wrappers, and swapped back on exit)."""
+def int4_request_check(model, runner, req, what: str, T: int) -> int:
+    """One request alone on the int4 model, through the kernel path and the
+    plain path (set_kernel_impl "plain", prefill and ViT attention "xla"):
+    its logits after prefill and after one decode step of the kernel path's
+    argmax, within LOGITS_TOL. The plain path must launch no int4 or decode
+    kernel. Returns the int4 launches of the kernel path's ViT."""
+    import torch
 
-    def __enter__(self):
-        from video_r2_tpu_torch.models import decoder, layers
-        from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked_plain
-        from video_r2_tpu_torch.ops.int4_matmul import int4_matmul_plain
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, prefill
+    from video_r2_tpu_torch.models.decoder import DecodeKVCache
+    from video_r2_tpu_torch.ops.decode_attention import BLOCK_S
 
-        self.saved = [(layers, "int4_matmul", layers.int4_matmul),
-                      (decoder, "decode_attention_stacked", decoder.decode_attention_stacked)]
-        layers.int4_matmul = int4_matmul_plain
-        decoder.decode_attention_stacked = decode_attention_stacked_plain
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
-        return False
+    cfg, dev = model.cfg, model.device
+    S0, n0 = req.input_ids.shape[1], int(req.lengths[0])
+    r_ids = torch.as_tensor(req.input_ids, device=dev).long()
+    r_pos = torch.as_tensor(req.position_ids, device=dev).long()
+    r_len = torch.as_tensor(req.lengths, dtype=torch.int32, device=dev)
+    r_dec = torch.as_tensor(req.rope_deltas + S0, device=dev).long()
+    r_max = -(-(S0 + T) // BLOCK_S) * BLOCK_S
+    got, counts = {}, {}
+    for path in ("kernel", "plain"):
+        plain = path == "plain"
+        set_kernel_impl(model, path)
+        reset_launches()
+        with torch.inference_mode():
+            vemb = runner.vision_embeds(req, "xla" if plain else "kernel")
+            vit = read_launches()["int4_matmul"]
+            cache = DecodeKVCache.init(cfg.text, 1, r_max, torch.bfloat16, dev)
+            l0 = prefill(model, r_ids, r_pos, r_len, cache, vemb, cfg.video_token_id,
+                         "xla" if plain else "flash")
+            tok = got["kernel"][0].argmax(-1) if plain else l0.argmax(-1)
+            got[path] = (l0, decode_step_logits(model, tok, r_dec, cache, r_len, S0, 0))
+        torch.cuda.synchronize()
+        n = read_launches()
+        counts[path] = (vit, n["int4_matmul"], n["decode_attention"])
+    set_kernel_impl(model, "kernel")
+    rels = [rel_l2(a, b) for a, b in zip(got["kernel"], got["plain"])]
+    print(f"{what} ({n0} tokens, {req.patches.shape[0]} patches) on the int4 model, kernel "
+          f"vs plain path: logits after prefill rel_l2={rels[0]:.3e}, after one decode step "
+          f"{rels[1]:.3e} (tol {LOGITS_TOL}); argmax {int(got['kernel'][0].argmax())} vs "
+          f"{int(got['plain'][0].argmax())}; (ViT int4, int4, decode) launches: kernel path "
+          f"{counts['kernel']}, plain path {counts['plain']}", flush=True)
+    if not (all(torch.isfinite(x).all() for x in got["kernel"]) and max(rels) <= LOGITS_TOL):
+        raise AssertionError(f"int4 kernel path disagrees with the plain path on {what}: "
+                             f"{rels}")
+    if counts["plain"][1:] != (0, 0) or counts["kernel"][2] != cfg.text.num_hidden_layers:
+        raise AssertionError(f"{what}: launches {counts} (the plain path must launch no "
+                             f"int4 or decode kernel, the kernel path one decode a layer)")
+    return counts["kernel"][0]
 
 
 def int4_serving_phase(model, runner, batch, card) -> dict:
     """Phase 13. Returns the int4 and decode kernels' launches from the
     counted generate call."""
-    import contextlib
-
     import numpy as np
     import torch
 
@@ -1204,6 +1242,7 @@ def int4_serving_phase(model, runner, batch, card) -> dict:
     from video_r2_tpu_torch.models.decoder import DecodeKVCache, KVCache
     from video_r2_tpu_torch.models.quant import quantize_params
     from video_r2_tpu_torch.ops.decode_attention import BLOCK_S
+    from video_r2_tpu_torch.video.api import video_features
 
     reqs, packed, pos, deltas = batch
     cfg, dev = model.cfg, model.device
@@ -1301,31 +1340,17 @@ def int4_serving_phase(model, runner, batch, card) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"the int4 slice launched no {name} kernel")
 
-    # 4. request 0 alone: kernel path vs plain path, after prefill and one step
-    req = reqs[0]
-    S0, n0 = req.input_ids.shape[1], int(req.lengths[0])
-    r_ids = torch.as_tensor(req.input_ids, device=dev).long()
-    r_pos = torch.as_tensor(req.position_ids, device=dev).long()
-    r_len = torch.as_tensor(req.lengths, dtype=torch.int32, device=dev)
-    r_dec = torch.as_tensor(req.rope_deltas + S0, device=dev).long()
-    r_max = -(-(S0 + T) // BLOCK_S) * BLOCK_S
-    got = {}
-    for path in ("kernel", "plain"):
-        plain = path == "plain"
-        with plain_int4_path() if plain else contextlib.nullcontext(), torch.inference_mode():
-            cache = DecodeKVCache.init(cfg.text, 1, r_max, torch.bfloat16, dev)
-            l0 = prefill(model, r_ids, r_pos, r_len, cache,
-                         runner.vision_embeds(req, "xla" if plain else "kernel"),
-                         cfg.video_token_id, "xla" if plain else "flash")
-            tok = got["kernel"][0].argmax(-1) if plain else l0.argmax(-1)
-            got[path] = (l0, decode_step_logits(model, tok, r_dec, cache, r_len, S0, 0))
-    rels = [rel_l2(a, b) for a, b in zip(got["kernel"], got["plain"])]
-    print(f"request 0 ({n0} tokens) on the int4 model, kernel vs plain path: logits after "
-          f"prefill rel_l2={rels[0]:.3e}, after one decode step {rels[1]:.3e} (tol "
-          f"{LOGITS_TOL}); argmax {int(got['kernel'][0].argmax())} vs "
-          f"{int(got['plain'][0].argmax())}", flush=True)
-    if not (all(torch.isfinite(x).all() for x in got["kernel"]) and max(rels) <= LOGITS_TOL):
-        raise AssertionError(f"int4 kernel path disagrees with the plain path: {rels}")
+    # 4. request 0 alone, and a 2-frame clip whose 784 patches take the ViT's
+    # int4 linears through the kernel: kernel path vs plain path
+    short = runner.prepare(video_features(np.random.default_rng(SEED + 9).integers(
+        0, 256, (SHORT_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8), FRAME_HW, FRAME_HW,
+        sample_fps=2.0), INT4_QUESTIONS[0])
+    int4_request_check(model, runner, reqs[0], "request 0", T)
+    vit = int4_request_check(model, runner, short, f"a {SHORT_FRAMES}-frame clip", T)
+    vit_linears = 4 * cfg.vision.depth + 2     # qkv, proj, gate, up a block; the merger
+    if vit < vit_linears:
+        raise AssertionError(f"the {SHORT_FRAMES}-frame clip's ViT launched {vit} int4 "
+                             f"kernels, fewer than {vit_linears}")
 
     # 5. the batch's first decode step, decode_impl "kernel" vs "xla"
     lk0, lk1 = first_step(DecodeKVCache.init(cfg.text, B, smax, torch.bfloat16, dev), vemb)
@@ -1703,9 +1728,14 @@ def judge_logits(model, ids, attn_impl, act_quant=None, token=None):
                                   act_quant=act_quant)
 
 
-def set_ffn_impl(model, impl: str) -> None:
-    for layer in model.model.layers:
-        layer.mlp.ffn_impl = impl
+def set_kernel_impl(model, impl: str) -> None:
+    """"kernel" or "plain" for every kernel choice the model's modules hold:
+    the grouped FFN (MoE MLPs), the int4 matmul (linears) and the decode
+    step's attention (the decoder)."""
+    for mod in model.modules():
+        for attr in ("ffn_impl", "int4_impl", "decode_attn_impl"):
+            if hasattr(mod, attr):
+                setattr(mod, attr, impl)
 
 
 class FfnRecorder:
@@ -1929,12 +1959,12 @@ def judge_phase(card: str, device) -> dict:
     ref_tok = None
     got = {}
     for impl, attn in (("kernel", "flash"), ("plain", "xla")):
-        set_ffn_impl(model, impl)
+        set_kernel_impl(model, impl)
         first = judge_logits(model, ids[:1], attn)
         if ref_tok is None:
             ref_tok = first.argmax(-1)
         got[impl] = (first, judge_logits(model, ids[:1], attn, token=ref_tok))
-    set_ffn_impl(model, "kernel")
+    set_kernel_impl(model, "kernel")
     for i, what in enumerate(("after the prompt", "after one decode step")):
         a, b = got["kernel"][i], got["plain"][i]
         rel = rel_l2(a, b)

@@ -107,6 +107,53 @@ def test_int4_matmul_plain_matches_jax_kernel(rng):
     assert int4_matmul.int4_matmul.launches == before   # CPU tensors launch nothing
 
 
+def test_int4_matmul_plain_matches_jax_kernel_at_a_tail_width(rng):
+    """A width that no 64-column tile divides (as the ViT's gate / up,
+    N = 3420): the JAX kernel takes the whole width as its one block."""
+    M, K, N, g = 8, 512, 220, 128
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    leaf = j_quant4(jnp.asarray(rng.normal(size=(1, K, N)).astype(np.float32)), group_size=g)
+    ref = jint4.int4_matmul_stacked(jnp.asarray(x), leaf["kernel_q4"], leaf["scale4"], 0,
+                                    group_size=g, interpret=True)
+    ours = int4_matmul.int4_matmul(T(x), T(np.asarray(leaf["kernel_q4"][0])),
+                                   T(np.asarray(leaf["scale4"][0])))
+    assert ours.shape == (M, N)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+def test_plain_impl_switches_bypass_the_wrappers(int4_models, monkeypatch):
+    """int4_impl="plain" on the linears and decode_attn_impl="plain" on the
+    decoder never reach the kernels' wrappers (raising stand-ins here), and
+    give the kernel choice's tokens."""
+    from video_r2_tpu_torch.models import decoder, layers
+
+    model, _ = int4_models
+    ids, lengths = np.arange(2, 26).reshape(2, 12), np.array([12, 9])
+    sp = sampling.SamplingParams(max_new_tokens=4, pad_token_id=0, eos_token_ids=())
+    ref = generate(model, ids, lengths, sp, decode_impl="kernel")
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called")
+
+    monkeypatch.setattr(layers, "int4_matmul", refuse)
+    monkeypatch.setattr(decoder, "decode_attention_stacked", refuse)
+    with pytest.raises(AssertionError, match="wrapper was called"):
+        generate(model, ids, lengths, sp, decode_impl="kernel")
+    try:
+        for mod in model.modules():
+            if hasattr(mod, "int4_impl"):
+                mod.int4_impl = "plain"
+        model.model.decode_attn_impl = "plain"
+        got = generate(model, ids, lengths, sp, decode_impl="kernel")
+    finally:
+        for mod in model.modules():
+            if hasattr(mod, "int4_impl"):
+                mod.int4_impl = "kernel"
+        model.model.decode_attn_impl = "kernel"
+    np.testing.assert_array_equal(got.sequences, ref.sequences)
+    np.testing.assert_allclose(got.logprobs, ref.logprobs, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("group_size", [8, 24])
 def test_quantize_params_int4_matches_jax(group_size):
     """bits=4 in place gives the JAX tree leaf by leaf: int4 where K is a

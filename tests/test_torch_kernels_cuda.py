@@ -401,9 +401,10 @@ def test_w8a8_linear_on_the_card_is_exact(cuda, M):
     assert torch.equal(int8_matmul(a, b).cpu(), int8_matmul(a.cpu(), b.cpu()))
 
 
-# the 7B's int4 linears (K, N): q / o, k / v, gate / up, down, merger fc1 / fc2
+# the 7B's int4 linears (K, N): q / o, k / v, gate / up, down, merger fc1 / fc2,
+# the ViT's qkv, proj and gate / up (N = 3420: a 28-column tail block)
 INT4_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (5120, 5120),
-               (5120, 3584)]
+               (5120, 3584), (1280, 3840), (1280, 1280), (1280, 3420)]
 
 
 def _int4_operands(gen, M, K, N):
@@ -431,6 +432,21 @@ def test_int4_matmul_kernel_matches_plain(cuda, M, K, N):
     ref = int4_matmul_plain(x, wq, scale)
     assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == (M, N)
     assert _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 40])
+@pytest.mark.parametrize("N", [96, 200, 198, 197, 1])
+def test_int4_matmul_kernel_column_tails(cuda, M, N):
+    """Widths that are not a multiple of 64: 16-byte copies with a tail
+    block (96), 4-byte copies (200), byte loads (198) and scalar stores of
+    an odd N (197, 1)."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    x, wq, scale = _int4_operands(gen, M, 512, N)
+    out = int4_matmul(x, wq, scale)
+    assert out.shape == (M, N) and _close(out, int4_matmul_plain(x, wq, scale))
 
 
 @pytest.mark.cuda
@@ -482,8 +498,8 @@ def test_int4_matmul_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # group size 64, not 128
         leaf = quantize_kernel_int4(torch.randn(512, 128, device=cuda), group_size=64)
         int4_matmul(x, leaf["kernel_q4"], leaf["scale4"])
-    with pytest.raises(ValueError):                 # N not a multiple of 64
-        int4_matmul(x, wq[:, :96].contiguous(), scale[:, :96].contiguous())
+    with pytest.raises(ValueError):                 # K not a multiple of 256
+        int4_matmul(x[:, :384].contiguous(), wq[:192].contiguous(), scale[:3].contiguous())
     with pytest.raises(ValueError):                 # more rows than the kernel takes
         int4_matmul(_randn(gen, 1025, 512), wq, scale)
 

@@ -32,6 +32,14 @@
 // run over N fastest, so a row-block's blocks share x through L2. At small
 // N (the k / v projections: 8 blocks on 132 SMs) the card is mostly idle:
 // split-K is later work, as are TMA and wgmma.
+// Any N: where 64 does not divide N (the ViT's gate / up, N = 3420) the
+// last block zero-fills the weights and scales of its columns past N and
+// stores only those below it. A packed row of N bytes is 16-byte aligned
+// only when 16 divides N; otherwise the nibbles come in 4-byte copies
+// (4 | N) or byte by byte, and the scales in 4-byte copies (4 does not
+// divide N). Each case is its own instantiation, and the widths 64 divides
+// (every decoder and merger width) keep unpredicated copies and stores:
+// predicated copies slowed the latency-bound decode shapes on the card.
 #include "attn_common.cuh"
 
 namespace {
@@ -40,6 +48,7 @@ constexpr int kThreads = 128;  // 4 warps side by side over the columns
 constexpr int kBN = 64;        // output columns per block, 16 per warp
 constexpr int kKS = 32;        // packed rows per stage: 32 k of each half
 constexpr int kGroup = 128;    // rows per scale group
+constexpr int kWhole = 64;     // load_stage's WV when 64 divides N
 constexpr int kPitch = 80;     // shared row pitch in bytes of the staged
                                // nibbles and x tiles: 64 + 16 spreads the
                                // byte reads of a fragment over four bank
@@ -67,16 +76,54 @@ struct Int4Params {
   int M, K, N;
 };
 
+// Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
+// `valid` and zero-fills them otherwise (gmem must then still be a mapped
+// address: callers pass the operand's base)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(BYTES), "r"(src));
+}
+
 // Start the copies of stage s (packed rows [32 s, 32 s + 32)) of the block's
-// 64 columns from n0 and its rows [row0, row0 + rows) into `st`.
-template <int MT>
+// 64 columns from n0 and its rows [row0, row0 + rows) into `st`; columns
+// past N are zero-filled. WV: kWhole when 64 divides N (no tail: the copies
+// go unpredicated), else the bytes a copy of nibbles, 16 (16 | N), 4 (4 | N)
+// or 1.
+template <int MT, int WV>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& p, int s,
                                            int n0, int row0, int rows, int tid) {
   using R = Ring<MT>;
   const int Kp = p.K / 2, p0 = s * kKS;
-  {  // 32 rows x 64 bytes of nibbles: one 16-byte chunk a thread
+  const uint8_t* wrow = p.wq + (long long)p0 * p.N + n0;
+  // 32 rows x 64 bytes of nibbles
+  if constexpr (WV == kWhole) {  // one 16-byte copy a thread
     const int r = tid >> 2, c = 16 * (tid & 3);
     vr2::cp_async16(st + r * kPitch + c, p.wq + (long long)(p0 + r) * p.N + n0 + c);
+  } else if constexpr (WV == 16) {  // the same, predicated
+    const int r = tid >> 2, c = 16 * (tid & 3);
+    const bool ok = n0 + c < p.N;
+    cp_async_zfill<16>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
+  } else if constexpr (WV == 4) {  // four 4-byte copies a thread
+#pragma unroll
+    for (int i = tid; i < kKS * kBN / 4; i += kThreads) {
+      const int r = i >> 4, c = 4 * (i & 15);
+      const bool ok = n0 + c < p.N;
+      cp_async_zfill<4>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
+    }
+  } else {  // 16 bytes a thread, loaded and stored here: the next barrier
+            // before this stage is read orders them as it does the copies
+#pragma unroll 4
+    for (int i = tid; i < kKS * kBN; i += kThreads) {
+      const int r = i >> 6, c = i & 63;
+      st[r * kPitch + c] = n0 + c < p.N ? wrow[(long long)r * p.N + c] : 0;
+    }
   }
   unsigned char* xs = st + R::W_BYTES;
   for (int i = tid; i < 2 * R::BM * 4; i += kThreads) {  // both halves, 4 chunks a row
@@ -86,11 +133,28 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
                       reinterpret_cast<const unsigned char*>(
                           p.x + (long long)(row0 + r) * p.K + half * Kp + p0) + c);
   }
-  if (tid < 32) {  // the two scale rows: 16 chunks each
-    const int half = tid >> 4, c = 4 * (tid & 15);
+  float* sc = reinterpret_cast<float*>(st + R::W_BYTES + 2 * R::X_BYTES);
+  if constexpr (WV == kWhole) {  // the two scale rows: 16 chunks of 4 each
+    if (tid < 32) {
+      const int half = tid >> 4, c = 4 * (tid & 15);
+      const int srow = (half * Kp + p0) / kGroup;
+      vr2::cp_async16(st + R::W_BYTES + 2 * R::X_BYTES + half * kBN * 4 + 4 * c,
+                      p.scale + (long long)srow * p.N + n0 + c);
+    }
+  } else if constexpr (WV > 1) {  // the same, predicated (4 | N)
+    if (tid < 32) {
+      const int half = tid >> 4, c = 4 * (tid & 15);
+      const int srow = (half * Kp + p0) / kGroup;
+      const bool ok = n0 + c < p.N;
+      cp_async_zfill<16>(sc + half * kBN + c,
+                         ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
+    }
+  } else {  // one scale a thread
+    const int half = tid >> 6, c = tid & 63;
     const int srow = (half * Kp + p0) / kGroup;
-    vr2::cp_async16(st + R::W_BYTES + 2 * R::X_BYTES + half * kBN * 4 + 4 * c,
-                    p.scale + (long long)srow * p.N + n0 + c);
+    const bool ok = n0 + c < p.N;
+    cp_async_zfill<4>(sc + half * kBN + c,
+                      ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
   }
 }
 
@@ -98,7 +162,7 @@ __device__ __forceinline__ float nib(unsigned u, float s) {
   return static_cast<float>(static_cast<int>(u & 15u) - 8) * s;
 }
 
-template <int MT>
+template <int MT, int WV>
 __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params p) {
   using R = Ring<MT>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -122,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
   }
 #pragma unroll
   for (int s = 0; s < R::STAGES - 1; ++s) {
-    if (s < n_stages) load_stage<MT>(smem + s * R::BYTES, p, s, n0, row0, rows, tid);
+    if (s < n_stages) load_stage<MT, WV>(smem + s * R::BYTES, p, s, n0, row0, rows, tid);
     vr2::cp_async_commit();
   }
 
@@ -138,8 +202,8 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     vr2::cp_async_wait<R::STAGES - 2>();  // stage s has landed
     __syncthreads();                      // ... for every thread; stage s - 1 is free
     const int nx = s + R::STAGES - 1;
-    if (nx < n_stages) load_stage<MT>(smem + (nx % R::STAGES) * R::BYTES, p, nx, n0, row0,
-                                      rows, tid);
+    if (nx < n_stages)
+      load_stage<MT, WV>(smem + (nx % R::STAGES) * R::BYTES, p, nx, n0, row0, rows, tid);
     vr2::cp_async_commit();
 
     const unsigned char* st = smem + (s % R::STAGES) * R::BYTES;
@@ -187,38 +251,55 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
       if (r >= rows) continue;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        const int c = n0 + wn0 + nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(p.y + (long long)(row0 + r) * p.N + c) =
-            vr2::pack_bf16(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        const int c = n0 + wn0 + nt * 8 + 2 * t;  // even
+        __nv_bfloat16* yr = p.y + (long long)(row0 + r) * p.N;
+        const float lo = acc[mt][nt][2 * half], hi = acc[mt][nt][2 * half + 1];
+        if constexpr (WV == kWhole) {
+          *reinterpret_cast<uint32_t*>(p.y + (long long)(row0 + r) * p.N + c) =
+              vr2::pack_bf16(lo, hi);
+        } else if ((p.N & 1) == 0) {  // c < N means c + 1 < N; the pair is 4-byte aligned
+          if (c < p.N) *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
+        } else {
+          if (c < p.N) yr[c] = __float2bfloat16_rn(lo);
+          if (c + 1 < p.N) yr[c + 1] = __float2bfloat16_rn(hi);
+        }
       }
     }
 }
 
-template <int MT>
+template <int MT, int WV>
 cudaError_t launch(const Int4Params& p, cudaStream_t stream) {
   using R = Ring<MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      int4_matmul_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+      int4_matmul_kernel<MT, WV>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.N / kBN, (p.M + R::BM - 1) / R::BM);
-  int4_matmul_kernel<MT><<<grid, kThreads, R::SMEM, stream>>>(p);
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + R::BM - 1) / R::BM);
+  int4_matmul_kernel<MT, WV><<<grid, kThreads, R::SMEM, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the copy width of the nibbles by N's alignment (a row is N bytes)
+template <int MT>
+cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
+  if (p.N % kBN == 0) return launch<MT, kWhole>(p, stream);
+  if (p.N % 16 == 0) return launch<MT, 16>(p, stream);
+  if (p.N % 4 == 0) return launch<MT, 4>(p, stream);
+  return launch<MT, 1>(p, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
 // scale [K/128, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
-// K a multiple of 256, N of 64, 1 <= M. Returns a cudaError_t.
+// K a multiple of 256, any N >= 1, 1 <= M. Returns a cudaError_t.
 extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale, void* y,
                                int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0 || N % kBN != 0)
-    return int(cudaErrorInvalidValue);
+  if (M <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0) return int(cudaErrorInvalidValue);
   const Int4Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
                      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M, K,
                      N};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16) return int(launch<1>(p, st));
-  if (M <= 32) return int(launch<2>(p, st));
-  return int(launch<4>(p, st));
+  if (M <= 16) return int(launch_rows<1>(p, st));
+  if (M <= 32) return int(launch_rows<2>(p, st));
+  return int(launch_rows<4>(p, st));
 }

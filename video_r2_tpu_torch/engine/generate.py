@@ -92,9 +92,10 @@ def decode_step_logits(model: Qwen25VL, tok: torch.Tensor, pos: torch.Tensor,
                        act_quant: str | None = None) -> torch.Tensor:
     """Forward decode token t: tok [B] at rope positions pos [B], its k / v
     written at slot s_pad + t of `cache` in place. A DecodeKVCache runs the
-    decode kernel's step (its linears without act_quant); a KVCache the
-    plain masked attention over the cache. Returns the next logits [B, V]
-    in fp32 (act_quant: a W8A8 head)."""
+    decode kernel's step (its linears without act_quant; attn_impl does not
+    apply to it); a KVCache the masked attention over the cache by
+    attn_impl. Returns the next logits [B, V] in fp32 (act_quant: a W8A8
+    head)."""
     cfg = model.cfg
     B = tok.shape[0]
     emb = model.model.embed_tokens(tok)[:, None]

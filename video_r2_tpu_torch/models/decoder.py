@@ -38,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
-from ..ops.decode_attention import decode_attention_stacked
+from ..ops.decode_attention import decode_attention_stacked, decode_attention_stacked_plain
 from .config import TextConfig
 from .layers import MLP, ExpertLinear, Linear, RMSNorm, apply_rotary, quantize_act
 from .moe import moe_mlp
@@ -212,6 +212,8 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg, **kw)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        self.decode_attn_impl = "kernel"   # "plain": decode_step's attention
+                                           # through the kernel's plain version
 
     def forward(self, hidden, cos, sin, bias,
                 cache: KVCache | DecodeKVCache | None = None,
@@ -243,12 +245,14 @@ class Decoder(nn.Module):
         [0, lengths[b]) and [s_pad, s_pad + t] of that layer. No act_quant,
         as in the reference. Returns the final-normed hidden [B, 1, H]."""
         slot = s_pad + t
+        attend = (decode_attention_stacked if self.decode_attn_impl == "kernel"
+                  else decode_attention_stacked_plain)
         for i, layer in enumerate(self.layers):
             q, k, v = layer.qkv(hidden, cos, sin)
             cache.k[i, :, :, slot] = k[:, 0]
             cache.v[i, :, :, slot] = v[:, 0]
-            attn = decode_attention_stacked(q[:, 0], cache.k, cache.v, lengths,
-                                            slot_end=slot, layer=i, s_pad=s_pad)
+            attn = attend(q[:, 0], cache.k, cache.v, lengths, slot_end=slot, layer=i,
+                          s_pad=s_pad)
             hidden = layer.finish(hidden, attn[:, None])
         return self.norm(hidden)
 

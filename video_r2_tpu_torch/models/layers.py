@@ -64,13 +64,16 @@ def _w8a8_linear(wq: torch.Tensor, w_scale: torch.Tensor, x: torch.Tensor,
     return y.reshape(*lead, wq.shape[-1])
 
 
-def _int4_linear(wq: torch.Tensor, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _int4_linear(wq: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
+                 impl: str = "kernel") -> torch.Tensor:
     """x [.., K] @ the int4 kernel: 1 to KERNEL_MAX_ROWS rows through the
     int4 kernel's wrapper, more dequantised and multiplied with
-    torch.matmul (the reference's dispatch, layers.py:_int4_linear)."""
+    torch.matmul (the reference's dispatch, layers.py:_int4_linear).
+    impl="plain" sends every call to the wrapper's plain version."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    fn = int4_matmul if 0 < x2.shape[0] <= KERNEL_MAX_ROWS else int4_matmul_plain
+    kernel = impl == "kernel" and 0 < x2.shape[0] <= KERNEL_MAX_ROWS
+    fn = int4_matmul if kernel else int4_matmul_plain
     return fn(x2, wq, scale).reshape(*lead, wq.shape[-1])
 
 
@@ -81,7 +84,9 @@ class Linear(nn.Module):
     [r, out], set by train/lora.py::attach_lora) it computes
     y = x @ kernel + (x @ A) @ (B * lora_scale) (+ bias), the adapters cast
     to x's dtype, as the JAX package's attach form: the kernel is never
-    touched and W + AB is never formed."""
+    touched and W + AB is never formed. int4_impl="plain" runs an int4
+    leaf's product through the int4 kernel's plain version on the card (the
+    reference path)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, *, dtype, device):
         super().__init__()
@@ -94,13 +99,14 @@ class Linear(nn.Module):
         self.lora_a: nn.Parameter | None = None
         self.lora_b: nn.Parameter | None = None
         self.lora_scale = 1.0
+        self.int4_impl = "kernel"
 
     def forward(self, x: torch.Tensor, act_quant: str | None = None,
                 pre_quant=None) -> torch.Tensor:
         if self.kernel is not None:
             y = torch.matmul(x, self.kernel)
         elif self.kernel_q4 is not None:
-            y = _int4_linear(self.kernel_q4, self.scale4, x)
+            y = _int4_linear(self.kernel_q4, self.scale4, x, self.int4_impl)
         elif act_quant == "int8":
             y = _w8a8_linear(self.kernel_q, self.scale, x, pre_quant)
         else:

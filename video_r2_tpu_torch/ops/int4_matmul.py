@@ -13,7 +13,7 @@ scale array.
 stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (g = 128, bf16 x of at most
-1024 rows) and raises on anything the kernel does not take; on CPU tensors
+1024 rows, any N) and raises on anything the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
 own rule (``models/layers.py::Linear``): at most `KERNEL_MAX_ROWS` rows of
@@ -28,7 +28,6 @@ import torch
 from .cuda_build import check, kernels
 
 KERNEL_GROUP = 128        # the kernel's group size (INT4_GROUP_SIZE)
-KERNEL_TILE_N = 64        # N must be a multiple of this
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
 
 
@@ -92,8 +91,6 @@ def _int4_cuda(x, wq, scale):
         raise ValueError(f"int4 kernel: x {tuple(x.shape)}, wq {tuple(wq.shape)} and scale "
                          f"{tuple(scale.shape)} must be [M, K], [K/2, N], [K/{KERNEL_GROUP}, "
                          f"N] with K a multiple of {2 * KERNEL_GROUP}")
-    if N % KERNEL_TILE_N:
-        raise ValueError(f"int4 kernel: N = {N} is not a multiple of {KERNEL_TILE_N}")
     if not 0 < M <= KERNEL_MAX_ROWS:
         raise ValueError(f"int4 kernel: {M} rows, the kernel takes 1 to {KERNEL_MAX_ROWS}")
     dev = x.device
