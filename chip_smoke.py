@@ -107,6 +107,28 @@
    the kernel too, counted); the
    batch's logits after one decode step under decode_impl="kernel" vs
    "xla"; int4 vs bf16 prefill logits (no bound: the weights are random).
+14. GMM backward kernels (after phase 10): one seeded judge-width MoE layer
+   (MoEMLP: E 128, H 2048, I 768, top 8, scaled like init_params; expert
+   77's router column zero, so no token routes to it) under autograd, T =
+   4096 tokens, the router and the experts trained, loss = sum(out * cot):
+   dX, the router's gradient and dWg / dWu / dWd of the kernel path against
+   the plain path (ffn_impl="plain"), the absent expert's dW exactly 0, the
+   launches of that run (each backward kernel once, the grouped FFN twice:
+   forward and the d_topv recompute); then the dX, dW and dWd kernels
+   against their plain versions on the backward's own operands, timed, with
+   the bound and the library call (torch._grouped_mm forming the same
+   products from dg / du / h and dY, where the card's torch takes them);
+   the whole backward timed; dX again at phase 15's token count (2 x 1024);
+15. MoE LoRA SFT (inside phase 11, on the bf16 judge before quantize_params):
+   LoRA r 64 / alpha 64 on the default targets of Qwen3-30B-A3B (48 layers,
+   full width), SFTConfig(attn_impl="flash", gradient_checkpointing=True),
+   B = 2 records of the judge's requests (the rendered prompt masked, a
+   verdict answer labelled) padded to 1024: step-1 loss and adapter
+   gradients, kernel path (flash, grouped FFN, GMM dX) vs plain path
+   (set_kernel_impl "plain", attention "xla"); then 3 steps of
+   make_lora_sft_step with the launch counts set to 0 before and read after
+   (the dX kernel once a MoE layer a step, the dW kernels never); ms per
+   step, tokens/s, peak memory.
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -220,6 +242,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                     "video_r2_tpu/ops/int4_matmul.py:65"),
     "decode_attention": ("video_r2_tpu_torch/csrc/decode_attn.cu",
                          "video_r2_tpu/ops/decode_attention.py:42"),
+    "moe_gmm_bwd_dx": ("video_r2_tpu_torch/csrc/moe_gmm_bwd.cu",
+                       "video_r2_tpu/ops/moe_gmm.py:185"),
+    "moe_gmm_bwd_dw": ("video_r2_tpu_torch/csrc/moe_gmm_bwd.cu",
+                       "video_r2_tpu/ops/moe_gmm.py:213"),
+    "moe_gmm_bwd_dwd": ("video_r2_tpu_torch/csrc/moe_gmm_bwd.cu",
+                        "video_r2_tpu/ops/moe_gmm.py:258"),
 }
 # the judge (phases 10 and 11)
 PEAK_INT8 = 1979e12               # int8 tensor-core TOP/s (H100 SXM data sheet)
@@ -240,6 +268,18 @@ JUDGE_SYSTEM = (
     "inside <think></think> and its final answer inside <answer></answer>. Check "
     "that the reasoning supports the answer and fits the question. Reply with one "
     "line, 'Consistent: yes' or 'Consistent: no', then one sentence of reason.")
+# MoE training (phases 14 and 15)
+GMM_BWD_T = 4096                  # phase 14's tokens (R = 32768 routed rows)
+ABSENT_EXPERT = 77                # its router column is zero: logit 0, below
+                                  # the top 8 of 128 for every token
+MOE_LORA_B, MOE_LORA_S, MOE_LORA_STEPS = 2, 1024, 3
+# phase 15's step 1, kernel path vs plain path: bf16 rounding differs at
+# every attention output and expert FFN and their gradients over 48 layers,
+# and a token whose 8th and 9th router probabilities lie within that noise
+# may swap an expert; twice phase 7's bound, as the judge's logits bound is
+# twice phase 5's
+MOE_PATH_GRAD_REL_L2 = 1e-1
+JUDGE_ANSWER = "Consistent: yes. The reasoning follows the frames in order and supports the answer."
 JUDGE_STEPS = ("The person enters from the left and walks to the table.",
                "Wait, the cup is lifted before the second person arrives.",
                "Let me check the last frames again: the cup is back on the table.",
@@ -256,7 +296,7 @@ def card_line() -> str:
 
 def counters() -> dict:
     """{kernel name: the wrapper whose .launches counts it}."""
-    from video_r2_tpu_torch.ops import decode_attention, flash, int4_matmul
+    from video_r2_tpu_torch.ops import decode_attention, flash, int4_matmul, moe_gmm
     from video_r2_tpu_torch.ops import paged_attention as paged
     from video_r2_tpu_torch.ops import vit_window_attention as win
 
@@ -271,7 +311,10 @@ def counters() -> dict:
                 paged.paged_decode_attention_stacked_quant,
             "paged_decode_attention": paged.paged_decode_attention,
             "int4_matmul": int4_matmul.int4_matmul,
-            "decode_attention": decode_attention.decode_attention_stacked}
+            "decode_attention": decode_attention.decode_attention_stacked,
+            "moe_gmm_bwd_dx": moe_gmm.gmm_bwd_dx,
+            "moe_gmm_bwd_dw": moe_gmm.gmm_bwd_dw,
+            "moe_gmm_bwd_dwd": moe_gmm.gmm_bwd_dwd}
 
 
 def ffn_launches() -> dict:
@@ -1858,6 +1901,335 @@ def profile_decode_step(model, batch: int):
     del cache
     return (len(kernels), busy, wall * 1e3) if kernels else None
 
+def gmm_bwd_bounds(R: int, n_exp: int, E: int, H: int, I: int) -> dict:
+    """The least time of each GMM backward wrapper on its own inputs, for R
+    routed rows and n_exp routed experts, and of the whole backward (the
+    routed experts' weights read once, rows read once, outputs written
+    once; bf16 operands, fp32 dX / dW; at the bf16 rate)."""
+    w = n_exp * 3.0 * H * I * 2
+    return {"moe_gmm_bwd_dx": bound(10.0 * R * H * I, w + R * H * (2 + 2 + 4)),
+            "moe_gmm_bwd_dw": bound(4.0 * R * H * I, R * (H + 2 * I) * 2 + 2.0 * E * H * I * 4),
+            "moe_gmm_bwd_dwd": bound(2.0 * R * H * I, R * (I + H) * 2 + E * I * H * 4),
+            "backward": bound(16.0 * R * H * I, w + 3.0 * E * H * I * 4 + R * H * (2 + 2 + 4))}
+
+
+def gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, run):
+    """The library yardstick of the GMM backward kernels: torch._grouped_mm
+    calls that form the same products from dg / du / h and dY over each
+    expert's run of rows (run: rows per expert, the valid prefix of the
+    layout): dX = dg Wg^T + du Wu^T (two 2d x 3d calls), dWg / dWu = x^T dg /
+    x^T du and dWd = h^T dY (2d x 2d calls grouped along the rows). Returns
+    {kernel name: callable or None}; None where the card's torch does not
+    take the operands (probed once, the reason printed)."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        print("torch has no _grouped_mm: no library time for the GMM backward", flush=True)
+        return dict.fromkeys(("moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "moe_gmm_bwd_dwd"))
+    offs = torch.cumsum(run, 0).int()
+    total = int(offs[-1])
+    xr, dgr, dur, hr, dyr = (t.reshape(-1, t.shape[-1])[:total] for t in (xs, dg, du, h, dYs))
+    # layouts made once, untimed: x^T and h^T row-major, and column-major
+    # copies of the row operands in case the 2d x 2d form wants those
+    xT, hT = xr.t().contiguous(), hr.t().contiguous()
+    cm = lambda t: t.t().contiguous().t()  # noqa: E731
+    dgc, duc, dyc = cm(dgr), cm(dur), cm(dyr)
+    wgT, wuT = wg.transpose(1, 2), wu.transpose(1, 2)
+    mm = torch._grouped_mm
+    candidates = {
+        "moe_gmm_bwd_dx": [lambda: mm(dgr, wgT, offs=offs) + mm(dur, wuT, offs=offs)],
+        "moe_gmm_bwd_dw": [lambda: (mm(xT, dgr, offs=offs), mm(xT, dur, offs=offs)),
+                           lambda: (mm(xT, dgc, offs=offs), mm(xT, duc, offs=offs))],
+        "moe_gmm_bwd_dwd": [lambda: mm(hT, dyr, offs=offs), lambda: mm(hT, dyc, offs=offs)],
+    }
+    out = {}
+    for name, fns in candidates.items():
+        out[name] = None
+        for fn in fns:
+            try:       # a capability probe of the yardstick, not of the port
+                fn()
+                torch.cuda.synchronize()
+                out[name] = fn
+                break
+            except (RuntimeError, TypeError) as e:
+                reason = str(e)[:160]
+        if out[name] is None:
+            print(f"torch._grouped_mm does not take the operands of {name} ({reason}); "
+                  f"no library time", flush=True)
+    return out
+
+
+def gmm_bwd_phase(card: str, device) -> dict:
+    """Phase 14: the GMM backward kernels at the judge's shapes. One seeded
+    judge-width MoE layer (MoEMLP, scaled like init_params), expert
+    ABSENT_EXPERT's router column zero; T = 4096 tokens under autograd with
+    the router and the experts trained, loss = sum(out * cot): every
+    gradient of the kernel path against the plain path (ffn_impl="plain"),
+    the absent expert's dW exactly 0, the launches of that run; then each
+    kernel against its plain version on the same operands, timed, with its
+    bound and the library call; the whole backward timed; the dX kernel
+    again at phase 15's token count. Returns the kernels-line entries."""
+    import torch
+
+    from video_r2_tpu_torch.models.config import qwen3_moe_30b_a3b
+    from video_r2_tpu_torch.models.decoder import MoEMLP
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    tc = qwen3_moe_30b_a3b().text
+    E, H, I, k = (tc.num_experts, tc.hidden_size, tc.moe_intermediate_size,
+                  tc.num_experts_per_tok)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    mod = MoEMLP(tc, dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+        mod.router.kernel[:, ABSENT_EXPERT] = 0.0
+    mod.requires_grad_(True)
+    bf = lambda *s: torch.randn(*s, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
+    T = GMM_BWD_T
+    x, cot = bf(1, T, H).requires_grad_(), bf(1, T, H)
+    leaves = [x, mod.router.kernel, mod.experts.gate.kernel, mod.experts.up.kernel,
+              mod.experts.down.kernel]
+    names = ("dX", "d_router", "dWg", "dWu", "dWd")
+    grads = {}
+    for impl in ("kernel", "plain"):
+        mod.ffn_impl = impl
+        reset_launches()
+        out = mod(x)
+        grads[impl] = torch.autograd.grad((out.float() * cot.float()).sum(), leaves)
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            launches = read_launches()
+    mod.ffn_impl = "kernel"
+    with torch.no_grad():
+        xt = x.detach().reshape(T, H)
+        topv, topi = route(mod.router.kernel, xt, k, True)
+    counts = torch.bincount(topi.reshape(-1), minlength=E)
+    errs = []
+    for name, a, b in zip(names, grads["kernel"], grads["plain"]):
+        errs.append(rel_l2(a, b))
+        print(f"phase 14 gradient {name} {tuple(a.shape)}: kernel vs plain path rel_l2="
+              f"{errs[-1]:.3e} (tol {GRAD_REL_L2})", flush=True)
+    absent = [float(g[ABSENT_EXPERT].abs().max()) for impl in grads for g in grads[impl][2:]]
+    print(f"phase 14: T={T}, experts routed {int((counts > 0).sum())} of {E}, expert "
+          f"{ABSENT_EXPERT} rows {int(counts[ABSENT_EXPERT])}, its dW max |.| {max(absent)}; "
+          f"launches {launches}", flush=True)
+    if not (max(errs) <= GRAD_REL_L2 and counts[ABSENT_EXPERT] == 0 and max(absent) == 0.0
+            and all(torch.isfinite(g).all() for g in grads["kernel"])):
+        raise AssertionError(f"phase 14: the GMM backward kernels disagree with the plain "
+                             f"path: rel L2 {errs}, absent expert dW {absent}")
+    want = {"moe_gmm_bwd_dx": 1, "moe_gmm_bwd_dw": 1, "moe_gmm_bwd_dwd": 1, "moe_ffn_bf16": 2}
+    if any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"phase 14: launches {launches}, expected {want}")
+    del grads, out
+
+    # each kernel on the backward's operands, against its plain version
+    wg, wu, wd = (t.detach() for t in leaves[2:])
+    bm = gmm.auto_block_rows(T * k, E)
+    with torch.no_grad():
+        xs, ids, valid, dst = gmm.gmm_layout(xt, topi, E, bm)
+        dy_slot = cot.reshape(T, H).float().repeat_interleave(k, dim=0)
+        dYs = gmm.sorted_dy(dy_slot, topv, dst, xs.shape, xs.dtype)
+        del dy_slot
+        dx, dg, du, h = gmm.gmm_bwd_dx(xs, dYs, ids, valid, wg, wu, wd, keep_h=True)
+        pdx, pdg, pdu, ph = gmm.gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd, keep_h=True)
+        terms = [compare(a, b)[1] for a, b in ((dg, pdg), (du, pdu), (h, ph))]
+        dwg, dwu = gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E)
+        pwg, pwu = gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
+        dwd = gmm.gmm_bwd_dwd(h, dYs, ids, valid, E)
+        pwd = gmm.gmm_bwd_dwd_plain(h, dYs, ids, valid, E)
+        torch.cuda.synchronize()
+        checks = {"moe_gmm_bwd_dx": ((dx, pdx),), "moe_gmm_bwd_dw": ((dwg, pwg), (dwu, pwu)),
+                  "moe_gmm_bwd_dwd": ((dwd, pwd),)}
+        run = torch.zeros(E, dtype=torch.int32, device=device).index_add_(
+            0, ids.long(), valid.int()) * bm
+        library = gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, run)
+        runs = {"moe_gmm_bwd_dx": (lambda: gmm.gmm_bwd_dx(xs, dYs, ids, valid, wg, wu, wd),
+                                   lambda: gmm.gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd)),
+                "moe_gmm_bwd_dw": (lambda: gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E),
+                                   lambda: gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)),
+                "moe_gmm_bwd_dwd": (lambda: gmm.gmm_bwd_dwd(h, dYs, ids, valid, E),
+                                    lambda: gmm.gmm_bwd_dwd_plain(h, dYs, ids, valid, E))}
+        bounds = gmm_bwd_bounds(T * k, int((counts > 0).sum()), E, H, I)
+        results = {}
+        for name, (kern, plain) in runs.items():
+            err = max(float((a - b).abs().max()) for a, b in checks[name])
+            rel = max(rel_l2(a, b) for a, b in checks[name])
+            lib = library[name]
+            r = {"max_abs_err": err, "rel_l2": rel, "ms": cuda_ms(kern, iters=10),
+                 "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+                 "library_ms": cuda_ms(lib, iters=10) if lib is not None else None,
+                 "launches": launches[name], **bounds[name]}
+            report(name, f"GMM backward, T={T}", (xs.shape[0], bm, H, I),
+                   **{n: v for n, v in r.items() if v is not None})
+            results[name] = r
+        slack = valid == 0
+        print(f"phase 14 terms dg / du / h vs plain: {[f'{t:.3f}' for t in terms]} x the "
+              f"tolerance; slack blocks {int(slack.sum())}", flush=True)
+        zero_ok = not dx[slack].any() and not dg[slack].any()
+        if not (max(r["rel_l2"] for r in results.values()) <= GRAD_REL_L2 and max(terms) <= 1.0
+                and zero_ok and not dwg[ABSENT_EXPERT].any() and not dwd[ABSENT_EXPERT].any()):
+            raise AssertionError(f"phase 14: a GMM backward kernel disagrees with its plain "
+                                 f"version: {results}, terms {terms}")
+        del dx, dg, du, h, pdx, pdg, pdu, ph, dwg, dwu, pwg, pwu, dwd, pwd, library
+
+    # the whole backward (the d_topv recompute, dY, dX, dW, the casts)
+    out = mod(x)
+    loss = (out.float() * cot.float()).sum()
+    whole = cuda_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True), iters=5,
+                    warmup=1)
+    print(f"phase 14 whole backward (T={T}, router and experts trained): {whole:.4f} ms, "
+          f"bound {bounds['backward']['bound_ms']:.4f} ms ({bounds['backward']['bound_by']}) "
+          f"| {card}", flush=True)
+    del out, loss
+
+    # dX at phase 15's token count
+    T2 = MOE_LORA_B * MOE_LORA_S
+    with torch.no_grad():
+        xt2 = torch.randn(T2, H, generator=gen, device=device).to(torch.bfloat16)
+        topv2, topi2 = route(mod.router.kernel, xt2, k, True)
+        bm2 = gmm.auto_block_rows(T2 * k, E)
+        xs2, ids2, valid2, dst2 = gmm.gmm_layout(xt2, topi2, E, bm2)
+        dys2 = gmm.sorted_dy(torch.randn(T2 * k, H, generator=gen, device=device), topv2, dst2,
+                             xs2.shape, xs2.dtype)
+        got = gmm.gmm_bwd_dx(xs2, dys2, ids2, valid2, wg, wu, wd)[0]
+        ref = gmm.gmm_bwd_dx_plain(xs2, dys2, ids2, valid2, wg, wu, wd)[0]
+        rel = rel_l2(got, ref)
+        n2 = int(torch.unique(topi2).numel())
+        b2 = gmm_bwd_bounds(T2 * k, n2, E, H, I)["moe_gmm_bwd_dx"]
+        report("moe_gmm_bwd_dx", f"GMM backward at phase 15's T={T2}",
+               (xs2.shape[0], bm2, H, I), rel_l2=rel,
+               ms=cuda_ms(lambda: gmm.gmm_bwd_dx(xs2, dys2, ids2, valid2, wg, wu, wd), iters=10),
+               plain_ms=cuda_ms(lambda: gmm.gmm_bwd_dx_plain(xs2, dys2, ids2, valid2, wg, wu,
+                                                             wd), iters=2, warmup=1), **b2)
+        if not rel <= GRAD_REL_L2:
+            raise AssertionError(f"phase 14: dX at T={T2} disagrees with plain: {rel}")
+    return results
+
+
+def moe_lora_batch(tok, cfg, device) -> dict:
+    """MOE_LORA_B records of the judge's requests: the rendered prompt
+    (masked from the loss) and a verdict answer ending in <|im_end|>
+    (labelled), right-padded to MOE_LORA_S."""
+    import torch
+
+    from video_r2_tpu_torch.engine.chat import IM_END
+
+    B, S = MOE_LORA_B, MOE_LORA_S
+    answer = tok.encode(JUDGE_ANSWER + IM_END)
+    ids = torch.full((B, S), cfg.pad_token_id, dtype=torch.long)
+    labels = torch.full((B, S), -100, dtype=torch.long)
+    mask = torch.zeros((B, S), dtype=torch.int32)
+    for b, prompt in enumerate(judge_prompt_ids(tok, judge_requests()[:B])):
+        row = prompt + answer
+        if len(row) > S:
+            raise AssertionError(f"judge record {b}: {len(row)} tokens > {S}")
+        ids[b, :len(row)] = torch.tensor(row)
+        labels[b, len(prompt):len(row)] = torch.tensor(answer)
+        mask[b, :len(row)] = 1
+    pos = torch.arange(S).expand(3, B, S).contiguous()
+    return {"input_ids": ids.to(device), "labels": labels.to(device),
+            "attention_mask": mask.to(device), "position_ids": pos.to(device)}
+
+
+def moe_training_phase(model, cfg, tok, card: str) -> dict:
+    """Phase 15: LoRA SFT (r 64, alpha 64, the default targets) over the
+    bf16 judge in place: step-1 loss and adapter gradients, kernel path vs
+    plain path; then MOE_LORA_STEPS steps of make_lora_sft_step with the
+    launch counts set to 0 before and read after (the GMM dX kernel once a
+    MoE layer a step, no dW kernel). Leaves the model without adapters.
+    Returns the dX kernel's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.train.lora import (
+        LoRAConfig,
+        attach_lora,
+        detach_lora,
+        init_lora,
+        lora_param_count,
+    )
+    from video_r2_tpu_torch.train.optim import OptimConfig
+    from video_r2_tpu_torch.train.sft import (
+        SFTConfig,
+        init_train_state,
+        make_lora_sft_step,
+        sft_loss,
+    )
+
+    batch = moe_lora_batch(tok, cfg, model.device)
+    n_tok = int(batch["attention_mask"].sum())
+    L = cfg.text.num_hidden_layers
+    lcfg = LoRAConfig()
+    params = attach_lora(model, init_lora(model, lcfg, seed=SEED), lcfg)
+    scfg = SFTConfig(attn_impl="flash", gradient_checkpointing=True)
+    print(f"phase 15 batch: B={MOE_LORA_B}, padded to {MOE_LORA_S}, real tokens "
+          f"{batch['attention_mask'].sum(-1).tolist()}, labelled "
+          f"{int((batch['labels'] != -100).sum())}; {lora_param_count(params) / 1e6:.1f} M "
+          f"adapter params over {L} layers", flush=True)
+    out = {}
+    for impl, attn in (("kernel", "flash"), ("plain", "xla")):
+        set_kernel_impl(model, impl)
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = sft_loss(model, batch, dataclasses.replace(scfg, attn_impl=attn))
+        loss.backward()
+        grads = torch.cat([p.grad.flatten() for p in params.values()])
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), grads, time.perf_counter() - t0)
+    set_kernel_impl(model, "kernel")
+    (lk, gk, tk), (lp, gp, tp) = out["kernel"], out["plain"]
+    loss_rel, grad_rel = abs(lk - lp) / abs(lp), rel_l2(gk, gp)
+    print(f"phase 15 step 1: loss kernel {lk:.6f} plain {lp:.6f} (rel {loss_rel:.3e}, tol "
+          f"{PATH_LOSS_RTOL}); adapter gradients rel L2 {grad_rel:.3e} (tol "
+          f"{MOE_PATH_GRAD_REL_L2}), |g| {float(gp.norm()):.4e}; fwd+bwd s kernel {tk:.3f} "
+          f"plain {tp:.3f}", flush=True)
+    if not (np.isfinite(lk) and loss_rel <= PATH_LOSS_RTOL and grad_rel <= MOE_PATH_GRAD_REL_L2
+            and torch.isfinite(gk).all()):
+        raise AssertionError(f"phase 15: kernel path disagrees with the plain path: loss rel "
+                             f"{loss_rel}, gradient rel L2 {grad_rel}")
+    del out, gk, gp
+
+    state = init_train_state(params, OptimConfig())
+    step = make_lora_sft_step(model, scfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for _ in range(MOE_LORA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (t, loss_i) in enumerate(zip(times, losses)):
+        print(f"phase 15 step {i + 1}: loss {loss_i:.6f} {t * 1e3:.1f} ms/step, "
+              f"{n_tok / t:.1f} tokens/s ({MOE_LORA_B * MOE_LORA_S / t:.1f} padded)", flush=True)
+    print(f"phase 15: LoRA SFT over qwen3_moe_30b_a3b ({L} layers, bf16), {MOE_LORA_STEPS} "
+          f"steps, peak device memory {peak:.2f} GiB; launches {launches} | {card}", flush=True)
+    detach_lora(model)
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()     # later passes read their own peaks
+    steps = MOE_LORA_STEPS
+    want = {"moe_gmm_bwd_dx": L * steps, "moe_gmm_bwd_dw": 0, "moe_gmm_bwd_dwd": 0,
+            "moe_ffn_bf16": 3 * L * steps}   # forward, remat recompute, d_topv recompute
+    if any(launches[n] != c for n, c in want.items()) or not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 15: launches {launches} (expected {want}), losses "
+                             f"{losses}")
+    for name in ("flash_attention_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 15 launched no {name} kernel: {launches}")
+    return {"moe_gmm_bwd_dx": launches["moe_gmm_bwd_dx"]}
+
 
 def judge_phase(card: str, device) -> dict:
     """Phase 11. Returns the launches of the judge's bf16 run (bf16 FFN
@@ -1974,6 +2346,7 @@ def judge_phase(card: str, device) -> dict:
                 and rel <= JUDGE_LOGITS_TOL):
             raise AssertionError(f"judge kernel path disagrees with the plain path: {rel}")
     ref8 = judge_logits(model, ids[:JUDGE_INT8_REQUESTS], "flash")
+    trained = moe_training_phase(model, cfg, tok, card)     # phase 15, bf16 weights
 
     # int8: quantize in place, a W8A8 pass of 4 requests
     t0 = time.perf_counter()
@@ -2071,7 +2444,7 @@ def judge_phase(card: str, device) -> dict:
             "moe_ffn_bf16_gmm": launches["moe_ffn_bf16_gmm"],
             "moe_ffn_int8_ragged": launches8["moe_ffn_int8_ragged"],
             "moe_ffn_int8_gmm": launchesp["moe_ffn_int8_gmm"],
-            "moe_ffn_w8a8_gmm": launches8["moe_ffn_w8a8_gmm"]}
+            "moe_ffn_w8a8_gmm": launches8["moe_ffn_w8a8_gmm"], **trained}
 
 
 def main() -> int:
@@ -2101,6 +2474,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernel_results.update(moe_kernel_phase(device))
+    gmm_bwd = gmm_bwd_phase(card, device)
+    kernel_results.update(gmm_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dW kernels' launches are phase 14's run (the LoRA step trains no
+    # expert and launches none); dX's are phase 15's steps
+    launches.update({n: r["launches"] for n, r in gmm_bwd.items()})
     launches.update(judge_phase(card, device))
 
     kernels = []

@@ -23,7 +23,17 @@ the same bounds at the serving and training shapes):
   O(1): kernel and plain version multiply the same bf16-rounded weights,
   sum in fp32 in other orders and round the output to bf16;
 - head-major decode attention: the forward bound; both compute in fp32 and
-  round the output to bf16.
+  round the output to bf16;
+- the GMM backward: dg / du / h elementwise at the forward bound (both
+  round dY, then dg / du / h to bf16 at the same points and sum in fp32 in
+  other orders); dX and dW relative L2 <= 1e-2 per tensor; an expert with
+  no valid block gets exactly 0;
+- a 2-layer judge-width LoRA step, the MoE kernels vs their plain versions
+  (the attention plain on both sides): loss within 1e-2 relative, adapter
+  gradients relative L2 <= 5e-2 (chip_smoke's bound for a training step:
+  bf16 rounding differs at every expert FFN output, and the near-uniform
+  attention of random weights amplifies it in the q / k adapters'
+  gradients).
 """
 
 import pytest
@@ -495,13 +505,201 @@ def test_int4_matmul_refuses_what_it_does_not_take(cuda):
     x, wq, scale = _int4_operands(gen, 4, 512, 128)
     with pytest.raises(TypeError):                  # float32 activations
         int4_matmul(x.float(), wq, scale)
-    with pytest.raises(ValueError):                 # group size 64, not 128
-        leaf = quantize_kernel_int4(torch.randn(512, 128, device=cuda), group_size=64)
-        int4_matmul(x, leaf["kernel_q4"], leaf["scale4"])
-    with pytest.raises(ValueError):                 # K not a multiple of 256
+    with pytest.raises(ValueError):                 # group 512 does not divide K/2 = 256
+        int4_matmul(x, wq, scale[:1].contiguous())
+    with pytest.raises(ValueError):                 # group 128 does not divide K/2 = 192
         int4_matmul(x[:, :384].contiguous(), wq[:192].contiguous(), scale[:3].contiguous())
+    with pytest.raises(ValueError):                 # K = 96 not a multiple of 64
+        leaf = quantize_kernel_int4(torch.randn(96, 128, device=cuda), group_size=8)
+        int4_matmul(x[:, :96].contiguous(), leaf["kernel_q4"], leaf["scale4"])
     with pytest.raises(ValueError):                 # more rows than the kernel takes
         int4_matmul(_randn(gen, 1025, 512), wq, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 40])
+@pytest.mark.parametrize("N", [512, 200])
+@pytest.mark.parametrize("g", [32, 64, 256, 24, 48])
+def test_int4_matmul_kernel_any_group(cuda, M, N, g):
+    """Groups other than 128, K = 1536 (K/2 = 768): multiples of 32 (a
+    stage in one group) and groups that end inside a stage (24, 48), with
+    the whole-tile copies (N = 512) and a column tail (N = 200)."""
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M + N + g)
+    leaf = quantize_kernel_int4(torch.randn(1536, N, generator=gen, device=cuda) * 1536 ** -0.5,
+                                group_size=g)
+    x = _randn(gen, M, 1536)
+    before = int4_matmul.launches
+    out = int4_matmul(x, leaf["kernel_q4"], leaf["scale4"])
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert out.shape == (M, N) and _close(out, int4_matmul_plain(x, leaf["kernel_q4"],
+                                                                  leaf["scale4"]))
+
+
+def _gmm_layout(gen, cuda, bm, E=8, H=256):
+    """A sorted layout by hand: 7 blocks of bm rows, experts 0 0 2 3 3 3 in
+    the valid blocks (runs of 2 and 3 blocks; 1, 4, 5, 6 absent) and one
+    slack block (id 7, which no valid block has); the last rows of each
+    run are padding (zero rows, as the layout pads)."""
+    ids = torch.tensor([0, 0, 2, 3, 3, 3, 7], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0], dtype=torch.int32, device=cuda)
+    xs, dys = _randn(gen, 7, bm, H), _randn(gen, 7, bm, H)
+    for blk, pad in ((1, 5), (2, 1), (5, bm - 3)):
+        xs[blk, bm - pad:] = 0
+        dys[blk, bm - pad:] = 0
+    xs[6], dys[6] = 0, 0
+    return xs, dys, ids, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [48, 128])
+def test_gmm_backward_kernels_match_plain(cuda, bm):
+    """The three GMM backward kernels against their plain versions on the
+    same operands: dX and the SwiGLU terms, then dWg / dWu from the
+    kernel's dg / du and dWd from its h. bm 48: a row tile shorter than 64;
+    bm 128: two row tiles a block. Experts with no valid block (the slack
+    block's id among them) get exactly zero."""
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(bm)
+    E, H, I = 8, 256, 192
+    w = _moe_weights(gen, E, H, I, "bf16")
+    wg, wu, wd = (w[n]["kernel"] for n in ("gate", "up", "down"))
+    xs, dys, ids, valid = _gmm_layout(gen, cuda, bm, E, H)
+    before = (gmm.gmm_bwd_dx.launches, gmm.gmm_bwd_dw.launches, gmm.gmm_bwd_dwd.launches)
+    dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+    dwg, dwu = gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E)
+    dwd = gmm.gmm_bwd_dwd(h, dys, ids, valid, E)
+    torch.cuda.synchronize()
+    assert (gmm.gmm_bwd_dx.launches, gmm.gmm_bwd_dw.launches,
+            gmm.gmm_bwd_dwd.launches) == tuple(n + 1 for n in before)
+    rdx, rdg, rdu, rh = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+    for got, ref in ((dg, rdg), (du, rdu), (h, rh)):
+        assert got.dtype == torch.bfloat16 and _close(got, ref)
+    assert dx.dtype == torch.float32 and _rel_l2(dx, rdx) <= GRAD_REL_L2
+    assert not dx[6].any() and not dg[6].any() and not h[6].any()
+    rdwg, rdwu = gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
+    rdwd = gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E)
+    absent = [1, 4, 5, 6, 7]
+    for got, ref in ((dwg, rdwg), (dwu, rdwu), (dwd, rdwd)):
+        assert got.dtype == torch.float32 and _rel_l2(got, ref) <= GRAD_REL_L2
+        assert not got[absent].any() and got[[0, 2, 3]].abs().amax(dim=(1, 2)).gt(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train_experts", [True, False])
+def test_moe_mlp_under_autograd_runs_the_backward_kernels(cuda, train_experts):
+    """moe_mlp(gmm_prefill=True) on bf16 weights under autograd (T = 512):
+    the forward's grouped FFN, then dX and, with the experts trained, the dW
+    kernels launch once each; every gradient against the plain path
+    (ffn_impl="plain")."""
+    from video_r2_tpu_torch.models.moe import moe_mlp
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    E, H, I, k = 16, 512, 768, 4
+    p = {"router": {"kernel": torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5},
+         "experts": _moe_weights(gen, E, H, I, "bf16")}
+    leaves = [p["router"]["kernel"]] + [p["experts"][n]["kernel"] for n in ("gate", "up", "down")]
+    for t in leaves[1:] if train_experts else leaves[:1]:
+        t.requires_grad_()
+    x = _randn(gen, 1, 512, H).requires_grad_()
+    cot = _randn(gen, 1, 512, H)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        before = (gmm.gmm_bwd_dx.launches, gmm.gmm_bwd_dw.launches, gmm.gmm_bwd_dwd.launches)
+        out = moe_mlp(p, x, k, True, gmm_prefill=True, ffn_impl=impl)
+        wanted = [x] + [t for t in leaves if t.requires_grad]
+        grads[impl] = torch.autograd.grad((out.float() * cot.float()).sum(), wanted)
+        torch.cuda.synchronize()
+        n_dw = int(train_experts and impl == "kernel")
+        assert (gmm.gmm_bwd_dx.launches - before[0], gmm.gmm_bwd_dw.launches - before[1],
+                gmm.gmm_bwd_dwd.launches - before[2]) == (int(impl == "kernel"), n_dw, n_dw)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        assert a.dtype == b.dtype and _rel_l2(a, b) <= GRAD_REL_L2
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_autograd(cuda):
+    """The ragged path, int8 expert weights on the GMM path and the int4
+    matmul have no backward: under autograd with x requiring grad they
+    raise (their outputs would carry no graph); without it they run."""
+    from video_r2_tpu_torch.models.moe import moe_mlp
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    E, H, I, k = 16, 512, 768, 4
+    router = {"kernel": torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5}
+    for variant, T, kw in (("bf16", 16, dict(ragged_decode=True)),
+                           ("int8", 512, dict(gmm_prefill=True)),
+                           ("int8", 512, dict(gmm_prefill=True, act_quant="int8"))):
+        p = {"router": router, "experts": _moe_weights(gen, E, H, I, variant)}
+        x = _randn(gen, 1, T, H).requires_grad_()
+        with pytest.raises(NotImplementedError, match="no backward"):
+            moe_mlp(p, x, k, True, **kw)
+        with torch.no_grad():
+            assert moe_mlp(p, x, k, True, **kw).shape == x.shape
+    x, wq, scale = _int4_operands(gen, 4, 512, 128)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        int4_matmul(x.requires_grad_(), wq, scale)
+    with torch.no_grad():
+        assert int4_matmul(x, wq, scale).shape == (4, 128)
+
+
+@pytest.mark.cuda
+def test_judge_width_lora_step_kernel_vs_plain(cuda):
+    """Two layers of Qwen3-30B-A3B at full width in bf16, LoRA r 64 on the
+    attention: step-1 loss and adapter gradients through the MoE kernels
+    (the grouped FFN, the GMM dX kernel; no dW kernel: the experts are
+    frozen) against their plain versions. A wrapper that dropped the expert
+    FFN's autograd graph would lose its branch of every adapter gradient.
+    The attention is the plain path on both sides: the flash kernels round
+    P and dS to bf16, which on these random weights (B != 0, near-uniform
+    attention) moves the q / k adapters' gradients past this bound by
+    itself and would hide an error of the MoE kernels; chip_smoke holds
+    the whole kernel path at 48 layers."""
+    import dataclasses
+
+    from video_r2_tpu_torch.models.config import qwen3_moe_30b_a3b
+    from video_r2_tpu_torch.models.loader import init_params
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+    from video_r2_tpu_torch.train.lora import LoRAConfig, attach_lora, init_lora
+    from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
+
+    cfg = qwen3_moe_30b_a3b()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+    model = init_params(cfg, seed=0, dtype="bfloat16", device=cuda)
+    lcfg = LoRAConfig()
+    params = attach_lora(model, init_lora(model, lcfg), lcfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for n, t in params.items():          # B != 0, so every adapter has a gradient
+        if n.endswith("lora_b"):
+            t.data.normal_(0.0, 0.02, generator=gen)
+    B, S = 2, 256
+    ids = torch.randint(0, 256, (B, S), generator=gen, device=cuda)
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[1, 200:] = 0
+    labels = torch.where(mask == 1, ids, -100)
+    labels[:, :32] = -100
+    batch = {"input_ids": ids, "labels": labels, "attention_mask": mask,
+             "position_ids": torch.arange(S, device=cuda).expand(3, B, S)}
+    got = {}
+    for impl in ("kernel", "plain"):
+        for mod in model.modules():
+            if hasattr(mod, "ffn_impl"):
+                mod.ffn_impl = impl
+        before = (gmm.gmm_bwd_dx.launches, gmm.gmm_bwd_dw.launches)
+        loss = sft_loss(model, batch, SFTConfig(ce_chunk_size=256, attn_impl="xla"))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        assert (gmm.gmm_bwd_dx.launches - before[0], gmm.gmm_bwd_dw.launches - before[1]) == (
+            2 if impl == "kernel" else 0, 0)
+        got[impl] = (loss.detach().float(), torch.cat([g.float().reshape(-1) for g in grads]))
+    assert abs(float(got["kernel"][0] / got["plain"][0]) - 1) <= 1e-2
+    assert _rel_l2(got["kernel"][1], got["plain"][1]) <= 5e-2
 
 
 def _decode_inputs(gen, g, hd, layers=3, B=4, kh=4, smax=1536):

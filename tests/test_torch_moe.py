@@ -242,12 +242,19 @@ def test_w8a8_linear_matches_jax(rng):
 
 
 def test_gmm_under_autograd_and_mesh_raise(rng):
+    """The float GMM path differentiates (its backward, the GMM backward
+    kernels' plain versions on the CPU, gives every weight a gradient, and
+    the same forward as without autograd); a mesh still raises."""
     p = _to(_moe_params(rng), lambda a: T(a).requires_grad_())
-    x = T(rng.normal(size=(1, 40, H)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
-        moe.moe_mlp(p, x, K, True, gmm_prefill=True)
+    x = T(rng.normal(size=(1, 40, H)).astype(np.float32)).requires_grad_()
+    out = moe.moe_mlp(p, x, K, True, gmm_prefill=True)
+    out.square().sum().backward()
+    assert x.grad is not None and x.grad.abs().sum() > 0
+    for leaf in (p["router"], *p["experts"].values()):
+        assert leaf["kernel"].grad is not None and leaf["kernel"].grad.abs().sum() > 0
     with torch.no_grad():
-        assert moe.moe_mlp(p, x, K, True, gmm_prefill=True).shape == x.shape
+        torch.testing.assert_close(moe.moe_mlp(p, x, K, True, gmm_prefill=True), out,
+                                   rtol=0, atol=0)
     with pytest.raises(NotImplementedError):
         moe.moe_mlp(p, x, K, True, mesh=object())
 

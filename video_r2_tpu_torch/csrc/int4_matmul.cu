@@ -5,8 +5,9 @@
 // of the port is its own module). Same semantics: x [M, K] bf16; wq
 // [K/2, N] int8, half-split packed (packed row p holds original row p in
 // its low nibble and row p + K/2 in its high nibble, each as q + 8, q in
-// [-7, 7]); scale [K/g, N] fp32 with g = 128, so scale row p / g serves the
-// low nibbles of packed row p and row (p + K/2) / g its high nibbles. Each
+// [-7, 7]); scale [K/g, N] fp32 for any group g that divides K/2, so scale
+// row p / g serves the low nibbles of packed row p and row (p + K/2) / g its
+// high nibbles. Each
 // weight is dequantised in fp32, (nibble - 8) * scale, and rounded to bf16
 // before its product, as the TPU kernel casts its dequantised tile to x's
 // dtype; the products sum in fp32 (mma.sync m16n8k16) and y is rounded to
@@ -40,6 +41,11 @@
 // divide N). Each case is its own instantiation, and the widths 64 divides
 // (every decoder and merger width) keep unpredicated copies and stores:
 // predicated copies slowed the latency-bound decode shapes on the card.
+// Any group: g = 128 (every preset) keeps its own instantiation, the group
+// a constant; a g that 32 divides (a stage lies in one group) stages its two
+// scale rows the same way with a division by g; any other g (a group may end
+// inside a stage) stages no scales and reads each packed row's two scales
+// through L1 where its fragment is built.
 #include "attn_common.cuh"
 
 namespace {
@@ -47,7 +53,9 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps side by side over the columns
 constexpr int kBN = 64;        // output columns per block, 16 per warp
 constexpr int kKS = 32;        // packed rows per stage: 32 k of each half
-constexpr int kGroup = 128;    // rows per scale group
+constexpr int kGroup = 128;    // rows per scale group of the presets (a G of its own)
+constexpr int kAnyG = 0;       // G: g a runtime multiple of kKS
+constexpr int kFineG = 1;      // G: any other g, scales read per packed row
 constexpr int kWhole = 64;     // load_stage's WV when 64 divides N
 constexpr int kPitch = 80;     // shared row pitch in bytes of the staged
                                // nibbles and x tiles: 64 + 16 spreads the
@@ -73,8 +81,13 @@ struct Int4Params {
   const uint8_t* wq;       // [K/2, N]
   const float* scale;      // [K/g, N]
   __nv_bfloat16* y;        // [M, N]
-  int M, K, N;
+  int M, K, N, g;
 };
+
+template <int G>
+__device__ __forceinline__ int group(const Int4Params& p) {
+  return G == kGroup ? kGroup : p.g;
+}
 
 // Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
 // `valid` and zero-fills them otherwise (gmem must then still be a mapped
@@ -95,8 +108,8 @@ __device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, boo
 // 64 columns from n0 and its rows [row0, row0 + rows) into `st`; columns
 // past N are zero-filled. WV: kWhole when 64 divides N (no tail: the copies
 // go unpredicated), else the bytes a copy of nibbles, 16 (16 | N), 4 (4 | N)
-// or 1.
-template <int MT, int WV>
+// or 1. G: kGroup, kAnyG or kFineG (no scales staged).
+template <int MT, int WV, int G>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& p, int s,
                                            int n0, int row0, int rows, int tid) {
   using R = Ring<MT>;
@@ -134,24 +147,26 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
                           p.x + (long long)(row0 + r) * p.K + half * Kp + p0) + c);
   }
   float* sc = reinterpret_cast<float*>(st + R::W_BYTES + 2 * R::X_BYTES);
-  if constexpr (WV == kWhole) {  // the two scale rows: 16 chunks of 4 each
+  if constexpr (G == kFineG) {
+    return;
+  } else if constexpr (WV == kWhole) {  // the two scale rows: 16 chunks of 4 each
     if (tid < 32) {
       const int half = tid >> 4, c = 4 * (tid & 15);
-      const int srow = (half * Kp + p0) / kGroup;
+      const int srow = (half * Kp + p0) / group<G>(p);
       vr2::cp_async16(st + R::W_BYTES + 2 * R::X_BYTES + half * kBN * 4 + 4 * c,
                       p.scale + (long long)srow * p.N + n0 + c);
     }
   } else if constexpr (WV > 1) {  // the same, predicated (4 | N)
     if (tid < 32) {
       const int half = tid >> 4, c = 4 * (tid & 15);
-      const int srow = (half * Kp + p0) / kGroup;
+      const int srow = (half * Kp + p0) / group<G>(p);
       const bool ok = n0 + c < p.N;
       cp_async_zfill<16>(sc + half * kBN + c,
                          ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
     }
   } else {  // one scale a thread
     const int half = tid >> 6, c = tid & 63;
-    const int srow = (half * Kp + p0) / kGroup;
+    const int srow = (half * Kp + p0) / group<G>(p);
     const bool ok = n0 + c < p.N;
     cp_async_zfill<4>(sc + half * kBN + c,
                       ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
@@ -162,7 +177,16 @@ __device__ __forceinline__ float nib(unsigned u, float s) {
   return static_cast<float>(static_cast<int>(u & 15u) - 8) * s;
 }
 
-template <int MT, int WV>
+// the scales of packed row pr (low nibbles) and pr + K/2 (high) at column
+// col, 0 past N: G = kFineG
+__device__ __forceinline__ float2 row_scales(const Int4Params& p, int pr, int col) {
+  if (col >= p.N) return make_float2(0.f, 0.f);
+  const int Kp = p.K / 2;
+  return make_float2(__ldg(p.scale + (long long)(pr / p.g) * p.N + col),
+                     __ldg(p.scale + (long long)((Kp + pr) / p.g) * p.N + col));
+}
+
+template <int MT, int WV, int G>
 __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params p) {
   using R = Ring<MT>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -186,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
   }
 #pragma unroll
   for (int s = 0; s < R::STAGES - 1; ++s) {
-    if (s < n_stages) load_stage<MT, WV>(smem + s * R::BYTES, p, s, n0, row0, rows, tid);
+    if (s < n_stages) load_stage<MT, WV, G>(smem + s * R::BYTES, p, s, n0, row0, rows, tid);
     vr2::cp_async_commit();
   }
 
@@ -203,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     __syncthreads();                      // ... for every thread; stage s - 1 is free
     const int nx = s + R::STAGES - 1;
     if (nx < n_stages)
-      load_stage<MT, WV>(smem + (nx % R::STAGES) * R::BYTES, p, nx, n0, row0, rows, tid);
+      load_stage<MT, WV, G>(smem + (nx % R::STAGES) * R::BYTES, p, nx, n0, row0, rows, tid);
     vr2::cp_async_commit();
 
     const unsigned char* st = smem + (s % R::STAGES) * R::BYTES;
@@ -211,10 +235,12 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     const unsigned char* xhi = xlo + R::X_BYTES;
     const float* sc = reinterpret_cast<const float*>(xhi + R::X_BYTES);
     float slo[2], shi[2];
+    if constexpr (G != kFineG) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      slo[nt] = sc[wn0 + nt * 8 + g];
-      shi[nt] = sc[kBN + wn0 + nt * 8 + g];
+      for (int nt = 0; nt < 2; ++nt) {
+        slo[nt] = sc[wn0 + nt * 8 + g];
+        shi[nt] = sc[kBN + wn0 + nt * 8 + g];
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
@@ -224,10 +250,20 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
       for (int nt = 0; nt < 2; ++nt) {
         const unsigned char* c = st + (ks * 16 + 2 * t) * kPitch + wn0 + nt * 8 + g;
         const unsigned u0 = c[0], u1 = c[kPitch], u2 = c[8 * kPitch], u3 = c[9 * kPitch];
-        blo[nt][0] = vr2::pack_bf16(nib(u0, slo[nt]), nib(u1, slo[nt]));
-        blo[nt][1] = vr2::pack_bf16(nib(u2, slo[nt]), nib(u3, slo[nt]));
-        bhi[nt][0] = vr2::pack_bf16(nib(u0 >> 4, shi[nt]), nib(u1 >> 4, shi[nt]));
-        bhi[nt][1] = vr2::pack_bf16(nib(u2 >> 4, shi[nt]), nib(u3 >> 4, shi[nt]));
+        if constexpr (G == kFineG) {  // rows k, k + 1, k + 8, k + 9 may span groups
+          const int pr = s * kKS + ks * 16 + 2 * t, col = n0 + wn0 + nt * 8 + g;
+          const float2 s0 = row_scales(p, pr, col), s1 = row_scales(p, pr + 1, col);
+          const float2 s8 = row_scales(p, pr + 8, col), s9 = row_scales(p, pr + 9, col);
+          blo[nt][0] = vr2::pack_bf16(nib(u0, s0.x), nib(u1, s1.x));
+          blo[nt][1] = vr2::pack_bf16(nib(u2, s8.x), nib(u3, s9.x));
+          bhi[nt][0] = vr2::pack_bf16(nib(u0 >> 4, s0.y), nib(u1 >> 4, s1.y));
+          bhi[nt][1] = vr2::pack_bf16(nib(u2 >> 4, s8.y), nib(u3 >> 4, s9.y));
+        } else {
+          blo[nt][0] = vr2::pack_bf16(nib(u0, slo[nt]), nib(u1, slo[nt]));
+          blo[nt][1] = vr2::pack_bf16(nib(u2, slo[nt]), nib(u3, slo[nt]));
+          bhi[nt][0] = vr2::pack_bf16(nib(u0 >> 4, shi[nt]), nib(u1 >> 4, shi[nt]));
+          bhi[nt][1] = vr2::pack_bf16(nib(u2 >> 4, shi[nt]), nib(u3 >> 4, shi[nt]));
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -267,20 +303,27 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     }
 }
 
-template <int MT, int WV>
+template <int MT, int WV, int G = kGroup>
 cudaError_t launch(const Int4Params& p, cudaStream_t stream) {
   using R = Ring<MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      int4_matmul_kernel<MT, WV>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+      int4_matmul_kernel<MT, WV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + kBN - 1) / kBN, (p.M + R::BM - 1) / R::BM);
-  int4_matmul_kernel<MT, WV><<<grid, kThreads, R::SMEM, stream>>>(p);
+  int4_matmul_kernel<MT, WV, G><<<grid, kThreads, R::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-// the copy width of the nibbles by N's alignment (a row is N bytes)
+// the copy width of the nibbles by N's alignment (a row is N bytes); groups
+// other than 128 take the whole-tile copies or the byte loads
 template <int MT>
 cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
+  if (p.g != kGroup) {
+    const bool whole = p.N % kBN == 0;
+    if (p.g % kKS == 0)
+      return whole ? launch<MT, kWhole, kAnyG>(p, stream) : launch<MT, 1, kAnyG>(p, stream);
+    return whole ? launch<MT, kWhole, kFineG>(p, stream) : launch<MT, 1, kFineG>(p, stream);
+  }
   if (p.N % kBN == 0) return launch<MT, kWhole>(p, stream);
   if (p.N % 16 == 0) return launch<MT, 16>(p, stream);
   if (p.N % 4 == 0) return launch<MT, 4>(p, stream);
@@ -290,14 +333,16 @@ cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
-// scale [K/128, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
-// K a multiple of 256, any N >= 1, 1 <= M. Returns a cudaError_t.
+// scale [K/g, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
+// K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. Returns a
+// cudaError_t.
 extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale, void* y,
-                               int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0) return int(cudaErrorInvalidValue);
+                               int M, int K, int N, int g, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0)
+    return int(cudaErrorInvalidValue);
   const Int4Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
                      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M, K,
-                     N};
+                     N, g};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 16) return int(launch_rows<1>(p, st));
   if (M <= 32) return int(launch_rows<2>(p, st));

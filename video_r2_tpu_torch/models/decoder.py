@@ -119,7 +119,10 @@ class Experts(nn.Module):
 class MoEMLP(nn.Module):
     """Sparse MoE block: router [H, E] and experts {gate, up} [E, H, I],
     down [E, I, H], in the JAX package's leaf names. ffn_impl="plain" runs
-    the grouped FFN's plain version on the card (the reference path)."""
+    the grouped FFN's plain version on the card, forward and backward (the
+    reference path). gmm_prefill starts as the config's flag; the
+    full-parameter SFT step turns it off while it runs (train/sft.py), so
+    that step trains through the einsum as the reference's does."""
 
     def __init__(self, cfg: TextConfig, *, dtype, device):
         super().__init__()
@@ -128,6 +131,7 @@ class MoEMLP(nn.Module):
         self.router = Linear(cfg.hidden_size, cfg.num_experts, False, **kw)
         self.experts = Experts(cfg, **kw)
         self.ffn_impl = "kernel"
+        self.gmm_prefill = cfg.moe_gmm_prefill
 
     def params(self) -> dict:
         ex = self.experts
@@ -141,7 +145,7 @@ class MoEMLP(nn.Module):
                        capacity_factor=cfg.moe_capacity_factor,
                        group_size=cfg.moe_group_size, act_quant=act_quant,
                        ragged_decode=cfg.moe_ragged_decode,
-                       gmm_prefill=cfg.moe_gmm_prefill, ffn_impl=self.ffn_impl)
+                       gmm_prefill=self.gmm_prefill, ffn_impl=self.ffn_impl)
 
 
 class DecoderLayer(nn.Module):

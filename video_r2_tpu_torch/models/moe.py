@@ -8,7 +8,11 @@ branches exactly as the reference does:
 - small steps (T <= RAGGED_MAX_TOKENS, cfg.moe_ragged_decode) go through the
   ragged active-expert path (ops/moe_ragged.py);
 - other steps with cfg.moe_gmm_prefill go through the sorted grouped matmul
-  (ops/moe_gmm.py); both run the hand-written grouped FFN kernel on the card;
+  (ops/moe_gmm.py); both run the hand-written grouped FFN kernel on the card.
+  Float expert weights take the GMM's differentiable wrapper, whose backward
+  runs the GMM backward kernels; the ragged path and int8 / W8A8 weights
+  have no backward, so their kernels refuse a call under autograd on the
+  card (their plain versions on the CPU differentiate);
 - everything else takes the grouped einsum: tokens in fixed-size groups,
   [G, n k, E, C] dispatch / combine one-hots, capacity C per expert and
   group, over-capacity slots dropped (capacity_factor 0: no drops).
@@ -130,8 +134,9 @@ def moe_mlp(p: dict, x: torch.Tensor, num_experts_per_tok: int,
             ragged_decode: bool = False, mesh=None, gmm_prefill: bool = False,
             ffn_impl: str = "kernel") -> torch.Tensor:
     """Sparse MoE feed-forward over x [B, S, H]. ffn_impl="plain" runs the
-    grouped FFN's plain version on the fast paths instead of the kernel
-    (the reference path chip_smoke.py holds the kernel path against)."""
+    grouped FFN's plain version on the fast paths instead of the kernel, and
+    the GMM backward's plain versions (the reference path chip_smoke.py holds
+    the kernel path against)."""
     if mesh is not None:
         raise NotImplementedError("sharded MoE (mesh) is not ported to the PyTorch "
                                   "package yet")
@@ -153,15 +158,14 @@ def moe_mlp(p: dict, x: torch.Tensor, num_experts_per_tok: int,
         return moe_mlp_ragged(p, xt, k, norm_topk_prob, act_quant=kernel_aq,
                               ffn_impl=ffn_impl).reshape(B, S, H)
     if gmm_prefill and aq_ok:
-        from ..ops.moe_gmm import moe_mlp_gmm
+        from ..ops.moe_gmm import moe_mlp_gmm, moe_mlp_gmm_diff
 
-        if not quant_w and torch.is_grad_enabled() and any(
-                p["experts"][n]["kernel"].requires_grad for n in ("gate", "up", "down")):
-            raise NotImplementedError(
-                "the GMM MoE path has no backward yet (ops/moe_gmm.py's backward "
-                "kernels come with the MoE training slice)")
-        return moe_mlp_gmm(p, xt, k, norm_topk_prob, act_quant=kernel_aq,
-                           ffn_impl=ffn_impl).reshape(B, S, H)
+        if quant_w:
+            return moe_mlp_gmm(p, xt, k, norm_topk_prob, act_quant=kernel_aq,
+                               ffn_impl=ffn_impl).reshape(B, S, H)
+        # float weights: the differentiable wrapper, the same forward
+        return moe_mlp_gmm_diff(p, xt, k, norm_topk_prob,
+                                ffn_impl=ffn_impl).reshape(B, S, H)
 
     n = min(group_size, T)
     G = -(-T // n)

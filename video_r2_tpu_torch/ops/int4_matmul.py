@@ -12,8 +12,9 @@ scale array.
 ``int4_matmul_stacked``). The JAX package passes the whole [L, K/2, N]
 stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
-tensors it launches ``csrc/int4_matmul.cu`` (g = 128, bf16 x of at most
-1024 rows, any N) and raises on anything the kernel does not take; on CPU tensors
+tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
+multiple of 64, bf16 x of at most 1024 rows, any N), outside autograd, and
+raises on anything the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
 own rule (``models/layers.py::Linear``): at most `KERNEL_MAX_ROWS` rows of
@@ -27,7 +28,7 @@ import torch
 
 from .cuda_build import check, kernels
 
-KERNEL_GROUP = 128        # the kernel's group size (INT4_GROUP_SIZE)
+KERNEL_K = 64             # K must be a multiple of this (a stage: 32 packed rows)
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
 
 
@@ -69,9 +70,13 @@ def int4_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch
     """x [M, K] @ dequant(wq [K/2, N] int8, scale [K/g, N] fp32) -> [M, N]
     in x's dtype. CUDA tensors launch the kernel (fp32 sums, each weight
     dequantised in fp32 and rounded to bf16 before its product, as the TPU
-    kernel casts its tile to x's dtype); CPU tensors run the plain version."""
+    kernel casts its tile to x's dtype), outside autograd only (the kernel
+    has no backward); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, wq, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise NotImplementedError("the int4 kernel has no backward: call it outside "
+                                  "autograd (int4 weights do not train)")
     out = _int4_cuda(x, wq, scale)
     int4_matmul.launches += 1
     return out
@@ -87,10 +92,13 @@ def _int4_cuda(x, wq, scale):
                          f"{tuple(x.shape)}, {tuple(wq.shape)}, {tuple(scale.shape)}")
     M, K = x.shape
     Kp, N = wq.shape
-    if K != 2 * Kp or scale.shape != (K // KERNEL_GROUP, N) or Kp % KERNEL_GROUP:
+    G = scale.shape[0]
+    g = K // G if G else 0
+    if (K != 2 * Kp or K % KERNEL_K or scale.shape[1] != N or not g or g * G != K
+            or Kp % g):
         raise ValueError(f"int4 kernel: x {tuple(x.shape)}, wq {tuple(wq.shape)} and scale "
-                         f"{tuple(scale.shape)} must be [M, K], [K/2, N], [K/{KERNEL_GROUP}, "
-                         f"N] with K a multiple of {2 * KERNEL_GROUP}")
+                         f"{tuple(scale.shape)} must be [M, K], [K/2, N], [K/g, N] with K a "
+                         f"multiple of {KERNEL_K} and g dividing K/2")
     if not 0 < M <= KERNEL_MAX_ROWS:
         raise ValueError(f"int4 kernel: {M} rows, the kernel takes 1 to {KERNEL_MAX_ROWS}")
     dev = x.device
@@ -106,7 +114,7 @@ def _int4_cuda(x, wq, scale):
             raise ValueError(f"int4 kernel: {name} must be 16-byte aligned")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = kernels().vr2_int4_matmul(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(), M, K, N,
+                                    out.data_ptr(), M, K, N, g,
                                     torch.cuda.current_stream(dev).cuda_stream)
     check(err, "int4 matmul kernel")
     return out

@@ -11,7 +11,9 @@ ops/moe_gmm.py (a block is a run of rows of one expert).
 
 On CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/moe_ffn.cu``, which replaces ``_ffn_kernel``, ``_ffn_kernel_q`` and
-``_ffn_kernel_qq``) and raises on anything it does not take; on CPU tensors
+``_ffn_kernel_qq``) and raises on anything it does not take, a call under
+autograd among them (the kernel has no backward; the float GMM path trains
+through ops/moe_gmm.py's autograd Function, which calls it without); on CPU tensors
 it runs `ragged_expert_ffn_plain` (a gathered bmm per chunk of blocks with
 the same rounding points). Blocks whose blk_valid is 0 output zeros.
 
@@ -91,6 +93,13 @@ def ragged_expert_ffn(x_slots: torch.Tensor, active_ids: torch.Tensor, gate: dic
     if x_slots.device.type == "cpu":
         return ragged_expert_ffn_plain(x_slots, active_ids, gate, up, down, bi,
                                        blk_valid, x_scales)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x_slots, x_scales, *_weights(gate, up, down)[1:])):
+        raise NotImplementedError(
+            "the grouped FFN kernel has no backward: under autograd, float expert "
+            "weights train through the GMM path (ops/moe_gmm.moe_mlp_gmm_diff); the "
+            "ragged path and int8 / W8A8 weights do not train")
     out = _moe_ffn_cuda(x_slots, active_ids, gate, up, down, bi, blk_valid, x_scales)
     ragged_expert_ffn.launches["w8a8" if x_scales is not None else
                                "int8" if quant else "bf16"] += 1

@@ -17,11 +17,12 @@ JAX step reports ``optax.global_norm(grads)``) and takes one optimizer step.
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import torch
 
-from ..models.decoder import causal_mask_bias
+from ..models.decoder import MoEMLP, causal_mask_bias
 from ..models.model import Qwen25VL, embed_inputs, lm_head_weight
 from ..models.mrope import mrope_cos_sin
 from ..models.vision import VisionLayout
@@ -82,15 +83,28 @@ def sft_loss(model: Qwen25VL, batch: dict[str, torch.Tensor], scfg: SFTConfig,
                                       scfg.ce_chunk_size)
 
 
-def make_sft_step(model: Qwen25VL, scfg: SFTConfig,
-                  video_layout: VisionLayout | None = None):
-    """step(state, batch) -> (state, {"loss", "grad_norm"}) for whatever
-    `state.params` holds; the model's other parameters stay frozen."""
+@contextmanager
+def _moe_einsum(model: Qwen25VL):
+    """Every MoE block of the model through the grouped einsum inside the
+    `with` (gmm_prefill off, restored after)."""
+    moes = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    flags = [m.gmm_prefill for m in moes]
+    for m in moes:
+        m.gmm_prefill = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(moes, flags):
+            m.gmm_prefill = flag
 
+
+def _make_step(model: Qwen25VL, scfg: SFTConfig, video_layout, moe_einsum: bool):
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
-        loss = sft_loss(model, batch, scfg, video_layout)
-        loss.backward()
+        # the backward recomputes layers (remat): the MoE path holds through it
+        with _moe_einsum(model) if moe_einsum else nullcontext():
+            loss = sft_loss(model, batch, scfg, video_layout)
+            loss.backward()
         grad_norm = global_norm(p.grad for p in state.params.values()
                                 if p.grad is not None)
         state.optimizer.step()
@@ -100,15 +114,28 @@ def make_sft_step(model: Qwen25VL, scfg: SFTConfig,
     return step
 
 
+def make_sft_step(model: Qwen25VL, scfg: SFTConfig,
+                  video_layout: VisionLayout | None = None):
+    """step(state, batch) -> (state, {"loss", "grad_norm"}) for whatever
+    `state.params` holds; the model's other parameters stay frozen. A MoE
+    model trains through the grouped einsum, as the reference's full-parameter
+    step does (video_r2_tpu/train/sft.py turns moe_gmm_prefill off): the
+    step sets each MoE block's switch while it runs, and the model's config
+    stays as it is."""
+    return _make_step(model, scfg, video_layout, moe_einsum=True)
+
+
 def make_lora_sft_step(model: Qwen25VL, scfg: SFTConfig,
                        video_layout: VisionLayout | None = None):
     """The SFT step where only the attached adapters train (the reference's
     shipped recipe: LoRA over a frozen base). The base's parameters never
-    require gradients, so no base gradient is formed."""
+    require gradients, so no base gradient is formed. MoE blocks keep the
+    config's path, as the reference's LoRA step does: with moe_gmm_prefill
+    the GMM backward forms dX and no expert weight gradient."""
     if not any(n.endswith(".lora_a") for n, _ in model.named_parameters()):
         raise ValueError("no adapters attached (train/lora.py::attach_lora)")
     trains = [n for n, p in model.named_parameters()
               if p.requires_grad and not n.endswith((".lora_a", ".lora_b"))]
     if trains:
         raise ValueError(f"base parameters require grad: {trains[:3]}...")
-    return make_sft_step(model, scfg, video_layout)
+    return _make_step(model, scfg, video_layout, moe_einsum=False)
