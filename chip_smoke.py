@@ -273,12 +273,9 @@ GMM_BWD_T = 4096                  # phase 14's tokens (R = 32768 routed rows)
 ABSENT_EXPERT = 77                # its router column is zero: logit 0, below
                                   # the top 8 of 128 for every token
 MOE_LORA_B, MOE_LORA_S, MOE_LORA_STEPS = 2, 1024, 3
-# phase 15's step 1, kernel path vs plain path: bf16 rounding differs at
-# every attention output and expert FFN and their gradients over 48 layers,
-# and a token whose 8th and 9th router probabilities lie within that noise
-# may swap an expert; twice phase 7's bound, as the judge's logits bound is
-# twice phase 5's
-MOE_PATH_GRAD_REL_L2 = 1e-1
+# phase 15's step 1 holds the kernel path to phase 7's PATH_GRAD_REL_L2 and,
+# as a control, the same path with the dX kernel's output zeroed (the fault
+# of a wrong dX kernel, or of an expert FFN that drops its graph) above it
 JUDGE_ANSWER = "Consistent: yes. The reasoning follows the frames in order and supports the answer."
 JUDGE_STEPS = ("The person enters from the left and walks to the table.",
                "Wait, the cup is lifted before the second person arrives.",
@@ -1685,7 +1682,8 @@ def moe_kernel_phase(device) -> dict:
     weights (bf16, and their int8 quantization): first the table's shapes
     (T = 16 decode, T = 4096 prefill; these give the kernels line), then the
     token counts phase 11's passes give it (the bf16 burst's prefill, the
-    int8 pass's prefill and decode, the paged pass's decode)."""
+    int8 pass's prefill and decode, the paged pass's decode) and phase 15's
+    LoRA step (its 2 x 1024 tokens, bf16)."""
     import torch
 
     from video_r2_tpu_torch.engine.chat import ByteTokenizer, pack_prompts
@@ -1714,7 +1712,8 @@ def moe_kernel_phase(device) -> dict:
     for T, layout, variant in ((burst(JUDGE_REQUESTS), "gmm", "bf16"),
                                (burst(JUDGE_INT8_REQUESTS), "gmm", "w8a8"),
                                (JUDGE_INT8_REQUESTS, "ragged", "int8"),
-                               (JUDGE_PAGED_REQUESTS, "ragged", "int8")):
+                               (JUDGE_PAGED_REQUESTS, "ragged", "int8"),
+                               (MOE_LORA_B * MOE_LORA_S, "gmm", "bf16")):
         moe_case(gen, layer, T, layout, variant)
     return results
 
@@ -2135,16 +2134,19 @@ def moe_lora_batch(tok, cfg, device) -> dict:
 
 def moe_training_phase(model, cfg, tok, card: str) -> dict:
     """Phase 15: LoRA SFT (r 64, alpha 64, the default targets) over the
-    bf16 judge in place: step-1 loss and adapter gradients, kernel path vs
-    plain path; then MOE_LORA_STEPS steps of make_lora_sft_step with the
-    launch counts set to 0 before and read after (the GMM dX kernel once a
-    MoE layer a step, no dW kernel). Leaves the model without adapters.
-    Returns the dX kernel's launches."""
+    bf16 judge in place: the flash training kernels at the batch's shape
+    against their plain versions; step-1 loss and adapter gradients, kernel
+    path vs plain path, and the kernel path with the dX kernel's output
+    zeroed as a control the bound must see; then MOE_LORA_STEPS steps of
+    make_lora_sft_step with the launch counts set to 0 before and read after
+    (the GMM dX kernel once a MoE layer a step, no dW kernel). Leaves the
+    model without adapters. Returns the dX kernel's launches."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
     from video_r2_tpu_torch.train.lora import (
         LoRAConfig,
         attach_lora,
@@ -2170,29 +2172,56 @@ def moe_training_phase(model, cfg, tok, card: str) -> dict:
           f"{batch['attention_mask'].sum(-1).tolist()}, labelled "
           f"{int((batch['labels'] != -100).sum())}; {lora_param_count(params) / 1e6:.1f} M "
           f"adapter params over {L} layers", flush=True)
+
+    # the flash training kernels at the step's attention shape and lengths
+    tc = cfg.text
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=model.device).to(  # noqa: E731
+        torch.bfloat16)
+    B, S = batch["input_ids"].shape
+    q, k, v = randn(B, S, tc.num_attention_heads, tc.head_dim), *(
+        randn(B, S, tc.num_key_value_heads, tc.head_dim) for _ in range(2))
+    flash_case(gen, "judge training", q, k, v, batch["attention_mask"].sum(-1).int(), True,
+               None, training=True)
+    del q, k, v
+
+    real_dx = gmm._bwd_dx_cuda
+
+    def zero_dx(*args):            # the control: the dX kernel's output zeroed
+        dx, *rest = real_dx(*args)
+        return (torch.zeros_like(dx), *rest)
+
     out = {}
-    for impl, attn in (("kernel", "flash"), ("plain", "xla")):
-        set_kernel_impl(model, impl)
+    for impl, attn in (("kernel", "flash"), ("plain", "xla"), ("control", "flash")):
+        set_kernel_impl(model, "plain" if impl == "plain" else "kernel")
+        gmm._bwd_dx_cuda = zero_dx if impl == "control" else real_dx
         for p in params.values():
             p.grad = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = sft_loss(model, batch, dataclasses.replace(scfg, attn_impl=attn))
-        loss.backward()
+        try:
+            loss = sft_loss(model, batch, dataclasses.replace(scfg, attn_impl=attn))
+            loss.backward()
+        finally:
+            gmm._bwd_dx_cuda = real_dx
         grads = torch.cat([p.grad.flatten() for p in params.values()])
         torch.cuda.synchronize()
         out[impl] = (loss.item(), grads, time.perf_counter() - t0)
     set_kernel_impl(model, "kernel")
     (lk, gk, tk), (lp, gp, tp) = out["kernel"], out["plain"]
     loss_rel, grad_rel = abs(lk - lp) / abs(lp), rel_l2(gk, gp)
+    control_rel = rel_l2(out["control"][1], gp)
     print(f"phase 15 step 1: loss kernel {lk:.6f} plain {lp:.6f} (rel {loss_rel:.3e}, tol "
           f"{PATH_LOSS_RTOL}); adapter gradients rel L2 {grad_rel:.3e} (tol "
-          f"{MOE_PATH_GRAD_REL_L2}), |g| {float(gp.norm()):.4e}; fwd+bwd s kernel {tk:.3f} "
-          f"plain {tp:.3f}", flush=True)
-    if not (np.isfinite(lk) and loss_rel <= PATH_LOSS_RTOL and grad_rel <= MOE_PATH_GRAD_REL_L2
+          f"{PATH_GRAD_REL_L2}), |g| {float(gp.norm()):.4e}; fwd+bwd s kernel {tk:.3f} "
+          f"plain {tp:.3f}; control (dX zeroed) rel L2 {control_rel:.3e}", flush=True)
+    if not (np.isfinite(lk) and loss_rel <= PATH_LOSS_RTOL and grad_rel <= PATH_GRAD_REL_L2
             and torch.isfinite(gk).all()):
         raise AssertionError(f"phase 15: kernel path disagrees with the plain path: loss rel "
                              f"{loss_rel}, gradient rel L2 {grad_rel}")
+    if not control_rel > PATH_GRAD_REL_L2:
+        raise AssertionError(f"phase 15: the bound {PATH_GRAD_REL_L2} does not see a zeroed "
+                             f"dX: control rel L2 {control_rel}")
     del out, gk, gp
 
     state = init_train_state(params, OptimConfig())

@@ -33,7 +33,8 @@ the same bounds at the serving and training shapes):
   gradients relative L2 <= 5e-2 (chip_smoke's bound for a training step:
   bf16 rounding differs at every expert FFN output, and the near-uniform
   attention of random weights amplifies it in the q / k adapters'
-  gradients).
+  gradients); the flash training kernels on that step's own operands, at
+  the flash bounds above.
 """
 
 import pytest
@@ -522,8 +523,9 @@ def test_int4_matmul_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("g", [32, 64, 256, 24, 48])
 def test_int4_matmul_kernel_any_group(cuda, M, N, g):
     """Groups other than 128, K = 1536 (K/2 = 768): multiples of 32 (a
-    stage in one group) and groups that end inside a stage (24, 48), with
-    the whole-tile copies (N = 512) and a column tail (N = 200)."""
+    stage in one group) and groups that end inside a stage (24, 48), all
+    through the per-row scales, with the whole-tile copies (N = 512) and
+    the byte loads of a column tail (N = 200)."""
     from video_r2_tpu_torch.models.quant import quantize_kernel_int4
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
@@ -649,25 +651,15 @@ def test_kernels_without_a_backward_refuse_autograd(cuda):
         assert int4_matmul(x, wq, scale).shape == (4, 128)
 
 
-@pytest.mark.cuda
-def test_judge_width_lora_step_kernel_vs_plain(cuda):
-    """Two layers of Qwen3-30B-A3B at full width in bf16, LoRA r 64 on the
-    attention: step-1 loss and adapter gradients through the MoE kernels
-    (the grouped FFN, the GMM dX kernel; no dW kernel: the experts are
-    frozen) against their plain versions. A wrapper that dropped the expert
-    FFN's autograd graph would lose its branch of every adapter gradient.
-    The attention is the plain path on both sides: the flash kernels round
-    P and dS to bf16, which on these random weights (B != 0, near-uniform
-    attention) moves the q / k adapters' gradients past this bound by
-    itself and would hide an error of the MoE kernels; chip_smoke holds
-    the whole kernel path at 48 layers."""
+def _judge_width_step(cuda):
+    """Two layers of Qwen3-30B-A3B at full width in bf16 with LoRA r 64 on
+    the attention (B != 0, so every adapter has a gradient), and a batch of
+    B = 2 rows of 256 tokens, one padded from 200: (model, adapters, batch)."""
     import dataclasses
 
     from video_r2_tpu_torch.models.config import qwen3_moe_30b_a3b
     from video_r2_tpu_torch.models.loader import init_params
-    from video_r2_tpu_torch.ops import moe_gmm as gmm
     from video_r2_tpu_torch.train.lora import LoRAConfig, attach_lora, init_lora
-    from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
 
     cfg = qwen3_moe_30b_a3b()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=2))
@@ -675,7 +667,7 @@ def test_judge_width_lora_step_kernel_vs_plain(cuda):
     lcfg = LoRAConfig()
     params = attach_lora(model, init_lora(model, lcfg), lcfg)
     gen = torch.Generator(device=cuda).manual_seed(1)
-    for n, t in params.items():          # B != 0, so every adapter has a gradient
+    for n, t in params.items():
         if n.endswith("lora_b"):
             t.data.normal_(0.0, 0.02, generator=gen)
     B, S = 2, 256
@@ -686,6 +678,26 @@ def test_judge_width_lora_step_kernel_vs_plain(cuda):
     labels[:, :32] = -100
     batch = {"input_ids": ids, "labels": labels, "attention_mask": mask,
              "position_ids": torch.arange(S, device=cuda).expand(3, B, S)}
+    return model, params, batch
+
+
+@pytest.mark.cuda
+def test_judge_width_lora_step_kernel_vs_plain(cuda):
+    """The 2-layer judge-width LoRA step: step-1 loss and adapter gradients
+    through the MoE kernels (the grouped FFN, the GMM dX kernel; no dW
+    kernel: the experts are frozen) against their plain versions. A wrapper
+    that dropped the expert FFN's autograd graph would lose its branch of
+    every adapter gradient. The attention is the plain path on both sides:
+    the flash kernels round P and dS to bf16, which on these random weights
+    (B != 0, near-uniform attention) moves the q / k adapters' gradients
+    past this bound by itself and would hide an error of the MoE kernels;
+    test_flash_training_kernels_at_judge_width holds the flash kernels on
+    this step's operands, and chip_smoke the whole kernel path at 48
+    layers."""
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+    from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
+
+    model, params, batch = _judge_width_step(cuda)
     got = {}
     for impl in ("kernel", "plain"):
         for mod in model.modules():
@@ -700,6 +712,57 @@ def test_judge_width_lora_step_kernel_vs_plain(cuda):
         got[impl] = (loss.detach().float(), torch.cat([g.float().reshape(-1) for g in grads]))
     assert abs(float(got["kernel"][0] / got["plain"][0]) - 1) <= 1e-2
     assert _rel_l2(got["kernel"][1], got["plain"][1]) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_flash_training_kernels_at_judge_width(cuda, monkeypatch):
+    """The flash training kernels on the operands the 2-layer judge-width
+    LoRA step gives them (32 query over 4 kv heads, hd 128, one row padded;
+    random weights, so the attention is near uniform): each layer's q / k /
+    v and the gradient its output gets, kept as the step runs with flash
+    attention and the plain MoE path. On those operands the forward with
+    LSE, then dq and dk / dv from the plain forward's (out, lse), each
+    against its plain version within the bounds above."""
+    from video_r2_tpu_torch.models import decoder
+    from video_r2_tpu_torch.train.sft import SFTConfig, sft_loss
+
+    model, params, batch = _judge_width_step(cuda)
+    for mod in model.modules():
+        if hasattr(mod, "ffn_impl"):
+            mod.ffn_impl = "plain"
+    calls = []
+    real = decoder.dot_product_attention
+
+    def keep(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        call = {"qkv": (q.detach(), k.detach(), v.detach()), "kw": kw}
+        out.register_hook(lambda g: call.__setitem__("dout", g.detach()))
+        calls.append(call)
+        return out
+
+    monkeypatch.setattr(decoder, "dot_product_attention", keep)
+    before = (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches)
+    loss = sft_loss(model, batch, SFTConfig(ce_chunk_size=256, attn_impl="flash",
+                                            gradient_checkpointing=False))
+    torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd_lse.launches - before[0],
+            flash_bwd_dq_cuda.launches - before[1]) == (2, 2)
+    assert len(calls) == 2
+    for call in calls:
+        q, k, v = call["qkv"]
+        assert q.shape[2:] == (32, 128) and k.shape[2:] == (4, 128)
+        args = (q, k, v, call["kw"]["kv_lengths"].int(), call["kw"]["causal"], 0, None)
+        out, lse = flash_attention_fwd_lse(*args)
+        ref_out, ref_lse = flash_attention_fwd_lse_plain(*args)
+        grads = flash_attention_bwd(q, k, v, ref_out, call["dout"], ref_lse, *args[3:])
+        ref_grads = flash_attention_bwd_plain(q, k, v, ref_out, call["dout"], ref_lse,
+                                              *args[3:])
+        torch.cuda.synchronize()
+        assert _close(out, ref_out)
+        assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+        for name, a, b in zip("qkv", grads, ref_grads):
+            assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
 
 
 def _decode_inputs(gen, g, hd, layers=3, B=4, kh=4, smax=1536):

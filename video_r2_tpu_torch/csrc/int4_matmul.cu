@@ -42,10 +42,9 @@
 // (every decoder and merger width) keep unpredicated copies and stores:
 // predicated copies slowed the latency-bound decode shapes on the card.
 // Any group: g = 128 (every preset) keeps its own instantiation, the group
-// a constant; a g that 32 divides (a stage lies in one group) stages its two
-// scale rows the same way with a division by g; any other g (a group may end
-// inside a stage) stages no scales and reads each packed row's two scales
-// through L1 where its fragment is built.
+// a constant and the two scale rows of a stage staged with it; any other g
+// (no preset uses one) stages no scales and reads each packed row's two
+// scales through L1 where its fragment is built.
 #include "attn_common.cuh"
 
 namespace {
@@ -54,7 +53,6 @@ constexpr int kThreads = 128;  // 4 warps side by side over the columns
 constexpr int kBN = 64;        // output columns per block, 16 per warp
 constexpr int kKS = 32;        // packed rows per stage: 32 k of each half
 constexpr int kGroup = 128;    // rows per scale group of the presets (a G of its own)
-constexpr int kAnyG = 0;       // G: g a runtime multiple of kKS
 constexpr int kFineG = 1;      // G: any other g, scales read per packed row
 constexpr int kWhole = 64;     // load_stage's WV when 64 divides N
 constexpr int kPitch = 80;     // shared row pitch in bytes of the staged
@@ -84,11 +82,6 @@ struct Int4Params {
   int M, K, N, g;
 };
 
-template <int G>
-__device__ __forceinline__ int group(const Int4Params& p) {
-  return G == kGroup ? kGroup : p.g;
-}
-
 // Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
 // `valid` and zero-fills them otherwise (gmem must then still be a mapped
 // address: callers pass the operand's base)
@@ -108,7 +101,7 @@ __device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, boo
 // 64 columns from n0 and its rows [row0, row0 + rows) into `st`; columns
 // past N are zero-filled. WV: kWhole when 64 divides N (no tail: the copies
 // go unpredicated), else the bytes a copy of nibbles, 16 (16 | N), 4 (4 | N)
-// or 1. G: kGroup, kAnyG or kFineG (no scales staged).
+// or 1. G: kGroup, or kFineG (no scales staged).
 template <int MT, int WV, int G>
 __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& p, int s,
                                            int n0, int row0, int rows, int tid) {
@@ -152,21 +145,21 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
   } else if constexpr (WV == kWhole) {  // the two scale rows: 16 chunks of 4 each
     if (tid < 32) {
       const int half = tid >> 4, c = 4 * (tid & 15);
-      const int srow = (half * Kp + p0) / group<G>(p);
+      const int srow = (half * Kp + p0) / kGroup;
       vr2::cp_async16(st + R::W_BYTES + 2 * R::X_BYTES + half * kBN * 4 + 4 * c,
                       p.scale + (long long)srow * p.N + n0 + c);
     }
   } else if constexpr (WV > 1) {  // the same, predicated (4 | N)
     if (tid < 32) {
       const int half = tid >> 4, c = 4 * (tid & 15);
-      const int srow = (half * Kp + p0) / group<G>(p);
+      const int srow = (half * Kp + p0) / kGroup;
       const bool ok = n0 + c < p.N;
       cp_async_zfill<16>(sc + half * kBN + c,
                          ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
     }
   } else {  // one scale a thread
     const int half = tid >> 6, c = tid & 63;
-    const int srow = (half * Kp + p0) / group<G>(p);
+    const int srow = (half * Kp + p0) / kGroup;
     const bool ok = n0 + c < p.N;
     cp_async_zfill<4>(sc + half * kBN + c,
                       ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
@@ -320,8 +313,6 @@ template <int MT>
 cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
   if (p.g != kGroup) {
     const bool whole = p.N % kBN == 0;
-    if (p.g % kKS == 0)
-      return whole ? launch<MT, kWhole, kAnyG>(p, stream) : launch<MT, 1, kAnyG>(p, stream);
     return whole ? launch<MT, kWhole, kFineG>(p, stream) : launch<MT, 1, kFineG>(p, stream);
   }
   if (p.N % kBN == 0) return launch<MT, kWhole>(p, stream);
