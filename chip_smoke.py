@@ -130,6 +130,46 @@
    (the dX kernel once a MoE layer a step, the dW kernels never); ms per
    step, tokens/s, peak memory.
 
+16. int8 kernels (after phase 11, on a fresh Qwen2.5-VL-7B quantized in
+   place with bits=8): the int8 matmul at every (rows, K, N) phase 17 gives
+   it (decode B = 16 and B = 1: q / o, k / v, gate / up, down, the head;
+   the bench batch's prefill head at 64 rows), at the merger's 1024 rows
+   (above the row limit, so phase 17 converts there; held all the same) and
+   at the tails (K 300 / N 500; the ViT's gate / up and down at 3420, 784
+   rows),
+   seeded weights quantized with quantize_kernel, copies past the L2 cache
+   so each timed launch reads cold weights, against its plain version,
+   with the bound and the library calls (convert + torch.matmul x scale,
+   the dispatcher's own path above its row limit; torch._weight_int8pack_mm
+   where the card's torch takes it); the kernel against convert + matmul at
+   M = 1 to 1024 at gate / up and q, the measurement behind
+   INT8_KERNEL_MAX_ROWS; then scripts/microbench_int8.py's comparison at its
+   shape (M 64, K 3584, N 18944, L 28): one all-layers launch, 28 stacked
+   launches and 28 convert + matmul, in GB/s, with the launch counts set to
+   0 before and read after, the all-layers and stacked outputs held against
+   their plain versions on three layers;
+17. int8 serving (after phase 16, on the same model; the int8 / float byte
+   split and peak memory first): (a) the eval backend's configuration, 16
+   video questions (8 frames of 392x392 each, questions of different
+   lengths, prepared one at a time through DemoRunner) in one
+   generate(attn_impl="flash", kv_quant="int8") of 64 greedy tokens, eos
+   off, weight-only, with the launch counts set to 0 before and read after
+   (the int8 kernel's count derived from the rows each linear sees and
+   INT8_KERNEL_MAX_ROWS, asserted); prefill ms, ms per decode step, tok/s;
+   request 0's logits after prefill and after one decode step, kernel path
+   vs plain path (the int8 kernel's plain version, plain prefill and ViT
+   attention); the batch's logits after one decode step over the int8 cache
+   vs the bf16 cache; the int8-KV decode attention timed against the bf16
+   cache's at (a)'s and (b)'s shapes; (b) bench.py's workload, 256 prompts
+   of 256 ids from np.random.default_rng(0), 128 new tokens (eos off, as
+   bench.py's scan decodes them all), attn_impl="flash", act_quant="int8"
+   (W8A8 prefill and, at B >= 192, W8A8 decode), kv_quant="int8",
+   prefill_chunk=64: one warm run, then timed runs, decode tok/s under
+   bench.py's metric name, launches, peak memory.
+
+Phase order: 1-9, 12-13 (one 7B, freed), 10, 14, 11 with 15 (the judge,
+freed), 16-17 (a new 7B).
+
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
 non-zero and that line is not printed. Without CUDA it exits 1 at once.
@@ -200,7 +240,7 @@ TRAIN_QA = (
      "top. Nothing else moves.</think><answer>3</answer>"),
 )
 # int4 serving (phases 12 and 13)
-INT4_REQUESTS, INT4_NEW_TOKENS = 4, 64
+INT4_NEW_TOKENS = 64
 SHORT_FRAMES = 2                  # phase 13's clip: grid (1, 28, 28), 784 patches
 SHORT_PATCHES = SHORT_FRAMES // 2 * (FRAME_HW // 14) ** 2
 INT4_QUESTIONS = ("What is happening in this video?",
@@ -248,6 +288,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "video_r2_tpu/ops/moe_gmm.py:213"),
     "moe_gmm_bwd_dwd": ("video_r2_tpu_torch/csrc/moe_gmm_bwd.cu",
                         "video_r2_tpu/ops/moe_gmm.py:258"),
+    "int8_matmul": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
+                    "video_r2_tpu/ops/int8_matmul.py:23"),
+    "int8_matmul_stacked": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
+                            "video_r2_tpu/ops/int8_matmul.py:81"),
+    "int8_matmul_all_layers": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
+                               "scripts/microbench_int8.py:32"),
 }
 # the judge (phases 10 and 11)
 PEAK_INT8 = 1979e12               # int8 tensor-core TOP/s (H100 SXM data sheet)
@@ -284,6 +330,16 @@ JUDGE_STEPS = ("The person enters from the left and walks to the table.",
                "Hmm, the timestamps say the drink happens at 00:00:12.")
 
 
+# int8 serving (phases 16 and 17)
+INT8_ROWS = (1, 4, 16, 64, 256, 1024)   # the row counts behind INT8_KERNEL_MAX_ROWS
+INT8_NEW_TOKENS = 64
+INT8_QUESTIONS = tuple(INT4_QUESTIONS[i % 4] + " Give the time of each event." * (i // 4)
+                       for i in range(16))
+BENCH_B, BENCH_PROMPT, BENCH_NEW, BENCH_CHUNK = 256, 256, 128, 64   # bench.py's workload
+BENCH_METRIC = "decode_tokens_per_sec_chip_qwen25vl7b_int8_w8a8_kv8_b256"
+MICRO_M, MICRO_K, MICRO_N, MICRO_L = 64, 3584, 18944, 28   # scripts/microbench_int8.py
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -293,7 +349,13 @@ def card_line() -> str:
 
 def counters() -> dict:
     """{kernel name: the wrapper whose .launches counts it}."""
-    from video_r2_tpu_torch.ops import decode_attention, flash, int4_matmul, moe_gmm
+    from video_r2_tpu_torch.ops import (
+        decode_attention,
+        flash,
+        int4_matmul,
+        int8_matmul,
+        moe_gmm,
+    )
     from video_r2_tpu_torch.ops import paged_attention as paged
     from video_r2_tpu_torch.ops import vit_window_attention as win
 
@@ -311,7 +373,10 @@ def counters() -> dict:
             "decode_attention": decode_attention.decode_attention_stacked,
             "moe_gmm_bwd_dx": moe_gmm.gmm_bwd_dx,
             "moe_gmm_bwd_dw": moe_gmm.gmm_bwd_dw,
-            "moe_gmm_bwd_dwd": moe_gmm.gmm_bwd_dwd}
+            "moe_gmm_bwd_dwd": moe_gmm.gmm_bwd_dwd,
+            "int8_matmul": int8_matmul.int8_matmul,
+            "int8_matmul_stacked": int8_matmul.int8_matmul_stacked,
+            "int8_matmul_all_layers": int8_matmul.int8_matmul_all_layers}
 
 
 def ffn_launches() -> dict:
@@ -568,7 +633,7 @@ def register_report(log: Path) -> list[str]:
         m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
                       r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|int4_matmul_kernel|"
-                      r"decode_attn_kernel)I((?:L[ib]\d+E)+)E", line)
+                      r"int8_matmul_kernel|decode_attn_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name, spill = f"{m.group(1)}<{args}>", ""
@@ -1004,12 +1069,13 @@ def serving_phase(model, runner, requests, card) -> dict:
     return {"bf16": launches, "int8": launches8}
 
 
-def int4_batch(runner, cfg):
-    """Phase 13's requests: 4 videos (the phase-4 frames, the fourth from
-    the next seed) with questions of different lengths, each prepared alone
-    through DemoRunner.prepare, then right-padded into one batch with rope
-    positions over the batch, as the eval backend builds a batch. Returns
-    (requests, packed prompts, position_ids [3, B, S], rope_deltas [B])."""
+def video_batch(runner, cfg, questions):
+    """Phase 13's and 17's requests: a video for each question (8 frames of
+    392x392 from seeds SEED, SEED + 1, ...: phase 4's frames first), each
+    prepared alone through DemoRunner.prepare, then right-padded into one
+    batch with rope positions over the batch, as the eval backend builds a
+    batch. Returns (requests, packed prompts, position_ids [3, B, S],
+    rope_deltas [B])."""
     import numpy as np
 
     from video_r2_tpu_torch.engine.chat import pack_prompts
@@ -1018,8 +1084,8 @@ def int4_batch(runner, cfg):
 
     feats = [video_features(np.random.default_rng(SEED + i).integers(
         0, 256, (N_FRAMES, FRAME_HW, FRAME_HW, 3), np.uint8),
-        FRAME_HW, FRAME_HW, sample_fps=2.0) for i in range(INT4_REQUESTS)]
-    reqs = [runner.prepare(f, q) for f, q in zip(feats, INT4_QUESTIONS)]
+        FRAME_HW, FRAME_HW, sample_fps=2.0) for i in range(len(questions))]
+    reqs = [runner.prepare(f, q) for f, q in zip(feats, questions)]
     packed = pack_prompts([[int(t) for t in r.input_ids[0, :int(r.lengths[0])]]
                            for r in reqs], cfg.pad_token_id)
     S = packed.input_ids.shape[1]
@@ -1560,7 +1626,7 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     paged_runs = serving_phase(model, runner, requests, card)
 
     # phases 12 and 13: int4 serving through the head-major decode kernel
-    batch = int4_batch(runner, cfg)
+    batch = video_batch(runner, cfg, INT4_QUESTIONS)
     kernel_results.update(int4_kernel_phase(cfg, batch, device))
     int4_runs = int4_serving_phase(model, runner, batch, card)
 
@@ -1772,10 +1838,10 @@ def judge_logits(model, ids, attn_impl, act_quant=None, token=None):
 
 def set_kernel_impl(model, impl: str) -> None:
     """"kernel" or "plain" for every kernel choice the model's modules hold:
-    the grouped FFN (MoE MLPs), the int4 matmul (linears) and the decode
-    step's attention (the decoder)."""
+    the grouped FFN (MoE MLPs), the int4 and int8 matmuls (linears) and the
+    decode step's attention (the decoder)."""
     for mod in model.modules():
-        for attr in ("ffn_impl", "int4_impl", "decode_attn_impl"):
+        for attr in ("ffn_impl", "int4_impl", "int8_impl", "decode_attn_impl"):
             if hasattr(mod, attr):
                 setattr(mod, attr, impl)
 
@@ -2476,6 +2542,463 @@ def judge_phase(card: str, device) -> dict:
             "moe_ffn_w8a8_gmm": launches8["moe_ffn_w8a8_gmm"], **trained}
 
 
+def int8_weights(gen, K: int, N: int, L: int | None = None):
+    """Seeded int8 weights with unit-scale products: quantize_kernel of
+    N(0, 1 / K) [(L,) K, N] -> (wq, scale)."""
+    import torch
+
+    from video_r2_tpu_torch.models.quant import quantize_kernel
+
+    lead = () if L is None else (L,)
+    leaf = quantize_kernel(torch.randn(*lead, K, N, generator=gen, device=gen.device)
+                           * K ** -0.5)
+    return leaf["kernel_q"], leaf["scale"]
+
+
+def convert_matmul(x, wq, scale):
+    """The library yardstick of the int8 matmul, and the dispatcher's own
+    path above its row limit: the int8 weights converted to x's dtype,
+    torch.matmul, times the scale in x's dtype."""
+    import torch
+
+    return torch.matmul(x, wq.to(x.dtype)) * scale.to(x.dtype)
+
+
+def int8pack_probe(x, wq, scale):
+    """torch._weight_int8pack_mm (weights [N, K] int8, scales [N] in x's
+    dtype), where the card's torch takes it: (None, why not) or
+    (callable(x, wq_nk, scale), "")."""
+    import torch
+
+    if not hasattr(torch, "_weight_int8pack_mm"):
+        return None, "this torch has no _weight_int8pack_mm"
+    try:           # a capability probe of the yardstick, not of the port
+        torch._weight_int8pack_mm(x, wq.t().contiguous(), scale.to(x.dtype))
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:160]
+    return (lambda a, w, s: torch._weight_int8pack_mm(a, w, s)), ""
+
+
+def rotation(x, wq, scale, copies: int):
+    """`rot(fn)`: a call of fn(x, wq', scale') on the next of `copies`
+    copies of the weights, so that each timed launch reads them cold."""
+    wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
+    scs = [scale] + [scale.clone() for _ in range(copies - 1)]
+    at = [0]
+
+    def rot(fn):
+        def go():
+            at[0] = (at[0] + 1) % copies
+            return fn(x, wqs[at[0]], scs[at[0]])
+        return go
+    return rot
+
+
+def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict:
+    """The int8 kernel at one shape against its plain version, cold weights;
+    full: also the plain version's and _weight_int8pack_mm's times (else
+    the kernel and convert + matmul only, for the row-limit table)."""
+    import math
+
+    import torch
+
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    wq, sc = int8_weights(gen, K, N)
+    x = torch.randn(M, K, generator=gen, device=gen.device).to(torch.bfloat16)
+    w_bytes = wq.numel() + 4.0 * sc.numel()
+    copies = max(1, math.ceil(COLD_BYTES / w_bytes))
+    rot = rotation(x, wq, sc, copies)
+    out, ref = int8_matmul(x, wq, sc), int8_matmul_plain(x, wq, sc)
+    err, excess = compare(out, ref)
+    r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(rot(int8_matmul)),
+         "library_ms": cuda_ms(rot(convert_matmul)),
+         **bound(2.0 * M * K * N, 2.0 * M * K + w_bytes + 2.0 * M * N)}
+    extra = {}
+    if full:
+        r["plain_ms"] = cuda_ms(rot(int8_matmul_plain), iters=5, warmup=1)
+        pack, why = (int8pack_probe(x, wq, sc) if K % 64 == 0 and N % 64 == 0 else
+                     (None, "not given tail widths"))
+        if pack is None:
+            extra["int8pack"] = f"none ({why})"
+        else:
+            nk = rotation(x, wq.t().contiguous(), sc.to(x.dtype), copies)
+            extra["int8pack_ms"] = cuda_ms(nk(pack))
+    report("int8_matmul", what, (M, K, N), copies=copies, **r, **extra)
+    if not (torch.isfinite(out).all() and excess <= 1.0):
+        raise AssertionError(f"int8_matmul [{what}] disagrees with its plain version: "
+                             f"{excess} x the tolerance")
+    del out, ref, rot
+    torch.cuda.empty_cache()
+    return r
+
+
+def micro_phase(gen) -> dict:
+    """scripts/microbench_int8.py's comparison at its shape: one all-layers
+    launch, 28 stacked launches and 28 convert + matmul (GB/s over the
+    int8 bytes), counted; the outputs on three layers against the plain
+    versions. Returns the kernels line's rows of the two entries (per
+    launch for the stacked one)."""
+    import torch
+
+    from video_r2_tpu_torch.ops.int8_matmul import (
+        int8_matmul_all_layers,
+        int8_matmul_all_layers_plain,
+        int8_matmul_plain,
+        int8_matmul_stacked,
+    )
+
+    M, K, N, L = MICRO_M, MICRO_K, MICRO_N, MICRO_L
+    wq = torch.randint(-127, 128, (L, K, N), generator=gen, device=gen.device,
+                       dtype=torch.int8)
+    scale = torch.rand(L, N, generator=gen, device=gen.device) * 0.009 + 0.001
+    x = torch.randn(M, K, generator=gen, device=gen.device).to(torch.bfloat16) * K ** -0.5
+    gb = wq.numel() / 1e9
+    bw = lambda ms: gb / (ms * 1e-3)  # noqa: E731
+    reset_launches()
+    all_ms = cuda_ms(lambda: int8_matmul_all_layers(x, wq, scale), iters=10)
+    stacked_ms = cuda_ms(lambda: [int8_matmul_stacked(x, wq, scale, i) for i in range(L)],
+                         iters=10)
+    counted = read_launches()
+    conv_ms = cuda_ms(lambda: [convert_matmul(x, wq[i], scale[i]) for i in range(L)],
+                      iters=10)
+    lib_all = cuda_ms(lambda: torch.matmul(x, wq.to(x.dtype)) * scale[:, None].to(x.dtype),
+                      iters=3, warmup=1)
+    plain_all = cuda_ms(lambda: int8_matmul_all_layers_plain(x, wq, scale), iters=2, warmup=1)
+    out_all = int8_matmul_all_layers(x, wq, scale)
+    worst = 0.0
+    for i in (0, L // 2, L - 1):
+        ref = int8_matmul_plain(x, wq[i], scale[i])
+        worst = max(worst, compare(out_all[i], ref)[1],
+                    compare(int8_matmul_stacked(x, wq, scale, i), ref)[1])
+    err_all = compare(out_all[L - 1], int8_matmul_plain(x, wq[L - 1], scale[L - 1]))[0]
+    print(f"microbench_int8 shape [{M},{K}]x[{K},{N}] x{L}: {gb:.2f} GB int8, bound "
+          f"{gb * 1e9 / PEAK_BYTES * 1e3:.3f} ms: all-layers (1 launch) {all_ms:.4f} ms "
+          f"{bw(all_ms):.0f} GB/s | stacked ({L} launches) {stacked_ms:.4f} ms "
+          f"{bw(stacked_ms):.0f} GB/s | convert + matmul x {L} {conv_ms:.4f} ms "
+          f"{bw(conv_ms):.0f} GB/s | one convert + matmul over the stack {lib_all:.4f} ms | "
+          f"plain {plain_all:.4f} ms; kernel vs plain on layers 0, {L // 2}, {L - 1}: "
+          f"{worst:.3f} x the tolerance; launches {counted['int8_matmul_all_layers']} "
+          f"all-layers, {counted['int8_matmul_stacked']} stacked", flush=True)
+    if not (torch.isfinite(out_all).all() and worst <= 1.0):
+        raise AssertionError(f"the microbench's int8 kernels disagree with plain: {worst}")
+    per = lambda n_layers: bound(2.0 * M * K * N * n_layers,  # noqa: E731
+                                 2.0 * M * K + n_layers * (K * N + 4.0 * N + 2.0 * M * N))
+    del wq, out_all
+    torch.cuda.empty_cache()
+    return {"int8_matmul_all_layers": {
+                "max_abs_err": err_all, "ms": all_ms, "plain_ms": plain_all,
+                "library_ms": lib_all, "launches": counted["int8_matmul_all_layers"], **per(L)},
+            "int8_matmul_stacked": {
+                "max_abs_err": err_all, "ms": stacked_ms / L, "plain_ms": plain_all / L,
+                "library_ms": conv_ms / L, "launches": counted["int8_matmul_stacked"],
+                **per(1)}}
+
+
+def int8_kernel_phase(cfg, batch, device) -> dict:
+    """Phase 16. Returns the kernels line's rows of the three entries:
+    decode gate / up at B = 16; the microbench's stacked and all-layers."""
+    import torch
+
+    from video_r2_tpu_torch.ops.int8_matmul import INT8_KERNEL_MAX_ROWS
+
+    reqs = batch[0]
+    tc, vc = cfg.text, cfg.vision
+    B = len(reqs)
+    H, qd, kvd = tc.hidden_size, tc.num_attention_heads * tc.head_dim, \
+        tc.num_key_value_heads * tc.head_dim
+    I, V = tc.intermediate_size, tc.vocab_size
+    D4 = vc.spatial_merge_unit * vc.hidden_size
+    merger_rows = reqs[0].layout.s_pad // vc.spatial_merge_unit
+    cases = {}
+    for what, M, K, N in (("decode q / o", B, H, qd), ("decode k / v", B, H, kvd),
+                          ("decode gate / up", B, H, I), ("decode down", B, I, H),
+                          ("decode and prefill head", B, H, V),
+                          ("B=1 q / o", 1, H, qd), ("B=1 k / v", 1, H, kvd),
+                          ("B=1 gate / up", 1, H, I), ("B=1 down", 1, I, H),
+                          ("B=1 head", 1, H, V), ("bench prefill head", BENCH_CHUNK, H, V),
+                          ("merger fc1", merger_rows, D4, D4),
+                          ("merger fc2", merger_rows, D4, vc.out_hidden_size),
+                          ("K 300 / N 500", 32, 300, 500),
+                          ("ViT gate / up (N tail)", SHORT_PATCHES, vc.hidden_size,
+                           vc.intermediate_size),
+                          ("ViT down (K tail)", SHORT_PATCHES, vc.intermediate_size,
+                           vc.hidden_size)):
+        cases.setdefault((M, K, N), []).append(what)
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    results = {}
+    for (M, K, N), names in cases.items():
+        results[(M, K, N)] = int8_case(gen, ", ".join(names), M, K, N)
+
+    # the row limit: kernel vs convert + matmul at gate / up and q
+    table = {}
+    for M in INT8_ROWS:
+        for what, K, N in (("gate / up", H, I), ("q", H, qd)):
+            r = int8_case(gen, f"row limit, {what}", M, K, N, full=False)
+            table[(M, what)] = (r["ms"], r["library_ms"])
+    wins = [M for M in INT8_ROWS if all(table[(M, w)][0] <= table[(M, w)][1]
+                                        for w in ("gate / up", "q"))]
+    print("INT8_KERNEL_MAX_ROWS table (ms, kernel / convert + matmul, cold weights): "
+          + "; ".join(f"M={M}: gate / up {table[(M, 'gate / up')][0]:.4f} / "
+                      f"{table[(M, 'gate / up')][1]:.4f}, q {table[(M, 'q')][0]:.4f} / "
+                      f"{table[(M, 'q')][1]:.4f}" for M in INT8_ROWS)
+          + f"; the kernel no slower at both shapes at M in {wins}: the largest "
+          f"{max(wins) if wins else 0}; INT8_KERNEL_MAX_ROWS = {INT8_KERNEL_MAX_ROWS}",
+          flush=True)
+    micro = micro_phase(gen)
+    return {"int8_matmul": results[(B, H, I)], **micro}
+
+
+def int8_expected_launches(cfg, reqs, B: int, S: int, T: int) -> tuple[int, str]:
+    """The int8 kernel's launches in phase 17(a)'s run, from the rows each
+    int8 linear sees and INT8_KERNEL_MAX_ROWS: the decode steps' 7 linears
+    a layer and the head (B rows each), the prefill's head (B rows) and
+    decoder linears (B x S rows), and each video's ViT (5 linears a block
+    over its padded patches) and merger (2 over a quarter of them)."""
+    from video_r2_tpu_torch.ops.int8_matmul import INT8_KERNEL_MAX_ROWS as R
+
+    tc, vc = cfg.text, cfg.vision
+    fits = lambda rows: int(0 < rows <= R)  # noqa: E731
+    step = 7 * tc.num_hidden_layers + 1
+    parts = {"decode": (T - 1) * step * fits(B), "prefill head": fits(B),
+             "prefill linears": 7 * tc.num_hidden_layers * fits(B * S),
+             "ViT": sum(5 * vc.depth * fits(r.layout.s_pad) for r in reqs),
+             "merger": sum(2 * fits(r.layout.s_pad // vc.spatial_merge_unit) for r in reqs)}
+    return sum(parts.values()), ", ".join(f"{k} {v}" for k, v in parts.items())
+
+
+def int8_request_check(model, runner, req, T: int) -> None:
+    """Request 0 alone on the int8 model over an int8 cache, kernel path vs
+    plain path (set_kernel_impl "plain", prefill and ViT attention "xla"):
+    its logits after prefill and after one decode step of the kernel path's
+    argmax, within LOGITS_TOL; the plain path launches no int8 kernel."""
+    import torch
+
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, prefill
+    from video_r2_tpu_torch.models.decoder import QuantKVCache
+
+    cfg, dev = model.cfg, model.device
+    S0, n0 = req.input_ids.shape[1], int(req.lengths[0])
+    r_ids = torch.as_tensor(req.input_ids, device=dev).long()
+    r_pos = torch.as_tensor(req.position_ids, device=dev).long()
+    r_len = torch.as_tensor(req.lengths, dtype=torch.int32, device=dev)
+    r_dec = torch.as_tensor(req.rope_deltas + S0, device=dev).long()
+    got, counts = {}, {}
+    for path in ("kernel", "plain"):
+        plain = path == "plain"
+        set_kernel_impl(model, path)
+        reset_launches()
+        with torch.inference_mode():
+            vemb = runner.vision_embeds(req, "xla" if plain else "kernel")
+            cache = QuantKVCache.init(cfg.text, 1, S0 + T, dev)
+            l0 = prefill(model, r_ids, r_pos, r_len, cache, vemb, cfg.video_token_id,
+                         "xla" if plain else "flash")
+            tok = got["kernel"][0].argmax(-1) if plain else l0.argmax(-1)
+            got[path] = (l0, decode_step_logits(model, tok, r_dec, cache, r_len, S0, 0))
+        torch.cuda.synchronize()
+        counts[path] = read_launches()["int8_matmul"]
+    set_kernel_impl(model, "kernel")
+    rels = [rel_l2(a, b) for a, b in zip(got["kernel"], got["plain"])]
+    print(f"request 0 ({n0} tokens) on the int8 model, int8 cache, kernel vs plain path: "
+          f"logits after prefill rel_l2={rels[0]:.3e}, after one decode step {rels[1]:.3e} "
+          f"(tol {LOGITS_TOL}); argmax {int(got['kernel'][0].argmax())} vs "
+          f"{int(got['plain'][0].argmax())}; int8 launches: kernel path {counts['kernel']}, "
+          f"plain path {counts['plain']}", flush=True)
+    if not (all(torch.isfinite(x).all() for x in got["kernel"]) and max(rels) <= LOGITS_TOL):
+        raise AssertionError(f"int8 kernel path disagrees with the plain path: {rels}")
+    if counts["plain"] != 0 or counts["kernel"] <= 0:
+        raise AssertionError(f"int8 launches {counts}: the plain path must launch none, the "
+                             f"kernel path some")
+
+
+def kv_attention_times(cfg, B: int, smax: int, device) -> str:
+    """One layer's decode attention over a full cache of width smax, int8
+    (quant_dot_product_attention) vs bf16 (plain_attention), in ms."""
+    import torch
+
+    from video_r2_tpu_torch.models.decoder import quantize_kv
+    from video_r2_tpu_torch.ops.attention import plain_attention, quant_dot_product_attention
+
+    tc = cfg.text
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    kv = lambda: torch.randn(B, smax, tc.num_key_value_heads, tc.head_dim,  # noqa: E731
+                             generator=gen, device=device).to(torch.bfloat16)
+    k, v = kv(), kv()
+    q = torch.randn(B, 1, tc.num_attention_heads, tc.head_dim, generator=gen,
+                    device=device).to(torch.bfloat16)
+    bias = torch.zeros(B, 1, 1, smax, device=device)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    with torch.inference_mode():
+        q_ms = cuda_ms(lambda: quant_dot_product_attention(q, kq, ks, vq, vs, bias))
+        b_ms = cuda_ms(lambda: plain_attention(q, k, v, bias))
+        rel = rel_l2(quant_dot_product_attention(q, kq, ks, vq, vs, bias),
+                     plain_attention(q, k, v, bias))
+    return (f"B={B}, {smax} keys: int8 cache {q_ms:.4f} ms, bf16 cache {b_ms:.4f} ms "
+            f"(rel_l2 {rel:.2e})")
+
+
+def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
+    """Phases 16 and 17 on a fresh Qwen2.5-VL-7B, int8 in place. Returns
+    (kernels line rows, launches)."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.apps.demo import DemoRunner
+    from video_r2_tpu_torch.engine.chat import ByteTokenizer
+    from video_r2_tpu_torch.engine.generate import decode_step_logits, generate, prefill
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+    from video_r2_tpu_torch.models.config import qwen25vl_7b
+    from video_r2_tpu_torch.models.decoder import KVCache, QuantKVCache
+    from video_r2_tpu_torch.models.loader import init_params
+    from video_r2_tpu_torch.models.quant import quantize_params
+
+    print(f"before the int8 7B: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    cfg = qwen25vl_7b()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=SEED, dtype="bfloat16", device=device)
+    before = param_split(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_params(model)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = param_split(model)
+    gib = lambda n: n / 2 ** 30  # noqa: E731
+    print(f"int8 quantize_params in place: {q_s:.2f} s, peak "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB; parameters "
+          f"{sum(before.values()) / 1e9:.3f} GB before -> int8 {split['int8'] / 1e9:.3f} GB, "
+          f"float {split['float'] / 1e9:.3f} GB ({sum(split.values()) / 1e9:.3f} GB)",
+          flush=True)
+    runner = DemoRunner(model, ByteTokenizer())
+    batch = video_batch(runner, cfg, INT8_QUESTIONS)
+    reqs, packed, pos, deltas = batch
+
+    # phase 16: the int8 kernels
+    kernel_results = int8_kernel_phase(cfg, batch, device)
+    launches = {n: kernel_results[n].pop("launches")
+                for n in ("int8_matmul_stacked", "int8_matmul_all_layers")}
+
+    # phase 17(a): the eval backend's configuration, counted
+    B, S = packed.input_ids.shape
+    T = INT8_NEW_TOKENS
+    sp = SamplingParams(max_new_tokens=T, eos_token_ids=(), pad_token_id=cfg.pad_token_id)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vemb = torch.cat([runner.vision_embeds(r) for r in reqs])
+    torch.cuda.synchronize()
+    vit_ms = (time.perf_counter() - t0) * 1e3
+    marks = []
+
+    def on_embed(module, args):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    hook = model.model.embed_tokens.register_forward_pre_hook(on_embed)
+    res = generate(model, packed.input_ids, packed.lengths, sp, position_ids=pos,
+                   rope_deltas=deltas, vision_embeds=vemb,
+                   vision_token_id=cfg.video_token_id, attn_impl="flash", kv_quant="int8")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    hook.remove()
+    counted = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(marks) - 1
+    dec_s = t_end - marks[1]
+    want, parts = int8_expected_launches(cfg, reqs, B, S, T)
+    print(f"int8 serving (a): {B} videos, prompt lengths {packed.lengths.tolist()} padded to "
+          f"{S}, {T} greedy tokens each (eos off), weight-only, int8 KV: ViT {vit_ms:.1f} ms "
+          f"({B} videos), prefill {(marks[1] - marks[0]) * 1e3:.1f} ms, {steps} decode steps "
+          f"of {dec_s / steps * 1e3:.2f} ms, {B * steps / dec_s:.2f} tok/s, peak device "
+          f"memory {peak:.2f} GiB; launches {counted} (int8 expected {want}: {parts}) | "
+          f"{card}", flush=True)
+    if res.sequences.shape != (B, T) or steps != T - 1:
+        raise AssertionError(f"int8 generate: {res.sequences.shape} tokens, {steps} steps")
+    if not ((res.sequences >= 0) & (res.sequences < cfg.text.vocab_size)).all():
+        raise AssertionError("int8 generate: token ids out of the vocabulary")
+    if counted["int8_matmul"] != want:
+        raise AssertionError(f"the int8 slice launched {counted['int8_matmul']} int8 "
+                             f"kernels, not {want} ({parts})")
+    for name in ("flash_attention", "window_attention"):
+        if counted[name] <= 0:
+            raise AssertionError(f"the int8 slice launched no {name} kernel")
+    launches["int8_matmul"] = counted["int8_matmul"]
+
+    int8_request_check(model, runner, reqs[0], T)
+    ids_t = torch.as_tensor(packed.input_ids, device=device).long()
+    pos_t = torch.as_tensor(pos, device=device).long()
+    len_t = torch.as_tensor(packed.lengths, dtype=torch.int32, device=device)
+    dec_pos = torch.as_tensor(deltas + S, device=device).long()
+    got = {}
+    for name, cache in (("int8", QuantKVCache.init(cfg.text, B, S + T, device)),
+                        ("bf16", KVCache.init(cfg.text, B, S + T, torch.bfloat16, device))):
+        with torch.inference_mode():
+            l0 = prefill(model, ids_t, pos_t, len_t, cache, vemb, cfg.video_token_id, "flash")
+            got[name] = (l0, decode_step_logits(model, l0.argmax(-1), dec_pos, cache, len_t,
+                                                S, 0, "flash"))
+        del cache
+    rel_kv = rel_l2(got["int8"][1], got["bf16"][1])
+    print(f"int8 batch, logits after one decode step, int8 cache vs bf16 cache: "
+          f"rel_l2={rel_kv:.3e} (tol {INT8_LOGITS_TOL}); after prefill "
+          f"{rel_l2(got['int8'][0], got['bf16'][0]):.3e}", flush=True)
+    if not (torch.isfinite(got["int8"][1]).all() and rel_kv <= INT8_LOGITS_TOL):
+        raise AssertionError(f"the int8 cache disagrees with the bf16 cache: {rel_kv}")
+    del vemb, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"int8-KV decode attention vs the bf16 cache's, one layer: "
+          f"{kv_attention_times(cfg, B, S + T, device)}; "
+          f"{kv_attention_times(cfg, BENCH_B, BENCH_PROMPT + BENCH_NEW, device)}", flush=True)
+
+    # phase 17(b): bench.py's workload
+    ids = np.random.default_rng(0).integers(2, 150000, size=(BENCH_B, BENCH_PROMPT)).astype(
+        np.int32)
+    lengths = np.full((BENCH_B,), BENCH_PROMPT, np.int32)
+    sp = SamplingParams(max_new_tokens=BENCH_NEW, eos_token_ids=(),
+                        pad_token_id=cfg.pad_token_id)
+
+    def run(seed):
+        return generate(model, ids, lengths, sp, seed=seed, attn_impl="flash",
+                        act_quant="int8", kv_quant="int8", prefill_chunk=BENCH_CHUNK)
+
+    run(0)                                        # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(i + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bench_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok_s = [BENCH_B * BENCH_NEW / t for t in times]
+    print(f"int8 serving (b), bench.py's workload: B={BENCH_B}, {BENCH_PROMPT}-token prompts, "
+          f"{BENCH_NEW} new tokens, W8A8 + int8 KV, prefill_chunk={BENCH_CHUNK}: runs "
+          f"{[round(t, 4) for t in times]} s, peak device memory {peak:.2f} GiB; launches of "
+          f"the last run {bench_launches}", flush=True)
+    print(json.dumps({"metric": BENCH_METRIC, "value": round(max(tok_s), 1),
+                      "runs": [round(t, 1) for t in tok_s], "unit": "tokens/sec",
+                      "card": card}), flush=True)
+    if res.sequences.shape != (BENCH_B, BENCH_NEW) or not (
+            (res.sequences >= 0) & (res.sequences < cfg.text.vocab_size)).all():
+        raise AssertionError(f"bench workload: bad tokens {res.sequences.shape}")
+    if bench_launches["flash_attention"] <= 0:
+        raise AssertionError("the bench workload launched no flash kernel")
+    return kernel_results, launches
+
+
 def main() -> int:
     import torch
 
@@ -2511,6 +3034,11 @@ def main() -> int:
     # expert and launches none); dX's are phase 15's steps
     launches.update({n: r["launches"] for n, r in gmm_bwd.items()})
     launches.update(judge_phase(card, device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_results, int8_launches = int8_serving_phase(card, device)   # phases 16 and 17
+    kernel_results.update(int8_results)
+    launches.update(int8_launches)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

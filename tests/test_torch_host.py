@@ -52,7 +52,7 @@ for name in names:
 for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
              "ops.moe_ragged", "ops.moe_gmm", "models.moe", "models.quant",
              "engine.server", "rewards.judge", "ops.int4_matmul",
-             "ops.decode_attention"):
+             "ops.decode_attention", "ops.int8_matmul"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)

@@ -1,0 +1,292 @@
+"""Int8 serving in the PyTorch port against the JAX package.
+
+CPU only, the tiny config in float32 (the int8 matmuls also in bf16).
+Inputs come from numpy seeds and go through both packages; the JAX
+package's int8 Pallas kernels run in interpret mode, as tests/test_quant.py
+runs them (the microbench's all-layers kernel under
+force_tpu_interpret_mode, which its pallas_call needs on the CPU), and the
+port's wrappers run their plain versions on CPU tensors. Tolerances:
+- the int8 matmuls in float32: 1e-5 relative / 1e-4 absolute
+  (tests/test_quant.py's bound: float32 sums in another order over K);
+  in bf16: 1e-2 (both round the fp32 result to bf16 once, and a sum that
+  differs in its last fp32 bits may round to the neighbouring bf16);
+- greedy tokens exactly equal; cache scales and logits 1e-5, chosen-token
+  logprobs 1e-4 (float32 sums in other orders over the layers and the
+  decode steps); int8 cache values within 1, on under 1% of them (a k or v
+  that differs in its last float32 bits may round to the neighbouring
+  int8 value); W8A8 logprobs 1e-3 (so may a per-token activation value).
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from video_r2_tpu.engine import sampling as jsampling
+from video_r2_tpu.engine.chat import ByteTokenizer as JByteTokenizer
+from video_r2_tpu.engine.generate import generate as j_generate
+from video_r2_tpu.engine.generate import prefill as j_prefill
+from video_r2_tpu.engine.server import ChatEngine as JChatEngine
+from video_r2_tpu.models.config import tiny_test_config as j_tiny
+from video_r2_tpu.models.loader import init_params as j_init
+from video_r2_tpu.models.quant import init_params_quantized_zeros as j_zeros
+from video_r2_tpu.models.quant import quantize_params as j_quantize_params
+from video_r2_tpu.models.vision import plan_vision_layout as j_plan
+from video_r2_tpu.models.vision import vit_forward as j_vit
+from video_r2_tpu.ops import attention as jattn
+from video_r2_tpu.ops import int8_matmul as jint8
+from video_r2_tpu_torch.apps.demo import DemoRunner
+from video_r2_tpu_torch.engine import sampling
+from video_r2_tpu_torch.engine.chat import ByteTokenizer
+from video_r2_tpu_torch.engine.generate import generate, prefill
+from video_r2_tpu_torch.engine.server import ChatEngine
+from video_r2_tpu_torch.models.config import tiny_test_config
+from video_r2_tpu_torch.models.convert import flatten_jax_tree, load_jax_params
+from video_r2_tpu_torch.models.decoder import QuantKVCache
+from video_r2_tpu_torch.models.loader import init_params
+from video_r2_tpu_torch.models.mrope import get_rope_index
+from video_r2_tpu_torch.models.quant import init_params_quantized_zeros, quantize_params
+from video_r2_tpu_torch.ops import attention, int8_matmul
+from video_r2_tpu_torch.video.api import video_features
+
+T = torch.from_numpy
+SPECIALS = {"<|endoftext|>": 0, "<|im_start|>": 300, "<|im_end|>": 1,
+            "<|vision_start|>": 502, "<|vision_end|>": 503,
+            "<|image_pad|>": 500, "<|video_pad|>": 501}
+MICROBENCH = Path(__file__).resolve().parent.parent / "scripts" / "microbench_int8.py"
+
+
+def _np_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def int8_models():
+    """The tiny model's weights quantized with bits=8 in both packages:
+    (our model, the JAX tree)."""
+    jparams = j_init(j_tiny(), seed=5)
+    model = init_params(tiny_test_config(), seed=0, device="cpu")
+    load_jax_params(model, _np_tree(jparams))
+    quantize_params(model)
+    return model, j_quantize_params(jparams)
+
+
+def _int8_leaf(rng, *shape):
+    w = rng.normal(size=shape).astype(np.float32)
+    scale = np.maximum(np.abs(w).max(axis=-2), 1e-8) / 127.0
+    wq = np.clip(np.round(w / scale[..., None, :]), -127, 127).astype(np.int8)
+    return wq, scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-5, 1e-4),
+                                             ("bfloat16", 1e-2, 1e-2)])
+def test_int8_matmul_plain_matches_jax_kernel(rng, dtype, rtol, atol):
+    """tests/test_quant.py's ragged shapes (K 300, N 500: the JAX wrapper
+    pads both to its blocks)."""
+    M, K, N = 32, 300, 500
+    x = T(rng.normal(size=(M, K)).astype(np.float32)).to(getattr(torch, dtype))
+    wq, scale = _int8_leaf(rng, K, N)
+    ref = jint8.int8_matmul(jnp.asarray(x.float().numpy(), dtype), jnp.asarray(wq),
+                            jnp.asarray(scale), interpret=True)
+    before = int8_matmul.int8_matmul.launches
+    ours = int8_matmul.int8_matmul(x, T(wq), T(scale))
+    assert int8_matmul.int8_matmul.launches == before       # CPU tensors launch nothing
+    assert ours.dtype == x.dtype and ours.shape == (M, N)
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+def test_int8_matmul_stacked_plain_matches_jax_kernel(rng):
+    """Every layer of a stack, read in place by the JAX kernel's scalar
+    prefetch."""
+    L, M, K, N = 3, 8, 256, 384
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    wq, scale = _int8_leaf(rng, L, K, N)
+    for layer in range(L):
+        ref = jint8.int8_matmul_stacked(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale),
+                                        layer, interpret=True)
+        ours = int8_matmul.int8_matmul_stacked(T(x), T(wq), T(scale), layer)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+def test_int8_matmul_all_layers_plain_matches_the_microbench_kernel(rng):
+    """The all-layers plain version against scripts/microbench_int8.py's
+    one-launch kernel (grid (L, N / 512, K / 512))."""
+    spec = importlib.util.spec_from_file_location("microbench_int8", MICROBENCH)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    L, M, K, N = 2, 8, 512, 512
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    wq, scale = _int8_leaf(rng, L, K, N)
+    with pltpu.force_tpu_interpret_mode():
+        ref = bench.all_layers_matmul(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale))
+    ours = int8_matmul.int8_matmul_all_layers(T(x), T(wq), T(scale))
+    assert ours.shape == (L, M, N)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [4, 40])
+def test_quantized_linear_auto_matches_jax(rng, monkeypatch, rows):
+    """Below the row limit the port's dispatcher calls the int8 kernel's
+    wrapper, above it the convert + matmul path; both give the JAX
+    dispatcher's result (its XLA path on the CPU)."""
+    monkeypatch.setattr(int8_matmul, "INT8_KERNEL_MAX_ROWS", 16)
+    calls = []
+    real = int8_matmul.int8_matmul
+    monkeypatch.setattr(int8_matmul, "int8_matmul",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    x = rng.normal(size=(2, rows // 2, 96)).astype(np.float32)
+    wq, scale = _int8_leaf(rng, 96, 80)
+    ours = int8_matmul.quantized_linear_auto(T(x), T(wq), T(scale))
+    ref = jint8.quantized_linear_auto(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale))
+    assert ours.shape == (2, rows // 2, 80)
+    assert calls == ([(rows, 96)] if rows <= 16 else [])
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_quant_dot_product_attention_matches_jax(rng):
+    B, Sq, Sk, nh, kh, hd = 2, 1, 24, 4, 2, 16
+    q = rng.normal(size=(B, Sq, nh, hd)).astype(np.float32)
+    kq, vq = (rng.integers(-127, 128, (B, Sk, kh, hd)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.001, 0.02, (B, Sk, kh)).astype(np.float32) for _ in range(2))
+    bias = np.where(np.arange(Sk)[None, None, None] < np.array([20, 13])[:, None, None, None],
+                    0.0, -1e30).astype(np.float32)
+    ours = attention.quant_dot_product_attention(T(q), T(kq), T(ks), T(vq), T(vs), T(bias))
+    ref = jattn.quant_dot_product_attention(*map(jnp.asarray, (q, kq, ks, vq, vs, bias)))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_quantized_fill_matches_jax(int8_models, rng):
+    """prefill(kv_quant="int8") writes the JAX package's QuantKVCache (int8
+    values and scales) and gives its logits; the rows past the prompt stay
+    zero."""
+    model, jq = int8_models
+    lengths = np.array([11, 7])
+    ids = rng.integers(2, 400, (2, 11))
+    ids[1, 7:] = 0
+    mask = (np.arange(11)[None] < lengths[:, None]).astype(np.int64)
+    pos, _ = get_rope_index(ids, model.cfg, attention_mask=mask)
+    cache = QuantKVCache.init(model.cfg.text, 2, 16, "cpu")
+    logits = prefill(model, T(ids), T(pos), T(lengths).int(), cache)
+    ref_logits, ref = j_prefill(jq, j_tiny(), jnp.asarray(ids), jnp.asarray(pos),
+                                jnp.asarray(lengths), 16, kv_quant="int8")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), rtol=1e-5, atol=1e-5)
+    for name in ("k", "v"):
+        ours = getattr(cache, name).numpy()
+        assert ours.dtype == np.int8
+        diff = np.abs(ours.astype(np.int32) - np.asarray(getattr(ref, name), np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-2
+        np.testing.assert_allclose(getattr(cache, f"{name}_scale").numpy(),
+                                   np.asarray(getattr(ref, f"{name}_scale")), rtol=1e-5, atol=0)
+    assert not cache.k[:, :, 11:].any() and not cache.k_scale[:, :, 11:].any()
+
+
+def _greedy(T_new):
+    return (sampling.SamplingParams(max_new_tokens=T_new, pad_token_id=0, eos_token_ids=()),
+            jsampling.SamplingParams(max_new_tokens=T_new, pad_token_id=0, eos_token_ids=()))
+
+
+def _assert_same(ours, ref, act_quant):
+    np.testing.assert_array_equal(ours.sequences, np.asarray(ref.sequences))
+    np.testing.assert_array_equal(ours.lengths, np.asarray(ref.lengths))
+    tol = 1e-3 if act_quant else 1e-4
+    np.testing.assert_allclose(ours.logprobs, np.asarray(ref.logprobs), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("act_quant", [None, "int8"], ids=["weight-only", "w8a8"])
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16-kv", "int8-kv"])
+def test_int8_generate_token_exact(int8_models, act_quant, kv_quant):
+    """generate on the int8 model, ragged prompts, the flash prefill (its
+    plain version here; the JAX kernel in interpret mode)."""
+    model, jq = int8_models
+    rng = np.random.default_rng(17)
+    lengths = np.array([13, 6, 10])
+    ids = np.zeros((3, 13), np.int64)
+    for b, n in enumerate(lengths):
+        ids[b, :n] = rng.integers(2, 400, n)
+    sp, jsp = _greedy(7)
+    kw = dict(attn_impl="flash", act_quant=act_quant, kv_quant=kv_quant)
+    _assert_same(generate(model, ids, lengths, sp, **kw),
+                 j_generate(jq, j_tiny(), ids, lengths, jsp, **kw), act_quant)
+
+
+def test_int8_generate_prefill_chunk_token_exact(int8_models):
+    """The batch-chunked fill writes views of one QuantKVCache; W8A8
+    prefill, int8-weight decode (B < 192)."""
+    model, jq = int8_models
+    rng = np.random.default_rng(19)
+    lengths = np.array([9, 12, 5, 12])
+    ids = np.zeros((4, 12), np.int64)
+    for b, n in enumerate(lengths):
+        ids[b, :n] = rng.integers(2, 400, n)
+    sp, jsp = _greedy(6)
+    kw = dict(act_quant="int8", kv_quant="int8", prefill_chunk=2)
+    _assert_same(generate(model, ids, lengths, sp, **kw),
+                 j_generate(jq, j_tiny(), ids, lengths, jsp, **kw), "int8")
+
+
+def test_int8_generate_video_token_exact(int8_models):
+    """A video question prepared by DemoRunner, its ViT on the int8 tower,
+    decoded over the int8 cache: the JAX package's ViT and generate on the
+    same frames, layout and prompt give the same tokens."""
+    model, jq = int8_models
+    frames = np.random.default_rng(3).integers(0, 256, (4, 112, 168, 3), np.uint8)
+    feats = video_features(frames, 112, 168, sample_fps=1.5)
+    runner = DemoRunner(model, ByteTokenizer(SPECIALS), impl="flash")
+    req = runner.prepare(feats, "What moves?")
+    vemb = runner.vision_embeds(req)
+    jvemb = j_vit(jq["visual"], j_tiny().vision, jnp.asarray(req.patches),
+                  j_plan([tuple(feats.grid_thw)], j_tiny().vision))
+    np.testing.assert_allclose(vemb.numpy(), np.asarray(jvemb), rtol=1e-4, atol=1e-4)
+    sp, jsp = _greedy(8)
+    common = dict(position_ids=req.position_ids, rope_deltas=req.rope_deltas,
+                  vision_token_id=model.cfg.video_token_id, attn_impl="flash",
+                  kv_quant="int8")
+    ours = generate(model, req.input_ids, req.lengths, sp, vision_embeds=vemb, **common)
+    ref = j_generate(jq, j_tiny(), req.input_ids, req.lengths, jsp, vision_embeds=jvemb,
+                     **common)
+    _assert_same(ours, ref, None)
+
+
+def test_kv_quant_refuses_the_decode_kernel(int8_models):
+    model, _ = int8_models
+    sp, _ = _greedy(2)
+    with pytest.raises(ValueError, match="head-major"):
+        generate(model, np.ones((1, 4), np.int64), np.array([4]), sp, kv_quant="int8",
+                 decode_impl="kernel")
+
+
+def test_chat_batch_kv_quant_matches_jax(int8_models):
+    """ChatEngine(kv_quant="int8").chat_batch answers exactly the JAX
+    ChatEngine's on the int8 model."""
+    model, jq = int8_models
+    msgs = [[{"role": "system", "content": "You judge answers."},
+             {"role": "user", "content": f"Is {i} + {i} = {2 * i}? Reply yes or no."}]
+            for i in range(3)]
+    ours = ChatEngine(model, model.cfg, ByteTokenizer(SPECIALS), max_new_tokens=6,
+                      kv_quant="int8").chat_batch(msgs)
+    ref = JChatEngine(jq, j_tiny(), JByteTokenizer(SPECIALS), max_new_tokens=6,
+                      kv_quant="int8").chat_batch(msgs)
+    assert ours == ref
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_init_params_quantized_zeros_matches_jax(bits):
+    """Every leaf's name, shape, dtype and value equal to the JAX tree's
+    (group 8, so the ViT's linears take int4 too at bits=4)."""
+    ref = flatten_jax_tree(_np_tree(j_zeros(j_tiny(), bits=bits, group_size=8)))
+    model = init_params_quantized_zeros(tiny_test_config(), bits=bits, group_size=8,
+                                        device="cpu")
+    params = dict(model.named_parameters())
+    assert params.keys() == ref.keys()
+    assert ("lm_head.kernel_q4" in params) == (bits == 4)
+    for name, arr in ref.items():
+        p = params[name]
+        assert tuple(p.shape) == arr.shape and str(p.dtype) == f"torch.{arr.dtype}", name
+        assert not p.requires_grad
+        np.testing.assert_array_equal(p.float().numpy(), arr.astype(np.float32), err_msg=name)

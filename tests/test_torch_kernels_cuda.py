@@ -22,6 +22,9 @@ the same bounds at the serving and training shapes):
 - the int4 matmul: the forward bound, for inputs scaled so every output is
   O(1): kernel and plain version multiply the same bf16-rounded weights,
   sum in fp32 in other orders and round the output to bf16;
+- the int8 matmul (three entries): the forward bound, for inputs scaled so
+  every output is O(1): both multiply the same (exact) int8 weights, sum
+  in fp32 in other orders, scale in fp32 and round once to bf16;
 - head-major decode attention: the forward bound; both compute in fp32 and
   round the output to bf16;
 - the GMM backward: dg / du / h elementwise at the forward bound (both
@@ -404,12 +407,12 @@ def test_moe_ffn_refuses_what_it_does_not_take(cuda):
 def test_w8a8_linear_on_the_card_is_exact(cuda, M):
     """The W8A8 linear's int8 product (torch._int_mm, rows padded past 16)
     gives the CPU's integer product exactly."""
-    from video_r2_tpu_torch.models.layers import int8_matmul
+    from video_r2_tpu_torch.models.layers import int8_int_mm
 
     gen = torch.Generator(device=cuda).manual_seed(M)
     a = torch.randint(-127, 128, (M, 256), generator=gen, device=cuda).to(torch.int8)
     b = torch.randint(-127, 128, (256, 512), generator=gen, device=cuda).to(torch.int8)
-    assert torch.equal(int8_matmul(a, b).cpu(), int8_matmul(a.cpu(), b.cpu()))
+    assert torch.equal(int8_int_mm(a, b).cpu(), int8_int_mm(a.cpu(), b.cpu()))
 
 
 # the 7B's int4 linears (K, N): q / o, k / v, gate / up, down, merger fc1 / fc2,
@@ -541,6 +544,143 @@ def test_int4_matmul_kernel_any_group(cuda, M, N, g):
                                                                   leaf["scale4"]))
 
 
+# the 7B's int8 linears (K, N): q / o, k / v, gate / up, down, the head,
+# merger fc1 / fc2, the ViT's qkv and proj; the ViT's gate / up and down
+# (3420: K and N tails, 4-byte copies), tests/test_quant.py's K 300 / N 500,
+# and odd widths (element loads)
+INT8_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (5120, 5120),
+               (5120, 3584), (1280, 3840), (1280, 1280), (1280, 3420), (3420, 1280),
+               (300, 500), (301, 197), (64, 1)]
+
+
+def _int8_operands(gen, M, K, N, L=None):
+    """x [M, K] bf16 and int8 weights quantized from N(0, 1 / K) (so every
+    output is O(1)): wq [(L,) K, N], scale [(L,) N]."""
+    from video_r2_tpu_torch.models.quant import quantize_kernel
+
+    lead = () if L is None else (L,)
+    leaf = quantize_kernel(torch.randn(*lead, K, N, generator=gen, device=gen.device)
+                           * K ** -0.5)
+    return _randn(gen, M, K), leaf["kernel_q"], leaf["scale"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 40, 784])
+@pytest.mark.parametrize("K,N", INT8_SHAPES)
+def test_int8_matmul_kernel_matches_plain(cuda, M, K, N):
+    """Every row capacity (16, 32 and 64-row blocks; 784 rows are 13 row
+    blocks) and every copy path."""
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int8_operands(gen, M, K, N)
+    before = int8_matmul.launches
+    out = int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_plain(x, wq, scale)
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 100])
+def test_int8_matmul_kernel_at_the_head(cuda, M):
+    """The 7B head (3584 -> 152064, 2376 column blocks)."""
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    x, wq, scale = _int8_operands(gen, M, 3584, 152064)
+    assert _close(int8_matmul(x, wq, scale), int8_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 64])
+@pytest.mark.parametrize("K,N", [(3584, 512), (1280, 3420), (301, 197)])
+def test_int8_stacked_and_all_layers_kernels_match_plain(cuda, M, K, N):
+    """The stacked entry on every layer but the first of a 3-layer stack
+    (read in place) and the all-layers entry, against their plain
+    versions."""
+    from video_r2_tpu_torch.ops.int8_matmul import (
+        int8_matmul_all_layers,
+        int8_matmul_all_layers_plain,
+        int8_matmul_stacked,
+        int8_matmul_stacked_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int8_operands(gen, M, K, N, L=3)
+    for layer in (1, 2):
+        before = int8_matmul_stacked.launches
+        out = int8_matmul_stacked(x, wq, scale, layer)
+        torch.cuda.synchronize()
+        assert int8_matmul_stacked.launches == before + 1
+        assert _close(out, int8_matmul_stacked_plain(x, wq, scale, layer)), layer
+    before = int8_matmul_all_layers.launches
+    out = int8_matmul_all_layers(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul_all_layers.launches == before + 1 and out.shape == (3, M, N)
+    assert _close(out, int8_matmul_all_layers_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int8_linear_dispatch_by_rows(cuda):
+    """An int8 Linear sends 1 to INT8_KERNEL_MAX_ROWS rows to the kernel and
+    more to convert + torch.matmul, as the reference's
+    quantized_linear_auto."""
+    from video_r2_tpu_torch.models.layers import Linear
+    from video_r2_tpu_torch.models.quant import quantize_params
+    from video_r2_tpu_torch.ops.int8_matmul import (
+        INT8_KERNEL_MAX_ROWS,
+        int8_matmul,
+        int8_matmul_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lin = torch.nn.Module()
+    lin.fc1 = Linear(512, 256, True, dtype=torch.bfloat16, device=cuda)
+    lin.requires_grad_(False)
+    lin.fc1.kernel.normal_(0, 512 ** -0.5, generator=gen)
+    lin.fc1.bias.zero_()
+    quantize_params(lin)
+    fc1 = lin.fc1
+    assert fc1.kernel is None and fc1.kernel_q is not None
+    cases = [(INT8_KERNEL_MAX_ROWS + 1, 0)]
+    if INT8_KERNEL_MAX_ROWS:
+        cases += [(1, 1), (INT8_KERNEL_MAX_ROWS, 1)]
+    for rows, launched in cases:
+        x = _randn(gen, rows, 512)
+        before = int8_matmul.launches
+        y = fc1(x)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + launched, rows
+        assert _close(y, int8_matmul_plain(x, fc1.kernel_q, fc1.scale))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_what_it_does_not_take(cuda):
+    from video_r2_tpu_torch.ops.int8_matmul import (
+        KERNEL_MAX_ROWS,
+        int8_matmul,
+        int8_matmul_stacked,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, wq, scale = _int8_operands(gen, 4, 512, 128)
+    with pytest.raises(TypeError):                  # float32 activations
+        int8_matmul(x.float(), wq, scale)
+    with pytest.raises(TypeError):                  # bf16 scales
+        int8_matmul(x, wq, scale.bfloat16())
+    with pytest.raises(ValueError):                 # K of x and wq differ
+        int8_matmul(x[:, :256].contiguous(), wq, scale)
+    with pytest.raises(ValueError):                 # a strided weight
+        int8_matmul(x, wq[:, ::2], scale[::2].contiguous())
+    with pytest.raises(ValueError):                 # more rows than the kernel takes
+        int8_matmul(_randn(gen, KERNEL_MAX_ROWS + 1, 512), wq, scale)
+    with pytest.raises(ValueError):                 # a layer past the stack
+        int8_matmul_stacked(x, wq[None], scale[None], 1)
+
+
 def _gmm_layout(gen, cuda, bm, E=8, H=256):
     """A sorted layout by hand: 7 blocks of bm rows, experts 0 0 2 3 3 3 in
     the valid blocks (runs of 2 and 3 blocks; 1, 4, 5, 6 absent) and one
@@ -626,11 +766,17 @@ def test_moe_mlp_under_autograd_runs_the_backward_kernels(cuda, train_experts):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_autograd(cuda):
-    """The ragged path, int8 expert weights on the GMM path and the int4
-    matmul have no backward: under autograd with x requiring grad they
-    raise (their outputs would carry no graph); without it they run."""
+    """The ragged path, int8 expert weights on the GMM path, the int4
+    matmul and the three int8 matmul entries have no backward: under
+    autograd with x requiring grad they raise (their outputs would carry no
+    graph); without it they run."""
     from video_r2_tpu_torch.models.moe import moe_mlp
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul
+    from video_r2_tpu_torch.ops.int8_matmul import (
+        int8_matmul,
+        int8_matmul_all_layers,
+        int8_matmul_stacked,
+    )
 
     gen = torch.Generator(device=cuda).manual_seed(3)
     E, H, I, k = 16, 512, 768, 4
@@ -649,6 +795,15 @@ def test_kernels_without_a_backward_refuse_autograd(cuda):
         int4_matmul(x.requires_grad_(), wq, scale)
     with torch.no_grad():
         assert int4_matmul(x, wq, scale).shape == (4, 128)
+    x, wq, scale = _int8_operands(gen, 4, 512, 128)
+    x.requires_grad_()
+    for fn, args in ((int8_matmul, (wq, scale)),
+                     (int8_matmul_stacked, (wq[None], scale[None], 0)),
+                     (int8_matmul_all_layers, (wq[None], scale[None]))):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn(x, *args)
+        with torch.no_grad():
+            assert fn(x, *args).shape[-2:] == (4, 128)
 
 
 def _judge_width_step(cuda):

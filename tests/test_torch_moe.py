@@ -403,7 +403,7 @@ def test_paged_engine_moe_matches_jax(judge):
 def test_options_not_ported_raise(judge):
     model, _, cfg, _ = judge
     for kw in ({"continuous": True}, {"spec_decode": 2}, {"mesh": object()},
-               {"kv_quant": "int8"}):
+               {"continuous": True, "kv_quant": "int8"}):
         with pytest.raises(NotImplementedError):
             ChatEngine(model, cfg, ByteTokenizer(SPECIALS), **kw)
     with pytest.raises(NotImplementedError):

@@ -1,6 +1,6 @@
 """Batched autoregressive generation: prefill + a Python decode loop.
 
-Port of ``video_r2_tpu/engine/generate.py`` (bf16 cache, no speculation):
+Port of ``video_r2_tpu/engine/generate.py`` (no speculation):
 
 - right-padded prompts with per-sample lengths; the KV cache is addressed by
   true position and decode step t writes the fixed slot S + t for the whole
@@ -23,7 +23,13 @@ Port of ``video_r2_tpu/engine/generate.py`` (bf16 cache, no speculation):
   Decoder.decode_step per token (its linears take no act_quant; the head
   does). "xla" keeps the seq-major cache and the plain decode attention;
   "auto" picks "xla", as the reference does (its kernel is the opt-in
-  long-context small-batch decode). The kernel cannot take prefill_chunk.
+  long-context small-batch decode). The kernel cannot take prefill_chunk;
+- kv_quant="int8" keeps the seq-major cache in int8 with per-(token, head)
+  scales (models/decoder.py::QuantKVCache): prefill attends over its local
+  bf16 k / v, decode over the int8 cache (ops/attention.py::
+  quant_dot_product_attention). It composes with act_quant, prefill_chunk
+  and attn_impl="flash", not with decode_impl="kernel" (a bf16 head-major
+  cache), as in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.decoder import DecodeKVCache, KVCache
+from ..models.decoder import DecodeKVCache, KVCache, QuantKVCache
 from ..models.model import Qwen25VL, lm_head, merge_vision_embeddings
 from ..models.mrope import get_rope_index, mrope_cos_sin
 from ..ops.decode_attention import BLOCK_S
@@ -51,14 +57,14 @@ class GenerationResult:
 
 @torch.inference_mode()
 def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor,
-            lengths: torch.Tensor, cache: KVCache | DecodeKVCache,
+            lengths: torch.Tensor, cache: KVCache | DecodeKVCache | QuantKVCache,
             vision_embeds: torch.Tensor | None = None,
             vision_token_id: int | None = None,
             attn_impl: str = "xla", act_quant: str | None = None) -> torch.Tensor:
     """Run the prompt [B, S] and fill rows [0, S) of `cache` in place (a
-    DecodeKVCache by the head-major fill). Returns the last valid token's
-    logits [B, V] in fp32 (the head is not W8A8 in prefill, as in the
-    reference)."""
+    DecodeKVCache by the head-major fill, a QuantKVCache by the quantized
+    fill). Returns the last valid token's logits [B, V] in fp32 (the head is
+    not W8A8 in prefill, as in the reference)."""
     cfg = model.cfg
     B, S = input_ids.shape
     h = model.model.embed_tokens(input_ids)
@@ -67,10 +73,11 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
             input_ids, h, vision_embeds,
             cfg.video_token_id if vision_token_id is None else vision_token_id)
     cos, sin = mrope_cos_sin(position_ids, cfg, dtype=h.dtype)
-    if attn_impl == "flash" or isinstance(cache, DecodeKVCache):
+    if attn_impl == "flash" or isinstance(cache, (DecodeKVCache, QuantKVCache)):
         # the flash kernel masks by kv_lengths and causality itself; the
-        # head-major fill attends over the local prompt-width k / v, whose
-        # prefix-causal bias dot_product_attention builds from kv_lengths
+        # head-major and quantized fills attend over the local prompt-width
+        # k / v, whose prefix-causal bias dot_product_attention builds from
+        # kv_lengths
         bias = None
     else:
         # bias spans the whole cache width: causal over the prompt, -inf beyond
@@ -87,15 +94,15 @@ def prefill(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
 
 @torch.inference_mode()
 def decode_step_logits(model: Qwen25VL, tok: torch.Tensor, pos: torch.Tensor,
-                       cache: KVCache | DecodeKVCache, lengths: torch.Tensor,
-                       s_pad: int, t: int, attn_impl: str = "xla",
+                       cache: KVCache | DecodeKVCache | QuantKVCache,
+                       lengths: torch.Tensor, s_pad: int, t: int, attn_impl: str = "xla",
                        act_quant: str | None = None) -> torch.Tensor:
     """Forward decode token t: tok [B] at rope positions pos [B], its k / v
     written at slot s_pad + t of `cache` in place. A DecodeKVCache runs the
     decode kernel's step (its linears without act_quant; attn_impl does not
     apply to it); a KVCache the masked attention over the cache by
-    attn_impl. Returns the next logits [B, V] in fp32 (act_quant: a W8A8
-    head)."""
+    attn_impl, a QuantKVCache the masked int8 attention. Returns the next
+    logits [B, V] in fp32 (act_quant: a W8A8 head)."""
     cfg = model.cfg
     B = tok.shape[0]
     emb = model.model.embed_tokens(tok)[:, None]
@@ -113,7 +120,7 @@ def decode_step_logits(model: Qwen25VL, tok: torch.Tensor, pos: torch.Tensor,
 
 @torch.inference_mode()
 def decode(model: Qwen25VL, sp: SamplingParams, first_logits: torch.Tensor,
-           cache: KVCache | DecodeKVCache, lengths: torch.Tensor,
+           cache: KVCache | DecodeKVCache | QuantKVCache, lengths: torch.Tensor,
            rope_deltas: torch.Tensor, generator: torch.Generator | None, s_pad: int,
            attn_impl: str = "xla",
            act_quant: str | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -158,14 +165,21 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
              attn_impl: str = "xla",
              prefill_chunk: int | None = None,
              act_quant: str | None = None, decode_impl: str = "auto",
-             decode_act_quant: str | None = "auto") -> GenerationResult:
+             decode_act_quant: str | None = "auto",
+             kv_quant: str | None = None) -> GenerationResult:
     """Host-orchestrated batched generation on the model's device.
     attn_impl="flash" runs prefill attention through the flash kernel;
     act_quant="int8": W8A8 prefill; decode_act_quant "auto": int8 iff
     act_quant is int8 and B >= 192. decode_impl: "kernel" (the head-major
-    decode kernel), "xla" (the plain decode), "auto" ("xla")."""
+    decode kernel), "xla" (the plain decode), "auto" ("xla").
+    kv_quant="int8": the int8 KV cache."""
     if decode_impl not in ("auto", "xla", "kernel"):
         raise ValueError(f"unknown decode_impl {decode_impl!r}")
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    if kv_quant and decode_impl == "kernel":
+        raise ValueError("kv_quant='int8' keeps the seq-major int8 cache; "
+                         "decode_impl='kernel' reads a bf16 head-major one")
     cfg = model.cfg
     device = model.device
     input_ids = np.asarray(input_ids)
@@ -192,6 +206,8 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
         # the kernel reads whole blocks of BLOCK_S rows; decode slots start at S
         max_cache = -(-(S + sp.max_new_tokens) // BLOCK_S) * BLOCK_S
         cache = DecodeKVCache.init(cfg.text, B, max_cache, dtype, device)
+    elif kv_quant:
+        cache = QuantKVCache.init(cfg.text, B, S + sp.max_new_tokens, device)
     else:
         cache = KVCache.init(cfg.text, B, S + sp.max_new_tokens, dtype, device)
     ids_t = torch.as_tensor(input_ids, dtype=torch.long, device=device)

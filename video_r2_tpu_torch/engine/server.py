@@ -8,7 +8,8 @@ renders chats, tokenizes them and runs one batched `generate` per call
 yet, and raising NotImplementedError when asked for: the continuous
 serving loop (continuous=True needs run_loop; the continuous engine's
 options, num_slots to prefix_cache, come with it), speculative decoding,
-meshes, the int8 contiguous KV cache and the Qwen3-Next family.
+meshes and the Qwen3-Next family. kv_quant="int8" runs each batch on the
+int8 KV cache (engine/generate.py).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ class ChatEngine:
     """Thread-safe text-only chat generation on a model (judge role), one
     batched generate per call. attn_impl "flash" runs prefill attention
     through the flash kernel; act_quant="int8" runs prefill W8A8 on an int8
-    model (models/quant.py)."""
+    model (models/quant.py); kv_quant="int8" keeps the KV cache in int8."""
 
     def __init__(self, model, cfg, tokenizer, model_name: str = "video-r2-tpu",
                  max_new_tokens: int = 1024, attn_impl: str = "xla",
@@ -58,8 +59,7 @@ class ChatEngine:
                                       f"not ported to the PyTorch package yet")
         for name, asked in (("continuous serving (continuous=True)", continuous),
                             ("speculative decoding (spec_decode)", spec_decode),
-                            ("sharded serving (mesh)", mesh is not None),
-                            ("the int8 contiguous KV cache (kv_quant)", kv_quant)):
+                            ("sharded serving (mesh)", mesh is not None)):
             if asked:
                 raise NotImplementedError(f"{name} is not ported to the PyTorch "
                                           f"ChatEngine yet")
@@ -103,7 +103,7 @@ class ChatEngine:
         """One batched generate (callers hold the lock)."""
         return generate(self.model, packed.input_ids, packed.lengths, sp,
                         seed=self._seed, attn_impl=self.attn_impl,
-                        act_quant=self.act_quant)
+                        act_quant=self.act_quant, kv_quant=self.kv_quant)
 
     def chat_batch(self, messages_list: list[list[dict]],
                    temperature: float = 0.0, top_p: float = 1.0,

@@ -11,7 +11,12 @@ over one of two contiguous KV caches, updated in place:
   (ops/decode_attention.py): prefill writes each layer's k / v transposed
   into its [B, kh, Smax, hd] slice and attends over the local prompt-width
   k / v (the head-major fill); `Decoder.decode_step` writes the new row at
-  slot s_pad + t and reads the layer through the kernel.
+  slot s_pad + t and reads the layer through the kernel;
+- `QuantKVCache`, seq-major int8 [L, B, Smax, kh, hd] with fp32 absmax
+  scales [L, B, Smax, kh] (`quantize_kv`): a causal call (prefill) stores
+  the prompt's rows quantized and attends over the local bf16 k / v (the
+  quantized fill), a decode step stores its row quantized and attends over
+  the whole int8 cache through ops/attention.py::quant_dot_product_attention.
 
 Without a cache the decoder is the training forward (``decoder_forward``
 with ``remat``: each layer is recomputed in the backward).
@@ -23,10 +28,9 @@ int8 linears W8A8, q/k/v sharing one activation quantization; int4 linears
 take no act_quant, and neither does the kernel decode step, as in the
 reference. Each layer's attention inputs (`DecoderLayer.qkv`) and what
 follows its attention (`DecoderLayer.finish`) are the helpers the decode
-step and the serving engines reuse. The int8 contiguous cache is not ported
-yet. The reference's index-scan over stacked int4 views
-(``_stacked_quant_view``) has no counterpart: each layer holds its own int4
-leaves, which the int4 kernel reads in place.
+step and the serving engines reuse. The reference's index-scan over
+stacked int4 views (``_stacked_quant_view``) has no counterpart: each layer
+holds its own int4 leaves, which the int4 kernel reads in place.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, quant_dot_product_attention
 from ..ops.decode_attention import decode_attention_stacked, decode_attention_stacked_plain
 from .config import TextConfig
 from .layers import MLP, ExpertLinear, Linear, RMSNorm, apply_rotary, quantize_act
@@ -78,6 +82,33 @@ class DecodeKVCache:
                  max_len, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+@dataclass
+class QuantKVCache:
+    """int8 seq-major cache with per-(token, head) absmax scales: half the
+    bytes of a bf16 cache, read without a dequantised copy of its values
+    (quant_dot_product_attention applies the scales to scores and
+    probabilities)."""
+
+    k: torch.Tensor        # [L, B, Smax, kv_heads, head_dim] int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # [L, B, Smax, kv_heads] float32
+    v_scale: torch.Tensor
+
+    @classmethod
+    def init(cls, cfg: TextConfig, batch: int, max_len: int, device) -> "QuantKVCache":
+        shape = (cfg.num_hidden_layers, batch, max_len,
+                 cfg.num_key_value_heads, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+    def batch_slice(self, start: int, stop: int) -> "QuantKVCache":
+        """A view of rows [start, stop): writes through it land in self."""
+        return QuantKVCache(*(x[:, start:stop] for x in
+                              (self.k, self.v, self.k_scale, self.v_scale)))
 
 
 class Embedding(nn.Module):
@@ -188,14 +219,26 @@ class DecoderLayer(nn.Module):
     def forward(self, x, cos, sin, bias, k_cache=None, v_cache=None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False, act_quant: str | None = None,
-                head_major: bool = False):
+                head_major: bool = False, kv_scales=None):
         """k_cache / v_cache: this layer's cache, written in place at
         [cache_position, cache_position + S): seq-major [B, Smax, kh, hd],
         attended over whole, or (head_major) [B, kh, Smax, hd], with the
-        attention over the local k / v; None attends over the local k / v."""
+        attention over the local k / v; None attends over the local k / v.
+        kv_scales: this layer's (k_scale, v_scale) [B, Smax, kh] of an int8
+        cache, written with it; a causal call (the fill) then attends over
+        the local k / v, any other over the whole int8 cache with `bias`."""
         S = x.shape[1]
         q, k, v = self.qkv(x, cos, sin, act_quant)
-        if head_major:
+        if kv_scales is not None:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            span = slice(cache_position, cache_position + S)
+            k_cache[:, span], v_cache[:, span] = kq, vq
+            kv_scales[0][:, span], kv_scales[1][:, span] = ks, vs
+            if not causal:
+                attn = quant_dot_product_attention(q, k_cache, kv_scales[0], v_cache,
+                                                   kv_scales[1], bias)
+                return self.finish(x, attn, act_quant)
+        elif head_major:
             k_cache[:, :, cache_position:cache_position + S] = k.transpose(1, 2)
             v_cache[:, :, cache_position:cache_position + S] = v.transpose(1, 2)
         elif k_cache is not None:
@@ -220,21 +263,25 @@ class Decoder(nn.Module):
                                            # through the kernel's plain version
 
     def forward(self, hidden, cos, sin, bias,
-                cache: KVCache | DecodeKVCache | None = None,
+                cache: KVCache | DecodeKVCache | QuantKVCache | None = None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False,
                 remat: bool = False, act_quant: str | None = None) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
         bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
         [B, S, H]; `cache` (if given) is updated in place (a DecodeKVCache by
-        the head-major fill, with bias None). remat: under autograd, keep
-        only each layer's input and recompute the layer in the backward
-        (gradient checkpointing). act_quant="int8": W8A8 on int8 weights."""
+        the head-major fill, with bias None; a QuantKVCache by the quantized
+        fill when causal, with bias None, else by a decode step). remat:
+        under autograd, keep only each layer's input and recompute the layer
+        in the backward (gradient checkpointing). act_quant="int8": W8A8 on
+        int8 weights."""
         head_major = isinstance(cache, DecodeKVCache)
+        quant = isinstance(cache, QuantKVCache)
         for i, layer in enumerate(self.layers):
             kc, vc = (cache.k[i], cache.v[i]) if cache is not None else (None, None)
+            scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
             args = (hidden, cos, sin, bias, kc, vc, cache_position, attn_impl,
-                    kv_lengths, causal, act_quant, head_major)
+                    kv_lengths, causal, act_quant, head_major, scales)
             if remat and torch.is_grad_enabled():
                 hidden = checkpoint(layer, *args, use_reentrant=False)
             else:

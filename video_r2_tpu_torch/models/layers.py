@@ -6,10 +6,12 @@ applied in fp32. Linear weights keep the JAX layout ``kernel [in, out]`` so
 parameters carry across unchanged (models/convert.py). LoRA adapters attach
 in the JAX "attach" form (train/lora.py). After models/quant.py a linear
 holds int8 ``kernel_q`` and fp32 per-output-channel ``scale``: weight-only
-it converts the kernel to x's dtype inside the product (the reference's
-default, its Pallas int8 kernels being off); with act_quant="int8" it runs
-W8A8, per-token int8 activations times the int8 kernel in int32. The
-reference leaves that product to XLA; on the card it goes to
+it goes through ops/int8_matmul.py::quantized_linear_auto, as the
+reference's linear does (1 to INT8_KERNEL_MAX_ROWS rows through the int8
+kernel, more converted to x's dtype and multiplied with torch.matmul); with
+act_quant="int8" it runs W8A8, per-token int8 activations times the int8
+kernel in int32. The reference leaves that product to XLA; on the card it
+goes to
 ``torch._int_mm`` (a cuBLASLt int8 GEMM, the one library product the port
 calls: it is a plain matrix product outside any kernel of the reference's),
 on the CPU to the plain integer product. An int4 linear (models/quant.py:
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int4_matmul import KERNEL_MAX_ROWS, int4_matmul, int4_matmul_plain
+from ..ops.int8_matmul import quantized_linear_auto
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -42,7 +45,7 @@ def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(x2 / a), -127, 127).to(torch.int8), a
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def int8_int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] @ int8 [K, N] -> int32, exact. On the card
     torch._int_mm, which wants more than 16 rows (fewer are padded with
     zero rows); on the CPU the plain integer product."""
@@ -60,7 +63,7 @@ def _w8a8_linear(wq: torch.Tensor, w_scale: torch.Tensor, x: torch.Tensor,
     and channel scales; pre_quant: (xq, scale) shared across siblings."""
     lead = x.shape[:-1]
     xq, a = quantize_act(x) if pre_quant is None else pre_quant
-    y = (int8_matmul(xq, wq).float() * a * w_scale[None, :]).to(x.dtype)
+    y = (int8_int_mm(xq, wq).float() * a * w_scale[None, :]).to(x.dtype)
     return y.reshape(*lead, wq.shape[-1])
 
 
@@ -86,7 +89,8 @@ class Linear(nn.Module):
     to x's dtype, as the JAX package's attach form: the kernel is never
     touched and W + AB is never formed. int4_impl="plain" runs an int4
     leaf's product through the int4 kernel's plain version on the card (the
-    reference path)."""
+    reference path), int8_impl="plain" an int8 weight-only leaf's through
+    the int8 kernel's."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, *, dtype, device):
         super().__init__()
@@ -100,6 +104,7 @@ class Linear(nn.Module):
         self.lora_b: nn.Parameter | None = None
         self.lora_scale = 1.0
         self.int4_impl = "kernel"
+        self.int8_impl = "kernel"
 
     def forward(self, x: torch.Tensor, act_quant: str | None = None,
                 pre_quant=None) -> torch.Tensor:
@@ -110,7 +115,7 @@ class Linear(nn.Module):
         elif act_quant == "int8":
             y = _w8a8_linear(self.kernel_q, self.scale, x, pre_quant)
         else:
-            y = torch.matmul(x, self.kernel_q.to(x.dtype)) * self.scale.to(x.dtype)
+            y = quantized_linear_auto(x, self.kernel_q, self.scale, self.int8_impl)
         if self.lora_a is not None:
             b = (self.lora_b * self.lora_scale).to(x.dtype)
             y = y + torch.matmul(torch.matmul(x, self.lora_a.to(x.dtype)), b)

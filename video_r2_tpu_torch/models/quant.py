@@ -102,3 +102,45 @@ def quantize_params(model: nn.Module, include_embedding: bool = False,
         emb = model.model.embed_tokens
         emb.embedding = nn.Parameter(emb.embedding.to(torch.bfloat16), requires_grad=False)
     return model
+
+
+@torch.no_grad()
+def init_params_quantized_zeros(cfg, bits: int = 8, group_size: int = INT4_GROUP_SIZE,
+                                device="cuda") -> nn.Module:
+    """A frozen model of `cfg` whose targeted kernels are quantized zeros
+    (int8 0 with scale 1e-8; int4 nibbles that decode to 0) and whose other
+    parameters are bf16 zeros, in the layout `quantize_params(bits=)`
+    gives (the reference's init_params_quantized_zeros). Built on the meta
+    device first, so no float kernel is ever allocated: the peak is the
+    final footprint. For benchmarks of speed and memory: every logit is
+    equal."""
+    from .model import Qwen25VL
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    model = Qwen25VL(cfg, dtype=torch.bfloat16, device="meta")
+    fills = {}
+    for name, mod in model.named_modules():
+        w = getattr(mod, "kernel", None)
+        path = tuple(name.split(".")) + ("kernel",)
+        if not isinstance(w, nn.Parameter) or not _matches(path, QUANT_SUFFIXES
+                                                            + MOE_SUFFIXES):
+            continue
+        *lead, K, N = w.shape
+        if bits == 4 and not _matches(path, MOE_SUFFIXES) and K % (2 * group_size) == 0:
+            # packed zeros decode to q = 0: nibble value 8 in both halves
+            leaves = {"kernel_q4": ((*lead, K // 2, N), torch.int8, (8 | 8 << 4) - 256),
+                      "scale4": ((*lead, K // group_size, N), torch.float32, 1e-8)}
+        else:
+            leaves = {"kernel_q": ((*lead, K, N), torch.int8, 0),
+                      "scale": ((*lead, N), torch.float32, 1e-8)}
+        mod.kernel = None
+        for key, (shape, dt, value) in leaves.items():
+            setattr(mod, key, nn.Parameter(torch.empty(shape, dtype=dt, device="meta"),
+                                           requires_grad=False))
+            fills[f"{name}.{key}"] = value
+    model.to_empty(device=device)
+    model.requires_grad_(False)
+    for name, p in model.named_parameters():
+        p.fill_(fills.get(name, 0))
+    return model

@@ -4,7 +4,8 @@ Port of ``video_r2_tpu/ops/attention.py::dot_product_attention``: prefill
 (Sq > 8 with kv_lengths) under impl="flash" goes to ops/flash.py; everything
 else, single-token decode included, runs `plain_attention`, the port of the
 JAX package's XLA path (fp32 scores and softmax, GQA by reshape, probs cast
-to v's dtype before P @ V). The int8-KV path is not ported yet.
+to v's dtype before P @ V). `quant_dot_product_attention` is the port of
+the JAX package's int8-KV attention (an XLA op there, torch ops here).
 """
 
 from __future__ import annotations
@@ -53,4 +54,24 @@ def plain_attention(q, k, v, bias):
         scores = scores + bias[:, :, None].float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, nh, hd)
+
+
+def quant_dot_product_attention(q, k_q, k_scale, v_q, v_scale, bias):
+    """GQA attention over an int8 cache: q [B, Sq, nh, hd], k_q / v_q int8
+    [B, Skv, kh, hd] with fp32 per-row scales [B, Skv, kh], bias [B, 1, Sq,
+    Skv] additive. The scales factor out of both products, q . (k_q s_k) =
+    (q . k_q) s_k and sum p (v_q s_v) = sum (p s_v) v_q, so they apply to the
+    fp32 scores and to the probabilities, and no dequantised copy of the
+    cache is formed; the int8 values convert exactly (to fp32 for the scores,
+    to q's dtype for P @ V, as the reference's operands)."""
+    B, Sq, nh, hd = q.shape
+    kh = k_q.shape[2]
+    qg = q.reshape(B, Sq, kh, nh // kh, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_q.float()) * hd ** -0.5
+    scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
+    scores = scores + bias[:, :, None].float()
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * v_scale.transpose(1, 2)[:, :, None, None, :]).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_q.to(q.dtype))
     return out.reshape(B, Sq, nh, hd)

@@ -43,6 +43,9 @@ SIGNATURES = {
     "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 3 + [_P],
     "vr2_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
+    "vr2_int8_matmul_stacked": [_P] * 4 + [_I] * 5 + [_P],
+    "vr2_int8_matmul_all_layers": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
