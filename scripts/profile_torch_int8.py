@@ -8,7 +8,10 @@ random weights, quantize_params in place, bits=8) and profiles single decode
 steps (engine/generate.py::decode_step_logits, one warm-up step first) with
 torch.profiler at the two shapes chip_smoke.py phase 17 drives:
 - (a) the eval backend's batch: B = 16 over a cache of 1600 keys,
-  weight-only (the int8 kernel), int8 KV, and the same over a bf16 cache;
+  weight-only (the int8 kernel), int8 KV; the same with the dispatcher's
+  row limit (ops/int8_matmul.py::INT8_KERNEL_MAX_ROWS) set to 0 for the
+  step, so every int8 linear converts its weights and calls torch.matmul;
+  and the same over a bf16 cache;
 - (b) bench.py's batch: B = 256 over a cache of 384 keys, W8A8 (act_quant
   "int8", as decode_act_quant="auto" picks there), int8 KV.
 For each: the step's wall time (host clock, ends with a synchronize), the
@@ -74,6 +77,7 @@ def main() -> int:
     from video_r2_tpu_torch.models.loader import init_params
     from video_r2_tpu_torch.models.quant import quantize_params
     from video_r2_tpu_torch.ops import cuda_build
+    from video_r2_tpu_torch.ops import int8_matmul as int8_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
@@ -95,10 +99,17 @@ def main() -> int:
         report(prof, wall, what, busy_ms)
 
     new = 64
-    for what, B, smax, act_quant, kind in (
-            ("(a) decode step, B=16, 1600 keys, weight-only, int8 KV", 16, 1600, None, "int8"),
-            ("(a) decode step, B=16, 1600 keys, weight-only, bf16 KV", 16, 1600, None, "bf16"),
-            ("(b) decode step, B=256, 384 keys, W8A8, int8 KV", 256, 384, "int8", "int8")):
+    limit = int8_mod.INT8_KERNEL_MAX_ROWS
+    for what, B, smax, act_quant, kind, rows in (
+            ("(a) decode step, B=16, 1600 keys, weight-only, int8 KV", 16, 1600, None, "int8",
+             limit),
+            ("(a) decode step, B=16, 1600 keys, weight-only, int8 KV, INT8_KERNEL_MAX_ROWS=0 "
+             "(convert + matmul)", 16, 1600, None, "int8", 0),
+            ("(a) decode step, B=16, 1600 keys, weight-only, bf16 KV", 16, 1600, None, "bf16",
+             limit),
+            ("(b) decode step, B=256, 384 keys, W8A8, int8 KV", 256, 384, "int8", "int8",
+             limit)):
+        int8_mod.INT8_KERNEL_MAX_ROWS = rows
         cache = (QuantKVCache.init(cfg.text, B, smax, dev) if kind == "int8" else
                  KVCache.init(cfg.text, B, smax, torch.bfloat16, dev))
         tok = torch.arange(B, device=dev) + 1000
@@ -109,6 +120,7 @@ def main() -> int:
         timed(step, what)
         del cache
         torch.cuda.empty_cache()
+    int8_mod.INT8_KERNEL_MAX_ROWS = limit
 
     B, S = cs.BENCH_CHUNK, cs.BENCH_PROMPT
     ids = torch.randint(2, 150000, (B, S), device=dev)

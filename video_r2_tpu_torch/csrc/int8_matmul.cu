@@ -38,12 +38,11 @@
 // (the k / v projections: 8 blocks on 132 SMs) the card is mostly idle:
 // split-K is later work, as are TMA and wgmma.
 // Any K and N: K and N multiples of 64 (every decoder width, the head, the
-// ViT's qkv and proj, the merger) take unpredicated 16-byte copies; K even
-// and N a multiple of 4 (the ViT's gate / up and down at 3420, K 300 / N
-// 500) predicated 4-byte copies that zero-fill past K and N; anything else
-// loads byte by byte (weights) and value by value (x). The K tail's x
-// columns and weight rows are zero in shared memory, so they add nothing;
-// columns past N are not stored.
+// ViT's qkv and proj, the merger) take unpredicated 16-byte copies; any
+// other width (the ViT's gate / up and down at 3420, K 300 / N 500) loads
+// byte by byte (weights) and value by value (x), zero past K and N. The K
+// tail's x columns and weight rows are zero in shared memory, so they add
+// nothing; columns past N are not stored.
 #include "attn_common.cuh"
 
 namespace {
@@ -55,9 +54,9 @@ constexpr int kWPitch = 80;    // shared row pitch (bytes) of the staged weights
                                // 64 + 16 keeps ldmatrix's 8 rows on distinct banks
 constexpr int kXPitch = 144;   // shared row pitch (bytes) of the staged x: 128 + 16
 
-// How a stage is copied: every width a multiple of 64 (no tail), K even and
-// N a multiple of 4 (4-byte copies), or anything else (element loads)
-enum Path { kWhole = 0, kAny4 = 1, kAny1 = 2 };
+// How a stage is copied: every width a multiple of 64 (no tail), or
+// anything else (element loads)
+enum Path { kWhole = 0, kAny1 = 1 };
 
 template <int MT>
 struct Ring {
@@ -77,21 +76,6 @@ struct Int8Params {
   int M, K, N;
   int layer0;              // the layer of grid z = 0
 };
-
-// Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
-// `valid` and zero-fills them otherwise (gmem must then still be a mapped
-// address: callers pass the operand's base)
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
-                 "n"(BYTES), "r"(src));
-}
 
 // Four 8x8 tiles of 16-bit elements from shared memory, each transposed:
 // lane l gives the row address of tile l / 8 and receives, from each tile,
@@ -140,22 +124,6 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int8Params& 
       if (r < rows)
         vr2::cp_async16(xs + r * kXPitch + 16 * c,
                         p.x + (long long)(row0 + r) * p.K + k0 + 8 * c);
-    }
-  } else if constexpr (PATH == kAny4) {
-#pragma unroll 4
-    for (int i = tid; i < kKS * 16; i += kThreads) {  // 64 rows x 16 chunks of 4 bytes
-      const int r = i >> 4, c = 4 * (i & 15);
-      const bool ok = k0 + r < p.K && n0 + c < p.N;
-      cp_async_zfill<4>(st + r * kWPitch + c, ok ? w + (long long)(k0 + r) * p.N + n0 + c : w,
-                        ok);
-    }
-    for (int i = tid; i < R::BM * 32; i += kThreads) {  // rows x 32 chunks of 2 values
-      const int r = i >> 5, c = 2 * (i & 31);
-      if (r < rows) {
-        const bool ok = k0 + c < p.K;
-        cp_async_zfill<4>(xs + r * kXPitch + 2 * c,
-                          ok ? p.x + (long long)(row0 + r) * p.K + k0 + c : p.x, ok);
-      }
     }
   } else {  // loaded and stored here: the barrier before this stage is read
             // orders them as it does the copies
@@ -280,7 +248,6 @@ cudaError_t launch(const Int8Params& p, int layers, cudaStream_t stream) {
 template <int MT>
 cudaError_t launch_path(const Int8Params& p, int layers, cudaStream_t stream) {
   if (p.K % kKS == 0 && p.N % kBN == 0) return launch<MT, kWhole>(p, layers, stream);
-  if (p.K % 2 == 0 && p.N % 4 == 0) return launch<MT, kAny4>(p, layers, stream);
   return launch<MT, kAny1>(p, layers, stream);
 }
 

@@ -87,9 +87,10 @@ class DecodeKVCache:
 @dataclass
 class QuantKVCache:
     """int8 seq-major cache with per-(token, head) absmax scales: half the
-    bytes of a bf16 cache, read without a dequantised copy of its values
-    (quant_dot_product_attention applies the scales to scores and
-    probabilities)."""
+    bytes of a bf16 cache. quant_dot_product_attention applies the scales to
+    scores and probabilities, not to the values, but each decode step still
+    forms, for each layer, an fp32 copy of k (twice a bf16 cache's bytes)
+    and a bf16 copy of v, so its attention costs more than a bf16 cache's."""
 
     k: torch.Tensor        # [L, B, Smax, kv_heads, head_dim] int8
     v: torch.Tensor

@@ -62,9 +62,10 @@ def quant_dot_product_attention(q, k_q, k_scale, v_q, v_scale, bias):
     [B, Skv, kh, hd] with fp32 per-row scales [B, Skv, kh], bias [B, 1, Sq,
     Skv] additive. The scales factor out of both products, q . (k_q s_k) =
     (q . k_q) s_k and sum p (v_q s_v) = sum (p s_v) v_q, so they apply to the
-    fp32 scores and to the probabilities, and no dequantised copy of the
-    cache is formed; the int8 values convert exactly (to fp32 for the scores,
-    to q's dtype for P @ V, as the reference's operands)."""
+    fp32 scores and to the probabilities, not to the values. The int8
+    values convert exactly, but into copies: an fp32 copy of k_q for the
+    scores (4 bytes an element) and a copy of v_q in q's dtype for P @ V,
+    as the reference's operands, formed on every call."""
     B, Sq, nh, hd = q.shape
     kh = k_q.shape[2]
     qg = q.reshape(B, Sq, kh, nh // kh, hd)

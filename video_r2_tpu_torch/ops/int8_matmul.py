@@ -14,7 +14,7 @@ kernels compute it. Three wrappers, one per TPU kernel:
   of the stack in one launch, out [L, M, N].
 
 On CUDA tensors each launches its entry of ``csrc/int8_matmul.cu`` (bf16 x
-of 1 to `KERNEL_MAX_ROWS` rows, any K and N), outside autograd, and raises
+of any M >= 1 rows, any K and N), outside autograd, and raises
 on anything the kernel does not take; on CPU tensors it runs its `*_plain`
 version. `quantized_linear_auto` is the dispatcher the int8 linears call
 (models/layers.py::Linear): 1 to `INT8_KERNEL_MAX_ROWS` rows of
@@ -29,8 +29,6 @@ import torch
 
 from .cuda_build import check, kernels
 
-KERNEL_MAX_ROWS = 1024    # the most rows of x the wrappers pass to the kernel
-
 # The dispatcher's row limit, measured on the card by chip_smoke.py phase 16
 # (the kernel against convert + torch.matmul at the 7B's gate / up, 3584 ->
 # 18944, and q, 3584 -> 3584; cold weights): the largest of M = 1, 4, 16,
@@ -43,6 +41,10 @@ KERNEL_MAX_ROWS = 1024    # the most rows of x the wrappers pass to the kernel
 #   M = 64    0.0759 / 0.2481   0.0584 / 0.0982
 #   M = 256   0.2170 / 0.2630   0.0644 / 0.0983
 #   M = 1024  0.7023 / 0.4163   0.1506 / 0.0912
+# A second run of the same table on the same card: M = 256 0.2160 / 0.2605,
+# 0.0619 / 0.0922; M = 1024 0.6925 / 0.4129, 0.1494 / 0.0882. Sub-ms times
+# vary between runs, so phase 16 prints each run's table and flags a run
+# whose largest winning M differs from this constant.
 # Not the reference's 0, which was measured on a TPU for a cause this port
 # does not have (a per-layer slice copy of a stacked weight inside lax.scan).
 INT8_KERNEL_MAX_ROWS = 256
@@ -123,8 +125,8 @@ def _launch(entry: str, x, wq, scale, extra: tuple, all_layers: bool) -> torch.T
     if Kw != K or tuple(scale.shape) != (L, N):
         raise ValueError(f"int8 kernel: x {tuple(x.shape)}, wq {tuple(wq.shape)} and scale "
                          f"{tuple(scale.shape)} do not match")
-    if not 0 < M <= KERNEL_MAX_ROWS:
-        raise ValueError(f"int8 kernel: {M} rows, the kernel takes 1 to {KERNEL_MAX_ROWS}")
+    if M < 1:
+        raise ValueError("int8 kernel: x has no rows")
     dev = x.device
     for name, t, dtype in (("x", x, torch.bfloat16), ("wq", wq, torch.int8),
                            ("scale", scale, torch.float32)):
