@@ -20,7 +20,10 @@
    padded width, causal, ragged lengths; the ViT's full-attention groups
    with segments; its windows) the forward with LSE, the dq and dk/dv
    kernels and the window backward against their plain versions, with the
-   library call's forward and backward times;
+   library call's forward and backward times; the dq + dk/dv pair's time
+   beside the SDPA backward on one line, with each launch's blocks per SM
+   (grid blocks over the SMs, and those the occupancy calculator keeps
+   resident on one);
 7. training slice: LoRA SFT (r=64, alpha=64) on 2 records of 16 synthetic
    frames at 392x392 (grid (8, 28, 28), 1568 video tokens each) with a
    think-style question and answer: step-1 loss and adapter gradients of
@@ -116,8 +119,10 @@
    launches of that run (each backward kernel once, the grouped FFN twice:
    forward and the d_topv recompute); then the dX, dW and dWd kernels
    against their plain versions on the backward's own operands, timed, with
-   the bound and the library call (torch._grouped_mm forming the same
-   products from dg / du / h and dY, where the card's torch takes them);
+   the bound and the library call (torch._grouped_mm: for dX the three
+   products g, u, dh from x and dY, the SwiGLU terms and the two dX
+   products, as the dX kernels form them; for dW from dg / du / h and dY;
+   where the card's torch takes them);
    the whole backward timed; dX again at phase 15's token count (2 x 1024);
 15. MoE LoRA SFT (inside phase 11, on the bf16 judge before quantize_params):
    LoRA r 64 / alpha 64 on the default targets of Qwen3-30B-A3B (48 layers,
@@ -486,6 +491,7 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
     import torch
 
     from video_r2_tpu_torch.ops.flash import (
+        BWD_TILE,
         attention_delta,
         flash_attention,
         flash_attention_bwd_plain,
@@ -494,6 +500,7 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
         flash_attention_plain,
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
+        flash_bwd_resident,
     )
 
     B, Sq, nh, hd = q.shape
@@ -556,6 +563,17 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
                      + 2.0 * 2 * B * Sk * kh * hd)}
     report("flash_bwd_dq", what, shape, **dq_r)
     report("flash_bwd_dkv", what, shape, dk_rel_l2=rels[1], dv_rel_l2=rels[2], **dkv_r)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    pair = dq_r["ms"] + dkv_r["ms"]
+    fill = []
+    for name, S, dkv in (("dq", Sq, False), ("dk/dv", Sk, True)):
+        blocks = -(-S // BWD_TILE) * nh * B
+        fill.append(f"{name} {blocks} blocks, {blocks / sms:.2f} per SM, "
+                    f"{flash_bwd_resident(hd, dkv)} resident")
+    print(f"flash backward pair [{what}]: dq {dq_r['ms']:.4f} + dk/dv {dkv_r['ms']:.4f} = "
+          f"{pair:.4f} ms, SDPA backward {lib_bwd_ms:.4f} ms ({pair / lib_bwd_ms:.2f}x), "
+          f"bound {dq_r['bound_ms'] + dkv_r['bound_ms']:.4f} ms; {'; '.join(fill)} on "
+          f"{sms} SMs", flush=True)
     if not max(rels) <= GRAD_REL_L2:
         raise AssertionError(f"flash backward [{what}] disagrees with its plain "
                              f"version: relative L2 dq/dk/dv {rels}")
@@ -636,7 +654,8 @@ def register_report(log: Path) -> list[str]:
         m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
                       r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|int4_matmul_kernel|"
-                      r"int8_matmul_kernel|decode_attn_kernel)I((?:L[ib]\d+E)+)E", line)
+                      r"int4_matmul_f32_kernel|int8_matmul_kernel|decode_attn_kernel)"
+                      r"I((?:L[ib]\d+E)+)E", line)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name, spill = f"{m.group(1)}<{args}>", ""
@@ -1981,14 +2000,18 @@ def gmm_bwd_bounds(R: int, n_exp: int, E: int, H: int, I: int) -> dict:
             "backward": bound(16.0 * R * H * I, w + 3.0 * E * H * I * 4 + R * H * (2 + 2 + 4))}
 
 
-def gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, run):
+def gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, wd, run):
     """The library yardstick of the GMM backward kernels: torch._grouped_mm
-    calls that form the same products from dg / du / h and dY over each
-    expert's run of rows (run: rows per expert, the valid prefix of the
-    layout): dX = dg Wg^T + du Wu^T (two 2d x 3d calls), dWg / dWu = x^T dg /
-    x^T du and dWd = h^T dY (2d x 2d calls grouped along the rows). Returns
-    {kernel name: callable or None}; None where the card's torch does not
-    take the operands (probed once, the reason printed)."""
+    calls over each expert's run of rows (run: rows per expert, the valid
+    prefix of the layout) that compute what each wrapper computes. dX, as
+    gmm_bwd_dx, from x and dY: g = x Wg, u = x Wu and dh = dY Wd^T (three
+    2d x 3d calls), the SwiGLU terms du = dh silu(g) and dg = dh u silu'(g)
+    in fp32 torch ops rounded to bf16, then dX = dg Wg^T + du Wu^T (two
+    more); dWg / dWu = x^T dg / x^T du and dWd = h^T dY (2d x 2d calls
+    grouped along the rows) from the dg / du / h already formed, as the dW
+    wrappers take them. Returns {kernel name: callable or None}; None where
+    the card's torch does not take the operands (probed once, the reason
+    printed)."""
     import torch
 
     if not hasattr(torch, "_grouped_mm"):
@@ -2002,10 +2025,19 @@ def gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, run):
     xT, hT = xr.t().contiguous(), hr.t().contiguous()
     cm = lambda t: t.t().contiguous().t()  # noqa: E731
     dgc, duc, dyc = cm(dgr), cm(dur), cm(dyr)
-    wgT, wuT = wg.transpose(1, 2), wu.transpose(1, 2)
+    wgT, wuT, wdT = wg.transpose(1, 2), wu.transpose(1, 2), wd.transpose(1, 2)
     mm = torch._grouped_mm
+
+    def dx():
+        g, u, dh = mm(xr, wg, offs=offs), mm(xr, wu, offs=offs), mm(dyr, wdT, offs=offs)
+        gf, dhf = g.float(), dh.float()
+        s = torch.sigmoid(gf)
+        du_ = (dhf * gf * s).to(g.dtype)
+        dg_ = (dhf * u.float() * s * (1.0 + gf * (1.0 - s))).to(g.dtype)
+        return mm(dg_, wgT, offs=offs) + mm(du_, wuT, offs=offs)
+
     candidates = {
-        "moe_gmm_bwd_dx": [lambda: mm(dgr, wgT, offs=offs) + mm(dur, wuT, offs=offs)],
+        "moe_gmm_bwd_dx": [dx],
         "moe_gmm_bwd_dw": [lambda: (mm(xT, dgr, offs=offs), mm(xT, dur, offs=offs)),
                            lambda: (mm(xT, dgc, offs=offs), mm(xT, duc, offs=offs))],
         "moe_gmm_bwd_dwd": [lambda: mm(hT, dyr, offs=offs), lambda: mm(hT, dyc, offs=offs)],
@@ -2112,7 +2144,7 @@ def gmm_bwd_phase(card: str, device) -> dict:
                   "moe_gmm_bwd_dwd": ((dwd, pwd),)}
         run = torch.zeros(E, dtype=torch.int32, device=device).index_add_(
             0, ids.long(), valid.int()) * bm
-        library = gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, run)
+        library = gmm_bwd_library(xs, dg, du, h, dYs, wg, wu, wd, run)
         runs = {"moe_gmm_bwd_dx": (lambda: gmm.gmm_bwd_dx(xs, dYs, ids, valid, wg, wu, wd),
                                    lambda: gmm.gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd)),
                 "moe_gmm_bwd_dw": (lambda: gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E),

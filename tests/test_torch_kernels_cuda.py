@@ -27,6 +27,10 @@ the same bounds at the serving and training shapes):
   in fp32 in other orders, scale in fp32 and round once to bf16;
 - head-major decode attention: the forward bound; both compute in fp32 and
   round the output to bf16;
+- the int4 matmul and the decode attention on fp32 operands: |kernel -
+  plain| <= 1e-4 + 1e-4 |plain|: both keep every operand and product in
+  fp32 (no bf16 or TF32 rounding) and differ only in the order of their
+  fp32 sums and in the kernel's fast exp;
 - the GMM backward: dg / du / h elementwise at the forward bound (both
   round dY, then dg / du / h to bf16 at the same points and sum in fp32 in
   other orders); dX and dW relative L2 <= 1e-2 per tensor; an expert with
@@ -51,6 +55,7 @@ from video_r2_tpu_torch.ops.flash import (
     flash_attention_fwd_lse,
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
+    flash_bwd_resident,
     flash_attention_fwd_lse_plain,
     flash_attention_plain,
 )
@@ -71,6 +76,7 @@ from video_r2_tpu_torch.ops.vit_window_attention import (
 ATOL = RTOL = 1e-2
 LSE_ATOL = 1e-3
 GRAD_REL_L2 = 1e-2
+FP32_TOL = 1e-4
 
 
 @pytest.fixture
@@ -180,6 +186,60 @@ def test_flash_training_kernels_match_plain(cuda, hd, case):
         assert not grads[1][1, 77:].any() and not grads[2][2].any()
     assert (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+
+
+# (nh, kh, Sq, Sk, q_offset, kv lengths, causal, segments, hd)
+BWD_CASES = {
+    "gqa1": (4, 4, 256, 256, 0, [256, 150], True, False, 128),
+    "gqa7": (28, 4, 256, 256, 0, [256, 150], True, False, 128),
+    "gqa8": (32, 4, 256, 256, 0, [256, 150], True, False, 64),
+    "offset": (8, 2, 192, 333, 141, [333, 250], True, False, 128),
+    "tails": (8, 2, 333, 333, 0, [333, 0], True, False, 64),
+    "segments_hd80": (4, 4, 300, 300, 0, [300, 300], False, True, 80),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_flash_bwd_kernels_grid_cases(cuda, case):
+    """dq and dk/dv against the plain version: GQA groups 1 (dk / dv
+    written in bf16 by the kernel), 7 and 8 (per-head partials, summed by
+    the wrapper); the context-parallel form (causal, Sq < Sk, q_offset > 0);
+    Sk not a multiple of 64 with a zero-length row; segments at hd 80. Each
+    launches each kernel once, and dk / dv are zero past the kv length."""
+    nh, kh, Sq, Sk, q_offset, lens, causal, segmented, hd = BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(Sq + nh)
+    B = len(lens)
+    q, dout = _randn(gen, B, Sq, nh, hd), _randn(gen, B, Sq, nh, hd)
+    k, v = _randn(gen, B, Sk, kh, hd), _randn(gen, B, Sk, kh, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    seg = (torch.where(torch.rand(B, Sk, generator=gen, device=cuda) < 0.8, 1, -2).int()
+           if segmented else None)
+    ref_out, ref_lse = flash_attention_fwd_lse_plain(q, k, v, lengths, causal, q_offset, seg)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    grads = flash_attention_bwd(q, k, v, ref_out, dout, ref_lse, lengths, causal, q_offset,
+                                seg)
+    ref = flash_attention_bwd_plain(q, k, v, ref_out, dout, ref_lse, lengths, causal,
+                                    q_offset, seg)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches - before[0],
+            flash_bwd_dkv_cuda.launches - before[1]) == (1, 1)
+    for name, a, b in zip("qkv", grads, ref):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+    for b, n in enumerate(lens):
+        assert not grads[1][b, n:].any() and not grads[2][b, n:].any()
+        if n == 0:
+            assert not grads[0][b].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_bwd_kernels_keep_two_blocks_per_sm(cuda, hd):
+    """Shared memory and registers leave room for two blocks of each
+    backward kernel on an SM."""
+    assert flash_bwd_resident(hd, dkv=False) >= 2
+    assert flash_bwd_resident(hd, dkv=True) >= 2
 
 
 @pytest.mark.cuda
@@ -507,8 +567,8 @@ def test_int4_matmul_refuses_what_it_does_not_take(cuda):
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     x, wq, scale = _int4_operands(gen, 4, 512, 128)
-    with pytest.raises(TypeError):                  # float32 activations
-        int4_matmul(x.float(), wq, scale)
+    with pytest.raises(TypeError):                  # float16 activations
+        int4_matmul(x.half(), wq, scale)
     with pytest.raises(ValueError):                 # group 512 does not divide K/2 = 256
         int4_matmul(x, wq, scale[:1].contiguous())
     with pytest.raises(ValueError):                 # group 128 does not divide K/2 = 192
@@ -518,6 +578,30 @@ def test_int4_matmul_refuses_what_it_does_not_take(cuda):
         int4_matmul(x[:, :96].contiguous(), leaf["kernel_q4"], leaf["scale4"])
     with pytest.raises(ValueError):                 # more rows than the kernel takes
         int4_matmul(_randn(gen, 1025, 512), wq, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 40])
+@pytest.mark.parametrize("K,N,g", [(512, 128, 128), (3584, 512, 128), (1536, 200, 24)])
+def test_int4_matmul_kernel_fp32_matches_plain(cuda, M, K, N, g):
+    """fp32 activations, as the JAX kernel takes them: an fp32 result
+    within FP32_TOL of the plain version (fp32 dequantisation and a full
+    fp32 matmul: TF32 off)."""
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    leaf = quantize_kernel_int4(torch.randn(K, N, generator=gen, device=cuda) * K ** -0.5,
+                                group_size=g)
+    x = torch.randn(M, K, generator=gen, device=cuda)
+    before = int4_matmul.launches
+    out = int4_matmul(x, leaf["kernel_q4"], leaf["scale4"])
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    ref = int4_matmul_plain(x, leaf["kernel_q4"], leaf["scale4"])
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == (M, N)
+    assert bool(((out - ref).abs() <= FP32_TOL + FP32_TOL * ref.abs()).all())
 
 
 @pytest.mark.cuda
@@ -948,13 +1032,40 @@ def test_decode_attention_kernel_matches_plain(cuda, window, g, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", ["t63", "off"])
+@pytest.mark.parametrize("g,hd", [(7, 128), (16, 64)])
+def test_decode_attention_kernel_fp32_matches_plain(cuda, window, g, hd):
+    """fp32 q and cache, as the JAX kernel takes them (hd 128: the
+    single-stage instance): an fp32 result within FP32_TOL of the plain
+    version."""
+    from video_r2_tpu_torch.ops.decode_attention import (
+        decode_attention_stacked,
+        decode_attention_stacked_plain,
+    )
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(g * hd + 1)
+    q, k, v = (x.float() for x in _decode_inputs(gen, g, hd))
+    lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+    s_pad = 1408
+    slot_end = {"t63": s_pad + 63, "off": s_pad - 1}[window]
+    before = decode_attention_stacked.launches
+    out = decode_attention_stacked(q, k, v, lengths, slot_end, 2, s_pad)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.launches == before + 1
+    ref = decode_attention_stacked_plain(q, k, v, lengths, slot_end, 2, s_pad)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert bool(((out - ref).abs() <= FP32_TOL + FP32_TOL * ref.abs()).all())
+
+
+@pytest.mark.cuda
 def test_decode_attention_refuses_what_it_does_not_take(cuda):
     from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     lengths = torch.full((4,), 100, dtype=torch.int32, device=cuda)
     q, k, v = _decode_inputs(gen, 7, 128, smax=256)
-    with pytest.raises(TypeError):                  # float32 cache
+    with pytest.raises(TypeError):                  # a float32 cache under bf16 q
         decode_attention_stacked(q, k.float(), v.float(), lengths, 99, 0, 100)
     with pytest.raises(ValueError):                 # width not a multiple of 128
         decode_attention_stacked(q, k[..., :200, :].contiguous(),

@@ -68,11 +68,36 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(addr));
 }
 
+// The same four tiles transposed: lane l receives, of each tile, the two
+// 16-bit values in rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (the
+// B operand of mma.sync from a tile stored [k][n], n contiguous).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // 16-byte asynchronous copy from device to shared memory (both 16-byte
 // aligned), and its commit / wait of the most recent groups
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
+// `valid` and zero-fills them otherwise (gmem must then still be a mapped
+// address: callers pass the operand's base)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(BYTES), "r"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -45,6 +45,11 @@
 // a constant and the two scale rows of a stage staged with it; any other g
 // (no preset uses one) stages no scales and reads each packed row's two
 // scales through L1 where its fragment is built.
+// fp32 x (the TPU kernel takes f32 activations too) takes a CUDA-core path
+// that keeps every operand fp32: each weight dequantised in fp32 and
+// multiplied in fp32, y fp32. One thread per output column and up to 8
+// rows; a block of 128 columns stages its rows of x, 128 packed rows of both
+// halves at a time, in shared memory. No preset runs it on the card.
 #include "attn_common.cuh"
 
 namespace {
@@ -82,21 +87,6 @@ struct Int4Params {
   int M, K, N, g;
 };
 
-// Asynchronous copy of BYTES (4 or 16) that reads them from `gmem` when
-// `valid` and zero-fills them otherwise (gmem must then still be a mapped
-// address: callers pass the operand's base)
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
-                 "n"(BYTES), "r"(src));
-}
-
 // Start the copies of stage s (packed rows [32 s, 32 s + 32)) of the block's
 // 64 columns from n0 and its rows [row0, row0 + rows) into `st`; columns
 // past N are zero-filled. WV: kWhole when 64 divides N (no tail: the copies
@@ -115,13 +105,13 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
   } else if constexpr (WV == 16) {  // the same, predicated
     const int r = tid >> 2, c = 16 * (tid & 3);
     const bool ok = n0 + c < p.N;
-    cp_async_zfill<16>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
+    vr2::cp_async_zfill<16>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
   } else if constexpr (WV == 4) {  // four 4-byte copies a thread
 #pragma unroll
     for (int i = tid; i < kKS * kBN / 4; i += kThreads) {
       const int r = i >> 4, c = 4 * (i & 15);
       const bool ok = n0 + c < p.N;
-      cp_async_zfill<4>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
+      vr2::cp_async_zfill<4>(st + r * kPitch + c, ok ? wrow + (long long)r * p.N + c : p.wq, ok);
     }
   } else {  // 16 bytes a thread, loaded and stored here: the next barrier
             // before this stage is read orders them as it does the copies
@@ -154,14 +144,14 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
       const int half = tid >> 4, c = 4 * (tid & 15);
       const int srow = (half * Kp + p0) / kGroup;
       const bool ok = n0 + c < p.N;
-      cp_async_zfill<16>(sc + half * kBN + c,
+      vr2::cp_async_zfill<16>(sc + half * kBN + c,
                          ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
     }
   } else {  // one scale a thread
     const int half = tid >> 6, c = tid & 63;
     const int srow = (half * Kp + p0) / kGroup;
     const bool ok = n0 + c < p.N;
-    cp_async_zfill<4>(sc + half * kBN + c,
+    vr2::cp_async_zfill<4>(sc + half * kBN + c,
                       ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
   }
 }
@@ -321,6 +311,46 @@ cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
   return launch<MT, 1>(p, stream);
 }
 
+constexpr int kF32Rows = 8;     // rows of x (and y) per fp32 block
+constexpr int kF32Chunk = 128;  // packed rows of x staged at a time
+
+template <int ROWS>
+__global__ void __launch_bounds__(kThreads) int4_matmul_f32_kernel(
+    const float* __restrict__ x, const uint8_t* __restrict__ wq,
+    const float* __restrict__ scale, float* __restrict__ y, int M, int K, int N, int g) {
+  __shared__ float xs[2][ROWS][kF32Chunk];  // [half][row][packed row]
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  const int m0 = blockIdx.y * ROWS;
+  const int Kp = K / 2;
+  float acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int p0 = 0; p0 < Kp; p0 += kF32Chunk) {
+    const int len = min(kF32Chunk, Kp - p0);
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int i = threadIdx.x; i < 2 * ROWS * kF32Chunk; i += kThreads) {
+      const int c = i % kF32Chunk, r = (i / kF32Chunk) % ROWS, half = i / (kF32Chunk * ROWS);
+      xs[half][r][c] = (m0 + r < M && c < len)
+                           ? x[(long long)(m0 + r) * K + half * Kp + p0 + c]
+                           : 0.f;
+    }
+    __syncthreads();
+    if (n >= N) continue;
+    for (int c = 0; c < len; ++c) {
+      const int pr = p0 + c;
+      const int b = wq[(long long)pr * N + n];
+      const float lo = float((b & 15) - 8) * scale[(long long)(pr / g) * N + n];
+      const float hi = float((b >> 4) - 8) * scale[(long long)((pr + Kp) / g) * N + n];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(xs[1][r][c], hi, fmaf(xs[0][r][c], lo, acc[r]));
+    }
+  }
+  if (n >= N) return;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    if (m0 + r < M) y[(long long)(m0 + r) * N + n] = acc[r];
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
@@ -338,4 +368,16 @@ extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale,
   if (M <= 16) return int(launch_rows<1>(p, st));
   if (M <= 32) return int(launch_rows<2>(p, st));
   return int(launch_rows<4>(p, st));
+}
+
+// The same for fp32 x and y (y [M, N] fp32); the same conditions.
+extern "C" int vr2_int4_matmul_f32(const void* x, const void* wq, const void* scale, void* y,
+                                   int M, int K, int N, int g, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid((N + kThreads - 1) / kThreads, (M + kF32Rows - 1) / kF32Rows);
+  int4_matmul_f32_kernel<kF32Rows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(scale), static_cast<float*>(y), M, K, N, g);
+  return int(cudaGetLastError());
 }

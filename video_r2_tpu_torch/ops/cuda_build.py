@@ -34,6 +34,7 @@ SIGNATURES = {
     "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_bwd_resident": [_I, _I],
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
@@ -42,7 +43,8 @@ SIGNATURES = {
     "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 5 + [_P],
     "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 3 + [_P],
     "vr2_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
-    "vr2_decode_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_decode_attention": [_P] * 5 + [_I] * 10 + [_F, _P],
     "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
     "vr2_int8_matmul_stacked": [_P] * 4 + [_I] * 5 + [_P],
     "vr2_int8_matmul_all_layers": [_P] * 4 + [_I] * 4 + [_P],

@@ -11,8 +11,8 @@ window off.
 
 `decode_attention_stacked` replaces ``_decode_kernel`` (the TPU kernel
 behind the JAX ``decode_attention_stacked``). On CUDA tensors it launches
-``csrc/decode_attn.cu`` (bf16, head dims 64 and 128, up to 16 query heads
-per kv head) and raises on anything it does not take; on CPU tensors it runs
+``csrc/decode_attn.cu`` (bf16 or fp32, one type for q and the cache, head
+dims 64 and 128, up to 16 query heads per kv head) and raises on anything it does not take; on CPU tensors it runs
 `decode_attention_stacked_plain`: fp32 scores over the layer's whole cache,
 the same mask (masked scores -1e30, as the TPU kernel's), fp32 softmax and
 P @ V.
@@ -86,11 +86,14 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     if not 0 <= layer < L:
         raise ValueError(f"decode kernel: layer {layer} of {L}")
     dev = q.device
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"decode kernel: q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != dev:
             raise ValueError(f"decode kernel: {name} on {t.device}, q on {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode kernel: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"decode kernel: {name} must be {q.dtype} as q is, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"decode kernel: {name} must be contiguous")
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
@@ -100,6 +103,6 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     err = kernels().vr2_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lens.data_ptr(), B, nh, kh, hd, L, smax, int(layer), int(s_pad), int(slot_end),
-        hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        q.element_size(), hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "decode attention kernel")
     return out

@@ -13,8 +13,9 @@ scale array.
 stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
-multiple of 64, bf16 x of at most 1024 rows, any N), outside autograd, and
-raises on anything the kernel does not take; on CPU tensors
+multiple of 64, bf16 or fp32 x of at most 1024 rows, any N; fp32 x
+through an fp32 CUDA-core path), outside autograd, and raises on anything
+the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
 own rule (``models/layers.py::Linear``): at most `KERNEL_MAX_ROWS` rows of
@@ -69,8 +70,8 @@ def int4_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
 def int4_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ dequant(wq [K/2, N] int8, scale [K/g, N] fp32) -> [M, N]
     in x's dtype. CUDA tensors launch the kernel (fp32 sums, each weight
-    dequantised in fp32 and rounded to bf16 before its product, as the TPU
-    kernel casts its tile to x's dtype), outside autograd only (the kernel
+    dequantised in fp32 and rounded to x's dtype before its product, as the
+    TPU kernel casts its tile to x's dtype), outside autograd only (the kernel
     has no backward); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, wq, scale)
@@ -102,7 +103,9 @@ def _int4_cuda(x, wq, scale):
     if not 0 < M <= KERNEL_MAX_ROWS:
         raise ValueError(f"int4 kernel: {M} rows, the kernel takes 1 to {KERNEL_MAX_ROWS}")
     dev = x.device
-    for name, t, dtype in (("x", x, torch.bfloat16), ("wq", wq, torch.int8),
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4 kernel: x must be bfloat16 or float32, got {x.dtype}")
+    for name, t, dtype in (("x", x, x.dtype), ("wq", wq, torch.int8),
                            ("scale", scale, torch.float32)):
         if t.device != dev:
             raise ValueError(f"int4 kernel: {name} on {t.device}, x on {dev}")
@@ -112,9 +115,10 @@ def _int4_cuda(x, wq, scale):
             raise ValueError(f"int4 kernel: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"int4 kernel: {name} must be 16-byte aligned")
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    err = kernels().vr2_int4_matmul(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(), M, K, N, g,
-                                    torch.cuda.current_stream(dev).cuda_stream)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    launch = (kernels().vr2_int4_matmul if x.dtype == torch.bfloat16
+              else kernels().vr2_int4_matmul_f32)
+    err = launch(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N,
+                 g, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "int4 matmul kernel")
     return out
