@@ -491,7 +491,6 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
     import torch
 
     from video_r2_tpu_torch.ops.flash import (
-        BWD_TILE,
         attention_delta,
         flash_attention,
         flash_attention_bwd_plain,
@@ -500,7 +499,7 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
         flash_attention_plain,
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
-        flash_bwd_resident,
+        flash_bwd_layout,
     )
 
     B, Sq, nh, hd = q.shape
@@ -567,9 +566,10 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
     pair = dq_r["ms"] + dkv_r["ms"]
     fill = []
     for name, S, dkv in (("dq", Sq, False), ("dk/dv", Sk, True)):
-        blocks = -(-S // BWD_TILE) * nh * B
-        fill.append(f"{name} {blocks} blocks, {blocks / sms:.2f} per SM, "
-                    f"{flash_bwd_resident(hd, dkv)} resident")
+        rows, wgs, resident = flash_bwd_layout(hd, dkv)
+        blocks = -(-S // rows) * nh * B
+        fill.append(f"{name} {blocks} blocks of {wgs} warpgroups, {blocks / sms:.2f} per "
+                    f"SM, {resident} resident")
     print(f"flash backward pair [{what}]: dq {dq_r['ms']:.4f} + dk/dv {dkv_r['ms']:.4f} = "
           f"{pair:.4f} ms, SDPA backward {lib_bwd_ms:.4f} ms ({pair / lib_bwd_ms:.2f}x), "
           f"bound {dq_r['bound_ms'] + dkv_r['bound_ms']:.4f} ms; {'; '.join(fill)} on "

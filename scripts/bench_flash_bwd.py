@@ -101,19 +101,15 @@ def run_shape(name: str, B, S, nh, kh, hd, lengths) -> dict:
     dq_ms = cuda_ms(lambda: flash.flash_bwd_dq_cuda(*args))
     dkv_ms = cuda_ms(lambda: flash.flash_bwd_dkv_cuda(*args))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile = getattr(flash, "BWD_TILE", 64)
-    resident = getattr(flash, "flash_bwd_resident", None)
     r = {"shape": name, "B": B, "S": S, "nh": nh, "kh": kh, "hd": hd,
          "rel_l2_dq_dk_dv": rels, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
          "pair_ms": dq_ms + dkv_ms, "sdpa_bwd_ms": sdpa,
-         "dq_bound_ms": dq_bound, "dkv_bound_ms": dkv_bound,
-         "dq_blocks_per_sm": -(-S // tile) * nh * B / sms}
-    if resident is not None:
-        r.update(dkv_blocks_per_sm=-(-S // tile) * nh * B / sms,
-                 dq_resident=resident(hd, False), dkv_resident=resident(hd, True))
-    if nh != kh and hasattr(flash, "gqa_group_sum"):
-        part = torch.randn(B, S, nh, hd, generator=gen, device=dev)
-        r["group_sum_ms"] = cuda_ms(lambda: flash.gqa_group_sum(part, kh).to(torch.bfloat16))
+         "dq_bound_ms": dq_bound, "dkv_bound_ms": dkv_bound}
+    if hasattr(flash, "flash_bwd_layout"):      # (rows, warpgroups, resident) a block
+        for which, dkv in (("dq", False), ("dkv", True)):
+            rows, wgs, resident = flash.flash_bwd_layout(hd, dkv)
+            r[f"{which}_blocks_per_sm"] = -(-S // rows) * nh * B / sms
+            r[f"{which}_warpgroups_resident"] = wgs * resident
     return r
 
 

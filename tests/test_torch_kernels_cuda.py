@@ -55,7 +55,7 @@ from video_r2_tpu_torch.ops.flash import (
     flash_attention_fwd_lse,
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
-    flash_bwd_resident,
+    flash_bwd_layout,
     flash_attention_fwd_lse_plain,
     flash_attention_plain,
 )
@@ -235,11 +235,12 @@ def test_flash_bwd_kernels_grid_cases(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 80, 128])
-def test_flash_bwd_kernels_keep_two_blocks_per_sm(cuda, hd):
-    """Shared memory and registers leave room for two blocks of each
+def test_flash_bwd_kernels_keep_two_warpgroups_per_sm(cuda, hd):
+    """Shared memory and registers leave room for two warpgroups of each
     backward kernel on an SM."""
-    assert flash_bwd_resident(hd, dkv=False) >= 2
-    assert flash_bwd_resident(hd, dkv=True) >= 2
+    for dkv in (False, True):
+        rows, warpgroups, resident = flash_bwd_layout(hd, dkv)
+        assert rows == 64 * warpgroups and warpgroups * resident >= 2
 
 
 @pytest.mark.cuda

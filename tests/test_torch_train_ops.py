@@ -31,6 +31,7 @@ from video_r2_tpu_torch.ops.flash import (
     NO_KEY_LSE,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd_lse,
     flash_attention_plain,
 )
@@ -103,6 +104,35 @@ def test_flash_fwd_lse_and_bwd_plain_match_jax(rng, case):
                                 causal, 0, seg_t)
     for name, ours, ref in zip("qkv", grads, ref_grads):
         np.testing.assert_allclose(ours.numpy(), ref, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("q_offset", [60, 25])
+def test_flash_bwd_plain_matches_jax_kernels_at_an_offset(rng, q_offset):
+    """The context-parallel form (causal, Sq < Sk, query row 0 at global
+    position q_offset): the plain backward against the JAX package's
+    _flash_bwd_kernels (interpret mode) on the same out / lse, given to
+    both; operands padded head-major as flash_attention lays them out (pad
+    rows: zero dout and NO_KEY_LSE, so they add nothing)."""
+    B, Sq, Sk, nh, kh, hd, blk = 2, 100, 160, 4, 2, 16, 64
+    q, dout = (rng.normal(size=(B, Sq, nh, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, Sk, kh, hd)).astype(np.float32) for _ in range(2))
+    lengths = np.array([Sk, 130], np.int32)
+    out, lse = flash_attention_fwd_lse(T(q), T(k), T(v), T(lengths), True, q_offset)
+    ours = flash_attention_bwd_plain(T(q), T(k), T(v), out, T(dout), lse, T(lengths), True,
+                                     q_offset)
+    pq, pk = (-Sq) % blk, (-Sk) % blk
+    head_major = lambda x, n: jnp.asarray(  # noqa: E731
+        np.pad(x, ((0, 0), (0, n), (0, 0), (0, 0))).transpose(0, 2, 1, 3))
+    lse_p = np.pad(lse.numpy(), ((0, 0), (0, 0), (0, pq)), constant_values=NO_KEY_LSE)
+    dq, dk, dv = jflash._flash_bwd_kernels(
+        head_major(q, pq), head_major(k, pk), head_major(v, pk), head_major(dout, pq),
+        head_major(out.numpy(), pq), jnp.asarray(lse_p[..., None]), jnp.asarray(lengths),
+        jnp.zeros((B, Sq + pq), jnp.int32), jnp.zeros((B, Sk + pk), jnp.int32),
+        causal=True, q_offset=q_offset, block_q=blk, block_k=blk, g=nh // kh,
+        has_segments=False, interpret=True)
+    refs = [np.asarray(x).transpose(0, 2, 1, 3)[:, :n] for x, n in ((dq, Sq), (dk, Sk), (dv, Sk))]
+    for name, a, b in zip("qkv", ours, refs):
+        np.testing.assert_allclose(a.numpy(), b, err_msg=name, **GRAD_TOL)
 
 
 def test_window_bwd_plain_matches_jax(rng):

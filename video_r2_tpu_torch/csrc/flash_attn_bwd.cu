@@ -7,59 +7,76 @@
 // segments), p = exp(s - lse), dp = do v^T, ds = p * (dp - delta) and
 // delta = rowsum(do * o) (a torch reduction before the launch, as the JAX
 // package computes it in XLA outside Pallas, flash.py:314):
-//   dq = scale * ds k                  (one block per 64 query rows, head)
-//   dk = scale * ds^T q, dv = p^T do   (one block per 64 keys, query head)
+//   dq = scale * ds k                  (one block per query rows, head)
+//   dk = scale * ds^T q, dv = p^T do   (one block per keys, query head)
 // The dk/dv grid runs over query heads, as the TPU kernel's does
-// (flash.py:348-363): under GQA each block writes its head's fp32 partials
-// [B, Sk, nh, hd] and the wrapper sums each group and rounds to bf16 (the
-// same sums as flash.py:362-363, in a fixed order); without GQA the block
-// writes bf16 dk / dv itself.
+// (flash.py:348-363). Under GQA each block adds its head's dk / dv into
+// fp32 sums [B, Sk, kh, hd] by atomicAdd (float2), which the wrapper rounds
+// to bf16: the group sum of flash.py:362-363 without the [B, nh, Sk, hd]
+// partials (per-head partials summed by a torch reduction took 6% more of
+// dk/dv's time at the 7B's shape and 15% at the judge's; the order of the
+// fp32 adds changes from run to run, so a bf16 dk / dv may differ by one
+// rounding step between runs). Without GQA the block writes bf16 itself.
 //
-// What bounds it on the card: at the training shapes (decoder Sq = Sk ~2.4k,
-// hd 128; the judge's 1024; ViT groups L = 1024, hd 80) every block re-reads
-// the other side's tiles once per 64-row tile, so the pair is bound by
-// tensor-core issue (5 products per tile pair against the forward's 2) and
-// the exp work, not by device memory. The first design ran dk/dv over kv
-// heads, each block walking its group's g query heads in turn: 128 blocks
-// on 132 SMs at the judge's shape, with transposed copies of K, Q and dO
-// built by scalar stores and synchronous single-buffered loads.
+// What bounds it on the card: the products (5 of them per pair of 64-row
+// tiles: S, dP and dq in one kernel, S, dP, dv and dk in the other) would
+// take 0.30 ms at the 7B's training shape at the bf16 peak; device memory
+// is far below that. Measured (scripts/bench_flash_bwd.py, H100 80GB HBM3
+// at 700 W), the first design ran at 4-6% of that bound: dk/dv's grid over
+// kv heads left 128 blocks for 132 SMs at the judge's shape, and transposed
+// tiles were built by scalar stores and loaded synchronously. With the grid
+// filled, what remained was (a) the bytes each SM pulls through L2 per
+// product: every streamed tile serves only the block's resident rows, and
+// with the loads removed a kernel ran ~40% faster; (b) the mask's integer
+// work on every element, as large as the products' issue time; and (c) the
+// products themselves.
 // What the design does about it:
-// - a grid that fills the card: dk/dv over (key tile, query head, batch),
-//   8x the blocks under the judge's GQA; both grids are 1-D with the tile
-//   index slowest, so under a causal mask the tiles with the most work
-//   (the last query tiles for dq, the first key tiles for dk/dv) start
-//   first and the short ones fill the tail;
-// - one row-major copy of each tile in shared memory, filled by cp.async
-//   (rows past the end zero-filled), the streamed tiles (K / V and key
-//   segments for dq; Q, dO, lse, delta and query segments for dk/dv)
-//   through a ring of two stages with one barrier per tile, so the next
-//   tile lands while this one is multiplied;
-// - every mma.sync operand by ldmatrix.x4: A and the B of S = Q K^T-type
-//   products straight, the B of dq = dS K, dv = P^T dO and dk = dS^T Q by
-//   ldmatrix .trans of the same row-major tile (no transposed copy);
-// - score, probability and dS tiles only in registers (C fragments of S are
-//   the A operand of the next product); causal blocks skip the tiles past
-//   the diagonal on both sides, and a key tile past the kv length writes
-//   zeros without a loop.
-// Shared memory: two 64-row tiles resident and two stages of two tiles,
-// ~105 KB at hd 128, so two blocks stay resident on an SM (registers: 4
-// warps of at most 255). Rows are padded by 16 bytes, which keeps the
-// ldmatrix and cp.async rows of 128, 160 and 256 bytes on distinct banks.
-// wgmma (the card's full tensor-core rate) is the next step for hd 64 and
-// 128; hd 80 (160-byte rows, wider than one 128-byte swizzle) stays on
-// mma.sync.
+// - a grid that fills the card: dk/dv over (keys, query head, batch), dq
+//   over (query rows, head, batch); both 1-D with the row block slowest,
+//   so under a causal mask the blocks with the most work (the last query
+//   rows for dq, the first keys for dk/dv) start first and the short ones
+//   fill the tail;
+// - hd 64 and 128 (the 7B's and the judge's heads): a block is two
+//   warpgroups over 128 resident rows sharing every streamed tile, which
+//   halves the bytes a product pulls through L2 against 64-row blocks
+//   (12% less time at the 7B's shape), in a ring of three stages (~163 KB of
+//   shared memory at hd 128: one block an SM, 8 warps). Every product is a
+//   warpgroup wgmma (wgmma.cuh) on tiles stored in core matrices without
+//   swizzle: S = Q K^T-type products read both operands from shared memory
+//   K-major; dq = dS K, dv = P^T dO and dk = dS^T Q take their A operand
+//   from the registers of the C fragments (rounded to bf16, as FA3 does) and
+//   read B MN-major from the same tile, so no transposed copy exists. The
+//   two opening products are issued as two groups, so the exp of S runs
+//   while dP is multiplied;
+// - hd 80 (the ViT's full-attention groups): 160-byte rows are wider than
+//   one 128-byte swizzle span and not a multiple of the 64-column wgmma
+//   tiles this file uses, so they stay on mma.sync: one warpgroup over 64
+//   resident rows, two blocks an SM, two stages; every operand by
+//   ldmatrix.x4 (the transposed B operands by ldmatrix .trans of the same
+//   row-major tile) from rows padded by 16 bytes (bank spread);
+// - the streamed tiles (K / V and key segments for dq; Q, dO, lse, delta
+//   and query segments for dk/dv) come by cp.async, rows past the end
+//   zero-filled, with one barrier per tile;
+// - the mask is applied only on tiles that need it (the causal diagonal,
+//   the kv length, Sq, segments); other tiles take exp2 of one FMA per
+//   element;
+// - score, probability and dS tiles live only in registers (C fragments of
+//   S are the A operand of the next product); causal blocks skip the tiles
+//   past the diagonal on both sides, and keys past the kv length get zeros
+//   without a loop.
 #include <climits>
 #include <cmath>
 
 #include "attn_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BT = 64;        // rows of a query tile and of a key tile (4 warps x 16)
-constexpr int NTHREADS = 128;
+constexpr int BT = 64;        // rows of a streamed tile, and of each warpgroup (4 warps x 16)
 constexpr int PAD = 8;        // shared-memory row padding (16 bytes, bank spread)
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct FlashBwdParams {
   const bf16* q;              // [B, Sq, nh, hd] by stride
@@ -71,7 +88,7 @@ struct FlashBwdParams {
   const int* kv_lengths;      // [B]
   const int* seg;             // [B, Sk] or null (requires Sq == Sk)
   bf16* dq;                   // [B, Sq, nh, hd] contiguous
-  void* dk;                   // nh == kh: bf16 [B, Sk, kh, hd]; else fp32 [B, Sk, nh, hd]
+  void* dk;                   // nh == kh: bf16 [B, Sk, kh, hd]; else fp32 sums, zeroed
   void* dv;
   int B, Sq, Sk, nh, kh;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -85,33 +102,64 @@ __device__ __forceinline__ bool admitted(const FlashBwdParams& p, int key, int r
   return key < kv_len && (!p.causal || key <= p.q_offset + row);
 }
 
+// A [BT, HD] bf16 tile in shared memory. hd 64 and 128 (WG): the products
+// are wgmma, and the tile is stored in core matrices (wgmma.cuh: 8 rows of
+// 16 bytes each, no padding). hd 80: mma.sync, rows padded to a pitch of
+// P elements for ldmatrix.
 template <int HD>
 struct Tile {
-  static constexpr int P = HD + PAD;            // row pitch (elements)
-  static constexpr int ELEMS = BT * P;
+  static constexpr bool WG = HD != 80;
+  static constexpr int P = HD + PAD;            // row pitch of the padded layout
+  static constexpr int ELEMS = WG ? BT * HD : BT * P;
   static constexpr int BYTES = ELEMS * 2;
+};
+
+// bytes from one 8-row group of a core-matrix tile to the next
+template <int HD>
+__device__ constexpr uint32_t rows8() {
+  return HD * 16;
+}
+
+// A block: WGS warpgroups side by side over its RB resident rows (query
+// rows for dq, keys for dk/dv), sharing each streamed tile of a ring of
+// STAGES. wgmma: two warpgroups (one resident block an SM, by shared
+// memory), so each streamed byte serves 128 rows; mma.sync (hd 80): one
+// warpgroup, two resident blocks an SM.
+template <int HD>
+struct Block {
+  static constexpr int WGS = Tile<HD>::WG ? 2 : 1;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int RB = BT * WGS;
+  static constexpr int STAGES = Tile<HD>::WG ? 3 : 2;
+  static constexpr int MIN_BLOCKS = Tile<HD>::WG ? 1 : 2;
 };
 
 // Start the copies of a [BT, HD] tile whose rows are `stride` elements
 // apart; rows at or past `valid` are zero-filled (read from `base`, a mapped
-// address, with size 0)
+// address, with size 0). In the core-matrix layout 8 neighbouring threads
+// fill one core matrix, so chunk i lands at byte 16 i.
 template <int HD>
 __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src, long long stride,
                                            int valid, const bf16* base, int tid) {
   constexpr int CH = HD / 8;
-  for (int i = tid; i < BT * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
+  for (int i = tid; i < BT * CH; i += Block<HD>::THREADS) {
+    int r, c, at;
+    if constexpr (Tile<HD>::WG) {
+      r = (i / (8 * CH)) * 8 + i % 8, c = ((i / 8) % CH) * 8, at = i * 8;
+    } else {
+      r = i / CH, c = (i % CH) * 8, at = r * Tile<HD>::P + c;
+    }
     const bool ok = r < valid;
-    vr2::cp_async_zfill<16>(dst + r * Tile<HD>::P + c, ok ? src + r * stride + c : base, ok);
+    vr2::cp_async_zfill<16>(dst + at, ok ? src + r * stride + c : base, ok);
   }
 }
 
 // the same for BT 4-byte values (lse, delta, segment ids), which have no
 // 16-byte alignment in general
-template <typename T>
+template <int THREADS, typename T>
 __device__ __forceinline__ void async_row(T* dst, const T* src, int valid, const T* base,
                                           int tid) {
-  for (int i = tid; i < BT; i += NTHREADS) {
+  for (int i = tid; i < BT; i += THREADS) {
     const bool ok = i < valid;
     vr2::cp_async_zfill<4>(dst + i, ok ? src + i : base, ok);
   }
@@ -181,34 +229,149 @@ __device__ __forceinline__ void frags_by_tile(float (&acc)[HD / 8][4],
   }
 }
 
-// dq: the resident Q and dO tiles, then two stages of K, V and key segments
+// wgmma: C[64 x BT] (+)= A[64 x HD] B^T for the row-major tiles a and b
+// (both [row][HD], K-major), issued and not waited on
+template <int HD>
+__device__ __forceinline__ void wg_rows_by_rows(float (&c)[BT / 8][4], const bf16* a,
+                                                const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    vr2::wgmma_ss_n64(c, vr2::smem_desc(a + kk * 128, 128, rows8<HD>()),
+                      vr2::smem_desc(b + kk * 128, 128, rows8<HD>()), kk > 0);
+}
+
+// C fragments [64 x BT] rounded to bf16: the register A operands of the
+// BT / 16 k-steps of the next product
+__device__ __forceinline__ void frags_to_a(uint32_t (&a)[BT / 16][4],
+                                           const float (&x)[BT / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) vr2::c_to_a(a[kk], x[2 * kk], x[2 * kk + 1]);
+}
+
+// wgmma: acc[64 x HD] += X[64 x BT] T for X's register A operands against
+// the tile t [BT][HD] read MN-major, issued and not waited on
+template <int HD>
+__device__ __forceinline__ void wg_frags_by_tile(float (&acc)[HD / 8][4],
+                                                 const uint32_t (&xa)[BT / 16][4],
+                                                 const bf16* t) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    const uint64_t desc = vr2::smem_desc(t + kk * 16 * HD, rows8<HD>(), 128);
+    if constexpr (HD == 128)
+      vr2::wgmma_rs_n128(acc, xa[kk], desc, 1);
+    else
+      vr2::wgmma_rs_n64(acc, xa[kk], desc, 1);
+  }
+}
+
+// S (+)= A B^T for the products that open a tile: on wgmma, issued as one
+// group each (the caller waits); on mma.sync, this warp's 16 rows done
+template <int HD>
+__device__ __forceinline__ void open_products(float (&s)[BT / 8][4], const bf16* a0,
+                                              const bf16* b0, float (&dp)[BT / 8][4],
+                                              const bf16* a1, const bf16* b1, int warp,
+                                              int lane) {
+  if constexpr (Tile<HD>::WG) {
+    vr2::wgmma_fence();
+    wg_rows_by_rows<HD>(s, a0, b0);
+    vr2::wgmma_commit();
+    wg_rows_by_rows<HD>(dp, a1, b1);
+    vr2::wgmma_commit();
+  } else {
+#pragma unroll
+    for (int n = 0; n < BT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    rows_by_rows<HD>(s, a0, warp * 16, b0, lane);
+    rows_by_rows<HD>(dp, a1, warp * 16, b1, lane);
+  }
+}
+
+// wait for the first (WAIT 1) or both (WAIT 0) products open_products issued
+template <int HD, int WAIT>
+__device__ __forceinline__ void products_ready(float (&c)[BT / 8][4]) {
+  if constexpr (Tile<HD>::WG) {
+    vr2::wgmma_wait<WAIT>();
+    vr2::fence_regs(c);
+  }
+}
+
+// acc += X T for the C fragments x of this warp's rows against the
+// row-major tile t, complete on return (dq)
+template <int HD>
+__device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
+                                               const float (&x)[BT / 8][4], const bf16* t,
+                                               int lane) {
+  if constexpr (Tile<HD>::WG) {
+    uint32_t xa[BT / 16][4];
+    frags_to_a(xa, x);
+    vr2::wgmma_fence();  // after the A operands are written
+    wg_frags_by_tile<HD>(acc, xa, t);
+    vr2::wgmma_commit();
+    vr2::wgmma_wait<0>();
+    vr2::fence_regs(acc);
+  } else {
+    frags_by_tile<HD>(acc, x, t, lane);
+  }
+}
+
+// the same for two products (dv += P^T dO, dk += dS^T Q)
+template <int HD>
+__device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
+                                               const float (&x)[BT / 8][4], const bf16* t,
+                                               float (&acc2)[HD / 8][4],
+                                               const float (&x2)[BT / 8][4], const bf16* t2,
+                                               int lane) {
+  if constexpr (Tile<HD>::WG) {
+    uint32_t xa[BT / 16][4], xa2[BT / 16][4];
+    frags_to_a(xa, x);
+    frags_to_a(xa2, x2);
+    vr2::wgmma_fence();  // after the A operands are written
+    wg_frags_by_tile<HD>(acc, xa, t);
+    wg_frags_by_tile<HD>(acc2, xa2, t2);
+    vr2::wgmma_commit();
+    vr2::wgmma_wait<0>();
+    vr2::fence_regs(acc);
+    vr2::fence_regs(acc2);
+  } else {
+    frags_by_tile<HD>(acc, x, t, lane);
+    frags_by_tile<HD>(acc2, x2, t2, lane);
+  }
+}
+
+// dq: the resident Q and dO rows (WGS tiles each), then the ring's stages
+// of K, V and key segments
 template <int HD>
 struct DqSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 4;
-  static constexpr int BYTES = 2 * Tile<HD>::BYTES + 2 * STAGE;
+  static constexpr int BYTES =
+      2 * Block<HD>::WGS * Tile<HD>::BYTES + Block<HD>::STAGES * STAGE;
 };
 
-// dq for one (64 query rows, head, batch): loops over the key tiles the
-// forward visited; each warp owns 16 query rows.
+// dq for one (RB query rows, head, batch): loops over the key tiles the
+// forward visited; warpgroup w owns rows [64 w, 64 w + 64), each warp 16.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dq_kernel(const FlashBwdParams p) {
+__global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
+    flash_bwd_dq_kernel(const FlashBwdParams p) {
   using S = DqSmem<HD>;
+  constexpr int WGS = Block<HD>::WGS, RB = Block<HD>::RB, STAGES = Block<HD>::STAGES;
   constexpr int NT = BT / 8;    // 8-key column blocks of a score tile
   constexpr int DT = HD / 8;    // 8-wide column blocks of dq
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + Tile<HD>::ELEMS;
-  unsigned char* ring = smem_raw + 2 * Tile<HD>::BYTES;
+  bf16* sdO = sQ + WGS * Tile<HD>::ELEMS;
+  unsigned char* ring = smem_raw + 2 * WGS * Tile<HD>::BYTES;
 
-  // (head, batch) fastest, the query tile slowest; causal: the last tiles
+  // (head, batch) fastest, the row block slowest; causal: the last blocks
   // (the most keys) first
-  const int n_qt = (p.Sq + BT - 1) / BT;
+  const int n_qb = (p.Sq + RB - 1) / RB;
   const int h = blockIdx.x % p.nh;
   const int b = (blockIdx.x / p.nh) % p.B;
   const int tile = blockIdx.x / (p.nh * p.B);
-  const int q0 = (p.causal ? n_qt - 1 - tile : tile) * BT;
+  const int q0 = (p.causal ? n_qb - 1 - tile : tile) * RB;
   const int hk = h / (p.nh / p.kh);
   const int tid = threadIdx.x, warp = tid / vr2::kWarp, lane = tid % vr2::kWarp;
+  const int wg = WGS > 1 ? warp / 4 : 0, wq0 = q0 + wg * BT;  // this warpgroup's first row
   const int g = lane >> 2, t = lane & 3;
   const long long do_ss = (long long)p.nh * HD;
 
@@ -217,36 +380,48 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dq_kernel(const FlashBw
   const int* segb = p.seg != nullptr ? p.seg + (long long)b * p.Sk : nullptr;
   const int kv_len = min(p.kv_lengths[b], p.Sk);
   int limit = kv_len;
-  if (p.causal) limit = min(limit, p.q_offset + q0 + BT);
+  if (p.causal) limit = min(limit, p.q_offset + q0 + RB);
   const int n_tiles = limit > 0 ? (limit + BT - 1) / BT : 0;
 
-  auto stage = [&](int kt) { return ring + (kt & 1) * S::STAGE; };
+  auto stage = [&](int kt) { return ring + (kt % STAGES) * S::STAGE; };
   auto load_stage = [&](int kt) {
     const int k0 = kt * BT;
     bf16* sK = reinterpret_cast<bf16*>(stage(kt));
     async_tile<HD>(sK, kb + k0 * p.k_ss, p.k_ss, p.Sk - k0, p.k, tid);
     async_tile<HD>(sK + Tile<HD>::ELEMS, vb + k0 * p.v_ss, p.v_ss, p.Sk - k0, p.v, tid);
     if (segb != nullptr)
-      async_row(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS), segb + k0, p.Sk - k0,
-                p.seg, tid);
+      async_row<Block<HD>::THREADS>(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS),
+                                    segb + k0, p.Sk - k0, p.seg, tid);
   };
-  if (n_tiles > 0) {  // Q, dO and the first key tile: one group
-    async_tile<HD>(sQ, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss, p.Sq - q0, p.q,
-                   tid);
-    async_tile<HD>(sdO, p.dout + ((long long)b * p.Sq + q0) * do_ss + h * HD, do_ss,
-                   p.Sq - q0, p.dout, tid);
-    load_stage(0);
+  if (n_tiles > 0) {  // Q and dO join the first key tile's group
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) {
+      const int r0 = q0 + w * BT;
+      async_tile<HD>(sQ + w * Tile<HD>::ELEMS, p.q + b * p.q_sb + h * p.q_sh + r0 * p.q_ss,
+                     p.q_ss, p.Sq - r0, p.q, tid);
+      async_tile<HD>(sdO + w * Tile<HD>::ELEMS,
+                     p.dout + ((long long)b * p.Sq + r0) * do_ss + h * HD, do_ss, p.Sq - r0,
+                     p.dout, tid);
+    }
   }
-  vr2::cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {  // one group a tile, empty past the last
+    if (j < n_tiles) load_stage(j);
+    vr2::cp_async_commit();
+  }
 
-  const int r_lo = warp * 16 + g;
-  const int row[2] = {q0 + r_lo, q0 + r_lo + 8};
-  float lse[2], delta[2];
+  const bf16* wQ = sQ + wg * Tile<HD>::ELEMS;
+  const bf16* wdO = sdO + wg * Tile<HD>::ELEMS;
+  const int wwarp = warp - 4 * wg;  // this warp in its warpgroup
+  const int r_lo = wwarp * 16 + g;
+  const int row[2] = {wq0 + r_lo, wq0 + r_lo + 8};
+  const float scale2 = p.scale * LOG2E;
+  float lse2[2], delta[2];  // the LSE in log2 units
   int qseg[2] = {INT_MIN, INT_MIN};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const long long at = ((long long)b * p.nh + h) * p.Sq + row[i];
-    lse[i] = row[i] < p.Sq ? p.lse[at] : 1e30f;  // rows past Sq: p = 0
+    lse2[i] = (row[i] < p.Sq ? p.lse[at] : 1e30f) * LOG2E;  // rows past Sq: p = 0
     delta[i] = row[i] < p.Sq ? p.delta[at] : 0.f;
     if (segb != nullptr && row[i] < p.Sq) qseg[i] = segb[row[i]];
   }
@@ -257,39 +432,49 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dq_kernel(const FlashBw
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BT;
-    vr2::cp_async_wait<0>();
+    vr2::cp_async_wait<STAGES - 2>();  // tile kt's group (later ones may still fly)
+    if constexpr (Tile<HD>::WG) vr2::fence_proxy_async();  // the tiles, for wgmma's reads
     __syncthreads();  // tile kt is in for every warp, and every warp is done with kt - 1
-    if (kt + 1 < n_tiles) load_stage(kt + 1);
+    if (kt + STAGES - 1 < n_tiles) load_stage(kt + STAGES - 1);  // into kt - 1's stage
     vr2::cp_async_commit();
     const bf16* sK = reinterpret_cast<const bf16*>(stage(kt));
     const bf16* sV = sK + Tile<HD>::ELEMS;
     const int* sKseg = reinterpret_cast<const int*>(sV + Tile<HD>::ELEMS);
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows x 64 keys
     float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    rows_by_rows<HD>(s, sQ, warp * 16, sK, lane);
-    rows_by_rows<HD>(dp, sdO, warp * 16, sV, lane);
+    open_products<HD>(s, wQ, sK, dp, wdO, sV, wwarp, lane);
 
-    // P = exp(S - lse) under the forward's mask; dS = P (dP - delta), into s
+    // P = exp(S - lse) under the forward's mask (while dP is multiplied);
+    // a tile every key of which every row admits skips the mask
+    products_ready<HD, 1>(s);
+    const bool full = segb == nullptr && k0 + BT <= kv_len &&
+                      (!p.causal || k0 + BT - 1 <= p.q_offset + wq0);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ri = e >> 1;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        bool ok = admitted(p, key, row[ri], kv_len);
-        if (segb != nullptr) ok = ok && sKseg[key - k0] == qseg[ri];
-        const float pe = ok ? __expf(s[n][e] * p.scale - lse[ri]) : 0.f;
-        s[n][e] = pe * (dp[n][e] - delta[ri]);
+        const float pe = vr2::exp2_approx(fmaf(s[n][e], scale2, -lse2[ri]));
+        if (full) {
+          s[n][e] = pe;
+        } else {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          bool ok = admitted(p, key, row[ri], kv_len);
+          if (segb != nullptr) ok = ok && sKseg[key - k0] == qseg[ri];
+          s[n][e] = ok ? pe : 0.f;
+        }
       }
     }
+    // dS = P (dP - delta), into s
+    products_ready<HD, 0>(dp);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - delta[e >> 1];
 
     // dQ += dS K (dS rounded to bf16, the operand type)
-    frags_by_tile<HD>(acc, s, sK, lane);
+    close_products<HD>(acc, s, sK, lane);
   }
 
 #pragma unroll
@@ -304,42 +489,46 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dq_kernel(const FlashBw
   }
 }
 
-// dk/dv: the resident K and V tiles, then two stages of Q, dO, lse, delta
-// and query segments
+// dk/dv: the resident K and V rows (WGS tiles each), then the ring's stages
+// of Q, dO, lse, delta and query segments
 template <int HD>
 struct DkvSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 12;
-  static constexpr int BYTES = 2 * Tile<HD>::BYTES + 2 * STAGE;
+  static constexpr int BYTES =
+      2 * Block<HD>::WGS * Tile<HD>::BYTES + Block<HD>::STAGES * STAGE;
 };
 
-// dk / dv for one (64 keys, query head, batch): loops over the query tiles
-// that reach these keys. The products run transposed (keys as rows): each
-// warp owns 16 keys, so S^T, P^T and dS^T are C fragments whose rows are
-// this warp's keys.
+// dk / dv for one (RB keys, query head, batch): loops over the query tiles
+// that reach these keys. The products run transposed (keys as rows):
+// warpgroup w owns keys [64 w, 64 w + 64), each warp 16, so S^T, P^T and
+// dS^T are C fragments whose rows are this warp's keys.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_kernel(const FlashBwdParams p) {
+__global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
+    flash_bwd_dkv_kernel(const FlashBwdParams p) {
   using S = DkvSmem<HD>;
+  constexpr int WGS = Block<HD>::WGS, RB = Block<HD>::RB, STAGES = Block<HD>::STAGES;
   constexpr int NT = BT / 8;    // 8-query column blocks of a transposed score tile
   constexpr int DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + Tile<HD>::ELEMS;
-  unsigned char* ring = smem_raw + 2 * Tile<HD>::BYTES;
+  bf16* sV = sK + WGS * Tile<HD>::ELEMS;
+  unsigned char* ring = smem_raw + 2 * WGS * Tile<HD>::BYTES;
 
-  // (head, batch) fastest, the key tile slowest: under a causal mask the
-  // first key tiles (the most query tiles) start first
+  // (head, batch) fastest, the key block slowest: under a causal mask the
+  // first key blocks (the most query tiles) start first
   const int h = blockIdx.x % p.nh;
   const int b = (blockIdx.x / p.nh) % p.B;
-  const int k0 = blockIdx.x / (p.nh * p.B) * BT;
+  const int k0 = blockIdx.x / (p.nh * p.B) * RB;
   const int group = p.nh / p.kh, hk = h / group;
   const int tid = threadIdx.x, warp = tid / vr2::kWarp, lane = tid % vr2::kWarp;
+  const int wg = WGS > 1 ? warp / 4 : 0, wk0 = k0 + wg * BT;  // this warpgroup's first key
   const int g = lane >> 2, t = lane & 3;
   const long long do_ss = (long long)p.nh * HD;
 
   const int kv_len = min(p.kv_lengths[b], p.Sk);
-  // no query admits a key past the kv length: such tiles write zeros
+  // no query admits a key past the kv length: such keys get zeros
   const int n_qt = k0 < kv_len ? (p.Sq + BT - 1) / BT : 0;
-  // the first query tile whose last row reaches this tile's first key
+  // the first query tile whose last row reaches the block's first key
   const int qt_lo = p.causal ? max(k0 - p.q_offset, 0) / BT : 0;
 
   const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
@@ -347,29 +536,41 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_kernel(const FlashB
   const long long rows = ((long long)b * p.nh + h) * p.Sq;
   const int* segb = p.seg != nullptr ? p.seg + (long long)b * p.Sk : nullptr;
 
-  auto stage = [&](int i) { return ring + (i & 1) * S::STAGE; };
+  auto stage = [&](int i) { return ring + (i % STAGES) * S::STAGE; };
   auto load_stage = [&](int qt, int i) {
     const int q0 = qt * BT;
     bf16* sQ = reinterpret_cast<bf16*>(stage(i));
     async_tile<HD>(sQ, qb + q0 * p.q_ss, p.q_ss, p.Sq - q0, p.q, tid);
     async_tile<HD>(sQ + Tile<HD>::ELEMS, dob + q0 * do_ss, do_ss, p.Sq - q0, p.dout, tid);
     float* sLse = reinterpret_cast<float*>(sQ + 2 * Tile<HD>::ELEMS);
-    async_row(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
-    async_row(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
+    async_row<Block<HD>::THREADS>(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
+    async_row<Block<HD>::THREADS>(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
     if (segb != nullptr)
-      async_row(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0, p.Sq - q0, p.seg, tid);
+      async_row<Block<HD>::THREADS>(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0,
+                                    p.Sq - q0, p.seg, tid);
   };
-  if (qt_lo < n_qt) {  // K, V and the first query tile: one group
-    async_tile<HD>(sK, p.k + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss, p.k_ss, p.Sk - k0, p.k,
-                   tid);
-    async_tile<HD>(sV, p.v + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss, p.v_ss, p.Sk - k0, p.v,
-                   tid);
-    load_stage(qt_lo, 0);
+  if (qt_lo < n_qt) {  // K and V join the first query tile's group
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) {
+      const int r0 = k0 + w * BT;
+      async_tile<HD>(sK + w * Tile<HD>::ELEMS, p.k + b * p.k_sb + hk * p.k_sh + r0 * p.k_ss,
+                     p.k_ss, p.Sk - r0, p.k, tid);
+      async_tile<HD>(sV + w * Tile<HD>::ELEMS, p.v + b * p.v_sb + hk * p.v_sh + r0 * p.v_ss,
+                     p.v_ss, p.Sk - r0, p.v, tid);
+    }
   }
-  vr2::cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {  // one group a tile, empty past the last
+    if (qt_lo + j < n_qt) load_stage(qt_lo + j, j);
+    vr2::cp_async_commit();
+  }
 
-  const int r_lo = warp * 16 + g;
-  const int key[2] = {k0 + r_lo, k0 + r_lo + 8};
+  const bf16* wK = sK + wg * Tile<HD>::ELEMS;
+  const bf16* wV = sV + wg * Tile<HD>::ELEMS;
+  const int wwarp = warp - 4 * wg;  // this warp in its warpgroup
+  const int r_lo = wwarp * 16 + g;
+  const int key[2] = {wk0 + r_lo, wk0 + r_lo + 8};
+  const float scale2 = p.scale * LOG2E;
   int kseg[2] = {INT_MIN, INT_MIN};
   if (segb != nullptr) {
 #pragma unroll
@@ -385,9 +586,10 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_kernel(const FlashB
 
   for (int qt = qt_lo; qt < n_qt; ++qt) {
     const int i = qt - qt_lo, q0 = qt * BT;
-    vr2::cp_async_wait<0>();
+    vr2::cp_async_wait<STAGES - 2>();  // tile i's group (later ones may still fly)
+    if constexpr (Tile<HD>::WG) vr2::fence_proxy_async();  // the tiles, for wgmma's reads
     __syncthreads();  // tile i is in for every warp, and every warp is done with i - 1
-    if (qt + 1 < n_qt) load_stage(qt + 1, i + 1);
+    if (qt + STAGES - 1 < n_qt) load_stage(qt + STAGES - 1, i + STAGES - 1);
     vr2::cp_async_commit();
     const bf16* sQ = reinterpret_cast<const bf16*>(stage(i));
     const bf16* sdO = sQ + Tile<HD>::ELEMS;
@@ -395,50 +597,60 @@ __global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_kernel(const FlashB
     const float* sDelta = sLse + BT;
     const int* sQseg = reinterpret_cast<const int*>(sDelta + BT);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys x 64 queries
     float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    rows_by_rows<HD>(s, sK, warp * 16, sQ, lane);
-    rows_by_rows<HD>(dp, sV, warp * 16, sdO, lane);
+    open_products<HD>(s, wK, sQ, dp, wV, sdO, wwarp, lane);
 
-    // P^T under the forward's mask (into s) and dS^T = P^T (dP^T - delta)
+    // P^T under the forward's mask, into s (while dP^T is multiplied); a
+    // tile every key of which every row admits skips the mask
+    products_ready<HD, 1>(s);
+    const bool full = segb == nullptr && wk0 + BT <= kv_len && q0 + BT <= p.Sq &&
+                      (!p.causal || wk0 + BT - 1 <= p.q_offset + q0);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ki = e >> 1;
-        const int qi = n * 8 + 2 * t + (e & 1);
-        bool ok = q0 + qi < p.Sq && admitted(p, key[ki], q0 + qi, kv_len);
-        if (segb != nullptr) ok = ok && sQseg[qi] == kseg[ki];
-        const float pe = ok ? __expf(s[n][e] * p.scale - sLse[qi]) : 0.f;
-        s[n][e] = pe;
-        dp[n][e] = pe * (dp[n][e] - sDelta[qi]);
+      for (int c = 0; c < 2; ++c) {
+        const int qi = n * 8 + 2 * t + c;
+        const float lse2 = sLse[qi] * LOG2E;
+#pragma unroll
+        for (int ki = 0; ki < 2; ++ki) {
+          const int e = 2 * ki + c;
+          const float pe = vr2::exp2_approx(fmaf(s[n][e], scale2, -lse2));
+          if (full) {
+            s[n][e] = pe;
+          } else {
+            bool ok = q0 + qi < p.Sq && admitted(p, key[ki], q0 + qi, kv_len);
+            if (segb != nullptr) ok = ok && sQseg[qi] == kseg[ki];
+            s[n][e] = ok ? pe : 0.f;
+          }
+        }
       }
     }
+    // dS^T = P^T (dP^T - delta), into dp
+    products_ready<HD, 0>(dp);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = s[n][e] * (dp[n][e] - sDelta[n * 8 + 2 * t + (e & 1)]);
 
     // dV += P^T dO and dK += dS^T Q (both rounded to bf16 operands)
-    frags_by_tile<HD>(dv, s, sdO, lane);
-    frags_by_tile<HD>(dk, dp, sQ, lane);
+    close_products<HD>(dv, s, sdO, dk, dp, sQ, lane);
   }
 
-  const bool partials = p.nh != p.kh;
+  const bool gqa = p.nh != p.kh;  // add into the group's fp32 sums
 #pragma unroll
   for (int ki = 0; ki < 2; ++ki) {
     if (key[ki] >= p.Sk) continue;
-    const long long at = partials
-        ? (((long long)b * p.Sk + key[ki]) * p.nh + h) * HD + 2 * t
-        : (((long long)b * p.Sk + key[ki]) * p.kh + hk) * HD + 2 * t;
+    const long long at = (((long long)b * p.Sk + key[ki]) * p.kh + hk) * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
       const float k0v = dk[d][2 * ki] * p.scale, k1v = dk[d][2 * ki + 1] * p.scale;
-      if (partials) {
-        *reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at + d * 8) =
-            make_float2(k0v, k1v);
-        *reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at + d * 8) =
-            make_float2(dv[d][2 * ki], dv[d][2 * ki + 1]);
+      if (gqa) {
+        atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at + d * 8),
+                  make_float2(k0v, k1v));
+        atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at + d * 8),
+                  make_float2(dv[d][2 * ki], dv[d][2 * ki + 1]));
       } else {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + at + d * 8) =
             __floats2bfloat162_rn(k0v, k1v);
@@ -463,25 +675,29 @@ template <int HD>
 cudaError_t launch(const FlashBwdParams& p, bool dkv, cudaStream_t stream) {
   cudaError_t err = set_smem<HD>(dkv);
   if (err != cudaSuccess) return err;
-  const int tiles = ((dkv ? p.Sk : p.Sq) + BT - 1) / BT;
+  constexpr int RB = Block<HD>::RB, THREADS = Block<HD>::THREADS;
+  const int tiles = ((dkv ? p.Sk : p.Sq) + RB - 1) / RB;
   const dim3 grid(tiles * p.nh * p.B);
   if (dkv)
-    flash_bwd_dkv_kernel<HD><<<grid, NTHREADS, DkvSmem<HD>::BYTES, stream>>>(p);
+    flash_bwd_dkv_kernel<HD><<<grid, THREADS, DkvSmem<HD>::BYTES, stream>>>(p);
   else
-    flash_bwd_dq_kernel<HD><<<grid, NTHREADS, DqSmem<HD>::BYTES, stream>>>(p);
+    flash_bwd_dq_kernel<HD><<<grid, THREADS, DqSmem<HD>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
+// (rows of a block, warpgroups of a block, blocks resident on an SM)
 template <int HD>
-int resident(bool dkv) {
+int layout(bool dkv, int* out) {
   if (set_smem<HD>(dkv) != cudaSuccess) return -1;
-  int n = 0;
+  constexpr int THREADS = Block<HD>::THREADS;
   const cudaError_t err =
-      dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_bwd_dkv_kernel<HD>,
-                                                          NTHREADS, DkvSmem<HD>::BYTES)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_bwd_dq_kernel<HD>,
-                                                          NTHREADS, DqSmem<HD>::BYTES);
-  return err == cudaSuccess ? n : -1;
+      dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dkv_kernel<HD>,
+                                                          THREADS, DkvSmem<HD>::BYTES)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dq_kernel<HD>,
+                                                          THREADS, DqSmem<HD>::BYTES);
+  out[0] = Block<HD>::RB;
+  out[1] = Block<HD>::WGS;
+  return int(err);
 }
 
 int dispatch(const FlashBwdParams& p, int hd, bool dkv, void* stream) {
@@ -539,9 +755,9 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v, const vo
 // Plain C entry points, loaded with ctypes. q / k / v are read by stride
 // (elements); dout is a contiguous [B, Sq, nh, hd]; lse and delta are fp32
 // [B, nh, Sq]. dq is written as a contiguous bf16 [B, Sq, nh, hd]. dk / dv:
-// with nh == kh a contiguous bf16 [B, Sk, kh, hd]; under GQA (nh > kh) each
-// query head's fp32 partials, a contiguous [B, Sk, nh, hd], which the
-// caller sums over each group of nh / kh heads. Each returns a cudaError_t.
+// with nh == kh a contiguous bf16 [B, Sk, kh, hd]; under GQA (nh > kh)
+// contiguous fp32 [B, Sk, kh, hd] that the caller zeroes and the kernel
+// adds every query head of the group into. Each returns a cudaError_t.
 extern "C" int vr2_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, const int* kv_lengths, const int* seg, void* dq, int B, int Sq,
@@ -568,13 +784,15 @@ extern "C" int vr2_flash_attention_bwd_dkv(
   return dispatch(p, hd, true, stream);
 }
 
-// Blocks of the dq (dkv = 0) or dk/dv (dkv = 1) kernel at head dim hd that
-// stay resident on one SM (the occupancy calculator), or -1.
-extern "C" int vr2_flash_attention_bwd_resident(int hd, int dkv) {
+// The launch shape of the dq (dkv = 0) or dk/dv (dkv = 1) kernel at head
+// dim hd: out[0] rows of a block, out[1] its warpgroups, out[2] the blocks
+// that stay resident on one SM (the occupancy calculator). Returns a
+// cudaError_t.
+extern "C" int vr2_flash_attention_bwd_layout(int hd, int dkv, int* out) {
   switch (hd) {
-    case 64: return resident<64>(dkv != 0);
-    case 80: return resident<80>(dkv != 0);
-    case 128: return resident<128>(dkv != 0);
-    default: return -1;
+    case 64: return layout<64>(dkv != 0, out);
+    case 80: return layout<80>(dkv != 0, out);
+    case 128: return layout<128>(dkv != 0, out);
+    default: return int(cudaErrorInvalidValue);
   }
 }

@@ -34,7 +34,7 @@ SIGNATURES = {
     "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
-    "vr2_flash_attention_bwd_resident": [_I, _I],
+    "vr2_flash_attention_bwd_layout": [_I, _I, _P],
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],

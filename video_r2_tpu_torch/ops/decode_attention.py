@@ -12,10 +12,10 @@ window off.
 `decode_attention_stacked` replaces ``_decode_kernel`` (the TPU kernel
 behind the JAX ``decode_attention_stacked``). On CUDA tensors it launches
 ``csrc/decode_attn.cu`` (bf16 or fp32, one type for q and the cache, head
-dims 64 and 128, up to 16 query heads per kv head) and raises on anything it does not take; on CPU tensors it runs
-`decode_attention_stacked_plain`: fp32 scores over the layer's whole cache,
-the same mask (masked scores -1e30, as the TPU kernel's), fp32 softmax and
-P @ V.
+dims 64 and 128, up to 16 query heads per kv head) and raises on anything it
+does not take; on CPU tensors it runs `decode_attention_stacked_plain`:
+fp32 scores over the layer's whole cache, the same mask (masked scores
+-1e30, as the TPU kernel's), fp32 softmax and P @ V.
 """
 
 from __future__ import annotations

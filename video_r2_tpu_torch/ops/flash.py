@@ -20,12 +20,13 @@ has an LSE of +1e30 and gets no gradient.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import check, kernels
 
 KERNEL_HEAD_DIMS = (64, 80, 128)
-BWD_TILE = 64       # query rows (dq) or keys (dk/dv) of one backward block
 NO_KEY_LSE = 1e30   # LSE of a row that admits no key: exp(s - lse) == 0
 
 
@@ -299,40 +300,29 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, kv_lengths, causal=True,
                        q_offset=0, segment_ids=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel (csrc/flash_attn_bwd.cu): dk, dv
     [B, Sk, kh, hd], the GQA group summed. The kernel runs one block per
-    (key tile, query head): under GQA it writes each head's fp32 partials,
-    which `gqa_group_sum` adds up here."""
+    (key rows, query head): under GQA it adds each head into zeroed fp32
+    sums, rounded to the operands' dtype here."""
     lengths, seg, dout, lse, delta = _bwd_operands(q, k, v, dout, lse, delta,
                                                    kv_lengths, segment_ids)
-    B, Sk, kh, hd = k.shape
-    nh = q.shape[2]
-    if nh == kh:
-        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-        dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    else:
-        dk, dv = (torch.empty((B, Sk, nh, hd), dtype=torch.float32, device=q.device)
-                  for _ in range(2))
+    gqa = q.shape[2] != k.shape[2]
+    dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=q.device) if gqa
+              else torch.empty(k.shape, dtype=x.dtype, device=q.device) for x in (k, v))
     head, tail = _bwd_args(q, k, v, dout, lse, delta, lengths, seg, causal, q_offset)
     check(kernels().vr2_flash_attention_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
                                                 *tail),
           "flash_attention dk/dv kernel")
     flash_bwd_dkv_cuda.launches += 1
-    if nh == kh:
-        return dk, dv
-    return gqa_group_sum(dk, kh).to(k.dtype), gqa_group_sum(dv, kh).to(v.dtype)
+    return (dk.to(k.dtype), dv.to(v.dtype)) if gqa else (dk, dv)
 
 
 flash_bwd_dkv_cuda.launches = 0
 
 
-def gqa_group_sum(partials: torch.Tensor, kh: int) -> torch.Tensor:
-    """Per-query-head gradients [B, Sk, nh, hd] -> [B, Sk, kh, hd] fp32, the
-    sum over each kv head's group of nh / kh query heads (head h belongs to
-    kv head h // g), as the JAX package sums its dk/dv kernel's output."""
-    B, Sk, nh, hd = partials.shape
-    return partials.view(B, Sk, kh, nh // kh, hd).sum(3)
-
-
-def flash_bwd_resident(hd: int, dkv: bool) -> int:
-    """Blocks of the dq (dkv False) or dk/dv kernel at head dim `hd` that
-    stay resident on one SM, by the CUDA occupancy calculator."""
-    return int(kernels().vr2_flash_attention_bwd_resident(int(hd), int(dkv)))
+def flash_bwd_layout(hd: int, dkv: bool) -> tuple[int, int, int]:
+    """The launch shape of the dq (dkv False) or dk/dv kernel at head dim
+    `hd`: (rows of a block, warpgroups of a block, blocks that stay resident
+    on one SM by the CUDA occupancy calculator)."""
+    out = (ctypes.c_int * 3)()
+    check(kernels().vr2_flash_attention_bwd_layout(int(hd), int(dkv), out),
+          "flash backward layout")
+    return out[0], out[1], out[2]
