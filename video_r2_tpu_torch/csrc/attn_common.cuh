@@ -68,16 +68,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(addr));
 }
 
-// The same four tiles transposed: lane l receives, of each tile, the two
-// 16-bit values in rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (the
-// B operand of mma.sync from a tile stored [k][n], n contiguous).
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // 16-byte asynchronous copy from device to shared memory (both 16-byte
 // aligned), and its commit / wait of the most recent groups
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

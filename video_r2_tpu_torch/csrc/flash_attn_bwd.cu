@@ -36,27 +36,21 @@
 //   so under a causal mask the blocks with the most work (the last query
 //   rows for dq, the first keys for dk/dv) start first and the short ones
 //   fill the tail;
-// - hd 64 and 128 (the 7B's and the judge's heads): a block is two
-//   warpgroups over 128 resident rows sharing every streamed tile, which
-//   halves the bytes a product pulls through L2 against 64-row blocks
-//   (12% less time at the 7B's shape), in a ring of three stages (~163 KB of
-//   shared memory at hd 128: one block an SM, 8 warps). Every product is a
-//   warpgroup wgmma (wgmma.cuh) on tiles stored in core matrices without
-//   swizzle: S = Q K^T-type products read both operands from shared memory
-//   K-major; dq = dS K, dv = P^T dO and dk = dS^T Q take their A operand
-//   from the registers of the C fragments (rounded to bf16, as FA3 does) and
-//   read B MN-major from the same tile, so no transposed copy exists. The
-//   two opening products are issued as two groups, so the exp of S runs
-//   while dP is multiplied;
-// - hd 80 (the ViT's full-attention groups): 160-byte rows are wider than
-//   one 128-byte swizzle span and not a multiple of the 64-column wgmma
-//   tiles this file uses, so they stay on mma.sync: one warpgroup over 64
-//   resident rows, two blocks an SM, two stages; every operand by
-//   ldmatrix.x4 (the transposed B operands by ldmatrix .trans of the same
-//   row-major tile) from rows padded by 16 bytes (bank spread);
-// - the streamed tiles (K / V and key segments for dq; Q, dO, lse, delta
-//   and query segments for dk/dv) come by cp.async, rows past the end
+// - a block is two warpgroups over 128 resident rows sharing every
+//   streamed tile, which halves the bytes a product pulls through L2
+//   against 64-row blocks (12% less time at the 7B's shape), in a ring of
+//   three stages (~163 KB of shared memory at hd 128: one block an SM, 8
+//   warps). The streamed tiles (K / V and key segments for dq; Q, dO, lse,
+//   delta and query segments for dk/dv) come by cp.async, rows past the end
 //   zero-filled, with one barrier per tile;
+// - every product is a warpgroup wgmma (wgmma.cuh) on tiles stored in core
+//   matrices without swizzle, which any head dim that 16 divides can use
+//   (64, 80, 128): S = Q K^T-type products read both operands from shared
+//   memory K-major; dq = dS K, dv = P^T dO and dk = dS^T Q take their A
+//   operand from the registers of the C fragments (rounded to bf16, as FA3
+//   does) and read B MN-major from the same tile, so no transposed copy
+//   exists. The two opening products are issued as two groups, so the exp
+//   of S runs while dP is multiplied;
 // - the mask is applied only on tiles that need it (the causal diagonal,
 //   the kv length, Sq, segments); other tiles take exp2 of one FMA per
 //   element;
@@ -75,7 +69,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BT = 64;        // rows of a streamed tile, and of each warpgroup (4 warps x 16)
-constexpr int PAD = 8;        // shared-memory row padding (16 bytes, bank spread)
+constexpr int WGS = 2;        // warpgroups of a block, side by side over its resident rows
+constexpr int THREADS = 128 * WGS;
+constexpr int RB = BT * WGS;  // resident rows of a block (query rows for dq, keys for dk/dv)
+constexpr int STAGES = 3;     // the ring of streamed tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct FlashBwdParams {
@@ -102,130 +99,38 @@ __device__ __forceinline__ bool admitted(const FlashBwdParams& p, int key, int r
   return key < kv_len && (!p.causal || key <= p.q_offset + row);
 }
 
-// A [BT, HD] bf16 tile in shared memory. hd 64 and 128 (WG): the products
-// are wgmma, and the tile is stored in core matrices (wgmma.cuh: 8 rows of
-// 16 bytes each, no padding). hd 80: mma.sync, rows padded to a pitch of
-// P elements for ldmatrix.
+// A [BT, HD] bf16 tile in shared memory, stored in core matrices
+// (wgmma.cuh: 8 rows of 16 bytes each, no padding)
 template <int HD>
 struct Tile {
-  static constexpr bool WG = HD != 80;
-  static constexpr int P = HD + PAD;            // row pitch of the padded layout
-  static constexpr int ELEMS = WG ? BT * HD : BT * P;
+  static constexpr int ELEMS = BT * HD;
   static constexpr int BYTES = ELEMS * 2;
-};
-
-// bytes from one 8-row group of a core-matrix tile to the next
-template <int HD>
-__device__ constexpr uint32_t rows8() {
-  return HD * 16;
-}
-
-// A block: WGS warpgroups side by side over its RB resident rows (query
-// rows for dq, keys for dk/dv), sharing each streamed tile of a ring of
-// STAGES. wgmma: two warpgroups (one resident block an SM, by shared
-// memory), so each streamed byte serves 128 rows; mma.sync (hd 80): one
-// warpgroup, two resident blocks an SM.
-template <int HD>
-struct Block {
-  static constexpr int WGS = Tile<HD>::WG ? 2 : 1;
-  static constexpr int THREADS = 128 * WGS;
-  static constexpr int RB = BT * WGS;
-  static constexpr int STAGES = Tile<HD>::WG ? 3 : 2;
-  static constexpr int MIN_BLOCKS = Tile<HD>::WG ? 1 : 2;
+  static constexpr uint32_t ROWS8 = HD * 16;  // bytes from 8 rows to the next
 };
 
 // Start the copies of a [BT, HD] tile whose rows are `stride` elements
 // apart; rows at or past `valid` are zero-filled (read from `base`, a mapped
-// address, with size 0). In the core-matrix layout 8 neighbouring threads
-// fill one core matrix, so chunk i lands at byte 16 i.
+// address, with size 0). 8 neighbouring threads fill one core matrix, so
+// chunk i lands at byte 16 i.
 template <int HD>
 __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src, long long stride,
                                            int valid, const bf16* base, int tid) {
   constexpr int CH = HD / 8;
-  for (int i = tid; i < BT * CH; i += Block<HD>::THREADS) {
-    int r, c, at;
-    if constexpr (Tile<HD>::WG) {
-      r = (i / (8 * CH)) * 8 + i % 8, c = ((i / 8) % CH) * 8, at = i * 8;
-    } else {
-      r = i / CH, c = (i % CH) * 8, at = r * Tile<HD>::P + c;
-    }
+  for (int i = tid; i < BT * CH; i += THREADS) {
+    const int r = (i / (8 * CH)) * 8 + i % 8, c = ((i / 8) % CH) * 8;
     const bool ok = r < valid;
-    vr2::cp_async_zfill<16>(dst + at, ok ? src + r * stride + c : base, ok);
+    vr2::cp_async_zfill<16>(dst + i * 8, ok ? src + r * stride + c : base, ok);
   }
 }
 
 // the same for BT 4-byte values (lse, delta, segment ids), which have no
 // 16-byte alignment in general
-template <int THREADS, typename T>
+template <typename T>
 __device__ __forceinline__ void async_row(T* dst, const T* src, int valid, const T* base,
                                           int tid) {
   for (int i = tid; i < BT; i += THREADS) {
     const bool ok = i < valid;
     vr2::cp_async_zfill<4>(dst + i, ok ? src + i : base, ok);
-  }
-}
-
-// A operand (16 x 16) of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major tile
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile, int pitch, int r0,
-                                     int c0, int lane) {
-  vr2::ldsm_x4(a, tile + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8);
-}
-
-// B operands of the two 8-column blocks [n0, n0 + 8), [n0 + 8, n0 + 16) over
-// k [k0, k0 + 16), from a tile stored [n][k]: b[0], b[1] the first block's,
-// b[2], b[3] the second's
-__device__ __forceinline__ void ld_b_nk(uint32_t (&b)[4], const bf16* tile, int pitch, int n0,
-                                        int k0, int lane) {
-  vr2::ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * pitch + k0 +
-                      ((lane >> 3) & 1) * 8);
-}
-
-// the same from a tile stored [k][n], by ldmatrix .trans
-__device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], const bf16* tile, int pitch, int k0,
-                                        int n0, int lane) {
-  vr2::ldsm_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 +
-                            (lane >> 4) * 8);
-}
-
-// C[16 x BT] += A[16 x HD] B^T for this warp's 16 rows of the row-major
-// tile `a` against the BT rows of the row-major tile `b` (both [row][HD])
-template <int HD>
-__device__ __forceinline__ void rows_by_rows(float (&c)[BT / 8][4], const bf16* a, int r0,
-                                             const bf16* b, int lane) {
-  constexpr int P = Tile<HD>::P;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t af[4];
-    ld_a(af, a, P, r0, kk * 16, lane);
-#pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      uint32_t bf[4];
-      ld_b_nk(bf, b, P, j * 16, kk * 16, lane);
-      vr2::mma_bf16_16816(c[2 * j], af, bf[0], bf[1]);
-      vr2::mma_bf16_16816(c[2 * j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16 x HD] += X[16 x BT] T for the C fragments x of this warp's rows
-// (rounded to bf16) against the row-major tile t [BT][HD]
-template <int HD>
-__device__ __forceinline__ void frags_by_tile(float (&acc)[HD / 8][4],
-                                              const float (&x)[BT / 8][4], const bf16* t,
-                                              int lane) {
-  constexpr int P = Tile<HD>::P;
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    uint32_t xa[4];
-    vr2::c_to_a(xa, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      uint32_t bf[4];
-      ld_b_kn(bf, t, P, kk * 16, j * 16, lane);
-      vr2::mma_bf16_16816(acc[2 * j], xa, bf[0], bf[1]);
-      vr2::mma_bf16_16816(acc[2 * j + 1], xa, bf[2], bf[3]);
-    }
   }
 }
 
@@ -236,8 +141,8 @@ __device__ __forceinline__ void wg_rows_by_rows(float (&c)[BT / 8][4], const bf1
                                                 const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    vr2::wgmma_ss_n64(c, vr2::smem_desc(a + kk * 128, 128, rows8<HD>()),
-                      vr2::smem_desc(b + kk * 128, 128, rows8<HD>()), kk > 0);
+    vr2::wgmma_ss_n64(c, vr2::smem_desc(a + kk * 128, 128, Tile<HD>::ROWS8),
+                      vr2::smem_desc(b + kk * 128, 128, Tile<HD>::ROWS8), kk > 0);
 }
 
 // C fragments [64 x BT] rounded to bf16: the register A operands of the
@@ -256,87 +161,66 @@ __device__ __forceinline__ void wg_frags_by_tile(float (&acc)[HD / 8][4],
                                                  const bf16* t) {
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) {
-    const uint64_t desc = vr2::smem_desc(t + kk * 16 * HD, rows8<HD>(), 128);
+    const uint64_t desc = vr2::smem_desc(t + kk * 16 * HD, Tile<HD>::ROWS8, 128);
     if constexpr (HD == 128)
       vr2::wgmma_rs_n128(acc, xa[kk], desc, 1);
+    else if constexpr (HD == 80)
+      vr2::wgmma_rs_n80(acc, xa[kk], desc, 1);
     else
       vr2::wgmma_rs_n64(acc, xa[kk], desc, 1);
   }
 }
 
-// S (+)= A B^T for the products that open a tile: on wgmma, issued as one
-// group each (the caller waits); on mma.sync, this warp's 16 rows done
+// S = A0 B0^T and dP = A1 B1^T, the products that open a tile, issued as
+// one group each (the caller waits for them in turn)
 template <int HD>
 __device__ __forceinline__ void open_products(float (&s)[BT / 8][4], const bf16* a0,
                                               const bf16* b0, float (&dp)[BT / 8][4],
-                                              const bf16* a1, const bf16* b1, int warp,
-                                              int lane) {
-  if constexpr (Tile<HD>::WG) {
-    vr2::wgmma_fence();
-    wg_rows_by_rows<HD>(s, a0, b0);
-    vr2::wgmma_commit();
-    wg_rows_by_rows<HD>(dp, a1, b1);
-    vr2::wgmma_commit();
-  } else {
-#pragma unroll
-    for (int n = 0; n < BT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    rows_by_rows<HD>(s, a0, warp * 16, b0, lane);
-    rows_by_rows<HD>(dp, a1, warp * 16, b1, lane);
-  }
+                                              const bf16* a1, const bf16* b1) {
+  vr2::wgmma_fence();
+  wg_rows_by_rows<HD>(s, a0, b0);
+  vr2::wgmma_commit();
+  wg_rows_by_rows<HD>(dp, a1, b1);
+  vr2::wgmma_commit();
 }
 
-// wait for the first (WAIT 1) or both (WAIT 0) products open_products issued
-template <int HD, int WAIT>
+// wait until at most WAIT of the groups issued are in flight, and pin c
+template <int WAIT>
 __device__ __forceinline__ void products_ready(float (&c)[BT / 8][4]) {
-  if constexpr (Tile<HD>::WG) {
-    vr2::wgmma_wait<WAIT>();
-    vr2::fence_regs(c);
-  }
+  vr2::wgmma_wait<WAIT>();
+  vr2::fence_regs(c);
 }
 
-// acc += X T for the C fragments x of this warp's rows against the
-// row-major tile t, complete on return (dq)
+// acc += X T for the C fragments x against the tile t, complete on return
+// (dq += dS K)
 template <int HD>
 __device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
-                                               const float (&x)[BT / 8][4], const bf16* t,
-                                               int lane) {
-  if constexpr (Tile<HD>::WG) {
-    uint32_t xa[BT / 16][4];
-    frags_to_a(xa, x);
-    vr2::wgmma_fence();  // after the A operands are written
-    wg_frags_by_tile<HD>(acc, xa, t);
-    vr2::wgmma_commit();
-    vr2::wgmma_wait<0>();
-    vr2::fence_regs(acc);
-  } else {
-    frags_by_tile<HD>(acc, x, t, lane);
-  }
+                                               const float (&x)[BT / 8][4], const bf16* t) {
+  uint32_t xa[BT / 16][4];
+  frags_to_a(xa, x);
+  vr2::wgmma_fence();  // after the A operands are written
+  wg_frags_by_tile<HD>(acc, xa, t);
+  vr2::wgmma_commit();
+  vr2::wgmma_wait<0>();
+  vr2::fence_regs(acc);
 }
 
-// the same for two products (dv += P^T dO, dk += dS^T Q)
+// the same for two products in one group (dv += P^T dO, dk += dS^T Q)
 template <int HD>
 __device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
                                                const float (&x)[BT / 8][4], const bf16* t,
                                                float (&acc2)[HD / 8][4],
-                                               const float (&x2)[BT / 8][4], const bf16* t2,
-                                               int lane) {
-  if constexpr (Tile<HD>::WG) {
-    uint32_t xa[BT / 16][4], xa2[BT / 16][4];
-    frags_to_a(xa, x);
-    frags_to_a(xa2, x2);
-    vr2::wgmma_fence();  // after the A operands are written
-    wg_frags_by_tile<HD>(acc, xa, t);
-    wg_frags_by_tile<HD>(acc2, xa2, t2);
-    vr2::wgmma_commit();
-    vr2::wgmma_wait<0>();
-    vr2::fence_regs(acc);
-    vr2::fence_regs(acc2);
-  } else {
-    frags_by_tile<HD>(acc, x, t, lane);
-    frags_by_tile<HD>(acc2, x2, t2, lane);
-  }
+                                               const float (&x2)[BT / 8][4], const bf16* t2) {
+  uint32_t xa[BT / 16][4], xa2[BT / 16][4];
+  frags_to_a(xa, x);
+  frags_to_a(xa2, x2);
+  vr2::wgmma_fence();  // after the A operands are written
+  wg_frags_by_tile<HD>(acc, xa, t);
+  wg_frags_by_tile<HD>(acc2, xa2, t2);
+  vr2::wgmma_commit();
+  vr2::wgmma_wait<0>();
+  vr2::fence_regs(acc);
+  vr2::fence_regs(acc2);
 }
 
 // dq: the resident Q and dO rows (WGS tiles each), then the ring's stages
@@ -344,17 +228,14 @@ __device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
 template <int HD>
 struct DqSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 4;
-  static constexpr int BYTES =
-      2 * Block<HD>::WGS * Tile<HD>::BYTES + Block<HD>::STAGES * STAGE;
+  static constexpr int BYTES = 2 * WGS * Tile<HD>::BYTES + STAGES * STAGE;
 };
 
 // dq for one (RB query rows, head, batch): loops over the key tiles the
 // forward visited; warpgroup w owns rows [64 w, 64 w + 64), each warp 16.
 template <int HD>
-__global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
-    flash_bwd_dq_kernel(const FlashBwdParams p) {
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(const FlashBwdParams p) {
   using S = DqSmem<HD>;
-  constexpr int WGS = Block<HD>::WGS, RB = Block<HD>::RB, STAGES = Block<HD>::STAGES;
   constexpr int NT = BT / 8;    // 8-key column blocks of a score tile
   constexpr int DT = HD / 8;    // 8-wide column blocks of dq
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -371,7 +252,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
   const int q0 = (p.causal ? n_qb - 1 - tile : tile) * RB;
   const int hk = h / (p.nh / p.kh);
   const int tid = threadIdx.x, warp = tid / vr2::kWarp, lane = tid % vr2::kWarp;
-  const int wg = WGS > 1 ? warp / 4 : 0, wq0 = q0 + wg * BT;  // this warpgroup's first row
+  const int wg = warp / 4, wq0 = q0 + wg * BT;  // this warpgroup's first row
   const int g = lane >> 2, t = lane & 3;
   const long long do_ss = (long long)p.nh * HD;
 
@@ -390,7 +271,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
     async_tile<HD>(sK, kb + k0 * p.k_ss, p.k_ss, p.Sk - k0, p.k, tid);
     async_tile<HD>(sK + Tile<HD>::ELEMS, vb + k0 * p.v_ss, p.v_ss, p.Sk - k0, p.v, tid);
     if (segb != nullptr)
-      async_row<Block<HD>::THREADS>(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS),
+      async_row(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS),
                                     segb + k0, p.Sk - k0, p.seg, tid);
   };
   if (n_tiles > 0) {  // Q and dO join the first key tile's group
@@ -412,8 +293,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
 
   const bf16* wQ = sQ + wg * Tile<HD>::ELEMS;
   const bf16* wdO = sdO + wg * Tile<HD>::ELEMS;
-  const int wwarp = warp - 4 * wg;  // this warp in its warpgroup
-  const int r_lo = wwarp * 16 + g;
+  const int r_lo = (warp % 4) * 16 + g;
   const int row[2] = {wq0 + r_lo, wq0 + r_lo + 8};
   const float scale2 = p.scale * LOG2E;
   float lse2[2], delta[2];  // the LSE in log2 units
@@ -433,7 +313,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BT;
     vr2::cp_async_wait<STAGES - 2>();  // tile kt's group (later ones may still fly)
-    if constexpr (Tile<HD>::WG) vr2::fence_proxy_async();  // the tiles, for wgmma's reads
+    vr2::fence_proxy_async();  // the tiles, for wgmma's reads
     __syncthreads();  // tile kt is in for every warp, and every warp is done with kt - 1
     if (kt + STAGES - 1 < n_tiles) load_stage(kt + STAGES - 1);  // into kt - 1's stage
     vr2::cp_async_commit();
@@ -443,11 +323,11 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
 
     // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows x 64 keys
     float s[NT][4], dp[NT][4];
-    open_products<HD>(s, wQ, sK, dp, wdO, sV, wwarp, lane);
+    open_products<HD>(s, wQ, sK, dp, wdO, sV);
 
     // P = exp(S - lse) under the forward's mask (while dP is multiplied);
     // a tile every key of which every row admits skips the mask
-    products_ready<HD, 1>(s);
+    products_ready<1>(s);
     const bool full = segb == nullptr && k0 + BT <= kv_len &&
                       (!p.causal || k0 + BT - 1 <= p.q_offset + wq0);
 #pragma unroll
@@ -467,14 +347,14 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
       }
     }
     // dS = P (dP - delta), into s
-    products_ready<HD, 0>(dp);
+    products_ready<0>(dp);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - delta[e >> 1];
 
     // dQ += dS K (dS rounded to bf16, the operand type)
-    close_products<HD>(acc, s, sK, lane);
+    close_products<HD>(acc, s, sK);
   }
 
 #pragma unroll
@@ -494,8 +374,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
 template <int HD>
 struct DkvSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 12;
-  static constexpr int BYTES =
-      2 * Block<HD>::WGS * Tile<HD>::BYTES + Block<HD>::STAGES * STAGE;
+  static constexpr int BYTES = 2 * WGS * Tile<HD>::BYTES + STAGES * STAGE;
 };
 
 // dk / dv for one (RB keys, query head, batch): loops over the query tiles
@@ -503,10 +382,8 @@ struct DkvSmem {
 // warpgroup w owns keys [64 w, 64 w + 64), each warp 16, so S^T, P^T and
 // dS^T are C fragments whose rows are this warp's keys.
 template <int HD>
-__global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
-    flash_bwd_dkv_kernel(const FlashBwdParams p) {
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBwdParams p) {
   using S = DkvSmem<HD>;
-  constexpr int WGS = Block<HD>::WGS, RB = Block<HD>::RB, STAGES = Block<HD>::STAGES;
   constexpr int NT = BT / 8;    // 8-query column blocks of a transposed score tile
   constexpr int DT = HD / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -521,7 +398,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
   const int k0 = blockIdx.x / (p.nh * p.B) * RB;
   const int group = p.nh / p.kh, hk = h / group;
   const int tid = threadIdx.x, warp = tid / vr2::kWarp, lane = tid % vr2::kWarp;
-  const int wg = WGS > 1 ? warp / 4 : 0, wk0 = k0 + wg * BT;  // this warpgroup's first key
+  const int wg = warp / 4, wk0 = k0 + wg * BT;  // this warpgroup's first key
   const int g = lane >> 2, t = lane & 3;
   const long long do_ss = (long long)p.nh * HD;
 
@@ -543,10 +420,10 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
     async_tile<HD>(sQ, qb + q0 * p.q_ss, p.q_ss, p.Sq - q0, p.q, tid);
     async_tile<HD>(sQ + Tile<HD>::ELEMS, dob + q0 * do_ss, do_ss, p.Sq - q0, p.dout, tid);
     float* sLse = reinterpret_cast<float*>(sQ + 2 * Tile<HD>::ELEMS);
-    async_row<Block<HD>::THREADS>(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
-    async_row<Block<HD>::THREADS>(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
+    async_row(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
+    async_row(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
     if (segb != nullptr)
-      async_row<Block<HD>::THREADS>(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0,
+      async_row(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0,
                                     p.Sq - q0, p.seg, tid);
   };
   if (qt_lo < n_qt) {  // K and V join the first query tile's group
@@ -567,8 +444,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
 
   const bf16* wK = sK + wg * Tile<HD>::ELEMS;
   const bf16* wV = sV + wg * Tile<HD>::ELEMS;
-  const int wwarp = warp - 4 * wg;  // this warp in its warpgroup
-  const int r_lo = wwarp * 16 + g;
+  const int r_lo = (warp % 4) * 16 + g;
   const int key[2] = {wk0 + r_lo, wk0 + r_lo + 8};
   const float scale2 = p.scale * LOG2E;
   int kseg[2] = {INT_MIN, INT_MIN};
@@ -587,7 +463,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
   for (int qt = qt_lo; qt < n_qt; ++qt) {
     const int i = qt - qt_lo, q0 = qt * BT;
     vr2::cp_async_wait<STAGES - 2>();  // tile i's group (later ones may still fly)
-    if constexpr (Tile<HD>::WG) vr2::fence_proxy_async();  // the tiles, for wgmma's reads
+    vr2::fence_proxy_async();  // the tiles, for wgmma's reads
     __syncthreads();  // tile i is in for every warp, and every warp is done with i - 1
     if (qt + STAGES - 1 < n_qt) load_stage(qt + STAGES - 1, i + STAGES - 1);
     vr2::cp_async_commit();
@@ -599,11 +475,11 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
 
     // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys x 64 queries
     float s[NT][4], dp[NT][4];
-    open_products<HD>(s, wK, sQ, dp, wV, sdO, wwarp, lane);
+    open_products<HD>(s, wK, sQ, dp, wV, sdO);
 
     // P^T under the forward's mask, into s (while dP^T is multiplied); a
     // tile every key of which every row admits skips the mask
-    products_ready<HD, 1>(s);
+    products_ready<1>(s);
     const bool full = segb == nullptr && wk0 + BT <= kv_len && q0 + BT <= p.Sq &&
                       (!p.causal || wk0 + BT - 1 <= p.q_offset + q0);
 #pragma unroll
@@ -627,7 +503,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
       }
     }
     // dS^T = P^T (dP^T - delta), into dp
-    products_ready<HD, 0>(dp);
+    products_ready<0>(dp);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -635,7 +511,7 @@ __global__ void __launch_bounds__(Block<HD>::THREADS, Block<HD>::MIN_BLOCKS)
         dp[n][e] = s[n][e] * (dp[n][e] - sDelta[n * 8 + 2 * t + (e & 1)]);
 
     // dV += P^T dO and dK += dS^T Q (both rounded to bf16 operands)
-    close_products<HD>(dv, s, sdO, dk, dp, sQ, lane);
+    close_products<HD>(dv, s, sdO, dk, dp, sQ);
   }
 
   const bool gqa = p.nh != p.kh;  // add into the group's fp32 sums
@@ -675,7 +551,6 @@ template <int HD>
 cudaError_t launch(const FlashBwdParams& p, bool dkv, cudaStream_t stream) {
   cudaError_t err = set_smem<HD>(dkv);
   if (err != cudaSuccess) return err;
-  constexpr int RB = Block<HD>::RB, THREADS = Block<HD>::THREADS;
   const int tiles = ((dkv ? p.Sk : p.Sq) + RB - 1) / RB;
   const dim3 grid(tiles * p.nh * p.B);
   if (dkv)
@@ -689,14 +564,13 @@ cudaError_t launch(const FlashBwdParams& p, bool dkv, cudaStream_t stream) {
 template <int HD>
 int layout(bool dkv, int* out) {
   if (set_smem<HD>(dkv) != cudaSuccess) return -1;
-  constexpr int THREADS = Block<HD>::THREADS;
   const cudaError_t err =
       dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dkv_kernel<HD>,
                                                           THREADS, DkvSmem<HD>::BYTES)
           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dq_kernel<HD>,
                                                           THREADS, DqSmem<HD>::BYTES);
-  out[0] = Block<HD>::RB;
-  out[1] = Block<HD>::WGS;
+  out[0] = RB;
+  out[1] = WGS;
   return int(err);
 }
 
