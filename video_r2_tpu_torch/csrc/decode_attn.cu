@@ -3,9 +3,8 @@
 //
 // Replaces the TPU kernel video_r2_tpu/ops/decode_attention.py::
 // _decode_kernel (:42, via decode_attention_stacked), with its semantics:
-// the cache is [L, B, kh, Smax, hd] bf16 or fp32 (Smax a multiple of 128;
-// q, the cache and the output share one type, as the JAX kernel takes
-// both) and the
+// the cache is [L, B, kh, Smax, hd] (Smax a multiple of 128), bf16 or fp32
+// as the JAX kernel takes both, of one type with q and the output; the
 // layer index picks the layer; query head h * g + j (g = nh / kh) of
 // sequence b attends over key positions kpos with kpos < lengths[b] (the
 // right-padded prompt) or s_pad <= kpos <= slot_end (the fixed decode
@@ -13,9 +12,9 @@
 // min(cdiv(max(lengths[b], slot_end + 1), 128), Smax / 128); q is scaled by
 // hd^-0.5 in fp32; masked scores are -1e30 and the softmax is online in
 // fp32, as the TPU kernel's; the output is the accumulator over
-// max(l, 1e-30), rounded to the operands' type. Masks are selects, so the stale rows
-// between lengths[b] and s_pad (the pad tokens' K / V) never reach the
-// output.
+// max(l, 1e-30), rounded to the operands' type. Masks are selects, so the
+// stale rows between lengths[b] and s_pad (the pad tokens' K / V) never
+// reach the output.
 //
 // What bounds it on the card: every admitted key and value row of a
 // sequence is read once per kv head, against 4 g hd FLOP a key (g = 7 at

@@ -271,8 +271,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(const FlashBwd
     async_tile<HD>(sK, kb + k0 * p.k_ss, p.k_ss, p.Sk - k0, p.k, tid);
     async_tile<HD>(sK + Tile<HD>::ELEMS, vb + k0 * p.v_ss, p.v_ss, p.Sk - k0, p.v, tid);
     if (segb != nullptr)
-      async_row(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS),
-                                    segb + k0, p.Sk - k0, p.seg, tid);
+      async_row(reinterpret_cast<int*>(sK + 2 * Tile<HD>::ELEMS), segb + k0, p.Sk - k0,
+                p.seg, tid);
   };
   if (n_tiles > 0) {  // Q and dO join the first key tile's group
 #pragma unroll
@@ -423,8 +423,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
     async_row(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
     async_row(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
     if (segb != nullptr)
-      async_row(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0,
-                                    p.Sq - q0, p.seg, tid);
+      async_row(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0, p.Sq - q0, p.seg, tid);
   };
   if (qt_lo < n_qt) {  // K and V join the first query tile's group
 #pragma unroll

@@ -145,14 +145,14 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
       const int srow = (half * Kp + p0) / kGroup;
       const bool ok = n0 + c < p.N;
       vr2::cp_async_zfill<16>(sc + half * kBN + c,
-                         ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
+                              ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
     }
   } else {  // one scale a thread
     const int half = tid >> 6, c = tid & 63;
     const int srow = (half * Kp + p0) / kGroup;
     const bool ok = n0 + c < p.N;
     vr2::cp_async_zfill<4>(sc + half * kBN + c,
-                      ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
+                           ok ? p.scale + (long long)srow * p.N + n0 + c : p.scale, ok);
   }
 }
 
