@@ -58,7 +58,8 @@
    only); then at the token counts phase 11 gives it: the bf16 burst's
    prefill (16 prompts padded to one width), the int8 pass's W8A8 prefill
    and its decode (T = 4: 32 slots of 8 rows), the paged pass's decode
-   (T = 8: 64 slots of 8 rows);
+   (T = 8: 64 slots of 8 rows); each case prints the kernels it ran
+   (wgmma or mma.sync), their tile widths, blocks and registers;
 11. the judge: every 7B tensor of phases 1-9 freed, Qwen3-30B-A3B
    (qwen3_moe_30b_a3b(), 48 layers, all widths) built in bf16 with seeded
    random weights on the card; EngineJudge(ChatEngine(..., attn_impl=
@@ -90,12 +91,14 @@
    cache, so each timed launch reads cold weights as a decode step does,
    with the library call (torch._weight_int4pack_mm over its own packing,
    made once, untimed; "none" and the reason where the card's torch does
-   not take it); the head-major decode kernel at phase 13's batch (B = 4,
-   28 / 4 heads of 128, its ragged prompt lengths and padded width, a
-   28-layer cache) at decode step 0, at step 63 and with the window off, on
-   layers other than 0, each timed launch on the next layer, with the
-   library call (F.scaled_dot_product_attention over that layer's K / V,
-   GQA expanded beforehand, with the boolean mask);
+   not take it), both timed eagerly and in a CUDA graph (device time), and
+   each shape's split-K plan (S, its blocks); the head-major decode
+   kernel at phase 13's batch (B = 4, 28 / 4 heads of 128, its ragged
+   prompt lengths and padded width, a 28-layer cache) at decode step 0,
+   at step 63 and with the window off, on layers other than 0, each timed
+   launch on the next layer, with the library call
+   (F.scaled_dot_product_attention over that layer's K / V, GQA expanded
+   beforehand, with the boolean mask);
 13. int4 serving: request 0..3's bf16 prefill logits first, then
    quantize_params(model, bits=4) in place (the int4 / int8 / float byte
    split and the peak memory); 4 video questions (8 frames of 392x392 each,
@@ -424,6 +427,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: `iters` calls captured in a CUDA graph (after
+    warm-up calls on the capture stream), the graph's replays timed with
+    CUDA events. Unlike cuda_ms it leaves out the host's time per call,
+    which sets an eager loop of launches shorter than it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (5 * iters)
+
+
 def bound(flops: float, nbytes: float) -> dict:
     t_ops, t_mem = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
@@ -646,6 +677,9 @@ def vit_full_inputs(gen, layout, nh, hd, device):
     return q, k, v, torch.full((G,), L, dtype=torch.int32, device=device), seg
 
 
+REGISTERS: dict[str, str] = {}    # kernel<template args> -> its ptxas line (main)
+
+
 def register_report(log: Path) -> list[str]:
     """One line per compiled kernel: registers and spill bytes (ptxas -v)."""
     out, name = [], None
@@ -653,7 +687,8 @@ def register_report(log: Path) -> list[str]:
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
                       r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
-                      r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|int4_matmul_kernel|"
+                      r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|"
+                      r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|int4_matmul_kernel|"
                       r"int4_matmul_f32_kernel|int8_matmul_kernel|decode_attn_kernel)"
                       r"I((?:L[ib]\d+E)+)E", line)
         if m:
@@ -664,6 +699,7 @@ def register_report(log: Path) -> list[str]:
         elif name and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             out.append(f"{name}: {regs} registers, {spill}")
+            REGISTERS[name] = f"{regs} registers"
             name = None
     return out
 
@@ -1153,7 +1189,10 @@ def int4_library(x, K: int, N: int, copies: int):
 def int4_case(gen, what: str, M: int, K: int, N: int) -> dict:
     """The int4 kernel at one shape against its plain version: seeded
     weights with unit-scale products, quantized by quantize_kernel_int4;
-    copies of them rotate so that each timed launch reads cold weights."""
+    copies of them rotate so that each timed launch reads cold weights.
+    Kernel and library call are timed eagerly (ms, library_ms: at decode
+    shapes the wrapper's host time sets these) and in a CUDA graph
+    (device_ms, library_device_ms)."""
     import math
 
     import torch
@@ -1181,8 +1220,10 @@ def int4_case(gen, what: str, M: int, K: int, N: int) -> dict:
     err, excess = compare(out, ref)
     library, why = int4_library(x, K, N, copies)
     r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(rot(int4_matmul)),
+         "device_ms": graph_ms(rot(int4_matmul)),
          "plain_ms": cuda_ms(rot(int4_matmul_plain), iters=5, warmup=1),
          "library_ms": cuda_ms(library) if library is not None else None,
+         "library_device_ms": graph_ms(library) if library is not None else None,
          **bound(2.0 * M * K * N, 2.0 * M * K + w_bytes + 2.0 * M * N)}
     report("int4_matmul", what, (M, K, N), copies=copies,
            **{k: v for k, v in r.items() if v is not None},
@@ -1241,6 +1282,17 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
     return r
 
 
+def int4_launch_line(M: int, K: int, N: int, sms: int) -> str:
+    """The int4 kernel's launch at one shape: its split-K plan and blocks."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_split_plan, int4_tiles
+
+    S, ranges = int4_split_plan(M, K, N, sms)
+    blocks = int4_tiles(M, N) * S
+    lengths = sorted({end - begin for begin, end in ranges})
+    return (f"split S={S} ({'/'.join(map(str, lengths))} stages each), {blocks} blocks on "
+            f"{sms} SMs")
+
+
 def int4_kernel_phase(cfg, batch, device) -> dict:
     """Phase 12: the int4 matmul at every (rows, K, N) phase 13 gives it
     (the ViT's at its 2-frame clip) and the decode kernel at phase 13's
@@ -1271,8 +1323,10 @@ def int4_kernel_phase(cfg, batch, device) -> dict:
                           ("B=1 head", 1, H, V), ("B=1 gate / up", 1, H, I)):
         cases.setdefault((M, K, N), []).append(what)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     results = {}
     for (M, K, N), names in cases.items():
+        print(f"int4 [{', '.join(names)}] {int4_launch_line(M, K, N, sms)}", flush=True)
         results[(M, K, N)] = int4_case(gen, ", ".join(names), M, K, N)
         torch.cuda.empty_cache()
 
@@ -1708,6 +1762,31 @@ def grouped_mm_library(x, topi, leaves, E: int):
     return run
 
 
+def ffn_launch_line(variant: str, A: int, C: int, H: int, I: int) -> str:
+    """The grouped FFN's kernels for one call: the path, tile widths, blocks
+    of each launch and their registers (ptxas)."""
+    from video_r2_tpu_torch.ops.moe_ragged import ffn_wgmma_tiles
+
+    mode = {"bf16": 0, "int8": 1, "w8a8": 2}[variant]
+    tiles = ffn_wgmma_tiles(mode, C, H, I)
+    if tiles is not None:
+        rows, gu, dn = tiles
+        wg = rows // 64
+        zt = A * (C // rows)
+        kgu, kdn = f"moe_gate_up_wgmma_kernel<{wg},{gu}>", f"moe_down_wgmma_kernel<{wg},{dn}>"
+        return (f"wgmma: {rows} rows ({wg} warpgroups) a block; gate / up {gu} columns of "
+                f"I, {zt * (I // gu)} blocks, {REGISTERS.get(kgu, 'registers not reported')}; "
+                f"down {dn} columns of H, {zt * (H // dn)} blocks, "
+                f"{REGISTERS.get(kdn, 'registers not reported')}")
+    mt, wm = (1, 1) if C <= 16 else (2, 1) if C <= 32 else (4, 1) if C <= 64 else (4, 2)
+    zt = A * -(-C // (16 * mt * wm))
+    kgu, kdn = f"moe_gate_up_kernel<{mode},{mt},{wm}>", f"moe_down_kernel<{mode},{mt},{wm}>"
+    return (f"mma.sync: {16 * mt * wm} rows a block; gate / up 64 columns of I, "
+            f"{zt * (I // 64)} blocks, {REGISTERS.get(kgu, 'registers not reported')}; down "
+            f"64 columns of H, {zt * (H // 64)} blocks, "
+            f"{REGISTERS.get(kdn, 'registers not reported')}")
+
+
 def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     """The grouped FFN kernel at one judge shape (T tokens routed top 8, in
     the ragged decode table or the GMM prefill blocks) against its plain
@@ -1762,6 +1841,15 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     if not (torch.isfinite(out).all() and excess <= 1.0 and not out[valid == 0].any()):
         raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
+    return {**r, "blocks": A, "rows": C}
+
+
+def moe_ffn_case(gen, layer, T: int, layout: str, variant: str) -> dict:
+    """moe_case, then the kernels it ran: path, tiles, blocks, registers."""
+    r = moe_case(gen, layer, T, layout, variant)
+    H, I = layer["bf16"]["gate"]["kernel"].shape[1:]
+    launch = ffn_launch_line(variant, r["blocks"], r["rows"], H, I)
+    print(f"moe_ffn_{variant}_{layout} T={T}: {launch}", flush=True)
     return r
 
 
@@ -1793,7 +1881,7 @@ def moe_kernel_phase(device) -> dict:
                                (MOE_DECODE_T, "ragged", "int8"),
                                (MOE_PREFILL_T, "gmm", "int8"),
                                (MOE_PREFILL_T, "gmm", "w8a8")):
-        results[f"moe_ffn_{variant}_{layout}"] = moe_case(gen, layer, T, layout, variant)
+        results[f"moe_ffn_{variant}_{layout}"] = moe_ffn_case(gen, layer, T, layout, variant)
     # phase 11's token counts: a burst's prompts right-padded to one width
     ids = judge_prompt_ids(ByteTokenizer(), judge_requests())
     burst = lambda n: n * pack_prompts(ids[:n], pad_id=0).input_ids.shape[1]  # noqa: E731
@@ -1802,7 +1890,7 @@ def moe_kernel_phase(device) -> dict:
                                (JUDGE_INT8_REQUESTS, "ragged", "int8"),
                                (JUDGE_PAGED_REQUESTS, "ragged", "int8"),
                                (MOE_LORA_B * MOE_LORA_S, "gmm", "bf16")):
-        moe_case(gen, layer, T, layout, variant)
+        moe_ffn_case(gen, layer, T, layout, variant)
     return results
 
 

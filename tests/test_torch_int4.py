@@ -121,6 +121,43 @@ def test_int4_matmul_plain_matches_jax_kernel_at_a_tail_width(rng):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+# (M, K, N, S on an H100's 132 SMs): the 7B's int4 linears at decode B = 4
+# (k / v, q / o, down, gate / up, the head), B = 1 and the merger and ViT
+# shapes of a 784-patch clip
+SPLIT_CASES = [(4, 3584, 512, 14), (4, 3584, 3584, 8), (4, 18944, 3584, 8),
+               (4, 3584, 18944, 1), (4, 3584, 152064, 1), (1, 3584, 18944, 1),
+               (1, 3584, 152064, 1), (784, 5120, 5120, 1), (784, 5120, 3584, 1),
+               (784, 1280, 3840, 1), (784, 1280, 1280, 1), (784, 1280, 3420, 1)]
+
+
+@pytest.mark.parametrize("M,K,N,S", SPLIT_CASES)
+def test_int4_split_plan_at_the_7b_shapes(M, K, N, S):
+    """Split-K where the grid leaves the card idle (k / v: 8 column blocks,
+    q / o and down: 56) and one split where it fills the card."""
+    assert int4_matmul.int4_split_plan(M, K, N, 132)[0] == S
+
+
+@pytest.mark.parametrize("M,K,N,sms", [
+    (1, 3584, 512, 132), (4, 3584, 3584, 132), (4, 18944, 3584, 132),
+    (16, 1280, 3420, 132), (40, 3584, 512, 132), (4, 448, 64, 132), (4, 128, 64, 132),
+    (4, 3584, 512, 8), (4, 18944, 3584, 114), (1024, 3584, 64, 132)])
+def test_int4_split_plan_covers_every_stage_once(M, K, N, sms):
+    """The splits are consecutive stage ranges over all K / 64 stages, their
+    lengths within one stage of each other and at least SPLIT_MIN_STAGES
+    when there are several; one split exactly where the grid fills the card
+    or K is too short to split."""
+    S, ranges = int4_matmul.int4_split_plan(M, K, N, sms)
+    stages = K // 64
+    assert len(ranges) == S and ranges[0][0] == 0 and ranges[-1][1] == stages
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    lengths = [end - begin for begin, end in ranges]
+    assert max(lengths) - min(lengths) <= 1
+    assert min(lengths) >= (int4_matmul.SPLIT_MIN_STAGES if S > 1 else 1)
+    blocks = -(-N // 64) * -(-M // (16 if M <= 16 else 32 if M <= 32 else 64))
+    assert int4_matmul.int4_tiles(M, N) == blocks
+    assert (S == 1) == (blocks >= sms or stages < 2 * int4_matmul.SPLIT_MIN_STAGES)
+
+
 def test_plain_impl_switches_bypass_the_wrappers(int4_models, monkeypatch):
     """int4_impl="plain" on the linears and decode_attn_impl="plain" on the
     decoder never reach the kernels' wrappers (raising stand-ins here), and

@@ -21,7 +21,9 @@ the same bounds at the serving and training shapes):
   way);
 - the int4 matmul: the forward bound, for inputs scaled so every output is
   O(1): kernel and plain version multiply the same bf16-rounded weights,
-  sum in fp32 in other orders and round the output to bf16;
+  sum in fp32 in other orders and round the output to bf16; split over K,
+  two calls give the same bits (the splits' sums are added in a fixed
+  order);
 - the int8 matmul (three entries): the forward bound, for inputs scaled so
   every output is O(1): both multiply the same (exact) int8 weights, sum
   in fp32 in other orders, scale in fp32 and round once to bf16;
@@ -423,6 +425,37 @@ def test_moe_ffn_kernel_matches_plain(cuda, variant, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("H,I", [(2048, 768), (256, 128), (320, 192)])
+def test_moe_ffn_wgmma_matches_plain(cuda, C, H, I):
+    """The wgmma path (bf16, C a multiple of 64) over the sorted GMM layout
+    of experts with 1, 64, 65 and 200 rows (a lone row, a full 64-row
+    block, one row past it, several blocks), at the judge's width, a small
+    one and one that takes the 64-column tiles: against the plain version,
+    and the slack blocks exactly 0."""
+    from video_r2_tpu_torch.ops.moe_gmm import gmm_layout
+
+    gen = torch.Generator(device=cuda).manual_seed(C + H + I)
+    E = 8
+    w = _moe_weights(gen, E, H, I, "bf16")
+    rows = {1: 1, 3: 64, 4: 65, 6: 200}
+    topi = torch.cat([torch.full((n,), e, device=cuda) for e, n in rows.items()])
+    topi = topi[torch.randperm(len(topi), generator=gen, device=cuda)][:, None]
+    xs, ids, valid, _ = gmm_layout(_randn(gen, len(topi), H), topi, E, C)
+    assert moe_ragged.ffn_wgmma_tiles(0, C, H, I) is not None and not valid.all()
+    before = dict(moe_ragged.ragged_expert_ffn.launches)
+    out = moe_ragged.ragged_expert_ffn(xs, ids, w["gate"], w["up"], w["down"],
+                                       blk_valid=valid)
+    torch.cuda.synchronize()
+    assert moe_ragged.ragged_expert_ffn.launches == {**before, "bf16": before["bf16"] + 1}
+    ref = moe_ragged.ragged_expert_ffn_plain(xs, ids, w["gate"], w["up"], w["down"], I,
+                                             valid)
+    assert out.dtype == torch.bfloat16 and out.shape == xs.shape
+    assert not out[valid == 0].any()
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
 def test_moe_paths_run_the_kernel(cuda, variant):
     """moe_mlp_ragged (T = 16) and moe_mlp_gmm (T = 512) through the kernel
@@ -627,6 +660,79 @@ def test_int4_matmul_kernel_any_group(cuda, M, N, g):
     assert int4_matmul.launches == before + 1
     assert out.shape == (M, N) and _close(out, int4_matmul_plain(x, leaf["kernel_q4"],
                                                                   leaf["scale4"]))
+
+
+# split-K: the 7B's decode k / v, q / o and down at K 3584 / 18944, and the
+# ViT's N 3420 (a column tail) at K 1280 with g 64 (the per-row scales) and
+# g 128 (the staged scales)
+INT4_SPLIT_SHAPES = [(3584, 512, 128), (3584, 3584, 128), (18944, 3584, 128),
+                     (1280, 3420, 64), (1280, 3420, 128)]
+
+
+def _int4_group_operands(gen, M, K, N, g):
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+
+    leaf = quantize_kernel_int4(torch.randn(K, N, generator=gen, device=gen.device)
+                                * K ** -0.5, group_size=g)
+    return _randn(gen, M, K), leaf["kernel_q4"], leaf["scale4"]
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("K,N,g", INT4_SPLIT_SHAPES)
+def test_int4_split_k_matches_plain(cuda, M, K, N, g):
+    """Shapes whose grid does not fill the card split K over S > 1 blocks a
+    tile in one launch; the last block of a tile adds the splits in a fixed
+    order, so a second call gives the same bits."""
+    from video_r2_tpu_torch.ops.int4_matmul import (
+        int4_matmul,
+        int4_matmul_plain,
+        int4_split_plan,
+    )
+
+    assert int4_split_plan(M, K, N, _sms(cuda))[0] > 1
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + g)
+    x, wq, scale = _int4_group_operands(gen, M, K, N, g)
+    before = int4_matmul.launches
+    out, again = int4_matmul(x, wq, scale), int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 2
+    assert out.shape == (M, N) and torch.equal(out, again)
+    assert _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int4_split_k_calls_back_to_back(cuda):
+    """Calls of different shapes and splits in a row, twice over, each
+    against its plain version and its first result: a tile counter that a
+    launch left non-zero would spoil the next launch that counts on it."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ops = [_int4_group_operands(gen, M, K, N, g) for M, K, N, g in (
+        (4, 3584, 512, 128), (4, 18944, 3584, 128), (1, 3584, 3584, 128),
+        (4, 3584, 18944, 128), (16, 3584, 512, 128), (4, 1280, 3420, 64),
+        (40, 1280, 3420, 128))]
+    first = [int4_matmul(*o) for o in ops]
+    second = [int4_matmul(*o) for o in ops]
+    torch.cuda.synchronize()
+    for o, a, b in zip(ops, first, second):
+        assert torch.equal(a, b) and _close(a, int4_matmul_plain(*o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (1, 3584, 18944), (4, 3584, 152064),
+                                   (784, 5120, 5120)])
+def test_int4_wide_grids_take_one_split(cuda, M, K, N):
+    """Gate / up, the head and the merger fill the card: one split, their
+    path unchanged."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_split_plan
+
+    assert int4_split_plan(M, K, N, _sms(cuda)) == (1, [(0, K // 64)])
 
 
 # the 7B's int8 linears (K, N): q / o, k / v, gate / up, down, the head,

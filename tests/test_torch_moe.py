@@ -215,6 +215,35 @@ def test_moe_paths_match_jax(rng, variant):
             via.numpy(), moe.moe_mlp_dense_oracle(pt, T(x[None]), K, True).numpy(), **TOL)
 
 
+@pytest.mark.parametrize("mode,C,H,I,tiles", [
+    (0, 128, 2048, 768, (128, 128, 256)),   # the judge's GMM prefill blocks
+    (0, 64, 2048, 768, (64, 128, 256)),
+    (0, 192, 2048, 768, (64, 128, 256)),    # three 64-row tiles a block
+    (0, 256, 2048, 768, (128, 128, 256)),
+    (0, 128, 320, 192, (128, 64, 64)),      # widths 128 / 256 do not divide
+    (0, 16, 2048, 768, None),               # ragged decode: mma.sync
+    (0, 8, 2048, 768, None),
+    (0, 40, 2048, 768, None),
+    (0, 200, 2048, 768, None),
+    (1, 128, 2048, 768, None),              # int8 weights
+    (2, 128, 2048, 768, None),              # W8A8
+    (1, 64, 2048, 768, None)])
+def test_ffn_kernel_dispatch_rule(mode, C, H, I, tiles):
+    """Which calls of the grouped FFN take the wgmma kernels, and their tiles
+    (rows, gate / up columns, down columns): bf16 blocks of a multiple of
+    64 rows."""
+    assert moe_ragged.ffn_wgmma_tiles(mode, C, H, I) == tiles
+
+
+@pytest.mark.parametrize("T", [2048, 4096, 17408])
+def test_judge_gmm_prefill_takes_the_wgmma_kernels(T):
+    """The judge's GMM prefill (top 8 over 128 experts: the LoRA step's
+    2 x 1024 tokens, the table's 4096, a 16-request burst) gets 128-row
+    blocks, and so the wgmma path."""
+    bm = moe_gmm.auto_block_rows(T * 8, 128)
+    assert bm == 128 and moe_ragged.ffn_wgmma_tiles(0, bm, 2048, 768) == (128, 128, 256)
+
+
 def test_sorted_expert_layout_matches_jax(rng):
     topi = rng.integers(0, E, (11, K))
     topi[4, 1] = E                                   # a sentinel: the trash row

@@ -30,9 +30,19 @@
 // kernel masks with & 15 after an arithmetic shift): the low nibbles
 // multiply the x tile of the first half, the high nibbles that of the
 // second, into one fp32 accumulator; x fragments come by ldmatrix. Blocks
-// run over N fastest, so a row-block's blocks share x through L2. At small
-// N (the k / v projections: 8 blocks on 132 SMs) the card is mostly idle:
-// split-K is later work, as are TMA and wgmma.
+// run over N fastest, so a row-block's blocks share x through L2.
+// Split-K, in the same launch: where the (column blocks x row blocks) grid
+// does not fill the card (the decode shapes at small N: 8 blocks at k / v,
+// 56 at q / o and down, on 132 SMs) the wrapper's split plan cuts the K
+// stages into S ranges of equal length (within one stage), one per grid z,
+// so ~3 blocks an SM (2 and 4 measured slower at the down projection) each
+// walk a short chain of stages: at 4 rows a stage's time is the latency of
+// issuing its copies, not its bytes. Each block writes its fp32 sums to a
+// [S, M, N] workspace and takes a ticket on its tile's counter; the last
+// block adds the S sums in a fixed order, rounds y to bf16 once and resets
+// the counter (reduce_splits), so y is the same bit for bit from run to run
+// and a linear stays one launch. One split takes an instantiation without
+// this code. TMA and wgmma are later work.
 // Any N: where 64 does not divide N (the ViT's gate / up, N = 3420) the
 // last block zero-fills the weights and scales of its columns past N and
 // stores only those below it. A packed row of N bytes is 16-byte aligned
@@ -84,7 +94,9 @@ struct Int4Params {
   const uint8_t* wq;       // [K/2, N]
   const float* scale;      // [K/g, N]
   __nv_bfloat16* y;        // [M, N]
-  int M, K, N, g;
+  float* part;             // [splits, M, N] fp32 partial sums (splits > 1)
+  int* counters;           // one per (column block, row block), 0 between launches
+  int M, K, N, g, splits;
 };
 
 // Start the copies of stage s (packed rows [32 s, 32 s + 32)) of the block's
@@ -169,7 +181,85 @@ __device__ __forceinline__ float2 row_scales(const Int4Params& p, int pr, int co
                      __ldg(p.scale + (long long)((Kp + pr) / p.g) * p.N + col));
 }
 
-template <int MT, int WV, int G>
+// y[row][c], y[row][c + 1] = (lo, hi) rounded to bf16, c even; columns past N
+// are dropped (WV == kWhole: none are)
+template <int WV>
+__device__ __forceinline__ void store_pair(const Int4Params& p, int row, int c, float lo,
+                                           float hi) {
+  __nv_bfloat16* yr = p.y + (long long)row * p.N;
+  if constexpr (WV == kWhole) {
+    *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
+  } else if ((p.N & 1) == 0) {  // c < N means c + 1 < N; the pair is 4-byte aligned
+    if (c < p.N) *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
+  } else {
+    if (c < p.N) yr[c] = __float2bfloat16_rn(lo);
+    if (c + 1 < p.N) yr[c + 1] = __float2bfloat16_rn(hi);
+  }
+}
+
+// Split-K's close, in the launch: each block writes its fp32 sums to its
+// split's slice of p.part, then takes a ticket on its tile's counter; the
+// block that takes the last one adds the splits' sums in the order 0 ..
+// splits - 1 (through L2: other blocks wrote them), rounds y to bf16 once
+// and sets the counter back to 0. The fixed order makes y the same bit for
+// bit from run to run.
+template <int MT, int WV>
+__device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], const Int4Params& p,
+                                              int col0, int row0, int rows, int lane,
+                                              int tid) {
+  __shared__ int last;
+  const int g = lane >> 2, t = lane & 3;
+  const long long slice = (long long)p.M * p.N;
+  float* part = p.part + blockIdx.z * slice;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = mt * 16 + g + 8 * half;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = col0 + nt * 8 + 2 * t;
+        float* pr = part + (long long)(row0 + r) * p.N + c;
+        if (WV == kWhole || (p.N & 1) == 0) {  // an even N keeps the pair 8-byte aligned
+          if (c < p.N)
+            *reinterpret_cast<float2*>(pr) =
+                make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        } else {
+          if (c < p.N) pr[0] = acc[mt][nt][2 * half];
+          if (c + 1 < p.N) pr[1] = acc[mt][nt][2 * half + 1];
+        }
+      }
+    }
+  __threadfence();  // this block's sums, before its ticket
+  __syncthreads();
+  int* counter = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) last = atomicAdd(counter, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other block's sums, after their tickets
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = mt * 16 + g + 8 * half;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = col0 + nt * 8 + 2 * t;
+        const float* pr = p.part + (long long)(row0 + r) * p.N + c;
+        float lo = 0.f, hi = 0.f;
+        for (int z = 0; z < p.splits; ++z, pr += slice) {
+          if (c < p.N) lo += __ldcg(pr);
+          if (c + 1 < p.N) hi += __ldcg(pr + 1);
+        }
+        store_pair<WV>(p, row0 + r, c, lo, hi);
+      }
+    }
+  if (tid == 0) *counter = 0;
+}
+
+template <int MT, int WV, int G, bool SPLIT>
 __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params p) {
   using R = Ring<MT>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -179,7 +269,14 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
   const int g = lane >> 2, t = lane & 3;
   const int r8 = lane & 7, mid = (lane >> 3) & 1, lhi = lane >> 4;
   const int wn0 = warp * 16;
-  const int n_stages = p.K / 2 / kKS;
+  // split z of the K stages: [first, first + n_stages), the lengths of the
+  // splits differing by at most one stage
+  const int all_stages = p.K / 2 / kKS, z = blockIdx.z;
+  int first = 0, n_stages = all_stages;
+  if constexpr (SPLIT) {
+    const int base = all_stages / p.splits, rem = all_stages % p.splits;
+    first = z * base + min(z, rem), n_stages = base + (z < rem ? 1 : 0);
+  }
 
   // rows past M stay zero in every stage's x tiles (cp.async skips them)
   for (int i = tid; i < R::STAGES * 2 * R::BM * 4; i += kThreads) {
@@ -193,7 +290,8 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
   }
 #pragma unroll
   for (int s = 0; s < R::STAGES - 1; ++s) {
-    if (s < n_stages) load_stage<MT, WV, G>(smem + s * R::BYTES, p, s, n0, row0, rows, tid);
+    if (s < n_stages)
+      load_stage<MT, WV, G>(smem + s * R::BYTES, p, first + s, n0, row0, rows, tid);
     vr2::cp_async_commit();
   }
 
@@ -210,7 +308,8 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     __syncthreads();                      // ... for every thread; stage s - 1 is free
     const int nx = s + R::STAGES - 1;
     if (nx < n_stages)
-      load_stage<MT, WV, G>(smem + (nx % R::STAGES) * R::BYTES, p, nx, n0, row0, rows, tid);
+      load_stage<MT, WV, G>(smem + (nx % R::STAGES) * R::BYTES, p, first + nx, n0, row0, rows,
+                            tid);
     vr2::cp_async_commit();
 
     const unsigned char* st = smem + (s % R::STAGES) * R::BYTES;
@@ -234,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
         const unsigned char* c = st + (ks * 16 + 2 * t) * kPitch + wn0 + nt * 8 + g;
         const unsigned u0 = c[0], u1 = c[kPitch], u2 = c[8 * kPitch], u3 = c[9 * kPitch];
         if constexpr (G == kFineG) {  // rows k, k + 1, k + 8, k + 9 may span groups
-          const int pr = s * kKS + ks * 16 + 2 * t, col = n0 + wn0 + nt * 8 + g;
+          const int pr = (first + s) * kKS + ks * 16 + 2 * t, col = n0 + wn0 + nt * 8 + g;
           const float2 s0 = row_scales(p, pr, col), s1 = row_scales(p, pr + 1, col);
           const float2 s8 = row_scales(p, pr + 8, col), s9 = row_scales(p, pr + 9, col);
           blo[nt][0] = vr2::pack_bf16(nib(u0, s0.x), nib(u1, s1.x));
@@ -262,6 +361,10 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     }
   }
 
+  if constexpr (SPLIT) {
+    reduce_splits<MT, WV>(acc, p, n0 + wn0, row0, rows, lane, tid);
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -271,30 +374,28 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int c = n0 + wn0 + nt * 8 + 2 * t;  // even
-        __nv_bfloat16* yr = p.y + (long long)(row0 + r) * p.N;
-        const float lo = acc[mt][nt][2 * half], hi = acc[mt][nt][2 * half + 1];
-        if constexpr (WV == kWhole) {
-          *reinterpret_cast<uint32_t*>(p.y + (long long)(row0 + r) * p.N + c) =
-              vr2::pack_bf16(lo, hi);
-        } else if ((p.N & 1) == 0) {  // c < N means c + 1 < N; the pair is 4-byte aligned
-          if (c < p.N) *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
-        } else {
-          if (c < p.N) yr[c] = __float2bfloat16_rn(lo);
-          if (c + 1 < p.N) yr[c + 1] = __float2bfloat16_rn(hi);
-        }
+        store_pair<WV>(p, row0 + r, c, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
       }
     }
 }
 
+template <int MT, int WV, int G, bool SPLIT>
+cudaError_t launch_kernel(const Int4Params& p, cudaStream_t stream) {
+  using R = Ring<MT>;
+  cudaError_t err = cudaFuncSetAttribute(int4_matmul_kernel<MT, WV, G, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + R::BM - 1) / R::BM, p.splits);
+  int4_matmul_kernel<MT, WV, G, SPLIT><<<grid, kThreads, R::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// one split takes the instantiation without the split code (it cost the
+// gate / up shape 8% on the card)
 template <int MT, int WV, int G = kGroup>
 cudaError_t launch(const Int4Params& p, cudaStream_t stream) {
-  using R = Ring<MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      int4_matmul_kernel<MT, WV, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + R::BM - 1) / R::BM);
-  int4_matmul_kernel<MT, WV, G><<<grid, kThreads, R::SMEM, stream>>>(p);
-  return cudaGetLastError();
+  return p.splits > 1 ? launch_kernel<MT, WV, G, true>(p, stream)
+                      : launch_kernel<MT, WV, G, false>(p, stream);
 }
 
 // the copy width of the nibbles by N's alignment (a row is N bytes); groups
@@ -355,15 +456,22 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_f32_kernel(
 
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
 // scale [K/g, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
-// K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. Returns a
-// cudaError_t.
+// K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. splits: the K
+// stages (32 packed rows each) are cut into this many ranges, one per grid
+// z; with splits > 1, part is an fp32 [splits, M, N] workspace and counters
+// one int per (column block, row block) tile, all 0 (the launch leaves them
+// 0). Returns a cudaError_t.
 extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale, void* y,
-                               int M, int K, int N, int g, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0)
+                               int M, int K, int N, int g, int splits, void* part,
+                               void* counters, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0 ||
+      splits <= 0 || splits > K / (2 * kKS) ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
   const Int4Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
-                     static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M, K,
-                     N, g};
+                     static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
+                     static_cast<float*>(part), static_cast<int*>(counters), M, K, N, g,
+                     splits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 16) return int(launch_rows<1>(p, st));
   if (M <= 32) return int(launch_rows<2>(p, st));

@@ -39,10 +39,10 @@ SIGNATURES = {
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
     "vr2_paged_decode_attention": [_P] * 8 + [_I] * 9 + [_F, _P],
-    "vr2_moe_ffn": [_P] * 14 + [_I] * 7 + [_P],
+    "vr2_moe_ffn": [_P] * 14 + [_I] * 10 + [_P],
     "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 5 + [_P],
     "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 3 + [_P],
-    "vr2_int4_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_int4_matmul": [_P] * 4 + [_I] * 5 + [_P] * 3,
     "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 10 + [_F, _P],
     "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],

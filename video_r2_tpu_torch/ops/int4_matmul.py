@@ -14,7 +14,9 @@ stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
 multiple of 64, bf16 or fp32 x of at most 1024 rows, any N; fp32 x
-through an fp32 CUDA-core path), outside autograd, and raises on anything
+through an fp32 CUDA-core path; bf16 x split over K in the same launch
+where `int4_split_plan` finds that the grid does not fill the card),
+outside autograd, and raises on anything
 the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
@@ -25,12 +27,17 @@ multiplied with torch.matmul, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .cuda_build import check, kernels
 
 KERNEL_K = 64             # K must be a multiple of this (a stage: 32 packed rows)
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
+KERNEL_COLUMNS = 64       # output columns of a block
+SPLIT_BLOCKS_PER_SM = 3   # split-K aims the grid at this many blocks an SM
+SPLIT_MIN_STAGES = 4      # ... and keeps at least this many stages a split
 
 
 def pack_int4_halves(q: torch.Tensor) -> torch.Tensor:
@@ -65,6 +72,57 @@ def int4_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
     dequantised to x's dtype first."""
     K = 2 * wq.shape[-2]
     return torch.matmul(x, dequant_int4(wq, scale, K // scale.shape[-2], x.dtype))
+
+
+def int4_tiles(M: int, N: int) -> int:
+    """The kernel's (column blocks x row blocks) grid for x [M, K] @ [K, N]:
+    blocks of 64 columns and of the smallest of 16, 32 and 64 rows that
+    holds M (csrc/int4_matmul.cu's launch)."""
+    rows = 16 if M <= 16 else 32 if M <= 32 else 64
+    return -(-N // KERNEL_COLUMNS) * -(-M // rows)
+
+
+def int4_split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, list[tuple[int, int]]]:
+    """Split-K for x [M, K] @ [K, N] on a card of `sms` SMs: (S, the stage
+    range [begin, end) of each split). A stage is 32 packed rows (64 k).
+    S = 1 where the (column blocks x row blocks) grid already fills the
+    card; otherwise S brings the grid to about SPLIT_BLOCKS_PER_SM blocks an
+    SM, capped so that each split keeps SPLIT_MIN_STAGES stages. The ranges
+    are the kernel's own (grid z): consecutive, their lengths differing by
+    at most one stage."""
+    stages = K // KERNEL_K
+    blocks = int4_tiles(M, N)
+    S = 1
+    if blocks < sms:
+        S = max(1, min(-(-SPLIT_BLOCKS_PER_SM * sms // blocks), stages // SPLIT_MIN_STAGES))
+    base, rem = divmod(stages, S)
+    return S, [(z * base + min(z, rem), (z + 1) * base + min(z + 1, rem)) for z in range(S)]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(M: int, K: int, N: int, index: int) -> tuple[int, int]:
+    """(splits, tiles) of a bf16 launch on card `index`: the split plan at
+    its SM count and the (column blocks x row blocks) counters it needs.
+    Cached: a decode step makes ~200 calls of a few shapes."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return int4_split_plan(M, K, N, sms)[0], int4_tiles(M, N)
+
+
+# split-K's fp32 workspace and tile counters, per (device, stream): zeroed
+# once when allocated and grown on demand (each launch leaves the counters
+# 0 again); kernels on one stream run in order, so they share them
+_split_buffers: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_workspace(dev: torch.device, stream: int, floats: int, tiles: int):
+    key = (dev.index, stream)
+    part, counters = _split_buffers.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.zeros(floats, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _split_buffers[key] = (part, counters)
+    return part, counters
 
 
 def int4_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -116,9 +174,18 @@ def _int4_cuda(x, wq, scale):
         if t.data_ptr() % 16:
             raise ValueError(f"int4 kernel: {name} must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    launch = (kernels().vr2_int4_matmul if x.dtype == torch.bfloat16
-              else kernels().vr2_int4_matmul_f32)
-    err = launch(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N,
-                 g, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if x.dtype == torch.float32:
+        err = kernels().vr2_int4_matmul_f32(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                                            out.data_ptr(), M, K, N, g, stream)
+    else:
+        S, tiles = _launch_plan(M, K, N, dev.index)
+        part = counters = None
+        if S > 1:
+            part, counters = _split_workspace(dev, stream, S * M * N, tiles)
+        err = kernels().vr2_int4_matmul(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, g, S,
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream)
     check(err, "int4 matmul kernel")
     return out

@@ -11,7 +11,8 @@ ops/moe_gmm.py (a block is a run of rows of one expert).
 
 On CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/moe_ffn.cu``, which replaces ``_ffn_kernel``, ``_ffn_kernel_q`` and
-``_ffn_kernel_qq``) and raises on anything it does not take, a call under
+``_ffn_kernel_qq``; `ffn_wgmma_tiles` picks its wgmma path for bf16 blocks
+of a multiple of 64 rows) and raises on anything it does not take, a call under
 autograd among them (the kernel has no backward; the float GMM path trains
 through ops/moe_gmm.py's autograd Function, which calls it without); on CPU tensors
 it runs `ragged_expert_ffn_plain` (a gathered bmm per chunk of blocks with
@@ -34,6 +35,21 @@ import torch.nn.functional as F
 from .cuda_build import check, kernels
 
 KERNEL_TILE = 64          # H, I (and the W8A8 bi) must be multiples of this
+WGMMA_ROWS = 64           # rows of a warpgroup in the wgmma kernels
+
+
+def ffn_wgmma_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] | None:
+    """The kernel's path for a call: mode 0 (bf16) with C a multiple of 64
+    (the GMM prefill's 64- and 128-row blocks) takes the wgmma kernels,
+    returned as their tiles (rows a block: 128 where 128 divides C, else 64;
+    gate / up columns of I a block: 128 where it divides I, else 64; down
+    columns of H a block: 256 where it divides H, else 64). Everything else
+    (ragged decode below 64 rows, int8 weights, W8A8) takes the mma.sync
+    kernels: None. H and I are multiples of 64 (the wrapper checks)."""
+    if mode != 0 or C % WGMMA_ROWS:
+        return None
+    return (2 * WGMMA_ROWS if C % (2 * WGMMA_ROWS) == 0 else WGMMA_ROWS,
+            128 if I % 128 == 0 else 64, 256 if H % 256 == 0 else 64)
 
 
 def _fit_block_i(cap: int, C: int, H: int, I: int, xbytes: int,
@@ -214,10 +230,11 @@ def _moe_ffn_cuda(x, ids, gate, up, down, bi, blk_valid, x_scales):
     out = torch.empty((A, C, H), dtype=torch.float32 if w8a8 else torch.bfloat16,
                       device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    tiles = ffn_wgmma_tiles(mode, C, H, I) or (0, 0, 0)
     err = kernels().vr2_moe_ffn(
         x.data_ptr(), ptr(x_scales), ids32.data_ptr(), valid32.data_ptr(),
         wg.data_ptr(), ptr(sg), wu.data_ptr(), ptr(su), wd.data_ptr(), ptr(sd),
-        h.data_ptr(), ptr(hq), ptr(ah), out.data_ptr(), A, C, H, I, E, bi, mode,
+        h.data_ptr(), ptr(hq), ptr(ah), out.data_ptr(), A, C, H, I, E, bi, mode, *tiles,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "moe expert FFN kernel")
     return out
