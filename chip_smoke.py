@@ -9,7 +9,8 @@
 3. serving kernels: holds the forward kernels against their plain PyTorch
    versions in bf16 at the serving slice's shapes, with the max error, both
    times, the card's bound and the time of one library call
-   (F.scaled_dot_product_attention with the same mask);
+   (F.scaled_dot_product_attention with the same mask), and each flash
+   forward launch's blocks per SM beside those resident on one;
 4. serving slice: Qwen2.5-VL-7B at full width in bf16 with seeded random
    weights, a DemoRunner answering 3 video questions (8 synthetic frames of
    392x392 each, 32 greedy tokens), with the launch counts set to 0 before
@@ -531,6 +532,7 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
         flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda,
         flash_bwd_layout,
+        flash_fwd_layout,
     )
 
     B, Sq, nh, hd = q.shape
@@ -544,6 +546,11 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     lib_fwd_ms, lib_bwd_ms = library_calls(q, k, v, ok[:, None], dout)
     shape = (B, Sq, Sk, nh, kh, hd)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    block_rows, wgs, resident = flash_fwd_layout(hd)
+    blocks = -(-Sq // block_rows) * nh * B
+    print(f"flash forward [{what}]: {blocks} blocks of {wgs} warpgroups over {block_rows} "
+          f"rows, {blocks / sms:.2f} per SM, {resident} resident, on {sms} SMs", flush=True)
     if not training:
         run = lambda: flash_attention(q, k, v, kv_lengths=lengths, causal=causal,  # noqa: E731
                                       segment_ids=seg)
@@ -593,7 +600,6 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
                      + 2.0 * 2 * B * Sk * kh * hd)}
     report("flash_bwd_dq", what, shape, **dq_r)
     report("flash_bwd_dkv", what, shape, dk_rel_l2=rels[1], dv_rel_l2=rels[2], **dkv_r)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     pair = dq_r["ms"] + dkv_r["ms"]
     fill = []
     for name, S, dkv in (("dq", Sq, False), ("dk/dv", Sk, True)):

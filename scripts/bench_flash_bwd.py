@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""The flash backward kernels (dq, dk/dv) of the PyTorch port at the training
-shapes, on one NVIDIA GPU: each against its plain version, timed with CUDA
-events beside the SDPA backward and the bound, with the blocks each launch
-puts on an SM.
+"""The flash kernels of the PyTorch port, on one NVIDIA GPU: the forward
+(serving, and with LSE) and the backward pair (dq, dk/dv), each against its
+plain version, timed with CUDA events beside one SDPA call (forward, or
+backward) and the bound, with the blocks each launch puts on an SM.
 
     python3 scripts/bench_flash_bwd.py                  # this checkout's port
     python3 scripts/bench_flash_bwd.py --root DIR       # another checkout's
 
-Shapes (chip_smoke.py's phases 6 and 15): the 7B decoder's LoRA step (B 2,
-S 2432, lengths 2422 / 2342, 28 / 4 heads of 128, causal), the judge's (B 2,
-S 1024, lengths 643 / 709, 32 / 4 heads of 128, causal) and the ViT's
+Forward shapes (chip_smoke.py's phases 3, 6, 15 and 16): the 7B's causal
+prefill (B 3, Sq 1408, Sk 1440, lengths 1408 / 1311 / 704, 28 / 4 heads of
+128), the ViT's full-attention groups of a 392x392 clip at 8 frames (4
+groups of 1024 slots, 784 valid, 16 heads of 80, segment ids from
+plan_vision_layout: valid slots 1, padding -2), the int8 fill (B 16, S
+1536, lengths 1536 - 13 i) and one bench chunk (B 64, S 256), then with LSE
+the training shapes below (the ViT's at 16 frames: 8 groups).
+Backward shapes (phases 6 and 15): the 7B decoder's LoRA step (B 2, S 2432,
+lengths 2422 / 2342, 28 / 4 heads of 128, causal), the judge's (B 2, S 1024,
+lengths 643 / 709, 32 / 4 heads of 128, causal) and the ViT's
 full-attention groups (16 groups of 1024, 16 heads of 80, segments: 10% of
 the slots padding). Inputs are seeded unit normals in bf16. Prints one JSON
 line a shape, then the card's name and power limit (nvidia-smi). To
@@ -27,6 +34,20 @@ from pathlib import Path
 
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
+FWD_SHAPES = {
+    "decoder prefill": dict(B=3, Sq=1408, Sk=1440, nh=28, kh=4, hd=128,
+                            lengths=(1408, 1311, 704), lse=False),
+    "vit full": dict(grid=(4, 28, 28), nh=16, hd=80, lse=False),
+    "int8 fill (a)": dict(B=16, Sq=1536, Sk=1536, nh=28, kh=4, hd=128,
+                          lengths=tuple(1536 - 13 * i for i in range(16)), lse=False),
+    "int8 fill (b) chunk": dict(B=64, Sq=256, Sk=256, nh=28, kh=4, hd=128,
+                                lengths=(256,) * 64, lse=False),
+    "decoder training": dict(B=2, Sq=2432, Sk=2432, nh=28, kh=4, hd=128,
+                             lengths=(2422, 2342), lse=True),
+    "judge training": dict(B=2, Sq=1024, Sk=1024, nh=32, kh=4, hd=128,
+                           lengths=(643, 709), lse=True),
+    "vit full training": dict(grid=(8, 28, 28), nh=16, hd=80, lse=True),
+}
 SHAPES = {
     "decoder training": dict(B=2, S=2432, nh=28, kh=4, hd=128, lengths=(2422, 2342)),
     "judge training": dict(B=2, S=1024, nh=32, kh=4, hd=128, lengths=(643, 709)),
@@ -52,6 +73,79 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def vit_segments(grid, dev):
+    """[G, L] segment ids of the ViT's full-attention groups for one clip
+    (valid slots 1, padding -2), as the tower gathers them."""
+    import torch
+
+    from video_r2_tpu_torch.models.config import qwen25vl_7b
+    from video_r2_tpu_torch.models.vision import plan_vision_layout
+
+    layout = plan_vision_layout([grid], qwen25vl_7b().vision)
+    fg = torch.as_tensor(layout.full_gather, device=dev).long()
+    valid = torch.as_tensor(layout.valid, device=dev)
+    return torch.where((fg >= 0) & valid[fg.clamp(min=0)], 1, -2).int()
+
+
+def run_fwd_shape(name: str, nh, hd, lse, B=None, Sq=None, Sk=None, kh=None,
+                  lengths=None, grid=None) -> dict:
+    """One forward (serving, or with LSE) against its plain version, SDPA's
+    forward and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_r2_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    if grid is not None:                      # the ViT's groups: segments, not causal
+        seg = vit_segments(grid, dev)
+        B, Sq = seg.shape
+        Sk, kh, causal = Sq, nh, False
+        lens = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+    else:
+        seg, causal = None, True
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q, k, v = bf(B, Sq, nh, hd), bf(B, Sk, kh, hd), bf(B, Sk, kh, hd)
+    args = (q, k, v, lens, causal, 0, seg)
+    if lse:
+        run = lambda: flash.flash_attention_fwd_lse(*args)  # noqa: E731
+    else:
+        run = lambda: (flash.flash_attention(q, k, v, kv_lengths=lens, causal=causal,  # noqa: E731
+                                             segment_ids=seg), None)
+    (out, got_lse), (ref, ref_lse) = run(), flash.flash_attention_fwd_lse_plain(*args)
+    d = (out.float() - ref.float()).abs()
+    excess = float((d / (1e-2 + 1e-2 * ref.float().abs())).max())
+
+    key = torch.arange(Sk, device=dev)
+    ok = (key[None, None, :] < lens[:, None, None]).expand(B, Sq, Sk)
+    if causal:
+        ok = ok & (key[None, :] <= torch.arange(Sq, device=dev)[:, None])[None]
+    if seg is not None:
+        ok = ok & (seg[:, :, None] == seg[:, None, :])
+    pairs = float(ok.sum()) * nh
+    nbytes = 2 * 2.0 * q.numel() + 2.0 * 2 * float(lens.clamp(max=Sk).sum()) * kh * hd
+    nbytes += 4.0 * B * nh * Sq if lse else 0.0
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok[:, None],
+                                                          enable_gqa=True))
+    r = {"shape": name, "B": B, "Sq": Sq, "Sk": Sk, "nh": nh, "kh": kh, "hd": hd,
+         "lse": lse, "excess": excess, "ms": cuda_ms(run), "sdpa_fwd_ms": sdpa,
+         "bound_ms": max(4 * hd * pairs / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+         "bound_by": "operations" if 4 * hd * pairs / PEAK_BF16 >= nbytes / PEAK_BYTES
+                     else "bytes"}
+    if lse:
+        has_key = ref_lse < flash.NO_KEY_LSE
+        r["lse_max_abs_err"] = float((got_lse - ref_lse)[has_key].abs().max())
+    if hasattr(flash, "flash_fwd_layout"):      # (rows, warpgroups, resident) a block
+        rows, wgs, resident = flash.flash_fwd_layout(hd)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        r["blocks_per_sm"] = -(-Sq // rows) * nh * B / sms
+        r["warpgroups_resident"] = wgs * resident
+    return r
 
 
 def run_shape(name: str, B, S, nh, kh, hd, lengths) -> dict:
@@ -129,8 +223,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.kernels()
-    for name, shape in SHAPES.items():
-        r = run_shape(name, **shape)
+    runs = [(run_fwd_shape, name, shape) for name, shape in FWD_SHAPES.items()]
+    runs += [(run_shape, name, shape) for name, shape in SHAPES.items()]
+    for fn, name, shape in runs:
+        r = fn(name, **shape)
         r["label"] = args.label
         print(json.dumps(r), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

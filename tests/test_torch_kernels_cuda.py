@@ -58,6 +58,7 @@ from video_r2_tpu_torch.ops.flash import (
     flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda,
     flash_bwd_layout,
+    flash_fwd_layout,
     flash_attention_fwd_lse_plain,
     flash_attention_plain,
 )
@@ -188,6 +189,97 @@ def test_flash_training_kernels_match_plain(cuda, hd, case):
         assert not grads[1][1, 77:].any() and not grads[2][2].any()
     assert (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+
+
+# (nh, kh, Sq, Sk, q_offset, kv lengths, causal, segments, hd, strided)
+FWD_CASES = {
+    "gqa1": (4, 4, 256, 256, 0, [256, 150], True, None, 128, False),
+    "gqa7": (28, 4, 256, 256, 0, [256, 211], True, None, 128, False),
+    "gqa8": (32, 4, 256, 256, 0, [256, 100], True, None, 64, False),
+    "offset": (8, 2, 192, 333, 141, [333, 250], True, None, 128, False),
+    "tails": (8, 2, 333, 333, 0, [333, 0], True, None, 64, False),
+    "tails_hd80": (4, 2, 200, 333, 0, [301, 0], False, None, 80, False),
+    "segments_hd80": (4, 4, 333, 333, 0, [333, 333], False, (250, 300), 80, False),
+    "segments_hd128": (4, 2, 333, 333, 0, [333, 333], False, (250, 300), 128, False),
+    "strided": (8, 2, 300, 300, 0, [300, 177], True, None, 128, True),
+    "strided_hd80": (4, 4, 300, 300, 0, [300, 300], False, (190, 260), 80, True),
+}
+
+
+def _fwd_inputs(cuda, case):
+    """q / k / v, lengths and segment ids of a FWD_CASES entry. Segments
+    (a, b): ids 1 on [0, a), 2 on [a, b), -2 on the padding past b, so the
+    first key tiles of segment 1 need no mask and the tile that holds a
+    does. Strided: q / k / v are views of one [B, S, nh + 2 kh, hd]."""
+    nh, kh, Sq, Sk, q_offset, lens, causal, segs, hd, strided = FWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(Sq + nh + hd)
+    B = len(lens)
+    if strided:
+        qkv = _randn(gen, B, Sq, nh + 2 * kh, hd)
+        q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + kh], qkv[:, :, nh + kh:]
+    else:
+        q = _randn(gen, B, Sq, nh, hd)
+        k, v = _randn(gen, B, Sk, kh, hd), _randn(gen, B, Sk, kh, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    seg = None
+    if segs is not None:
+        pos = torch.arange(Sk, device=cuda)
+        seg = torch.where(pos < segs[0], 1, torch.where(pos < segs[1], 2, -2))
+        seg = seg.int()[None].expand(B, Sk).contiguous()
+    return q, k, v, lengths, causal, q_offset, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_flash_fwd_kernels_grid_cases(cuda, case):
+    """The serving forward and the forward with LSE against the plain
+    version: GQA groups 1, 7 and 8; Sq < Sk with q_offset > 0; Sq and Sk
+    not multiples of 64 or 128 with a zero-length row; segments at hd 80
+    and 128 with tiles of one segment (no mask) and mixed ones; operands as
+    strided views of one tensor. A row that admits no key emits 0 with an
+    LSE of NO_KEY_LSE. Each launches its kernel once."""
+    q, k, v, lengths, causal, q_offset, seg = _fwd_inputs(cuda, case)
+    ref_out, ref_lse = flash_attention_fwd_lse_plain(q, k, v, lengths, causal, q_offset, seg)
+    before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+    out = flash_attention(q, k, v, kv_lengths=lengths, causal=causal, q_offset=q_offset,
+                          segment_ids=seg)
+    out2, lse = flash_attention_fwd_lse(q, k, v, lengths, causal, q_offset, seg)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_fwd_lse.launches - before[1]) == (1, 1)
+    has_key = ref_lse < NO_KEY_LSE
+    assert _close(out, ref_out) and _close(out2, ref_out)
+    assert float((lse - ref_lse)[has_key].abs().max()) <= LSE_ATOL
+    assert (lse[~has_key] == NO_KEY_LSE).all()
+    no_key = ~has_key.transpose(1, 2)            # [B, Sq, nh]
+    assert not out[no_key].any() and not out2[no_key].any()
+    if 0 in FWD_CASES[case][5]:
+        assert not has_key[FWD_CASES[case][5].index(0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa7", "segments_hd80"])
+def test_flash_fwd_kernels_give_the_same_bits_twice(cuda, case):
+    """No sum depends on timing: two calls of each forward agree bit for bit."""
+    q, k, v, lengths, causal, q_offset, seg = _fwd_inputs(cuda, case)
+    a = flash_attention(q, k, v, kv_lengths=lengths, causal=causal, q_offset=q_offset,
+                        segment_ids=seg)
+    b = flash_attention(q, k, v, kv_lengths=lengths, causal=causal, q_offset=q_offset,
+                        segment_ids=seg)
+    (c, lc), (d, ld) = (flash_attention_fwd_lse(q, k, v, lengths, causal, q_offset, seg)
+                        for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(lc, ld)
+    assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_fwd_kernel_layout_fits(cuda, hd):
+    """The forward's block (two consumer warpgroups over 128 query rows and
+    a producer warp, Q and the K / V ring in shared memory) fits on an SM."""
+    rows, warpgroups, resident = flash_fwd_layout(hd)
+    assert (rows, warpgroups) == (128, 2) and resident >= 1
 
 
 # (nh, kh, Sq, Sk, q_offset, kv lengths, causal, segments, hd)

@@ -689,28 +689,12 @@ __global__ void __launch_bounds__(128 * WG, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, fetched through the runtime (nothing links libcuda)
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-inline EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return EncodeTiled(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
 // A bf16 tensor map with the 128-byte swizzle and boxes 64 elements wide:
 // 2-D [mid, inner] with boxes of [rows][64], or 3-D [E, mid, inner] with
 // boxes of [64][64] (E = 0: 2-D)
 inline cudaError_t box_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
                            uint64_t E, uint32_t rows) {
-  const EncodeTiled encode = encoder();
+  const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {inner, mid, E};
   const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};

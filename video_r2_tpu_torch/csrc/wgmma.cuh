@@ -1,8 +1,9 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) for the port's kernels:
-// shared-memory descriptors of the layout without swizzle, the fences, the
-// bf16 products with fp32 accumulators the flash backward and the grouped
-// expert FFN use, and the TMA loads and shared-memory barriers (mbarrier)
-// that feed the FFN's.
+// shared-memory descriptors of the layout without swizzle and of the
+// 128-byte swizzle, the fences, the bf16 products with fp32 accumulators the
+// flash kernels and the grouped expert FFN use, and the TMA loads, their
+// tensor-map encoder and the shared-memory barriers (mbarrier) that feed the
+// flash forward's and the FFN's.
 //
 // Layout: a bf16 tile of R rows by C columns is stored as 8 x 8 "core
 // matrices" of 128 contiguous bytes (8 rows of 16 bytes), core matrix
@@ -21,6 +22,8 @@
 // are the register A operand of the next product (vr2::c_to_a).
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace vr2 {
@@ -65,6 +68,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// Move registers between the warpgroups of a block (setmaxnreg; every
+// thread of a warpgroup executes it): a producer gives registers up, the
+// consumers take them, so a block whose launch bounds cap every thread at
+// the average can give its products more
+template <int N>
+__device__ __forceinline__ void regs_shrink() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_grow() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // shared-memory writes of the generic proxy (stores, cp.async) made visible
@@ -350,6 +367,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival (no transfer bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // wait until the phase of parity `parity` (0 for the first) has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
@@ -382,6 +404,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime (nothing links
+// libcuda); null where the driver does not offer it
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return EncodeTiled(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
 }
 
 }  // namespace vr2

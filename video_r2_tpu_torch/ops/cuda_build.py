@@ -32,6 +32,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _STRIDES = [_L] * 9   # q, k, v: batch, sequence and head strides
 SIGNATURES = {
     "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_fwd_layout": [_I, _P],
     "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
     "vr2_flash_attention_bwd_layout": [_I, _I, _P],

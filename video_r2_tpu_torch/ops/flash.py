@@ -318,6 +318,15 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, kv_lengths, causal=True,
 flash_bwd_dkv_cuda.launches = 0
 
 
+def flash_fwd_layout(hd: int) -> tuple[int, int, int]:
+    """The launch shape of the forward kernel (serving and with LSE) at head
+    dim `hd`: (query rows of a block, consumer warpgroups of a block, blocks
+    that stay resident on one SM by the CUDA occupancy calculator)."""
+    out = (ctypes.c_int * 3)()
+    check(kernels().vr2_flash_attention_fwd_layout(int(hd), out), "flash forward layout")
+    return out[0], out[1], out[2]
+
+
 def flash_bwd_layout(hd: int, dkv: bool) -> tuple[int, int, int]:
     """The launch shape of the dq (dkv False) or dk/dv kernel at head dim
     `hd`: (rows of a block, warpgroups of a block, blocks that stay resident
