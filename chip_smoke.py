@@ -36,9 +36,12 @@
    admitted lengths plus 64 decode steps, 28/4 heads, hd 128, page size 128,
    shuffled page tables over a 28-layer pool, each timed launch on the next
    layer so the pages come cold) the bf16 kernel with W=1 and W=4 (a verify
-   chunk), the int8 kernel and the one-layer entry against their plain
-   versions, with the library call (F.scaled_dot_product_attention over K/V
-   already gathered dense, dequantised for int8; the gather is not timed);
+   chunk), the int8 kernel, fp32 q and pages and the one-layer entry
+   against their plain versions, with the library call
+   (F.scaled_dot_product_attention over K/V already gathered dense,
+   dequantised for int8; the gather is not timed), each timed eagerly and
+   in a CUDA graph (device time), and each launch's split plan (splits,
+   blocks, blocks an SM) with its instance's registers and spills;
 9. batched serving: the paged continuous-batching engine as the eval
    backend builds it (8 slots, page size 128, power-of-two buckets from 128
    to 2048, prefix cache on, bf16 pages) takes 12 video questions (8
@@ -99,7 +102,8 @@
    at step 63 and with the window off, on layers other than 0, each timed
    launch on the next layer, with the library call
    (F.scaled_dot_product_attention over that layer's K / V, GQA expanded
-   beforehand, with the boolean mask);
+   beforehand, with the boolean mask), both timed eagerly and in a CUDA
+   graph, and the launch's split plan and registers;
 13. int4 serving: request 0..3's bf16 prefill logits first, then
    quantize_params(model, bits=4) in place (the int4 / int8 / float byte
    split and the peak memory); 4 video questions (8 frames of 392x392 each,
@@ -223,8 +227,12 @@ LOGITS_TOL = 5e-2    # relative L2 of last-token logits, kernel vs plain path:
 PATH_LOSS_RTOL = 1e-2
 PATH_GRAD_REL_L2 = 5e-2
 # the least time: the larger of bytes / 3.35 TB/s and operations / 989
-# TFLOP/s bf16 (H100 SXM data sheet, dense)
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+# TFLOP/s bf16 (67 TFLOP/s fp32 outside the tensor cores; H100 SXM data
+# sheet, dense)
+PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+# fp32 operands, kernel vs plain: both keep every operand and product fp32
+# and differ in the order of their fp32 sums and the kernel's fast exp2
+FP32_TOL = 1e-4
 # batched serving (phase 9)
 SERVE_REQUESTS, SERVE_SLOTS, PAGE_SIZE, DECODE_STEPS = 12, 8, 128, 8
 SERVE_MAX_LEN = 2048
@@ -456,19 +464,20 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / (5 * iters)
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_mem = flops / PEAK_BF16, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
+    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
 
 
-def compare(out, ref, rows=None) -> tuple[float, float]:
-    """(max |out - ref|, max of |out - ref| / (ATOL + RTOL |ref|)) on `rows`."""
+def compare(out, ref, rows=None, tol=KERNEL_ATOL) -> tuple[float, float]:
+    """(max |out - ref|, max of |out - ref| / (tol + tol |ref|)) on `rows`
+    (tol: KERNEL_ATOL = KERNEL_RTOL, or FP32_TOL for fp32 operands)."""
     out, ref = out.float(), ref.float()
     if rows is not None:
         out, ref = out[rows], ref[rows]
     d = (out - ref).abs()
-    return float(d.max()), float((d / (KERNEL_ATOL + KERNEL_RTOL * ref.abs())).max())
+    return float(d.max()), float((d / (tol + tol * ref.abs())).max())
 
 
 def rel_l2(out, ref) -> float:
@@ -686,28 +695,78 @@ def vit_full_inputs(gen, layout, nh, hd, device):
 REGISTERS: dict[str, str] = {}    # kernel<template args> -> its ptxas line (main)
 
 
+def template_args(mangled: str) -> list[str]:
+    """The template arguments of an Itanium-mangled name, from just after its
+    'I': integers and bools (L<type><value>E), named types (<length><name>)
+    and the builtin types the kernels use (a: int8, f: float)."""
+    out, i = [], 0
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":
+            j = mangled.index("E", i)
+            out.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group()
+            start = i + len(n)
+            out.append(mangled[start:start + int(n)])
+            i = start + int(n)
+        else:
+            out.append({"a": "int8", "f": "float"}.get(mangled[i], mangled[i]))
+            i += 1
+    return out
+
+
 def register_report(log: Path) -> list[str]:
     """One line per compiled kernel: registers and spill bytes (ptxas -v)."""
     out, name = [], None
     spill = ""
     for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function .*?(flash_fwd_kernel|flash_bwd_dq_kernel|"
-                      r"flash_bwd_dkv_kernel|window_attn_kernel|window_attn_bwd_kernel|"
-                      r"paged_decode_kernel|moe_gate_up_kernel|moe_down_kernel|"
+        m = re.search(r"Compiling entry function '_Z\w*?\d+(flash_fwd_kernel|"
+                      r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|window_attn_kernel|"
+                      r"window_attn_bwd_kernel|moe_gate_up_kernel|moe_down_kernel|"
                       r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|int4_matmul_kernel|"
-                      r"int4_matmul_f32_kernel|int8_matmul_kernel|decode_attn_kernel)"
-                      r"I((?:L[ib]\d+E)+)E", line)
+                      r"int4_matmul_f32_kernel|int8_matmul_kernel|tc_kernel|f32_kernel)"
+                      r"I(\w+)'", line)
         if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-            name, spill = f"{m.group(1)}<{args}>", ""
+            name, spill = f"{m.group(1)}<{','.join(template_args(m.group(2)))}>", ""
         elif "spill stores" in line:
             spill = line.strip()
         elif name and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             out.append(f"{name}: {regs} registers, {spill}")
-            REGISTERS[name] = f"{regs} registers"
+            REGISTERS[name] = f"{regs} registers, {spill}"
             name = None
     return out
+
+
+def split_line(B: int, kh: int, tiles: int, sms: int, kernel: str) -> str:
+    """A decode-attention launch: its split plan (S, grid blocks, blocks an
+    SM) and the ptxas line of the instance it runs (`kernel`: its name and
+    template arguments but the last, e.g. "tc_kernel<128,1,__nv_bfloat16,1")."""
+    from video_r2_tpu_torch.ops.split import decode_split_plan
+
+    S, ranges = decode_split_plan(B * kh, tiles, sms)
+    kernel = f"{kernel},{int(S > 1)}>"
+    runs = sorted({end - begin for begin, end in ranges})
+    return (f"split S={S} ({'/'.join(map(str, runs))} tiles of 64 keys each), "
+            f"{B * kh * S} blocks, {B * kh * S / sms:.2f} an SM on {sms} SMs; "
+            f"{kernel}: {REGISTERS.get(kernel, 'registers not reported')}")
+
+
+def paged_split_lines(cfg, B: int, max_pages: int, sms: int) -> None:
+    """Phase 8's launches: the split plan and ptxas line of each case's
+    instance (bf16 pages W = 1 and 4, int8 pages, fp32)."""
+    tc = cfg.text
+    kh, hd, g = tc.num_key_value_heads, tc.head_dim, \
+        tc.num_attention_heads // tc.num_key_value_heads
+    tiles = max_pages * PAGE_SIZE // 64
+    row_tiles = {R: 1 if R <= 16 else 2 if R <= 32 else 4 for R in (g, 4 * g)}
+    for what, instance in (
+            ("bf16 pages, W=1", f"tc_kernel<{hd},{row_tiles[g]},__nv_bfloat16,1"),
+            ("bf16 pages, W=4", f"tc_kernel<{hd},{row_tiles[4 * g]},__nv_bfloat16,1"),
+            ("int8 pages, W=1", f"tc_kernel<{hd},{row_tiles[g]},int8,1"),
+            ("fp32 q and pages", f"f32_kernel<{hd},64,float,1")):
+        print(f"paged launch [{what}] {split_line(B, kh, tiles, sms, instance)}", flush=True)
 
 
 def training_records() -> list[dict]:
@@ -845,12 +904,16 @@ def training_phase(model, cfg, card, device, kernel_results):
     return launches
 
 
-def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
+def paged_case(gen, what, cfg, lengths, W, pages="bf16", one_layer=False) -> dict:
     """The paged decode kernel at one shape against its plain version, with
     the library call (SDPA over K/V already gathered dense). The pool has
     the model's 28 layers; each timed launch reads the next layer, so its
     pages come from device memory, as in the decode step, where each
-    layer's weights pass through the L2 cache between two calls."""
+    layer's weights pass through the L2 cache between two calls. pages:
+    "bf16" (bf16 q), "int8" (bf16 q over int8 pages) or "fp32" (fp32 q and
+    pages). Kernel and library call are timed eagerly (ms, library_ms: at
+    these sizes the wrapper's host time sets the eager time) and in a CUDA
+    graph (device_ms, library_device_ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -864,6 +927,7 @@ def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
     kh, nh, hd, ps, n_layers = (tc.num_key_value_heads, tc.num_attention_heads,
                                 tc.head_dim, PAGE_SIZE, tc.num_hidden_layers)
     dev = gen.device
+    quant, fp32 = pages == "int8", pages == "fp32"
     B = len(lengths)
     need = [-(-(L + W - 1) // ps) for L in lengths]
     max_pages, n_pages = max(need), 1 + sum(need)       # page 0: the trash page
@@ -874,17 +938,17 @@ def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
         tables[b, :n] = perm[used:used + n]
         used += n
     shape = (n_layers, kh, n_pages, ps, hd)
+    dtype = torch.float32 if fp32 else torch.bfloat16
     if quant:
         k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
                 for _ in range(2))
         ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3
                   for _ in range(2))
     else:
-        k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(2))
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
         ks = vs = None
     qshape = (B, W, nh, hd) if W > 1 else (B, nh, hd)
-    q = torch.randn(qshape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     layer = [0]
 
@@ -901,7 +965,8 @@ def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
             q, k, v, tables, lens, l, ps, ks, vs)
     plain = lambda l: paged_decode_attention_stacked_plain(  # noqa: E731
         q, k, v, tables, lens, l, ps, ks, vs)
-    err, excess = compare(kernel(n_layers - 1), plain(n_layers - 1))
+    err, excess = compare(kernel(n_layers - 1), plain(n_layers - 1),
+                          tol=FP32_TOL if fp32 else KERNEL_ATOL)
 
     # the library: the same attention over K/V gathered dense per layer
     # ([L, B, kh, keys, hd], dequantised for int8) and a boolean mask
@@ -911,7 +976,7 @@ def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
         x = pool[:, :, tables.long()]                      # [L, kh, B, P, ps, hd]
         if scale is not None:
             x = x.float() * scale[:, :, tables.long()][..., None]
-        return x.to(torch.bfloat16).transpose(1, 2).reshape(n_layers, B, kh, n_keys, hd)
+        return x.to(dtype).transpose(1, 2).reshape(n_layers, B, kh, n_keys, hd)
 
     kd, vd = dense(k, ks), dense(v, vs)
     qd = (q if W > 1 else q[:, None]).transpose(1, 2)      # [B, nh, W, hd]
@@ -920,21 +985,23 @@ def paged_case(gen, what, cfg, lengths, W, quant, one_layer=False) -> dict:
     library = lambda l: F.scaled_dot_product_attention(  # noqa: E731
         qd, kd[l], vd[l], attn_mask=mask, enable_gqa=True)
     with torch.no_grad():
-        lib_ms = cuda_ms(call(library))
+        lib_ms, lib_device_ms = cuda_ms(call(library)), graph_ms(call(library))
     del kd, vd
 
     rows = sum(L + W - 1 for L in lengths)              # key rows the last query reads
-    elt = 1 if quant else 2
-    nbytes = (2 * 2.0 * q.numel() + 2.0 * rows * kh * hd * elt
+    elt = 1 if quant else k.element_size()
+    nbytes = (2.0 * q.element_size() * q.numel() + 2.0 * rows * kh * hd * elt
               + (2 * 4.0 * rows * kh if quant else 0) + 4.0 * (tables.numel() + B))
     pairs = sum(W * L + W * (W - 1) // 2 for L in lengths)   # admitted (query, key)
     r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(call(kernel)),
+         "device_ms": graph_ms(call(kernel)),
          "plain_ms": cuda_ms(call(plain), iters=5), "library_ms": lib_ms,
-         **bound(4.0 * nh * hd * pairs, nbytes)}
+         "library_device_ms": lib_device_ms,
+         **bound(4.0 * nh * hd * pairs, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)}
     name = ("paged_decode_attention" if one_layer else
             "paged_decode_attention_stacked_quant" if quant
             else "paged_decode_attention_stacked")
-    report(name, what, (B, W, nh, kh, hd, ps, max_pages), **r)
+    report(name, what, (B, W, nh, kh, hd, ps, max_pages), pages=pages, **r)
     if not excess <= 1.0:
         raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
@@ -1081,8 +1148,11 @@ def serving_phase(model, runner, requests, card) -> dict:
                                                         and len(toks) < budget)):
             raise AssertionError(f"request {i} did not finish within its budget {budget}: "
                                  f"{None if toks is None else len(toks)} tokens")
-    if launches["paged_decode_attention_stacked"] <= 0:
-        raise AssertionError(f"the serving run launched no paged kernel: {launches}")
+    n_layers = eng.pcache.k.shape[0]
+    if launches["paged_decode_attention_stacked"] <= 0 or \
+            launches["paged_decode_attention_stacked"] % n_layers:
+        raise AssertionError(f"the serving run launched no paged kernel, or not one a "
+                             f"layer of each decoder pass: {launches}")
     for name in ("flash_attention", "window_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"the serving run launched no {name} kernel")
@@ -1124,8 +1194,10 @@ def serving_phase(model, runner, requests, card) -> dict:
     print(f"int8 pages ({INT8_REQUESTS} requests, drained): logits after one step vs "
           f"the bf16 engine rel_l2={rel8:.3e} (tol {INT8_LOGITS_TOL}); launches "
           f"{launches8}", flush=True)
-    if launches8["paged_decode_attention_stacked_quant"] <= 0:
-        raise AssertionError(f"the int8 pass launched no quant kernel: {launches8}")
+    if launches8["paged_decode_attention_stacked_quant"] <= 0 or \
+            launches8["paged_decode_attention_stacked_quant"] % n_layers:
+        raise AssertionError(f"the int8 pass launched no quant kernel, or not one a layer "
+                             f"of each decoder pass: {launches8}")
     if not (torch.isfinite(got8).all() and rel8 <= INT8_LOGITS_TOL):
         raise AssertionError(f"int8 pages disagree with bf16 pages: {rel8}")
     if eng8.pcache.available_pages() != avail8:
@@ -1274,11 +1346,13 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
     qd, mask = q[:, :, None], valid[:, None, None]
     library = lambda l: F.scaled_dot_product_attention(qd, ke[l], ve[l], attn_mask=mask)  # noqa: E731
     with torch.no_grad():
-        lib_ms = cuda_ms(call(library))
+        lib_ms, lib_device_ms = cuda_ms(call(library)), graph_ms(call(library))
     del ke, ve
     keys = float(valid.sum())                   # admitted keys over the batch
     r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(call(kernel)),
+         "device_ms": graph_ms(call(kernel)),
          "plain_ms": cuda_ms(call(plain), iters=5), "library_ms": lib_ms,
+         "library_device_ms": lib_device_ms,
          **bound(4.0 * nh * hd * keys, 4.0 * q.numel() + 2.0 * 2 * keys * kh * hd
                  + 4.0 * B)}
     report("decode_attention", what, (B, nh, kh, hd, smax, layer), keys=int(keys), **r)
@@ -1345,7 +1419,9 @@ def int4_kernel_phase(cfg, batch, device) -> dict:
     q = torch.randn(B, nh, hd, generator=gen, device=device).to(torch.bfloat16)
     lens = torch.as_tensor(packed.lengths, dtype=torch.int32, device=device)
     print(f"decode attention: prompt lengths {packed.lengths.tolist()}, padded width {S}, "
-          f"cache width {smax}", flush=True)
+          f"cache width {smax}; "
+          f"{split_line(B, kh, smax // 64, sms, f'tc_kernel<{hd},1,__nv_bfloat16,0')}",
+          flush=True)
     decode_case(gen, "step 0", q, k, v, lens, S, S, n_layers // 5)
     last = decode_case(gen, f"step {INT4_NEW_TOKENS - 1}", q, k, v, lens, S,
                        S + INT4_NEW_TOKENS - 1, n_layers - 1)
@@ -1698,11 +1774,14 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
           f"budgets {list(SERVE_BUDGETS)}", flush=True)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     decode_lens = [n + 64 for n in prompt_lens[:SERVE_SLOTS]]
-    kernel_results.update(paged_case(gen, "decode, W=1", cfg, decode_lens, 1, False))
-    paged_case(gen, "verify chunk, W=4", cfg, decode_lens, 4, False)
-    kernel_results.update(paged_case(gen, "int8 pages, W=1", cfg, decode_lens, 1, True))
+    paged_split_lines(cfg, SERVE_SLOTS, max(-(-n // PAGE_SIZE) for n in decode_lens),
+                      torch.cuda.get_device_properties(device).multi_processor_count)
+    kernel_results.update(paged_case(gen, "decode, W=1", cfg, decode_lens, 1))
+    paged_case(gen, "verify chunk, W=4", cfg, decode_lens, 4)
+    kernel_results.update(paged_case(gen, "int8 pages, W=1", cfg, decode_lens, 1, "int8"))
+    paged_case(gen, "fp32 q and pages, W=1", cfg, decode_lens, 1, "fp32")
     kernel_results.update(paged_case(gen, "one-layer pool, W=1", cfg, decode_lens, 1,
-                                     False, one_layer=True))
+                                     one_layer=True))
 
     # phase 9: batched serving through the paged engine
     paged_runs = serving_phase(model, runner, requests, card)
@@ -3198,7 +3277,8 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

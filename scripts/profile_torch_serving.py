@@ -109,8 +109,7 @@ def main() -> int:
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3 / n
     dev = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "paged_decode_kernel" in e.name]
+           if e.device_type == torch.autograd.DeviceType.CUDA]   # one kernel a call
     print(f"\npaged kernel alone, {n} launches over the 28 layers of the pool: device "
           f"{1e3 * sum(dev) / max(len(dev), 1):.1f} us per launch (min "
           f"{1e3 * min(dev):.1f}, max {1e3 * max(dev):.1f}; {len(dev)} kernels seen), "

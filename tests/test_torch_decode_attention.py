@@ -35,7 +35,7 @@ from video_r2_tpu_torch.models.convert import load_jax_params
 from video_r2_tpu_torch.models.loader import init_params
 from video_r2_tpu_torch.models.mrope import get_rope_index
 from video_r2_tpu_torch.models.quant import quantize_params
-from video_r2_tpu_torch.ops import decode_attention
+from video_r2_tpu_torch.ops import decode_attention, split
 from video_r2_tpu_torch.video.api import video_features
 
 T = torch.from_numpy
@@ -66,6 +66,46 @@ def test_decode_attention_matches_jax_kernel(rng, g, window, layer):
                                                      slot_end, layer, s_pad)
     assert decode_attention.decode_attention_stacked.launches == before
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+# (blocks = B kh, tiles of 64 keys, S on an H100's 132 SMs): the decode
+# kernel at the 7B's B = 4 (kh 4, Smax 1536) and B = 1, and at a 16k cache;
+# the paged kernel at the batched slice's B = 8 (12 pages of 128), its
+# 48-page view and a chunk's 13 pages; full cards
+SPLIT_PATH_CASES = [(16, 24, 8), (4, 24, 8), (16, 256, 24), (32, 24, 8), (32, 96, 12),
+                    (32, 26, 8), (8, 8, 2), (132, 24, 1), (256, 40, 1)]
+
+
+@pytest.mark.parametrize("blocks,tiles,S", SPLIT_PATH_CASES)
+def test_decode_split_plan_at_the_path_shapes(blocks, tiles, S):
+    """Splits of at least 3 tiles, up to 3 blocks an SM, where B kh leaves
+    the card idle; one split where B kh fills it."""
+    assert split.decode_split_plan(blocks, tiles, 132)[0] == S
+
+
+@pytest.mark.parametrize("blocks,tiles,sms", [
+    (16, 24, 132), (32, 24, 132), (4, 1, 132), (1, 512, 132), (1, 7, 132), (8, 100, 114),
+    (131, 5, 132), (132, 5, 132), (500, 64, 132), (3, 40, 8), (16, 24, 16), (2, 2000, 132)])
+def test_decode_split_plan_covers_every_tile_once(blocks, tiles, sms):
+    """The splits are consecutive tile ranges over all tiles, their lengths
+    within one tile of each other and never empty; S = 1 exactly where the
+    blocks fill the card (or too few tiles to split), else the largest S
+    that keeps the grid within SPLIT_BLOCKS_PER_SM blocks an SM, splits of
+    SPLIT_MIN_TILES tiles and SPLIT_MAX splits."""
+    S, ranges = split.decode_split_plan(blocks, tiles, sms)
+    assert len(ranges) == S and ranges[0][0] == 0 and ranges[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    lengths = [end - begin for begin, end in ranges]
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+    assert 1 <= S <= min(tiles, split.SPLIT_MAX)
+    if S > 1:
+        assert S * blocks <= split.SPLIT_BLOCKS_PER_SM * sms
+        assert min(lengths) >= split.SPLIT_MIN_TILES
+    if blocks >= sms or tiles < 2 * split.SPLIT_MIN_TILES:
+        assert S == 1
+    else:
+        assert S == min(split.SPLIT_BLOCKS_PER_SM * sms // blocks,
+                        tiles // split.SPLIT_MIN_TILES, split.SPLIT_MAX)
 
 
 def test_generate_kernel_decode_matches_jax(models, rng):

@@ -132,9 +132,10 @@ def test_int8_matmul_all_layers_plain_matches_the_microbench_kernel(rng):
 
 @pytest.mark.parametrize("rows", [4, 40])
 def test_quantized_linear_auto_matches_jax(rng, monkeypatch, rows):
-    """Below the row limit the port's dispatcher calls the int8 kernel's
-    wrapper, above it the convert + matmul path; both give the JAX
-    dispatcher's result (its XLA path on the CPU)."""
+    """float32 x never reaches the int8 kernel's wrapper (the kernel takes
+    bf16 only): on both sides of the row limit the port's dispatcher
+    converts and multiplies, and gives the JAX dispatcher's result (its XLA
+    path on the CPU)."""
     monkeypatch.setattr(int8_matmul, "INT8_KERNEL_MAX_ROWS", 16)
     calls = []
     real = int8_matmul.int8_matmul
@@ -145,8 +146,29 @@ def test_quantized_linear_auto_matches_jax(rng, monkeypatch, rows):
     ours = int8_matmul.quantized_linear_auto(T(x), T(wq), T(scale))
     ref = jint8.quantized_linear_auto(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale))
     assert ours.shape == (2, rows // 2, 80)
-    assert calls == ([(rows, 96)] if rows <= 16 else [])
+    assert calls == []
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [4, 40])
+def test_quantized_linear_auto_sends_bf16_rows_to_the_kernel(rng, monkeypatch, rows):
+    """bf16 x: below the row limit the dispatcher calls the int8 kernel's
+    wrapper, above it the convert + matmul path; both within bf16 rounding
+    (1e-2) of the JAX dispatcher's bf16 result."""
+    monkeypatch.setattr(int8_matmul, "INT8_KERNEL_MAX_ROWS", 16)
+    calls = []
+    real = int8_matmul.int8_matmul
+    monkeypatch.setattr(int8_matmul, "int8_matmul",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    x = rng.normal(size=(2, rows // 2, 96)).astype(np.float32)
+    wq, scale = _int8_leaf(rng, 96, 80)
+    ours = int8_matmul.quantized_linear_auto(T(x).bfloat16(), T(wq), T(scale))
+    ref = jint8.quantized_linear_auto(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wq),
+                                      jnp.asarray(scale))
+    assert ours.shape == (2, rows // 2, 80) and ours.dtype == torch.bfloat16
+    assert calls == ([(rows, 96)] if rows <= 16 else [])
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=1e-2, atol=1e-2)
 
 
 def test_quant_dot_product_attention_matches_jax(rng):

@@ -14,7 +14,9 @@ the same bounds at the serving and training shapes):
 - gradients: relative L2 <= 1e-2 per tensor: the kernels round P and dS to
   bf16 before their products, where the plain versions keep fp32;
 - paged decode: the forward bound; kernel and plain version both compute in
-  fp32 and round the output to bf16;
+  fp32 (the kernel's bf16 products exact, P as a bf16 hi + lo pair) and
+  round the output to bf16; fp32 q (over fp32 or int8 pages) within
+  1e-4 + 1e-4 |plain| as below;
 - the grouped MoE FFN: the forward bound, for inputs scaled so every
   product is O(1): both sum in fp32 (int32 for W8A8) and round h to bf16
   (W8A8: to int8 per tile, where a value on a half-step may round the other
@@ -29,7 +31,8 @@ the same bounds at the serving and training shapes):
   in fp32 in other orders, scale in fp32 and round once to bf16;
 - head-major decode attention: the forward bound; both compute in fp32 and
   round the output to bf16;
-- the int4 matmul and the decode attention on fp32 operands: |kernel -
+- the int4 matmul, the decode attention and the paged decode on fp32
+  operands, and an int8 Linear on fp32 x (convert + matmul): |kernel -
   plain| <= 1e-4 + 1e-4 |plain|: both keep every operand and product in
   fp32 (no bf16 or TF32 rounding) and differ only in the order of their
   fp32 sums and in the kernel's fast exp;
@@ -1234,9 +1237,8 @@ def test_decode_attention_kernel_matches_plain(cuda, window, g, hd):
 @pytest.mark.parametrize("window", ["t63", "off"])
 @pytest.mark.parametrize("g,hd", [(7, 128), (16, 64)])
 def test_decode_attention_kernel_fp32_matches_plain(cuda, window, g, hd):
-    """fp32 q and cache, as the JAX kernel takes them (hd 128: the
-    single-stage instance): an fp32 result within FP32_TOL of the plain
-    version."""
+    """fp32 q and cache, as the JAX kernel takes them (the CUDA-core
+    instance): an fp32 result within FP32_TOL of the plain version."""
     from video_r2_tpu_torch.ops.decode_attention import (
         decode_attention_stacked,
         decode_attention_stacked_plain,
@@ -1276,3 +1278,262 @@ def test_decode_attention_refuses_what_it_does_not_take(cuda):
     q, k, v = _decode_inputs(gen, 2, 80, smax=256)
     with pytest.raises(ValueError):                 # head dim 80
         decode_attention_stacked(q, k, v, lengths, 99, 0, 100)
+
+
+# ---------------------------------------------------------------------------
+# The decode-attention kernels split along the sequence (csrc/split_decode.cuh)
+# ---------------------------------------------------------------------------
+
+def _force_splits(monkeypatch, module, S):
+    """Make a decode-attention wrapper launch S splits (None: its own plan)."""
+    if S is not None:
+        monkeypatch.setattr(module, "decode_splits", lambda blocks, tiles, index: S)
+
+
+def _close_as(out, ref, fp32: bool):
+    if not fp32:
+        return _close(out, ref)
+    return bool(((out - ref).abs() <= FP32_TOL + FP32_TOL * ref.abs()).all())
+
+
+def _stale_pages(tables, lens, W, n_pages, ps):
+    """[n_pages, ps] bool: the pool rows no row of the batch admits (a page's
+    rows past its sequence's last key, the trash page's past the chunk)."""
+    B, max_pages = tables.shape
+    pos = (torch.arange(max_pages, device=tables.device)[:, None] * ps
+           + torch.arange(ps, device=tables.device))                 # [max_pages, ps]
+    used = pos[None] < (lens.long() + W - 1)[:, None, None]          # [B, max_pages, ps]
+    admitted = torch.zeros(n_pages, ps, dtype=torch.bool, device=tables.device)
+    admitted.index_put_((tables.long()[:, :, None].expand_as(used)[used],
+                         pos.remainder(ps)[None].expand_as(used)[used]),
+                        torch.ones((), dtype=torch.bool, device=tables.device))
+    return ~admitted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "fp32", "int8_fp32q"])
+@pytest.mark.parametrize("g,W", [(7, 1), (8, 1), (16, 1), (7, 4), (16, 4)])
+@pytest.mark.parametrize("hd,ps", [(128, 128), (128, 64), (64, 128), (64, 64)])
+def test_paged_kernel_split_grid(cuda, monkeypatch, hd, ps, g, W, dtype):
+    """bf16 q over bf16 / int8 pages (tensor cores) and fp32 q over fp32 /
+    int8 pages (CUDA cores), kh = 2, against the plain version with one
+    split, with 5 and with the wrapper's plan (2 or 4 splits here): ragged
+    lengths of 1 to 6 pages, a row of length 1 (every later split of it
+    empty) and an inactive slot of length 0 on the trash page (it emits 0 at
+    W = 1); every pool row that no query admits (page tails, the trash page
+    past the chunk) is NaN, which must not reach the output."""
+    from video_r2_tpu_torch.ops import paged_attention as paged
+
+    gen = torch.Generator(device=cuda).manual_seed(hd + ps + g + W)
+    lengths = [1, ps - 3, 2 * ps, 5 * ps + 17, 3 * ps + 1, 0]
+    q, k, v, tables, lens, (ks, vs) = _paged_inputs(gen, lengths, W, hd, ps,
+                                                    dtype.startswith("int8"), kh=2,
+                                                    nh=2 * g)
+    fp32 = dtype in ("fp32", "int8_fp32q")
+    if fp32:
+        q = q.float()
+    if dtype == "fp32":
+        k, v = k.float(), v.float()
+    ref = paged_decode_attention_stacked_plain(q, k, v, tables, lens, 1, ps, ks, vs)
+    stale = _stale_pages(tables, lens, W, k.shape[2], ps)
+    if dtype.startswith("int8"):
+        k[:, :, stale] = -128                       # stale int8 rows: their scales NaN
+        ks[:, :, stale] = float("nan")
+        vs[:, :, stale] = float("nan")
+    else:
+        k[:, :, stale] = float("nan")
+        v[:, :, stale] = float("nan")
+    counter = (paged_decode_attention_stacked_quant if dtype.startswith("int8")
+               else paged_decode_attention_stacked)
+    for S in (1, 5, None):
+        _force_splits(monkeypatch, paged, S)
+        before = counter.launches
+        out = paged_decode_attention_stacked(q, k, v, tables, lens, 1, ps, ks, vs)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert torch.isfinite(out).all(), S
+        assert _close_as(out, ref, fp32), S
+        if W == 1:
+            assert not out[-1].any(), S             # the row that admits no key
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("window", ["t0", "t63", "off"])
+@pytest.mark.parametrize("g,hd", [(7, 128), (8, 128), (16, 128), (7, 64), (16, 64)])
+def test_decode_attention_split_grid(cuda, monkeypatch, dtype, window, g, hd):
+    """The slice's layout (B = 4 prompts padded to 1408 in a 1536-wide
+    cache, decode slots [1408, 1408 + t] or none) against the plain version
+    with one split, with 7 and with the wrapper's plan (8 splits of 3
+    tiles: the short prompt's middle splits are empty); the stale rows of
+    every layer (between a prompt's end and 1408, past the last slot) NaN."""
+    from video_r2_tpu_torch.ops import decode_attention as dec
+
+    gen = torch.Generator(device=cuda).manual_seed(g * hd + len(window))
+    q, k, v = _decode_inputs(gen, g, hd)
+    if dtype == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+    s_pad = 1408
+    slot_end = {"t0": s_pad, "t63": s_pad + 63, "off": s_pad - 1}[window]
+    ref = dec.decode_attention_stacked_plain(q, k, v, lengths, slot_end, 2, s_pad)
+    kpos = torch.arange(k.shape[3], device=cuda)
+    stale = ~((kpos[None] < lengths[:, None]) | ((kpos >= s_pad) & (kpos <= slot_end))[None])
+    k.permute(1, 3, 0, 2, 4)[stale] = float("nan")    # [B, Smax, L, kh, hd] view
+    v.permute(1, 3, 0, 2, 4)[stale] = float("nan")
+    for S in (1, 7, None):
+        _force_splits(monkeypatch, dec, S)
+        before = dec.decode_attention_stacked.launches
+        out = dec.decode_attention_stacked(q, k, v, lengths, slot_end, 2, s_pad)
+        torch.cuda.synchronize()
+        assert dec.decode_attention_stacked.launches == before + 1
+        assert out.dtype == q.dtype and out.shape == q.shape
+        assert torch.isfinite(out).all(), S
+        assert _close_as(out, ref, dtype == "fp32"), S
+        monkeypatch.undo()
+
+
+def _split_calls(cuda):
+    """{name: a call} of both decode kernels at shapes whose plan splits:
+    the head-major decode (B 4, 28 / 4 heads of 128), the paged kernel over
+    bf16 pages with a W = 4 chunk, over int8 pages, and fp32 over fp32
+    pages."""
+    from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _decode_inputs(gen, 7, 128)
+    lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+    calls = {"decode": lambda: decode_attention_stacked(q, k, v, lengths, 1450, 2, 1408)}
+    plens = [700, 129, 1, 1500, 64, 333]
+    for name, W, quant in (("paged_w4", 4, False), ("paged_int8", 1, True),
+                           ("paged_fp32", 1, False)):
+        pq, pk, pv, tables, lens, (ks, vs) = _paged_inputs(gen, plens, W, 128, 128, quant)
+        if name == "paged_fp32":
+            pq, pk, pv = pq.float(), pk.float(), pv.float()
+        calls[name] = (lambda pq=pq, pk=pk, pv=pv, tables=tables, lens=lens, ks=ks, vs=vs:
+                       paged_decode_attention_stacked(pq, pk, pv, tables, lens, 1, 128, ks,
+                                                      vs))
+    return calls
+
+
+@pytest.mark.cuda
+def test_decode_kernels_give_the_same_bits_twice(cuda):
+    """The splits' partials are combined in a fixed order."""
+    from video_r2_tpu_torch.ops.split import decode_splits
+
+    index = torch.cuda.current_device()
+    assert decode_splits(16, 24, index) > 1 and decode_splits(24, 24, index) > 1
+    for name, call in _split_calls(cuda).items():
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode", "paged_w4", "paged_int8", "paged_fp32"])
+def test_decode_kernels_run_one_device_kernel_a_call(cuda, name):
+    """The split and its combine are one launch: a warm call under
+    torch.profiler runs exactly one device kernel."""
+    call = _split_calls(cuda)[name]
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_under_a_cuda_graph(cuda):
+    """After warm-up calls on the capture stream (which size its split
+    workspace), a graph of both kernels replays to the eager result, also
+    after its inputs change in place."""
+    from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = _decode_inputs(gen, 7, 128)
+    lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+    pq, pk, pv, tables, lens, _ = _paged_inputs(gen, [700, 129, 1, 1500, 64, 333], 4, 128,
+                                                128, False)
+
+    def step():
+        return (decode_attention_stacked(q, k, v, lengths, 1450, 2, 1408),
+                paged_decode_attention_stacked(pq, pk, pv, tables, lens, 1, 128))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = step()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        refs = step()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, r) for o, r in zip(outs, refs))
+        q.copy_(_randn(gen, *q.shape))
+        pq.copy_(_randn(gen, *pq.shape))
+
+
+@pytest.mark.cuda
+def test_int8_linear_fp32_on_the_card(cuda):
+    """An int8 Linear of an fp32 model at M = 4 rows: the dispatcher sends
+    fp32 x to convert + matmul (the kernel takes bf16 only), within
+    FP32_TOL of the plain version."""
+    from video_r2_tpu_torch.models.layers import Linear
+    from video_r2_tpu_torch.models.quant import quantize_params
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    lin = torch.nn.Module()
+    lin.fc1 = Linear(512, 256, False, dtype=torch.float32, device=cuda)
+    lin.requires_grad_(False)
+    lin.fc1.kernel.normal_(0, 512 ** -0.5, generator=gen)
+    quantize_params(lin)
+    x = torch.randn(4, 512, generator=gen, device=cuda)
+    before = int8_matmul.launches
+    y = lin.fc1(x)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before
+    ref = int8_matmul_plain(x, lin.fc1.kernel_q, lin.fc1.scale)
+    assert y.dtype == torch.float32 and _close_as(y, ref, True)
+
+
+@pytest.mark.cuda
+def test_bf16_only_kernels_refuse_fp32(cuda):
+    """The flash, window, grouped-FFN and GMM backward kernels take bf16
+    only (ROADMAP.md, Known differences): each wrapper raises a TypeError on
+    fp32 operands."""
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 64, 2, 64, generator=gen, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_fwd_lse(q, q, q, torch.full((1,), 64, dtype=torch.int32, device=cuda))
+    w = torch.randn(128, 2, 64, generator=gen, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        window_attention(w, w, w, torch.ones(128, dtype=torch.bool, device=cuda))
+    mw = _moe_weights(gen, 4, 128, 128, "bf16")
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        moe_ragged.ragged_expert_ffn(_randn(gen, 2, 8, 128).float(), ids, mw["gate"],
+                                     mw["up"], mw["down"])
+    xs, dys, gids, valid = _gmm_layout(gen, cuda, 48, 8, 256)
+    gw = _moe_weights(gen, 8, 256, 192, "bf16")
+    wg, wu, wd = (gw[n]["kernel"] for n in ("gate", "up", "down"))
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm.gmm_bwd_dx(xs.float(), dys, gids, valid, wg, wu, wd)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm.gmm_bwd_dwd(xs.float(), dys, gids, valid, 8)

@@ -55,7 +55,8 @@ def _tables(rng, lengths, W, n_pages, max_pages):
     return tables
 
 
-@pytest.mark.parametrize("case", ["bf16_w1", "page_boundary", "w3", "int8", "one_layer"])
+@pytest.mark.parametrize("case", ["bf16_w1", "page_boundary", "w3", "int8", "one_layer",
+                                  "fp32_pages"])
 def test_paged_attention_matches_jax(rng, case):
     Lyr, kh, nh, hd, n_pages, max_pages = 2, 2, 6, 16, 40, 8
     W = 3 if case == "w3" else 1
@@ -74,6 +75,14 @@ def test_paged_attention_matches_jax(rng, case):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
             jnp.asarray(lengths), jnp.int32(layer), page_size=PS, interpret=True,
             k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    elif case == "fp32_pages":
+        # float32 queries and pages, as the kernel on the card takes them
+        k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+        ours = paged.paged_decode_attention_stacked(
+            T(q), T(k), T(v), T(tables), T(lengths), layer, PS)
+        ref = jpaged.paged_decode_attention_stacked(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+            jnp.asarray(lengths), jnp.int32(layer), page_size=PS, interpret=True)
     else:
         # bf16 pages (rounded alike on both sides), float32 queries
         k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(2))

@@ -1,6 +1,6 @@
 // Shared device pieces of the port's kernels: the bf16 tensor-core product
-// and its fragment helpers, ldmatrix, cp.async, warp reductions and the
-// bf16-to-fp32 unpacking of staged rows.
+// and its fragment helpers, ldmatrix, cp.async, warp reductions, the
+// int8-to-bf16 unpacking of staged rows and the staging of bf16 tiles.
 //
 // Every product is one warp-wide mma.sync.m16n8k16 (bf16 in, fp32 out). With
 // lane = 4 * g + t (g = lane / 4, t = lane % 4) its operands sit as follows:
@@ -68,6 +68,33 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(addr));
 }
 
+// The same, each tile transposed: lane l receives, from each tile, the
+// elements [2 (l % 4)][l / 4] and [2 (l % 4) + 1][l / 4]
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Four int8 values of one 32-bit word, bytes (k, n) = (0, 0), (0, 1),
+// (1, 0), (1, 1), as the bf16 pairs of column n = 0 (`even`: bytes 0 and 2)
+// and n = 1 (`odd`: bytes 1 and 3), k = 0 in the low half. Exact, with no
+// conversion instruction: byte ^ 0x80 placed in the mantissa of 2^23 gives
+// the float 2^23 + q + 128 (one byte permute), minus 2^23 + 128 gives q
+// exactly, and its upper 16 bits are bf16(q), as |q| <= 128 needs 8
+// significant bits (a second permute packs two).
+__device__ __forceinline__ void int8_pairs(uint32_t w, uint32_t& even, uint32_t& odd) {
+  const uint32_t u = w ^ 0x80808080u;  // q + 128 in each byte
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kMagic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kMagic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kMagic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic;
+  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
+
 // 16-byte asynchronous copy from device to shared memory (both 16-byte
 // aligned), and its commit / wait of the most recent groups
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -118,25 +145,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// 16 bytes of bf16 (8 values) as fp32, unpacked with shifts so the chunk
-// stays in registers (bf16 widens exactly)
-__device__ __forceinline__ void chunk_to_float(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dst[2 * i] = __uint_as_float(w[i] << 16);              // lower address
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// 4 consecutive bf16 (8 bytes) as fp32
-__device__ __forceinline__ float4 quad_to_float(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // max / sum over the 4 lanes of a quad (the lanes that share a C row)

@@ -77,29 +77,8 @@ struct Int8Params {
   int layer0;              // the layer of grid z = 0
 };
 
-// Four 8x8 tiles of 16-bit elements from shared memory, each transposed:
-// lane l gives the row address of tile l / 8 and receives, from each tile,
-// the elements [2 (l % 4)][l / 4] and [2 (l % 4) + 1][l / 4]
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Four int8 weights of one ldmatrix .trans word, bytes (k, n) = (0, 0),
-// (0, 1), (1, 0), (1, 1), as the bf16 pairs of column n = 0 (`even`) and
-// n = 1 (`odd`), k = 0 in the low half. Exact: see the note at the top.
-__device__ __forceinline__ void int8_pairs(uint32_t w, uint32_t& even, uint32_t& odd) {
-  const uint32_t u = w ^ 0x80808080u;  // q + 128 in each byte
-  constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kMagic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kMagic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kMagic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic;
-  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
-  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
-}
+using vr2::int8_pairs;
+using vr2::ldsm_x4_trans;
 
 // Start the copies of stage s (rows [64 s, 64 s + 64) of K) of the block's
 // 64 columns from n0 and its rows [row0, row0 + rows) of x into `st`; rows

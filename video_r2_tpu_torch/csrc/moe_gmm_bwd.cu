@@ -64,13 +64,6 @@ constexpr int kStages = 3;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // 16 bytes from device to shared memory, zero-filled when !valid (gmem must
 // still be a mapped address then: callers pass the operand's base)
 __device__ __forceinline__ void cp16(void* smem, const void* gmem, bool valid) {

@@ -12,10 +12,12 @@ window off.
 `decode_attention_stacked` replaces ``_decode_kernel`` (the TPU kernel
 behind the JAX ``decode_attention_stacked``). On CUDA tensors it launches
 ``csrc/decode_attn.cu`` (bf16 or fp32, one type for q and the cache, head
-dims 64 and 128, up to 16 query heads per kv head) and raises on anything it
-does not take; on CPU tensors it runs `decode_attention_stacked_plain`:
-fp32 scores over the layer's whole cache, the same mask (masked scores
--1e30, as the TPU kernel's), fp32 softmax and P @ V.
+dims 64 and 128, up to 16 query heads per kv head; each sequence's keys
+split across blocks by `split.decode_split_plan` where B kh blocks do not
+fill the card, one launch a call) and raises on anything it does not take;
+on CPU tensors it runs `decode_attention_stacked_plain`: fp32 scores over
+the layer's whole cache, the same mask (masked scores -1e30, as the TPU
+kernel's), fp32 softmax and P @ V.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import check, kernels
+from .split import SPLIT_TILE, decode_splits, split_workspace
 
 NEG_INF = -1e30
 BLOCK_S = 128
@@ -100,9 +103,16 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     if lens.shape != (B,):
         raise ValueError(f"decode kernel: lengths {tuple(lens.shape)} must be [{B}]")
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    S = decode_splits(B * kh, smax // SPLIT_TILE, dev.index)
+    part = counters = None
+    if S > 1:
+        part, counters = split_workspace(dev, stream, B * kh * S * (nh // kh) * (hd + 2),
+                                         B * kh)
     err = kernels().vr2_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lens.data_ptr(), B, nh, kh, hd, L, smax, int(layer), int(s_pad), int(slot_end),
-        q.element_size(), hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        q.element_size(), S, hd ** -0.5, None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
     check(err, "decode attention kernel")
     return out

@@ -32,12 +32,12 @@ import functools
 import torch
 
 from .cuda_build import check, kernels
+from .split import SPLIT_BLOCKS_PER_SM, split_workspace
 
 KERNEL_K = 64             # K must be a multiple of this (a stage: 32 packed rows)
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
 KERNEL_COLUMNS = 64       # output columns of a block
-SPLIT_BLOCKS_PER_SM = 3   # split-K aims the grid at this many blocks an SM
-SPLIT_MIN_STAGES = 4      # ... and keeps at least this many stages a split
+SPLIT_MIN_STAGES = 4      # split-K keeps at least this many stages a split
 
 
 def pack_int4_halves(q: torch.Tensor) -> torch.Tensor:
@@ -108,23 +108,6 @@ def _launch_plan(M: int, K: int, N: int, index: int) -> tuple[int, int]:
     return int4_split_plan(M, K, N, sms)[0], int4_tiles(M, N)
 
 
-# split-K's fp32 workspace and tile counters, per (device, stream): zeroed
-# once when allocated and grown on demand (each launch leaves the counters
-# 0 again); kernels on one stream run in order, so they share them
-_split_buffers: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _split_workspace(dev: torch.device, stream: int, floats: int, tiles: int):
-    key = (dev.index, stream)
-    part, counters = _split_buffers.get(key, (None, None))
-    if part is None or part.numel() < floats:
-        part = torch.zeros(floats, dtype=torch.float32, device=dev)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    _split_buffers[key] = (part, counters)
-    return part, counters
-
-
 def int4_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ dequant(wq [K/2, N] int8, scale [K/g, N] fp32) -> [M, N]
     in x's dtype. CUDA tensors launch the kernel (fp32 sums, each weight
@@ -182,7 +165,7 @@ def _int4_cuda(x, wq, scale):
         S, tiles = _launch_plan(M, K, N, dev.index)
         part = counters = None
         if S > 1:
-            part, counters = _split_workspace(dev, stream, S * M * N, tiles)
+            part, counters = split_workspace(dev, stream, S * M * N, tiles)
         err = kernels().vr2_int4_matmul(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, g, S,
             None if part is None else part.data_ptr(),

@@ -17,10 +17,10 @@ On CUDA tensors each launches its entry of ``csrc/int8_matmul.cu`` (bf16 x
 of any M >= 1 rows, any K and N), outside autograd, and raises
 on anything the kernel does not take; on CPU tensors it runs its `*_plain`
 version. `quantized_linear_auto` is the dispatcher the int8 linears call
-(models/layers.py::Linear): 1 to `INT8_KERNEL_MAX_ROWS` rows of
-activations go to `int8_matmul` (the plain version on the CPU), more are
-converted to x's dtype and multiplied with torch.matmul, as the reference
-leaves them to XLA.
+(models/layers.py::Linear): 1 to `INT8_KERNEL_MAX_ROWS` rows of bf16
+activations go to `int8_matmul` (the plain version on the CPU); more rows,
+and x of any other dtype (the kernel takes bf16 only), are converted to x's
+dtype and multiplied with torch.matmul, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -149,12 +149,13 @@ def _launch(entry: str, x, wq, scale, extra: tuple, all_layers: bool) -> torch.T
 def quantized_linear_auto(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                           impl: str = "kernel") -> torch.Tensor:
     """x [..., K] @ an int8 leaf (wq [K, N], scale [N]) -> [..., N]: 1 to
-    INT8_KERNEL_MAX_ROWS rows through `int8_matmul` (impl="plain": its plain
-    version), more converted to x's dtype and multiplied with torch.matmul,
-    the scale in x's dtype, as the reference's XLA path."""
+    INT8_KERNEL_MAX_ROWS rows of bf16 x through `int8_matmul` (impl="plain":
+    its plain version); more rows, or x of another dtype, converted to x's
+    dtype and multiplied with torch.matmul, the scale in x's dtype, as the
+    reference's XLA path. Chosen by dtype and rows up front."""
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
-    if 0 < x2.shape[0] <= INT8_KERNEL_MAX_ROWS:
+    if x.dtype == torch.bfloat16 and 0 < x2.shape[0] <= INT8_KERNEL_MAX_ROWS:
         fn = int8_matmul if impl == "kernel" else int8_matmul_plain
         y = fn(x2.contiguous(), wq, scale)
     else:

@@ -17,10 +17,13 @@ max-length reservation.
   the same kernel over a one-layer pool [kh, N_pages, page_size, hd].
 
 On CUDA tensors each wrapper launches the hand-written kernel
-(``csrc/paged_attn.cu``) and raises on anything it does not take; on CPU
-tensors it runs `paged_decode_attention_stacked_plain` (gather through the
-table, fp32 scores, softmax and P @ V, the same mask). A row that admits no
-key emits 0 (the engine always passes lengths >= 1).
+(``csrc/paged_attn.cu``: bf16 or fp32 q, as the JAX kernels take both,
+over pages of q's type or int8 pages; each sequence's keys split across
+blocks by `split.decode_split_plan` where B kh blocks do not fill the card,
+one launch a call) and raises on anything it does not take; on CPU tensors
+it runs `paged_decode_attention_stacked_plain` (gather through the table,
+fp32 scores, softmax and P @ V, the same mask). A row that admits no key
+emits 0 (the engine always passes lengths >= 1).
 
 `PagedKVCache` is the host-side block allocator: page tables, free list,
 refcounts (prefix sharing with copy-on-write) and the automatic prefix
@@ -37,6 +40,7 @@ import torch
 
 from ..models.decoder import quantize_kv
 from .cuda_build import check, kernels
+from .split import SPLIT_TILE, decode_splits, split_workspace
 
 DEFAULT_PAGE_SIZE = 128
 KERNEL_HEAD_DIMS = (64, 128)
@@ -181,9 +185,9 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
         raise ValueError(f"paged kernel: {W} x {nh} query heads over {kh} kv heads; "
                          f"needs kv heads dividing query heads and at most "
                          f"{KERNEL_MAX_ROWS} query rows per kv head")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"paged kernel: q must be bfloat16, got {q.dtype}")
-    page_dtype = torch.int8 if quant else torch.bfloat16
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"paged kernel: q must be bfloat16 or float32, got {q.dtype}")
+    page_dtype = torch.int8 if quant else q.dtype
     operands = [("k_pages", k_pages, page_dtype), ("v_pages", v_pages, page_dtype)]
     if quant:
         operands += [("k_scales", k_scales, torch.float32),
@@ -207,12 +211,20 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
                          f"{tuple(lens.shape)} do not match batch {B}")
     q = q.contiguous()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    max_pages = tables.shape[1]
+    S = decode_splits(B * kh, max_pages * page_size // SPLIT_TILE, dev.index)
+    part = counters = None
+    if S > 1:
+        part, counters = split_workspace(dev, stream, B * kh * S * W * (nh // kh) * (hd + 2),
+                                         B * kh)
     err = kernels().vr2_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
         out.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-        B, W, nh, kh, hd, page_size, N, tables.shape[1], int(layer), hd ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        B, W, nh, kh, hd, page_size, N, max_pages, int(layer), q.element_size(), S,
+        hd ** -0.5, None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
     check(err, "paged decode attention kernel")
     return out
 
