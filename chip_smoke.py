@@ -59,11 +59,15 @@
    blocks present), int8-weight ragged decode and GMM prefill, and W8A8 GMM
    prefill, with the bound and the library call (torch._grouped_mm over the
    routed rows sorted by expert, where the card's torch takes it; bf16
-   only); then at the token counts phase 11 gives it: the bf16 burst's
-   prefill (16 prompts padded to one width), the int8 pass's W8A8 prefill
-   and its decode (T = 4: 32 slots of 8 rows), the paged pass's decode
-   (T = 8: 64 slots of 8 rows); each case prints the kernels it ran
-   (wgmma or mma.sync), their tile widths, blocks and registers;
+   only), the ragged decode cases also as device times (CUDA graphs, the
+   library call's too); then at the token counts phase 11 gives it: the
+   bf16 burst's prefill (16 prompts padded to one width), the int8 pass's
+   W8A8 prefill and its decode (T = 4: 32 slots of 8 rows), the paged
+   pass's decode (T = 8: 64 slots of 8 rows); then the fp32 instance (fp32
+   x over fp32 copies of the weights: ragged decode T = 16, GMM prefill
+   T = 512) within FP32_TOL; each case prints the kernels it ran (wgmma,
+   the decode kernel, mma.sync or fp32), their tile widths, blocks and
+   registers;
 11. the judge: every 7B tensor of phases 1-9 freed, Qwen3-30B-A3B
    (qwen3_moe_30b_a3b(), 48 layers, all widths) built in bf16 with seeded
    random weights on the card; EngineJudge(ChatEngine(..., attn_impl=
@@ -130,8 +134,10 @@
    the bound and the library call (torch._grouped_mm: for dX the three
    products g, u, dh from x and dY, the SwiGLU terms and the two dX
    products, as the dX kernels form them; for dW from dg / du / h and dY;
-   where the card's torch takes them);
-   the whole backward timed; dX again at phase 15's token count (2 x 1024);
+   where the card's torch takes them), the dX launches' tiles, blocks and
+   registers; the whole backward timed; dX again at phase 15's token count
+   (2 x 1024) with its library call; the fp32 instances of the three
+   kernels at T = 512 (fp32 copies of the weights) within FP32_TOL;
 15. MoE LoRA SFT (inside phase 11, on the bf16 judge before quantize_params):
    LoRA r 64 / alpha 64 on the default targets of Qwen3-30B-A3B (48 layers,
    full width), SFTConfig(attn_impl="flash", gradient_checkpointing=True),
@@ -336,6 +342,7 @@ JUDGE_SYSTEM = (
     "line, 'Consistent: yes' or 'Consistent: no', then one sentence of reason.")
 # MoE training (phases 14 and 15)
 GMM_BWD_T = 4096                  # phase 14's tokens (R = 32768 routed rows)
+FP32_MOE_T = 512                  # the fp32 instances' GMM cases (phases 10, 14)
 ABSENT_EXPERT = 77                # its router column is zero: logit 0, below
                                   # the top 8 of 128 for every token
 MOE_LORA_B, MOE_LORA_S, MOE_LORA_STEPS = 2, 1024, 3
@@ -724,7 +731,8 @@ def register_report(log: Path) -> list[str]:
         m = re.search(r"Compiling entry function '_Z\w*?\d+(flash_fwd_kernel|"
                       r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|window_attn_kernel|"
                       r"window_attn_bwd_kernel|moe_gate_up_kernel|moe_down_kernel|"
-                      r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|int4_matmul_kernel|"
+                      r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|moe_decode_kernel|"
+                      r"gmm_bwd_terms_kernel|gmm_bwd_dx_kernel|int4_matmul_kernel|"
                       r"int4_matmul_f32_kernel|int8_matmul_kernel|tc_kernel|f32_kernel)"
                       r"I(\w+)'", line)
         if m:
@@ -1804,14 +1812,14 @@ def moe_bound(rows: int, n_experts: int, H: int, I: int, variant: str) -> dict:
     """The least time for the grouped FFN: each routed expert's three
     matrices read once (with their scales), the routed rows' x read and y
     written once; 6 H I operations per routed row at the bf16 rate (the
-    int8 rate for W8A8)."""
-    welem = 2 if variant == "bf16" else 1
-    xelem, yelem = (1, 4) if variant == "w8a8" else (2, 2)
+    int8 rate for W8A8, the fp32 CUDA-core rate for fp32)."""
+    welem = {"bf16": 2, "fp32": 4}.get(variant, 1)
+    xelem, yelem = {"w8a8": (1, 4), "fp32": (4, 4)}.get(variant, (2, 2))
     nbytes = (n_experts * 3.0 * H * I * welem + rows * H * (xelem + yelem)
-              + (n_experts * 4.0 * (2 * I + H) if variant != "bf16" else 0)
+              + (n_experts * 4.0 * (2 * I + H) if variant in ("int8", "w8a8") else 0)
               + (4.0 * rows if variant == "w8a8" else 0))
     flops = 6.0 * rows * H * I
-    t_ops = flops / (PEAK_INT8 if variant == "w8a8" else PEAK_BF16)
+    t_ops = flops / {"w8a8": PEAK_INT8, "fp32": PEAK_FP32}.get(variant, PEAK_BF16)
     t_mem = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
@@ -1850,11 +1858,24 @@ def grouped_mm_library(x, topi, leaves, E: int):
 def ffn_launch_line(variant: str, A: int, C: int, H: int, I: int) -> str:
     """The grouped FFN's kernels for one call: the path, tile widths, blocks
     of each launch and their registers (ptxas)."""
-    from video_r2_tpu_torch.ops.moe_ragged import ffn_wgmma_tiles
+    from video_r2_tpu_torch.ops.moe_ragged import ffn_kernel_path
 
-    mode = {"bf16": 0, "int8": 1, "w8a8": 2}[variant]
-    tiles = ffn_wgmma_tiles(mode, C, H, I)
-    if tiles is not None:
+    mode = {"bf16": 0, "fp32": 0, "int8": 1, "w8a8": 2}[variant]
+    path, tiles = ffn_kernel_path(mode, C, H, I, variant == "fp32")
+    if path == 3:
+        zt = A * -(-C // 64)
+        return (f"fp32 (CUDA cores): 64 rows x 64 columns a block, gate / up "
+                f"{zt * (I // 64)} blocks, down {zt * (H // 64)} blocks")
+    if path == 2:
+        rows, gu, dn = tiles
+        nt = rows // 8
+        kgu = f"moe_decode_kernel<{nt},{gu // 64},2>"
+        kdn = f"moe_decode_kernel<{nt},{dn // 64},1>"
+        return (f"decode: tokens in boxes of {rows} rows; gate / up {gu} columns of I, "
+                f"{A * (I // gu)} blocks, {REGISTERS.get(kgu, 'registers not reported')}; "
+                f"down {dn} columns of H, {A * (H // dn)} blocks, "
+                f"{REGISTERS.get(kdn, 'registers not reported')}")
+    if path == 1:
         rows, gu, dn = tiles
         wg = rows // 64
         zt = A * (C // rows)
@@ -1872,10 +1893,25 @@ def ffn_launch_line(variant: str, A: int, C: int, H: int, I: int) -> str:
             f"{REGISTERS.get(kdn, 'registers not reported')}")
 
 
+def gmm_dx_launch_line(n_blocks: int, bm: int, H: int, I: int) -> str:
+    """The bf16 dX kernels for one call: tiles, blocks of each launch and
+    their registers (ptxas)."""
+    from video_r2_tpu_torch.ops.moe_gmm import gmm_bwd_dx_tiles
+
+    rows, cols = gmm_bwd_dx_tiles(bm, H)
+    wg, tiles = rows // 64, n_blocks * -(-bm // rows)
+    kt, kd = f"gmm_bwd_terms_kernel<{wg}>", f"gmm_bwd_dx_kernel<{wg},{cols}>"
+    return (f"wgmma: {rows} rows ({wg} warpgroups) a block; terms 64 columns of I, "
+            f"{tiles * (I // 64)} blocks, {REGISTERS.get(kt, 'registers not reported')}; "
+            f"dX {cols} columns of H, {tiles * (H // cols)} blocks, "
+            f"{REGISTERS.get(kd, 'registers not reported')}")
+
+
 def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     """The grouped FFN kernel at one judge shape (T tokens routed top 8, in
     the ragged decode table or the GMM prefill blocks) against its plain
-    version, with both times, the library call's and the bound."""
+    version, with both times, the library call's and the bound; at decode
+    (the ragged table) also both device times (CUDA graphs)."""
     import torch
 
     from video_r2_tpu_torch.models.moe import route
@@ -1889,11 +1925,13 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
         ragged_layout,
     )
 
-    router, leaves = layer["router"], layer["bf16" if variant == "bf16" else "int8"]
+    router = layer["router"]
+    leaves = layer["int8" if variant in ("int8", "w8a8") else variant]
     E, H, I = leaves["gate"][next(iter(leaves["gate"]))].shape
     k = 8
-    x = torch.randn(T, H, generator=gen, device=gen.device).to(torch.bfloat16)
-    _, topi = route(router, x, k, True)
+    x = torch.randn(T, H, generator=gen, device=gen.device)
+    x = x if variant == "fp32" else x.to(torch.bfloat16)
+    _, topi = route(router.to(x.dtype), x, k, True)
     if layout == "ragged":
         xs, ids, valid, _ = ragged_layout(x, topi, E)
     else:
@@ -1909,7 +1947,7 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     plain = lambda: ragged_expert_ffn_plain(xs, ids, g, u, d, bi, valid,  # noqa: E731
                                             kw.get("x_scales"))
     out, ref = run(), plain()
-    err, excess = compare(out, ref)
+    err, excess = compare(out, ref, tol=FP32_TOL if variant == "fp32" else KERNEL_ATOL)
     library = grouped_mm_library(x, topi, leaves, E) if variant == "bf16" else None
     n_exp = int(torch.unique(topi).numel())
     A, C = xs.shape[:2]
@@ -1918,6 +1956,14 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
          "plain_ms": cuda_ms(plain, iters=3, warmup=1),
          "library_ms": cuda_ms(library) if library is not None else None,
          **moe_bound(T * k, n_exp, H, I, variant)}
+    if layout == "ragged":
+        r["device_ms"] = graph_ms(run)
+        if library is not None:
+            try:       # a capability probe of the yardstick, not of the port
+                r["library_device_ms"] = graph_ms(library)
+            except RuntimeError as e:
+                print(f"torch._grouped_mm does not capture in a CUDA graph ({str(e)[:160]}); "
+                      f"no library device time", flush=True)
     name = f"moe_ffn_{variant}_{layout}"
     what = f"{variant} {'ragged decode' if layout == 'ragged' else 'GMM prefill'}, T={T}"
     report(name, what, (A, C, H, I), experts=n_exp, slack_blocks=slack, bi=bi,
@@ -1967,6 +2013,11 @@ def moe_kernel_phase(device) -> dict:
                                (MOE_PREFILL_T, "gmm", "int8"),
                                (MOE_PREFILL_T, "gmm", "w8a8")):
         results[f"moe_ffn_{variant}_{layout}"] = moe_ffn_case(gen, layer, T, layout, variant)
+    # the fp32 instance (fp32 x over fp32 weights): decode and a GMM prefill
+    layer["fp32"] = {n: {"kernel": leaf["kernel"].float()} for n, leaf in bf16.items()}
+    for T, layout in ((MOE_DECODE_T, "ragged"), (FP32_MOE_T, "gmm")):
+        moe_ffn_case(gen, layer, T, layout, "fp32")
+    del layer["fp32"]
     # phase 11's token counts: a burst's prompts right-padded to one width
     ids = judge_prompt_ids(ByteTokenizer(), judge_requests())
     burst = lambda n: n * pack_prompts(ids[:n], pad_id=0).input_ids.shape[1]  # noqa: E731
@@ -2339,7 +2390,8 @@ def gmm_bwd_phase(card: str, device) -> dict:
             results[name] = r
         slack = valid == 0
         print(f"phase 14 terms dg / du / h vs plain: {[f'{t:.3f}' for t in terms]} x the "
-              f"tolerance; slack blocks {int(slack.sum())}", flush=True)
+              f"tolerance; slack blocks {int(slack.sum())}; dX T={T}: "
+              f"{gmm_dx_launch_line(xs.shape[0], bm, H, I)}", flush=True)
         zero_ok = not dx[slack].any() and not dg[slack].any()
         if not (max(r["rel_l2"] for r in results.values()) <= GRAD_REL_L2 and max(terms) <= 1.0
                 and zero_ok and not dwg[ABSENT_EXPERT].any() and not dwd[ABSENT_EXPERT].any()):
@@ -2366,19 +2418,75 @@ def gmm_bwd_phase(card: str, device) -> dict:
         xs2, ids2, valid2, dst2 = gmm.gmm_layout(xt2, topi2, E, bm2)
         dys2 = gmm.sorted_dy(torch.randn(T2 * k, H, generator=gen, device=device), topv2, dst2,
                              xs2.shape, xs2.dtype)
-        got = gmm.gmm_bwd_dx(xs2, dys2, ids2, valid2, wg, wu, wd)[0]
+        got, dg2, du2, h2 = gmm.gmm_bwd_dx(xs2, dys2, ids2, valid2, wg, wu, wd, keep_h=True)
         ref = gmm.gmm_bwd_dx_plain(xs2, dys2, ids2, valid2, wg, wu, wd)[0]
         rel = rel_l2(got, ref)
         n2 = int(torch.unique(topi2).numel())
         b2 = gmm_bwd_bounds(T2 * k, n2, E, H, I)["moe_gmm_bwd_dx"]
+        run2 = torch.zeros(E, dtype=torch.int32, device=device).index_add_(
+            0, ids2.long(), valid2.int()) * bm2
+        lib2 = gmm_bwd_library(xs2, dg2, du2, h2, dys2, wg, wu, wd, run2)["moe_gmm_bwd_dx"]
+        del got, ref, dg2, du2, h2
         report("moe_gmm_bwd_dx", f"GMM backward at phase 15's T={T2}",
                (xs2.shape[0], bm2, H, I), rel_l2=rel,
                ms=cuda_ms(lambda: gmm.gmm_bwd_dx(xs2, dys2, ids2, valid2, wg, wu, wd), iters=10),
                plain_ms=cuda_ms(lambda: gmm.gmm_bwd_dx_plain(xs2, dys2, ids2, valid2, wg, wu,
-                                                             wd), iters=2, warmup=1), **b2)
+                                                             wd), iters=2, warmup=1),
+               **({"library_ms": cuda_ms(lib2, iters=10)} if lib2 is not None else {}), **b2)
+        print(f"phase 14 dX T={T2}: {gmm_dx_launch_line(xs2.shape[0], bm2, H, I)}", flush=True)
         if not rel <= GRAD_REL_L2:
             raise AssertionError(f"phase 14: dX at T={T2} disagrees with plain: {rel}")
+        del xs2, dys2, lib2
+        gmm_bwd_fp32_case(gen, mod.router.kernel, wg, wu, wd)
     return results
+
+
+def gmm_bwd_fp32_case(gen, router, wg, wu, wd) -> None:
+    """The fp32 instances of the three GMM backward kernels at the judge's
+    widths, FP32_MOE_T tokens: fp32 copies of phase 14's weights, x and dY;
+    each output within FP32_TOL of its plain version (dg / du / h, dX, dWg /
+    dWu, dWd), timed beside it."""
+    import torch
+
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    E, H, I = wg.shape
+    T, k = FP32_MOE_T, 8
+    wg, wu, wd = wg.float(), wu.float(), wd.float()
+    with torch.no_grad():
+        x = torch.randn(T, H, generator=gen, device=gen.device)
+        topv, topi = route(router.float(), x, k, True)
+        bm = gmm.auto_block_rows(T * k, E)
+        xs, ids, valid, dst = gmm.gmm_layout(x, topi, E, bm)
+        dys = gmm.sorted_dy(torch.randn(T * k, H, generator=gen, device=gen.device), topv, dst,
+                            xs.shape, xs.dtype)
+        dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+        pdx, pdg, pdu, ph = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+        dwg, dwu = gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E)
+        pwg, pwu = gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
+        dwd = gmm.gmm_bwd_dwd(h, dys, ids, valid, E)
+        pwd = gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E)
+        torch.cuda.synchronize()
+        cases = {"moe_gmm_bwd_dx": (((dx, pdx), (dg, pdg), (du, pdu), (h, ph)),
+                                    lambda: gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd),
+                                    lambda: gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu,
+                                                                 wd)),
+                 "moe_gmm_bwd_dw": (((dwg, pwg), (dwu, pwu)),
+                                    lambda: gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E),
+                                    lambda: gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)),
+                 "moe_gmm_bwd_dwd": (((dwd, pwd),),
+                                     lambda: gmm.gmm_bwd_dwd(h, dys, ids, valid, E),
+                                     lambda: gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E))}
+        for name, (pairs, kern, plain) in cases.items():
+            errs = [compare(a, b, tol=FP32_TOL) for a, b in pairs]
+            excess = max(e[1] for e in errs)
+            report(name, f"GMM backward, fp32, T={T}", (xs.shape[0], bm, H, I),
+                   max_abs_err=max(e[0] for e in errs), excess=excess,
+                   ms=cuda_ms(kern, iters=3, warmup=1), plain_ms=cuda_ms(plain, iters=2, warmup=1))
+            if not (excess <= 1.0 and all(torch.isfinite(a).all() for a, _ in pairs)):
+                raise AssertionError(f"phase 14: the fp32 {name} kernel disagrees with its "
+                                     f"plain version: {excess} x FP32_TOL")
 
 
 def moe_lora_batch(tok, cfg, device) -> dict:

@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""The MoE kernels of the PyTorch port at the judge's shapes, on one NVIDIA
+GPU: the bf16 ragged decode FFN and the GMM backward's dX, each timed
+eagerly and in a CUDA graph (device time) beside the library call timed
+both ways and the bound.
+
+    python3 scripts/bench_moe_kernels.py                 # this checkout's port
+    python3 scripts/bench_moe_kernels.py --root DIR      # another checkout's
+
+Shapes (Qwen3-30B-A3B: E 128, H 2048, I 768, top 8; one layer's weights,
+seeded and scaled like chip_smoke.py phase 10's): the grouped FFN (csrc/
+moe_ffn.cu) in the ragged decode table at phase 10's T = 16 (and phase 11's
+paged pass, T = 8), the library call three torch._grouped_mm and the
+SwiGLU over the routed rows; the bf16 GMM prefill FFN at T = 4096 (its
+wgmma kernels share the ring with dX); dX of the GMM backward (csrc/
+moe_gmm_bwd.cu) at phase 14's T = 4096 and phase 15's T = 2048, the
+library call chip_smoke.gmm_bwd_library's (five torch._grouped_mm and the
+SwiGLU terms). Each case also gives its kernels' device time from
+torch.profiler and the wrapper's host time a call (the enqueue time of
+back-to-back calls: what a host-bound decode loop pays for it). The
+helpers are chip_smoke.py's, from this checkout; the port timed is the one
+under --root. Prints one JSON line a case, then the card's name and power
+limit (nvidia-smi). To compare two versions on one card, run them in turns
+in one command (parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+DECODE_TOKENS = (16, 8)       # phase 10's ragged decode, phase 11's paged pass
+PREFILL_TOKENS = 4096         # phase 10's GMM prefill
+DX_TOKENS = (4096, 2048)      # phases 14 and 15
+
+
+def kernel_us(fn, calls: int = 5) -> dict:
+    """{kernel name: device microseconds a call} over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.device_time_total / calls for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call: the enqueue time of `calls` back-to-back
+    calls (the card runs behind, so none waits on it), after a warm call."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def device_ms(fn) -> float | None:
+    """chip_smoke.graph_ms, or None where a library call does not capture
+    (a probe of the yardstick, not of the port)."""
+    import chip_smoke
+
+    try:
+        return chip_smoke.graph_ms(fn)
+    except RuntimeError as e:
+        print(f"no device time: {str(e)[:160]}", file=sys.stderr)
+        return None
+
+
+def judge_layer(device, seed: int):
+    """(router [H, E], bf16 leaves) of one seeded judge-width MoE layer."""
+    import torch
+
+    from video_r2_tpu_torch.models.config import qwen3_moe_30b_a3b
+
+    tc = qwen3_moe_30b_a3b().text
+    E, H, I = tc.num_experts, tc.hidden_size, tc.moe_intermediate_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+    randw = lambda *s: (torch.randn(*s, generator=gen, device=device)  # noqa: E731
+                        * s[-2] ** -0.5).to(torch.bfloat16)
+    leaves = {"gate": {"kernel": randw(E, H, I)}, "up": {"kernel": randw(E, H, I)},
+              "down": {"kernel": randw(E, I, H)}}
+    return randw(H, E), leaves, gen
+
+
+def ffn_case(router, leaves, gen, T: int, layout: str) -> dict:
+    """The bf16 grouped FFN at T tokens in the ragged table or the GMM
+    blocks: eager and device ms, the library's, the bound, its kernels."""
+    import torch
+
+    import chip_smoke
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_ragged
+    from video_r2_tpu_torch.ops.moe_gmm import auto_block_rows, gmm_layout
+
+    E, H, I = leaves["gate"]["kernel"].shape
+    x = torch.randn(T, H, generator=gen, device=gen.device).to(torch.bfloat16)
+    _, topi = route(router, x, 8, True)
+    if layout == "ragged":
+        xs, ids, valid, _ = moe_ragged.ragged_layout(x, topi, E)
+    else:
+        xs, ids, valid, _ = gmm_layout(x, topi, E, auto_block_rows(T * 8, E))
+    g, u, d = (leaves[n] for n in ("gate", "up", "down"))
+    run = lambda: moe_ragged.ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid)  # noqa: E731
+    ref = moe_ragged.ragged_expert_ffn_plain(xs, ids, g, u, d, I, valid)
+    err, excess = chip_smoke.compare(run(), ref)
+    library = chip_smoke.grouped_mm_library(x, topi, leaves, E)
+    n_exp = int(torch.unique(topi).numel())
+    r = {"ms": chip_smoke.cuda_ms(run), "device_ms": device_ms(run), "host_us": host_us(run),
+         "library_ms": chip_smoke.cuda_ms(library) if library else None,
+         "library_device_ms": device_ms(library) if library else None,
+         **chip_smoke.moe_bound(T * 8, n_exp, H, I, "bf16"),
+         "max_abs_err": err, "excess": excess, "experts": n_exp,
+         "shape": list(xs.shape), "kernels_us": kernel_us(run)}
+    if hasattr(moe_ragged, "ffn_decode_tiles"):
+        r["launch"] = chip_smoke.ffn_launch_line("bf16", xs.shape[0], xs.shape[1], H, I)
+    return r
+
+
+def dx_case(router, leaves, gen, T: int) -> dict:
+    """dX of the GMM backward at T tokens: eager and device ms, the
+    library's, the bound, its kernels."""
+    import torch
+
+    import chip_smoke
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    E, H, I = leaves["gate"]["kernel"].shape
+    wg, wu, wd = (leaves[n]["kernel"] for n in ("gate", "up", "down"))
+    with torch.no_grad():
+        x = torch.randn(T, H, generator=gen, device=gen.device).to(torch.bfloat16)
+        topv, topi = route(router, x, 8, True)
+        bm = gmm.auto_block_rows(T * 8, E)
+        xs, ids, valid, dst = gmm.gmm_layout(x, topi, E, bm)
+        dys = gmm.sorted_dy(torch.randn(T * 8, H, generator=gen, device=gen.device), topv,
+                            dst, xs.shape, xs.dtype)
+        run = lambda: gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd)  # noqa: E731
+        dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+        ref = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd)[0]
+        rel = chip_smoke.rel_l2(dx, ref)
+        del ref
+        rows = torch.zeros(E, dtype=torch.int32, device=gen.device).index_add_(
+            0, ids.long(), valid.int()) * bm
+        library = chip_smoke.gmm_bwd_library(xs, dg, du, h, dys, wg, wu, wd,
+                                             rows)["moe_gmm_bwd_dx"]
+        n_exp = int(torch.unique(topi).numel())
+        r = {"ms": chip_smoke.cuda_ms(run, iters=10), "device_ms": device_ms(run),
+             "host_us": host_us(run, calls=10),
+             "library_ms": chip_smoke.cuda_ms(library, iters=10) if library else None,
+             **chip_smoke.gmm_bwd_bounds(T * 8, n_exp, E, H, I)["moe_gmm_bwd_dx"],
+             "rel_l2": rel, "experts": n_exp, "shape": [xs.shape[0], bm, H, I],
+             "kernels_us": kernel_us(run)}
+        if hasattr(gmm, "gmm_bwd_dx_tiles"):
+            r["launch"] = chip_smoke.gmm_dx_launch_line(xs.shape[0], bm, H, I)
+    return r
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(REPO),
+                    help="checkout whose video_r2_tpu_torch is timed")
+    ap.add_argument("--label", default="", help="a tag printed on every line")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_moe_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(1, str(REPO))
+    import chip_smoke
+    from video_r2_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = cuda_build.kernels()
+    chip_smoke.register_report(Path(lib._name).with_suffix(".log"))
+    device = torch.device("cuda")
+    router, leaves, gen = judge_layer(device, chip_smoke.SEED + 3)
+
+    def emit(kernel: str, what: str, r: dict) -> None:
+        line = {"label": args.label, "kernel": kernel, "what": what, **r}
+        for key in ("ms", "device_ms"):
+            if r.get(key):
+                line[f"of_bound_{key}"] = r["bound_ms"] / r[key]
+        print(json.dumps(line), flush=True)
+
+    for T in DECODE_TOKENS:
+        emit("moe_ffn_bf16_ragged", f"ragged decode, T={T}",
+             ffn_case(router, leaves, gen, T, "ragged"))
+    emit("moe_ffn_bf16_gmm", f"GMM prefill, T={PREFILL_TOKENS}",
+         ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm"))
+    torch.cuda.empty_cache()
+    for T in DX_TOKENS:
+        emit("moe_gmm_bwd_dx", f"GMM backward dX, T={T}", dx_case(router, leaves, gen, T))
+        torch.cuda.empty_cache()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

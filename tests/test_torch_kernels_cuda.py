@@ -31,11 +31,11 @@ the same bounds at the serving and training shapes):
   in fp32 in other orders, scale in fp32 and round once to bf16;
 - head-major decode attention: the forward bound; both compute in fp32 and
   round the output to bf16;
-- the int4 matmul, the decode attention and the paged decode on fp32
-  operands, and an int8 Linear on fp32 x (convert + matmul): |kernel -
-  plain| <= 1e-4 + 1e-4 |plain|: both keep every operand and product in
-  fp32 (no bf16 or TF32 rounding) and differ only in the order of their
-  fp32 sums and in the kernel's fast exp;
+- the int4 matmul, the decode attention, the paged decode, the grouped MoE
+  FFN and the GMM backward on fp32 operands, and an int8 Linear on fp32 x
+  (convert + matmul): |kernel - plain| <= 1e-4 + 1e-4 |plain|: both keep
+  every operand and product in fp32 (no bf16 or TF32 rounding) and differ
+  only in the order of their fp32 sums and in the kernel's fast exp;
 - the GMM backward: dg / du / h elementwise at the forward bound (both
   round dY, then dg / du / h to bf16 at the same points and sum in fp32 in
   other orders); dX and dW relative L2 <= 1e-2 per tensor; an expert with
@@ -966,33 +966,41 @@ def test_int8_matmul_refuses_what_it_does_not_take(cuda):
 def _gmm_layout(gen, cuda, bm, E=8, H=256):
     """A sorted layout by hand: 7 blocks of bm rows, experts 0 0 2 3 3 3 in
     the valid blocks (runs of 2 and 3 blocks; 1, 4, 5, 6 absent) and one
-    slack block (id 7, which no valid block has); the last rows of each
-    run are padding (zero rows, as the layout pads)."""
+    slack block (id 7, which no valid block has) whose rows hold NaN (no
+    kernel reads them); the last rows of each run are padding (zero rows,
+    as the layout pads)."""
     ids = torch.tensor([0, 0, 2, 3, 3, 3, 7], dtype=torch.int32, device=cuda)
     valid = torch.tensor([1, 1, 1, 1, 1, 1, 0], dtype=torch.int32, device=cuda)
     xs, dys = _randn(gen, 7, bm, H), _randn(gen, 7, bm, H)
     for blk, pad in ((1, 5), (2, 1), (5, bm - 3)):
         xs[blk, bm - pad:] = 0
         dys[blk, bm - pad:] = 0
-    xs[6], dys[6] = 0, 0
+    xs[6], dys[6] = float("nan"), float("nan")
     return xs, dys, ids, valid
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("bm", [48, 128])
-def test_gmm_backward_kernels_match_plain(cuda, bm):
+def test_gmm_backward_kernels_match_plain(cuda, bm, dtype):
     """The three GMM backward kernels against their plain versions on the
     same operands: dX and the SwiGLU terms, then dWg / dWu from the
     kernel's dg / du and dWd from its h. bm 48: a row tile shorter than 64;
-    bm 128: two row tiles a block. Experts with no valid block (the slack
-    block's id among them) get exactly zero."""
+    bm 128: two warpgroups a block. Experts with no valid block (the slack
+    block's id among them) get exactly zero, and the slack block's NaN rows
+    reach no output. fp32 operands: every output within FP32_TOL of the
+    plain version."""
     from video_r2_tpu_torch.ops import moe_gmm as gmm
 
     gen = torch.Generator(device=cuda).manual_seed(bm)
     E, H, I = 8, 256, 192
+    fp32 = dtype == "fp32"
     w = _moe_weights(gen, E, H, I, "bf16")
-    wg, wu, wd = (w[n]["kernel"] for n in ("gate", "up", "down"))
+    wg, wu, wd = (w[n]["kernel"].float() if fp32 else w[n]["kernel"]
+                  for n in ("gate", "up", "down"))
     xs, dys, ids, valid = _gmm_layout(gen, cuda, bm, E, H)
+    if fp32:
+        xs, dys = xs.float(), dys.float()
     before = (gmm.gmm_bwd_dx.launches, gmm.gmm_bwd_dw.launches, gmm.gmm_bwd_dwd.launches)
     dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
     dwg, dwu = gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E)
@@ -1002,14 +1010,16 @@ def test_gmm_backward_kernels_match_plain(cuda, bm):
             gmm.gmm_bwd_dwd.launches) == tuple(n + 1 for n in before)
     rdx, rdg, rdu, rh = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
     for got, ref in ((dg, rdg), (du, rdu), (h, rh)):
-        assert got.dtype == torch.bfloat16 and _close(got, ref)
-    assert dx.dtype == torch.float32 and _rel_l2(dx, rdx) <= GRAD_REL_L2
+        assert got.dtype == xs.dtype and _close_as(got, ref, fp32)
+    assert dx.dtype == torch.float32
+    assert _close_as(dx, rdx, True) if fp32 else _rel_l2(dx, rdx) <= GRAD_REL_L2
     assert not dx[6].any() and not dg[6].any() and not h[6].any()
     rdwg, rdwu = gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
     rdwd = gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E)
     absent = [1, 4, 5, 6, 7]
     for got, ref in ((dwg, rdwg), (dwu, rdwu), (dwd, rdwd)):
-        assert got.dtype == torch.float32 and _rel_l2(got, ref) <= GRAD_REL_L2
+        assert got.dtype == torch.float32
+        assert _close_as(got, ref, True) if fp32 else _rel_l2(got, ref) <= GRAD_REL_L2
         assert not got[absent].any() and got[[0, 2, 3]].abs().amax(dim=(1, 2)).gt(0).all()
 
 
@@ -1511,11 +1521,10 @@ def test_int8_linear_fp32_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_bf16_only_kernels_refuse_fp32(cuda):
-    """The flash, window, grouped-FFN and GMM backward kernels take bf16
-    only (ROADMAP.md, Known differences): each wrapper raises a TypeError on
-    fp32 operands."""
-    from video_r2_tpu_torch.ops import moe_gmm as gmm
-
+    """The flash and window kernels take bf16 only (ROADMAP.md, Known
+    differences): each wrapper raises a TypeError on fp32 operands. (The
+    grouped FFN and the GMM backward take fp32: test_moe_ffn_decode_grid,
+    test_gmm_bwd_dx_grid.)"""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(1, 64, 2, 64, generator=gen, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -1525,15 +1534,169 @@ def test_bf16_only_kernels_refuse_fp32(cuda):
     w = torch.randn(128, 2, 64, generator=gen, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         window_attention(w, w, w, torch.ones(128, dtype=torch.bool, device=cuda))
-    mw = _moe_weights(gen, 4, 128, 128, "bf16")
-    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):
-        moe_ragged.ragged_expert_ffn(_randn(gen, 2, 8, 128).float(), ids, mw["gate"],
-                                     mw["up"], mw["down"])
-    xs, dys, gids, valid = _gmm_layout(gen, cuda, 48, 8, 256)
-    gw = _moe_weights(gen, 8, 256, 192, "bf16")
-    wg, wu, wd = (gw[n]["kernel"] for n in ("gate", "up", "down"))
-    with pytest.raises(TypeError, match="bfloat16"):
-        gmm.gmm_bwd_dx(xs.float(), dys, gids, valid, wg, wu, wd)
-    with pytest.raises(TypeError, match="bfloat16"):
-        gmm.gmm_bwd_dwd(xs.float(), dys, gids, valid, 8)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 ragged decode FFN (the decode kernel), the dX pair on wgmma, and
+# the fp32 instances of both files
+# ---------------------------------------------------------------------------
+
+def _decode_slots(gen, cuda, case, C, fp32):
+    """(x [A, C, H], ids, valid, weights) of one decode-grid case: "one": E 8
+    at the judge's width, one active slot then 7 pad slots; "all": E 128 at
+    H 320 / I 192 (down in 64-column tiles), every expert active, then 2 pad
+    slots; "routed": E 128 at the judge's width, C tokens routed top 8
+    through ragged_layout (the path's table, ~88 experts at C = 16). The
+    pad slots' rows hold NaN: the kernel reads none of them (a token box
+    past C rows reads the next slot's rows and drops them)."""
+    E, H, I = {"one": (8, 2048, 768), "all": (128, 320, 192), "routed": (128, 2048, 768)}[case]
+    w = _moe_weights(gen, E, H, I, "bf16")
+    if case == "routed":
+        router = torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5
+        from video_r2_tpu_torch.models.moe import route
+
+        xt = _randn(gen, C, H)
+        _, topi = route(router, xt, 8, True)
+        x, ids, valid, _ = moe_ragged.ragged_layout(xt, topi, E)
+        x, ids = x.clone(), ids.int()
+    else:
+        live = torch.tensor([3], device=cuda) if case == "one" else torch.arange(E, device=cuda)
+        pads = 7 if case == "one" else 2                  # pad slots repeat the last id
+        ids = torch.cat([live, live[-1:].expand(pads)]).int()
+        valid = (torch.arange(len(ids), device=cuda) < len(live)).int()
+        x = _randn(gen, len(ids), C, H)
+    x[valid == 0] = float("nan")
+    if fp32:
+        x, w = x.float(), {k: {"kernel": v["kernel"].float()} for k, v in w.items()}
+    return x, ids, valid, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("case", ["one", "all", "routed"])
+@pytest.mark.parametrize("C", [8, 13, 16, 32])
+def test_moe_ffn_decode_grid(cuda, C, case, dtype):
+    """The grouped FFN at C < 64 rows a slot: bf16 takes the decode kernel
+    (ffn_decode_tiles: C = 13 in boxes of 16 rows), fp32 x over fp32
+    weights the CUDA-core instance; against the plain version at the
+    forward bound (bf16) or FP32_TOL, pad slots exactly 0, one launch
+    counted per call."""
+    gen = torch.Generator(device=cuda).manual_seed(C + len(case))
+    fp32 = dtype == "fp32"
+    x, ids, valid, w = _decode_slots(gen, cuda, case, C, fp32)
+    H, I = x.shape[-1], w["gate"]["kernel"].shape[-1]
+    assert fp32 or moe_ragged.ffn_kernel_path(0, C, H, I)[0] == 2
+    before = dict(moe_ragged.ragged_expert_ffn.launches)
+    out = moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"], blk_valid=valid)
+    torch.cuda.synchronize()
+    assert moe_ragged.ragged_expert_ffn.launches == {**before, dtype: before[dtype] + 1}
+    ref = moe_ragged.ragged_expert_ffn_plain(x, ids, w["gate"], w["up"], w["down"], I, valid)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert not out[valid == 0].any() and torch.isfinite(out).all()
+    assert _close_as(out, ref, fp32)
+
+
+def _gmm_grid_layout(gen, cuda, bm, E, H, fp32):
+    """The sorted layout of experts with 1, 64, 65 and 200 rows (1, 4, 5, 7
+    of E = 8 get none) at block size bm, with dY zero on the padding rows
+    and NaN in every slack block's rows: (xs, dYs, ids, valid)."""
+    from video_r2_tpu_torch.ops.moe_gmm import gmm_layout
+
+    rows = {0: 1, 2: 64, 3: 65, 6: 200}
+    topi = torch.cat([torch.full((n,), e, device=cuda) for e, n in rows.items()])
+    topi = topi[torch.randperm(len(topi), generator=gen, device=cuda)][:, None]
+    xs, ids, valid, _ = gmm_layout(_randn(gen, len(topi), H), topi, E, bm)
+    dys = _randn(gen, *xs.shape) * (xs.abs().sum(-1, keepdim=True) > 0)
+    assert (valid == 0).any()
+    xs[valid == 0], dys[valid == 0] = float("nan"), float("nan")
+    return (xs.float(), dys.float(), ids, valid) if fp32 else (xs, dys, ids, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_h", [True, False])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("H,I", [(320, 192), (256, 128)])
+@pytest.mark.parametrize("bm", [48, 64, 128])
+def test_gmm_bwd_dx_grid(cuda, bm, H, I, dtype, keep_h):
+    """The dX kernels over a sorted layout with slack blocks (NaN rows,
+    never read), absent experts and runs of 1-200 rows: bm 64 and 128 (one
+    and two warpgroups a block; 48: a tile running into the next block),
+    H 320 (dX in 64-column tiles) and 256; dg / du / h at the forward bound
+    (bf16) or FP32_TOL, dX at GRAD_REL_L2 (bf16) or FP32_TOL; slack rows
+    exactly 0; h only when asked for."""
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(bm + H + I)
+    fp32 = dtype == "fp32"
+    E = 8
+    w = _moe_weights(gen, E, H, I, "bf16")
+    wg, wu, wd = (w[n]["kernel"].float() if fp32 else w[n]["kernel"]
+                  for n in ("gate", "up", "down"))
+    xs, dys, ids, valid = _gmm_grid_layout(gen, cuda, bm, E, H, fp32)
+    before = gmm.gmm_bwd_dx.launches
+    dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=keep_h)
+    torch.cuda.synchronize()
+    assert gmm.gmm_bwd_dx.launches == before + 1 and (h is not None) == keep_h
+    rdx, rdg, rdu, rh = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd, keep_h=keep_h)
+    slack = valid == 0
+    for got, ref in ((dg, rdg), (du, rdu)) + (((h, rh),) if keep_h else ()):
+        assert got.dtype == xs.dtype and _close_as(got, ref, fp32)
+        assert not got[slack].any()
+    assert dx.dtype == torch.float32 and torch.isfinite(dx).all() and not dx[slack].any()
+    assert _close_as(dx, rdx, True) if fp32 else _rel_l2(dx, rdx) <= GRAD_REL_L2
+
+
+def _moe_calls(cuda):
+    """{name: (a call, the device kernels it runs)}: the bf16 ragged decode
+    at the judge's width (C = 16, the routed table), its fp32 instance, and
+    the bf16 / fp32 dX pair at bm 128 over the grid's layout."""
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    calls = {}
+    for dtype in ("bf16", "fp32"):
+        x, ids, valid, w = _decode_slots(gen, cuda, "routed", 16, dtype == "fp32")
+        calls[f"decode_{dtype}"] = (
+            lambda x=x, ids=ids, valid=valid, w=w: moe_ragged.ragged_expert_ffn(
+                x, ids, w["gate"], w["up"], w["down"], blk_valid=valid),
+            ("moe_decode_kernel", "moe_decode_kernel") if dtype == "bf16" else
+            ("moe_gate_up_f32_kernel", "moe_down_f32_kernel"))
+        mw = _moe_weights(gen, 8, 256, 192, "bf16")
+        ws = [mw[n]["kernel"].float() if dtype == "fp32" else mw[n]["kernel"]
+              for n in ("gate", "up", "down")]
+        xs, dys, gids, gvalid = _gmm_grid_layout(gen, cuda, 128, 8, 256, dtype == "fp32")
+        calls[f"dx_{dtype}"] = (
+            lambda xs=xs, dys=dys, gids=gids, gvalid=gvalid, ws=ws: gmm.gmm_bwd_dx(
+                xs, dys, gids, gvalid, *ws, keep_h=True),
+            ("gmm_bwd_terms_kernel", "gmm_bwd_dx_kernel") if dtype == "bf16" else
+            ("gmm_bwd_terms_f32_kernel", "gmm_bwd_dx_f32_kernel"))
+    return calls
+
+
+@pytest.mark.cuda
+def test_moe_kernels_give_the_same_bits_twice(cuda):
+    """No atomics and no order that changes between calls: two calls of the
+    decode FFN and of the dX pair (bf16 and fp32) give the same bits."""
+    for name, (call, _) in _moe_calls(cuda).items():
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        flat = lambda r: r if isinstance(r, torch.Tensor) else torch.cat(  # noqa: E731
+            [t.float().flatten() for t in r if t is not None])
+        assert torch.equal(flat(a), flat(b)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_bf16", "decode_fp32", "dx_bf16", "dx_fp32"])
+def test_moe_kernels_run_their_two_device_kernels_a_call(cuda, name):
+    """A warm call under torch.profiler runs exactly its two device kernels
+    (gate / up then down; terms then dX) and nothing else on the card."""
+    call, want = _moe_calls(cuda)[name]
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and all(w in k for w, k in zip(want, kernels)), kernels

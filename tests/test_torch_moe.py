@@ -221,7 +221,7 @@ def test_moe_paths_match_jax(rng, variant):
     (0, 192, 2048, 768, (64, 128, 256)),    # three 64-row tiles a block
     (0, 256, 2048, 768, (128, 128, 256)),
     (0, 128, 320, 192, (128, 64, 64)),      # widths 128 / 256 do not divide
-    (0, 16, 2048, 768, None),               # ragged decode: mma.sync
+    (0, 16, 2048, 768, None),               # ragged decode: the decode kernel
     (0, 8, 2048, 768, None),
     (0, 40, 2048, 768, None),
     (0, 200, 2048, 768, None),
@@ -233,6 +233,43 @@ def test_ffn_kernel_dispatch_rule(mode, C, H, I, tiles):
     (rows, gate / up columns, down columns): bf16 blocks of a multiple of
     64 rows."""
     assert moe_ragged.ffn_wgmma_tiles(mode, C, H, I) == tiles
+
+
+@pytest.mark.parametrize("mode,C,H,I,fp32,path", [
+    (0, 16, 2048, 768, False, (2, (16, 64, 128))),   # the judge's ragged decode, T = 16
+    (0, 8, 2048, 768, False, (2, (8, 64, 128))),     # T <= 8: slots of 8 rows
+    (0, 13, 2048, 768, False, (2, (16, 64, 128))),   # boxes of 16 rows, 3 dropped
+    (0, 32, 2048, 768, False, (2, (32, 64, 128))),   # RAGGED_MAX_TOKENS
+    (0, 40, 2048, 768, False, (2, (64, 64, 128))),
+    (0, 16, 320, 192, False, (2, (16, 64, 64))),     # down in 64-column tiles
+    (0, 128, 2048, 768, False, (1, (128, 128, 256))),  # the GMM prefill: wgmma
+    (0, 200, 2048, 768, False, (0, (0, 0, 0))),      # mma.sync
+    (1, 16, 2048, 768, False, (0, (0, 0, 0))),       # int8 weights
+    (2, 128, 2048, 768, False, (0, (0, 0, 0))),      # W8A8
+    (0, 16, 2048, 768, True, (3, (0, 0, 0))),        # fp32: CUDA cores
+    (0, 128, 2048, 768, True, (3, (0, 0, 0)))])
+def test_ffn_kernel_path(mode, C, H, I, fp32, path):
+    """csrc/moe_ffn.cu's path for a call and its tiles (ffn_kernel_path:
+    ffn_wgmma_tiles, then ffn_decode_tiles for bf16 blocks under 64 rows,
+    then mma.sync; fp32 x over fp32 weights on the CUDA cores)."""
+    assert moe_ragged.ffn_kernel_path(mode, C, H, I, fp32) == path
+    if not fp32:
+        assert moe_ragged.ffn_decode_tiles(mode, C, H, I) == (path[1] if path[0] == 2 else None)
+
+
+@pytest.mark.parametrize("T", [1, 4, 8, 13, 16, 32])
+def test_judge_ragged_decode_takes_the_decode_kernel(T):
+    """Every ragged decode step of the judge (T <= RAGGED_MAX_TOKENS tokens,
+    slots of C = max(T, 8) rows) takes the decode kernel, its token boxes
+    the fewest of 8, 16, 32, 64 rows that hold C."""
+    xt = torch.zeros(T, 2048)
+    topi = torch.arange(T * 8).reshape(T, 8) % 128
+    x, *_ = moe_ragged.ragged_layout(xt, topi, 128)
+    C = x.shape[1]
+    path, (rows, gu, dn) = moe_ragged.ffn_kernel_path(0, C, 2048, 768)
+    assert T <= moe.RAGGED_MAX_TOKENS and C == max(T, 8)
+    assert path == 2 and rows == min(r for r in (8, 16, 32, 64) if r >= C)
+    assert (gu, dn) == (64, 128)
 
 
 @pytest.mark.parametrize("T", [2048, 4096, 17408])

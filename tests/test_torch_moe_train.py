@@ -170,6 +170,61 @@ def test_gmm_backward_kernels_plain_versions(rng):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("bm,H,tiles", [
+    (128, 2048, (128, 128)),    # the judge (phases 14 and 15: T 4096 and 2048)
+    (64, 2048, (64, 128)),
+    (32, 2048, (64, 128)),      # one warpgroup, a tile past the block's rows
+    (48, 256, (64, 128)),
+    (128, 320, (128, 64)),      # dX in 64-column tiles
+    (256, 320, (128, 64))])
+def test_gmm_bwd_dx_tiles(bm, H, tiles):
+    """The bf16 dX kernels' tiles: (rows a block, columns of H a dX block),
+    and the judge's training token counts get 128-row blocks."""
+    assert moe_gmm.gmm_bwd_dx_tiles(bm, H) == tiles
+    for T in (2048, 4096):
+        assert moe_gmm.gmm_bwd_dx_tiles(moe_gmm.auto_block_rows(T * 8, 128), 2048) == (128, 128)
+
+
+def test_fp32_moe_at_kernel_widths_matches_jax(rng):
+    """The fp32 MoE path the card's kernels now take (H and I multiples of
+    64: H 128, I 64, E 8, top 2) through the port's wrappers against the JAX
+    package: the ragged decode (T 5) and GMM prefill (T 24, block_rows 8)
+    forwards, and moe_mlp_gmm_diff's gradients under jax.grad (the Pallas
+    kernels in interpret mode)."""
+    from video_r2_tpu.ops import moe_ragged as jragged
+    from video_r2_tpu_torch.ops import moe_ragged
+
+    Hw, Iw = 128, 64
+    p = {"router": {"kernel": rng.normal(0, 0.3, (Hw, E)).astype(np.float32)},
+         "experts": {n: {"kernel": rng.normal(0, Hw ** -0.5 if n != "down" else Iw ** -0.5,
+                                              s).astype(np.float32)}
+                     for n, s in (("gate", (E, Hw, Iw)), ("up", (E, Hw, Iw)),
+                                  ("down", (E, Iw, Hw)))}}
+    for n in (5, 24):
+        x = rng.normal(0, 1, (n, Hw)).astype(np.float32)
+        if n == 5:
+            ours = moe_ragged.moe_mlp_ragged(_to(p, T), T(x), K, True)
+            ref = jragged.moe_mlp_ragged(_to(p, jnp.asarray), jnp.asarray(x), K, True,
+                                         interpret=True)
+        else:
+            ours = moe_gmm.moe_mlp_gmm(_to(p, T), T(x), K, True, block_rows=8)
+            ref = jgmm.moe_mlp_gmm(_to(p, jnp.asarray), jnp.asarray(x), K, True, block_rows=8,
+                                   interpret=True)
+        assert ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    cot = rng.normal(0, 1, x.shape).astype(np.float32)
+    gp, gx = _torch_grads(lambda p, x: moe_gmm.moe_mlp_gmm_diff(p, x, K, True, block_rows=8),
+                          p, x, cot)
+    jp, jx = jax.jit(jax.grad(
+        lambda p, x: jnp.sum(jgmm.moe_mlp_gmm_diff(p, x, K, True, block_rows=8,
+                                                   interpret=True) * cot),
+        argnums=(0, 1)))(_to(p, jnp.asarray), jnp.asarray(x))
+    np.testing.assert_allclose(gx, np.asarray(jx), **GRAD_TOL)
+    for path in PATHS:
+        np.testing.assert_allclose(_leaf(gp, path), np.asarray(_leaf(jp, path)),
+                                   err_msg="/".join(path), **GRAD_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the SFT steps over the tiny MoE judge
 # ---------------------------------------------------------------------------

@@ -162,7 +162,7 @@ __device__ __forceinline__ void issue_s(float (&s)[BK / 8][4], const unsigned ch
                                         const unsigned char* sk) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    vr2::wgmma_ss_n64(s, desc_q<HD>(sq, w, kk), desc_k<HD>(sk, kk), kk > 0);
+    vr2::wgmma_ss<64, 0>(s, desc_q<HD>(sq, w, kk), desc_k<HD>(sk, kk), kk > 0);
 }
 
 // O[64 x HD] += P V for P's register A operands, issued and not waited on

@@ -141,8 +141,8 @@ __device__ __forceinline__ void wg_rows_by_rows(float (&c)[BT / 8][4], const bf1
                                                 const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    vr2::wgmma_ss_n64(c, vr2::smem_desc(a + kk * 128, 128, Tile<HD>::ROWS8),
-                      vr2::smem_desc(b + kk * 128, 128, Tile<HD>::ROWS8), kk > 0);
+    vr2::wgmma_ss<64, 0>(c, vr2::smem_desc(a + kk * 128, 128, Tile<HD>::ROWS8),
+                         vr2::smem_desc(b + kk * 128, 128, Tile<HD>::ROWS8), kk > 0);
 }
 
 // C fragments [64 x BT] rounded to bf16: the register A operands of the

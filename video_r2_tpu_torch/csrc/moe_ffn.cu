@@ -60,8 +60,22 @@
 //   row block read its x (or h) rows together, and the row blocks of one
 //   expert (consecutive in the sorted layout) its weight tiles (the row
 //   block fastest measured 4-5% slower).
-// Everything else (ragged decode at C < 64, int8 weights, W8A8): mma.sync
-// in three launches (two for modes 0 and 1).
+// Mode 0 at C < 64 (the ragged decode: slots of C = max(T, 8) rows, ~1.5
+// real rows each at T = 16; the GMM layout's blocks of 8-32 rows): two
+// launches of one kernel (namespace dec below), gate / up then down. The
+// work is the weights' bytes: each routed expert's three matrices read
+// once, ~3.35 TB/s times ~1 us of latency is ~25 KB in flight an SM. Warp
+// 0 streams the weights in their own layout ([k][columns], boxes of 64 k x
+// 64 columns, 128-byte swizzle) and the block's x (or h) rows through a
+// 4-6 stage TMA ring of 18-24 KB stages, two blocks an SM (~180 KB in
+// flight); the four warps multiply on mma.sync with A and B swapped: 16
+// weight columns a warp are M (ldmatrix .trans from the box, no transpose
+// through registers), the C tokens N in tiles of 8 (C rounded up to 8, 16,
+// 32 or 64; the rows past C belong to the next slot and are dropped).
+// fp32 x over fp32 weights (mode 0 only): the same two phases on the CUDA
+// cores (fp32_tile.cuh), h and y fp32.
+// Everything else (int8 weights, W8A8, bf16 at C >= 64 not a multiple of
+// 64): mma.sync in three launches (two for modes 0 and 1).
 //   1. gate/up: one block per (a, 64 columns of I, BM rows); 4 warps side
 //      by side over the columns (16 each, both g and u), and for blocks of
 //      more than 64 rows a second row of 4 warps (BM = 128, 256 threads,
@@ -79,13 +93,14 @@
 //   3. down: one block per (a, 64 columns of H, BM rows), K = I, the same
 //      tile machinery; mode 2 folds each bi tile's int32 sum into fp32 with
 //      its row scale at the tile's end.
-// h lives in a [A, C, I] scratch the wrapper allocates (bf16, or fp32 plus
-// int8 and scales for mode 2).
+// h lives in a [A, C, I] scratch the wrapper allocates (bf16; fp32 over fp32
+// x; fp32 plus int8 and scales for mode 2).
 #include <cuda.h>
 
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "wgmma.cuh"
 
 namespace vr2 {
@@ -491,7 +506,6 @@ constexpr int kStages = 4;    // ring depth
 constexpr int kRows = 64;     // rows of a warpgroup
 constexpr int kBox = 64;      // elements of a TMA box's inner dimension: 128 bytes
 constexpr int kBoxBytes = kBox * kK * 2;  // a [64 k][64 n] B box
-constexpr int kAlign = 1024;  // the 128-byte swizzle's 8-row groups
 
 // One launch's shared memory: kStages stages of a [WG * 64 rows, 64 k] A tile
 // and NB [64 k, BN] B tiles, then a barrier a stage. TMA writes every tile in
@@ -504,31 +518,8 @@ struct Ring {
   static constexpr int B_BYTES = kK * BN * 2;
   static constexpr int STAGE = A_BYTES + NB * B_BYTES;
   static constexpr int BOXES = 1 + NB * BN / kBox;
-  static constexpr int SMEM = kAlign + kStages * STAGE + kStages * 8;
+  static constexpr int SMEM = kSwizzleAlign + kStages * STAGE + kStages * 8;
 };
-
-// descriptors of k16 step kk: warpgroup w's 64 rows of the A tile (rows 128
-// bytes apart, a k16 step 32 bytes on), and the B tile (a k16 step 16 rows
-// of 128 bytes on; blocks of 64 n one box apart)
-__device__ __forceinline__ uint64_t desc_a(const unsigned char* a, int w, int kk) {
-  return smem_desc_sw128(a + w * kRows * 128 + kk * 32, 0, 1024);
-}
-
-__device__ __forceinline__ uint64_t desc_b(const unsigned char* b, int kk) {
-  return smem_desc_sw128(b + kk * 16 * 128, kBoxBytes, 1024);
-}
-
-// the first kAlign-aligned byte of the dynamic shared memory
-__device__ __forceinline__ unsigned char* aligned(unsigned char* smem) {
-  const uint32_t off = smem_u32(smem) % kAlign;
-  return smem + (off ? kAlign - off : 0);
-}
-
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
-}
 
 // block index -> (row block a, its row tile z, column tile j); j runs
 // fastest, so the column tiles of one row block (which share its x or h
@@ -538,65 +529,6 @@ __device__ __forceinline__ void block_coords(int nj, int zt, int& a, int& z, int
   j = blockIdx.x % nj;
   z = (blockIdx.x / nj) % zt;
   a = blockIdx.x / (nj * zt);
-}
-
-// Warp 0 fills stage s of the ring: lane 0 arms the stage's barrier with its
-// bytes, then lanes issue its boxes: A's rows [row, row + BM) x k [64 s,
-// 64 s + 64) from the 2-D map ma ([rows, K]), then the BN / 64 boxes of
-// columns [n0, n0 + BN) x the same k of expert e from each 3-D map mb0 / mb1
-// ([E, K, N]).
-template <int WG, int BN, int NB>
-__device__ __forceinline__ void fill_stage(unsigned char* ring, uint64_t* full, int s,
-                                           const CUtensorMap* ma, const CUtensorMap* mb0,
-                                           const CUtensorMap* mb1, int row, int n0, int e,
-                                           int lane) {
-  using R = Ring<WG, BN, NB>;
-  unsigned char* st = ring + (s % kStages) * R::STAGE;
-  uint64_t* bar = full + s % kStages;
-  if (lane == 0) mbar_expect_tx(bar, R::STAGE);
-  __syncwarp();
-  const int k0 = s * kK;
-  for (int b = lane; b < R::BOXES; b += 32) {
-    if (b == 0) {
-      tma_load_2d(st, ma, bar, k0, row);
-    } else {
-      const int c = (b - 1) % (BN / kBox), which = (b - 1) / (BN / kBox);
-      tma_load_3d(st + R::A_BYTES + which * R::B_BYTES + c * kBoxBytes, which ? mb1 : mb0, bar,
-                  n0 + kBox * c, k0, e);
-    }
-  }
-}
-
-// The ring's loop over K: wait for stage s, issue its products, then (once
-// every warpgroup is done with stage s - 1, while stage s multiplies) refill
-// s - 1's slot with stage s + kStages - 1. products(stage) issues one stage's
-// wgmma.
-template <int WG, int BN, int NB, typename Products>
-__device__ __forceinline__ void run_ring(unsigned char* ring, uint64_t* full, int n_k,
-                                         const CUtensorMap* ma, const CUtensorMap* mb0,
-                                         const CUtensorMap* mb1, int row, int n0, int e,
-                                         Products products) {
-  using R = Ring<WG, BN, NB>;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-  if (warp == 0)
-    for (int s = 0; s < kStages - 1 && s < n_k; ++s)
-      fill_stage<WG, BN, NB>(ring, full, s, ma, mb0, mb1, row, n0, e, lane);
-  for (int s = 0; s < n_k; ++s) {
-    mbar_wait(full + s % kStages, (s / kStages) & 1);
-    wgmma_fence();
-    products(ring + (s % kStages) * R::STAGE);
-    wgmma_commit();
-    wgmma_wait<1>();  // stage s - 1's products are done (this warpgroup's)
-    __syncthreads();  // ... and every warpgroup's: its slot is free
-    if (warp == 0 && s + kStages - 1 < n_k)
-      fill_stage<WG, BN, NB>(ring, full, s + kStages - 1, ma, mb0, mb1, row, n0, e, lane);
-  }
-  wgmma_wait<0>();
 }
 
 // h = silu(x Wg) * (x Wu) for one (row block, 64 WG rows, BN columns of I):
@@ -620,16 +552,37 @@ __global__ void __launch_bounds__(128 * WG, 1)
   float g[BN / 8][4], u[BN / 8][4];
   zero_acc(g);
   zero_acc(u);
-  unsigned char* ring = aligned(smem);
-  run_ring<WG, BN, 2>(ring, reinterpret_cast<uint64_t*>(ring + kStages * R::STAGE), H / kK,
-                      &mx, &mwg, &mwu, row, n0, e, [&](const unsigned char* st) {
+  unsigned char* ring = swizzle_aligned(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * R::STAGE);
+  tma_ring<kStages, 1>(
+      full, H / kK,
+      [&](int s) {  // x's rows [row, row + BM), then BN / 64 boxes of Wg, of Wu
+        unsigned char* st = ring + (s % kStages) * R::STAGE;
+        uint64_t* bar = full + s % kStages;
+        const int k0 = s * kK;
+        tma_stage(bar, R::STAGE, R::BOXES, [&](int b) {
+          if (b == 0) {
+            tma_load_2d(st, &mx, bar, k0, row);
+          } else {
+            const int c = (b - 1) % (BN / kBox), which = (b - 1) / (BN / kBox);
+            tma_load_3d(st + R::A_BYTES + which * R::B_BYTES + c * kBoxBytes,
+                        which ? &mwu : &mwg, bar, n0 + kBox * c, k0, e);
+          }
+        });
+      },
+      [&](int slot) {
+        const unsigned char* st = ring + slot * R::STAGE;
+        wgmma_fence();
 #pragma unroll
-                        for (int kk = 0; kk < kK / 16; ++kk) {
-                          const uint64_t da = desc_a(st, w, kk);
-                          wgmma_ss_mn<BN>(g, da, desc_b(st + R::A_BYTES, kk), 1);
-                          wgmma_ss_mn<BN>(u, da, desc_b(st + R::A_BYTES + R::B_BYTES, kk), 1);
-                        }
-                      });
+        for (int kk = 0; kk < kK / 16; ++kk) {
+          const uint64_t da = desc_k_sw128(st + w * kRows * 128, kk);
+          wgmma_ss<BN, 1>(g, da, desc_mn_sw128(st + R::A_BYTES, kk, kBoxBytes), 1);
+          wgmma_ss<BN, 1>(u, da, desc_mn_sw128(st + R::A_BYTES + R::B_BYTES, kk, kBoxBytes), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // stage s - 1's products are done: its slot is free
+      });
+  wgmma_wait<0>();
   fence_regs(g);
   fence_regs(u);
 
@@ -667,14 +620,33 @@ __global__ void __launch_bounds__(128 * WG, 1)
   const int e = min(max(ids[a], 0), E - 1);
   float acc[BN / 8][4];
   zero_acc(acc);
-  unsigned char* ring = aligned(smem);
-  run_ring<WG, BN, 1>(ring, reinterpret_cast<uint64_t*>(ring + kStages * R::STAGE), I / kK,
-                      &mh, &mwd, &mwd, row, n0, e, [&](const unsigned char* st) {
+  unsigned char* ring = swizzle_aligned(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * R::STAGE);
+  tma_ring<kStages, 1>(
+      full, I / kK,
+      [&](int s) {  // h's rows [row, row + BM), then BN / 64 boxes of Wd
+        unsigned char* st = ring + (s % kStages) * R::STAGE;
+        uint64_t* bar = full + s % kStages;
+        const int k0 = s * kK;
+        tma_stage(bar, R::STAGE, R::BOXES, [&](int b) {
+          if (b == 0)
+            tma_load_2d(st, &mh, bar, k0, row);
+          else
+            tma_load_3d(st + R::A_BYTES + (b - 1) * kBoxBytes, &mwd, bar, n0 + kBox * (b - 1),
+                        k0, e);
+        });
+      },
+      [&](int slot) {
+        const unsigned char* st = ring + slot * R::STAGE;
+        wgmma_fence();
 #pragma unroll
-                        for (int kk = 0; kk < kK / 16; ++kk)
-                          wgmma_ss_mn<BN>(acc, desc_a(st, w, kk),
-                                          desc_b(st + R::A_BYTES, kk), 1);
-                      });
+        for (int kk = 0; kk < kK / 16; ++kk)
+          wgmma_ss<BN, 1>(acc, desc_k_sw128(st + w * kRows * 128, kk),
+                          desc_mn_sw128(st + R::A_BYTES, kk, kBoxBytes), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+      });
+  wgmma_wait<0>();
   fence_regs(acc);
 
   const int lane = tid & 31;
@@ -689,24 +661,201 @@ __global__ void __launch_bounds__(128 * WG, 1)
   }
 }
 
-// A bf16 tensor map with the 128-byte swizzle and boxes 64 elements wide:
-// 2-D [mid, inner] with boxes of [rows][64], or 3-D [E, mid, inner] with
-// boxes of [64][64] (E = 0: 2-D)
-inline cudaError_t box_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
-                           uint64_t E, uint32_t rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {inner, mid, E};
-  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  const cuuint32_t box[3] = {kBox, E ? uint32_t(kK) : rows, 1}, one[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, E ? 3 : 2,
-                            const_cast<void*>(base), dims, strides, box, one,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// Mode 0 at C < 64 (the ragged decode's slots of max(T, 8) rows): the
+// weights stream through a TMA ring in their own layout, the products swap
+// A and B so the weight columns are mma.sync's M side and the C tokens its
+// N side. Two launches of one kernel: gate / up (NW = 2) writes h, down
+// (NW = 1) writes y.
+// ---------------------------------------------------------------------------
+namespace dec {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kK = 64;          // k per ring stage: 64 rows of a weight box
+constexpr int kThreads = 128;   // 4 warps side by side over the block's columns
+constexpr int kBoxBytes = kK * 128;  // a weight box [64 k][64 columns]
+
+// A block's tiles: 8 NT token rows of x (or h) [8 NT][64 k] (one box), then
+// NW weight tiles of 64 MT columns [64 k][64 MT] (MT boxes of 64 columns),
+// all written by TMA with the 128-byte swizzle; STAGES stages (as many as
+// keep two blocks an SM: 100-112 KB of ring a block) and a barrier a stage.
+template <int NT, int MT, int NW>
+struct Geo {
+  static constexpr int BM = 4 * 16 * MT;       // output columns of a block
+  static constexpr int X_BYTES = NT * 8 * 128;
+  static constexpr int W_BYTES = MT * kBoxBytes;
+  static constexpr int STAGE = X_BYTES + NW * W_BYTES;
+  static constexpr int STAGES = NT <= 2 ? 6 : NT == 4 ? 5 : 4;
+  static constexpr int SMEM = kSwizzleAlign + STAGES * STAGE + STAGES * 8;
+};
+
+// out[a] [C, N] for one slot a and BM columns from m0: with NW = 2,
+// silu(x Wg) * (x Wu) (W_j = mw0 / mw1, [E, K, N], N contiguous: gate / up);
+// with NW = 1, x Wd (down). x (or h) comes from the 2-D map mx over [A C, K]
+// in boxes of 8 NT rows: the rows past C belong to the next slot (or read
+// zeros past the end) and are dropped, as each output row depends on its
+// own x row only. Warp w owns columns [m0 + 16 MT w, m0 + 16 MT (w + 1)):
+// its A fragments (weights [k][m], loaded transposed by ldmatrix) against
+// every token tile (B: x rows, k contiguous). Pad slots (valid 0) write
+// zeros (down) or nothing (gate / up: down never reads their h).
+template <int NT, int MT, int NW>
+__global__ void __launch_bounds__(kThreads)
+    moe_decode_kernel(__grid_constant__ const CUtensorMap mx,
+                      __grid_constant__ const CUtensorMap mw0,
+                      __grid_constant__ const CUtensorMap mw1, const int* __restrict__ ids,
+                      const int* __restrict__ valid, bf16* __restrict__ out, int C, int K,
+                      int N, int E) {
+  using G = Geo<NT, MT, NW>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m0 = blockIdx.x * G::BM, a = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long long row = (long long)a * C;
+  if (valid[a] == 0) {
+    if (NW == 1)
+      for (int i = tid; i < C * (G::BM / 8); i += kThreads)
+        *reinterpret_cast<uint4*>(out + (row + i / (G::BM / 8)) * N + m0 + 8 * (i % (G::BM / 8))) =
+            make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const int e = min(max(ids[a], 0), E - 1);
+  float acc[NW][MT][NT][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) acc[w][mt][nt][0] = acc[w][mt][nt][1] =
+          acc[w][mt][nt][2] = acc[w][mt][nt][3] = 0.f;
+
+  unsigned char* ring = swizzle_aligned(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::STAGE);
+  const int r8 = lane & 7, j4 = lane >> 3;
+  tma_ring<G::STAGES, 0>(
+      full, K / kK,
+      [&](int s) {
+        unsigned char* st = ring + (s % G::STAGES) * G::STAGE;
+        uint64_t* bar = full + s % G::STAGES;
+        tma_stage(bar, G::STAGE, 1 + NW * MT, [&](int b) {
+          if (b == 0) {
+            tma_load_2d(st, &mx, bar, s * kK, (int)row);
+          } else {
+            const int w = (b - 1) / MT, c = (b - 1) % MT;
+            tma_load_3d(st + G::X_BYTES + w * G::W_BYTES + c * kBoxBytes, w ? &mw1 : &mw0, bar,
+                        m0 + 64 * c, s * kK, e);
+          }
+        });
+      },
+      [&](int slot) {
+        const unsigned char* st = ring + slot * G::STAGE;
+#pragma unroll
+        for (int ks = 0; ks < kK / 16; ++ks) {
+          // B: token tiles nt, nt + 1 (matrices: n lo / k lo, n lo / k hi,
+          // n hi / k lo, n hi / k hi)
+          uint32_t b[NT][2];
+#pragma unroll
+          for (int nt = 0; nt < NT; nt += 2) {
+            uint32_t r[4];
+            const int n = nt * 8 + r8 + (NT > 1 ? 8 * (j4 >> 1) : 0);
+            ldsm_x4(r, sw128_at(st, n, ks * 32 + 16 * (j4 & 1)));
+            b[nt][0] = r[0], b[nt][1] = r[1];
+            if constexpr (NT > 1) b[nt + 1][0] = r[2], b[nt + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              // A: 16 columns x 16 k of the weights, transposed (matrices:
+              // m lo / k lo, m hi / k lo, m lo / k hi, m hi / k hi)
+              const int mc = warp * 16 * MT + mt * 16;
+              uint32_t af[4];
+              ldsm_x4_trans(af, sw128_at(st + G::X_BYTES + w * G::W_BYTES + (mc / 64) * kBoxBytes,
+                                         ks * 16 + r8 + 8 * (j4 >> 1),
+                                         2 * (mc % 64 + 8 * (j4 & 1))));
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[w][mt][nt], af, b[nt][0], b[nt][1]);
+            }
+        }
+      });
+
+  // C fragment: acc[.][mt][nt][i] = out[token 8 nt + 2 t + (i & 1)][column
+  // mc + g + 8 (i >> 1)]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = nt * 8 + 2 * t + (i & 1);
+        if (n >= C) continue;
+        const int m = m0 + warp * 16 * MT + mt * 16 + g + 8 * (i >> 1);
+        const float v = NW == 2 ? silu(acc[0][mt][nt][i]) * acc[NW - 1][mt][nt][i]
+                                : acc[0][mt][nt][i];
+        out[(row + n) * N + m] = __float2bfloat16(v);
+      }
 }
 
-}  // namespace wg
+}  // namespace dec
+
+// ---------------------------------------------------------------------------
+// Mode 0 over fp32 x and weights: the same two phases on the CUDA cores
+// (fp32_tile.cuh), h and y in fp32, as the plain version computes them
+// ---------------------------------------------------------------------------
+
+// Phase 1: h = silu(x Wg) * (x Wu) for one (block a, 64 columns of I, 64
+// rows); pad blocks write nothing.
+__global__ void __launch_bounds__(f32::kThreads)
+    moe_gate_up_f32_kernel(const float* __restrict__ x, const int* __restrict__ ids,
+                           const int* __restrict__ valid, const float* __restrict__ wg,
+                           const float* __restrict__ wu, float* __restrict__ h, int C, int H,
+                           int I, int E) {
+  __shared__ f32::Smem sm;
+  const int a = blockIdx.x, n0 = blockIdx.y * f32::kTile, r0 = blockIdx.z * f32::kTile;
+  if (valid[a] == 0) return;
+  const int e = min(max(ids[a], 0), E - 1), rows = min(f32::kTile, C - r0);
+  const float* xa = x + ((long long)a * C + r0) * H;
+  f32::Acc g, u;
+  f32::zero(g);
+  f32::zero(u);
+  const f32::Operand<true> xo{xa, H, rows};
+  f32::product(g, xo, f32::Operand<false>{wg + (long long)e * H * I + n0, I, f32::kTile}, H, sm);
+  f32::product(u, xo, f32::Operand<false>{wu + (long long)e * H * I + n0, I, f32::kTile}, H, sm);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * ty + i >= rows) continue;
+    float* hr = h + ((long long)a * C + r0 + 4 * ty + i) * I + n0 + 4 * tx;
+    *reinterpret_cast<float4*>(hr) =
+        make_float4(silu(g[i][0]) * u[i][0], silu(g[i][1]) * u[i][1], silu(g[i][2]) * u[i][2],
+                    silu(g[i][3]) * u[i][3]);
+  }
+}
+
+// Phase 2: y = h Wd for one (block a, 64 columns of H, 64 rows); pad blocks
+// write zeros.
+__global__ void __launch_bounds__(f32::kThreads)
+    moe_down_f32_kernel(const float* __restrict__ h, const int* __restrict__ ids,
+                        const int* __restrict__ valid, const float* __restrict__ wd,
+                        float* __restrict__ out, int C, int H, int I, int E) {
+  __shared__ f32::Smem sm;
+  const int a = blockIdx.x, n0 = blockIdx.y * f32::kTile, r0 = blockIdx.z * f32::kTile;
+  const int rows = min(f32::kTile, C - r0), ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  f32::Acc y;
+  f32::zero(y);
+  if (valid[a] != 0) {
+    const int e = min(max(ids[a], 0), E - 1);
+    f32::product(y, f32::Operand<true>{h + ((long long)a * C + r0) * I, I, rows},
+                 f32::Operand<false>{wd + (long long)e * I * H + n0, H, f32::kTile}, I, sm);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (4 * ty + i >= rows) continue;
+    *reinterpret_cast<float4*>(out + ((long long)a * C + r0 + 4 * ty + i) * H + n0 + 4 * tx) =
+        make_float4(y[i][0], y[i][1], y[i][2], y[i][3]);
+  }
+}
 
 struct Args {
   const void* x;
@@ -772,11 +921,11 @@ cudaError_t launch_wgmma(const Args& p, cudaStream_t stream) {
   const uint64_t rows = (uint64_t)p.A * p.C;
   CUtensorMap mx, mwg, mwu, mh, mwd;
   cudaError_t err;
-  if ((err = wg::box_map(&mx, p.x, p.H, rows, 0, GU::BM)) != cudaSuccess ||
-      (err = wg::box_map(&mwg, p.wg, p.I, p.H, p.E, 0)) != cudaSuccess ||
-      (err = wg::box_map(&mwu, p.wu, p.I, p.H, p.E, 0)) != cudaSuccess ||
-      (err = wg::box_map(&mh, p.h, p.I, rows, 0, DN::BM)) != cudaSuccess ||
-      (err = wg::box_map(&mwd, p.wd, p.H, p.I, p.E, 0)) != cudaSuccess)
+  if ((err = box_map(&mx, p.x, p.H, rows, 0, GU::BM)) != cudaSuccess ||
+      (err = box_map(&mwg, p.wg, p.I, p.H, p.E, wg::kK)) != cudaSuccess ||
+      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, wg::kK)) != cudaSuccess ||
+      (err = box_map(&mh, p.h, p.I, rows, 0, DN::BM)) != cudaSuccess ||
+      (err = box_map(&mwd, p.wd, p.H, p.I, p.E, wg::kK)) != cudaSuccess)
     return err;
   if ((err = cudaFuncSetAttribute(wg::moe_gate_up_wgmma_kernel<WG, BN_GU>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, GU::SMEM)) !=
@@ -805,40 +954,114 @@ cudaError_t launch_wgmma_widths(const Args& p, int bn_gu, int bn_d, cudaStream_t
   return cudaErrorInvalidValue;
 }
 
+// Mode 0 at C < 64: the decode kernel twice, gate / up (64 columns of I a
+// block) then down (MT_D * 64 columns of H), x and h in boxes of 8 NT rows
+template <int NT, int MT_D>
+cudaError_t launch_decode(const Args& p, cudaStream_t stream) {
+  using dec::bf16;
+  using GU = dec::Geo<NT, 1, 2>;
+  using DN = dec::Geo<NT, MT_D, 1>;
+  const uint64_t rows = (uint64_t)p.A * p.C;
+  CUtensorMap mx, mwg, mwu, mh, mwd;
+  cudaError_t err;
+  if ((err = box_map(&mx, p.x, p.H, rows, 0, 8 * NT)) != cudaSuccess ||
+      (err = box_map(&mwg, p.wg, p.I, p.H, p.E, dec::kK)) != cudaSuccess ||
+      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, dec::kK)) != cudaSuccess ||
+      (err = box_map(&mh, p.h, p.I, rows, 0, 8 * NT)) != cudaSuccess ||
+      (err = box_map(&mwd, p.wd, p.H, p.I, p.E, dec::kK)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, 1, 2>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, GU::SMEM)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, MT_D, 1>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, DN::SMEM)) !=
+          cudaSuccess)
+    return err;
+  dec::moe_decode_kernel<NT, 1, 2><<<dim3(p.I / GU::BM, p.A), dec::kThreads, GU::SMEM, stream>>>(
+      mx, mwg, mwu, p.ids, p.valid, static_cast<bf16*>(p.h), p.C, p.H, p.I, p.E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dec::moe_decode_kernel<NT, MT_D, 1><<<dim3(p.H / DN::BM, p.A), dec::kThreads, DN::SMEM,
+                                        stream>>>(mh, mwd, mwd, p.ids, p.valid,
+                                                  static_cast<bf16*>(p.out), p.C, p.I, p.H, p.E);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_decode_widths(const Args& p, int bn_gu, int bn_d, cudaStream_t stream) {
+  if (bn_gu != 64) return cudaErrorInvalidValue;
+  if (bn_d == 128) return launch_decode<NT, 2>(p, stream);
+  if (bn_d == 64) return launch_decode<NT, 1>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Mode 0 over fp32 x and weights
+cudaError_t launch_f32(const Args& p, cudaStream_t stream) {
+  const int zt = (p.C + f32::kTile - 1) / f32::kTile;
+  moe_gate_up_f32_kernel<<<dim3(p.A, p.I / f32::kTile, zt), f32::kThreads, 0, stream>>>(
+      static_cast<const float*>(p.x), p.ids, p.valid, static_cast<const float*>(p.wg),
+      static_cast<const float*>(p.wu), static_cast<float*>(p.h), p.C, p.H, p.I, p.E);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  moe_down_f32_kernel<<<dim3(p.A, p.H / f32::kTile, zt), f32::kThreads, 0, stream>>>(
+      static_cast<const float*>(p.h), p.ids, p.valid, static_cast<const float*>(p.wd),
+      static_cast<float*>(p.out), p.C, p.H, p.I, p.E);
+  return cudaGetLastError();
+}
+
 }  // namespace moe
 }  // namespace vr2
 
-// x [A, C, H] (bf16, or int8 with x_scales [A, C] fp32 in mode 2); ids /
-// valid [A] int32; wg / wu [E, H, I], wd [E, I, H] (bf16 in mode 0, int8
-// otherwise) with fp32 scales sg / su [E, I], sd [E, H] (modes 1 and 2);
-// h [A, C, I] scratch (bf16, fp32 in mode 2); hq [A, C, I] int8 and ah
-// [A, C, I / bi] (mode 2); out [A, C, H] (bf16, fp32 in mode 2). The wrapper
-// checks H % 64 == 0, I % 64 == 0 and, in mode 2, bi % 64 == 0 and I % bi == 0.
-// wg_rows != 0 (mode 0 only) takes the wgmma kernels with blocks of wg_rows
-// rows (64 or 128, dividing C), gate / up tiles wg_gate_up columns of I wide
-// (64 or 128, dividing I) and down tiles wg_down columns of H (64 or 256,
-// dividing H); wg_rows == 0 the mma.sync kernels.
+// x [A, C, H] (bf16, fp32 in mode 0 on path 3, or int8 with x_scales [A, C]
+// fp32 in mode 2); ids / valid [A] int32; wg / wu [E, H, I], wd [E, I, H]
+// (x's float type in mode 0, int8 otherwise) with fp32 scales sg / su [E, I],
+// sd [E, H] (modes 1 and 2); h [A, C, I] scratch (bf16; fp32 in mode 2 and
+// on path 3); hq [A, C, I] int8 and ah [A, C, I / bi] (mode 2); out [A, C, H]
+// (bf16; fp32 in mode 2 and on path 3). The wrapper checks H % 64 == 0,
+// I % 64 == 0 and, in mode 2, bi % 64 == 0 and I % bi == 0. The path
+// (ops/moe_ragged.py::ffn_kernel_path picks it, with its tiles t0, t1, t2):
+//   0: the mma.sync kernels (any mode, any C);
+//   1: mode 0, the wgmma kernels: blocks of t0 rows (64 or 128, dividing C),
+//      gate / up tiles t1 columns of I (64 or 128, dividing I), down tiles t2
+//      columns of H (64 or 256, dividing H);
+//   2: mode 0 at C < 64, the decode kernel: x in boxes of t0 = 8, 16, 32 or
+//      64 rows (>= C), gate / up tiles t1 = 64 columns, down tiles t2 = 64 or
+//      128 columns (dividing H);
+//   3: mode 0 over fp32 x and weights, the CUDA-core kernels.
 extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
                            const int* valid, const void* wg, const float* sg, const void* wu,
                            const float* su, const void* wd, const float* sd, void* h,
                            int8_t* hq, float* ah, void* out, int A, int C, int H, int I,
-                           int E, int bi, int mode, int wg_rows, int wg_gate_up, int wg_down,
+                           int E, int bi, int mode, int path, int t0, int t1, int t2,
                            void* stream) {
   using namespace vr2::moe;
   const Args p{x, x_scales, ids, valid, wg, sg, wu, su, wd, sd, h, hq, ah, out,
                A, C, H, I, E, bi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wg_rows != 0) {
-    if (mode != kBf16 || (wg_rows != 64 && wg_rows != 128) || wg_gate_up <= 0 ||
-        wg_down <= 0 || C % wg_rows != 0 || I % wg_gate_up != 0 || H % wg_down != 0)
-      return (int)cudaErrorInvalidValue;
-    return wg_rows == 128 ? launch_wgmma_widths<2>(p, wg_gate_up, wg_down, s)
-                          : launch_wgmma_widths<1>(p, wg_gate_up, wg_down, s);
-  }
-  switch (mode) {
-    case kBf16: return launch_mode<kBf16>(p, s);
-    case kInt8W: return launch_mode<kInt8W>(p, s);
-    case kW8A8: return launch_mode<kW8A8>(p, s);
+  if (path != 0 && mode != kBf16) return (int)cudaErrorInvalidValue;
+  switch (path) {
+    case 0:
+      switch (mode) {
+        case kBf16: return launch_mode<kBf16>(p, s);
+        case kInt8W: return launch_mode<kInt8W>(p, s);
+        case kW8A8: return launch_mode<kW8A8>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 1:
+      if ((t0 != 64 && t0 != 128) || t1 <= 0 || t2 <= 0 || C % t0 != 0 || I % t1 != 0 ||
+          H % t2 != 0)
+        return (int)cudaErrorInvalidValue;
+      return t0 == 128 ? launch_wgmma_widths<2>(p, t1, t2, s)
+                       : launch_wgmma_widths<1>(p, t1, t2, s);
+    case 2:
+      if (C > t0 || t2 <= 0 || H % t2 != 0) return (int)cudaErrorInvalidValue;
+      switch (t0) {
+        case 8: return launch_decode_widths<1>(p, t1, t2, s);
+        case 16: return launch_decode_widths<2>(p, t1, t2, s);
+        case 32: return launch_decode_widths<4>(p, t1, t2, s);
+        case 64: return launch_decode_widths<8>(p, t1, t2, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 3: return launch_f32(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,10 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) for the port's kernels:
 // shared-memory descriptors of the layout without swizzle and of the
 // 128-byte swizzle, the fences, the bf16 products with fp32 accumulators the
-// flash kernels and the grouped expert FFN use, and the TMA loads, their
-// tensor-map encoder and the shared-memory barriers (mbarrier) that feed the
-// flash forward's and the FFN's.
+// flash kernels and the MoE kernels use, and the TMA loads, their
+// tensor-map encoder, the shared-memory barriers (mbarrier) that count their
+// bytes and the ring of stages they fill (tma_ring), which feed the flash
+// forward, the grouped expert FFN and the GMM backward.
 //
 // Layout: a bf16 tile of R rows by C columns is stored as 8 x 8 "core
 // matrices" of 128 contiguous bytes (8 rows of 16 bytes), core matrix
@@ -88,30 +89,6 @@ __device__ __forceinline__ void regs_grow() {
 // to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B in shared memory, both
-// K-major (descriptors da, db); accumulate when scale_d != 0
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers (each warp's 16 rows
@@ -204,10 +181,11 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in shared memory K-major (descriptor
-// da), B in shared memory MN-major (descriptor db, N contiguous: the
-// transpose bit of B set); accumulate when scale_d != 0
-__device__ __forceinline__ void wgmma_ss_mn_n64(float (&d)[8][4], uint64_t da,
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both in shared memory, A K-major
+// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
+// of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[8][4], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -217,7 +195,7 @@ __device__ __forceinline__ void wgmma_ss_mn_n64(float (&d)[8][4], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -226,13 +204,14 @@ __device__ __forceinline__ void wgmma_ss_mn_n64(float (&d)[8][4], uint64_t da,
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in shared memory K-major (descriptor
-// da), B in shared memory MN-major (descriptor db, N contiguous: the
-// transpose bit of B set); accumulate when scale_d != 0
-__device__ __forceinline__ void wgmma_ss_mn_n128(float (&d)[16][4], uint64_t da,
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both in shared memory, A K-major
+// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
+// of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[16][4], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -246,7 +225,7 @@ __device__ __forceinline__ void wgmma_ss_mn_n128(float (&d)[16][4], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -263,13 +242,14 @@ __device__ __forceinline__ void wgmma_ss_mn_n128(float (&d)[16][4], uint64_t da,
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// D[64 x 256] (+)= A[64 x 16] B[16 x 256], A in shared memory K-major (descriptor
-// da), B in shared memory MN-major (descriptor db, N contiguous: the
-// transpose bit of B set); accumulate when scale_d != 0
-__device__ __forceinline__ void wgmma_ss_mn_n256(float (&d)[32][4], uint64_t da,
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both in shared memory, A K-major
+// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
+// of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_t_n256(float (&d)[32][4], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -291,7 +271,7 @@ __device__ __forceinline__ void wgmma_ss_mn_n256(float (&d)[32][4], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -324,21 +304,21 @@ __device__ __forceinline__ void wgmma_ss_mn_n256(float (&d)[32][4], uint64_t da,
         "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // D[64 x N] (+)= A B for N = 64, 128 or 256: the two operands in shared
-// memory, A K-major and B MN-major (wgmma_ss_mn_n*)
-template <int N>
-__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 8][4], uint64_t da, uint64_t db,
-                                            int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss_mn: N is 64, 128 or 256");
+// memory, A K-major and B MN-major (TB = 1, the default) or K-major (TB = 0)
+template <int N, int TB = 1>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N is 64, 128 or 256");
   if constexpr (N == 64)
-    wgmma_ss_mn_n64(d, da, db, scale_d);
+    wgmma_ss_t_n64<TB>(d, da, db, scale_d);
   else if constexpr (N == 128)
-    wgmma_ss_mn_n128(d, da, db, scale_d);
+    wgmma_ss_t_n128<TB>(d, da, db, scale_d);
   else
-    wgmma_ss_mn_n256(d, da, db, scale_d);
+    wgmma_ss_t_n256<TB>(d, da, db, scale_d);
 }
 
 // ---------------------------------------------------------------------------
@@ -431,6 +411,106 @@ inline EncodeTiled tensor_map_encoder() {
     return reinterpret_cast<EncodeTiled>(f);
   }();
   return fn;
+}
+
+
+// A bf16 tensor map with the 128-byte swizzle and boxes 64 elements (128
+// bytes) wide and `rows` rows: 2-D over [mid, inner], or 3-D over [E, mid,
+// inner] (E = 0: 2-D) with boxes of one [rows][64] slice. Coordinates past
+// the tensor's end read zeros.
+inline cudaError_t box_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
+                           uint64_t E, uint32_t rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {inner, mid, E};
+  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
+  const cuuint32_t box[3] = {64, rows, 1}, one[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, E ? 3 : 2,
+                            const_cast<void*>(base), dims, strides, box, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 128-byte swizzle's 8-row groups: a box written with it starts on a
+// multiple of this many bytes of shared memory
+constexpr int kSwizzleAlign = 1024;
+
+// the first kSwizzleAlign-aligned byte of the dynamic shared memory
+__device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* smem) {
+  const uint32_t off = smem_u32(smem) % kSwizzleAlign;
+  return smem + (off ? kSwizzleAlign - off : 0);
+}
+
+// Byte `byte` of row `row` of a box written with the 128-byte swizzle (rows
+// of 128 bytes whose 16-byte chunks are permuted by the row's place in its
+// 8-row group), for ldmatrix: the address of a 16-byte chunk
+__device__ __forceinline__ const unsigned char* sw128_at(const unsigned char* box, int row,
+                                                         int byte) {
+  return box + row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// Descriptors of k16 step kk of a box tile written with the 128-byte
+// swizzle: K-major (rows of 64 k, the tile's rows from `tile`), and MN-major
+// (rows of k, blocks of 64 columns `block_bytes` apart)
+__device__ __forceinline__ uint64_t desc_k_sw128(const unsigned char* tile, int kk) {
+  return smem_desc_sw128(tile + kk * 32, 0, 1024);
+}
+
+__device__ __forceinline__ uint64_t desc_mn_sw128(const unsigned char* tile, int kk,
+                                                  uint32_t block_bytes) {
+  return smem_desc_sw128(tile + kk * 16 * 128, block_bytes, 1024);
+}
+
+// Zero wgmma accumulators, pinned here: left free, the compiler may sink the
+// zeros past the first wgmma.fence, and ptxas then serialises every wgmma of
+// the kernel (C7515: non-wgmma instructions define accumulator registers
+// inside the pipeline): the bf16 FFN's gate / up ran 35% slower so on an
+// H100.
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+  fence_regs(d);
+}
+
+// One stage's TMA loads, by the 32 lanes of one warp: lane 0 arms `bar`
+// with the stage's bytes, then box b of n_boxes is issued by lane b % 32
+// (issue(b) calls tma_load_* with `bar`)
+template <class Issue>
+__device__ __forceinline__ void tma_stage(uint64_t* bar, uint32_t bytes, int n_boxes,
+                                          Issue issue) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) mbar_expect_tx(bar, bytes);
+  __syncwarp();
+  for (int b = lane; b < n_boxes; b += 32) issue(b);
+}
+
+// A ring of STAGES slots fed by TMA over n_k stages: `full` holds STAGES
+// barriers in shared memory. Warp 0 calls fill(s) (all its lanes: tma_stage
+// on barrier full[s % STAGES]) ahead of the consumers; every thread waits for
+// stage s, calls consume(s % STAGES), and once the whole block is past it
+// (one block barrier) warp 0 refills the slot of stage s - LAG with stage
+// s - LAG + STAGES. LAG 0 suits products that are done when consume returns
+// (mma.sync); LAG 1 suits wgmma, whose consume leaves its stage's products
+// in flight (wgmma_wait<1> frees the slot before).
+template <int STAGES, int LAG, class Fill, class Consume>
+__device__ __forceinline__ void tma_ring(uint64_t* full, int n_k, Fill fill, Consume consume) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid < 32)
+    for (int s = 0; s < STAGES - LAG && s < n_k; ++s) fill(s);
+  for (int s = 0; s < n_k; ++s) {
+    mbar_wait(full + s % STAGES, (s / STAGES) & 1);
+    consume(s % STAGES);
+    __syncthreads();
+    const int nx = s + STAGES - LAG;
+    if (tid < 32 && nx < n_k) fill(nx);
+  }
 }
 
 }  // namespace vr2

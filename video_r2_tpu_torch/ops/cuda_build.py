@@ -40,9 +40,9 @@ SIGNATURES = {
                                  _L, _L, _L, _L, _L, _L, _F, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
     "vr2_paged_decode_attention": [_P] * 8 + [_I] * 11 + [_F, _P, _P, _P],
-    "vr2_moe_ffn": [_P] * 14 + [_I] * 10 + [_P],
-    "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 5 + [_P],
-    "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 3 + [_P],
+    "vr2_moe_ffn": [_P] * 14 + [_I] * 11 + [_P],
+    "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 8 + [_P],
+    "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 4 + [_P],
     "vr2_int4_matmul": [_P] * 4 + [_I] * 5 + [_P] * 3,
     "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 11 + [_F, _P, _P, _P],

@@ -25,11 +25,12 @@ and recomputes per block:
   autograd asks for the expert weights' gradients; an expert with no routed
   rows gets exactly zero.
 On CUDA tensors those three wrappers launch ``csrc/moe_gmm_bwd.cu`` (which
-replaces ``_bwd_dx_kernel``, ``_bwd_dw_kernel`` and ``_bwd_dwd_kernel``) and
-count their launches; on CPU tensors they run their plain versions. The
-rounding points are the kernels', in the working type of x (bf16 on the
-card, none in float32): dY before dh and dWd, dg / du / h before the
-products that consume them; every sum is fp32, and dX and dW come out fp32.
+replaces ``_bwd_dx_kernel``, ``_bwd_dw_kernel`` and ``_bwd_dwd_kernel``; bf16
+or fp32 operands, `gmm_bwd_dx_tiles` picks dX's tiles) and count their
+launches; on CPU tensors they run their plain versions. The rounding points
+are the kernels', in the working type of x (bf16 on the card, none in
+float32): dY before dh and dWd, dg / du / h before the products that
+consume them; every sum is fp32, and dX and dW come out fp32.
 int8 and W8A8 expert weights have no backward, as in the reference. The
 sharded variant waits for the parallelism port.
 """
@@ -208,10 +209,18 @@ def gmm_bwd_dwd_plain(h, dYs, ids, valid, E: int, chunk: int = 32):
     return _expert_sums(h, dYs.to(h.dtype), ids, valid, E, chunk)
 
 
+def gmm_bwd_dx_tiles(bm: int, H: int) -> tuple[int, int]:
+    """The bf16 dX kernels' tiles for blocks of bm rows and hidden width H
+    (a multiple of 64): (rows a block: 128 where 128 divides bm, else 64,
+    one warpgroup per 64; columns of H a dX block: 128 where 128 divides H,
+    else 64). The terms pass takes 64 columns of I a block."""
+    return (128 if bm % 128 == 0 else 64), (128 if H % 128 == 0 else 64)
+
+
 def gmm_bwd_dx(xs, dYs, ids, valid, wg, wu, wd, keep_h: bool = False):
     """dX of the sorted layout (gmm_bwd_dx_plain's function). CUDA tensors
-    launch the kernel (bf16 operands, H and I multiples of 64); CPU tensors
-    run the plain version."""
+    launch the kernel (bf16 or fp32 operands of one type, H and I multiples
+    of 64); CPU tensors run the plain version."""
     if xs.device.type == "cpu":
         return gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd, keep_h)
     out = _bwd_dx_cuda(xs, dYs, ids, valid, wg, wu, wd, keep_h)
@@ -245,16 +254,23 @@ gmm_bwd_dw.launches = 0
 gmm_bwd_dwd.launches = 0
 
 
-def _check(what: str, operands, dev) -> None:
+def _check(what: str, operands, dev) -> bool:
+    """Device, type, layout and alignment of the operands (the first one's
+    type, bf16 or fp32, for all). Returns whether they are fp32."""
+    dtype = operands[0][1].dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: {operands[0][0]} must be torch.bfloat16 or torch.float32, "
+                        f"got {dtype}")
     for name, t in operands:
         if t.device != dev:
             raise ValueError(f"{what}: {name} on {t.device}, x on {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: {name} must be torch.bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype} as {operands[0][0]}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    return dtype == torch.float32
 
 
 def _block_table(ids, valid, n: int, dev):
@@ -282,17 +298,17 @@ def _bwd_dx_cuda(xs, dYs, ids, valid, wg, wu, wd, keep_h: bool):
         raise ValueError(f"gmm dX kernel: hidden {H} and intermediate {I} must be "
                          f"multiples of {KERNEL_TILE}")
     dev = xs.device
-    _check("gmm dX kernel", (("x", xs), ("dY", dYs), ("gate", wg), ("up", wu),
-                             ("down", wd)), dev)
+    fp32 = _check("gmm dX kernel", (("x", xs), ("dY", dYs), ("gate", wg), ("up", wu),
+                                    ("down", wd)), dev)
     ids32, valid32 = _block_table(ids, valid, n, dev)
     dx = torch.empty((n, bm, H), dtype=torch.float32, device=dev)
-    dg, du = (torch.empty((n, bm, I), dtype=torch.bfloat16, device=dev) for _ in range(2))
-    h = torch.empty((n, bm, I), dtype=torch.bfloat16, device=dev) if keep_h else None
+    dg, du = (torch.empty((n, bm, I), dtype=xs.dtype, device=dev) for _ in range(2))
+    h = torch.empty((n, bm, I), dtype=xs.dtype, device=dev) if keep_h else None
     err = kernels().vr2_moe_gmm_bwd_dx(
         xs.data_ptr(), dYs.data_ptr(), ids32.data_ptr(), valid32.data_ptr(),
         wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), dg.data_ptr(), du.data_ptr(),
         None if h is None else h.data_ptr(), dx.data_ptr(), n, bm, H, I, E,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *gmm_bwd_dx_tiles(bm, H), int(fp32), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "gmm backward dX kernel")
     return dx, dg, du, h
 
@@ -312,8 +328,8 @@ def _bwd_dw_cuda(a, bs, ids, valid, E: int):
         raise ValueError(f"gmm dW kernel: widths {M} and {N} must be multiples of "
                          f"{KERNEL_TILE}")
     dev = a.device
-    _check("gmm dW kernel", [("rows", a)] + [(f"operand {i}", b) for i, b in enumerate(bs)],
-           dev)
+    fp32 = _check("gmm dW kernel",
+                  [("rows", a)] + [(f"operand {i}", b) for i, b in enumerate(bs)], dev)
     ids32, valid32 = _block_table(ids, valid, n, dev)
     run = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
         0, ids32.long(), valid32) * bm                       # rows of each expert
@@ -322,7 +338,7 @@ def _bwd_dw_cuda(a, bs, ids, valid, E: int):
     err = kernels().vr2_moe_gmm_bwd_dw(
         a.data_ptr(), bs[0].data_ptr(), None if len(bs) == 1 else bs[1].data_ptr(),
         start.data_ptr(), run.data_ptr(), outs[0].data_ptr(),
-        None if len(bs) == 1 else outs[1].data_ptr(), M, N, E,
+        None if len(bs) == 1 else outs[1].data_ptr(), M, N, E, int(fp32),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "gmm backward dW kernel")
     return outs

@@ -11,8 +11,10 @@ ops/moe_gmm.py (a block is a run of rows of one expert).
 
 On CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/moe_ffn.cu``, which replaces ``_ffn_kernel``, ``_ffn_kernel_q`` and
-``_ffn_kernel_qq``; `ffn_wgmma_tiles` picks its wgmma path for bf16 blocks
-of a multiple of 64 rows) and raises on anything it does not take, a call under
+``_ffn_kernel_qq``; `ffn_kernel_path` picks its path: wgmma for bf16 blocks
+of a multiple of 64 rows, the decode kernel for bf16 blocks of fewer than
+64, CUDA cores for fp32, mma.sync for the rest) and raises on anything it
+does not take, a call under
 autograd among them (the kernel has no backward; the float GMM path trains
 through ops/moe_gmm.py's autograd Function, which calls it without); on CPU tensors
 it runs `ragged_expert_ffn_plain` (a gathered bmm per chunk of blocks with
@@ -44,12 +46,38 @@ def ffn_wgmma_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] |
     returned as their tiles (rows a block: 128 where 128 divides C, else 64;
     gate / up columns of I a block: 128 where it divides I, else 64; down
     columns of H a block: 256 where it divides H, else 64). Everything else
-    (ragged decode below 64 rows, int8 weights, W8A8) takes the mma.sync
-    kernels: None. H and I are multiples of 64 (the wrapper checks)."""
+    (blocks below 64 rows, int8 weights, W8A8): None. H and I are multiples
+    of 64 (the wrapper checks)."""
     if mode != 0 or C % WGMMA_ROWS:
         return None
     return (2 * WGMMA_ROWS if C % (2 * WGMMA_ROWS) == 0 else WGMMA_ROWS,
             128 if I % 128 == 0 else 64, 256 if H % 256 == 0 else 64)
+
+
+def ffn_decode_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] | None:
+    """The decode kernel's tiles for mode 0 (bf16) at C < 64 rows a block
+    (the ragged decode's slots, the GMM layout's blocks of 8-32 rows):
+    (token rows a box: C rounded up to 8, 16, 32 or 64; gate / up columns
+    of I a block: 64; down columns of H a block: 128 where it divides H,
+    else 64). Anything else: None. H and I are multiples of 64."""
+    if mode != 0 or C >= WGMMA_ROWS:
+        return None
+    return next(r for r in (8, 16, 32, 64) if r >= C), 64, 128 if H % 128 == 0 else 64
+
+
+def ffn_kernel_path(mode: int, C: int, H: int, I: int,
+                    fp32: bool = False) -> tuple[int, tuple[int, int, int]]:
+    """(path, tiles) of csrc/moe_ffn.cu for a call: 3 for fp32 x over fp32
+    weights (mode 0; CUDA cores), else 1 with ffn_wgmma_tiles' tiles, 2
+    with ffn_decode_tiles', or 0 (mma.sync; int8 weights, W8A8, bf16 at C
+    >= 64 not a multiple of 64) with no tiles (0, 0, 0)."""
+    if fp32:
+        return 3, (0, 0, 0)
+    for path, tiles in ((1, ffn_wgmma_tiles(mode, C, H, I)),
+                        (2, ffn_decode_tiles(mode, C, H, I))):
+        if tiles is not None:
+            return path, tiles
+    return 0, (0, 0, 0)
 
 
 def _fit_block_i(cap: int, C: int, H: int, I: int, xbytes: int,
@@ -117,13 +145,13 @@ def ragged_expert_ffn(x_slots: torch.Tensor, active_ids: torch.Tensor, gate: dic
             "weights train through the GMM path (ops/moe_gmm.moe_mlp_gmm_diff); the "
             "ragged path and int8 / W8A8 weights do not train")
     out = _moe_ffn_cuda(x_slots, active_ids, gate, up, down, bi, blk_valid, x_scales)
-    ragged_expert_ffn.launches["w8a8" if x_scales is not None else
-                               "int8" if quant else "bf16"] += 1
+    ragged_expert_ffn.launches["w8a8" if x_scales is not None else "int8" if quant else
+                               "fp32" if x_slots.dtype == torch.float32 else "bf16"] += 1
     return out
 
 
-# kernel launches per variant: float, int8 weights, W8A8
-ragged_expert_ffn.launches = {"bf16": 0, "int8": 0, "w8a8": 0}
+# kernel launches per variant: bf16, int8 weights, W8A8, fp32
+ragged_expert_ffn.launches = {"bf16": 0, "int8": 0, "w8a8": 0, "fp32": 0}
 
 
 def ragged_expert_ffn_plain(x_slots, active_ids, gate: dict, up: dict, down: dict,
@@ -194,8 +222,9 @@ def _moe_ffn_cuda(x, ids, gate, up, down, bi, blk_valid, x_scales):
     if w8a8 and (bi % KERNEL_TILE or I % bi):
         raise ValueError(f"moe kernel: W8A8 tile {bi} must divide {I} and be a multiple "
                          f"of {KERNEL_TILE}")
-    x_dtype = torch.int8 if w8a8 else torch.bfloat16
-    w_dtype = torch.int8 if quant else torch.bfloat16
+    fp32 = mode == 0 and x.dtype == torch.float32
+    x_dtype = torch.int8 if w8a8 else torch.float32 if fp32 else torch.bfloat16
+    w_dtype = torch.int8 if quant else x_dtype
     operands = [("x", x, x_dtype), ("gate", wg, w_dtype), ("up", wu, w_dtype),
                 ("down", wd, w_dtype)]
     if quant:
@@ -224,18 +253,18 @@ def _moe_ffn_cuda(x, ids, gate, up, down, bi, blk_valid, x_scales):
     if ids32.shape != (A,) or valid32.shape != (A,):
         raise ValueError(f"moe kernel: ids {tuple(ids32.shape)} / blk_valid "
                          f"{tuple(valid32.shape)} must be [{A}]")
-    h = torch.empty((A, C, I), dtype=torch.float32 if w8a8 else torch.bfloat16, device=dev)
+    wide = torch.float32 if w8a8 or fp32 else torch.bfloat16   # h and out
+    h = torch.empty((A, C, I), dtype=wide, device=dev)
     hq = torch.empty((A, C, I), dtype=torch.int8, device=dev) if w8a8 else None
     ah = torch.empty((A, C, I // bi), dtype=torch.float32, device=dev) if w8a8 else None
-    out = torch.empty((A, C, H), dtype=torch.float32 if w8a8 else torch.bfloat16,
-                      device=dev)
+    out = torch.empty((A, C, H), dtype=wide, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    tiles = ffn_wgmma_tiles(mode, C, H, I) or (0, 0, 0)
+    path, tiles = ffn_kernel_path(mode, C, H, I, fp32)
     err = kernels().vr2_moe_ffn(
         x.data_ptr(), ptr(x_scales), ids32.data_ptr(), valid32.data_ptr(),
         wg.data_ptr(), ptr(sg), wu.data_ptr(), ptr(su), wd.data_ptr(), ptr(sd),
-        h.data_ptr(), ptr(hq), ptr(ah), out.data_ptr(), A, C, H, I, E, bi, mode, *tiles,
-        torch.cuda.current_stream(dev).cuda_stream)
+        h.data_ptr(), ptr(hq), ptr(ah), out.data_ptr(), A, C, H, I, E, bi, mode, path,
+        *tiles, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "moe expert FFN kernel")
     return out
 
