@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The MoE kernels of the PyTorch port at the judge's shapes, on one NVIDIA
-GPU: the bf16 ragged decode FFN and the GMM backward's dX, each timed
-eagerly and in a CUDA graph (device time) beside the library call timed
-both ways and the bound.
+GPU: the bf16 ragged decode FFN and the GMM backward's dX and weight
+gradients, each timed eagerly and in a CUDA graph (device time) beside the
+library call timed both ways and the bound.
 
     python3 scripts/bench_moe_kernels.py                 # this checkout's port
     python3 scripts/bench_moe_kernels.py --root DIR      # another checkout's
+    python3 scripts/bench_moe_kernels.py --cases dx,dw   # some of the cases
 
 Shapes (Qwen3-30B-A3B: E 128, H 2048, I 768, top 8; one layer's weights,
 seeded and scaled like chip_smoke.py phase 10's): the grouped FFN (csrc/
@@ -15,7 +16,11 @@ SwiGLU over the routed rows; the bf16 GMM prefill FFN at T = 4096 (its
 wgmma kernels share the ring with dX); dX of the GMM backward (csrc/
 moe_gmm_bwd.cu) at phase 14's T = 4096 and phase 15's T = 2048, the
 library call chip_smoke.gmm_bwd_library's (five torch._grouped_mm and the
-SwiGLU terms). Each case also gives its kernels' device time from
+SwiGLU terms); the weight gradients dWg / dWu and dWd at phase 14's T =
+4096, from the dX kernel's dg / du / h, the library call two and one
+torch._grouped_mm (2d x 2d, grouped along the rows), the bound at the
+weights' bf16 (the port before it wrote fp32 and converted). Each case
+also gives its kernels' device time from
 torch.profiler and the wrapper's host time a call (the enqueue time of
 back-to-back calls: what a host-bound decode loop pays for it). The
 helpers are chip_smoke.py's, from this checkout; the port timed is the one
@@ -36,6 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 DECODE_TOKENS = (16, 8)       # phase 10's ragged decode, phase 11's paged pass
 PREFILL_TOKENS = 4096         # phase 10's GMM prefill
 DX_TOKENS = (4096, 2048)      # phases 14 and 15
+DW_TOKENS = 4096              # phase 14
 
 
 def kernel_us(fn, calls: int = 5) -> dict:
@@ -171,12 +177,66 @@ def dx_case(router, leaves, gen, T: int) -> dict:
     return r
 
 
+def dw_cases(router, leaves, gen, T: int) -> dict:
+    """dWg / dWu and dWd of the GMM backward at T tokens, from the dX
+    kernel's dg / du / h: {kernel name: eager and device ms, the library's
+    both ways, the bound, the relative L2 against the plain version, the
+    output dtype, its kernels}."""
+    import torch
+
+    import chip_smoke
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    E, H, I = leaves["gate"]["kernel"].shape
+    wg, wu, wd = (leaves[n]["kernel"] for n in ("gate", "up", "down"))
+    out = {}
+    with torch.no_grad():
+        x = torch.randn(T, H, generator=gen, device=gen.device).to(torch.bfloat16)
+        topv, topi = route(router, x, 8, True)
+        bm = gmm.auto_block_rows(T * 8, E)
+        xs, ids, valid, dst = gmm.gmm_layout(x, topi, E, bm)
+        dys = gmm.sorted_dy(torch.randn(T * 8, H, generator=gen, device=gen.device), topv,
+                            dst, xs.shape, xs.dtype)
+        _, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+        rows = torch.zeros(E, dtype=torch.int32, device=gen.device).index_add_(
+            0, ids.long(), valid.int()) * bm
+        library = chip_smoke.gmm_bwd_library(xs, dg, du, h, dys, wg, wu, wd, rows)
+        n_exp = int(torch.unique(topi).numel())
+        bounds = chip_smoke.gmm_bwd_bounds(T * 8, n_exp, E, H, I)
+        runs = {"moe_gmm_bwd_dw": (lambda: gmm.gmm_bwd_dw(xs, dg, du, ids, valid, E),
+                                   lambda: gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E),
+                                   (H, I, 2)),
+                "moe_gmm_bwd_dwd": (lambda: gmm.gmm_bwd_dwd(h, dys, ids, valid, E),
+                                    lambda: gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E),
+                                    (I, H, 1))}
+        for name, (run, plain, (M, N, nb)) in runs.items():
+            got, ref = run(), plain()
+            got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+            ref = tuple(ref) if isinstance(ref, (tuple, list)) else (ref,)
+            lib = library[name]
+            r = {"ms": chip_smoke.cuda_ms(run, iters=10), "device_ms": device_ms(run),
+                 "library_ms": chip_smoke.cuda_ms(lib, iters=10) if lib else None,
+                 "library_device_ms": device_ms(lib) if lib else None, **bounds[name],
+                 "rel_l2": max(chip_smoke.rel_l2(a, b) for a, b in zip(got, ref)),
+                 "dtype": str(got[0].dtype), "experts": n_exp, "shape": [xs.shape[0], bm, H, I],
+                 "kernels_us": kernel_us(run)}
+            if hasattr(gmm, "gmm_bwd_dw_layout"):
+                r["launch"] = chip_smoke.gmm_dw_launch_line(M, N, E, nb)
+            out[name] = r
+            del got, ref
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a tag printed on every line")
+    ap.add_argument("--cases", default="decode,prefill,dx,dw",
+                    help="which cases, comma-separated: decode, prefill, dx, dw")
     args = ap.parse_args()
+    cases = set(args.cases.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -200,14 +260,19 @@ def main() -> int:
                 line[f"of_bound_{key}"] = r["bound_ms"] / r[key]
         print(json.dumps(line), flush=True)
 
-    for T in DECODE_TOKENS:
+    for T in DECODE_TOKENS if "decode" in cases else ():
         emit("moe_ffn_bf16_ragged", f"ragged decode, T={T}",
              ffn_case(router, leaves, gen, T, "ragged"))
-    emit("moe_ffn_bf16_gmm", f"GMM prefill, T={PREFILL_TOKENS}",
-         ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm"))
-    torch.cuda.empty_cache()
-    for T in DX_TOKENS:
+    if "prefill" in cases:
+        emit("moe_ffn_bf16_gmm", f"GMM prefill, T={PREFILL_TOKENS}",
+             ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm"))
+        torch.cuda.empty_cache()
+    for T in DX_TOKENS if "dx" in cases else ():
         emit("moe_gmm_bwd_dx", f"GMM backward dX, T={T}", dx_case(router, leaves, gen, T))
+        torch.cuda.empty_cache()
+    if "dw" in cases:
+        for name, r in dw_cases(router, leaves, gen, DW_TOKENS).items():
+            emit(name, f"GMM backward {name[12:]}, T={DW_TOKENS}", r)
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

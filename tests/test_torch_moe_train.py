@@ -336,3 +336,80 @@ def test_lora_sft_step_over_the_moe_judge_matches_jax(judge, monkeypatch):
     ours = np.concatenate([p.grad.numpy().ravel() for p in params.values()])
     want = np.concatenate([ref[n].ravel() for n in params])
     assert np.linalg.norm(ours - want) <= 1e-4 * np.linalg.norm(want)
+
+
+def test_gmm_bwd_dw_plain_rounds_the_fp32_sum_once(rng):
+    """The weight-gradient plain versions in bf16 (the card kernel's output
+    type): the per-expert fp32 sums of the bf16 operands, rounded to bf16
+    once; the default output is the operands' dtype, and out_dtype asks
+    for another (float32: the sums unrounded). An expert with no valid
+    block is exactly zero."""
+    bm, I = 8, 16
+    ids = torch.tensor([0, 0, 2, 5, 7], dtype=torch.int32)
+    valid = torch.tensor([1, 1, 1, 1, 0], dtype=torch.int32)
+    xs, dg, du = (T(rng.normal(0, 1, (5, bm, n)).astype(np.float32)).bfloat16()
+                  for n in (H, I, I))
+    dys = T(rng.normal(0, 1, (5, bm, H)).astype(np.float32))
+    xs[4] = float("nan")                          # the slack block: never read
+    want = torch.zeros(E, H, I)
+    for blk, e in enumerate(ids[:4].tolist()):
+        want[e] += xs[blk].float().T @ dg[blk].float()
+    got, got_u = moe_gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
+    assert got.dtype == got_u.dtype == torch.bfloat16
+    assert torch.equal(got, want.bfloat16())
+    exact = moe_gmm.gmm_bwd_dw_plain(xs, dg, du, ids, valid, E, torch.float32)[0]
+    assert exact.dtype == torch.float32 and torch.allclose(exact, want, rtol=1e-6, atol=1e-5)
+    h = dg
+    wd_want = torch.zeros(E, I, H)
+    for blk, e in enumerate(ids[:4].tolist()):
+        wd_want[e] += h[blk].float().T @ dys[blk].bfloat16().float()
+    dwd = moe_gmm.gmm_bwd_dwd_plain(h, dys, ids, valid, E)
+    assert dwd.dtype == torch.bfloat16 and torch.equal(dwd, wd_want.bfloat16())
+    absent = [1, 3, 4, 6]
+    assert not got[absent].any() and not dwd[absent].any()
+
+
+@pytest.mark.parametrize("N,nb,cols", [(768, 2, 128), (192, 2, 64), (64, 2, 64),
+                                       (2048, 1, 256), (768, 1, 256), (320, 1, 64),
+                                       (128, 1, 64)])
+def test_gmm_bwd_dw_tiles(N, nb, cols):
+    """The weight-gradient kernel's tile: 128 rows; 128 columns for dWg /
+    dWu and 256 for dWd where they divide the width, else 64."""
+    assert moe_gmm.gmm_bwd_dw_tiles(N, nb) == (128, cols)
+
+
+def test_gmm_diff_bf16_expert_grads_match_jax(rng):
+    """The MoE backward's expert gradients in bf16 (weights, x and the
+    cotangent bf16; the same routing given to both): the port's
+    _GmmExpertFFN on the CPU (the kernels' plain versions, which round dY,
+    dg / du / h to bf16 where the card kernels do, and each dW's fp32 sum
+    once) against JAX's gmm_expert_ffn_diff (its Pallas kernels in
+    interpret mode, f32 inside, dwg.astype(bf16) at the end). Both give
+    bf16 gradients; relative L2 <= 2e-2 per tensor, the difference of the
+    rounding points (bf16 steps are 2**-8 of a value); an expert no slot
+    routes to gets exactly 0 in both."""
+    p = _moe_params(rng)
+    x = rng.normal(0, 1, (24, H)).astype(np.float32)
+    # expert 6 gets no slot, as in test_gmm_diff_grads_match_jax_and_the_einsum
+    x[:, 0] = 3.0
+    p["router"]["kernel"][:, 6] = 0.0
+    p["router"]["kernel"][0, np.arange(E) != 6] += 3.0
+    cot = rng.normal(0, 1, (24, H)).astype(np.float32)
+    topv, topi = moe.route(T(p["router"]["kernel"]), T(x), K, True)
+    w = [p["experts"][n]["kernel"] for n in ("gate", "up", "down")]
+    bf = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+
+    ws = [bf(a).requires_grad_() for a in w]
+    out = moe_gmm._GmmExpertFFN.apply(bf(x), topv, topi, *ws, 4, "kernel")
+    ours = torch.autograd.grad((out.float() * T(cot)).sum(), ws)
+
+    jw = tuple(jnp.asarray(a, jnp.bfloat16) for a in w)
+    jx, jv, ji = jnp.asarray(x, jnp.bfloat16), jnp.asarray(topv.numpy()), jnp.asarray(topi.numpy())
+    ref = jax.grad(lambda ws: jnp.sum(jgmm.gmm_expert_ffn_diff(
+        jx, jv, ji, ws, 4, True).astype(jnp.float32) * cot))(jw)
+    for name, a, b in zip(("gate", "up", "down"), ours, ref):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16, name
+        b = torch.from_numpy(np.array(b.astype(jnp.float32)))
+        rel = float((a.float() - b).norm() / b.norm())
+        assert rel <= 2e-2, (name, rel)
+        assert not a[6].any() and not b[6].any(), name

@@ -18,7 +18,7 @@ from video_r2_tpu.ops.flash import flash_attention as j_flash
 from video_r2_tpu.ops.vit_window_attention import window_attention as j_window
 from video_r2_tpu_torch.ops import cuda_build
 from video_r2_tpu_torch.ops.attention import dot_product_attention
-from video_r2_tpu_torch.ops.flash import flash_attention
+from video_r2_tpu_torch.ops.flash import flash_attention, kernel_instance
 from video_r2_tpu_torch.ops.vit_window_attention import window_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -117,3 +117,43 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         cuda_build.build()
     # the library name follows the sources, so an edit never loads a stale build
     assert cuda_build.library_path().name.startswith("libvr2_kernels_")
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 80, "bf16"), (torch.bfloat16, 128, "bf16"),
+    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 96, ValueError),
+    (torch.float32, 12, "fp32"), (torch.float32, 16, "fp32"), (torch.float32, 80, "fp32"),
+    (torch.float32, 128, "fp32"), (torch.float32, 136, ValueError),
+    (torch.float16, 64, TypeError), (torch.float64, 12, TypeError)])
+def test_kernel_instance_routes_by_dtype_and_head_dim(dtype, hd, want):
+    """The flash and window wrappers' routing on the card: bf16 to the
+    tensor-core kernels at head dims 64 / 80 / 128, fp32 to the CUDA-core
+    instances at any head dim up to 128, every other dtype refused."""
+    if isinstance(want, str):
+        assert kernel_instance(dtype, hd) == want
+    else:
+        with pytest.raises(want):
+            kernel_instance(dtype, hd)
+
+
+@pytest.mark.parametrize("what", ["flash", "window"])
+def test_fp32_head_dim_12_forward_matches_jax(rng, what):
+    """The tiny config's text head dim (12), which only the fp32 instances
+    take on the card: the plain flash forward (causal, GQA, ragged) and
+    window forward against the JAX kernels in interpret mode."""
+    if what == "flash":
+        q, k, v = _qkv(rng, 2, 96, 96, 4, 2, 12)
+        lengths = np.array([96, 41], np.int32)
+        ours = flash_attention(T(q), T(k), T(v), kv_lengths=T(lengths), causal=True)
+        ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      kv_lengths=jnp.asarray(lengths), causal=True,
+                      block_q=64, block_k=64, interpret=True)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+        return
+    q, k, v = (rng.normal(size=(256, 4, 12)).astype(np.float32) for _ in range(3))
+    valid = np.ones(256, bool)
+    valid[20:64] = False
+    ours = window_attention(T(q), T(k), T(v), T(valid))
+    ref = j_window(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+                   wp=64, interpret=True)
+    np.testing.assert_allclose(ours.numpy()[valid], np.asarray(ref)[valid], **TOL)

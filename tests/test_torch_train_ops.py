@@ -216,3 +216,38 @@ def test_autograd_functions_match_plain_autograd(rng, case):
     torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-5)
     for a, b in zip(grads, ref_grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("what", ["flash", "window"])
+def test_fp32_head_dim_12_backward_matches_jax(rng, what):
+    """The tiny config's text head dim (12), which only the fp32 instances
+    take on the card: the plain flash forward-with-LSE and backward (causal,
+    GQA, a batch row with no key) and the window backward against the JAX
+    kernels in interpret mode, at the tolerances above."""
+    if what == "flash":
+        B, S, nh, kh, hd = 2, 96, 4, 2, 12
+        q, k, v, cot = (rng.normal(size=(B, S, n, hd)).astype(np.float32)
+                        for n in (nh, kh, kh, nh))
+        lengths = np.array([S, 0], np.int32)
+        ref_out, ref_grads = _jax_flash_grads(q, k, v, cot, lengths, True, None)
+        ref_lse = _jax_flash_lse(q, k, v, lengths, True, None)
+        out, lse = flash_attention_fwd_lse(T(q), T(k), T(v), T(lengths), True, 0, None)
+        np.testing.assert_allclose(out.numpy(), ref_out, **GRAD_TOL)
+        np.testing.assert_allclose(lse.numpy(), ref_lse, **GRAD_TOL)
+        grads = flash_attention_bwd(T(q), T(k), T(v), out, T(cot), lse, T(lengths), True, 0,
+                                    None)
+        for name, ours, ref in zip("qkv", grads, ref_grads):
+            np.testing.assert_allclose(ours.numpy(), ref, err_msg=name, **GRAD_TOL)
+        return
+    wp, nh, hd, S = 64, 4, 12, 256
+    q, k, v, cot = (rng.normal(size=(S, nh, hd)).astype(np.float32) for _ in range(4))
+    valid = np.ones(S, bool)
+    valid[40:wp] = False
+    valid[-wp:] = False
+    cot = cot * valid[:, None, None]
+    ref = jax.grad(lambda q, k, v: jnp.sum(j_window(q, k, v, jnp.asarray(valid), wp=wp,
+                                                    interpret=True) * cot),
+                   argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ours = window_attention_bwd(T(q), T(k), T(v), T(valid), T(cot), wp)
+    for name, a, b in zip("qkv", ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **WINDOW_TOL)

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a): bf16 in, fp32 accumulation.
+// Flash attention forward for Hopper (sm_90a): bf16 in, fp32 accumulation
+// (an fp32 instance on the CUDA cores for fp32 operands, at the end).
 //
 // Replaces the TPU kernel video_r2_tpu/ops/flash.py::_flash_kernel (:80),
 // with the same semantics: online softmax over key tiles; GQA (kv head =
@@ -76,6 +77,7 @@
 #include <cmath>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -475,19 +477,148 @@ int layout(int* out) {
   return int(err);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 instance (CUDA cores; fp32_tile.cuh): fp32 q / k / v at any head
+// dim up to 128, the same mask and outputs as the bf16 kernel, and P, every
+// product, the softmax and the LSE in fp32 (the JAX kernels cast their
+// tiles to f32). One 256-thread block per (64 query rows, head, batch);
+// 64-key tiles up to the last key any of its rows admits; the scores'
+// 64 x 64 tile in registers (4 x 4 a thread), P through shared memory into
+// P V. No preset runs it: the tiny fp32 test config does.
+// ---------------------------------------------------------------------------
+namespace f32 = vr2::f32;
+
+struct F32Params {
+  const float *q, *k, *v;     // read by stride
+  float* o;                   // [B, Sq, nh, hd] contiguous
+  float* lse;                 // [B, nh, Sq] or null
+  const int* kv_lengths;      // [B]
+  const int* seg;             // [B, Sk] or null
+  int B, Sq, Sk, nh, kh, hd, causal, q_offset;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float scale;
+};
+
+// the keys [0, end) that any query row of [q0, q0 + 64) may admit
+__device__ __forceinline__ int key_end(const F32Params& p, int q0, int kv_len) {
+  return p.causal ? max(0, min(kv_len, p.q_offset + q0 + f32::kTile)) : kv_len;
+}
+
+__global__ void __launch_bounds__(f32::kThreads) flash_fwd_f32_kernel(const F32Params p) {
+  __shared__ f32::Smem sm;
+  __shared__ f32::Tile sp;
+  const int h = blockIdx.x % p.nh, b = blockIdx.x / p.nh % p.B;
+  const int q0 = blockIdx.x / (p.nh * p.B) * f32::kTile;
+  const int hk = h / (p.nh / p.kh), ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int kv_len = min(p.kv_lengths[b], p.Sk), k_end = key_end(p, q0, kv_len);
+  const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const int* segb = p.seg != nullptr ? p.seg + (long long)b * p.Sk : nullptr;
+  int row[4], qseg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row[i] = q0 + 4 * ty + i;
+    qseg[i] = segb != nullptr && row[i] < p.Sq ? segb[row[i]] : 0;
+  }
+  const f32::Operand<true> qo{p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss,
+                              min(f32::kTile, p.Sq - q0)};
+  float m[4], l[4];
+  f32::Acc o[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  f32::zero(o[0]);
+  f32::zero(o[1]);
+  for (int k0 = 0; k0 < k_end; k0 += f32::kTile) {
+    const int kn = min(f32::kTile, k_end - k0);
+    f32::Acc s;
+    f32::zero(s);
+    f32::product(s, qo, f32::Operand<true>{kb + k0 * p.k_ss, p.k_ss, kn}, p.hd, sm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + 4 * tx + j;
+        const bool ok = key < k_end && (!p.causal || key <= p.q_offset + row[i]) &&
+                        (segb == nullptr || segb[key] == qseg[i]);
+        s[i][j] = ok ? s[i][j] * p.scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], f32::row_max(mx));
+      const float ref = m_new == -INFINITY ? 0.f : m_new;  // no key admitted yet
+      const float alpha = expf(m[i] - ref);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - ref);
+        sum += s[i][j];
+        o[0][i][j] *= alpha;
+        o[1][i][j] *= alpha;
+      }
+      l[i] = l[i] * alpha + sum;  // this thread's columns; summed over the row at the end
+      m[i] = m_new;
+    }
+    f32::to_tile(sp, s);
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if (c * f32::kTile < p.hd)
+        f32::product(o[c], f32::Operand<true>{&sp[0][0], f32::kTile + 1, f32::kTile},
+                     f32::Operand<false>{vb + k0 * p.v_ss + c * f32::kTile, p.v_ss,
+                                         p.hd - c * f32::kTile},
+                     kn, sm);
+  }
+  float tot[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tot[i] = f32::row_sum(l[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (row[i] >= p.Sq) continue;
+    const float inv = tot[i] > 0.f ? 1.f / tot[i] : 0.f;  // no admitted key: 0
+    float* op = p.o + (((long long)b * p.Sq + row[i]) * p.nh + h) * p.hd;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c * f32::kTile + 4 * tx + j;
+        if (col < p.hd) op[col] = o[c][i][j] * inv;
+      }
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.nh + h) * p.Sq + row[i]] =
+          tot[i] > 0.f ? m[i] + logf(tot[i]) : 1e30f;
+  }
+}
+
+cudaError_t launch_f32(const F32Params& p, cudaStream_t stream) {
+  if (p.hd <= 0 || p.hd > 2 * f32::kTile) return cudaErrorInvalidValue;
+  const int blocks = (p.Sq + f32::kTile - 1) / f32::kTile * p.nh * p.B;
+  flash_fwd_f32_kernel<<<blocks, f32::kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q / k / v are read by stride
-// (elements; the row and head strides multiples of 8, the bases 16-byte
-// aligned); the output is a contiguous [B, Sq, nh, hd]; lse (fp32
-// [B, nh, Sq]) may be null. Returns a cudaError_t.
+// (elements; bf16: the row and head strides multiples of 8, the bases
+// 16-byte aligned, hd 64, 80 or 128; fp32 (fp32 != 0): any strides, hd up
+// to 128); the output is a contiguous [B, Sq, nh, hd] of q's type; lse
+// (fp32 [B, nh, Sq]) may be null. Returns a cudaError_t.
 extern "C" int vr2_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_lengths,
     const int* seg, int B, int Sq, int Sk, int nh, int kh, int hd, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int q_offset, float scale,
-    void* stream) {
+    int fp32, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || kh <= 0 || nh % kh != 0) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fp32) {
+    const F32Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<float*>(o),
+                      static_cast<float*>(lse), kv_lengths, seg, B, Sq, Sk, nh, kh, hd,
+                      causal, q_offset, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                      scale};
+    return int(launch_f32(p, st));
+  }
   FlashParams p;
   p.o = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
@@ -502,7 +633,6 @@ extern "C" int vr2_flash_attention_fwd(
   p.q_offset = q_offset;
   p.scale = scale;
   const Operands x{q, k, v, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch_hd<64>(p, x, st);
     case 80: return launch_hd<80>(p, x, st);

@@ -1,4 +1,5 @@
-// Flash attention backward for Hopper (sm_90a): bf16 in, fp32 accumulation.
+// Flash attention backward for Hopper (sm_90a): bf16 in, fp32 accumulation
+// (fp32 instances on the CUDA cores for fp32 operands, at the end).
 //
 // Replaces the TPU kernels video_r2_tpu/ops/flash.py::_flash_bwd_dq_kernel
 // (:116) and ::_flash_bwd_dkv_kernel (:164): the FA2 recompute backward from
@@ -62,6 +63,7 @@
 #include <cmath>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -623,20 +625,232 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v, const vo
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 instances (CUDA cores; fp32_tile.cuh): fp32 operands at any head
+// dim up to 128, the same mask as the bf16 kernels, and P, dS and every
+// product in fp32. dq: one 256-thread block per (64 query rows, head,
+// batch). dk / dv: one per (64 keys, kv head, batch), which walks the
+// query heads of its GQA group itself and writes dk / dv once (no atomics:
+// two calls give the same bits). The 64 x 64 score tiles sit in registers
+// (4 x 4 a thread); dS and P go through shared memory into their products.
+// No preset runs them: the tiny fp32 test config does.
+// ---------------------------------------------------------------------------
+namespace f32 = vr2::f32;
+
+struct F32BwdParams {
+  const float *q, *k, *v;     // read by stride
+  const float* dout;          // [B, Sq, nh, hd] contiguous
+  const float* lse;           // [B, nh, Sq]
+  const float* delta;         // [B, nh, Sq]
+  const int* kv_lengths;      // [B]
+  const int* seg;             // [B, Sk] or null
+  float *dq, *dk, *dv;        // [B, Sq, nh, hd], [B, Sk, kh, hd] contiguous
+  int B, Sq, Sk, nh, kh, hd, causal, q_offset;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float scale;
+};
+
+__device__ __forceinline__ bool admitted_f32(const F32BwdParams& p, const int* segb, int key,
+                                             int row, int kv_len) {
+  return key < kv_len && row < p.Sq && (!p.causal || key <= p.q_offset + row) &&
+         (segb == nullptr || segb[key] == segb[row]);
+}
+
+// rows [r0, r0 + n) of one head's [S, hd] view as a product operand
+__device__ __forceinline__ f32::Operand<true> rows_of(const float* base, long long stride,
+                                                      int r0, int S) {
+  return {base + r0 * stride, stride, min(f32::kTile, S - r0)};
+}
+
+// out += T X for the tile t in shared memory (k = its columns, kn of them)
+// and X's rows [k0, k0 + kn) (x: one head's [S, hd] view), both 64-column
+// halves of the head dim
+__device__ __forceinline__ void tile_times_rows(f32::Acc (&out)[2], const f32::Tile& t,
+                                                const float* x, long long stride, int k0,
+                                                int kn, int hd, f32::Smem& sm) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (c * f32::kTile < hd)
+      f32::product(out[c], f32::Operand<true>{&t[0][0], f32::kTile + 1, f32::kTile},
+                   f32::Operand<false>{x + k0 * stride + c * f32::kTile, stride,
+                                       hd - c * f32::kTile},
+                   kn, sm);
+}
+
+// rows [r0, r0 + 64) of out (a contiguous [S, heads, hd] at head h) = acc x mul
+__device__ __forceinline__ void store_rows_f32(float* out, const f32::Acc (&acc)[2], int r0,
+                                               int S, int heads, int h, int hd, float mul) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * ty + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c * f32::kTile + 4 * tx + j;
+        if (col < hd) out[((long long)r * heads + h) * hd + col] = acc[c][i][j] * mul;
+      }
+  }
+}
+
+__global__ void __launch_bounds__(f32::kThreads) flash_bwd_dq_f32_kernel(const F32BwdParams p) {
+  __shared__ f32::Smem sm;
+  __shared__ f32::Tile sds;
+  const int h = blockIdx.x % p.nh, b = blockIdx.x / p.nh % p.B;
+  const int q0 = blockIdx.x / (p.nh * p.B) * f32::kTile;
+  const int hk = h / (p.nh / p.kh), ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int kv_len = min(p.kv_lengths[b], p.Sk);
+  const int k_end = p.causal ? max(0, min(kv_len, p.q_offset + q0 + f32::kTile)) : kv_len;
+  const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const float* dob = p.dout + ((long long)b * p.Sq * p.nh + h) * p.hd;
+  const long long do_ss = (long long)p.nh * p.hd;
+  const int* segb = p.seg != nullptr ? p.seg + (long long)b * p.Sk : nullptr;
+  const f32::Operand<true> qo = rows_of(p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq);
+  const f32::Operand<true> doo = rows_of(dob, do_ss, q0, p.Sq);
+  float lse[4], delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = min(q0 + 4 * ty + i, p.Sq - 1);
+    lse[i] = p.lse[((long long)b * p.nh + h) * p.Sq + r];
+    delta[i] = p.delta[((long long)b * p.nh + h) * p.Sq + r];
+  }
+  f32::Acc dq[2];
+  f32::zero(dq[0]);
+  f32::zero(dq[1]);
+  for (int k0 = 0; k0 < k_end; k0 += f32::kTile) {
+    f32::Acc s, dp;
+    f32::zero(s);
+    f32::zero(dp);
+    f32::product(s, qo, rows_of(kb, p.k_ss, k0, k_end), p.hd, sm);
+    f32::product(dp, doo, rows_of(vb, p.v_ss, k0, k_end), p.hd, sm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = admitted_f32(p, segb, k0 + 4 * tx + j, q0 + 4 * ty + i, k_end);
+        const float pr = ok ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
+        s[i][j] = pr * (dp[i][j] - delta[i]);
+      }
+    f32::to_tile(sds, s);
+    __syncthreads();
+    tile_times_rows(dq, sds, kb, p.k_ss, k0, min(f32::kTile, k_end - k0), p.hd, sm);
+  }
+  store_rows_f32(p.dq + (long long)b * p.Sq * p.nh * p.hd, dq, q0, p.Sq, p.nh, h, p.hd,
+                 p.scale);
+}
+
+__global__ void __launch_bounds__(f32::kThreads) flash_bwd_dkv_f32_kernel(const F32BwdParams p) {
+  __shared__ f32::Smem sm;
+  __shared__ f32::Tile st;
+  const int hk = blockIdx.x % p.kh, b = blockIdx.x / p.kh % p.B;
+  const int key0 = blockIdx.x / (p.kh * p.B) * f32::kTile;
+  const int g = p.nh / p.kh, tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int kv_len = min(p.kv_lengths[b], p.Sk);
+  const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const long long do_ss = (long long)p.nh * p.hd;
+  const int* segb = p.seg != nullptr ? p.seg + (long long)b * p.Sk : nullptr;
+  f32::Acc dk[2], dv[2];
+  f32::zero(dk[0]);
+  f32::zero(dk[1]);
+  f32::zero(dv[0]);
+  f32::zero(dv[1]);
+  // keys at or past the kv length get zeros; causal: no query row before
+  // key0 - q_offset admits a key of this tile
+  const int q_begin = p.causal ? max(0, key0 - p.q_offset) / f32::kTile * f32::kTile : 0;
+  if (key0 < kv_len) {
+    const f32::Operand<true> ko = rows_of(kb, p.k_ss, key0, kv_len);
+    const f32::Operand<true> vo = rows_of(vb, p.v_ss, key0, kv_len);
+    for (int h = hk * g; h < (hk + 1) * g; ++h) {
+      const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+      const float* dob = p.dout + ((long long)b * p.Sq * p.nh + h) * p.hd;
+      const float* lse = p.lse + ((long long)b * p.nh + h) * p.Sq;
+      const float* delta = p.delta + ((long long)b * p.nh + h) * p.Sq;
+      for (int q0 = q_begin; q0 < p.Sq; q0 += f32::kTile) {
+        // S^T and dP^T: rows are this block's keys, columns the tile's queries
+        f32::Acc s, dp;
+        f32::zero(s);
+        f32::zero(dp);
+        f32::product(s, ko, rows_of(qb, p.q_ss, q0, p.Sq), p.hd, sm);
+        f32::product(dp, vo, rows_of(dob, do_ss, q0, p.Sq), p.hd, sm);
+        float pr[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = q0 + 4 * tx + j, rr = min(r, p.Sq - 1);
+          const float l = lse[rr], d = delta[rr];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bool ok = admitted_f32(p, segb, key0 + 4 * ty + i, r, kv_len);
+            pr[i][j] = ok ? expf(s[i][j] * p.scale - l) : 0.f;
+            s[i][j] = pr[i][j] * (dp[i][j] - d);  // dS^T
+          }
+        }
+        const int qn = min(f32::kTile, p.Sq - q0);
+        f32::to_tile(st, pr);  // P^T: dv += P^T dO
+        __syncthreads();
+        tile_times_rows(dv, st, dob, do_ss, q0, qn, p.hd, sm);
+        f32::to_tile(st, s);   // dS^T: dk += dS^T Q
+        __syncthreads();
+        tile_times_rows(dk, st, qb, p.q_ss, q0, qn, p.hd, sm);
+      }
+    }
+  }
+  float* dkb = p.dk + (long long)b * p.Sk * p.kh * p.hd;
+  float* dvb = p.dv + (long long)b * p.Sk * p.kh * p.hd;
+  store_rows_f32(dkb, dk, key0, p.Sk, p.kh, hk, p.hd, p.scale);
+  store_rows_f32(dvb, dv, key0, p.Sk, p.kh, hk, p.hd, 1.f);
+}
+
+int launch_f32(const F32BwdParams& p, bool dkv, cudaStream_t st) {
+  if (p.B <= 0 || p.kh <= 0 || p.nh % p.kh != 0 || p.hd <= 0 || p.hd > 2 * f32::kTile)
+    return int(cudaErrorInvalidValue);
+  if (dkv)
+    flash_bwd_dkv_f32_kernel<<<(p.Sk + f32::kTile - 1) / f32::kTile * p.kh * p.B,
+                               f32::kThreads, 0, st>>>(p);
+  else
+    flash_bwd_dq_f32_kernel<<<(p.Sq + f32::kTile - 1) / f32::kTile * p.nh * p.B,
+                              f32::kThreads, 0, st>>>(p);
+  return int(cudaGetLastError());
+}
+
+F32BwdParams make_f32_params(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, const int* kv_lengths,
+                             const int* seg, void* dq, void* dk, void* dv, int B, int Sq,
+                             int Sk, int nh, int kh, int hd, long long q_sb, long long q_ss,
+                             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                             long long v_sb, long long v_ss, long long v_sh, int causal,
+                             int q_offset, float scale) {
+  return {static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+          kv_lengths, seg, static_cast<float*>(dq), static_cast<float*>(dk),
+          static_cast<float*>(dv), B, Sq, Sk, nh, kh, hd, causal, q_offset,
+          q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. q / k / v are read by stride
 // (elements); dout is a contiguous [B, Sq, nh, hd]; lse and delta are fp32
-// [B, nh, Sq]. dq is written as a contiguous bf16 [B, Sq, nh, hd]. dk / dv:
-// with nh == kh a contiguous bf16 [B, Sk, kh, hd]; under GQA (nh > kh)
-// contiguous fp32 [B, Sk, kh, hd] that the caller zeroes and the kernel
-// adds every query head of the group into. Each returns a cudaError_t.
+// [B, nh, Sq]. bf16 (hd 64, 80 or 128): dq is written as a contiguous bf16
+// [B, Sq, nh, hd]; dk / dv with nh == kh a contiguous bf16 [B, Sk, kh, hd],
+// under GQA (nh > kh) contiguous fp32 [B, Sk, kh, hd] that the caller zeroes
+// and the kernel adds every query head of the group into. fp32 (fp32 != 0,
+// any hd up to 128): dq, dk and dv contiguous fp32, each written once. Each
+// returns a cudaError_t.
 extern "C" int vr2_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, const int* kv_lengths, const int* seg, void* dq, int B, int Sq,
     int Sk, int nh, int kh, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, int causal, int q_offset, float scale, void* stream) {
+    long long v_sh, int causal, int q_offset, float scale, int fp32, void* stream) {
+  if (fp32)
+    return launch_f32(make_f32_params(q, k, v, dout, lse, delta, kv_lengths, seg, dq, nullptr,
+                                      nullptr, B, Sq, Sk, nh, kh, hd, q_sb, q_ss, q_sh, k_sb,
+                                      k_ss, k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale),
+                      false, static_cast<cudaStream_t>(stream));
   const FlashBwdParams p =
       make_params(q, k, v, dout, lse, delta, kv_lengths, seg, dq, nullptr, nullptr, B, Sq,
                   Sk, nh, kh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
@@ -649,7 +863,12 @@ extern "C" int vr2_flash_attention_bwd_dkv(
     const float* delta, const int* kv_lengths, const int* seg, void* dk, void* dv, int B,
     int Sq, int Sk, int nh, int kh, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, int causal, int q_offset, float scale, void* stream) {
+    long long v_sh, int causal, int q_offset, float scale, int fp32, void* stream) {
+  if (fp32)
+    return launch_f32(make_f32_params(q, k, v, dout, lse, delta, kv_lengths, seg, nullptr, dk,
+                                      dv, B, Sq, Sk, nh, kh, hd, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                      k_sh, v_sb, v_ss, v_sh, causal, q_offset, scale),
+                      true, static_cast<cudaStream_t>(stream));
   const FlashBwdParams p =
       make_params(q, k, v, dout, lse, delta, kv_lengths, seg, nullptr, dk, dv, B, Sq, Sk,
                   nh, kh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,

@@ -1,10 +1,14 @@
 // CUDA-core fp32 products for the fp32 instances of the MoE kernels (the
-// grouped expert FFN and the GMM backward): one 256-thread block forms a
-// 64 x 64 fp32 tile of A B over K, 16 k a step through shared memory, each
-// thread a 4 x 4 piece (rows 4 (tid / 16) + i, columns 4 (tid % 16) + j).
-// Simple and block-cooperative: no preset runs these instances (every
-// preset is bf16); they give an fp32 model's MoE the f32 arithmetic of the
-// JAX kernels, which cast their tiles to f32 whatever x's dtype.
+// grouped expert FFN and the GMM backward) and of the attention kernels
+// (flash forward and backward, window forward and backward): one
+// 256-thread block forms a 64 x 64 fp32 tile of A B over K, 16 k a step
+// through shared memory, each thread a 4 x 4 piece (rows 4 (tid / 16) + i,
+// columns 4 (tid % 16) + j). Simple and block-cooperative: no preset runs
+// these instances (every preset is bf16); they give an fp32 model (the
+// tiny test config among them) the f32 arithmetic of the JAX kernels,
+// which cast their tiles to f32 whatever the operands' dtype. Operands are
+// read one element at a time, so any stride and any K (a head dim of 12)
+// will do; rows past an operand's end read as zero.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,6 +74,35 @@ __device__ __forceinline__ void product(Acc& acc, const Operand<AKC>& a, const O
     }
     __syncthreads();
   }
+}
+
+// A 64 x 64 tile in shared memory (a pitch of 65 words keeps a column's
+// reads off one bank), e.g. the probabilities of one key tile: as an
+// operand, Operand<true>{&t[0][0], kTile + 1, rows} reads it row-major and
+// Operand<false>{&t[0][0], kTile + 1, cols} transposed
+using Tile = float[kTile][kTile + 1];
+
+// the thread's piece of acc into t (rows 4 ty + i, columns 4 tx + j)
+__device__ __forceinline__ void to_tile(Tile& t, const Acc& acc) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[4 * ty + i][4 * tx + j] = acc[i][j];
+}
+
+// max / sum over the 16 threads that hold one row of the tile (a half-warp;
+// every thread of the warp calls it)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 __device__ __forceinline__ void zero(Acc& acc) {

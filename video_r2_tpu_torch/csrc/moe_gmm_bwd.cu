@@ -43,24 +43,36 @@
 //     and boxes past the array read zeros. Slack blocks write zeros and read
 //     nothing. No atomics: two calls give the same bits.
 //   vr2_moe_gmm_bwd_dw (replaces _bwd_dw_kernel, and _bwd_dwd_kernel with
-//     one operand): one block per (expert, 64 rows of the output, 64
-//     columns); it walks its expert's run of rows (contiguous in the
-//     layout) 32 rows a stage, so each output tile is written once, by one
-//     block, with no atomics and no second pass; an expert with no rows
-//     writes zeros. mma.sync m16n8k16 over a 3-stage cp.async ring; the
-//     row-major operands, transposed for the product, load by ldmatrix
-//     .trans; four warps split a 64 x 64 output tile 2 x 2.
+//     one operand): each expert's gradient is the sum over its run of rows
+//     (contiguous in the layout) of a^T b_j, in the operands' type: bf16
+//     sums are fp32 and rounded to bf16 once, in the epilogue (the JAX
+//     package's dwg.astype(wg.dtype)). Each output tile is written once,
+//     by one block, with no atomics and no second pass; an expert with no
+//     rows writes zeros. The run of each expert is counted from the block
+//     table inside the kernel, so a call is one launch. bf16: a persistent
+//     grid of 384-thread blocks (namespace wgw) over tiles of 128 rows by
+//     128 (dWg / dWu, two accumulators) or 256 (dWd, one) columns, 64 where
+//     those do not divide N; wgmma with both operands MN-major, fed by TMA
+//     through a ring of 64-row stages; the epilogue stored by TMA while the
+//     next tile's stages load. fp32: one 256-thread block per (expert, 64 x
+//     64 output tile) on the CUDA cores.
 //
 // What bounds it: at the judge's shapes (H 2048, I 768, E 128, top 8, ~32k
 // routed rows) the operations, 16 R H I for the whole backward (g, u 4,
-// dh 2, dX 4, dWg / dWu 4, dWd 2), and the dW outputs, 3 E H I fp32 words
-// (2.4 GB), which bound the dW launches by bytes. The grids run the
+// dh 2, dX 4, dWg / dWu 4, dWd 2), and the dW outputs, 3 E H I words (1.2
+// GB in bf16), which bound the dW launches by bytes. The grids run the
 // innermost output tiles fastest (columns of I in the terms pass, of H in
-// dX, both output dims of an expert in dW), so a row tile, and an expert's
+// dX, the tiles of one expert in dW), so a row tile, and an expert's
 // weights or rows, are read from device memory about once and served to
-// their other tiles from L2. The dX pair was mma.sync over 16-byte cp.async
-// copies on 64 x 64 tiles first (4.0 ms at T = 4096 on an H100): the
-// copies, as in the forward, set its rate.
+// their other tiles from L2. On an H100 80GB HBM3 at 700 W: the dX pair was
+// mma.sync over 16-byte cp.async copies on 64 x 64 tiles first (4.0 ms at
+// T = 4096): the copies, as in the forward, set its rate. So was dW (64 x
+// 64 tiles, fp32 outputs converted after: 1.63 and 0.95 ms at T = 4096);
+// its 128-row tiles copy 2-3x fewer bytes from L2, and it writes half the
+// bytes. Its loads and stores alone take 89-96% of its time there (PERF.md
+// section 5): a cluster sharing the b tiles (a third fewer L2 bytes) did
+// not move it, and storing straight from registers instead of the TMA
+// store ran 2x slower.
 #include "attn_common.cuh"
 #include "fp32_tile.cuh"
 #include "wgmma.cuh"
@@ -368,19 +380,44 @@ __global__ void __launch_bounds__(f32::kThreads)
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
+// The run of rows of expert e in the sorted layout (the valid blocks first,
+// each expert's blocks one run, experts ascending): rows [start, start +
+// rows), counted by all the block's threads from the block table (sm: two
+// ints of shared memory)
+__device__ __forceinline__ void expert_run(const int* __restrict__ ids,
+                                           const int* __restrict__ valid, int n_blocks, int bm,
+                                           int e, int E, int* sm, int& start, int& rows) {
+  if (threadIdx.x == 0) sm[0] = sm[1] = 0;
+  __syncthreads();
+  int before = 0, mine = 0;
+  for (int a = threadIdx.x; a < n_blocks; a += blockDim.x)
+    if (valid[a] != 0) {
+      const int id = min(max(ids[a], 0), E - 1);
+      before += id < e;
+      mine += id == e;
+    }
+  if (before) atomicAdd(sm, before);
+  if (mine) atomicAdd(sm + 1, mine);
+  __syncthreads();
+  start = sm[0] * bm;
+  rows = sm[1] * bm;
+}
+
 // Per expert over fp32: out_j[e] [M, N] = sum over its run of rows of
 // a^T b_j (NB = 1 or 2). Grid (N / 64, M / 64, E).
 template <int NB>
 __global__ void __launch_bounds__(f32::kThreads)
     gmm_bwd_dw_f32_kernel(const float* __restrict__ a, const float* __restrict__ b0,
-                          const float* __restrict__ b1, const int* __restrict__ start,
-                          const int* __restrict__ n_rows, float* __restrict__ out0,
-                          float* __restrict__ out1, int M, int N) {
+                          const float* __restrict__ b1, const int* __restrict__ ids,
+                          const int* __restrict__ valid, float* __restrict__ out0,
+                          float* __restrict__ out1, int n_blocks, int bm, int M, int N, int E) {
   __shared__ f32::Smem sm;
+  __shared__ int run[2];
   const int n0 = blockIdx.x * f32::kTile, m0 = blockIdx.y * f32::kTile, e = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long r_begin = start[e];
-  const int nr = n_rows[e];
+  int begin, nr;
+  expert_run(ids, valid, n_blocks, bm, e, E, run, begin, nr);
+  const long long r_begin = begin;
   const f32::Operand<false> ao{a + r_begin * M + m0, M, f32::kTile};
   f32::Acc acc0, acc1;
   f32::zero(acc0);
@@ -401,156 +438,203 @@ __global__ void __launch_bounds__(f32::kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The dW pass over bf16: mma.sync over a cp.async ring
+// The weight gradients over bf16: wgmma fed by TMA, a persistent grid, the
+// epilogue stored by TMA while the next tile's stages load
 // ---------------------------------------------------------------------------
-namespace dw {
+namespace wgw {
 
-constexpr int kThreads = 128;  // 4 warps, 2 x 2 over a 64 x 64 output tile
-constexpr int kTile = 64;      // output rows and columns of a block
-constexpr int kBK = 32;        // rows (the sum's k) per stage: two m16n8k16 steps
-constexpr int kMPitch = 144;   // bytes per row of a stage tile [32][64 bf16]:
-                               // 128 + 16 keeps ldmatrix free of bank conflicts
-constexpr int kMBytes = kBK * kMPitch;    // 4608
-constexpr int kStages = 3;
+constexpr int kK = 64;                      // rows of the run a stage: four k16 steps
+constexpr int kBM = 128;                    // output rows of a tile: two warpgroups of 64
+constexpr int kBox = 64 * 128;              // one [64][64] bf16 box, 128-byte swizzle
+constexpr int kConsumers = 256;             // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+// 384 threads start at 65536 / 384 (168 registers); 128 x (168 - 40) =
+// 256 x (232 - 168), as the flash forward
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kMaxExperts = 1024;           // entries of the run table
 
-// Stage tile: rows [0, 32) (the k of this stage) of a row-major bf16 matrix
-// g, 64 elements from g's column 0; rows at or past `rows` zero.
-__device__ __forceinline__ void load_tile(char* s, const bf16* g, long long ld, int rows,
-                                          int tid) {
-#pragma unroll
-  for (int i = tid; i < kBK * 8; i += kThreads) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = r < rows;
-    cp_async_zfill<16>(s + r * kMPitch + 16 * c, ok ? g + r * ld + 8 * c : g, ok);
+// Shared memory of the (BN, NB) instance: the ring (a stage: a^T as two
+// boxes [64 k][64 of M], then each b_j as BN / 64 boxes [64 k][64 of N]),
+// each warpgroup's staging tiles for the TMA store (NB x BN / 64 boxes [64
+// rows][64 columns]), the full / empty barriers and the run table; as many
+// stages as fit, at most 4
+template <int BN, int NB>
+struct Geo {
+  static constexpr int A_BYTES = 2 * kBox;
+  static constexpr int B_BYTES = BN / 64 * kBox;
+  static constexpr int STAGE = A_BYTES + NB * B_BYTES;
+  static constexpr int OUT_WG = NB * B_BYTES;
+  static constexpr int FIXED = kSwizzleAlign + 2 * OUT_WG + 8 * kMaxExperts + 64;
+  static constexpr int FIT = (232448 - FIXED) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = FIXED + STAGES * STAGE;
+};
+
+// Every expert's run of rows, start[e] and rows[e] in shared memory (as
+// expert_run), by all the block's threads
+__device__ __forceinline__ void run_table(const int* __restrict__ ids,
+                                          const int* __restrict__ valid, int n_blocks, int bm,
+                                          int E, int* start, int* rows) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) rows[e] = 0;
+  __syncthreads();
+  for (int a = threadIdx.x; a < n_blocks; a += blockDim.x)
+    if (valid[a] != 0) atomicAdd(rows + min(max(ids[a], 0), E - 1), bm);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int e = 0, s = 0; e < E; ++e) {
+      start[e] = s;
+      s += rows[e];
+    }
+  __syncthreads();
+}
+
+// Per expert e: out_j[e] [M, N] = the sum over its run of rows of a^T b_j
+// (j < NB), rounded once to bf16. A persistent grid: block b takes tiles b,
+// b + gridDim.x, ..., tile t = (expert, 128 rows of M, BN columns of N),
+// the columns fastest, so the blocks in flight work on one or two experts
+// and read their rows from L2. The producer warpgroup's first thread loads
+// each tile's stages (64 rows of the run) by TMA into the ring and runs on
+// into the next tile's while the consumers finish; each consumer warpgroup
+// owns 64 rows of the tile: NB accumulators [64 x BN] fed by wgmma with
+// both operands MN-major, as stored (A = a^T: the transpose-A bit; B = b_j:
+// the transpose-B bit). A stage that runs past the expert's run holds the
+// next expert's rows, or slack rows that may hold anything: those rows are
+// zeroed in shared memory, in both operands, before the product. The
+// epilogue rounds to bf16 into a staging tile in the 128-byte swizzle and
+// stores it by TMA (rows past M and columns past N are not written), which
+// drains while the next tile's products run. Maps: a 2-D [rows, M], b_j
+// 2-D [rows, N] in [64][64] boxes; out_j 3-D [E, M, N] in [64][64] boxes.
+template <int BN, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_bwd_dw_wgmma_kernel(__grid_constant__ const CUtensorMap ma,
+                            __grid_constant__ const CUtensorMap mb0,
+                            __grid_constant__ const CUtensorMap mb1,
+                            __grid_constant__ const CUtensorMap mo0,
+                            __grid_constant__ const CUtensorMap mo1,
+                            const int* __restrict__ ids, const int* __restrict__ valid,
+                            int n_blocks, int bm, int M, int N, int E) {
+  using G = Geo<BN, NB>;
+  constexpr int NBOX = BN / 64;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = swizzle_aligned(smem);
+  unsigned char* staging = ring + G::STAGES * G::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * G::OUT_WG);
+  uint64_t* empty = full + G::STAGES;
+  int* run_start = reinterpret_cast<int*>(empty + G::STAGES);
+  int* run_rows = run_start + E;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);  // each consumer warp releases the slot
+    }
+    mbar_init_fence();
   }
-}
+  run_table(ids, valid, n_blocks, bm, E, run_start, run_rows);
 
-// The A fragment of rows [m0, m0 + 16) and k-step ks of a stage tile stored
-// [k][m], transposed by the load. ldmatrix matrix j of lane l = 8 j + r: a0
-// (m lo, k lo), a1 (m hi, k lo), a2 (m lo, k hi), a3 (m hi, k hi).
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const char* s, int m0, int ks,
-                                       int lane) {
-  const int r8 = lane & 7, j = lane >> 3;
-  ldsm_x4_trans(a, s + (ks * 16 + r8 + 8 * (j >> 1)) * kMPitch + (m0 + 8 * (j & 1)) * 2);
-}
-
-// The B fragments of columns [n0, n0 + 16) (two 8-column tiles: b[0], b[1]
-// and b[2], b[3]) of a stage tile stored [k][n]. Matrix j: (n lo, k lo),
-// (n lo, k hi), (n hi, k lo), (n hi, k hi).
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const char* s, int n0, int ks,
-                                       int lane) {
-  const int r8 = lane & 7, j = lane >> 3;
-  ldsm_x4_trans(b, s + (ks * 16 + r8 + 8 * (j & 1)) * kMPitch + (n0 + 8 * (j >> 1)) * 2);
-}
-
-using Acc = float[2][4][4];  // a warp's 32 x 32: 2 row tiles x 4 column tiles
-
-// One stage's products of a warp: its 32 rows (from wm0) by 32 columns
-// (from wn0), K = 32.
-__device__ __forceinline__ void stage_mma(Acc& acc, const char* As, const char* Bs, int wm0,
-                                          int wn0, int lane) {
+  const int tn = (N + BN - 1) / BN, per_e = (M + kBM - 1) / kBM * tn, n_tiles = E * per_e;
+  if (warp >= kConsumers / 32) {
+    regs_shrink<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      int it = 0;  // stages issued so far, over all tiles
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int e = t / per_e, m0 = t % per_e / tn * kBM, n0 = t % tn * BN;
+        const int r0 = run_start[e], n_k = (run_rows[e] + kK - 1) / kK;
+        for (int s = 0; s < n_k; ++s, ++it) {
+          const int slot = it % G::STAGES;
+          mbar_wait(empty + slot, ((it / G::STAGES) & 1) ^ 1);
+          unsigned char* st = ring + slot * G::STAGE;
+          uint64_t* bar = full + slot;
+          const int k0 = r0 + s * kK;
+          mbar_expect_tx(bar, G::STAGE);
+          tma_load_2d(st, &ma, bar, m0, k0);
+          tma_load_2d(st + kBox, &ma, bar, m0 + 64, k0);
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t a[2][4], b[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) frag_a(a[mt], As, wm0 + 16 * mt, ks, lane);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) frag_b(b[np], Bs, wn0 + 16 * np, ks, lane);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        mma_bf16_16816(acc[mt][2 * np], a[mt], b[np][0], b[np][1]);
-        mma_bf16_16816(acc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
-      }
-  }
-}
-
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-}
-
-// The ring: stage s of n_stages into buffer s % kStages; compute(buf) runs on
-// a landed stage. The barrier at the top of each step also frees the buffer
-// the next load overwrites (computed one step before).
-template <int STAGE_BYTES, class Load, class Compute>
-__device__ __forceinline__ void pipeline(char* smem, int n_stages, Load load,
-                                         Compute compute) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_stages) load(s, smem + s * STAGE_BYTES);
-    cp_async_commit();
-  }
-  for (int s = 0; s < n_stages; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nx = s + kStages - 1;
-    if (nx < n_stages) load(nx, smem + (nx % kStages) * STAGE_BYTES);
-    cp_async_commit();
-    compute(smem + (s % kStages) * STAGE_BYTES);
-  }
-}
-
-// Per expert e, out_j[e] [M, N] fp32 = sum over its rows [start[e],
-// start[e] + n_rows[e]) of a^T b_j, for NB = 1 or 2 operands b_j [rows, N]
-// (a [rows, M]). Grid (N / 64, M / 64, E).
-template <int NB>
-__global__ void __launch_bounds__(kThreads)
-    gmm_bwd_dw_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b0,
-                      const bf16* __restrict__ b1, const int* __restrict__ start,
-                      const int* __restrict__ n_rows, float* __restrict__ out0,
-                      float* __restrict__ out1, int M, int N) {
-  extern __shared__ __align__(16) char smem[];
-  constexpr int kStage = (1 + NB) * kMBytes;
-  const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile, e = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp >> 1) * 32, wn0 = (warp & 1) * 32;
-  const long long r_begin = start[e];
-  const int nr = n_rows[e];
-  const bf16* aa = a + r_begin * M + m0;
-  const bf16* ba0 = b0 + r_begin * N + n0;
-  const bf16* ba1 = NB == 2 ? b1 + r_begin * N + n0 : nullptr;
-
-  Acc acc0, acc1;
-  zero(acc0);
-  zero(acc1);
-  pipeline<kStage>(
-      smem, (nr + kBK - 1) / kBK,
-      [&](int s, char* st) {
-        const int k0 = s * kBK, rows = nr - k0;
-        load_tile(st, aa + (long long)k0 * M, M, rows, tid);
-        load_tile(st + kMBytes, ba0 + (long long)k0 * N, N, rows, tid);
-        if constexpr (NB == 2) load_tile(st + 2 * kMBytes, ba1 + (long long)k0 * N, N, rows, tid);
-      },
-      [&](const char* st) {
-        stage_mma(acc0, st, st + kMBytes, wm0, wn0, lane);
-        if constexpr (NB == 2) stage_mma(acc1, st, st + 2 * kMBytes, wm0, wn0, lane);
-      });
-
-  const long long base = (long long)e * M * N;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + wm0 + mt * 16 + g + 8 * half;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const long long o = base + (long long)r * N + n0 + wn0 + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out0 + o) =
-            make_float2(acc0[mt][nt][2 * half], acc0[mt][nt][2 * half + 1]);
-        if constexpr (NB == 2)
-          *reinterpret_cast<float2*>(out1 + o) =
-              make_float2(acc1[mt][nt][2 * half], acc1[mt][nt][2 * half + 1]);
+          for (int c = 0; c < NBOX; ++c) {
+            tma_load_2d(st + G::A_BYTES + c * kBox, &mb0, bar, n0 + 64 * c, k0);
+            if constexpr (NB == 2)
+              tma_load_2d(st + G::A_BYTES + G::B_BYTES + c * kBox, &mb1, bar, n0 + 64 * c, k0);
+          }
+        }
       }
     }
+    return;
+  }
+
+  regs_grow<kConsumerRegs>();
+  const int w = warp / 4, ct = tid % 128;  // consumer warpgroup: rows m0 + 64 w ..
+  const int r_lo = (warp % 4) * 16 + (lane >> 2), c_lo = 2 * (lane & 3);
+  unsigned char* out_wg = staging + w * G::OUT_WG;
+  float acc[NB][BN / 8][4];
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int e = t / per_e, m0 = t % per_e / tn * kBM, n0 = t % tn * BN;
+    const int rows = run_rows[e], n_k = (rows + kK - 1) / kK;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) zero_acc(acc[j]);
+    for (int s = 0; s < n_k; ++s, ++it) {
+      const int slot = it % G::STAGES;
+      mbar_wait(full + slot, (it / G::STAGES) & 1);
+      unsigned char* st = ring + slot * G::STAGE;
+      const int live = rows - s * kK;
+      if (live < kK) {  // rows [live, 64) of every box lie past the run
+        const int chunks = (kK - live) * 8;  // of 16 bytes, a box
+        for (int i = tid; i < G::STAGE / kBox * chunks; i += kConsumers)
+          *reinterpret_cast<uint4*>(st + i / chunks * kBox + live * 128 + i % chunks * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        fence_proxy_async();
+        named_sync(1, kConsumers);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        const uint64_t da = desc_mn_sw128(st + w * kBox, kk, kBox);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          wgmma_ss<BN, 1, 1>(acc[j], da,
+                             desc_mn_sw128(st + G::A_BYTES + j * G::B_BYTES, kk, kBox), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release its slot
+      if (s > 0 && lane == 0) mbar_arrive(empty + (it - 1) % G::STAGES);
+    }
+    wgmma_wait<0>();
+    if (n_k > 0 && lane == 0) mbar_arrive(empty + (it - 1) % G::STAGES);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(acc[j]);
+
+    // epilogue: the previous tile's store has read the staging tiles
+    if (ct == 0) bulk_wait_read<0>();
+    named_sync(2 + w, 128);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int col = 8 * jj + c_lo;
+        const unsigned char* box = out_wg + (j * NBOX + col / 64) * kBox;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(
+              sw128_at(box, r_lo + 8 * half, (col % 64) * 2))) =
+              pack_bf16(acc[j][jj][2 * half], acc[j][jj][2 * half + 1]);
+      }
+    fence_proxy_async();
+    named_sync(2 + w, 128);
+    if (ct == 0 && m0 + 64 * w < M) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c)
+          if (n0 + 64 * c < N)
+            tma_store_3d(j ? &mo1 : &mo0, out_wg + (j * NBOX + c) * kBox, n0 + 64 * c,
+                         m0 + 64 * w, e);
+      bulk_commit();
+    }
+  }
+  if (ct == 0) bulk_wait<0>();
 }
 
-}  // namespace dw
+}  // namespace wgw
 
 template <class K>
 cudaError_t set_smem(K kernel, int bytes) {
@@ -588,6 +672,76 @@ cudaError_t launch_dx(const void* x, const void* dy, const int* ids, const int* 
   wgx::gmm_bwd_dx_kernel<WG, BN><<<(unsigned)(tiles * (H / BN)), 128 * WG, DG::SMEM, st>>>(
       mdg, mdu, mwg, mwu, ids, valid, dx, bm, H, I, E);
   return cudaGetLastError();
+}
+
+// The bf16 weight gradients at BN columns a tile and NB outputs: the maps,
+// then a persistent grid of one block per SM (at most one per tile)
+template <int BN, int NB>
+cudaError_t launch_dw(const void* a, const void* b0, const void* b1, const int* ids,
+                      const int* valid, void* out0, void* out1, int n_blocks, int bm, int M,
+                      int N, int E, cudaStream_t st) {
+  using G = wgw::Geo<BN, NB>;
+  const uint64_t R = (uint64_t)n_blocks * bm;
+  CUtensorMap ma, mb0, mb1, mo0, mo1;
+  cudaError_t err;
+  if ((err = box_map(&ma, a, M, R, 0, 64)) != cudaSuccess ||
+      (err = box_map(&mb0, b0, N, R, 0, 64)) != cudaSuccess ||
+      (err = box_map(&mb1, NB == 2 ? b1 : b0, N, R, 0, 64)) != cudaSuccess ||
+      (err = box_map(&mo0, out0, N, M, E, 64)) != cudaSuccess ||
+      (err = box_map(&mo1, NB == 2 ? out1 : out0, N, M, E, 64)) != cudaSuccess ||
+      (err = set_smem(wgw::gmm_bwd_dw_wgmma_kernel<BN, NB>, G::SMEM)) != cudaSuccess)
+    return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const long long tiles = (long long)E * ((M + wgw::kBM - 1) / wgw::kBM) * ((N + BN - 1) / BN);
+  wgw::gmm_bwd_dw_wgmma_kernel<BN, NB>
+      <<<(unsigned)(tiles < sms ? tiles : sms), wgw::kThreads, G::SMEM, st>>>(
+          ma, mb0, mb1, mo0, mo1, ids, valid, n_blocks, bm, M, N, E);
+  return cudaGetLastError();
+}
+
+// The (BN, NB) instance's launch shape: out = {rows of a tile, its columns,
+// stages of the ring, bytes of shared memory, tiles, grid blocks}
+template <int BN, int NB>
+cudaError_t dw_layout(int M, int N, int E, int* out) {
+  using G = wgw::Geo<BN, NB>;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const long long tiles = (long long)E * ((M + wgw::kBM - 1) / wgw::kBM) * ((N + BN - 1) / BN);
+  out[0] = wgw::kBM;
+  out[1] = BN;
+  out[2] = G::STAGES;
+  out[3] = G::SMEM;
+  out[4] = (int)tiles;
+  out[5] = (int)(tiles < sms ? tiles : sms);
+  return cudaSuccess;
+}
+
+// The bf16 instance of (nb outputs, `cols` columns a tile), or null: cols
+// is 128 (nb 2) or 256 (nb 1) where it divides N, else 64
+// (ops/moe_gmm.py::gmm_bwd_dw_tiles picks it)
+using DwLaunch = cudaError_t (*)(const void*, const void*, const void*, const int*, const int*,
+                                 void*, void*, int, int, int, int, int, cudaStream_t);
+using DwLayout = cudaError_t (*)(int, int, int, int*);
+
+inline bool dw_instance(int nb, int cols, int N, DwLaunch* launch, DwLayout* layout) {
+  if (nb == 2 && cols == 128 && N % 128 == 0) {
+    *launch = &launch_dw<128, 2>, *layout = &dw_layout<128, 2>;
+  } else if (nb == 2 && cols == 64) {
+    *launch = &launch_dw<64, 2>, *layout = &dw_layout<64, 2>;
+  } else if (nb == 1 && cols == 256 && N % 256 == 0) {
+    *launch = &launch_dw<256, 1>, *layout = &dw_layout<256, 1>;
+  } else if (nb == 1 && cols == 64) {
+    *launch = &launch_dw<64, 1>, *layout = &dw_layout<64, 1>;
+  } else {
+    return false;
+  }
+  return true;
 }
 
 }  // namespace gmm_bwd
@@ -631,42 +785,45 @@ extern "C" int vr2_moe_gmm_bwd_dx(const void* x, const void* dy, const int* ids,
 }
 
 // a [rows, M] bf16 or fp32 (fp32 != 0); b0 (and b1, or nullptr) [rows, N]
-// of a's type; start / n_rows [E] int32, the run of rows of each expert;
-// out0 (and out1) [E, M, N] fp32. M and N multiples of 64 (the wrapper
-// checks).
+// of a's type; ids / valid [n_blocks] int32, the block table of the sorted
+// layout (n_blocks * bm rows; each expert's run of rows counted from it);
+// out0 (and out1) [E, M, N] of a's type. M and N multiples of 64 (the
+// wrapper checks); bf16: tiles of 128 x `cols` (see dw_instance), E at most
+// 1024.
 extern "C" int vr2_moe_gmm_bwd_dw(const void* a, const void* b0, const void* b1,
-                                  const int* start, const int* n_rows, float* out0,
-                                  float* out1, int M, int N, int E, int fp32, void* stream) {
+                                  const int* ids, const int* valid, void* out0, void* out1,
+                                  int n_blocks, int bm, int M, int N, int E, int cols,
+                                  int fp32, void* stream) {
   using namespace vr2::gmm_bwd;
   namespace f32 = vr2::f32;
-  if (E <= 0 || M % 64 || N % 64) return (int)cudaErrorInvalidValue;
+  if (E <= 0 || n_blocks <= 0 || bm <= 0 || M % 64 || N % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / 64, M / 64, E);
   if (fp32) {
+    const dim3 grid(N / 64, M / 64, E);
     const float *fa = static_cast<const float*>(a), *f0 = static_cast<const float*>(b0);
+    float *o0 = static_cast<float*>(out0), *o1 = static_cast<float*>(out1);
     if (b1 != nullptr)
       gmm_bwd_dw_f32_kernel<2><<<grid, f32::kThreads, 0, st>>>(
-          fa, f0, static_cast<const float*>(b1), start, n_rows, out0, out1, M, N);
+          fa, f0, static_cast<const float*>(b1), ids, valid, o0, o1, n_blocks, bm, M, N, E);
     else
-      gmm_bwd_dw_f32_kernel<1><<<grid, f32::kThreads, 0, st>>>(fa, f0, nullptr, start, n_rows,
-                                                                out0, nullptr, M, N);
+      gmm_bwd_dw_f32_kernel<1><<<grid, f32::kThreads, 0, st>>>(fa, f0, nullptr, ids, valid, o0,
+                                                                nullptr, n_blocks, bm, M, N, E);
     return (int)cudaGetLastError();
   }
-  cudaError_t err;
-  if (b1 != nullptr) {
-    constexpr int smem = dw::kStages * 3 * dw::kMBytes;
-    err = set_smem(dw::gmm_bwd_dw_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    dw::gmm_bwd_dw_kernel<2><<<grid, dw::kThreads, smem, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b0), static_cast<const bf16*>(b1),
-        start, n_rows, out0, out1, M, N);
-  } else {
-    constexpr int smem = dw::kStages * 2 * dw::kMBytes;
-    err = set_smem(dw::gmm_bwd_dw_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    dw::gmm_bwd_dw_kernel<1><<<grid, dw::kThreads, smem, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b0), nullptr, start, n_rows,
-        out0, nullptr, M, N);
-  }
-  return (int)cudaGetLastError();
+  DwLaunch launch;
+  DwLayout layout;
+  if (E > wgw::kMaxExperts || !dw_instance(b1 != nullptr ? 2 : 1, cols, N, &launch, &layout))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch(a, b0, b1, ids, valid, out0, out1, n_blocks, bm, M, N, E, st);
+}
+
+// The bf16 weight-gradient kernel's launch shape for nb outputs [E, M, N]
+// at `cols` columns a tile: out[0..5] as dw_layout. Returns a cudaError_t.
+extern "C" int vr2_moe_gmm_bwd_dw_layout(int M, int N, int E, int nb, int cols, int* out) {
+  using namespace vr2::gmm_bwd;
+  DwLaunch launch;
+  DwLayout layout;
+  if (E <= 0 || M % 64 || N % 64 || !dw_instance(nb, cols, N, &launch, &layout))
+    return (int)cudaErrorInvalidValue;
+  return (int)layout(M, N, E, out);
 }

@@ -1,4 +1,5 @@
-// ViT window attention for Hopper (sm_90a): bf16 in, fp32 accumulation.
+// ViT window attention for Hopper (sm_90a): bf16 in, fp32 accumulation (an
+// fp32 instance on the CUDA cores for fp32 operands, at the end).
 //
 // Replaces the TPU kernel video_r2_tpu/ops/vit_window_attention.py::_win_kernel
 // (:36), with the same semantics: attention within fixed 64-slot windows
@@ -21,6 +22,7 @@
 #include <cmath>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 
 namespace {
 
@@ -153,15 +155,94 @@ cudaError_t launch_window(const WinParams& p, int S, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The fp32 instance (CUDA cores; fp32_tile.cuh): fp32 q / k / v at any
+// head dim up to 128, P and both products in fp32, the same mask and the
+// same zeros on a fully invalid window. One 256-thread block per (window,
+// head): S in registers (4 x 4 a thread), P through shared memory into
+// P V. No preset runs it: the tiny fp32 test config does.
+namespace f32 = vr2::f32;
+
+struct WinF32Params {
+  const float *q, *k, *v;      // [S, nh, hd] by stride
+  const unsigned char* valid;  // [S] bool
+  float* o;                    // [S, nh, hd] contiguous
+  int nh, hd;
+  long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh;
+  float scale;
+};
+
+__global__ void __launch_bounds__(f32::kThreads) window_attn_f32_kernel(const WinF32Params p) {
+  __shared__ f32::Smem sm;
+  __shared__ f32::Tile sp;
+  const int s0 = blockIdx.x * WP, h = blockIdx.y;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  f32::Acc s;
+  f32::zero(s);
+  f32::product(s, f32::Operand<true>{p.q + s0 * p.q_ss + h * p.q_sh, p.q_ss, WP},
+               f32::Operand<true>{p.k + s0 * p.k_ss + h * p.k_sh, p.k_ss, WP}, p.hd, sm);
+  float tot[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = p.valid[s0 + 4 * tx + j] ? s[i][j] * p.scale : -INFINITY;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = f32::row_max(mx);
+    const float ref = mx == -INFINITY ? 0.f : mx;  // a fully invalid window
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum += s[i][j] = expf(s[i][j] - ref);
+    tot[i] = f32::row_sum(sum);
+  }
+  f32::to_tile(sp, s);
+  __syncthreads();
+  f32::Acc o[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    f32::zero(o[c]);
+    if (c * f32::kTile < p.hd)
+      f32::product(o[c], f32::Operand<true>{&sp[0][0], f32::kTile + 1, WP},
+                   f32::Operand<false>{p.v + s0 * p.v_ss + h * p.v_sh + c * f32::kTile, p.v_ss,
+                                       p.hd - c * f32::kTile},
+                   WP, sm);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float inv = tot[i] > 0.f ? 1.f / tot[i] : 0.f;
+    float* op = p.o + ((long long)(s0 + 4 * ty + i) * p.nh + h) * p.hd;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c * f32::kTile + 4 * tx + j;
+        if (col < p.hd) op[col] = o[c][i][j] * inv;
+      }
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. S is a multiple of 64; strides are
-// in elements; the output is a contiguous [S, nh, hd]. Returns a cudaError_t.
+// in elements; the output is a contiguous [S, nh, hd] of q's type. bf16: hd
+// 64, 80 or 128; fp32 (fp32 != 0): any hd up to 128. Returns a cudaError_t.
 extern "C" int vr2_window_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* valid, void* o, int S, int nh, int hd,
                                         long long q_ss, long long q_sh, long long k_ss,
                                         long long k_sh, long long v_ss, long long v_sh,
-                                        float scale, void* stream) {
+                                        float scale, int fp32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S % WP != 0) return int(cudaErrorInvalidValue);
+  if (fp32) {
+    if (hd <= 0 || hd > 2 * f32::kTile) return int(cudaErrorInvalidValue);
+    const WinF32Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<const unsigned char*>(valid),
+                         static_cast<float*>(o), nh, hd, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
+                         scale};
+    window_attn_f32_kernel<<<dim3(S / WP, nh), f32::kThreads, 0, st>>>(p);
+    return int(cudaGetLastError());
+  }
   WinParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -176,8 +257,6 @@ extern "C" int vr2_window_attention_fwd(const void* q, const void* k, const void
   p.v_ss = v_ss;
   p.v_sh = v_sh;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S % WP != 0) return int(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return launch_window<64>(p, S, st);
     case 80: return launch_window<80>(p, S, st);

@@ -1,5 +1,6 @@
 // ViT window attention backward for Hopper (sm_90a): bf16 in, fp32
-// accumulation.
+// accumulation (an fp32 instance on the CUDA cores for fp32 operands, at
+// the end).
 //
 // Replaces the TPU kernel video_r2_tpu/ops/vit_window_attention.py::
 // _win_bwd_kernel (:90): a recompute backward, no forward statistics saved.
@@ -25,6 +26,7 @@
 #include <cmath>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 
 namespace {
 
@@ -256,6 +258,125 @@ cudaError_t launch_window_bwd(const WinBwdParams& p, int S, cudaStream_t stream)
   return cudaGetLastError();
 }
 
+// The fp32 instance (CUDA cores; fp32_tile.cuh): fp32 operands at any head
+// dim up to 128, P, dS and every product in fp32, the same zeros on a fully
+// invalid window. One 256-thread block per (window, head): S, dP and dS in
+// registers (4 x 4 a thread), P and dS through shared memory into their
+// products, each gradient written as soon as it is formed. No preset runs
+// it: the tiny fp32 test config does.
+namespace f32 = vr2::f32;
+
+struct WinBwdF32Params {
+  const float *q, *k, *v;      // [S, nh, hd] by stride
+  const float* dout;           // [S, nh, hd] contiguous
+  const unsigned char* valid;  // [S] bool
+  float *dq, *dk, *dv;         // [S, nh, hd] contiguous
+  int nh, hd;
+  long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh;
+  float scale;
+};
+
+// out (a contiguous [S, nh, hd] at head h), rows [s0, s0 + 64) = (T X) x
+// mul: T the tile in shared memory, read transposed when `trans`, and X the
+// window's rows of x (stride `ld`), both 64-column halves of the head dim
+__device__ __forceinline__ void window_grad(float* out, const f32::Tile& t, bool trans,
+                                            const float* x, long long ld, int s0, int h,
+                                            const WinBwdF32Params& p, float mul,
+                                            f32::Smem& sm) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c * f32::kTile >= p.hd) continue;
+    f32::Acc acc;
+    f32::zero(acc);
+    const f32::Operand<false> xo{x + c * f32::kTile, ld, p.hd - c * f32::kTile};
+    if (trans)
+      f32::product(acc, f32::Operand<false>{&t[0][0], f32::kTile + 1, WP}, xo, WP, sm);
+    else
+      f32::product(acc, f32::Operand<true>{&t[0][0], f32::kTile + 1, WP}, xo, WP, sm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c * f32::kTile + 4 * tx + j;
+        if (col < p.hd)
+          out[((long long)(s0 + 4 * ty + i) * p.nh + h) * p.hd + col] = acc[i][j] * mul;
+      }
+  }
+}
+
+__global__ void __launch_bounds__(f32::kThreads)
+    window_attn_bwd_f32_kernel(const WinBwdF32Params p) {
+  __shared__ f32::Smem sm;
+  __shared__ f32::Tile st;
+  const int s0 = blockIdx.x * WP, h = blockIdx.y;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const long long do_ss = (long long)p.nh * p.hd;
+  const float* qb = p.q + s0 * p.q_ss + h * p.q_sh;
+  const float* kb = p.k + s0 * p.k_ss + h * p.k_sh;
+  const float* vb = p.v + s0 * p.v_ss + h * p.v_sh;
+  const float* dob = p.dout + s0 * do_ss + h * p.hd;
+  f32::Acc s, dp;
+  f32::zero(s);
+  f32::zero(dp);
+  f32::product(s, f32::Operand<true>{qb, p.q_ss, WP}, f32::Operand<true>{kb, p.k_ss, WP}, p.hd,
+               sm);
+  f32::product(dp, f32::Operand<true>{dob, do_ss, WP}, f32::Operand<true>{vb, p.v_ss, WP},
+               p.hd, sm);
+  // P = softmax over the valid keys (0 in a fully invalid window)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = p.valid[s0 + 4 * tx + j] ? s[i][j] * p.scale : -INFINITY;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = f32::row_max(mx);
+    const float ref = mx == -INFINITY ? 0.f : mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum += s[i][j] = expf(s[i][j] - ref);
+    sum = f32::row_sum(sum);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] *= inv;
+  }
+  f32::to_tile(st, s);
+  __syncthreads();
+  // O = P V, then D = rowsum(dO * O)
+  float D[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c * f32::kTile >= p.hd) continue;
+    f32::Acc o;
+    f32::zero(o);
+    f32::product(o, f32::Operand<true>{&st[0][0], f32::kTile + 1, WP},
+                 f32::Operand<false>{vb + c * f32::kTile, p.v_ss, p.hd - c * f32::kTile}, WP,
+                 sm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c * f32::kTile + 4 * tx + j;
+        if (col < p.hd) D[i] += o[i][j] * dob[(4 * ty + i) * do_ss + col];
+      }
+  }
+  // dV = P^T dO
+  window_grad(p.dv, st, true, dob, do_ss, s0, h, p, 1.f, sm);
+  // dS = P (dP - D); dQ = scale dS K, dK = scale dS^T Q
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d = f32::row_sum(D[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] *= dp[i][j] - d;
+  }
+  f32::to_tile(st, s);
+  __syncthreads();
+  window_grad(p.dq, st, false, kb, p.k_ss, s0, h, p, p.scale, sm);
+  window_grad(p.dk, st, true, qb, p.q_ss, s0, h, p, p.scale, sm);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. S is a multiple of 64; q / k / v
@@ -266,7 +387,20 @@ extern "C" int vr2_window_attention_bwd(const void* q, const void* k, const void
                                         void* dk, void* dv, int S, int nh, int hd,
                                         long long q_ss, long long q_sh, long long k_ss,
                                         long long k_sh, long long v_ss, long long v_sh,
-                                        float scale, void* stream) {
+                                        float scale, int fp32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S % WP != 0) return int(cudaErrorInvalidValue);
+  if (fp32) {
+    if (hd <= 0 || hd > 2 * f32::kTile) return int(cudaErrorInvalidValue);
+    const WinBwdF32Params p{
+        static_cast<const float*>(q),    static_cast<const float*>(k),
+        static_cast<const float*>(v),    static_cast<const float*>(dout),
+        static_cast<const unsigned char*>(valid), static_cast<float*>(dq),
+        static_cast<float*>(dk),         static_cast<float*>(dv),
+        nh, hd, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale};
+    window_attn_bwd_f32_kernel<<<dim3(S / WP, nh), f32::kThreads, 0, st>>>(p);
+    return int(cudaGetLastError());
+  }
   WinBwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -284,8 +418,6 @@ extern "C" int vr2_window_attention_bwd(const void* q, const void* k, const void
   p.v_ss = v_ss;
   p.v_sh = v_sh;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S % WP != 0) return int(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return launch_window_bwd<64>(p, S, st);
     case 80: return launch_window_bwd<80>(p, S, st);

@@ -4,7 +4,8 @@
 // flash kernels and the MoE kernels use, and the TMA loads, their
 // tensor-map encoder, the shared-memory barriers (mbarrier) that count their
 // bytes and the ring of stages they fill (tma_ring), which feed the flash
-// forward, the grouped expert FFN and the GMM backward.
+// forward, the grouped expert FFN and the GMM backward, and the TMA store
+// with its bulk groups, the weight gradients' epilogue.
 //
 // Layout: a bf16 tile of R rows by C columns is stored as 8 x 8 "core
 // matrices" of 128 contiguous bytes (8 rows of 16 bytes), core matrix
@@ -181,10 +182,11 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both in shared memory, A K-major
-// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both in shared memory: A K-major
+// with TA = 0 or MN-major (M contiguous) with TA = 1, the transpose bit of A
+// (descriptor da); B MN-major (N contiguous) with TB = 1, the transpose bit
 // of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[8][4], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -195,7 +197,7 @@ __device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[8][4], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -204,13 +206,13 @@ __device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[8][4], uint64_t da,
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both in shared memory, A K-major
-// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
-// of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
-template <int TB>
+// (TA = 0) or MN-major (TA = 1), B MN-major (TB = 1) or K-major (TB = 0), as
+// for N = 64; accumulate when scale_d != 0
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[16][4], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -225,7 +227,7 @@ __device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[16][4], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -242,13 +244,13 @@ __device__ __forceinline__ void wgmma_ss_t_n128(float (&d)[16][4], uint64_t da,
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], both in shared memory, A K-major
-// (descriptor da), B MN-major (N contiguous) with TB = 1, the transpose bit
-// of B, or K-major with TB = 0 (descriptor db); accumulate when scale_d != 0
-template <int TB>
+// (TA = 0) or MN-major (TA = 1), B MN-major (TB = 1) or K-major (TB = 0), as
+// for N = 64; accumulate when scale_d != 0
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_t_n256(float (&d)[32][4], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -271,7 +273,7 @@ __device__ __forceinline__ void wgmma_ss_t_n256(float (&d)[32][4], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -304,21 +306,23 @@ __device__ __forceinline__ void wgmma_ss_t_n256(float (&d)[32][4], uint64_t da,
         "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // D[64 x N] (+)= A B for N = 64, 128 or 256: the two operands in shared
-// memory, A K-major and B MN-major (TB = 1, the default) or K-major (TB = 0)
-template <int N, int TB = 1>
+// memory, B MN-major (TB = 1, the default) or K-major (TB = 0), A K-major
+// (TA = 0, the default) or MN-major (TA = 1: A^T stored row-major, as the
+// weight gradients' a^T)
+template <int N, int TB = 1, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N is 64, 128 or 256");
   if constexpr (N == 64)
-    wgmma_ss_t_n64<TB>(d, da, db, scale_d);
+    wgmma_ss_t_n64<TB, TA>(d, da, db, scale_d);
   else if constexpr (N == 128)
-    wgmma_ss_t_n128<TB>(d, da, db, scale_d);
+    wgmma_ss_t_n128<TB, TA>(d, da, db, scale_d);
   else
-    wgmma_ss_t_n256<TB>(d, da, db, scale_d);
+    wgmma_ss_t_n256<TB, TA>(d, da, db, scale_d);
 }
 
 // ---------------------------------------------------------------------------
@@ -394,6 +398,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// TMA store: shared memory at src into the box of `map` at element
+// coordinates (c0, c1, c2), innermost first; elements past the tensor's
+// end are not written. Committed as one bulk group per bulk_commit.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier id
+// (1-15; __syncthreads takes 0)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime (nothing links

@@ -31,18 +31,19 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # cudaError_t as int
 _STRIDES = [_L] * 9   # q, k, v: batch, sequence and head strides
 SIGNATURES = {
-    "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_fwd": [_P] * 7 + [_I] * 6 + _STRIDES + [_I, _I, _F, _I, _P],
     "vr2_flash_attention_fwd_layout": [_I, _P],
-    "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
-    "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _P],
+    "vr2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + _STRIDES + [_I, _I, _F, _I, _P],
+    "vr2_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 6 + _STRIDES + [_I, _I, _F, _I, _P],
     "vr2_flash_attention_bwd_layout": [_I, _I, _P],
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                 _L, _L, _L, _L, _L, _L, _F, _P],
-    "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _P],
+                                 _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _I, _P],
     "vr2_paged_decode_attention": [_P] * 8 + [_I] * 11 + [_F, _P, _P, _P],
     "vr2_moe_ffn": [_P] * 14 + [_I] * 11 + [_P],
     "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 8 + [_P],
-    "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 4 + [_P],
+    "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 7 + [_P],
+    "vr2_moe_gmm_bwd_dw_layout": [_I] * 5 + [_P],
     "vr2_int4_matmul": [_P] * 4 + [_I] * 5 + [_P] * 3,
     "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 11 + [_F, _P, _P, _P],

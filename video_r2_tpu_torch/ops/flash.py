@@ -6,11 +6,14 @@ gradients it runs `_FlashFn`, the port of the ``_flash_core`` custom VJP: a
 forward that also writes each row's log-sum-exp (``_flash_fwd_kernel``) and
 the FA2 recompute backward from it (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``). On CUDA tensors every step launches a
-hand-written Hopper kernel (``csrc/flash_attn.cu``, ``csrc/flash_attn_bwd.cu``;
-bf16, head dims 64 / 80 / 128) and raises on anything the kernels do not
-take; on CPU tensors the same Function runs the plain PyTorch versions
-(`flash_attention_fwd_lse_plain`, `flash_attention_bwd_plain`), which the CPU
-tests hold against the JAX kernels in interpret mode.
+hand-written Hopper kernel (``csrc/flash_attn.cu``, ``csrc/flash_attn_bwd.cu``)
+and raises on anything the kernels do not take: `kernel_instance` routes
+bf16 operands to the tensor-core kernels (head dims 64 / 80 / 128) and fp32
+operands to their fp32 instances on the CUDA cores (any head dim up to
+128); other dtypes raise TypeError. On CPU tensors the same Function runs
+the plain PyTorch versions (`flash_attention_fwd_lse_plain`,
+`flash_attention_bwd_plain`), which the CPU tests hold against the JAX
+kernels in interpret mode.
 
 Mask semantics (every version): key j is admitted for query row i of batch b
 when j < kv_lengths[b], and (causal) j <= q_offset + i, and (segments)
@@ -26,8 +29,28 @@ import torch
 
 from .cuda_build import check, kernels
 
-KERNEL_HEAD_DIMS = (64, 80, 128)
+KERNEL_HEAD_DIMS = (64, 80, 128)   # the bf16 kernels'
+FP32_MAX_HEAD_DIM = 128             # the fp32 instances take any head dim up to it
 NO_KEY_LSE = 1e30   # LSE of a row that admits no key: exp(s - lse) == 0
+
+
+def kernel_instance(dtype: torch.dtype, hd: int) -> str:
+    """The instance of the attention kernels (flash and window, forward and
+    backward) that takes operands of `dtype` at head dim `hd`: "bf16" (the
+    tensor-core kernels; head dims in KERNEL_HEAD_DIMS) or "fp32" (their
+    fp32 instances on the CUDA cores; any head dim up to FP32_MAX_HEAD_DIM).
+    Raises TypeError on any other dtype and ValueError on a head dim the
+    instance does not take."""
+    if dtype == torch.bfloat16:
+        if hd not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"attention kernel: bf16 head dim {hd} not in {KERNEL_HEAD_DIMS}")
+        return "bf16"
+    if dtype == torch.float32:
+        if not 0 < hd <= FP32_MAX_HEAD_DIM:
+            raise ValueError(f"attention kernel: fp32 head dim {hd} not in [1, "
+                             f"{FP32_MAX_HEAD_DIM}]")
+        return "fp32"
+    raise TypeError(f"attention kernel: takes torch.bfloat16 or torch.float32, got {dtype}")
 
 
 def flash_attention(
@@ -180,17 +203,25 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, kv_lengths, causal=True,
             dv.to(v.dtype))
 
 
-def _check_operand(name: str, x: torch.Tensor, device) -> None:
+def _check_operand(name: str, x: torch.Tensor, device, dtype) -> None:
+    """An operand of the attention kernels: on `device`, of `dtype` (the
+    first operand's, which kernel_instance took), laid out as the instance
+    reads it. bf16 reads 16-byte rows: a unit last stride, strides that are
+    multiples of 8 and a 16-byte aligned base. fp32 reads one element at a
+    time (any head dim, a row of 48 bytes at hd 12): a unit last stride."""
     if x.device.type != "cuda" or x.device != device:
         raise ValueError(f"{name} on {x.device}: the kernel takes tensors on "
                          f"one CUDA device ({device})")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) \
-            or x.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel reads 16-byte rows; needs a unit "
-                         f"last stride, strides that are multiples of 8 and a "
-                         f"16-byte aligned base, got strides {x.stride()}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype} as q, got {x.dtype}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: the kernel needs a unit last stride, got strides "
+                         f"{x.stride()}")
+    if dtype == torch.bfloat16 and (any(s % 8 for s in x.stride()[:-1])
+                                    or x.data_ptr() % 16):
+        raise ValueError(f"{name}: the bf16 kernel reads 16-byte rows; needs strides "
+                         f"that are multiples of 8 and a 16-byte aligned base, got "
+                         f"strides {x.stride()}")
 
 
 def _kernel_inputs(q, k, v, kv_lengths, segment_ids):
@@ -198,13 +229,12 @@ def _kernel_inputs(q, k, v, kv_lengths, segment_ids):
     None), contiguous on q's device."""
     B, Sq, nh, hd = q.shape
     Sk, kh = k.shape[1], k.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel: head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    kernel_instance(q.dtype, hd)
     if k.shape != (B, Sk, kh, hd) or v.shape != k.shape:
         raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q.device)
+        _check_operand(name, x, q.device, q.dtype)
     lengths = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lengths.shape != (B,):
         raise ValueError(f"kv_lengths shape {tuple(lengths.shape)} != ({B},)")
@@ -235,7 +265,7 @@ def _flash_cuda(q, k, v, kv_lengths, causal, q_offset, segment_ids,
         lse.data_ptr() if with_lse else None,
         lengths.data_ptr(), seg.data_ptr() if seg is not None else None,
         B, Sq, Sk, nh, kh, hd, *_strides(q, k, v),
-        int(causal), int(q_offset), hd ** -0.5,
+        int(causal), int(q_offset), hd ** -0.5, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel")
     if with_lse:
@@ -257,7 +287,7 @@ def _bwd_operands(q, k, v, dout, lse, delta, kv_lengths, segment_ids):
     B, Sq, nh, _ = q.shape
     lengths, seg = _kernel_inputs(q, k, v, kv_lengths, segment_ids)
     dout = dout.contiguous()
-    _check_operand("dout", dout, q.device)
+    _check_operand("dout", dout, q.device, q.dtype)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (B, nh, Sq) or x.dtype != torch.float32 or x.device != q.device:
             raise ValueError(f"flash backward: {name} must be fp32 [{B}, {nh}, {Sq}] "
@@ -275,7 +305,7 @@ def _bwd_args(q, k, v, dout, lse, delta, lengths, seg, causal, q_offset):
             lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
             seg.data_ptr() if seg is not None else None)
     tail = (B, Sq, Sk, nh, kh, hd, *_strides(q, k, v), int(causal),
-            int(q_offset), hd ** -0.5,
+            int(q_offset), hd ** -0.5, int(q.dtype == torch.float32),
             torch.cuda.current_stream(q.device).cuda_stream)
     return head, tail
 
@@ -299,12 +329,13 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, kv_lengths, causal=True,
                        q_offset=0, segment_ids=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel (csrc/flash_attn_bwd.cu): dk, dv
-    [B, Sk, kh, hd], the GQA group summed. The kernel runs one block per
-    (key rows, query head): under GQA it adds each head into zeroed fp32
-    sums, rounded to the operands' dtype here."""
+    [B, Sk, kh, hd], the GQA group summed. The bf16 kernel runs one block
+    per (key rows, query head): under GQA it adds each head into zeroed
+    fp32 sums, rounded to the operands' dtype here. The fp32 instance walks
+    the group's heads in one block and writes dk / dv once."""
     lengths, seg, dout, lse, delta = _bwd_operands(q, k, v, dout, lse, delta,
                                                    kv_lengths, segment_ids)
-    gqa = q.shape[2] != k.shape[2]
+    gqa = q.shape[2] != k.shape[2] and q.dtype == torch.bfloat16
     dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=q.device) if gqa
               else torch.empty(k.shape, dtype=x.dtype, device=q.device) for x in (k, v))
     head, tail = _bwd_args(q, k, v, dout, lse, delta, lengths, seg, causal, q_offset)

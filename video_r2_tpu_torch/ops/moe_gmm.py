@@ -26,21 +26,27 @@ and recomputes per block:
   rows gets exactly zero.
 On CUDA tensors those three wrappers launch ``csrc/moe_gmm_bwd.cu`` (which
 replaces ``_bwd_dx_kernel``, ``_bwd_dw_kernel`` and ``_bwd_dwd_kernel``; bf16
-or fp32 operands, `gmm_bwd_dx_tiles` picks dX's tiles) and count their
-launches; on CPU tensors they run their plain versions. The rounding points
-are the kernels', in the working type of x (bf16 on the card, none in
-float32): dY before dh and dWd, dg / du / h before the products that
-consume them; every sum is fp32, and dX and dW come out fp32.
+or fp32 operands, `gmm_bwd_dx_tiles` and `gmm_bwd_dw_tiles` pick their
+tiles) and count their launches; on CPU tensors they run their plain
+versions. The rounding points are the kernels', in the working type of x
+(bf16 on the card, none in float32): dY before dh and dWd, dg / du / h
+before the products that consume them; every sum is fp32, dX comes out
+fp32 and each dW in its weight's dtype, rounded once from the fp32 sum
+(the reference's dwg.astype(wg.dtype)) by the kernel itself.
 int8 and W8A8 expert weights have no backward, as in the reference. The
 sharded variant waits for the parallelism port.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import check, kernels
 from .moe_ragged import KERNEL_TILE, _plain_ffn, quantize_rows, ragged_expert_ffn
+
+DW_MAX_EXPERTS = 1024   # the weight-gradient kernel's run table (shared memory)
 
 
 def sorted_expert_layout(topi: torch.Tensor, E: int, block_rows: int):
@@ -178,10 +184,11 @@ def gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd, keep_h: bool = False,
     return dx, dg, du, h
 
 
-def _expert_sums(a, b, ids, valid, E: int, chunk: int):
+def _expert_sums(a, b, ids, valid, E: int, chunk: int, out_dtype):
     """sum over the valid blocks of each expert of a[blk]^T b[blk]: a
-    [n, bm, M], b [n, bm, N] -> fp32 [E, M, N], zero for an expert with no
-    valid block."""
+    [n, bm, M], b [n, bm, N] -> [E, M, N], summed in fp32 and rounded to
+    out_dtype (a's dtype when None) once; zero for an expert with no valid
+    block."""
     n, _, M = a.shape
     out = torch.zeros((E, M, b.shape[-1]), dtype=torch.float32, device=a.device)
     e_all = ids.to(a.device).long()
@@ -191,22 +198,24 @@ def _expert_sums(a, b, ids, valid, E: int, chunk: int):
         m = keep[sl][:, None, None]
         prod = torch.bmm(a[sl].float().transpose(1, 2), b[sl].float())
         out.index_add_(0, e_all[sl], torch.where(m, prod, 0.0))
-    return out
+    return out.to(out_dtype or a.dtype)
 
 
-def gmm_bwd_dw_plain(xs, dg, du, ids, valid, E: int, chunk: int = 32):
+def gmm_bwd_dw_plain(xs, dg, du, ids, valid, E: int, out_dtype=None, chunk: int = 32):
     """PyTorch version of the dWg / dWu kernel: per expert e, the sum over
-    its valid blocks of x^T dg and x^T du (fp32 [E, H, I] each; zero for an
-    expert with no rows)."""
-    return (_expert_sums(xs, dg, ids, valid, E, chunk),
-            _expert_sums(xs, du, ids, valid, E, chunk))
+    its valid blocks of x^T dg and x^T du ([E, H, I] each, fp32 sums rounded
+    once to out_dtype, x's dtype by default; zero for an expert with no
+    rows)."""
+    return (_expert_sums(xs, dg, ids, valid, E, chunk, out_dtype),
+            _expert_sums(xs, du, ids, valid, E, chunk, out_dtype))
 
 
-def gmm_bwd_dwd_plain(h, dYs, ids, valid, E: int, chunk: int = 32):
+def gmm_bwd_dwd_plain(h, dYs, ids, valid, E: int, out_dtype=None, chunk: int = 32):
     """PyTorch version of the dWd kernel: per expert, the sum over its valid
-    blocks of h^T dY (fp32 [E, I, H]; zero for an expert with no rows). dY
-    is rounded to h's dtype first, as for the dX kernel."""
-    return _expert_sums(h, dYs.to(h.dtype), ids, valid, E, chunk)
+    blocks of h^T dY ([E, I, H], fp32 sums rounded once to out_dtype, h's
+    dtype by default; zero for an expert with no rows). dY is rounded to h's
+    dtype first, as for the dX kernel."""
+    return _expert_sums(h, dYs.to(h.dtype), ids, valid, E, chunk, out_dtype)
 
 
 def gmm_bwd_dx_tiles(bm: int, H: int) -> tuple[int, int]:
@@ -228,23 +237,36 @@ def gmm_bwd_dx(xs, dYs, ids, valid, wg, wu, wd, keep_h: bool = False):
     return out
 
 
-def gmm_bwd_dw(xs, dg, du, ids, valid, E: int):
-    """(dWg, dWu) fp32 [E, H, I] (gmm_bwd_dw_plain's function). The kernel
-    takes the sorted layout as sorted_expert_layout makes it: the valid
-    blocks first, each expert's blocks one run, experts in ascending order."""
+def gmm_bwd_dw_tiles(N: int, nb: int) -> tuple[int, int]:
+    """The bf16 weight-gradient kernel's output tile for nb outputs (2: dWg
+    and dWu, 1: dWd) of width N (a multiple of 64): (128 rows, one
+    warpgroup per 64; columns: 128 for two outputs, 256 for one, where they
+    divide N, else 64). Rows past M are left to the TMA store, which writes
+    nothing past the tensor."""
+    wide = 128 if nb == 2 else 256
+    return 128, (wide if N % wide == 0 else 64)
+
+
+def gmm_bwd_dw(xs, dg, du, ids, valid, E: int, out_dtype=None):
+    """(dWg, dWu) [E, H, I] (gmm_bwd_dw_plain's function) in out_dtype, the
+    operands' by default. The kernel takes the sorted layout as
+    sorted_expert_layout makes it: the valid blocks first, each expert's
+    blocks one run, experts in ascending order; it writes the operands'
+    dtype (bf16 sums rounded once in its epilogue)."""
     if xs.device.type == "cpu":
-        return gmm_bwd_dw_plain(xs, dg, du, ids, valid, E)
-    out = _bwd_dw_cuda(xs, (dg, du), ids, valid, E)
+        return gmm_bwd_dw_plain(xs, dg, du, ids, valid, E, out_dtype)
+    out = _bwd_dw_cuda(xs, (dg, du), ids, valid, E, out_dtype)
     gmm_bwd_dw.launches += 1
     return out
 
 
-def gmm_bwd_dwd(h, dYs, ids, valid, E: int):
-    """dWd fp32 [E, I, H] (gmm_bwd_dwd_plain's function), the sorted layout
-    as for gmm_bwd_dw."""
+def gmm_bwd_dwd(h, dYs, ids, valid, E: int, out_dtype=None):
+    """dWd [E, I, H] (gmm_bwd_dwd_plain's function) in out_dtype, h's by
+    default; the sorted layout as for gmm_bwd_dw. dY must already be in h's
+    dtype on the card (the backward rounds it so once)."""
     if h.device.type == "cpu":
-        return gmm_bwd_dwd_plain(h, dYs, ids, valid, E)
-    out = _bwd_dw_cuda(h, (dYs,), ids, valid, E)[0]
+        return gmm_bwd_dwd_plain(h, dYs, ids, valid, E, out_dtype)
+    out = _bwd_dw_cuda(h, (dYs,), ids, valid, E, out_dtype)[0]
     gmm_bwd_dwd.launches += 1
     return out
 
@@ -313,12 +335,12 @@ def _bwd_dx_cuda(xs, dYs, ids, valid, wg, wu, wd, keep_h: bool):
     return dx, dg, du, h
 
 
-def _bwd_dw_cuda(a, bs, ids, valid, E: int):
+def _bwd_dw_cuda(a, bs, ids, valid, E: int, out_dtype):
     """Check the operands and launch the weight-gradient kernel of
     csrc/moe_gmm_bwd.cu: per expert, the sum over its run of rows of
-    a^T b for each b in bs (one or two), fp32 [E, M, N]. The run of each
-    expert comes from the block table: valid blocks first, experts in
-    ascending order (sorted_expert_layout's layout)."""
+    a^T b for each b in bs (one or two), [E, M, N] in the operands' dtype.
+    The kernel counts each expert's run from the block table (valid blocks
+    first, experts in ascending order: sorted_expert_layout's layout)."""
     if a.dim() != 3 or any(b.shape[:2] != a.shape[:2] or b.dim() != 3 for b in bs):
         raise ValueError(f"gmm dW kernel: operands [n, bm, M] and [n, bm, N], got "
                          f"{tuple(a.shape)} and {[tuple(b.shape) for b in bs]}")
@@ -330,18 +352,31 @@ def _bwd_dw_cuda(a, bs, ids, valid, E: int):
     dev = a.device
     fp32 = _check("gmm dW kernel",
                   [("rows", a)] + [(f"operand {i}", b) for i, b in enumerate(bs)], dev)
+    if not 0 < E <= (E if fp32 else DW_MAX_EXPERTS):
+        raise ValueError(f"gmm dW kernel: {E} experts; bf16 takes 1 to {DW_MAX_EXPERTS}")
+    if out_dtype not in (None, a.dtype):
+        raise TypeError(f"gmm dW kernel: writes the operands' dtype {a.dtype}, asked for "
+                        f"{out_dtype}")
     ids32, valid32 = _block_table(ids, valid, n, dev)
-    run = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
-        0, ids32.long(), valid32) * bm                       # rows of each expert
-    start = torch.cumsum(run, 0, dtype=torch.int32) - run
-    outs = [torch.empty((E, M, N), dtype=torch.float32, device=dev) for _ in bs]
+    outs = [torch.empty((E, M, N), dtype=a.dtype, device=dev) for _ in bs]
     err = kernels().vr2_moe_gmm_bwd_dw(
         a.data_ptr(), bs[0].data_ptr(), None if len(bs) == 1 else bs[1].data_ptr(),
-        start.data_ptr(), run.data_ptr(), outs[0].data_ptr(),
-        None if len(bs) == 1 else outs[1].data_ptr(), M, N, E, int(fp32),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ids32.data_ptr(), valid32.data_ptr(), outs[0].data_ptr(),
+        None if len(bs) == 1 else outs[1].data_ptr(), n, bm, M, N, E,
+        gmm_bwd_dw_tiles(N, len(bs))[1], int(fp32), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "gmm backward dW kernel")
     return outs
+
+
+def gmm_bwd_dw_layout(M: int, N: int, E: int, nb: int) -> dict:
+    """The bf16 weight-gradient kernel's launch for nb outputs [E, M, N]:
+    {rows, cols (of a tile), stages (of its ring), smem (bytes a block),
+    tiles, blocks (the persistent grid: one per SM, at most one per
+    tile)}."""
+    out = (ctypes.c_int * 6)()
+    check(kernels().vr2_moe_gmm_bwd_dw_layout(M, N, E, nb, gmm_bwd_dw_tiles(N, nb)[1], out),
+          "gmm dW layout")
+    return dict(zip(("rows", "cols", "stages", "smem", "tiles", "blocks"), out))
 
 
 def sorted_dy(dy_slot, topv, dst, shape, dtype) -> torch.Tensor:
@@ -396,10 +431,11 @@ class _GmmExpertFFN(torch.autograd.Function):
         del dx
         dwg = dwu = dwd = None
         if need_w[0] or need_w[1]:
-            dwg, dwu = (w.to(wg.dtype) if need else None
-                        for w, need in zip(bwd[1](xs, dg, du, ids, valid, E), need_w))
+            dwg, dwu = (w if need else None
+                        for w, need in zip(bwd[1](xs, dg, du, ids, valid, E, wg.dtype),
+                                           need_w))
         if need_w[2]:
-            dwd = bwd[2](h, dYs, ids, valid, E).to(wd.dtype)
+            dwd = bwd[2](h, dYs, ids, valid, E, wd.dtype)
         return d_xt, d_topv.to(topv.dtype), None, dwg, dwu, dwd, None, None
 
 

@@ -7,9 +7,11 @@ gradients it runs the forward (``_win_kernel``); with gradients it runs
 `_WindowFn`, the port of the ``_window_attention_hm`` custom VJP, whose
 backward recomputes the scores (``_win_bwd_kernel``; no forward statistics
 are saved). On CUDA tensors both steps launch hand-written Hopper kernels
-(``csrc/vit_window_attn.cu``, ``csrc/vit_window_attn_bwd.cu``; bf16, head
-dims 64 / 80 / 128) and raise on anything the kernels do not take; on CPU
-tensors the Function runs the plain PyTorch versions
+(``csrc/vit_window_attn.cu``, ``csrc/vit_window_attn_bwd.cu``; routed as
+the flash kernels by ops/flash.py::kernel_instance: bf16 at head dims 64 /
+80 / 128 on the tensor cores, fp32 at any head dim up to 128 on the CUDA
+cores) and raise on anything the kernels do not take; on CPU tensors the
+Function runs the plain PyTorch versions
 (`window_attention_plain`, `window_attention_bwd_plain`), which the CPU tests
 hold against the JAX kernels in interpret mode.
 
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import check, kernels
-from .flash import KERNEL_HEAD_DIMS, _check_operand
+from .flash import _check_operand, kernel_instance
 
 WINDOW = 64
 
@@ -126,13 +128,12 @@ def _window_operands(q, k, v, valid, wp):
     S, nh, hd = q.shape
     if wp != WINDOW:
         raise ValueError(f"window kernel: window {wp} != {WINDOW}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"window kernel: head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    kernel_instance(q.dtype, hd)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"window kernel: q/k/v shapes differ: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q.device)
+        _check_operand(name, x, q.device, q.dtype)
     if valid.shape != (S,) or valid.dtype != torch.bool:
         raise ValueError(f"valid must be bool [{S}], got {valid.dtype} "
                          f"{tuple(valid.shape)}")
@@ -147,7 +148,7 @@ def _window_cuda(q, k, v, valid, wp):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         out.data_ptr(), S, nh, hd,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), hd ** -0.5,
+        v.stride(0), v.stride(1), hd ** -0.5, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "window_attention kernel")
     window_attention.launches += 1
@@ -158,7 +159,7 @@ def _window_bwd_cuda(q, k, v, valid, dout, wp):
     S, nh, hd = q.shape
     valid = _window_operands(q, k, v, valid, wp)
     dout = dout.contiguous()
-    _check_operand("dout", dout, q.device)
+    _check_operand("dout", dout, q.device, q.dtype)
     if dout.shape != q.shape:
         raise ValueError(f"window backward: dout {tuple(dout.shape)} != q "
                          f"{tuple(q.shape)}")
@@ -168,7 +169,7 @@ def _window_bwd_cuda(q, k, v, valid, dout, wp):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         valid.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), S, nh, hd,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), hd ** -0.5,
+        v.stride(0), v.stride(1), hd ** -0.5, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "window_attention backward kernel")
     window_attention_bwd.launches += 1
