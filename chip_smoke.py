@@ -10,7 +10,8 @@
    versions in bf16 at the serving slice's shapes, with the max error, both
    times, the card's bound and the time of one library call
    (F.scaled_dot_product_attention with the same mask), and each flash
-   forward launch's blocks per SM beside those resident on one;
+   forward launch's blocks per SM beside those resident on one; the window
+   forward and SDPA also in a CUDA graph (device times);
 4. serving slice: Qwen2.5-VL-7B at full width in bf16 with seeded random
    weights, a DemoRunner answering 3 video questions (8 synthetic frames of
    392x392 each, 32 greedy tokens), with the launch counts set to 0 before
@@ -21,7 +22,9 @@
    padded width, causal, ragged lengths; the ViT's full-attention groups
    with segments; its windows) the forward with LSE, the dq and dk/dv
    kernels and the window backward against their plain versions, with the
-   library call's forward and backward times; the dq + dk/dv pair's time
+   library call's forward and backward times (the window backward and
+   SDPA's backward also in a CUDA graph: SDPA's forward + backward less its
+   forward); the dq + dk/dv pair's time
    beside the SDPA backward on one line, with each launch's blocks per SM
    (grid blocks over the SMs, and those the occupancy calculator keeps
    resident on one);
@@ -100,7 +103,9 @@
    with the library call (torch._weight_int4pack_mm over its own packing,
    made once, untimed; "none" and the reason where the card's torch does
    not take it), both timed eagerly and in a CUDA graph (device time), and
-   each shape's split-K plan (S, its blocks); the head-major decode
+   each shape's launch: the decode kernel's stream-K plan (blocks, tiles,
+   units a block) or the staged kernel's split-K plan (S, its blocks), and
+   the scale placement; the head-major decode
    kernel at phase 13's batch (B = 4, 28 / 4 heads of 128, its ragged
    prompt lengths and padded width, a 28-layer cache) at decode step 0,
    at step 63 and with the window off, on layers other than 0, each timed
@@ -165,7 +170,8 @@
    so each timed launch reads cold weights, against its plain version,
    with the bound and the library calls (convert + torch.matmul x scale,
    the dispatcher's own path above its row limit; torch._weight_int8pack_mm
-   where the card's torch takes it); the kernel against convert + matmul at
+   where the card's torch takes it), the kernel and convert + matmul also
+   in a CUDA graph (device times); the kernel against convert + matmul at
    M = 1 to 1024 at gate / up and q, the measurement behind
    INT8_KERNEL_MAX_ROWS; then scripts/microbench_int8.py's comparison at its
    shape (M 64, K 3584, N 18944, L 28): one all-layers launch, 28 stacked
@@ -197,7 +203,8 @@
    weights on the CPU; the fp32 instances of the flash forward (serving,
    with LSE), backward and window forward / backward against their plain
    versions at the path's shapes within FP32_TOL, timed beside the bound
-   (fp32 CUDA-core peak) and SDPA in fp32; then, counted, a video
+   (fp32 CUDA-core peak) and SDPA in fp32 (the window cases eagerly and in
+   a CUDA graph); then, counted, a video
    question's prefill logits (relative L2 within FP32_TOL of the CPU's),
    its greedy tokens through DemoRunner.generate (equal) and one
    make_sft_step step with the tower trained (loss within FP32_TOL, the
@@ -562,6 +569,28 @@ def library_calls(q, k, v, mask, dout):
     return cuda_ms(fwd), cuda_ms(bwd, iters=10)
 
 
+def library_device_ms(q, k, v, mask, dout) -> tuple[float, float]:
+    """Device times (graph_ms) of F.scaled_dot_product_attention as
+    library_calls calls it: (the forward, the forward and its backward in
+    one capture; the backward's own time is their difference)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dt)
+    return graph_ms(fwd), graph_ms(fwd_bwd, iters=10)
+
+
 def report(name: str, what: str, shape, **r) -> None:
     extra = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in r.items())
@@ -691,7 +720,10 @@ def flash_case(gen, what, q, k, v, lengths, causal, seg, training: bool) -> dict
 def window_case(gen, what, valid, nh, hd, training: bool, dtype=None) -> dict:
     """The window kernel (serving) or its backward (training) at one shape,
     on strided q / k / v views of one qkv, as in the tower (bf16, or fp32:
-    the fp32 instances, held to FP32_TOL elementwise)."""
+    the fp32 instances, held to FP32_TOL elementwise). Kernel and library
+    call are timed eagerly (ms, library_ms) and in a CUDA graph (device_ms,
+    library_device_ms: for the backward, SDPA's forward + backward less its
+    forward)."""
     import torch
 
     from video_r2_tpu_torch.ops.vit_window_attention import (
@@ -716,12 +748,14 @@ def window_case(gen, what, valid, nh, hd, training: bool, dtype=None) -> dict:
     win = lambda x: x.reshape(nw, WINDOW, nh, hd)  # noqa: E731
     mask = valid.reshape(nw, 1, 1, WINDOW).expand(nw, 1, WINDOW, WINDOW)
     lib_fwd_ms, lib_bwd_ms = library_calls(win(q), win(k), win(v), mask, win(dout))
+    lib_fwd_dev, lib_fwd_bwd_dev = library_device_ms(win(q), win(k), win(v), mask, win(dout))
     if not training:
         run = lambda: window_attention(q, k, v, valid)  # noqa: E731
         plain = lambda: window_attention_plain(q, k, v, valid)  # noqa: E731
         err, excess = compare(run(), plain(), valid, tol)
         r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(run),
-             "plain_ms": cuda_ms(plain), "library_ms": lib_fwd_ms,
+             "device_ms": graph_ms(run), "plain_ms": cuda_ms(plain),
+             "library_ms": lib_fwd_ms, "library_device_ms": lib_fwd_dev,
              **bound(4 * hd * pairs, 4 * io_bytes + S, peak)}
         report("window_attention", what, (S, nh, hd), **r)
         if not excess <= 1.0:
@@ -735,8 +769,11 @@ def window_case(gen, what, valid, nh, hd, training: bool, dtype=None) -> dict:
     excess = max(compare(a, b, None, tol)[1] for a, b in zip(grads, ref))
     r = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
                             for a, b in zip(grads, ref)),
-         "rel_l2": max(rels), "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, iters=5),
-         "library_ms": lib_bwd_ms, **bound(12 * hd * pairs, 7 * io_bytes + S, peak)}
+         "rel_l2": max(rels), "ms": cuda_ms(run), "device_ms": graph_ms(run),
+         "plain_ms": cuda_ms(plain, iters=5), "library_ms": lib_bwd_ms,
+         "library_device_ms": lib_fwd_bwd_dev - lib_fwd_dev,
+         "library_fwd_bwd_device_ms": lib_fwd_bwd_dev,
+         **bound(12 * hd * pairs, 7 * io_bytes + S, peak)}
     if fp32:
         r["excess"] = excess
     report("window_attention_bwd", what, (S, nh, hd), **r)
@@ -1434,15 +1471,26 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
     return r
 
 
-def int4_launch_line(M: int, K: int, N: int, sms: int) -> str:
-    """The int4 kernel's launch at one shape: its split-K plan and blocks."""
-    from video_r2_tpu_torch.ops.int4_matmul import int4_split_plan, int4_tiles
+def int4_launch_line(M: int, K: int, N: int, sms: int, g: int = 128) -> str:
+    """The int4 kernel's launch at one shape: the decode kernel's stream-K
+    plan (blocks, tiles, units a block), or the staged kernel's split-K plan
+    and blocks; and the scale placement."""
+    from video_r2_tpu_torch.ops import int4_matmul as m
 
-    S, ranges = int4_split_plan(M, K, N, sms)
-    blocks = int4_tiles(M, N) * S
+    placement = getattr(m, "SCALE_PLACEMENT", "a")   # an older checkout under --root: (a)
+    plan = m.int4_decode_plan(M, K, N, g, sms) if hasattr(m, "int4_decode_plan") else None
+    if plan is not None:
+        blocks, tiles, units = plan
+        lengths = sorted({end - begin for begin, end in m.int4_decode_ranges(units, blocks)})
+        return (f"decode kernel, stream-K: {blocks} blocks on {sms} SMs over {tiles} tiles of "
+                f"{m.DECODE_COLUMNS} columns, {units} units of {m.DECODE_UNIT_ROWS} packed "
+                f"rows ({'/'.join(map(str, lengths))} a block); scale placement "
+                f"({placement})")
+    S, ranges = m.int4_split_plan(M, K, N, sms)
+    blocks = m.int4_tiles(M, N) * S
     lengths = sorted({end - begin for begin, end in ranges})
-    return (f"split S={S} ({'/'.join(map(str, lengths))} stages each), {blocks} blocks on "
-            f"{sms} SMs")
+    return (f"staged kernel: split S={S} ({'/'.join(map(str, lengths))} stages each), "
+            f"{blocks} blocks on {sms} SMs; scale placement ({placement})")
 
 
 def int4_kernel_phase(cfg, batch, device) -> dict:
@@ -3182,7 +3230,9 @@ def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict
          "library_ms": cuda_ms(rot(convert_matmul)),
          **bound(2.0 * M * K * N, 2.0 * M * K + w_bytes + 2.0 * M * N)}
     extra = {}
-    if full:
+    if full:    # device times (a CUDA graph): at decode rows the eager ones are host time
+        r["device_ms"] = graph_ms(rot(int8_matmul))
+        r["library_device_ms"] = graph_ms(rot(convert_matmul))
         r["plain_ms"] = cuda_ms(rot(int8_matmul_plain), iters=5, warmup=1)
         pack, why = (int8pack_probe(x, wq, sc) if K % 64 == 0 and N % 64 == 0 else
                      (None, "not given tail widths"))

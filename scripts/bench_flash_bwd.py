@@ -6,6 +6,7 @@ backward) and the bound, with the blocks each launch puts on an SM.
 
     python3 scripts/bench_flash_bwd.py                  # this checkout's port
     python3 scripts/bench_flash_bwd.py --root DIR       # another checkout's
+    python3 scripts/bench_flash_bwd.py --cases window   # a subset: fwd, bwd, window
 
 Forward shapes (chip_smoke.py's phases 3, 6, 15 and 16): the 7B's causal
 prefill (B 3, Sq 1408, Sk 1440, lengths 1408 / 1311 / 704, 28 / 4 heads of
@@ -18,8 +19,13 @@ Backward shapes (phases 6 and 15): the 7B decoder's LoRA step (B 2, S 2432,
 lengths 2422 / 2342, 28 / 4 heads of 128, causal), the judge's (B 2, S 1024,
 lengths 643 / 709, 32 / 4 heads of 128, causal) and the ViT's
 full-attention groups (16 groups of 1024, 16 heads of 80, segments: 10% of
-the slots padding). Inputs are seeded unit normals in bf16. Prints one JSON
-line a shape, then the card's name and power limit (nvidia-smi). To
+the slots padding). The window forward (chip_smoke.py phase 3's "vit
+windows": the 8-frame clip's 4096 slots in 64-slot windows, the valid-slot
+mask from plan_vision_layout, 16 heads of 80, strided views of one qkv)
+through chip_smoke.py's window_case, from this checkout, on the port under
+--root: eager and CUDA-graph device times beside SDPA's. Inputs are seeded
+unit normals in bf16. Prints one JSON line a shape, then the card's name
+and power limit (nvidia-smi). To
 compare two versions on one card, run them in turns in one command
 (parent, change, change, parent).
 """
@@ -53,6 +59,7 @@ SHAPES = {
     "judge training": dict(B=2, S=1024, nh=32, kh=4, hd=128, lengths=(643, 709)),
     "vit full training": dict(B=16, S=1024, nh=16, kh=16, hd=80, lengths=None),
 }
+WINDOW_SHAPES = {"vit windows": dict(grid=(4, 28, 28), nh=16, hd=80)}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -207,11 +214,31 @@ def run_shape(name: str, B, S, nh, kh, hd, lengths) -> dict:
     return r
 
 
+def run_window_shape(name: str, grid, nh, hd) -> dict:
+    """The window forward at one clip's layout: chip_smoke.py's window_case
+    (kernel vs plain, eager and device times, SDPA's, the bound)."""
+    import torch
+
+    import chip_smoke
+    from video_r2_tpu_torch.models.config import qwen25vl_7b
+    from video_r2_tpu_torch.models.vision import plan_vision_layout
+
+    dev = torch.device("cuda")
+    layout = plan_vision_layout([grid], qwen25vl_7b().vision)
+    valid = torch.as_tensor(layout.valid, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    r = chip_smoke.window_case(gen, name, valid, nh, hd, training=False)["window_attention"]
+    return {"shape": name, "S": int(valid.shape[0]), "nh": nh, "hd": hd,
+            "valid": int(valid.sum()), **r}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
+    ap.add_argument("--cases", default="fwd,bwd,window",
+                    help="comma-separated subset of fwd, bwd, window")
     args = ap.parse_args()
     import torch
 
@@ -219,14 +246,24 @@ def main() -> int:
         print("bench_flash_bwd: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
     from video_r2_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.kernels()
-    runs = [(run_fwd_shape, name, shape) for name, shape in FWD_SHAPES.items()]
-    runs += [(run_shape, name, shape) for name, shape in SHAPES.items()]
+    cases = set(args.cases.split(","))
+    runs = [(run_fwd_shape, name, shape) for name, shape in FWD_SHAPES.items()
+            if "fwd" in cases]
+    runs += [(run_shape, name, shape) for name, shape in SHAPES.items() if "bwd" in cases]
+    runs += [(run_window_shape, name, shape) for name, shape in WINDOW_SHAPES.items()
+             if "window" in cases]
     for fn, name, shape in runs:
-        r = fn(name, **shape)
+        try:
+            r = fn(name, **shape)
+        except AssertionError as e:    # a variant that gives up the result (its times
+            print(json.dumps({"label": args.label, "shape": name, "error": str(e)}),
+                  flush=True)          # are on the "kernel ..." line above)
+            continue
         r["label"] = args.label
         print(json.dumps(r), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

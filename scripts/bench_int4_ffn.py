@@ -6,9 +6,11 @@ version, timed with CUDA events beside one library call and the bound.
     python3 scripts/bench_int4_ffn.py                  # this checkout's port
     python3 scripts/bench_int4_ffn.py --root DIR       # another checkout's
     python3 scripts/bench_int4_ffn.py --step           # and an int4 decode step
+    python3 scripts/bench_int4_ffn.py --cases int4     # a subset: int4, ffn
 
 Shapes: the int4 kernel at B = 4 rows for the 7B's q, k / v, o, gate / up
-and down (chip_smoke.py phase 12's decode cases: seeded weights quantized by
+and down, at B = 1 for gate / up and the head, and at the merger's 784
+rows for fc1 (chip_smoke.py phase 12's cases: seeded weights quantized by
 quantize_kernel_int4, copies rotating past the L2 cache so each launch reads
 cold weights; the library call torch._weight_int4pack_mm); the grouped FFN
 in bf16 at T = 4096 and 2048 tokens routed top 8 over the judge's 128
@@ -38,7 +40,8 @@ REPO = Path(__file__).resolve().parents[1]
 # (what, rows, K, N): the 7B's int4 linears at decode, B = 4
 INT4_SHAPES = (("decode q", 4, 3584, 3584), ("decode k / v", 4, 3584, 512),
                ("decode o", 4, 3584, 3584), ("decode gate / up", 4, 3584, 18944),
-               ("decode down", 4, 18944, 3584))
+               ("decode down", 4, 18944, 3584), ("B=1 gate / up", 1, 3584, 18944),
+               ("B=1 head", 1, 3584, 152064), ("merger fc1", 784, 5120, 5120))
 FFN_TOKENS = (4096, 2048)
 STEP_LENGTHS = (1354, 1391, 1326, 1423)    # phase 13's prompt lengths
 
@@ -135,6 +138,9 @@ def main() -> int:
                     help="the checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--step", action="store_true", help="also time an int4 decode step")
+    ap.add_argument("--cases", default="int4,ffn", help="comma-separated subset of int4, ffn")
+    ap.add_argument("--warm", action="store_true",
+                    help="int4: one copy of the weights (L2-resident), not cold copies")
     args = ap.parse_args()
     import torch
 
@@ -152,17 +158,28 @@ def main() -> int:
     device = torch.device("cuda")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED + 5)
-    for what, M, K, N in INT4_SHAPES:
-        r = chip_smoke.int4_case(gen, what, M, K, N)
+    cases = set(args.cases.split(","))
+    if args.warm:
+        chip_smoke.COLD_BYTES = 0
+    if hasattr(int4_matmul, "int4_decode_resident"):
+        print(json.dumps({"label": args.label,
+                          "int4_decode_resident": int4_matmul.int4_decode_resident()}))
+    for what, M, K, N in INT4_SHAPES if "int4" in cases else ():
+        try:
+            r = chip_smoke.int4_case(gen, what, M, K, N)
+        except AssertionError as e:    # a variant that gives up the result (its times
+            print(json.dumps({"label": args.label, "what": what, "error": str(e)}),
+                  flush=True)          # are on the "kernel ..." line above)
+            continue
         line = {"label": args.label, "kernel": "int4_matmul", "what": what, "M": M, "K": K,
                 "N": N, **r}
         if hasattr(int4_matmul, "int4_split_plan"):
             line["launch"] = chip_smoke.int4_launch_line(M, K, N, sms)
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
-    layer = judge_layer(device, chip_smoke.SEED + 3)
-    E, H, I = layer["bf16"]["gate"]["kernel"].shape
-    for T in FFN_TOKENS:
+    layer = judge_layer(device, chip_smoke.SEED + 3) if "ffn" in cases else None
+    for T in FFN_TOKENS if "ffn" in cases else ():
+        E, H, I = layer["bf16"]["gate"]["kernel"].shape
         r = chip_smoke.moe_case(gen, layer, T, "gmm", "bf16")
         line = {"label": args.label, "kernel": "moe_ffn_bf16_gmm", "what": f"GMM prefill T={T}",
                 "H": H, "I": I, **r, "kernel_us": kernel_us(ffn_call(gen, layer, T))}

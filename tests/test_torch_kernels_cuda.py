@@ -159,6 +159,36 @@ def test_window_kernel_matches_plain(cuda, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_window_kernel_grid_cases(cuda, hd, layout):
+    """More (head, window) items than the resident grid holds, and a count
+    that no block count divides (65 windows x 16 heads), so blocks walk
+    ranges of several windows of unequal length; fully invalid windows in
+    the middle and at the end; q / k / v as strided views of one qkv or as
+    three contiguous tensors; a repeat call gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + len(layout))
+    S, nh = 65 * 64, 16
+    if layout == "strided":
+        qkv = _randn(gen, S, 3, nh, hd)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    else:
+        q, k, v = (_randn(gen, S, nh, hd) for _ in range(3))
+    valid = torch.rand(S, generator=gen, device=cuda) < 0.8
+    valid[64 * 20: 64 * 21] = False               # a fully invalid window in the middle
+    valid[-64:] = False                           # ... and at the end
+    valid[64 * 33: 64 * 33 + 63] = False          # one valid slot in a window
+    before = window_attention.launches
+    out, again = window_attention(q, k, v, valid), window_attention(q, k, v, valid)
+    ref = window_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 2
+    assert torch.equal(out, again)
+    assert _close(out, ref, valid)
+    assert bool((out[64 * 20: 64 * 21] == 0).all()) and bool((out[-64:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("case", ["causal_gqa_ragged", "segments"])
 def test_flash_training_kernels_match_plain(cuda, hd, case):
     """Forward with LSE, then dq and dk/dv from the same (out, lse, dout)."""
@@ -779,19 +809,22 @@ def _sms(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("M", [17, 32, 40])
 @pytest.mark.parametrize("K,N,g", INT4_SPLIT_SHAPES)
 def test_int4_split_k_matches_plain(cuda, M, K, N, g):
     """Shapes whose grid does not fill the card split K over S > 1 blocks a
-    tile in one launch; the last block of a tile adds the splits in a fixed
-    order, so a second call gives the same bits."""
+    tile in one launch of the staged kernel (more than 16 rows: the decode
+    kernel takes up to 16); the last block of a tile adds the splits in a
+    fixed order, so a second call gives the same bits."""
     from video_r2_tpu_torch.ops.int4_matmul import (
+        int4_decode_plan,
         int4_matmul,
         int4_matmul_plain,
         int4_split_plan,
     )
 
     assert int4_split_plan(M, K, N, _sms(cuda))[0] > 1
+    assert int4_decode_plan(M, K, N, g, _sms(cuda)) is None
     gen = torch.Generator(device=cuda).manual_seed(M + K + N + g)
     x, wq, scale = _int4_group_operands(gen, M, K, N, g)
     before = int4_matmul.launches
@@ -830,6 +863,157 @@ def test_int4_wide_grids_take_one_split(cuda, M, K, N):
     from video_r2_tpu_torch.ops.int4_matmul import int4_split_plan
 
     assert int4_split_plan(M, K, N, _sms(cuda)) == (1, [(0, K // 64)])
+
+
+def _int4_decode_grid(cuda, M, K, N, g=128):
+    from video_r2_tpu_torch.ops.int4_matmul import int4_decode_plan
+
+    plan = int4_decode_plan(M, K, N, g, _sms(cuda))
+    assert plan is not None, "the shape must reach the decode kernel"
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17])
+def test_int4_matmul_every_code(cuda, M):
+    """All 256 bytes, so all 16 codes of both halves (q = -8 too, which
+    the quantizer never writes), at every column: packed row p of column n
+    holds byte (p + 7 n) mod 256, p over 256 rows; mixed-sign scales."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    K, N = 512, 256
+    p = torch.arange(K // 2, device=cuda)[:, None]
+    n = torch.arange(N, device=cuda)[None, :]
+    wq = ((p + 7 * n) % 256).to(torch.uint8).view(torch.int8)
+    scale = torch.randn(K // 128, N, generator=gen, device=cuda) * 0.02
+    x = _randn(gen, M, K)
+    out = int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17])
+def test_int4_matmul_scales_over_six_decades(cuda, M):
+    """Scales of either sign from 1e-4 to 1e2 (each group and column its
+    own), an all-zero group, x scaled so that outputs stay O(1)."""
+    from video_r2_tpu_torch.models.quant import quantize_kernel_int4
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(100 + M)
+    K, N = 1024, 512
+    wq = quantize_kernel_int4(torch.randn(K, N, generator=gen, device=cuda))["kernel_q4"]
+    mag = 10.0 ** (torch.rand(K // 128, N, generator=gen, device=cuda) * 6 - 4)
+    sign = torch.where(torch.rand(K // 128, N, generator=gen, device=cuda) < 0.5, -1.0, 1.0)
+    scale = (mag * sign).contiguous()
+    scale[2] = 0.0                                 # an all-zero group
+    x = (torch.randn(M, K, generator=gen, device=cuda) * 1e-2 * K ** -0.5).to(torch.bfloat16)
+    out = int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("g", [16, 32, 64, 128, 256])
+def test_int4_decode_kernel_groups(cuda, M, g):
+    """The decode kernel at every group a multiple of 16 (K/2 = 768: a
+    unit of 16 packed rows in one group each half), twice: the same bits."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    _int4_decode_grid(cuda, M, 1536, 1024, g)
+    gen = torch.Generator(device=cuda).manual_seed(M + g)
+    x, wq, scale = _int4_group_operands(gen, M, 1536, 1024, g)
+    out, again = int4_matmul(x, wq, scale), int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("N", [3420, 1040, 2052, 3421, 16])
+def test_int4_matmul_more_column_tails(cuda, M, N):
+    """N = 1040 and 16: a last decode tile of 16 columns (16 | N, 128 does
+    not divide it); 3420 (the ViT's gate / up), 2052 (4 | N) and 3421 (odd):
+    the staged kernel's predicated copies and stores."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_decode_plan, int4_matmul, \
+        int4_matmul_plain
+
+    assert (int4_decode_plan(M, 1280, N, 128, _sms(cuda)) is None) == bool(N % 16)
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    x, wq, scale = _int4_operands(gen, M, 1280, N)
+    out = int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [16, 17, 64, 1024])
+@pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584)])
+def test_int4_matmul_row_counts(cuda, M, K, N):
+    """Both sides of the decode kernel's 16 rows, a full 64-row block of
+    the staged kernel and the kernel's 1024-row limit."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    x, wq, scale = _int4_operands(gen, M, K, N)
+    out = int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 3584), (3584, 18944),
+                                 (256, 128)])
+def test_int4_decode_kernel_stream_k(cuda, M, K, N):
+    """The 7B's decode shapes (k / v: 112 blocks of 4 units, 28 parts a
+    tile; q / o, down and gate / up: 264 blocks, tiles of 2-10 parts or
+    whole) and one tile on two blocks, at one and two 8-row tiles of x: against
+    the plain version, and a second call the same bits (the parts added in
+    block order)."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    _int4_decode_grid(cuda, M, K, N)
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int4_operands(gen, M, K, N)
+    before = int4_matmul.launches
+    out, again = int4_matmul(x, wq, scale), int4_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 2
+    assert torch.equal(out, again) and _close(out, int4_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int4_graph_replay_after_a_larger_call(cuda):
+    """A CUDA graph of decode calls captured after a call at a larger shape
+    (the workspace grown first) replays the same bits as eager calls, twice,
+    with new x between replays."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    big = _int4_operands(gen, 16, 3584, 18944)
+    ops = [_int4_operands(gen, 4, K, N) for K, N in ((3584, 512), (3584, 3584),
+                                                     (18944, 3584), (3584, 18944))]
+    xs = [x.clone() for x, _, _ in ops]
+    side = torch.cuda.Stream()          # the workspace is the capture stream's
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int4_matmul(*big)               # grows it past what the graph's calls need
+        for x, (_, wq, sc) in zip(xs, ops):
+            int4_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [int4_matmul(x, wq, sc) for x, (_, wq, sc) in zip(xs, ops)]
+    for step in range(2):
+        for x in xs:
+            x.copy_(_randn(gen, *x.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, o, (_, wq, sc) in zip(xs, outs, ops):
+            assert torch.equal(o, int4_matmul(x, wq, sc)), step
 
 
 # the 7B's int8 linears (K, N): q / o, k / v, gate / up, down, the head,

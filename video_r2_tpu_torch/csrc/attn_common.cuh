@@ -176,9 +176,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int pitch,
   }
 }
 
-// Same, stored transposed: dst[c * pitch + r] = src[r][c], so that the P @ V
-// product reads its B operand (V[key][d] over two consecutive keys) as one
-// 32-bit shared load.
+// Same, stored transposed: dst[c * pitch + r] = src[r][c], so that a
+// product whose B operand runs over consecutive rows (the window
+// backward's) reads it as one 32-bit shared load.
 template <int HD>
 __device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* dst, int pitch,
                                                      const __nv_bfloat16* src,

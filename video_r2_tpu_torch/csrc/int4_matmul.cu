@@ -7,54 +7,89 @@
 // its low nibble and row p + K/2 in its high nibble, each as q + 8, q in
 // [-7, 7]); scale [K/g, N] fp32 for any group g that divides K/2, so scale
 // row p / g serves the low nibbles of packed row p and row (p + K/2) / g its
-// high nibbles. Each
-// weight is dequantised in fp32, (nibble - 8) * scale, and rounded to bf16
-// before its product, as the TPU kernel casts its dequantised tile to x's
-// dtype; the products sum in fp32 (mma.sync m16n8k16) and y is rounded to
-// bf16 once.
+// high nibbles. Each weight is dequantised in fp32, (nibble - 8) * scale,
+// and rounded to bf16 before its product, as the TPU kernel casts its
+// dequantised tile to x's dtype (scale placement (a): the reference's
+// rounding; placement (b), exact q on the tensor cores and each group's
+// fp32 sums times its scale, measured no faster on the card: PERF.md); the
+// products sum in fp32 (mma.sync m16n8k16) and y is rounded to bf16 once.
 //
 // What bounds it on the card: at decode (M = 1 to 16 rows) each weight
 // byte serves M products, far below the ~295 operations a byte the card
 // needs to be compute-bound, so the packed weights (K N / 2 bytes) and
 // their scales (4 K N / g bytes) read once from device memory bound it;
 // at the ViT merger's 784 rows the products bound it.
-// What the design does about it: one 128-thread block per (64 output
-// columns, 16 / 32 / 64 rows: the smallest row capacity that holds M); the
-// packed K streams through a ring of shared-memory stages filled by
-// cp.async (8 stages for up to 16 rows, so each block keeps ~14 KB of
-// weights and x in flight, enough to cover the memory latency), each stage
-// 32 packed rows: 2 KB of nibbles, the matching 32 columns of both halves
-// of x and the two scale rows of their groups (one group holds 4 stages).
-// Each warp owns 16 output columns and builds its mma B fragments straight
-// from the staged bytes (unsigned: the storage is signed int8, and the TPU
-// kernel masks with & 15 after an arithmetic shift): the low nibbles
-// multiply the x tile of the first half, the high nibbles that of the
-// second, into one fp32 accumulator; x fragments come by ldmatrix. Blocks
-// run over N fastest, so a row-block's blocks share x through L2.
+//
+// Dequantisation without conversion instructions (both kernels): a nibble
+// n placed in the mantissa of the bf16 128 (0x4300 | n, one LOP3 for two)
+// is the bf16 128 + n exactly, and one bf16x2 subtract of 136 gives q = n -
+// 8 exactly, two weights an instruction. q in fp32 is that bf16 shifted
+// into the upper half of a word; q * s in fp32 and one bf16 pack of two
+// products (the only conversion left, one a packed byte) give bf16(q s).
+//
+// The decode kernel (M <= 16, 16 | N, 16 | g; every decode shape of the
+// presets):
+// - The weights are mma's A operand (the output columns are M, x's rows
+//   are N = 8 or 16), so no product is padded past 8 rows of x. A warp's
+//   unit is 16 packed rows of a tile of 128 columns: lane (g, t) copies the
+//   16 bytes of columns 16 g .. 16 g + 15 of packed rows 4 t .. 4 t + 3,
+//   the lanes of a row 128 contiguous bytes. One byte permute of two rows'
+//   words puts two columns' bytes of two rows in one word, whose four
+//   nibble pairs are the A registers of two output columns (mma rows g and
+//   g + 8 are columns 2 i and 2 i + 1 of the lane's 16, mma tile i) for
+//   two k (k slots 2t, 2t + 1 are rows 4t, 4t + 1; 2t + 8, 2t + 9 rows 4t +
+//   2, 4t + 3) of both halves. x's B fragments are then four consecutive
+//   elements of a row of x, one 8-byte copy a half. The lane's outputs are
+//   16 consecutive columns of two rows of y.
+// - Every byte goes through a per-warp ring of shared-memory stages filled
+//   by cp.async (16-byte copies of the nibbles, 8-byte copies of x, the
+//   lane's group scales in 16-byte quarters shared by the four lanes of a
+//   column group), one stage a unit, 4-5 in flight, and each lane reads its
+//   own bytes back as 16-byte words: no fragment is built from byte loads.
+// - Stream-K: the units of all tiles, tile after tile, are cut into one
+//   contiguous range a block, the block count a multiple of the SM count
+//   (2 resident a SM), so every SM reads the same bytes to within a unit
+//   (2 KB). Inside a block the four warps take a tile segment's units in
+//   turn and add their sums in shared memory in warp order. A block that
+//   covers a whole tile stores y; a block that covers part of one writes
+//   its fp32 sums to the workspace (two slots a block: the segment at the
+//   head of its range and the one at its tail) and takes a ticket on the
+//   tile's counter; the last block adds the tile's parts in block order
+//   (all loads issued before the sums), rounds y to bf16 once and resets
+//   the counter. The order is fixed, so y is the same bit for bit from
+//   call to call, and a linear stays one launch.
+//
+// The staged kernel (M > 16, or N or g not a multiple of 16): one
+// 128-thread block per (64 output columns, 16 / 32 / 64 rows: the smallest
+// row capacity that holds M); the packed K streams through a ring of
+// shared-memory stages filled by cp.async (8 stages for up to 16 rows, so
+// each block keeps ~14 KB of weights and x in flight, enough to cover the
+// memory latency), each stage 32 packed rows: 2 KB of nibbles, the
+// matching 32 columns of both halves of x and the two scale rows of their
+// groups (one group holds 4 stages). Each warp owns 16 output columns and
+// builds its mma B fragments from the staged bytes (four byte loads a
+// pair of registers): the low nibbles multiply the x tile of the first
+// half, the high nibbles that of the second, into one fp32 accumulator; x
+// fragments come by ldmatrix. Blocks run over N fastest, so a row-block's
+// blocks share x through L2.
 // Split-K, in the same launch: where the (column blocks x row blocks) grid
-// does not fill the card (the decode shapes at small N: 8 blocks at k / v,
-// 56 at q / o and down, on 132 SMs) the wrapper's split plan cuts the K
-// stages into S ranges of equal length (within one stage), one per grid z,
-// so ~3 blocks an SM (2 and 4 measured slower at the down projection) each
-// walk a short chain of stages: at 4 rows a stage's time is the latency of
-// issuing its copies, not its bytes. Each block writes its fp32 sums to a
-// [S, M, N] workspace and takes a ticket on its tile's counter; the last
-// block adds the S sums in a fixed order, rounds y to bf16 once and resets
-// the counter (reduce_splits), so y is the same bit for bit from run to run
-// and a linear stays one launch. One split takes an instantiation without
-// this code. TMA and wgmma are later work.
+// does not fill the card the wrapper's split plan cuts the K stages into S
+// ranges of equal length (within one stage), one per grid z. Each block
+// writes its fp32 sums to a [S, M, N] workspace and takes a ticket on its
+// tile's counter; the last block adds the S sums in a fixed order, rounds
+// y to bf16 once and resets the counter (reduce_splits). One split takes an
+// instantiation without this code.
 // Any N: where 64 does not divide N (the ViT's gate / up, N = 3420) the
 // last block zero-fills the weights and scales of its columns past N and
 // stores only those below it. A packed row of N bytes is 16-byte aligned
 // only when 16 divides N; otherwise the nibbles come in 4-byte copies
 // (4 | N) or byte by byte, and the scales in 4-byte copies (4 does not
 // divide N). Each case is its own instantiation, and the widths 64 divides
-// (every decoder and merger width) keep unpredicated copies and stores:
-// predicated copies slowed the latency-bound decode shapes on the card.
+// (every decoder and merger width) keep unpredicated copies and stores.
 // Any group: g = 128 (every preset) keeps its own instantiation, the group
 // a constant and the two scale rows of a stage staged with it; any other g
-// (no preset uses one) stages no scales and reads each packed row's two
-// scales through L1 where its fragment is built.
+// stages no scales and reads each packed row's two scales through L1 where
+// its fragment is built.
 // fp32 x (the TPU kernel takes f32 activations too) takes a CUDA-core path
 // that keeps every operand fp32: each weight dequantised in fp32 and
 // multiplied in fp32, y fp32. One thread per output column and up to 8
@@ -168,8 +203,22 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Int4Params& 
   }
 }
 
-__device__ __forceinline__ float nib(unsigned u, float s) {
-  return static_cast<float>(static_cast<int>(u & 15u) - 8) * s;
+// The bf16 pair (n0 - 8, n1 - 8) of the nibbles n0, n1 at bits 0-3 and
+// 16-19 of v (n0 in the low half), exact: (v & 0x000F000F) | 0x43004300 is
+// the pair 128 + n (one LOP3), and 1 * (128 + n) - 136 is exact in bf16
+__device__ __forceinline__ uint32_t nib_pair(uint32_t v) {
+  const uint32_t biased = (v & 0x000F000Fu) | 0x43004300u;
+  uint32_t q;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(q)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // bf16 1.0 and -136.0
+  return q;
+}
+
+// bf16(q0 s0), bf16(q1 s1) of the exact bf16 pair (q0, q1): the products
+// in fp32, rounded once, as the reference dequantises (its only conversion)
+__device__ __forceinline__ uint32_t scale_pair(uint32_t q, float s0, float s1) {
+  return vr2::pack_bf16(__uint_as_float(q << 16) * s0, __uint_as_float(q & 0xFFFF0000u) * s1);
 }
 
 // the scales of packed row pr (low nibbles) and pr + K/2 (high) at column
@@ -181,20 +230,31 @@ __device__ __forceinline__ float2 row_scales(const Int4Params& p, int pr, int co
                      __ldg(p.scale + (long long)((Kp + pr) / p.g) * p.N + col));
 }
 
-// y[row][c], y[row][c + 1] = (lo, hi) rounded to bf16, c even; columns past N
+// y[row][c .. c + 3] = v rounded to bf16, c a multiple of 4; columns past N
 // are dropped (WV == kWhole: none are)
 template <int WV>
-__device__ __forceinline__ void store_pair(const Int4Params& p, int row, int c, float lo,
-                                           float hi) {
+__device__ __forceinline__ void store_quad(const Int4Params& p, int row, int c,
+                                           const float (&v)[4]) {
   __nv_bfloat16* yr = p.y + (long long)row * p.N;
-  if constexpr (WV == kWhole) {
-    *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
-  } else if ((p.N & 1) == 0) {  // c < N means c + 1 < N; the pair is 4-byte aligned
-    if (c < p.N) *reinterpret_cast<uint32_t*>(yr + c) = vr2::pack_bf16(lo, hi);
+  if (WV == kWhole || (p.N & 3) == 0) {  // c < N means c + 3 < N; 8-byte aligned
+    if (WV == kWhole || c < p.N)
+      *reinterpret_cast<uint2*>(yr + c) = make_uint2(vr2::pack_bf16(v[0], v[1]),
+                                                     vr2::pack_bf16(v[2], v[3]));
   } else {
-    if (c < p.N) yr[c] = __float2bfloat16_rn(lo);
-    if (c + 1 < p.N) yr[c + 1] = __float2bfloat16_rn(hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < p.N) yr[c + i] = __float2bfloat16_rn(v[i]);
   }
+}
+
+// The four consecutive columns col0 + 4t .. + 3 of row g (half 0) or g + 8
+// (half 1) of row tile mt: the even columns are mma tile 0's, the odd ones
+// tile 1's (the B fragments' column order)
+template <int MT>
+__device__ __forceinline__ void quad(float (&v)[4], const float (&acc)[MT][2][4], int mt,
+                                     int half) {
+  v[0] = acc[mt][0][2 * half], v[1] = acc[mt][1][2 * half];
+  v[2] = acc[mt][0][2 * half + 1], v[3] = acc[mt][1][2 * half + 1];
 }
 
 // Split-K's close, in the launch: each block writes its fp32 sums to its
@@ -209,6 +269,8 @@ __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], cons
                                               int tid) {
   __shared__ int last;
   const int g = lane >> 2, t = lane & 3;
+  const int c = col0 + 4 * t;
+  const bool vec = WV == kWhole || (p.N & 3) == 0;  // float4 parts, 16-byte aligned
   const long long slice = (long long)p.M * p.N;
   float* part = p.part + blockIdx.z * slice;
 #pragma unroll
@@ -217,18 +279,15 @@ __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], cons
     for (int half = 0; half < 2; ++half) {
       const int r = mt * 16 + g + 8 * half;
       if (r >= rows) continue;
+      float v[4];
+      quad<MT>(v, acc, mt, half);
+      float* pr = part + (long long)(row0 + r) * p.N + c;
+      if (vec) {
+        if (c < p.N) *reinterpret_cast<float4*>(pr) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int c = col0 + nt * 8 + 2 * t;
-        float* pr = part + (long long)(row0 + r) * p.N + c;
-        if (WV == kWhole || (p.N & 1) == 0) {  // an even N keeps the pair 8-byte aligned
-          if (c < p.N)
-            *reinterpret_cast<float2*>(pr) =
-                make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        } else {
-          if (c < p.N) pr[0] = acc[mt][nt][2 * half];
-          if (c + 1 < p.N) pr[1] = acc[mt][nt][2 * half + 1];
-        }
+        for (int i = 0; i < 4; ++i)
+          if (c + i < p.N) pr[i] = v[i];
       }
     }
   __threadfence();  // this block's sums, before its ticket
@@ -244,17 +303,22 @@ __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], cons
     for (int half = 0; half < 2; ++half) {
       const int r = mt * 16 + g + 8 * half;
       if (r >= rows) continue;
+      const float* pr = p.part + (long long)(row0 + r) * p.N + c;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int z = 0; z < p.splits; ++z, pr += slice) {
+        if (vec) {
+          if (c < p.N) {
+            const float4 q = __ldcg(reinterpret_cast<const float4*>(pr));
+            v[0] += q.x, v[1] += q.y, v[2] += q.z, v[3] += q.w;
+          }
+        } else {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int c = col0 + nt * 8 + 2 * t;
-        const float* pr = p.part + (long long)(row0 + r) * p.N + c;
-        float lo = 0.f, hi = 0.f;
-        for (int z = 0; z < p.splits; ++z, pr += slice) {
-          if (c < p.N) lo += __ldcg(pr);
-          if (c + 1 < p.N) hi += __ldcg(pr + 1);
+          for (int i = 0; i < 4; ++i)
+            if (c + i < p.N) v[i] += __ldcg(pr + i);
         }
-        store_pair<WV>(p, row0 + r, c, lo, hi);
       }
+      store_quad<WV>(p, row0 + r, c, v);
     }
   if (tid == 0) *counter = 0;
 }
@@ -316,35 +380,43 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     const unsigned char* xlo = st + R::W_BYTES;
     const unsigned char* xhi = xlo + R::X_BYTES;
     const float* sc = reinterpret_cast<const float*>(xhi + R::X_BYTES);
+    // mma tile 0 takes the even columns wn0 + 2g, tile 1 the odd ones
     float slo[2], shi[2];
     if constexpr (G != kFineG) {
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        slo[nt] = sc[wn0 + nt * 8 + g];
-        shi[nt] = sc[kBN + wn0 + nt * 8 + g];
+        slo[nt] = sc[wn0 + 2 * g + nt];
+        shi[nt] = sc[kBN + wn0 + 2 * g + nt];
       }
     }
+    // the warp's 16 columns of the stage's 32 rows by one ldmatrix .trans
+    // over byte pairs: word j holds, of rows 8 j + 2t and 8 j + 2t + 1,
+    // the bytes of columns wn0 + 2g and + 1, so its nibble pairs are the B
+    // registers of both columns and both halves
+    uint32_t wt[4];
+    vr2::ldsm_x4_trans(wt, st + ((lane >> 3) * 8 + r8) * kPitch + wn0);
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
-      // B fragments (k = ks * 16 + 2t, +1 | +8, +9; column g of each tile)
+      const uint32_t w0 = wt[2 * ks], w1 = wt[2 * ks + 1];  // k = 2t, +1 | + 8, + 9
       uint32_t blo[2][2], bhi[2][2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        const unsigned char* c = st + (ks * 16 + 2 * t) * kPitch + wn0 + nt * 8 + g;
-        const unsigned u0 = c[0], u1 = c[kPitch], u2 = c[8 * kPitch], u3 = c[9 * kPitch];
+        const int sh = 8 * nt;  // the odd column's byte
+        const uint32_t q0 = nib_pair(w0 >> sh), q1 = nib_pair(w1 >> sh);
+        const uint32_t h0 = nib_pair(w0 >> (sh + 4)), h1 = nib_pair(w1 >> (sh + 4));
         if constexpr (G == kFineG) {  // rows k, k + 1, k + 8, k + 9 may span groups
-          const int pr = (first + s) * kKS + ks * 16 + 2 * t, col = n0 + wn0 + nt * 8 + g;
+          const int pr = (first + s) * kKS + ks * 16 + 2 * t, col = n0 + wn0 + 2 * g + nt;
           const float2 s0 = row_scales(p, pr, col), s1 = row_scales(p, pr + 1, col);
           const float2 s8 = row_scales(p, pr + 8, col), s9 = row_scales(p, pr + 9, col);
-          blo[nt][0] = vr2::pack_bf16(nib(u0, s0.x), nib(u1, s1.x));
-          blo[nt][1] = vr2::pack_bf16(nib(u2, s8.x), nib(u3, s9.x));
-          bhi[nt][0] = vr2::pack_bf16(nib(u0 >> 4, s0.y), nib(u1 >> 4, s1.y));
-          bhi[nt][1] = vr2::pack_bf16(nib(u2 >> 4, s8.y), nib(u3 >> 4, s9.y));
+          blo[nt][0] = scale_pair(q0, s0.x, s1.x);
+          blo[nt][1] = scale_pair(q1, s8.x, s9.x);
+          bhi[nt][0] = scale_pair(h0, s0.y, s1.y);
+          bhi[nt][1] = scale_pair(h1, s8.y, s9.y);
         } else {
-          blo[nt][0] = vr2::pack_bf16(nib(u0, slo[nt]), nib(u1, slo[nt]));
-          blo[nt][1] = vr2::pack_bf16(nib(u2, slo[nt]), nib(u3, slo[nt]));
-          bhi[nt][0] = vr2::pack_bf16(nib(u0 >> 4, shi[nt]), nib(u1 >> 4, shi[nt]));
-          bhi[nt][1] = vr2::pack_bf16(nib(u2 >> 4, shi[nt]), nib(u3 >> 4, shi[nt]));
+          blo[nt][0] = scale_pair(q0, slo[nt], slo[nt]);
+          blo[nt][1] = scale_pair(q1, slo[nt], slo[nt]);
+          bhi[nt][0] = scale_pair(h0, shi[nt], shi[nt]);
+          bhi[nt][1] = scale_pair(h1, shi[nt], shi[nt]);
         }
       }
 #pragma unroll
@@ -371,11 +443,9 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
     for (int half = 0; half < 2; ++half) {
       const int r = mt * 16 + g + 8 * half;
       if (r >= rows) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int c = n0 + wn0 + nt * 8 + 2 * t;  // even
-        store_pair<WV>(p, row0 + r, c, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
+      float v[4];
+      quad<MT>(v, acc, mt, half);
+      store_quad<WV>(p, row0 + r, n0 + wn0 + 4 * t, v);
     }
 }
 
@@ -411,6 +481,326 @@ cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
   if (p.N % 4 == 0) return launch<MT, 4>(p, stream);
   return launch<MT, 1>(p, stream);
 }
+
+// The decode kernel (M <= 16): the weights as mma's A operand, a per-warp
+// cp.async ring, stream-K over (tile, unit); see the file's header.
+namespace dec {
+
+constexpr int kWarps = 4;                // warps a block; a tile segment's units go round them
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 128;               // output columns of a tile: 16 bytes a lane
+constexpr int kUnitRows = 16;            // packed rows of a unit: 4 a lane
+constexpr int kBlocksPerSm = 2;          // the shared memory below keeps it at 2
+constexpr bool kScaleAfter = false;      // scale placement (b) instead of (a): a timing variant
+constexpr bool kRawWeights = false;      // the raw weight words as A: a timing variant
+constexpr bool kSyncRows = false;        // every block reads the rows of its own progress,
+                                         // all blocks the same rows at once: a timing variant
+constexpr bool kNoCompute = false;       // no products (the copies and closes only): a variant
+constexpr bool kNoCopies = false;        // no copies (the products of stale stages): a variant
+
+// One ring stage of a warp for MT 8-row tiles of x: the nibbles [row j][lane]
+// [16 B], x [tile][half][lane][8 B], the scales [half][lane][16 B] (lane (g,
+// t) copies columns 16 g + 4 t .. + 3 of its group row)
+template <int MT>
+struct Ring {
+  static constexpr int W_BYTES = 4 * 32 * 16;
+  static constexpr int X_BYTES = MT * 2 * 32 * 8;
+  static constexpr int S_BYTES = 2 * 32 * 16;
+  static constexpr int BYTES = W_BYTES + X_BYTES + S_BYTES;
+  static constexpr int DEPTH = MT == 1 ? 5 : 4;      // stages a warp
+  static constexpr int RING = kWarps * DEPTH * BYTES;
+  static constexpr int RED = kWarps * 8 * MT * kCols * 4;   // the warps' fp32 sums
+  static constexpr int SMEM = RING + RED;
+};
+
+// the block that owns unit u of U cut into G ranges [b U / G, (b + 1) U / G)
+__device__ __forceinline__ int owner(int u, int U, int G) {
+  return int(((long long)(u + 1) * G + U - 1) / U) - 1;
+}
+
+__device__ __forceinline__ int range_begin(int b, int U, int G) {
+  return int((long long)b * U / G);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(const Int4Params p) {
+  using R = Ring<MT>;
+  constexpr int ROWS = 8 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int Kp = p.K / 2, ks = Kp / kUnitRows, tiles = (p.N + kCols - 1) / kCols;
+  const int U = tiles * ks, G = gridDim.x, b = blockIdx.x;
+  const int u0 = range_begin(b, U, G), u1 = range_begin(b + 1, U, G);
+  unsigned char* ring = smem + w * R::DEPTH * R::BYTES;
+  float* red = reinterpret_cast<float*>(smem + R::RING);
+
+  // this warp's units, in order: the units of each tile segment of the
+  // block's range go round the warps (u1: none left)
+  auto seg_end = [&](int u) { return min(u1, (u / ks + 1) * ks); };
+  auto first_from = [&](int s) {
+    while (s < u1) {
+      const int e = seg_end(s);
+      if (s + w < e) return s + w;
+      s = e;
+    }
+    return u1;
+  };
+  auto next = [&](int u) {
+    const int e = seg_end(u);
+    return u + kWarps < e ? u + kWarps : first_from(e);
+  };
+  // copy unit u into stage st: 4 rows of 16 columns, x's rows 8 j + g, the
+  // scales of both halves; columns past N and rows past M are zero-filled
+  auto issue = [&](int u, unsigned char* st) {
+    if constexpr (kNoCopies) return;
+    const int T = kSyncRows ? b % tiles : u / ks;
+    const int pr = (kSyncRows ? (u - u0) % ks : u - T * ks) * kUnitRows;
+    const int n0 = T * kCols + 16 * g;
+    const bool col_ok = n0 < p.N;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      vr2::cp_async_zfill<16>(st + j * 512 + lane * 16,
+                              col_ok ? p.wq + (long long)(pr + 4 * t + j) * p.N + n0 : p.wq,
+                              col_ok);
+#pragma unroll
+    for (int jt = 0; jt < MT; ++jt) {
+      const int m = 8 * jt + g;
+      const bool ok = m < p.M;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        vr2::cp_async_zfill<8>(
+            st + R::W_BYTES + (jt * 2 + half) * 256 + lane * 8,
+            ok ? p.x + (long long)m * p.K + half * Kp + pr + 4 * t : p.x, ok);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int grp = (half * Kp + pr) / p.g;
+      vr2::cp_async_zfill<16>(
+          st + R::W_BYTES + R::X_BYTES + half * 512 + lane * 16,
+          col_ok ? p.scale + (long long)grp * p.N + n0 + 4 * t : p.scale, col_ok);
+    }
+  };
+
+  float acc[8][MT][4];
+  float tmp[kScaleAfter ? 2 : 1][8][MT][4];  // (b): one group's sums, each half
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jt = 0; jt < MT; ++jt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][jt][e] = 0.f;
+#pragma unroll
+        for (int h = 0; h < (kScaleAfter ? 2 : 1); ++h) tmp[h][i][jt][e] = 0.f;
+      }
+
+  // the scales of columns 16 g + 2 i (.x) and + 1 (.y) of each half, from a stage
+  auto scales = [&](const unsigned char* st, int half, int i) {
+    const float4 q = reinterpret_cast<const float4*>(st + R::W_BYTES + R::X_BYTES + half * 512)
+        [g * 4 + (i >> 1)];
+    return (i & 1) ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+  };
+
+  // the products of one unit from stage st
+  auto compute = [&](const unsigned char* st) {
+    const uint4* wv = reinterpret_cast<const uint4*>(st);
+    const uint4 w0 = wv[lane], w1 = wv[32 + lane], w2 = wv[64 + lane], w3 = wv[96 + lane];
+    uint2 xf[MT][2];
+#pragma unroll
+    for (int jt = 0; jt < MT; ++jt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        xf[jt][half] = reinterpret_cast<const uint2*>(st + R::W_BYTES)[(jt * 2 + half) * 32 + lane];
+    const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
+    const uint32_t r2[4] = {w2.x, w2.y, w2.z, w2.w}, r3[4] = {w3.x, w3.y, w3.z, w3.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // columns 2i, 2i + 1 of rows 0, 1 (2, 3): bytes [c, c + 1] of each row
+      const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
+      const uint32_t v01 = __byte_perm(r0[i >> 1], r1[i >> 1], sel);
+      const uint32_t v23 = __byte_perm(r2[i >> 1], r3[i >> 1], sel);
+      uint32_t alo[4], ahi[4];
+      if constexpr (kRawWeights) {
+        alo[0] = v01, alo[1] = v01 >> 8, alo[2] = v23, alo[3] = v23 >> 8;
+        ahi[0] = v01 >> 4, ahi[1] = v01 >> 12, ahi[2] = v23 >> 4, ahi[3] = v23 >> 12;
+      } else {
+        alo[0] = nib_pair(v01), alo[1] = nib_pair(v01 >> 8);
+        alo[2] = nib_pair(v23), alo[3] = nib_pair(v23 >> 8);
+        ahi[0] = nib_pair(v01 >> 4), ahi[1] = nib_pair(v01 >> 12);
+        ahi[2] = nib_pair(v23 >> 4), ahi[3] = nib_pair(v23 >> 12);
+        if constexpr (!kScaleAfter) {
+          const float2 slo = scales(st, 0, i), shi = scales(st, 1, i);
+          alo[0] = scale_pair(alo[0], slo.x, slo.x), alo[2] = scale_pair(alo[2], slo.x, slo.x);
+          alo[1] = scale_pair(alo[1], slo.y, slo.y), alo[3] = scale_pair(alo[3], slo.y, slo.y);
+          ahi[0] = scale_pair(ahi[0], shi.x, shi.x), ahi[2] = scale_pair(ahi[2], shi.x, shi.x);
+          ahi[1] = scale_pair(ahi[1], shi.y, shi.y), ahi[3] = scale_pair(ahi[3], shi.y, shi.y);
+        }
+      }
+#pragma unroll
+      for (int jt = 0; jt < MT; ++jt) {
+        if constexpr (kScaleAfter) {
+          vr2::mma_bf16_16816(tmp[0][i][jt], alo, xf[jt][0].x, xf[jt][0].y);
+          vr2::mma_bf16_16816(tmp[kScaleAfter ? 1 : 0][i][jt], ahi, xf[jt][1].x, xf[jt][1].y);
+        } else {
+          vr2::mma_bf16_16816(acc[i][jt], alo, xf[jt][0].x, xf[jt][0].y);
+          vr2::mma_bf16_16816(acc[i][jt], ahi, xf[jt][1].x, xf[jt][1].y);
+        }
+      }
+    }
+  };
+
+  // (b): add one group's sums times its scales (from the stage of its last unit)
+  auto apply_scales = [&](const unsigned char* st) {
+    if constexpr (kScaleAfter) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 slo = scales(st, 0, i), shi = scales(st, 1, i);
+#pragma unroll
+        for (int jt = 0; jt < MT; ++jt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float sl = e < 2 ? slo.x : slo.y, sh = e < 2 ? shi.x : shi.y;
+            acc[i][jt][e] = fmaf(sl, tmp[0][i][jt][e], fmaf(sh, tmp[kScaleAfter ? 1 : 0][i][jt][e],
+                                                             acc[i][jt][e]));
+            tmp[0][i][jt][e] = tmp[kScaleAfter ? 1 : 0][i][jt][e] = 0.f;
+          }
+      }
+    }
+  };
+
+  // a tile segment's close: the warps' sums added in warp order, then y
+  // (the whole tile) or this block's part and, from the tile's last block,
+  // the parts added in block order
+  auto flush = [&](int T, int sa, int sb) {
+    float* mine = red + w * ROWS * kCols;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jt = 0; jt < MT; ++jt) {
+        const int r = 8 * jt + 2 * t, c = 16 * g + 2 * i;
+        if (r < p.M)
+          *reinterpret_cast<float2*>(mine + r * kCols + c) = make_float2(acc[i][jt][0], acc[i][jt][2]);
+        if (r + 1 < p.M)
+          *reinterpret_cast<float2*>(mine + (r + 1) * kCols + c) =
+              make_float2(acc[i][jt][1], acc[i][jt][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][jt][e] = 0.f;
+      }
+    __syncthreads();
+    const int col = T * kCols + tid;
+    float v[ROWS];
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) {
+      v[m] = 0.f;
+      if (m < p.M)
+#pragma unroll
+        for (int ww = 0; ww < kWarps; ++ww) v[m] += red[(ww * ROWS + m) * kCols + tid];
+    }
+    const int tb = T * ks, te = tb + ks;
+    if (sa == tb && sb == te) {  // the whole tile
+      if (col < p.N)
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m)
+          if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
+    } else {
+      const long long slot_floats = (long long)p.M * kCols;
+      const int slot = T == u0 / ks ? 2 * b : 2 * b + 1;  // the head or the tail of the range
+#pragma unroll
+      for (int m = 0; m < ROWS; ++m)
+        if (m < p.M) p.part[slot * slot_floats + m * kCols + tid] = v[m];
+      __threadfence();  // this block's part, before its ticket
+      __syncthreads();
+      const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
+      if (tid == 0) last = atomicAdd(p.counters + T, 1) == bl - bf;
+      __syncthreads();
+      if (last) {
+        __threadfence();  // every other block's part, after their tickets
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) v[m] = 0.f;
+        for (int c0 = bf; c0 <= bl; c0 += 4) {  // four parts' loads, then their sums
+          float got[4][ROWS];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int c = c0 + k;
+            const int cs = (c == bf && range_begin(c, U, G) < tb) ? 2 * c + 1 : 2 * c;
+#pragma unroll
+            for (int m = 0; m < ROWS; ++m)
+              got[k][m] = (c <= bl && m < p.M) ? __ldcg(p.part + cs * slot_floats + m * kCols + tid)
+                                               : 0.f;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int m = 0; m < ROWS; ++m) v[m] += got[k][m];
+        }
+        if (col < p.N)
+#pragma unroll
+          for (int m = 0; m < ROWS; ++m)
+            if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
+        if (tid == 0) p.counters[T] = 0;
+      }
+    }
+    __syncthreads();  // red is free for the next segment
+  };
+
+  // the ring: DEPTH - 1 units in flight ahead of the one reduced
+  int pf = first_from(u0);
+#pragma unroll
+  for (int s = 0; s < R::DEPTH - 1; ++s) {
+    if (pf < u1) {
+      issue(pf, ring + s * R::BYTES);
+      pf = next(pf);
+    }
+    vr2::cp_async_commit();
+  }
+  int slot = 0;
+  for (int sa = u0; sa < u1;) {
+    const int T = sa / ks, sb = seg_end(sa);
+    for (int u = sa + w; u < sb; u += kWarps) {
+      vr2::cp_async_wait<R::DEPTH - 2>();  // unit u has landed (this lane's copies)
+      __syncwarp();                        // ... and every lane's (the shared scales)
+      const unsigned char* st = ring + slot * R::BYTES;
+      if constexpr (!kNoCompute) compute(st);
+      if constexpr (kScaleAfter) {
+        const int nu = u + kWarps;  // the next unit of this warp in this segment
+        if (nu >= sb || (nu - T * ks) * kUnitRows / p.g != (u - T * ks) * kUnitRows / p.g)
+          apply_scales(st);
+      }
+      if (pf < u1) {  // into the stage reduced one unit ago (every lane is past it)
+        issue(pf, ring + (slot + R::DEPTH - 1) % R::DEPTH * R::BYTES);
+        pf = next(pf);
+      }
+      vr2::cp_async_commit();
+      slot = (slot + 1) % R::DEPTH;
+    }
+    flush(T, sa, sb);
+    sa = sb;
+  }
+}
+
+// the shared memory and the carveout that keep kBlocksPerSm blocks an SM
+template <int MT>
+cudaError_t configure() {
+  cudaError_t err = cudaFuncSetAttribute(int4_decode_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Ring<MT>::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(int4_decode_kernel<MT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
+template <int MT>
+cudaError_t launch(const Int4Params& p, int blocks, cudaStream_t stream) {
+  using R = Ring<MT>;
+  const cudaError_t err = configure<MT>();
+  if (err != cudaSuccess) return err;
+  int4_decode_kernel<MT><<<blocks, kThreads, R::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace dec
 
 constexpr int kF32Rows = 8;     // rows of x (and y) per fp32 block
 constexpr int kF32Chunk = 128;  // packed rows of x staged at a time
@@ -456,26 +846,50 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_f32_kernel(
 
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
 // scale [K/g, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
-// K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. splits: the K
-// stages (32 packed rows each) are cut into this many ranges, one per grid
-// z; with splits > 1, part is an fp32 [splits, M, N] workspace and counters
-// one int per (column block, row block) tile, all 0 (the launch leaves them
-// 0). Returns a cudaError_t.
+// K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. blocks > 0: the
+// decode kernel on that many blocks (M <= 16, 16 | N, 16 | g; at most one
+// block a unit of 16 packed rows x 128 columns), part an fp32 workspace of
+// 2 blocks M 128 floats and counters one int a 128-column tile, all 0 (the
+// launch leaves them 0). blocks = 0: the staged kernel, its K stages (32
+// packed rows each) cut into `splits` ranges, one per grid z; with splits >
+// 1, part is an fp32 [splits, M, N] workspace and counters one int per
+// (column block, row block) tile, all 0. Returns a cudaError_t.
 extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale, void* y,
                                int M, int K, int N, int g, int splits, void* part,
-                               void* counters, void* stream) {
+                               void* counters, int blocks, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0 ||
-      splits <= 0 || splits > K / (2 * kKS) ||
-      (splits > 1 && (part == nullptr || counters == nullptr)))
+      splits <= 0 || splits > K / (2 * kKS) || blocks < 0 ||
+      ((splits > 1 || blocks > 0) && (part == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
   const Int4Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
                      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
                      static_cast<float*>(part), static_cast<int*>(counters), M, K, N, g,
                      splits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (blocks > 0) {
+    const long long units = (long long)(N + dec::kCols - 1) / dec::kCols * (K / 2 / dec::kUnitRows);
+    if (M > 16 || N % 16 != 0 || g % 16 != 0 || splits != 1 || blocks > units)
+      return int(cudaErrorInvalidValue);
+    return int(M <= 8 ? dec::launch<1>(p, blocks, st) : dec::launch<2>(p, blocks, st));
+  }
   if (M <= 16) return int(launch_rows<1>(p, st));
   if (M <= 32) return int(launch_rows<2>(p, st));
   return int(launch_rows<4>(p, st));
+}
+
+// The decode kernel's resident blocks an SM (the occupancy calculator's
+// count, which the wrapper's plan takes to be kBlocksPerSm) for 8 and 16
+// rows of x into out[0], out[1]. Returns a cudaError_t.
+extern "C" int vr2_int4_matmul_layout(int* out) {
+  cudaError_t err;
+  if ((err = dec::configure<1>()) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &out[0], dec::int4_decode_kernel<1>, dec::kThreads, dec::Ring<1>::SMEM)) !=
+          cudaSuccess ||
+      (err = dec::configure<2>()) != cudaSuccess)
+    return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], dec::int4_decode_kernel<2>, dec::kThreads, dec::Ring<2>::SMEM));
 }
 
 // The same for fp32 x and y (y [M, N] fp32); the same conditions.

@@ -44,8 +44,9 @@ SIGNATURES = {
     "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 8 + [_P],
     "vr2_moe_gmm_bwd_dw": [_P] * 7 + [_I] * 7 + [_P],
     "vr2_moe_gmm_bwd_dw_layout": [_I] * 5 + [_P],
-    "vr2_int4_matmul": [_P] * 4 + [_I] * 5 + [_P] * 3,
+    "vr2_int4_matmul": [_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P],
     "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_int4_matmul_layout": [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 11 + [_F, _P, _P, _P],
     "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
     "vr2_int8_matmul_stacked": [_P] * 4 + [_I] * 5 + [_P],

@@ -14,9 +14,11 @@ stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
 multiple of 64, bf16 or fp32 x of at most 1024 rows, any N; fp32 x
-through an fp32 CUDA-core path; bf16 x split over K in the same launch
-where `int4_split_plan` finds that the grid does not fill the card),
-outside autograd, and raises on anything
+through an fp32 CUDA-core path; bf16 x of at most 16 rows with 16 | N and
+16 | g, every decode shape, through the decode kernel on the stream-K
+plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
+over K in the same launch where `int4_split_plan` finds that the grid does
+not fill the card), outside autograd, and raises on anything
 the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
@@ -27,6 +29,7 @@ multiplied with torch.matmul, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -36,8 +39,17 @@ from .split import SPLIT_BLOCKS_PER_SM, split_workspace
 
 KERNEL_K = 64             # K must be a multiple of this (a stage: 32 packed rows)
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
-KERNEL_COLUMNS = 64       # output columns of a block
+KERNEL_COLUMNS = 64       # output columns of a staged kernel's block
 SPLIT_MIN_STAGES = 4      # split-K keeps at least this many stages a split
+DECODE_MAX_ROWS = 16      # the decode kernel's rows of x at most
+DECODE_COLUMNS = 128      # output columns of a decode tile
+DECODE_UNIT_ROWS = 16     # packed rows of a unit (a warp's step)
+DECODE_BLOCKS_PER_SM = 2  # resident decode blocks an SM (their shared memory allows 2)
+DECODE_WARPS = 4          # warps a decode block
+DECODE_MIN_UNITS = 4      # units a decode block takes at least: one a warp
+# where both kernels put the group scale (csrc/int4_matmul.cu): "a", each
+# weight rounded to bf16(q s) before its product, as the reference
+SCALE_PLACEMENT = "a"
 
 
 def pack_int4_halves(q: torch.Tensor) -> torch.Tensor:
@@ -99,13 +111,50 @@ def int4_split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, list[tuple[i
     return S, [(z * base + min(z, rem), (z + 1) * base + min(z + 1, rem)) for z in range(S)]
 
 
+def int4_decode_plan(M: int, K: int, N: int, g: int, sms: int) -> tuple[int, int, int] | None:
+    """The decode kernel's stream-K plan for x [M, K] @ [K, N] with group g
+    on a card of `sms` SMs: (blocks, tiles, units), or None where the
+    decode kernel does not take the shape (more than DECODE_MAX_ROWS rows,
+    or N or g not a multiple of 16). A unit is DECODE_UNIT_ROWS packed rows
+    of a tile of DECODE_COLUMNS output columns; the units of all tiles,
+    tile after tile, are cut into `blocks` ranges (`int4_decode_ranges`),
+    DECODE_BLOCKS_PER_SM an SM, so every SM reads the same bytes to within
+    a unit, or fewer blocks where there are too few units for
+    DECODE_MIN_UNITS a block."""
+    if M > DECODE_MAX_ROWS or N % 16 or g % 16:
+        return None
+    tiles = -(-N // DECODE_COLUMNS)
+    units = tiles * (K // 2 // DECODE_UNIT_ROWS)
+    blocks = max(1, min(DECODE_BLOCKS_PER_SM * sms, units // DECODE_MIN_UNITS))
+    return blocks, tiles, units
+
+
+def int4_decode_ranges(units: int, blocks: int) -> list[tuple[int, int]]:
+    """The unit range [begin, end) of each decode block (the kernel's own:
+    block b takes [b U / B, (b + 1) U / B))."""
+    return [(b * units // blocks, (b + 1) * units // blocks) for b in range(blocks)]
+
+
 @functools.lru_cache(maxsize=256)
-def _launch_plan(M: int, K: int, N: int, index: int) -> tuple[int, int]:
-    """(splits, tiles) of a bf16 launch on card `index`: the split plan at
-    its SM count and the (column blocks x row blocks) counters it needs.
+def _launch_plan(M: int, K: int, N: int, g: int, index: int) -> tuple[int, int, int]:
+    """(blocks, splits, counters) of a bf16 launch on card `index`: the
+    decode kernel's blocks (0: the staged kernel), the staged kernel's split
+    plan at the card's SM count, and the tile counters either needs.
     Cached: a decode step makes ~200 calls of a few shapes."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return int4_split_plan(M, K, N, sms)[0], int4_tiles(M, N)
+    plan = int4_decode_plan(M, K, N, g, sms)
+    if plan is not None:
+        return plan[0], 1, plan[1]
+    return 0, int4_split_plan(M, K, N, sms)[0], int4_tiles(M, N)
+
+
+def int4_decode_resident() -> tuple[int, int]:
+    """The decode kernel's resident blocks an SM on the current card, for 8
+    and 16 rows of x (the occupancy calculator's; `int4_decode_plan` takes
+    DECODE_BLOCKS_PER_SM)."""
+    out = (ctypes.c_int * 2)()
+    check(kernels().vr2_int4_matmul_layout(out), "int4 decode kernel layout")
+    return out[0], out[1]
 
 
 def int4_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -162,13 +211,15 @@ def _int4_cuda(x, wq, scale):
         err = kernels().vr2_int4_matmul_f32(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                                             out.data_ptr(), M, K, N, g, stream)
     else:
-        S, tiles = _launch_plan(M, K, N, dev.index)
+        blocks, S, tiles = _launch_plan(M, K, N, g, dev.index)
         part = counters = None
-        if S > 1:
+        if blocks:      # two parts of M x DECODE_COLUMNS a block
+            part, counters = split_workspace(dev, stream, 2 * blocks * M * DECODE_COLUMNS, tiles)
+        elif S > 1:
             part, counters = split_workspace(dev, stream, S * M * N, tiles)
         err = kernels().vr2_int4_matmul(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, g, S,
             None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(), stream)
+            None if counters is None else counters.data_ptr(), blocks, stream)
     check(err, "int4 matmul kernel")
     return out

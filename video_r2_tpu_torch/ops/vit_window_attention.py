@@ -143,6 +143,8 @@ def _window_operands(q, k, v, valid, wp):
 def _window_cuda(q, k, v, valid, wp):
     S, nh, hd = q.shape
     valid = _window_operands(q, k, v, valid, wp)
+    if valid.data_ptr() % 16:       # the bf16 kernel copies a window's flags as 16 bytes
+        valid = valid.clone()
     out = torch.empty((S, nh, hd), dtype=q.dtype, device=q.device)
     err = kernels().vr2_window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
