@@ -104,7 +104,7 @@
    made once, untimed; "none" and the reason where the card's torch does
    not take it), both timed eagerly and in a CUDA graph (device time), and
    each shape's launch: the decode kernel's stream-K plan (blocks, tiles,
-   units a block) or the staged kernel's split-K plan (S, its blocks), and
+   steps a block) or the staged kernel's split-K plan (S, its blocks), and
    the scale placement; the head-major decode
    kernel at phase 13's batch (B = 4, 28 / 4 heads of 128, its ragged
    prompt lengths and padded width, a 28-layer cache) at decode step 0,
@@ -1473,17 +1473,17 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
 
 def int4_launch_line(M: int, K: int, N: int, sms: int, g: int = 128) -> str:
     """The int4 kernel's launch at one shape: the decode kernel's stream-K
-    plan (blocks, tiles, units a block), or the staged kernel's split-K plan
+    plan (blocks, tiles, steps a block), or the staged kernel's split-K plan
     and blocks; and the scale placement."""
     from video_r2_tpu_torch.ops import int4_matmul as m
 
     placement = getattr(m, "SCALE_PLACEMENT", "a")   # an older checkout under --root: (a)
     plan = m.int4_decode_plan(M, K, N, g, sms) if hasattr(m, "int4_decode_plan") else None
     if plan is not None:
-        blocks, tiles, units = plan
-        lengths = sorted({end - begin for begin, end in m.int4_decode_ranges(units, blocks)})
+        blocks, tiles, steps = plan
+        lengths = sorted({end - begin for begin, end in m.int4_decode_ranges(steps, blocks)})
         return (f"decode kernel, stream-K: {blocks} blocks on {sms} SMs over {tiles} tiles of "
-                f"{m.DECODE_COLUMNS} columns, {units} units of {m.DECODE_UNIT_ROWS} packed "
+                f"{m.DECODE_COLUMNS} columns, {steps} steps of {m.DECODE_STEP_ROWS} packed "
                 f"rows ({'/'.join(map(str, lengths))} a block); scale placement "
                 f"({placement})")
     S, ranges = m.int4_split_plan(M, K, N, sms)

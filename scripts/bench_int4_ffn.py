@@ -141,6 +141,10 @@ def main() -> int:
     ap.add_argument("--cases", default="int4,ffn", help="comma-separated subset of int4, ffn")
     ap.add_argument("--warm", action="store_true",
                     help="int4: one copy of the weights (L2-resident), not cold copies")
+    ap.add_argument("--decode-min-steps", type=int, default=0,
+                    help="int4: the decode kernel's least steps a block (0: the port's)")
+    ap.add_argument("--staged", action="store_true",
+                    help="int4: every shape on the staged kernel (no decode kernel)")
     args = ap.parse_args()
     import torch
 
@@ -161,6 +165,12 @@ def main() -> int:
     cases = set(args.cases.split(","))
     if args.warm:
         chip_smoke.COLD_BYTES = 0
+    if args.decode_min_steps:
+        int4_matmul.DECODE_MIN_STEPS = args.decode_min_steps
+        int4_matmul._launch_plan.cache_clear()
+    if args.staged:
+        int4_matmul.DECODE_MAX_ROWS = 0
+        int4_matmul._launch_plan.cache_clear()
     if hasattr(int4_matmul, "int4_decode_resident"):
         print(json.dumps({"label": args.label,
                           "int4_decode_resident": int4_matmul.int4_decode_resident()}))

@@ -22,16 +22,21 @@ kernel. The variants, and the sources whose text they match:
                        weight bf16(q s) (placement a)
   int4_nodequant_new   csrc/int4_matmul.cu of this tree: the decode
                        kernel's fragments are the raw weight words
-  int4_syncrows        csrc/int4_matmul.cu of this tree: each decode
-                       block reads the rows of its own progress in a tile
-                       of its own, so all blocks read the same rows at once
-                       (the same bytes as the stream-K walk, in order)
-  int4_nocompute       the same source: the decode kernel's copies and tile
+  int4_nocompute       the same source: the decode kernel's loads and tile
                        closes without its products
-  int4_nocopies        the same source: the decode kernel's products on
-                       stages it never fills, and its closes
-  int4_depth3          the same source: 3 ring stages a warp for 8-row x
-                       (5 in the kernel)
+  int4_noclose         the same source: the decode kernel without its tile
+                       closes (no y is written; ptxas then drops the
+                       products too, whose sums nothing reads: the loads
+                       alone)
+  int4_nofence         the same source: the tile closes without fences
+  int4_noticket        the same source: every tile close stores its sums
+                       as y (no parts, tickets or fixups)
+  int4_truncpack       the same source: the decode kernel packs its bf16
+                       weights by a byte permute (truncation) instead of
+                       the rounding conversion
+  int4_2blocks         the same source: 2 decode blocks an SM (6 stages)
+  int4_4blocks         the same source: 4 decode blocks an SM (3 stages;
+                       for x of up to 8 rows)
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ RAW_INT4 = """\
           bhi[nt][1] = (u2 | (u3 << 16)) >> 4;
 """
 
-# name -> [(source under csrc/, old text, new text)]
+# name -> [(file under csrc/, or a path from it, old text, new text)]
 VARIANTS = {
     "int4_nodequant": [("int4_matmul.cu", PARENT_INT4_DEQUANT, RAW_INT4)],
     "window_notranspose": [(
@@ -73,18 +78,32 @@ VARIANTS = {
         "int4_matmul.cu",
         "constexpr bool kNoCompute = false;",
         "constexpr bool kNoCompute = true;")],
-    "int4_nocopies": [(
+    "int4_noclose": [(
         "int4_matmul.cu",
-        "constexpr bool kNoCopies = false;",
-        "constexpr bool kNoCopies = true;")],
-    "int4_depth3": [(
+        "constexpr bool kNoClose = false;",
+        "constexpr bool kNoClose = true;")],
+    "int4_nofence": [(
         "int4_matmul.cu",
-        "static constexpr int DEPTH = MT == 1 ? 5 : 4;",
-        "static constexpr int DEPTH = MT == 1 ? 3 : 4;")],
-    "int4_syncrows": [(
+        "constexpr bool kNoFence = false;",
+        "constexpr bool kNoFence = true;")],
+    "int4_noticket": [(
         "int4_matmul.cu",
-        "constexpr bool kSyncRows = false;",
-        "constexpr bool kSyncRows = true;")],
+        "constexpr bool kNoTicket = false;",
+        "constexpr bool kNoTicket = true;")],
+    "int4_2blocks": [
+        ("int4_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;"),
+        ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
+         "static constexpr int STAGES = MT == 1 ? 6 : 5;"),
+        ("../ops/int4_matmul.py", "DECODE_BLOCKS_PER_SM = 3", "DECODE_BLOCKS_PER_SM = 2")],
+    "int4_4blocks": [
+        ("int4_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 4;"),
+        ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
+         "static constexpr int STAGES = MT == 1 ? 3 : 2;"),
+        ("../ops/int4_matmul.py", "DECODE_BLOCKS_PER_SM = 3", "DECODE_BLOCKS_PER_SM = 4")],
+    "int4_truncpack": [(
+        "int4_matmul.cu",
+        "constexpr bool kTruncPack = false;",
+        "constexpr bool kTruncPack = true;")],
 }
 
 

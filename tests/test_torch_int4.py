@@ -159,62 +159,60 @@ def test_int4_split_plan_covers_every_stage_once(M, K, N, sms):
 
 
 # (M, K, N, blocks on an H100's 132 SMs): the 7B's int4 linears at decode
-# B = 4 and B = 1 reach the decode kernel, 2 blocks an SM, except k / v
-# (448 units: 4 a block)
-DECODE_CASES = [(4, 3584, 18944, 264), (4, 18944, 3584, 264), (4, 3584, 3584, 264),
-                (4, 3584, 512, 112), (4, 3584, 152064, 264), (1, 3584, 18944, 264),
-                (1, 3584, 152064, 264), (16, 3584, 512, 112), (8, 256, 128, 2)]
+# B = 4 and B = 1 reach the decode kernel, 3 blocks an SM, except k / v
+# (112 steps: one a block)
+DECODE_CASES = [(4, 3584, 18944, 396), (4, 18944, 3584, 396), (4, 3584, 3584, 396),
+                (4, 3584, 512, 112), (4, 3584, 152064, 396), (1, 3584, 18944, 396),
+                (1, 3584, 152064, 396), (16, 3584, 512, 112), (8, 256, 128, 2)]
 
 
 @pytest.mark.parametrize("M,K,N,blocks", DECODE_CASES)
 def test_int4_decode_plan_at_the_7b_shapes(M, K, N, blocks):
     """Every decode shape of the 7B goes to the decode kernel on a grid of
-    2 blocks an SM, or fewer where there are too few units."""
+    3 blocks an SM, or fewer where there are too few steps."""
     plan = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
     assert plan is not None and plan[0] == blocks
-    assert plan[1] == -(-N // 128) and plan[2] == plan[1] * K // 32
+    assert plan[1] == -(-N // 128) and plan[2] == plan[1] * K // 128
 
 
 @pytest.mark.parametrize("M,K,N,g", [(17, 3584, 512, 128), (784, 5120, 5120, 128),
                                      (4, 1280, 3420, 128), (1, 512, 200, 128),
-                                     (4, 1536, 512, 24), (4, 1536, 512, 8)])
+                                     (4, 1536, 512, 24), (4, 1536, 512, 32),
+                                     (4, 64, 128, 32), (4, 192, 128, 32)])
 def test_int4_decode_plan_leaves_the_rest_to_the_staged_kernel(M, K, N, g):
-    """More than 16 rows, N or g not a multiple of 16: the staged kernel."""
+    """More than 16 rows, N not a multiple of 16, g or K/2 not a multiple
+    of a step's 64 packed rows: the staged kernel."""
     assert int4_matmul.int4_decode_plan(M, K, N, g, 132) is None
 
 
 @pytest.mark.parametrize("M,K,N,g,sms", [(4, 3584, 18944, 128, 132), (4, 18944, 3584, 128, 132),
                                          (4, 3584, 512, 128, 132), (1, 3584, 152064, 128, 114),
-                                         (16, 3584, 3584, 64, 132), (4, 128, 96, 32, 132),
+                                         (16, 3584, 3584, 64, 132), (4, 256, 96, 64, 132),
                                          (4, 3584, 18944, 256, 7)])
-def test_int4_decode_ranges_cover_every_unit_once(M, K, N, g, sms):
-    """The blocks' unit ranges are consecutive and cover every unit once,
-    their lengths within one unit of each other and at least
-    DECODE_MIN_UNITS long wherever the grid is short of 2 blocks an SM."""
-    blocks, tiles, units = int4_matmul.int4_decode_plan(M, K, N, g, sms)
-    ranges = int4_matmul.int4_decode_ranges(units, blocks)
-    assert len(ranges) == blocks and ranges[0][0] == 0 and ranges[-1][1] == units
+def test_int4_decode_ranges_cover_every_step_once(M, K, N, g, sms):
+    """The blocks' step ranges are consecutive and cover every step once,
+    their lengths within one step of each other and at least
+    DECODE_MIN_STEPS long."""
+    blocks, tiles, steps = int4_matmul.int4_decode_plan(M, K, N, g, sms)
+    ranges = int4_matmul.int4_decode_ranges(steps, blocks)
+    assert len(ranges) == blocks and ranges[0][0] == 0 and ranges[-1][1] == steps
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     lengths = [end - begin for begin, end in ranges]
-    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
-    if blocks < int4_matmul.DECODE_BLOCKS_PER_SM * sms:
-        assert min(lengths) >= int4_matmul.DECODE_MIN_UNITS
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= int4_matmul.DECODE_MIN_STEPS
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (4, 18944, 3584), (4, 3584, 3584),
                                    (1, 3584, 152064)])
 def test_int4_decode_plan_balances_the_sms(M, K, N):
-    """At the 7B's shapes every SM reads the same bytes to within a unit a
-    block: the grid is 2 blocks an SM, and any two SMs' pairs of ranges
-    differ by at most 2 units (2 KB of nibbles each), where the staged
-    kernel's 296 gate / up blocks of 64 columns put 3 on some SMs and 2 on
-    the others."""
-    blocks, _, units = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
-    assert blocks == 2 * 132
-    lengths = sorted(end - begin for begin, end in int4_matmul.int4_decode_ranges(units, blocks))
-    per_sm = (lengths[0] + lengths[1], lengths[-1] + lengths[-2])  # least and most an SM
-    assert per_sm[1] - per_sm[0] <= 2
-    assert per_sm[1] * 2048 <= 1.02 * (units * 2048 / 132)
+    """At the 7B's shapes every SM reads the same bytes to within a step a
+    block: the grid is 3 blocks an SM, and the most steps an SM's three
+    blocks can take is within 3 of the mean (8 KB of nibbles a step), where
+    the staged kernel's 296 gate / up blocks of 64 columns put 3 on some
+    SMs and 2 on the others."""
+    blocks, _, steps = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
+    assert blocks == 3 * 132
+    lengths = sorted(end - begin for begin, end in int4_matmul.int4_decode_ranges(steps, blocks))
+    assert sum(lengths[-3:]) <= steps / 132 + 3
 
 
 def test_plain_impl_switches_bypass_the_wrappers(int4_models, monkeypatch):

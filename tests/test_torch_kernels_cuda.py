@@ -916,10 +916,10 @@ def test_int4_matmul_scales_over_six_decades(cuda, M):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 16])
-@pytest.mark.parametrize("g", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("g", [64, 128, 256, 384, 768])
 def test_int4_decode_kernel_groups(cuda, M, g):
-    """The decode kernel at every group a multiple of 16 (K/2 = 768: a
-    unit of 16 packed rows in one group each half), twice: the same bits."""
+    """The decode kernel at every group a multiple of 64 (K/2 = 768: a
+    step of 64 packed rows in one group each half), twice: the same bits."""
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
     _int4_decode_grid(cuda, M, 1536, 1024, g)
@@ -968,8 +968,8 @@ def test_int4_matmul_row_counts(cuda, M, K, N):
 @pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 3584), (3584, 18944),
                                  (256, 128)])
 def test_int4_decode_kernel_stream_k(cuda, M, K, N):
-    """The 7B's decode shapes (k / v: 112 blocks of 4 units, 28 parts a
-    tile; q / o, down and gate / up: 264 blocks, tiles of 2-10 parts or
+    """The 7B's decode shapes (k / v: 112 blocks of one step, 28 parts a
+    tile; q / o, down and gate / up: 396 blocks, tiles of 2-14 parts or
     whole) and one tile on two blocks, at one and two 8-row tiles of x: against
     the plain version, and a second call the same bits (the parts added in
     block order)."""

@@ -27,39 +27,41 @@
 // into the upper half of a word; q * s in fp32 and one bf16 pack of two
 // products (the only conversion left, one a packed byte) give bf16(q s).
 //
-// The decode kernel (M <= 16, 16 | N, 16 | g; every decode shape of the
-// presets):
+// The decode kernel (M <= 16, 16 | N, 64 | g, 128 | K; every decode shape
+// of the presets):
 // - The weights are mma's A operand (the output columns are M, x's rows
-//   are N = 8 or 16), so no product is padded past 8 rows of x. A warp's
-//   unit is 16 packed rows of a tile of 128 columns: lane (g, t) copies the
-//   16 bytes of columns 16 g .. 16 g + 15 of packed rows 4 t .. 4 t + 3,
-//   the lanes of a row 128 contiguous bytes. One byte permute of two rows'
-//   words puts two columns' bytes of two rows in one word, whose four
-//   nibble pairs are the A registers of two output columns (mma rows g and
-//   g + 8 are columns 2 i and 2 i + 1 of the lane's 16, mma tile i) for
-//   two k (k slots 2t, 2t + 1 are rows 4t, 4t + 1; 2t + 8, 2t + 9 rows 4t +
-//   2, 4t + 3) of both halves. x's B fragments are then four consecutive
-//   elements of a row of x, one 8-byte copy a half. The lane's outputs are
-//   16 consecutive columns of two rows of y.
-// - Every byte goes through a per-warp ring of shared-memory stages filled
-//   by cp.async (16-byte copies of the nibbles, 8-byte copies of x, the
-//   lane's group scales in 16-byte quarters shared by the four lanes of a
-//   column group), one stage a unit, 4-5 in flight, and each lane reads its
-//   own bytes back as 16-byte words: no fragment is built from byte loads.
-// - Stream-K: the units of all tiles, tile after tile, are cut into one
-//   contiguous range a block, the block count a multiple of the SM count
-//   (2 resident a SM), so every SM reads the same bytes to within a unit
-//   (2 KB). Inside a block the four warps take a tile segment's units in
-//   turn and add their sums in shared memory in warp order. A block that
-//   covers a whole tile stores y; a block that covers part of one writes
-//   its fp32 sums to the workspace (two slots a block: the segment at the
-//   head of its range and the one at its tail) and takes a ticket on the
-//   tile's counter; the last block adds the tile's parts in block order
-//   (all loads issued before the sums), rounds y to bf16 once and resets
-//   the counter. The order is fixed, so y is the same bit for bit from
-//   call to call, and a linear stays one launch.
+//   are N = 8 or 16), so no product is padded past 8 rows of x. A block
+//   step is 64 packed rows of a tile of 128 columns; warp w takes rows 16 w
+//   .. 16 w + 15, and lane (g, t) the 16 bytes of columns 16 g .. 16 g + 15
+//   of rows 4 t .. 4 t + 3. One byte permute of two rows' words puts two
+//   columns' bytes of two rows in one word, whose four nibble pairs are the
+//   A registers of two output columns (mma rows g and g + 8 are columns 2 i
+//   and 2 i + 1 of the lane's 16, mma tile i) for two k (k slots 2t, 2t + 1
+//   are rows 4t, 4t + 1; 2t + 8, 2t + 9 rows 4t + 2, 4t + 3) of both
+//   halves. x's B fragments are then four consecutive elements of a row of
+//   x. The lane's outputs are 16 consecutive columns of two rows of y.
+// - Every byte comes by TMA into a ring of 3-5 shared-memory stages (72 KB
+//   a block, 3 blocks an SM, ~120 KB in flight an SM): a step's nibbles as
+//   one 8 KB box 128 bytes wide with the 128-byte swizzle, x's columns of
+//   both halves as two boxes of 8 or 16 rows (rows past M read zeros), the
+//   step's scale rows as four 128-byte boxes; warp 0 arms the stage's
+//   mbarrier and refills a slot once the block is past it. Each lane reads
+//   its bytes back as 16-byte words. Moved in 16-byte cp.async pieces the
+//   same bytes took 30 us at gate / up with no products at all (PERF.md).
+// - Stream-K: the steps of all tiles, tile after tile, are cut into one
+//   contiguous range a block, the block count a multiple of the SM count,
+//   so every SM reads the same bytes to within a step a block (8 KB). A
+//   block that covers a whole tile stores y; a block that covers part of
+//   one adds its warps' sums in shared memory in warp order, writes them to
+//   the workspace (two slots a block: the segment at the head of its range
+//   and the one at its tail) and takes a ticket on the tile's counter; the
+//   last block adds the tile's parts in block order (all loads issued
+//   before the sums), rounds y to bf16 once and resets the counter. The
+//   order is fixed, so y is the same bit for bit from call to call, and a
+//   linear stays one launch.
 //
-// The staged kernel (M > 16, or N or g not a multiple of 16): one
+// The staged kernel (M > 16, 16 does not divide N, or 64 does not divide g
+// or K/2): one
 // 128-thread block per (64 output columns, 16 / 32 / 64 rows: the smallest
 // row capacity that holds M); the packed K streams through a ring of
 // shared-memory stages filled by cp.async (8 stages for up to 16 rows, so
@@ -95,7 +97,10 @@
 // multiplied in fp32, y fp32. One thread per output column and up to 8
 // rows; a block of 128 columns stages its rows of x, 128 packed rows of both
 // halves at a time, in shared memory. No preset runs it on the card.
+#include <cuda.h>
+
 #include "attn_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -482,38 +487,44 @@ cudaError_t launch_rows(const Int4Params& p, cudaStream_t stream) {
   return launch<MT, 1>(p, stream);
 }
 
-// The decode kernel (M <= 16): the weights as mma's A operand, a per-warp
-// cp.async ring, stream-K over (tile, unit); see the file's header.
+// The decode kernel (M <= 16): the weights as mma's A operand fed by a TMA
+// ring, stream-K over (tile, step); see the file's header.
 namespace dec {
 
-constexpr int kWarps = 4;                // warps a block; a tile segment's units go round them
+using vr2::kSwizzleAlign;
+
+constexpr int kWarps = 4;                // warps a block: 16 packed rows of a step each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 128;               // output columns of a tile: 16 bytes a lane
-constexpr int kUnitRows = 16;            // packed rows of a unit: 4 a lane
-constexpr int kBlocksPerSm = 2;          // the shared memory below keeps it at 2
+constexpr int kCols = 128;               // output columns of a tile: a 128-byte box row
+constexpr int kStepRows = 16 * kWarps;   // packed rows of a step
+constexpr int kScaleBox = 32;            // fp32 columns of a scale box (128 bytes)
+constexpr int kBlocksPerSm = 3;          // the shared memory below keeps it at 3
 constexpr bool kScaleAfter = false;      // scale placement (b) instead of (a): a timing variant
 constexpr bool kRawWeights = false;      // the raw weight words as A: a timing variant
-constexpr bool kSyncRows = false;        // every block reads the rows of its own progress,
-                                         // all blocks the same rows at once: a timing variant
-constexpr bool kNoCompute = false;       // no products (the copies and closes only): a variant
-constexpr bool kNoCopies = false;        // no copies (the products of stale stages): a variant
+constexpr bool kNoCompute = false;       // no products (the loads and closes only): a variant
+constexpr bool kNoClose = false;         // no tile closes (no y): a timing variant
+constexpr bool kNoFence = false;         // the closes' fences left out: a timing variant
+constexpr bool kNoTicket = false;        // every close stores its sums as y: a variant
+constexpr bool kTruncPack = false;       // the bf16 pack by a byte permute: a timing variant
 
-// One ring stage of a warp for MT 8-row tiles of x: the nibbles [row j][lane]
-// [16 B], x [tile][half][lane][8 B], the scales [half][lane][16 B] (lane (g,
-// t) copies columns 16 g + 4 t .. + 3 of its group row)
+// One ring stage for MT 8-row tiles of x, each part a TMA box (1024-byte
+// aligned, as the 128-byte swizzle needs): the nibbles [64 packed rows]
+// [128 bytes] (swizzled), x's rows of both halves [8 MT][64 bf16]
+// (swizzled; rows past M read zeros), the scales [4 boxes][half][32
+// columns] fp32 (the step's group of each half)
 template <int MT>
 struct Ring {
-  static constexpr int W_BYTES = 4 * 32 * 16;
-  static constexpr int X_BYTES = MT * 2 * 32 * 8;
-  static constexpr int S_BYTES = 2 * 32 * 16;
-  static constexpr int BYTES = W_BYTES + X_BYTES + S_BYTES;
-  static constexpr int DEPTH = MT == 1 ? 5 : 4;      // stages a warp
-  static constexpr int RING = kWarps * DEPTH * BYTES;
+  static constexpr int W_BYTES = kStepRows * 128;
+  static constexpr int X_BYTES = 8 * MT * 128;
+  static constexpr int S_BYTES = 2 * kCols * 4;
+  static constexpr int BYTES = W_BYTES + 2 * X_BYTES + S_BYTES;
+  static constexpr int STAGES = MT == 1 ? 5 : 3;        // 72 KB a block either way
   static constexpr int RED = kWarps * 8 * MT * kCols * 4;   // the warps' fp32 sums
-  static constexpr int SMEM = RING + RED;
+  static constexpr int SMEM = kSwizzleAlign + STAGES * BYTES + RED + STAGES * 8;
+  static_assert(BYTES % kSwizzleAlign == 0, "stages stay 1024-byte aligned");
 };
 
-// the block that owns unit u of U cut into G ranges [b U / G, (b + 1) U / G)
+// the block that owns step u of U cut into G ranges [b U / G, (b + 1) U / G)
 __device__ __forceinline__ int owner(int u, int U, int G) {
   return int(((long long)(u + 1) * G + U - 1) / U) - 1;
 }
@@ -522,65 +533,96 @@ __device__ __forceinline__ int range_begin(int b, int U, int G) {
   return int((long long)b * U / G);
 }
 
+// A tile segment's close: red holds each warp's sums [warp][row]
+// [column]; they are added in warp order, then the whole tile's y is
+// stored, or the block's part is written to its workspace slot (the head
+// or the tail of its range) and a ticket taken on the tile's counter; the
+// tile's last block adds the parts in block order (each thread a row and
+// four columns, 16 parts' loads issued before their sums), rounds y to bf16
+// once and resets the counter.
 template <int MT>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(const Int4Params p) {
+__device__ __forceinline__ void close_segment(const Int4Params& p, const float* red, int T, int sa,
+                                           int sb, int u0, int U, int G, int ks) {
+  constexpr int ROWS = 8 * MT;
+  __shared__ int last;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  __syncthreads();
+  const int col = T * kCols + tid;
+  float v[ROWS];
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m) {
+    v[m] = 0.f;
+    if (m < p.M)
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) v[m] += red[(ww * ROWS + m) * kCols + tid];
+  }
+  const int tb = T * ks, te = tb + ks;
+  if (kNoTicket || (sa == tb && sb == te)) {  // the whole tile
+    if (col < p.N)
+#pragma unroll
+      for (int m = 0; m < ROWS; ++m)
+        if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
+  } else {
+    const long long slot_floats = (long long)p.M * kCols;
+    const int slot = T == u0 / ks ? 2 * b : 2 * b + 1;
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m)
+      if (m < p.M) p.part[slot * slot_floats + m * kCols + tid] = v[m];
+    // the block's part is written; one fence orders it before the ticket,
+    // in the last warp: a fence waits for its thread's copies in flight,
+    // and warp 0's lanes keep the ring's TMA boxes in flight
+    __syncthreads();
+    const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
+    if (tid == kThreads - 1) {
+      if constexpr (!kNoFence) __threadfence();
+      last = atomicAdd(p.counters + T, 1) == bl - bf;
+      if (!kNoFence && last) __threadfence();  // every other block's part, after their tickets
+    }
+    __syncthreads();
+    if (last) {  // row tid / 32 (+ 4 k) of columns 4 (tid % 32) .. + 3, PB parts at a time
+      constexpr int PB = 16;
+      const int c4 = 4 * (tid & 31);
+      for (int r = tid >> 5; r < p.M; r += kWarps) {
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c0 = bf; c0 <= bl; c0 += PB) {
+          float4 got[PB];
+#pragma unroll
+          for (int k = 0; k < PB; ++k) {
+            const int c = c0 + k;
+            const int cs = (c == bf && range_begin(c, U, G) < tb) ? 2 * c + 1 : 2 * c;
+            got[k] = c <= bl ? __ldcg(reinterpret_cast<const float4*>(
+                                   p.part + cs * slot_floats + r * kCols + c4))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int k = 0; k < PB; ++k)
+            sum.x += got[k].x, sum.y += got[k].y, sum.z += got[k].z, sum.w += got[k].w;
+        }
+        if (T * kCols + c4 < p.N)  // 16 | N: all four columns or none
+          *reinterpret_cast<uint2*>(p.y + (long long)r * p.N + T * kCols + c4) =
+              make_uint2(vr2::pack_bf16(sum.x, sum.y), vr2::pack_bf16(sum.z, sum.w));
+      }
+      if (tid == kThreads - 1) p.counters[T] = 0;
+    }
+  }
+  __syncthreads();  // red is free for the next segment
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    int4_decode_kernel(__grid_constant__ const CUtensorMap mw,
+                       __grid_constant__ const CUtensorMap mx,
+                       __grid_constant__ const CUtensorMap ms, const Int4Params p) {
   using R = Ring<MT>;
   constexpr int ROWS = 8 * MT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int last;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int Kp = p.K / 2, ks = Kp / kUnitRows, tiles = (p.N + kCols - 1) / kCols;
+  const int Kp = p.K / 2, ks = Kp / kStepRows, tiles = (p.N + kCols - 1) / kCols;
   const int U = tiles * ks, G = gridDim.x, b = blockIdx.x;
-  const int u0 = range_begin(b, U, G), u1 = range_begin(b + 1, U, G);
-  unsigned char* ring = smem + w * R::DEPTH * R::BYTES;
-  float* red = reinterpret_cast<float*>(smem + R::RING);
-
-  // this warp's units, in order: the units of each tile segment of the
-  // block's range go round the warps (u1: none left)
-  auto seg_end = [&](int u) { return min(u1, (u / ks + 1) * ks); };
-  auto first_from = [&](int s) {
-    while (s < u1) {
-      const int e = seg_end(s);
-      if (s + w < e) return s + w;
-      s = e;
-    }
-    return u1;
-  };
-  auto next = [&](int u) {
-    const int e = seg_end(u);
-    return u + kWarps < e ? u + kWarps : first_from(e);
-  };
-  // copy unit u into stage st: 4 rows of 16 columns, x's rows 8 j + g, the
-  // scales of both halves; columns past N and rows past M are zero-filled
-  auto issue = [&](int u, unsigned char* st) {
-    if constexpr (kNoCopies) return;
-    const int T = kSyncRows ? b % tiles : u / ks;
-    const int pr = (kSyncRows ? (u - u0) % ks : u - T * ks) * kUnitRows;
-    const int n0 = T * kCols + 16 * g;
-    const bool col_ok = n0 < p.N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      vr2::cp_async_zfill<16>(st + j * 512 + lane * 16,
-                              col_ok ? p.wq + (long long)(pr + 4 * t + j) * p.N + n0 : p.wq,
-                              col_ok);
-#pragma unroll
-    for (int jt = 0; jt < MT; ++jt) {
-      const int m = 8 * jt + g;
-      const bool ok = m < p.M;
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        vr2::cp_async_zfill<8>(
-            st + R::W_BYTES + (jt * 2 + half) * 256 + lane * 8,
-            ok ? p.x + (long long)m * p.K + half * Kp + pr + 4 * t : p.x, ok);
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int grp = (half * Kp + pr) / p.g;
-      vr2::cp_async_zfill<16>(
-          st + R::W_BYTES + R::X_BYTES + half * 512 + lane * 16,
-          col_ok ? p.scale + (long long)grp * p.N + n0 + 4 * t : p.scale, col_ok);
-    }
-  };
+  const int u0 = range_begin(b, U, G), u1 = range_begin(b + 1, U, G), n = u1 - u0;
+  unsigned char* ring = vr2::swizzle_aligned(smem);
+  float* red = reinterpret_cast<float*>(ring + R::STAGES * R::BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + R::RED / 4);
 
   float acc[8][MT][4];
   float tmp[kScaleAfter ? 2 : 1][8][MT][4];  // (b): one group's sums, each half
@@ -595,31 +637,59 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(con
         for (int h = 0; h < (kScaleAfter ? 2 : 1); ++h) tmp[h][i][jt][e] = 0.f;
       }
 
-  // the scales of columns 16 g + 2 i (.x) and + 1 (.y) of each half, from a stage
-  auto scales = [&](const unsigned char* st, int half, int i) {
-    const float4 q = reinterpret_cast<const float4*>(st + R::W_BYTES + R::X_BYTES + half * 512)
-        [g * 4 + (i >> 1)];
-    return (i & 1) ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+  // step s of the block's range into its slot: the nibbles of tile T, rows
+  // [64 j, 64 j + 64), x's columns of both halves, the scales of the step's
+  // group in both halves (warp 0)
+  auto fill = [&](int s) {
+    const int u = u0 + s, T = u / ks, pr = (u - T * ks) * kStepRows;
+    unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
+    uint64_t* bar = full + s % R::STAGES;
+    vr2::tma_stage(bar, R::BYTES, 3 + kCols / kScaleBox, [&](int bx) {
+      if (bx == 0)
+        vr2::tma_load_2d(st, &mw, bar, T * kCols, pr);
+      else if (bx < 3)
+        vr2::tma_load_2d(st + R::W_BYTES + (bx - 1) * R::X_BYTES, &mx, bar,
+                         (bx - 1) * Kp + pr, 0);
+      else
+        vr2::tma_load_3d(st + R::W_BYTES + 2 * R::X_BYTES + (bx - 3) * 2 * kScaleBox * 4, &ms,
+                         bar, T * kCols + (bx - 3) * kScaleBox, pr / p.g, 0);
+    });
   };
 
-  // the products of one unit from stage st
+  // the scales of columns 16 g + 2 i (.x) and + 1 (.y) of a half
+  auto scales = [&](const unsigned char* st, int half, int i) {
+    const int col = 16 * g + 2 * i;
+    return *reinterpret_cast<const float2*>(st + R::W_BYTES + 2 * R::X_BYTES +
+                                            (col / kScaleBox) * 2 * kScaleBox * 4 +
+                                            half * kScaleBox * 4 + (col % kScaleBox) * 4);
+  };
+
+  // this warp's products of a step: rows 16 w + 4 t + j of its columns
   auto compute = [&](const unsigned char* st) {
-    const uint4* wv = reinterpret_cast<const uint4*>(st);
-    const uint4 w0 = wv[lane], w1 = wv[32 + lane], w2 = wv[64 + lane], w3 = wv[96 + lane];
+    uint32_t r[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = 16 * w + 4 * t + j;
+      const uint4 v = *reinterpret_cast<const uint4*>(st + row * 128 + ((g ^ (row & 7)) << 4));
+      r[j][0] = v.x, r[j][1] = v.y, r[j][2] = v.z, r[j][3] = v.w;
+    }
+    // x: row 8 jt + g, k 16 w + 4 t .. + 3 of the step (bytes 32 w + 8 t)
     uint2 xf[MT][2];
 #pragma unroll
     for (int jt = 0; jt < MT; ++jt)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        xf[jt][half] = reinterpret_cast<const uint2*>(st + R::W_BYTES)[(jt * 2 + half) * 32 + lane];
-    const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
-    const uint32_t r2[4] = {w2.x, w2.y, w2.z, w2.w}, r3[4] = {w3.x, w3.y, w3.z, w3.w};
+      for (int half = 0; half < 2; ++half) {
+        const int m = 8 * jt + g;
+        xf[jt][half] = *reinterpret_cast<const uint2*>(
+            st + R::W_BYTES + half * R::X_BYTES + m * 128 + (((2 * w + (t >> 1)) ^ (m & 7)) << 4) +
+            (t & 1) * 8);
+      }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       // columns 2i, 2i + 1 of rows 0, 1 (2, 3): bytes [c, c + 1] of each row
       const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
-      const uint32_t v01 = __byte_perm(r0[i >> 1], r1[i >> 1], sel);
-      const uint32_t v23 = __byte_perm(r2[i >> 1], r3[i >> 1], sel);
+      const uint32_t v01 = __byte_perm(r[0][i >> 1], r[1][i >> 1], sel);
+      const uint32_t v23 = __byte_perm(r[2][i >> 1], r[3][i >> 1], sel);
       uint32_t alo[4], ahi[4];
       if constexpr (kRawWeights) {
         alo[0] = v01, alo[1] = v01 >> 8, alo[2] = v23, alo[3] = v23 >> 8;
@@ -631,10 +701,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(con
         ahi[2] = nib_pair(v23 >> 4), ahi[3] = nib_pair(v23 >> 12);
         if constexpr (!kScaleAfter) {
           const float2 slo = scales(st, 0, i), shi = scales(st, 1, i);
-          alo[0] = scale_pair(alo[0], slo.x, slo.x), alo[2] = scale_pair(alo[2], slo.x, slo.x);
-          alo[1] = scale_pair(alo[1], slo.y, slo.y), alo[3] = scale_pair(alo[3], slo.y, slo.y);
-          ahi[0] = scale_pair(ahi[0], shi.x, shi.x), ahi[2] = scale_pair(ahi[2], shi.x, shi.x);
-          ahi[1] = scale_pair(ahi[1], shi.y, shi.y), ahi[3] = scale_pair(ahi[3], shi.y, shi.y);
+          auto sc = [](uint32_t q, float s) {
+            if constexpr (kTruncPack)
+              return __byte_perm(__float_as_uint(__uint_as_float(q << 16) * s),
+                                 __float_as_uint(__uint_as_float(q & 0xFFFF0000u) * s), 0x7632);
+            return scale_pair(q, s, s);
+          };
+          alo[0] = sc(alo[0], slo.x), alo[2] = sc(alo[2], slo.x);
+          alo[1] = sc(alo[1], slo.y), alo[3] = sc(alo[3], slo.y);
+          ahi[0] = sc(ahi[0], shi.x), ahi[2] = sc(ahi[2], shi.x);
+          ahi[1] = sc(ahi[1], shi.y), ahi[3] = sc(ahi[3], shi.y);
         }
       }
 #pragma unroll
@@ -650,7 +726,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(con
     }
   };
 
-  // (b): add one group's sums times its scales (from the stage of its last unit)
+  // (b): add one group's sums times its scales (from a stage of the group)
   auto apply_scales = [&](const unsigned char* st) {
     if constexpr (kScaleAfter) {
 #pragma unroll
@@ -669,114 +745,74 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) int4_decode_kernel(con
     }
   };
 
-  // a tile segment's close: the warps' sums added in warp order, then y
-  // (the whole tile) or this block's part and, from the tile's last block,
-  // the parts added in block order
+  // a tile segment's close: this warp's sums into its rows of red, then
+  // (close_segment) the warps' sums in warp order and y or the block's part
   auto flush = [&](int T, int sa, int sb) {
     float* mine = red + w * ROWS * kCols;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int jt = 0; jt < MT; ++jt) {
-        const int r = 8 * jt + 2 * t, c = 16 * g + 2 * i;
-        if (r < p.M)
-          *reinterpret_cast<float2*>(mine + r * kCols + c) = make_float2(acc[i][jt][0], acc[i][jt][2]);
-        if (r + 1 < p.M)
-          *reinterpret_cast<float2*>(mine + (r + 1) * kCols + c) =
+        const int r0 = 8 * jt + 2 * t, c = 16 * g + 2 * i;
+        if (r0 < p.M)
+          *reinterpret_cast<float2*>(mine + r0 * kCols + c) = make_float2(acc[i][jt][0], acc[i][jt][2]);
+        if (r0 + 1 < p.M)
+          *reinterpret_cast<float2*>(mine + (r0 + 1) * kCols + c) =
               make_float2(acc[i][jt][1], acc[i][jt][3]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][jt][e] = 0.f;
       }
-    __syncthreads();
-    const int col = T * kCols + tid;
-    float v[ROWS];
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) {
-      v[m] = 0.f;
-      if (m < p.M)
-#pragma unroll
-        for (int ww = 0; ww < kWarps; ++ww) v[m] += red[(ww * ROWS + m) * kCols + tid];
-    }
-    const int tb = T * ks, te = tb + ks;
-    if (sa == tb && sb == te) {  // the whole tile
-      if (col < p.N)
-#pragma unroll
-        for (int m = 0; m < ROWS; ++m)
-          if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
-    } else {
-      const long long slot_floats = (long long)p.M * kCols;
-      const int slot = T == u0 / ks ? 2 * b : 2 * b + 1;  // the head or the tail of the range
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-        if (m < p.M) p.part[slot * slot_floats + m * kCols + tid] = v[m];
-      __threadfence();  // this block's part, before its ticket
-      __syncthreads();
-      const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
-      if (tid == 0) last = atomicAdd(p.counters + T, 1) == bl - bf;
-      __syncthreads();
-      if (last) {
-        __threadfence();  // every other block's part, after their tickets
-#pragma unroll
-        for (int m = 0; m < ROWS; ++m) v[m] = 0.f;
-        for (int c0 = bf; c0 <= bl; c0 += 4) {  // four parts' loads, then their sums
-          float got[4][ROWS];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int c = c0 + k;
-            const int cs = (c == bf && range_begin(c, U, G) < tb) ? 2 * c + 1 : 2 * c;
-#pragma unroll
-            for (int m = 0; m < ROWS; ++m)
-              got[k][m] = (c <= bl && m < p.M) ? __ldcg(p.part + cs * slot_floats + m * kCols + tid)
-                                               : 0.f;
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int m = 0; m < ROWS; ++m) v[m] += got[k][m];
-        }
-        if (col < p.N)
-#pragma unroll
-          for (int m = 0; m < ROWS; ++m)
-            if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
-        if (tid == 0) p.counters[T] = 0;
-      }
-    }
-    __syncthreads();  // red is free for the next segment
+    close_segment<MT>(p, red, T, sa, sb, u0, U, G, ks);
   };
 
-  // the ring: DEPTH - 1 units in flight ahead of the one reduced
-  int pf = first_from(u0);
-#pragma unroll
-  for (int s = 0; s < R::DEPTH - 1; ++s) {
-    if (pf < u1) {
-      issue(pf, ring + s * R::BYTES);
-      pf = next(pf);
-    }
-    vr2::cp_async_commit();
+  // the ring: warp 0 keeps STAGES steps in flight; each slot is refilled
+  // once the whole block is past it
+  if (tid == 0) {
+    for (int i = 0; i < R::STAGES; ++i) vr2::mbar_init(full + i, 1);
+    vr2::mbar_init_fence();
+    // the descriptors, ahead of the first box
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&mw)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&mx)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ms)) : "memory");
   }
-  int slot = 0;
-  for (int sa = u0; sa < u1;) {
-    const int T = sa / ks, sb = seg_end(sa);
-    for (int u = sa + w; u < sb; u += kWarps) {
-      vr2::cp_async_wait<R::DEPTH - 2>();  // unit u has landed (this lane's copies)
-      __syncwarp();                        // ... and every lane's (the shared scales)
-      const unsigned char* st = ring + slot * R::BYTES;
+  __syncthreads();
+  if (tid < 32)
+    for (int s = 0; s < R::STAGES && s < n; ++s) fill(s);
+  // tile segment by tile segment: the steps' loop stays small (the close
+  // inside it ran the whole kernel ~2x slower on the card)
+  for (int sa = u0, s = 0; sa < u1;) {
+    const int T = sa / ks, sb = min(u1, (T + 1) * ks);
+    for (; u0 + s < sb; ++s) {
+      const unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
+      vr2::mbar_wait(full + s % R::STAGES, (s / R::STAGES) & 1);
       if constexpr (!kNoCompute) compute(st);
       if constexpr (kScaleAfter) {
-        const int nu = u + kWarps;  // the next unit of this warp in this segment
-        if (nu >= sb || (nu - T * ks) * kUnitRows / p.g != (u - T * ks) * kUnitRows / p.g)
+        const int u = u0 + s;
+        if (u + 1 == sb || ((u + 1) % ks) * kStepRows / p.g != (u % ks) * kStepRows / p.g)
           apply_scales(st);
       }
-      if (pf < u1) {  // into the stage reduced one unit ago (every lane is past it)
-        issue(pf, ring + (slot + R::DEPTH - 1) % R::DEPTH * R::BYTES);
-        pf = next(pf);
-      }
-      vr2::cp_async_commit();
-      slot = (slot + 1) % R::DEPTH;
+      __syncthreads();  // every warp is past the slot
+      if (tid < 32 && s + R::STAGES < n) fill(s + R::STAGES);
     }
-    flush(T, sa, sb);
+    if constexpr (!kNoClose) flush(T, sa, sb);
     sa = sb;
   }
+}
+
+// A tensor map of `rank` dims (innermost first) with strides in bytes of
+// dims 1.., boxes `box`, the 128-byte swizzle or none; coordinates past
+// the end read zeros
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                             const void* base, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
+  const vr2::EncodeTiled encode = vr2::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // the shared memory and the carveout that keep kBlocksPerSm blocks an SM
@@ -794,9 +830,22 @@ cudaError_t configure() {
 template <int MT>
 cudaError_t launch(const Int4Params& p, int blocks, cudaStream_t stream) {
   using R = Ring<MT>;
-  const cudaError_t err = configure<MT>();
+  cudaError_t err = configure<MT>();
   if (err != cudaSuccess) return err;
-  int4_decode_kernel<MT><<<blocks, kThreads, R::SMEM, stream>>>(p);
+  const int Kp = p.K / 2, groups = Kp / p.g;
+  CUtensorMap mw, mx, ms;
+  const cuuint64_t wd[2] = {cuuint64_t(p.N), cuuint64_t(Kp)}, ws[1] = {cuuint64_t(p.N)};
+  const cuuint32_t wb[2] = {kCols, kStepRows};
+  const cuuint64_t sd[3] = {cuuint64_t(p.N), cuuint64_t(groups), 2};
+  const cuuint64_t ss[2] = {cuuint64_t(p.N) * 4, cuuint64_t(p.N) * 4 * groups};
+  const cuuint32_t sb[3] = {kScaleBox, 1, 2};
+  if ((err = tiled_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.wq, wd, ws, wb, true)) !=
+          cudaSuccess ||
+      (err = vr2::box_map(&mx, p.x, p.K, p.M, 0, 8 * MT)) != cudaSuccess ||
+      (err = tiled_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.scale, sd, ss, sb, false)) !=
+          cudaSuccess)
+    return err;
+  int4_decode_kernel<MT><<<blocks, kThreads, R::SMEM, stream>>>(mw, mx, ms, p);
   return cudaGetLastError();
 }
 
@@ -847,10 +896,10 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_f32_kernel(
 // Plain C entry point, loaded with ctypes. x [M, K] bf16, wq [K/2, N] int8,
 // scale [K/g, N] fp32, y [M, N] bf16, all contiguous and 16-byte aligned;
 // K a multiple of 64, g dividing K/2, any N >= 1, 1 <= M. blocks > 0: the
-// decode kernel on that many blocks (M <= 16, 16 | N, 16 | g; at most one
-// block a unit of 16 packed rows x 128 columns), part an fp32 workspace of
-// 2 blocks M 128 floats and counters one int a 128-column tile, all 0 (the
-// launch leaves them 0). blocks = 0: the staged kernel, its K stages (32
+// decode kernel on that many blocks (M <= 16, 16 | N, 64 | g, 128 | K; at
+// most one block a step of 64 packed rows x 128 columns), part an fp32
+// workspace of 2 blocks M 128 floats and counters one int a 128-column
+// tile, all 0 (the launch leaves them 0). blocks = 0: the staged kernel, its K stages (32
 // packed rows each) cut into `splits` ranges, one per grid z; with splits >
 // 1, part is an fp32 [splits, M, N] workspace and counters one int per
 // (column block, row block) tile, all 0. Returns a cudaError_t.
@@ -867,8 +916,9 @@ extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale,
                      splits};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (blocks > 0) {
-    const long long units = (long long)(N + dec::kCols - 1) / dec::kCols * (K / 2 / dec::kUnitRows);
-    if (M > 16 || N % 16 != 0 || g % 16 != 0 || splits != 1 || blocks > units)
+    const long long steps = (long long)(N + dec::kCols - 1) / dec::kCols * (K / 2 / dec::kStepRows);
+    if (M > 16 || N % 16 != 0 || g % dec::kStepRows != 0 || (K / 2) % dec::kStepRows != 0 ||
+        splits != 1 || blocks > steps)
       return int(cudaErrorInvalidValue);
     return int(M <= 8 ? dec::launch<1>(p, blocks, st) : dec::launch<2>(p, blocks, st));
   }

@@ -14,9 +14,9 @@ stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
 multiple of 64, bf16 or fp32 x of at most 1024 rows, any N; fp32 x
-through an fp32 CUDA-core path; bf16 x of at most 16 rows with 16 | N and
-16 | g, every decode shape, through the decode kernel on the stream-K
-plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
+through an fp32 CUDA-core path; bf16 x of at most 16 rows with 16 | N,
+64 | g and 128 | K, every decode shape, through the decode kernel on the
+stream-K plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
 over K in the same launch where `int4_split_plan` finds that the grid does
 not fill the card), outside autograd, and raises on anything
 the kernel does not take; on CPU tensors
@@ -43,10 +43,9 @@ KERNEL_COLUMNS = 64       # output columns of a staged kernel's block
 SPLIT_MIN_STAGES = 4      # split-K keeps at least this many stages a split
 DECODE_MAX_ROWS = 16      # the decode kernel's rows of x at most
 DECODE_COLUMNS = 128      # output columns of a decode tile
-DECODE_UNIT_ROWS = 16     # packed rows of a unit (a warp's step)
-DECODE_BLOCKS_PER_SM = 2  # resident decode blocks an SM (their shared memory allows 2)
-DECODE_WARPS = 4          # warps a decode block
-DECODE_MIN_UNITS = 4      # units a decode block takes at least: one a warp
+DECODE_STEP_ROWS = 64     # packed rows of a step (16 a warp); 64 | K/2 and 64 | g
+DECODE_BLOCKS_PER_SM = 3  # resident decode blocks an SM (their shared memory allows 3)
+DECODE_MIN_STEPS = 1      # steps a decode block takes at least
 # where both kernels put the group scale (csrc/int4_matmul.cu): "a", each
 # weight rounded to bf16(q s) before its product, as the reference
 SCALE_PLACEMENT = "a"
@@ -113,26 +112,26 @@ def int4_split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, list[tuple[i
 
 def int4_decode_plan(M: int, K: int, N: int, g: int, sms: int) -> tuple[int, int, int] | None:
     """The decode kernel's stream-K plan for x [M, K] @ [K, N] with group g
-    on a card of `sms` SMs: (blocks, tiles, units), or None where the
+    on a card of `sms` SMs: (blocks, tiles, steps), or None where the
     decode kernel does not take the shape (more than DECODE_MAX_ROWS rows,
-    or N or g not a multiple of 16). A unit is DECODE_UNIT_ROWS packed rows
-    of a tile of DECODE_COLUMNS output columns; the units of all tiles,
-    tile after tile, are cut into `blocks` ranges (`int4_decode_ranges`),
-    DECODE_BLOCKS_PER_SM an SM, so every SM reads the same bytes to within
-    a unit, or fewer blocks where there are too few units for
-    DECODE_MIN_UNITS a block."""
-    if M > DECODE_MAX_ROWS or N % 16 or g % 16:
+    N not a multiple of 16, K/2 or g not a multiple of DECODE_STEP_ROWS). A
+    step is DECODE_STEP_ROWS packed rows of a tile of DECODE_COLUMNS output
+    columns; the steps of all tiles, tile after tile, are cut into `blocks`
+    ranges (`int4_decode_ranges`), DECODE_BLOCKS_PER_SM an SM, so every SM
+    reads the same bytes to within a step a block, or fewer blocks where
+    there are too few steps for DECODE_MIN_STEPS a block."""
+    if M > DECODE_MAX_ROWS or N % 16 or g % DECODE_STEP_ROWS or (K // 2) % DECODE_STEP_ROWS:
         return None
     tiles = -(-N // DECODE_COLUMNS)
-    units = tiles * (K // 2 // DECODE_UNIT_ROWS)
-    blocks = max(1, min(DECODE_BLOCKS_PER_SM * sms, units // DECODE_MIN_UNITS))
-    return blocks, tiles, units
+    steps = tiles * (K // 2 // DECODE_STEP_ROWS)
+    blocks = max(1, min(DECODE_BLOCKS_PER_SM * sms, steps // DECODE_MIN_STEPS))
+    return blocks, tiles, steps
 
 
-def int4_decode_ranges(units: int, blocks: int) -> list[tuple[int, int]]:
-    """The unit range [begin, end) of each decode block (the kernel's own:
-    block b takes [b U / B, (b + 1) U / B))."""
-    return [(b * units // blocks, (b + 1) * units // blocks) for b in range(blocks)]
+def int4_decode_ranges(steps: int, blocks: int) -> list[tuple[int, int]]:
+    """The step range [begin, end) of each decode block (the kernel's own:
+    block b takes [b S / B, (b + 1) S / B))."""
+    return [(b * steps // blocks, (b + 1) * steps // blocks) for b in range(blocks)]
 
 
 @functools.lru_cache(maxsize=256)

@@ -1,8 +1,10 @@
 """Split plans and the fp32 split workspace of the port's split kernels.
 
 Where a kernel's natural grid leaves most of the card idle, the work is
-split across more blocks in the same launch: the int4 matmul splits its K
-(``int4_matmul.int4_split_plan``), the decode-attention kernels
+split across more blocks in the same launch: the int4 matmul's staged
+kernel splits its K (``int4_matmul.int4_split_plan``) and its decode kernel
+cuts every tile's steps into stream-K ranges, a block each
+(``int4_matmul.int4_decode_plan``), the decode-attention kernels
 (``csrc/decode_attn.cu``, ``csrc/paged_attn.cu``, through
 ``csrc/split_decode.cuh``) the key range of each (sequence, kv head). Each
 split writes fp32 partials to a workspace and takes a ticket on its tile's
