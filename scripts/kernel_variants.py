@@ -16,10 +16,6 @@ kernel. The variants, and the sources whose text they match:
                        conversion, scale multiply or bf16 pack
   window_notranspose   csrc/vit_window_attn.cu as of af66272: V staged
                        row-major like K (no transposing 2-byte stores)
-  int4_scale_after     csrc/int4_matmul.cu of this tree: the decode
-                       kernel multiplies each group's fp32 sums by its
-                       scales (placement b) instead of rounding each
-                       weight bf16(q s) (placement a)
   int4_nodequant_new   csrc/int4_matmul.cu of this tree: the decode
                        kernel's fragments are the raw weight words
   int4_nocompute       the same source: the decode kernel's loads and tile
@@ -31,9 +27,8 @@ kernel. The variants, and the sources whose text they match:
   int4_nofence         the same source: the tile closes without fences
   int4_noticket        the same source: every tile close stores its sums
                        as y (no parts, tickets or fixups)
-  int4_truncpack       the same source: the decode kernel packs its bf16
-                       weights by a byte permute (truncation) instead of
-                       the rounding conversion
+  int4_acqrel          the same source: the ticket one acq_rel atomic in
+                       place of a fence, an atomic and a fence
   int4_2blocks         the same source: 2 decode blocks an SM (6 stages)
   int4_4blocks         the same source: 4 decode blocks an SM (3 stages;
                        for x of up to 8 rows)
@@ -66,10 +61,6 @@ VARIANTS = {
         "vit_window_attn.cu",
         "vr2::load_tile_transposed<HD>(sVt, VP,",
         "vr2::load_tile<HD>(sVt, QP,")],
-    "int4_scale_after": [(
-        "int4_matmul.cu",
-        "constexpr bool kScaleAfter = false;",
-        "constexpr bool kScaleAfter = true;")],
     "int4_nodequant_new": [(
         "int4_matmul.cu",
         "constexpr bool kRawWeights = false;",
@@ -90,6 +81,10 @@ VARIANTS = {
         "int4_matmul.cu",
         "constexpr bool kNoTicket = false;",
         "constexpr bool kNoTicket = true;")],
+    "int4_acqrel": [(
+        "int4_matmul.cu",
+        "constexpr bool kAcqRelTicket = false;",
+        "constexpr bool kAcqRelTicket = true;")],
     "int4_2blocks": [
         ("int4_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;"),
         ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
@@ -100,10 +95,6 @@ VARIANTS = {
         ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
          "static constexpr int STAGES = MT == 1 ? 3 : 2;"),
         ("../ops/int4_matmul.py", "DECODE_BLOCKS_PER_SM = 3", "DECODE_BLOCKS_PER_SM = 4")],
-    "int4_truncpack": [(
-        "int4_matmul.cu",
-        "constexpr bool kTruncPack = false;",
-        "constexpr bool kTruncPack = true;")],
 }
 
 

@@ -158,41 +158,55 @@ def test_int4_split_plan_covers_every_stage_once(M, K, N, sms):
     assert (S == 1) == (blocks >= sms or stages < 2 * int4_matmul.SPLIT_MIN_STAGES)
 
 
-# (M, K, N, blocks on an H100's 132 SMs): the 7B's int4 linears at decode
-# B = 4 and B = 1 reach the decode kernel, 3 blocks an SM, except k / v
-# (112 steps: one a block)
-DECODE_CASES = [(4, 3584, 18944, 396), (4, 18944, 3584, 396), (4, 3584, 3584, 396),
-                (4, 3584, 512, 112), (4, 3584, 152064, 396), (1, 3584, 18944, 396),
-                (1, 3584, 152064, 396), (16, 3584, 512, 112), (8, 256, 128, 2)]
+# (M, K, N, blocks on an H100's 132 SMs): the 7B's int4 gate / up, down
+# and head at decode B = 4 and B = 1 reach the decode kernel, 3 blocks an
+# SM; with the size floor lifted, k / v (112 steps: one a block) and a
+# 2-step matrix too
+DECODE_CASES = [(4, 3584, 18944, 396, None), (4, 18944, 3584, 396, None),
+                (4, 3584, 152064, 396, None), (1, 3584, 18944, 396, None),
+                (1, 3584, 152064, 396, None), (16, 18944, 3584, 396, None),
+                (4, 3584, 3584, 396, 0), (4, 3584, 512, 112, 0), (16, 3584, 512, 112, 0),
+                (8, 256, 128, 2, 0)]
 
 
-@pytest.mark.parametrize("M,K,N,blocks", DECODE_CASES)
-def test_int4_decode_plan_at_the_7b_shapes(M, K, N, blocks):
-    """Every decode shape of the 7B goes to the decode kernel on a grid of
-    3 blocks an SM, or fewer where there are too few steps."""
+@pytest.mark.parametrize("M,K,N,blocks,floor", DECODE_CASES)
+def test_int4_decode_plan_at_the_7b_shapes(M, K, N, blocks, floor, monkeypatch):
+    """The 7B's large decode linears go to the decode kernel on a grid of 3
+    blocks an SM, or fewer where there are too few steps."""
+    if floor is not None:
+        monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", floor)
     plan = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
     assert plan is not None and plan[0] == blocks
     assert plan[1] == -(-N // 128) and plan[2] == plan[1] * K // 128
 
 
-@pytest.mark.parametrize("M,K,N,g", [(17, 3584, 512, 128), (784, 5120, 5120, 128),
-                                     (4, 1280, 3420, 128), (1, 512, 200, 128),
-                                     (4, 1536, 512, 24), (4, 1536, 512, 32),
-                                     (4, 64, 128, 32), (4, 192, 128, 32)])
+@pytest.mark.parametrize("M,K,N,g", [(17, 3584, 18944, 128), (784, 5120, 5120, 128),
+                                     (4, 3584, 3584, 128), (4, 3584, 512, 128),
+                                     (4, 9472, 3420, 128), (4, 9472, 3584, 24),
+                                     (4, 9472, 3584, 32), (4, 18944, 3584 + 8, 128)])
 def test_int4_decode_plan_leaves_the_rest_to_the_staged_kernel(M, K, N, g):
-    """More than 16 rows, N not a multiple of 16, g or K/2 not a multiple
-    of a step's 64 packed rows: the staged kernel."""
+    """More than 16 rows, fewer than DECODE_MIN_BYTES packed bytes (the
+    7B's q / o and k / v), N not a multiple of 16, g not a multiple of a
+    step's 64 packed rows: the staged kernel."""
     assert int4_matmul.int4_decode_plan(M, K, N, g, 132) is None
+
+
+def test_int4_decode_plan_needs_k_in_whole_steps(monkeypatch):
+    """K/2 a multiple of 64 packed rows: K = 192 (96 packed rows) is not."""
+    monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
+    assert int4_matmul.int4_decode_plan(4, 192, 128, 32, 132) is None
+    assert int4_matmul.int4_decode_plan(4, 256, 128, 64, 132) is not None
 
 
 @pytest.mark.parametrize("M,K,N,g,sms", [(4, 3584, 18944, 128, 132), (4, 18944, 3584, 128, 132),
                                          (4, 3584, 512, 128, 132), (1, 3584, 152064, 128, 114),
                                          (16, 3584, 3584, 64, 132), (4, 256, 96, 64, 132),
                                          (4, 3584, 18944, 256, 7)])
-def test_int4_decode_ranges_cover_every_step_once(M, K, N, g, sms):
+def test_int4_decode_ranges_cover_every_step_once(M, K, N, g, sms, monkeypatch):
     """The blocks' step ranges are consecutive and cover every step once,
     their lengths within one step of each other and at least
-    DECODE_MIN_STEPS long."""
+    DECODE_MIN_STEPS long (the size floor lifted for the small shapes)."""
+    monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
     blocks, tiles, steps = int4_matmul.int4_decode_plan(M, K, N, g, sms)
     ranges = int4_matmul.int4_decode_ranges(steps, blocks)
     assert len(ranges) == blocks and ranges[0][0] == 0 and ranges[-1][1] == steps
@@ -201,7 +215,7 @@ def test_int4_decode_ranges_cover_every_step_once(M, K, N, g, sms):
     assert max(lengths) - min(lengths) <= 1 and min(lengths) >= int4_matmul.DECODE_MIN_STEPS
 
 
-@pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (4, 18944, 3584), (4, 3584, 3584),
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (4, 18944, 3584), (1, 3584, 18944),
                                    (1, 3584, 152064)])
 def test_int4_decode_plan_balances_the_sms(M, K, N):
     """At the 7B's shapes every SM reads the same bytes to within a step a

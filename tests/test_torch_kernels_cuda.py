@@ -865,6 +865,19 @@ def test_int4_wide_grids_take_one_split(cuda, M, K, N):
     assert int4_split_plan(M, K, N, _sms(cuda)) == (1, [(0, K // 64)])
 
 
+@pytest.fixture
+def small_decode(monkeypatch):
+    """The decode kernel for weights of any size (its DECODE_MIN_BYTES floor
+    sends the 7B's q / o and k / v to the staged kernel), so its grids and
+    closes are held at small shapes too."""
+    from video_r2_tpu_torch.ops import int4_matmul
+
+    monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
+    int4_matmul._launch_plan.cache_clear()
+    yield
+    int4_matmul._launch_plan.cache_clear()
+
+
 def _int4_decode_grid(cuda, M, K, N, g=128):
     from video_r2_tpu_torch.ops.int4_matmul import int4_decode_plan
 
@@ -875,10 +888,11 @@ def _int4_decode_grid(cuda, M, K, N, g=128):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 16, 17])
-def test_int4_matmul_every_code(cuda, M):
+def test_int4_matmul_every_code(cuda, M, small_decode):
     """All 256 bytes, so all 16 codes of both halves (q = -8 too, which
     the quantizer never writes), at every column: packed row p of column n
-    holds byte (p + 7 n) mod 256, p over 256 rows; mixed-sign scales."""
+    holds byte (p + 7 n) mod 256, p over 256 rows; mixed-sign scales; the
+    decode kernel up to 16 rows, the staged kernel at 17."""
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
     gen = torch.Generator(device=cuda).manual_seed(M)
@@ -895,9 +909,10 @@ def test_int4_matmul_every_code(cuda, M):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 16, 17])
-def test_int4_matmul_scales_over_six_decades(cuda, M):
+def test_int4_matmul_scales_over_six_decades(cuda, M, small_decode):
     """Scales of either sign from 1e-4 to 1e2 (each group and column its
-    own), an all-zero group, x scaled so that outputs stay O(1)."""
+    own), an all-zero group, x scaled so that outputs stay O(1); the decode
+    kernel up to 16 rows, the staged kernel at 17."""
     from video_r2_tpu_torch.models.quant import quantize_kernel_int4
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
@@ -917,7 +932,7 @@ def test_int4_matmul_scales_over_six_decades(cuda, M):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 16])
 @pytest.mark.parametrize("g", [64, 128, 256, 384, 768])
-def test_int4_decode_kernel_groups(cuda, M, g):
+def test_int4_decode_kernel_groups(cuda, M, g, small_decode):
     """The decode kernel at every group a multiple of 64 (K/2 = 768: a
     step of 64 packed rows in one group each half), twice: the same bits."""
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
@@ -933,7 +948,7 @@ def test_int4_decode_kernel_groups(cuda, M, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 16])
 @pytest.mark.parametrize("N", [3420, 1040, 2052, 3421, 16])
-def test_int4_matmul_more_column_tails(cuda, M, N):
+def test_int4_matmul_more_column_tails(cuda, M, N, small_decode):
     """N = 1040 and 16: a last decode tile of 16 columns (16 | N, 128 does
     not divide it); 3420 (the ViT's gate / up), 2052 (4 | N) and 3421 (odd):
     the staged kernel's predicated copies and stores."""
@@ -967,10 +982,11 @@ def test_int4_matmul_row_counts(cuda, M, K, N):
 @pytest.mark.parametrize("M", [1, 4, 8, 9, 16])
 @pytest.mark.parametrize("K,N", [(3584, 512), (3584, 3584), (18944, 3584), (3584, 18944),
                                  (256, 128)])
-def test_int4_decode_kernel_stream_k(cuda, M, K, N):
-    """The 7B's decode shapes (k / v: 112 blocks of one step, 28 parts a
-    tile; q / o, down and gate / up: 396 blocks, tiles of 2-14 parts or
-    whole) and one tile on two blocks, at one and two 8-row tiles of x: against
+def test_int4_decode_kernel_stream_k(cuda, M, K, N, small_decode):
+    """The 7B's decode shapes on the decode kernel, the small ones with its
+    size floor lifted (k / v: 112 blocks of one step, 28 parts a tile; q / o,
+    down and gate / up: 396 blocks, tiles of 2-14 parts) and one tile on two
+    blocks, at one and two 8-row tiles of x: against
     the plain version, and a second call the same bits (the parts added in
     block order)."""
     from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain

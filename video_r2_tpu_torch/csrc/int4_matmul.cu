@@ -11,7 +11,8 @@
 // and rounded to bf16 before its product, as the TPU kernel casts its
 // dequantised tile to x's dtype (scale placement (a): the reference's
 // rounding; placement (b), exact q on the tensor cores and each group's
-// fp32 sums times its scale, measured no faster on the card: PERF.md); the
+// fp32 sums times its scale, ran 6% faster at the 7B's gate / up and left
+// the card tests' tolerance on weights of every code: PERF.md); the
 // products sum in fp32 (mma.sync m16n8k16) and y is rounded to bf16 once.
 //
 // What bounds it on the card: at decode (M = 1 to 16 rows) each weight
@@ -27,8 +28,9 @@
 // into the upper half of a word; q * s in fp32 and one bf16 pack of two
 // products (the only conversion left, one a packed byte) give bf16(q s).
 //
-// The decode kernel (M <= 16, 16 | N, 64 | g, 128 | K; every decode shape
-// of the presets):
+// The decode kernel (M <= 16 over at least 16 MiB of nibbles, 16 | N,
+// 64 | g, 128 | K: the presets' decode gate / up, down and head; the
+// wrapper's int4_decode_plan routes):
 // - The weights are mma's A operand (the output columns are M, x's rows
 //   are N = 8 or 16), so no product is padded past 8 rows of x. A block
 //   step is 64 packed rows of a tile of 128 columns; warp w takes rows 16 w
@@ -60,8 +62,9 @@
 //   order is fixed, so y is the same bit for bit from call to call, and a
 //   linear stays one launch.
 //
-// The staged kernel (M > 16, 16 does not divide N, or 64 does not divide g
-// or K/2): one
+// The staged kernel (everything else: M > 16, smaller weights such as the
+// decode q / o and k / v, where its split-K beats the decode kernel's
+// cross-block closes, N not a multiple of 16, g or K/2 of 64): one
 // 128-thread block per (64 output columns, 16 / 32 / 64 rows: the smallest
 // row capacity that holds M); the packed K streams through a ring of
 // shared-memory stages filled by cp.async (8 stages for up to 16 rows, so
@@ -69,10 +72,13 @@
 // memory latency), each stage 32 packed rows: 2 KB of nibbles, the
 // matching 32 columns of both halves of x and the two scale rows of their
 // groups (one group holds 4 stages). Each warp owns 16 output columns and
-// builds its mma B fragments from the staged bytes (four byte loads a
-// pair of registers): the low nibbles multiply the x tile of the first
-// half, the high nibbles that of the second, into one fp32 accumulator; x
-// fragments come by ldmatrix. Blocks run over N fastest, so a row-block's
+// takes its mma B fragments by one ldmatrix .trans over byte pairs a
+// stage: each word holds two rows' bytes of two columns, whose nibble
+// pairs are the B registers of the even column (mma tile 0) and the odd
+// one (tile 1) in both halves, so y's columns come four in a row a lane;
+// the low nibbles multiply the x tile of the first half, the high nibbles
+// that of the second, into one fp32 accumulator; x fragments come by
+// ldmatrix. Blocks run over N fastest, so a row-block's
 // blocks share x through L2.
 // Split-K, in the same launch: where the (column blocks x row blocks) grid
 // does not fill the card the wrapper's split plan cuts the K stages into S
@@ -499,13 +505,12 @@ constexpr int kCols = 128;               // output columns of a tile: a 128-byte
 constexpr int kStepRows = 16 * kWarps;   // packed rows of a step
 constexpr int kScaleBox = 32;            // fp32 columns of a scale box (128 bytes)
 constexpr int kBlocksPerSm = 3;          // the shared memory below keeps it at 3
-constexpr bool kScaleAfter = false;      // scale placement (b) instead of (a): a timing variant
 constexpr bool kRawWeights = false;      // the raw weight words as A: a timing variant
 constexpr bool kNoCompute = false;       // no products (the loads and closes only): a variant
 constexpr bool kNoClose = false;         // no tile closes (no y): a timing variant
 constexpr bool kNoFence = false;         // the closes' fences left out: a timing variant
+constexpr bool kAcqRelTicket = false;    // the ticket one acq_rel atomic, no fences: a variant
 constexpr bool kNoTicket = false;        // every close stores its sums as y: a variant
-constexpr bool kTruncPack = false;       // the bf16 pack by a byte permute: a timing variant
 
 // One ring stage for MT 8-row tiles of x, each part a TMA box (1024-byte
 // aligned, as the 128-byte swizzle needs): the nibbles [64 packed rows]
@@ -574,9 +579,18 @@ __device__ __forceinline__ void close_segment(const Int4Params& p, const float* 
     __syncthreads();
     const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
     if (tid == kThreads - 1) {
-      if constexpr (!kNoFence) __threadfence();
-      last = atomicAdd(p.counters + T, 1) == bl - bf;
-      if (!kNoFence && last) __threadfence();  // every other block's part, after their tickets
+      if constexpr (kAcqRelTicket) {  // release this block's part, acquire the others'
+        int old;
+        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                     : "=r"(old)
+                     : "l"(p.counters + T)
+                     : "memory");
+        last = old == bl - bf;
+      } else {
+        if constexpr (!kNoFence) __threadfence();
+        last = atomicAdd(p.counters + T, 1) == bl - bf;
+        if (!kNoFence && last) __threadfence();  // every other block's part, after their tickets
+      }
     }
     __syncthreads();
     if (last) {  // row tid / 32 (+ 4 k) of columns 4 (tid % 32) .. + 3, PB parts at a time
@@ -625,17 +639,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   uint64_t* full = reinterpret_cast<uint64_t*>(red + R::RED / 4);
 
   float acc[8][MT][4];
-  float tmp[kScaleAfter ? 2 : 1][8][MT][4];  // (b): one group's sums, each half
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int jt = 0; jt < MT; ++jt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][jt][e] = 0.f;
-#pragma unroll
-        for (int h = 0; h < (kScaleAfter ? 2 : 1); ++h) tmp[h][i][jt][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) acc[i][jt][e] = 0.f;
 
   // step s of the block's range into its slot: the nibbles of tile T, rows
   // [64 j, 64 j + 64), x's columns of both halves, the scales of the step's
@@ -656,14 +665,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     });
   };
 
-  // the scales of columns 16 g + 2 i (.x) and + 1 (.y) of a half
-  auto scales = [&](const unsigned char* st, int half, int i) {
-    const int col = 16 * g + 2 * i;
-    return *reinterpret_cast<const float2*>(st + R::W_BYTES + 2 * R::X_BYTES +
-                                            (col / kScaleBox) * 2 * kScaleBox * 4 +
-                                            half * kScaleBox * 4 + (col % kScaleBox) * 4);
-  };
-
   // this warp's products of a step: rows 16 w + 4 t + j of its columns
   auto compute = [&](const unsigned char* st) {
     uint32_t r[4][4];
@@ -673,74 +674,45 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       const uint4 v = *reinterpret_cast<const uint4*>(st + row * 128 + ((g ^ (row & 7)) << 4));
       r[j][0] = v.x, r[j][1] = v.y, r[j][2] = v.z, r[j][3] = v.w;
     }
-    // x: row 8 jt + g, k 16 w + 4 t .. + 3 of the step (bytes 32 w + 8 t)
-    uint2 xf[MT][2];
 #pragma unroll
-    for (int jt = 0; jt < MT; ++jt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = 8 * jt + g;
-        xf[jt][half] = *reinterpret_cast<const uint2*>(
-            st + R::W_BYTES + half * R::X_BYTES + m * 128 + (((2 * w + (t >> 1)) ^ (m & 7)) << 4) +
-            (t & 1) * 8);
-      }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      // columns 2i, 2i + 1 of rows 0, 1 (2, 3): bytes [c, c + 1] of each row
-      const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
-      const uint32_t v01 = __byte_perm(r[0][i >> 1], r[1][i >> 1], sel);
-      const uint32_t v23 = __byte_perm(r[2][i >> 1], r[3][i >> 1], sel);
-      uint32_t alo[4], ahi[4];
-      if constexpr (kRawWeights) {
-        alo[0] = v01, alo[1] = v01 >> 8, alo[2] = v23, alo[3] = v23 >> 8;
-        ahi[0] = v01 >> 4, ahi[1] = v01 >> 12, ahi[2] = v23 >> 4, ahi[3] = v23 >> 12;
-      } else {
-        alo[0] = nib_pair(v01), alo[1] = nib_pair(v01 >> 8);
-        alo[2] = nib_pair(v23), alo[3] = nib_pair(v23 >> 8);
-        ahi[0] = nib_pair(v01 >> 4), ahi[1] = nib_pair(v01 >> 12);
-        ahi[2] = nib_pair(v23 >> 4), ahi[3] = nib_pair(v23 >> 12);
-        if constexpr (!kScaleAfter) {
-          const float2 slo = scales(st, 0, i), shi = scales(st, 1, i);
-          auto sc = [](uint32_t q, float s) {
-            if constexpr (kTruncPack)
-              return __byte_perm(__float_as_uint(__uint_as_float(q << 16) * s),
-                                 __float_as_uint(__uint_as_float(q & 0xFFFF0000u) * s), 0x7632);
-            return scale_pair(q, s, s);
-          };
-          alo[0] = sc(alo[0], slo.x), alo[2] = sc(alo[2], slo.x);
-          alo[1] = sc(alo[1], slo.y), alo[3] = sc(alo[3], slo.y);
-          ahi[0] = sc(ahi[0], shi.x), ahi[2] = sc(ahi[2], shi.x);
-          ahi[1] = sc(ahi[1], shi.y), ahi[3] = sc(ahi[3], shi.y);
-        }
-      }
+    for (int half = 0; half < 2; ++half) {
+      // x: row 8 jt + g, k 16 w + 4 t .. + 3 of the step (bytes 32 w + 8 t)
+      uint2 xf[MT];
 #pragma unroll
       for (int jt = 0; jt < MT; ++jt) {
-        if constexpr (kScaleAfter) {
-          vr2::mma_bf16_16816(tmp[0][i][jt], alo, xf[jt][0].x, xf[jt][0].y);
-          vr2::mma_bf16_16816(tmp[kScaleAfter ? 1 : 0][i][jt], ahi, xf[jt][1].x, xf[jt][1].y);
-        } else {
-          vr2::mma_bf16_16816(acc[i][jt], alo, xf[jt][0].x, xf[jt][0].y);
-          vr2::mma_bf16_16816(acc[i][jt], ahi, xf[jt][1].x, xf[jt][1].y);
-        }
+        const int m = 8 * jt + g;
+        xf[jt] = *reinterpret_cast<const uint2*>(st + R::W_BYTES + half * R::X_BYTES + m * 128 +
+                                                 (((2 * w + (t >> 1)) ^ (m & 7)) << 4) +
+                                                 (t & 1) * 8);
       }
-    }
-  };
-
-  // (b): add one group's sums times its scales (from a stage of the group)
-  auto apply_scales = [&](const unsigned char* st) {
-    if constexpr (kScaleAfter) {
+      // the half's scales of the lane's columns 16 g .. 16 g + 15: 64 bytes
+      // of scale box g / 2, four 16-byte loads (a quarter warp's two
+      // column groups land on other banks)
+      float4 sc[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sc[q] = *reinterpret_cast<const float4*>(st + R::W_BYTES + 2 * R::X_BYTES +
+                                                 (g >> 1) * 2 * kScaleBox * 4 +
+                                                 half * kScaleBox * 4 + (g & 1) * 64 + q * 16);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float2 slo = scales(st, 0, i), shi = scales(st, 1, i);
+        // columns 2i, 2i + 1 of rows 0, 1 (2, 3): bytes [c, c + 1] of each
+        // row; the half's nibble of each byte
+        const uint32_t sel = (i & 1) ? 0x7632u : 0x5410u;
+        const int sh = 4 * half;
+        const uint32_t v01 = __byte_perm(r[0][i >> 1], r[1][i >> 1], sel) >> sh;
+        const uint32_t v23 = __byte_perm(r[2][i >> 1], r[3][i >> 1], sel) >> sh;
+        uint32_t a[4];
+        if constexpr (kRawWeights) {
+          a[0] = v01, a[1] = v01 >> 8, a[2] = v23, a[3] = v23 >> 8;
+        } else {
+          const float s0 = (i & 1) ? sc[i >> 1].z : sc[i >> 1].x;  // column 2i
+          const float s1 = (i & 1) ? sc[i >> 1].w : sc[i >> 1].y;  // column 2i + 1
+          a[0] = scale_pair(nib_pair(v01), s0, s0), a[1] = scale_pair(nib_pair(v01 >> 8), s1, s1);
+          a[2] = scale_pair(nib_pair(v23), s0, s0), a[3] = scale_pair(nib_pair(v23 >> 8), s1, s1);
+        }
 #pragma unroll
-        for (int jt = 0; jt < MT; ++jt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float sl = e < 2 ? slo.x : slo.y, sh = e < 2 ? shi.x : shi.y;
-            acc[i][jt][e] = fmaf(sl, tmp[0][i][jt][e], fmaf(sh, tmp[kScaleAfter ? 1 : 0][i][jt][e],
-                                                             acc[i][jt][e]));
-            tmp[0][i][jt][e] = tmp[kScaleAfter ? 1 : 0][i][jt][e] = 0.f;
-          }
+        for (int jt = 0; jt < MT; ++jt) vr2::mma_bf16_16816(acc[i][jt], a, xf[jt].x, xf[jt].y);
       }
     }
   };
@@ -786,11 +758,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       const unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
       vr2::mbar_wait(full + s % R::STAGES, (s / R::STAGES) & 1);
       if constexpr (!kNoCompute) compute(st);
-      if constexpr (kScaleAfter) {
-        const int u = u0 + s;
-        if (u + 1 == sb || ((u + 1) % ks) * kStepRows / p.g != (u % ks) * kStepRows / p.g)
-          apply_scales(st);
-      }
       __syncthreads();  // every warp is past the slot
       if (tid < 32 && s + R::STAGES < n) fill(s + R::STAGES);
     }

@@ -14,9 +14,10 @@ stack and a layer index; each layer of the port is its own module, so the
 wrapper takes one layer's ``wq`` [K/2, N] and ``scale`` [K/g, N]. On CUDA
 tensors it launches ``csrc/int4_matmul.cu`` (any g that divides K/2, K a
 multiple of 64, bf16 or fp32 x of at most 1024 rows, any N; fp32 x
-through an fp32 CUDA-core path; bf16 x of at most 16 rows with 16 | N,
-64 | g and 128 | K, every decode shape, through the decode kernel on the
-stream-K plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
+through an fp32 CUDA-core path; bf16 x of at most 16 rows over weights of
+16 MiB or more with 16 | N, 64 | g and 128 | K (the decode gate / up,
+down and head of the presets) through the decode kernel on the stream-K
+plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
 over K in the same launch where `int4_split_plan` finds that the grid does
 not fill the card), outside autograd, and raises on anything
 the kernel does not take; on CPU tensors
@@ -46,6 +47,13 @@ DECODE_COLUMNS = 128      # output columns of a decode tile
 DECODE_STEP_ROWS = 64     # packed rows of a step (16 a warp); 64 | K/2 and 64 | g
 DECODE_BLOCKS_PER_SM = 3  # resident decode blocks an SM (their shared memory allows 3)
 DECODE_MIN_STEPS = 1      # steps a decode block takes at least
+# packed bytes (K/2 x N) from which the decode kernel takes a shape: below,
+# its cross-block closes cost more than the staged kernel's split-K (the
+# 7B's q / o, 6.4 MB: 0.0125-0.0131 device ms against 0.0110-0.0114, and
+# k / v the same either way; gate / up, down and the head read 34-272 MB:
+# 0.028-0.16 against 0.037-0.19. scripts/bench_int4_ffn.py, --staged for
+# the staged kernel, on an H100 80GB HBM3 at 700 W)
+DECODE_MIN_BYTES = 16 << 20
 # where both kernels put the group scale (csrc/int4_matmul.cu): "a", each
 # weight rounded to bf16(q s) before its product, as the reference
 SCALE_PLACEMENT = "a"
@@ -114,13 +122,15 @@ def int4_decode_plan(M: int, K: int, N: int, g: int, sms: int) -> tuple[int, int
     """The decode kernel's stream-K plan for x [M, K] @ [K, N] with group g
     on a card of `sms` SMs: (blocks, tiles, steps), or None where the
     decode kernel does not take the shape (more than DECODE_MAX_ROWS rows,
-    N not a multiple of 16, K/2 or g not a multiple of DECODE_STEP_ROWS). A
+    fewer than DECODE_MIN_BYTES packed bytes, N not a multiple of 16, K/2
+    or g not a multiple of DECODE_STEP_ROWS). A
     step is DECODE_STEP_ROWS packed rows of a tile of DECODE_COLUMNS output
     columns; the steps of all tiles, tile after tile, are cut into `blocks`
     ranges (`int4_decode_ranges`), DECODE_BLOCKS_PER_SM an SM, so every SM
     reads the same bytes to within a step a block, or fewer blocks where
     there are too few steps for DECODE_MIN_STEPS a block."""
-    if M > DECODE_MAX_ROWS or N % 16 or g % DECODE_STEP_ROWS or (K // 2) % DECODE_STEP_ROWS:
+    if (M > DECODE_MAX_ROWS or K // 2 * N < DECODE_MIN_BYTES or N % 16
+            or g % DECODE_STEP_ROWS or (K // 2) % DECODE_STEP_ROWS):
         return None
     tiles = -(-N // DECODE_COLUMNS)
     steps = tiles * (K // 2 // DECODE_STEP_ROWS)
