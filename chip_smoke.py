@@ -104,8 +104,9 @@
    made once, untimed; "none" and the reason where the card's torch does
    not take it), both timed eagerly and in a CUDA graph (device time), and
    each shape's launch: the decode kernel's stream-K plan (blocks, tiles,
-   steps a block) or the staged kernel's split-K plan (S, its blocks), and
-   the scale placement; the head-major decode
+   steps a block; its resident blocks an SM held to the plan's) or the
+   staged kernel's split-K plan (S, its blocks), and the scale placement;
+   the head-major decode
    kernel at phase 13's batch (B = 4, 28 / 4 heads of 128, its ragged
    prompt lengths and padded width, a 28-layer cache) at decode step 0,
    at step 63 and with the window off, on layers other than 0, each timed
@@ -1475,10 +1476,15 @@ def int4_launch_line(M: int, K: int, N: int, sms: int, g: int = 128) -> str:
     """The int4 kernel's launch at one shape: the decode kernel's stream-K
     plan (blocks, tiles, steps a block), or the staged kernel's split-K plan
     and blocks; and the scale placement."""
+    import torch
+
     from video_r2_tpu_torch.ops import int4_matmul as m
 
     placement = getattr(m, "SCALE_PLACEMENT", "a")   # an older checkout under --root: (a)
-    plan = m.int4_decode_plan(M, K, N, g, sms) if hasattr(m, "int4_decode_plan") else None
+    plan = None
+    if hasattr(m, "int4_decode_plan") and M <= m.DECODE_MAX_ROWS:
+        resident = m.int4_decode_resident(torch.cuda.current_device())[M > m.DECODE_TILE_ROWS]
+        plan = m.int4_decode_plan(M, K, N, g, sms, resident)
     if plan is not None:
         blocks, tiles, steps = plan
         lengths = sorted({end - begin for begin, end in m.int4_decode_ranges(steps, blocks)})
@@ -1489,7 +1495,8 @@ def int4_launch_line(M: int, K: int, N: int, sms: int, g: int = 128) -> str:
     S, ranges = m.int4_split_plan(M, K, N, sms)
     blocks = m.int4_tiles(M, N) * S
     lengths = sorted({end - begin for begin, end in ranges})
-    return (f"staged kernel: split S={S} ({'/'.join(map(str, lengths))} stages each), "
+    return (f"staged kernel: split S={S} ({'/'.join(map(str, lengths))} stages each"
+            f"{', a cluster a tile' if S > 1 and hasattr(m, 'SPLIT_MAX') else ''}), "
             f"{blocks} blocks on {sms} SMs; scale placement ({placement})")
 
 
@@ -1501,6 +1508,7 @@ def int4_kernel_phase(cfg, batch, device) -> dict:
     import torch
 
     from video_r2_tpu_torch.ops.decode_attention import BLOCK_S
+    from video_r2_tpu_torch.ops.int4_matmul import int4_decode_resident
 
     reqs, packed, _, _ = batch
     tc, vc = cfg.text, cfg.vision
@@ -1524,6 +1532,9 @@ def int4_kernel_phase(cfg, batch, device) -> dict:
         cases.setdefault((M, K, N), []).append(what)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    resident = int4_decode_resident(torch.cuda.current_device())
+    print(f"int4 decode kernel: {resident} blocks resident an SM (8 / 16 rows of x), its "
+          f"stream-K plan's blocks an SM", flush=True)
     results = {}
     for (M, K, N), names in cases.items():
         print(f"int4 [{', '.join(names)}] {int4_launch_line(M, K, N, sms)}", flush=True)

@@ -7,6 +7,7 @@ version, timed with CUDA events beside one library call and the bound.
     python3 scripts/bench_int4_ffn.py --root DIR       # another checkout's
     python3 scripts/bench_int4_ffn.py --step           # and an int4 decode step
     python3 scripts/bench_int4_ffn.py --cases int4     # a subset: int4, ffn
+    python3 scripts/bench_int4_ffn.py --cases int4 --shapes 'decode q,decode k / v'
 
 Shapes: the int4 kernel at B = 4 rows for the 7B's q, k / v, o, gate / up
 and down, at B = 1 for gate / up and the head, and at the merger's 784
@@ -139,10 +140,11 @@ def main() -> int:
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--step", action="store_true", help="also time an int4 decode step")
     ap.add_argument("--cases", default="int4,ffn", help="comma-separated subset of int4, ffn")
+    ap.add_argument("--shapes", default=None,
+                    help="int4: comma-separated subset of the shapes' names, as "
+                         "'decode q,decode k / v'")
     ap.add_argument("--warm", action="store_true",
                     help="int4: one copy of the weights (L2-resident), not cold copies")
-    ap.add_argument("--decode-min-steps", type=int, default=0,
-                    help="int4: the decode kernel's least steps a block (0: the port's)")
     ap.add_argument("--staged", action="store_true",
                     help="int4: every shape on the staged kernel (no decode kernel)")
     args = ap.parse_args()
@@ -165,16 +167,15 @@ def main() -> int:
     cases = set(args.cases.split(","))
     if args.warm:
         chip_smoke.COLD_BYTES = 0
-    if args.decode_min_steps:
-        int4_matmul.DECODE_MIN_STEPS = args.decode_min_steps
-        int4_matmul._launch_plan.cache_clear()
     if args.staged:
         int4_matmul.DECODE_MAX_ROWS = 0
         int4_matmul._launch_plan.cache_clear()
     if hasattr(int4_matmul, "int4_decode_resident"):
         print(json.dumps({"label": args.label,
-                          "int4_decode_resident": int4_matmul.int4_decode_resident()}))
-    for what, M, K, N in INT4_SHAPES if "int4" in cases else ():
+                          "int4_decode_resident":
+                              int4_matmul.int4_decode_resident(torch.cuda.current_device())}))
+    shapes = [s for s in INT4_SHAPES if args.shapes is None or s[0] in args.shapes.split(",")]
+    for what, M, K, N in shapes if "int4" in cases else ():
         try:
             r = chip_smoke.int4_case(gen, what, M, K, N)
         except AssertionError as e:    # a variant that gives up the result (its times

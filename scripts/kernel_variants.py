@@ -24,14 +24,35 @@ kernel. The variants, and the sources whose text they match:
                        closes (no y is written; ptxas then drops the
                        products too, whose sums nothing reads: the loads
                        alone)
-  int4_nofence         the same source: the tile closes without fences
   int4_noticket        the same source: every tile close stores its sums
                        as y (no parts, tickets or fixups)
-  int4_acqrel          the same source: the ticket one acq_rel atomic in
-                       place of a fence, an atomic and a fence
   int4_2blocks         the same source: 2 decode blocks an SM (6 stages)
   int4_4blocks         the same source: 4 decode blocks an SM (3 stages;
                        for x of up to 8 rows)
+  int4_staged_noreduce csrc/int4_matmul.cu as of 9c80a9b (the staged
+                       kernel's split-K closed by a ticket through L2):
+                       the splits write their fp32 sums and stop (no
+                       ticket, no last block's sum of the splits, no y)
+  int4_staged_direct   the same source: each split stores its own sums as
+                       y (no fp32 parts, ticket or sum of the splits)
+  int4_staged_onesplit ops/int4_matmul.py of 9c80a9b or this tree: the
+                       staged kernel on one split (the split plan returns
+                       S = 1)
+  int4_staged_noload   csrc/int4_matmul.cu of 9c80a9b or this tree: the
+                       staged kernel loads no stage (its products and
+                       close run on whatever shared memory holds: launch,
+                       products and close alone)
+  int4_cluster_nosum   this tree: the staged kernel's cluster close keeps
+                       its barriers and stores, without the loads and sums
+                       of the splits' shared memory
+  int4_cluster_local   this tree: the staged kernel's cluster close
+                       without its barriers or other blocks' sums (each
+                       split stores its own sums as y: the cluster launch
+                       and the shared-memory round trip alone)
+  int4_split8          ops/int4_matmul.py of this tree: at most 8 splits
+                       (clusters of 8, the portable size)
+
+The variants of one source combine (int4_nocompute with int4_2blocks).
 """
 
 from __future__ import annotations
@@ -54,6 +75,15 @@ RAW_INT4 = """\
           bhi[nt][1] = (u2 | (u3 << 16)) >> 4;
 """
 
+DECODE_DEQUANT = """\
+        a[0] = scale_pair(nib_pair(v01), s0, s0), a[1] = scale_pair(nib_pair(v01 >> 8), s1, s1);
+        a[2] = scale_pair(nib_pair(v23), s0, s0), a[3] = scale_pair(nib_pair(v23 >> 8), s1, s1);
+"""
+RAW_DECODE = """\
+        a[0] = v01, a[1] = v01 >> 8, a[2] = v23, a[3] = v23 >> 8;
+        (void)s0, (void)s1;
+"""
+
 # name -> [(file under csrc/, or a path from it, old text, new text)]
 VARIANTS = {
     "int4_nodequant": [("int4_matmul.cu", PARENT_INT4_DEQUANT, RAW_INT4)],
@@ -61,40 +91,58 @@ VARIANTS = {
         "vit_window_attn.cu",
         "vr2::load_tile_transposed<HD>(sVt, VP,",
         "vr2::load_tile<HD>(sVt, QP,")],
-    "int4_nodequant_new": [(
-        "int4_matmul.cu",
-        "constexpr bool kRawWeights = false;",
-        "constexpr bool kRawWeights = true;")],
-    "int4_nocompute": [(
-        "int4_matmul.cu",
-        "constexpr bool kNoCompute = false;",
-        "constexpr bool kNoCompute = true;")],
-    "int4_noclose": [(
-        "int4_matmul.cu",
-        "constexpr bool kNoClose = false;",
-        "constexpr bool kNoClose = true;")],
-    "int4_nofence": [(
-        "int4_matmul.cu",
-        "constexpr bool kNoFence = false;",
-        "constexpr bool kNoFence = true;")],
+    "int4_nodequant_new": [("int4_matmul.cu", DECODE_DEQUANT, RAW_DECODE)],
+    "int4_nocompute": [("int4_matmul.cu", "      compute(st);\n", "")],
+    "int4_noclose": [("int4_matmul.cu", "    flush(T, sa, sb);\n", "")],
     "int4_noticket": [(
         "int4_matmul.cu",
-        "constexpr bool kNoTicket = false;",
-        "constexpr bool kNoTicket = true;")],
-    "int4_acqrel": [(
-        "int4_matmul.cu",
-        "constexpr bool kAcqRelTicket = false;",
-        "constexpr bool kAcqRelTicket = true;")],
+        "  if (sa == tb && sb == te) {  // the whole tile",
+        "  if (true) {  // the whole tile")],
+    # the plan takes the resident count from the kernel (vr2_int4_matmul_layout)
     "int4_2blocks": [
         ("int4_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;"),
         ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
-         "static constexpr int STAGES = MT == 1 ? 6 : 5;"),
-        ("../ops/int4_matmul.py", "DECODE_BLOCKS_PER_SM = 3", "DECODE_BLOCKS_PER_SM = 2")],
+         "static constexpr int STAGES = MT == 1 ? 6 : 5;")],
     "int4_4blocks": [
         ("int4_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 4;"),
         ("int4_matmul.cu", "static constexpr int STAGES = MT == 1 ? 5 : 3;",
-         "static constexpr int STAGES = MT == 1 ? 3 : 2;"),
-        ("../ops/int4_matmul.py", "DECODE_BLOCKS_PER_SM = 3", "DECODE_BLOCKS_PER_SM = 4")],
+         "static constexpr int STAGES = MT == 1 ? 3 : 2;")],
+    "int4_staged_noreduce": [(
+        "int4_matmul.cu",
+        "  __threadfence();  // this block's sums, before its ticket\n",
+        "  return;\n")],
+    "int4_staged_direct": [(
+        "int4_matmul.cu",
+        "    reduce_splits<MT, WV>(acc, p, n0 + wn0, row0, rows, lane, tid);\n    return;\n",
+        "")],
+    "int4_staged_onesplit": [(
+        "../ops/int4_matmul.py",
+        "    base, rem = divmod(stages, S)\n",
+        "    S = 1\n    base, rem = divmod(stages, S)\n")],
+    "int4_cluster_nosum": [(
+        "int4_matmul.cu",
+        "      if (z < S) got[z] = ld_cluster_f4(at, z);\n",
+        "      got[z] = make_float4(0.f, 0.f, 0.f, 0.f);\n")],
+    "int4_cluster_local": [
+        ("int4_matmul.cu", "  cluster_sync();  // every split's sums are in its shared memory\n",
+         "  __syncthreads();\n"),
+        ("int4_matmul.cu",
+         "  for (int i = blockIdx.z * kThreads + tid; i < rows * (kBN / 4); i += S * kThreads) {",
+         "  for (int i = tid; i < rows * (kBN / 4); i += kThreads) {"),
+        ("int4_matmul.cu", "      if (z < S) got[z] = ld_cluster_f4(at, z);\n",
+         "      got[z] = z == 0 ? *reinterpret_cast<const float4*>(at)\n"
+         "                      : make_float4(0.f, 0.f, 0.f, 0.f);\n"),
+        ("int4_matmul.cu",
+         "  cluster_sync();  // no block leaves while another reads its sums\n", "")],
+    "int4_split8": [("../ops/int4_matmul.py", "SPLIT_MAX = 16 ", "SPLIT_MAX = 8 ")],
+    "int4_staged_noload": [
+        ("int4_matmul.cu",
+         "      load_stage<MT, WV, G>(smem + s * R::BYTES, p, first + s, n0, row0, rows, tid);\n",
+         "      ;\n"),
+        ("int4_matmul.cu",
+         "      load_stage<MT, WV, G>(smem + (nx % R::STAGES) * R::BYTES, p, first + nx, n0, row0,"
+         " rows,\n                            tid);\n",
+         "      ;\n")],
 }
 
 

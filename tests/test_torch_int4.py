@@ -13,6 +13,8 @@ on CPU tensors. Tolerances:
   over the layers and the decode steps).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,12 +142,14 @@ def test_int4_split_plan_at_the_7b_shapes(M, K, N, S):
 @pytest.mark.parametrize("M,K,N,sms", [
     (1, 3584, 512, 132), (4, 3584, 3584, 132), (4, 18944, 3584, 132),
     (16, 1280, 3420, 132), (40, 3584, 512, 132), (4, 448, 64, 132), (4, 128, 64, 132),
-    (4, 3584, 512, 8), (4, 18944, 3584, 114), (1024, 3584, 64, 132)])
+    (4, 3584, 512, 8), (4, 18944, 3584, 114), (1024, 3584, 64, 132), (1, 18944, 64, 132),
+    (40, 18944, 64, 132)])
 def test_int4_split_plan_covers_every_stage_once(M, K, N, sms):
     """The splits are consecutive stage ranges over all K / 64 stages, their
     lengths within one stage of each other and at least SPLIT_MIN_STAGES
     when there are several; one split exactly where the grid fills the card
-    or K is too short to split."""
+    or K is too short to split; at most SPLIT_MAX (a one-tile matrix at K
+    18944 would take 74)."""
     S, ranges = int4_matmul.int4_split_plan(M, K, N, sms)
     stages = K // 64
     assert len(ranges) == S and ranges[0][0] == 0 and ranges[-1][1] == stages
@@ -153,6 +157,7 @@ def test_int4_split_plan_covers_every_stage_once(M, K, N, sms):
     lengths = [end - begin for begin, end in ranges]
     assert max(lengths) - min(lengths) <= 1
     assert min(lengths) >= (int4_matmul.SPLIT_MIN_STAGES if S > 1 else 1)
+    assert S <= int4_matmul.SPLIT_MAX
     blocks = -(-N // 64) * -(-M // (16 if M <= 16 else 32 if M <= 32 else 64))
     assert int4_matmul.int4_tiles(M, N) == blocks
     assert (S == 1) == (blocks >= sms or stages < 2 * int4_matmul.SPLIT_MIN_STAGES)
@@ -172,12 +177,42 @@ DECODE_CASES = [(4, 3584, 18944, 396, None), (4, 18944, 3584, 396, None),
 @pytest.mark.parametrize("M,K,N,blocks,floor", DECODE_CASES)
 def test_int4_decode_plan_at_the_7b_shapes(M, K, N, blocks, floor, monkeypatch):
     """The 7B's large decode linears go to the decode kernel on a grid of 3
-    blocks an SM, or fewer where there are too few steps."""
+    blocks an SM (the kernel's resident count on an H100), or fewer where
+    there are too few steps."""
     if floor is not None:
         monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", floor)
-    plan = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
+    plan = int4_matmul.int4_decode_plan(M, K, N, 128, 132, 3)
     assert plan is not None and plan[0] == blocks
     assert plan[1] == -(-N // 128) and plan[2] == plan[1] * K // 128
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3, 4])
+def test_int4_decode_plan_takes_the_resident_count(resident, monkeypatch):
+    """The grid is the kernel's resident blocks an SM times the SMs (gate /
+    up: 4144 steps), capped at one step a block (k / v with the size floor
+    lifted: 112 steps)."""
+    assert int4_matmul.int4_decode_plan(4, 3584, 18944, 128, 132, resident)[0] == 132 * resident
+    monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
+    assert int4_matmul.int4_decode_plan(4, 3584, 512, 128, 132, resident)[0] == \
+        min(132 * resident, 112)
+
+
+@pytest.mark.parametrize("M,blocks", [(1, 396), (8, 396), (9, 264), (16, 264), (17, 0)])
+def test_int4_launch_plan_takes_the_resident_count_by_rows(M, blocks, monkeypatch):
+    """The wrapper's launch plan asks the kernel how many decode blocks an
+    SM keeps, for x of up to 8 rows (one x tile) or up to 16 (two: here 3
+    and 2 a stand-in reports), and sends more than 16 rows to the staged
+    kernel (no decode blocks, its split plan, no tile counters)."""
+    monkeypatch.setattr(int4_matmul, "int4_decode_resident", lambda index: (3, 2))
+    monkeypatch.setattr(int4_matmul.torch.cuda, "get_device_properties",
+                        lambda index: types.SimpleNamespace(multi_processor_count=132))
+    int4_matmul._launch_plan.cache_clear()
+    try:
+        got = int4_matmul._launch_plan(M, 3584, 18944, 128, 0)
+    finally:
+        int4_matmul._launch_plan.cache_clear()
+    assert got == (blocks, 1 if blocks else int4_matmul.int4_split_plan(M, 3584, 18944, 132)[0],
+                   148 if blocks else 0)
 
 
 @pytest.mark.parametrize("M,K,N,g", [(17, 3584, 18944, 128), (784, 5120, 5120, 128),
@@ -188,14 +223,14 @@ def test_int4_decode_plan_leaves_the_rest_to_the_staged_kernel(M, K, N, g):
     """More than 16 rows, fewer than DECODE_MIN_BYTES packed bytes (the
     7B's q / o and k / v), N not a multiple of 16, g not a multiple of a
     step's 64 packed rows: the staged kernel."""
-    assert int4_matmul.int4_decode_plan(M, K, N, g, 132) is None
+    assert int4_matmul.int4_decode_plan(M, K, N, g, 132, 3) is None
 
 
 def test_int4_decode_plan_needs_k_in_whole_steps(monkeypatch):
     """K/2 a multiple of 64 packed rows: K = 192 (96 packed rows) is not."""
     monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
-    assert int4_matmul.int4_decode_plan(4, 192, 128, 32, 132) is None
-    assert int4_matmul.int4_decode_plan(4, 256, 128, 64, 132) is not None
+    assert int4_matmul.int4_decode_plan(4, 192, 128, 32, 132, 3) is None
+    assert int4_matmul.int4_decode_plan(4, 256, 128, 64, 132, 3) is not None
 
 
 @pytest.mark.parametrize("M,K,N,g,sms", [(4, 3584, 18944, 128, 132), (4, 18944, 3584, 128, 132),
@@ -204,15 +239,15 @@ def test_int4_decode_plan_needs_k_in_whole_steps(monkeypatch):
                                          (4, 3584, 18944, 256, 7)])
 def test_int4_decode_ranges_cover_every_step_once(M, K, N, g, sms, monkeypatch):
     """The blocks' step ranges are consecutive and cover every step once,
-    their lengths within one step of each other and at least
-    DECODE_MIN_STEPS long (the size floor lifted for the small shapes)."""
+    their lengths within one step of each other and at least one step long
+    (the size floor lifted for the small shapes)."""
     monkeypatch.setattr(int4_matmul, "DECODE_MIN_BYTES", 0)
-    blocks, tiles, steps = int4_matmul.int4_decode_plan(M, K, N, g, sms)
+    blocks, tiles, steps = int4_matmul.int4_decode_plan(M, K, N, g, sms, 3)
     ranges = int4_matmul.int4_decode_ranges(steps, blocks)
     assert len(ranges) == blocks and ranges[0][0] == 0 and ranges[-1][1] == steps
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     lengths = [end - begin for begin, end in ranges]
-    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= int4_matmul.DECODE_MIN_STEPS
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (4, 18944, 3584), (1, 3584, 18944),
@@ -223,7 +258,7 @@ def test_int4_decode_plan_balances_the_sms(M, K, N):
     blocks can take is within 3 of the mean (8 KB of nibbles a step), where
     the staged kernel's 296 gate / up blocks of 64 columns put 3 on some
     SMs and 2 on the others."""
-    blocks, _, steps = int4_matmul.int4_decode_plan(M, K, N, 128, 132)
+    blocks, _, steps = int4_matmul.int4_decode_plan(M, K, N, 128, 132, 3)
     assert blocks == 3 * 132
     lengths = sorted(end - begin for begin, end in int4_matmul.int4_decode_ranges(steps, blocks))
     assert sum(lengths[-3:]) <= steps / 132 + 3

@@ -789,11 +789,12 @@ def test_int4_matmul_kernel_any_group(cuda, M, N, g):
                                                                   leaf["scale4"]))
 
 
-# split-K: the 7B's decode k / v, q / o and down at K 3584 / 18944, and the
+# split-K: the 7B's decode k / v, q / o and down at K 3584 / 18944, the
 # ViT's N 3420 (a column tail) at K 1280 with g 64 (the per-row scales) and
-# g 128 (the staged scales)
+# g 128 (the staged scales), and one tile at K 18944 (16 splits: the largest
+# cluster)
 INT4_SPLIT_SHAPES = [(3584, 512, 128), (3584, 3584, 128), (18944, 3584, 128),
-                     (1280, 3420, 64), (1280, 3420, 128)]
+                     (1280, 3420, 64), (1280, 3420, 128), (18944, 64, 128)]
 
 
 def _int4_group_operands(gen, M, K, N, g):
@@ -808,23 +809,37 @@ def _sms(cuda):
     return torch.cuda.get_device_properties(cuda).multi_processor_count
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [17, 32, 40])
-@pytest.mark.parametrize("K,N,g", INT4_SPLIT_SHAPES)
-def test_int4_split_k_matches_plain(cuda, M, K, N, g):
-    """Shapes whose grid does not fill the card split K over S > 1 blocks a
-    tile in one launch of the staged kernel (more than 16 rows: the decode
-    kernel takes up to 16); the last block of a tile adds the splits in a
-    fixed order, so a second call gives the same bits."""
+def _decode_plan(cuda, M, K, N, g=128):
+    """The decode kernel's plan on this card (None: the staged kernel)."""
     from video_r2_tpu_torch.ops.int4_matmul import (
+        DECODE_TILE_ROWS,
         int4_decode_plan,
-        int4_matmul,
-        int4_matmul_plain,
-        int4_split_plan,
+        int4_decode_resident,
     )
 
-    assert int4_split_plan(M, K, N, _sms(cuda))[0] > 1
-    assert int4_decode_plan(M, K, N, g, _sms(cuda)) is None
+    index = cuda.index if cuda.index is not None else torch.cuda.current_device()
+    resident = int4_decode_resident(index)[M > DECODE_TILE_ROWS]
+    return int4_decode_plan(M, K, N, g, _sms(cuda), resident)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 32, 40])
+@pytest.mark.parametrize("K,N,g", INT4_SPLIT_SHAPES)
+def test_int4_split_k_matches_plain(cuda, M, K, N, g):
+    """Shapes whose grid does not fill the card split K in one launch: the
+    staged kernel over S > 1 blocks a tile (q / o, k / v and the ViT's
+    shapes at every row count, down above 16 rows), or the decode kernel's
+    stream-K over more blocks than tiles (down at up to 16 rows, its
+    route); either adds a tile's parts in a fixed order, so a second call
+    gives the same bits."""
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain, \
+        int4_split_plan
+
+    plan = _decode_plan(cuda, M, K, N, g)
+    if (K, N) == (18944, 3584) and M <= 16:
+        assert plan is not None and plan[0] > plan[1]
+    else:
+        assert plan is None and int4_split_plan(M, K, N, _sms(cuda))[0] > 1
     gen = torch.Generator(device=cuda).manual_seed(M + K + N + g)
     x, wq, scale = _int4_group_operands(gen, M, K, N, g)
     before = int4_matmul.launches
@@ -879,9 +894,7 @@ def small_decode(monkeypatch):
 
 
 def _int4_decode_grid(cuda, M, K, N, g=128):
-    from video_r2_tpu_torch.ops.int4_matmul import int4_decode_plan
-
-    plan = int4_decode_plan(M, K, N, g, _sms(cuda))
+    plan = _decode_plan(cuda, M, K, N, g)
     assert plan is not None, "the shape must reach the decode kernel"
     return plan
 
@@ -952,10 +965,9 @@ def test_int4_matmul_more_column_tails(cuda, M, N, small_decode):
     """N = 1040 and 16: a last decode tile of 16 columns (16 | N, 128 does
     not divide it); 3420 (the ViT's gate / up), 2052 (4 | N) and 3421 (odd):
     the staged kernel's predicated copies and stores."""
-    from video_r2_tpu_torch.ops.int4_matmul import int4_decode_plan, int4_matmul, \
-        int4_matmul_plain
+    from video_r2_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
-    assert (int4_decode_plan(M, 1280, N, 128, _sms(cuda)) is None) == bool(N % 16)
+    assert (_decode_plan(cuda, M, 1280, N) is None) == bool(N % 16)
     gen = torch.Generator(device=cuda).manual_seed(M + N)
     x, wq, scale = _int4_operands(gen, M, 1280, N)
     out = int4_matmul(x, wq, scale)

@@ -43,22 +43,25 @@
 //   halves. x's B fragments are then four consecutive elements of a row of
 //   x. The lane's outputs are 16 consecutive columns of two rows of y.
 // - Every byte comes by TMA into a ring of 3-5 shared-memory stages (72 KB
-//   a block, 3 blocks an SM, ~120 KB in flight an SM): a step's nibbles as
+//   a block, 3 blocks an SM: 2 and 4 measured slower; ~120 KB in flight an
+//   SM): a step's nibbles as
 //   one 8 KB box 128 bytes wide with the 128-byte swizzle, x's columns of
 //   both halves as two boxes of 8 or 16 rows (rows past M read zeros), the
 //   step's scale rows as four 128-byte boxes; warp 0 arms the stage's
 //   mbarrier and refills a slot once the block is past it. Each lane reads
-//   its bytes back as 16-byte words. Moved in 16-byte cp.async pieces the
-//   same bytes took 30 us at gate / up with no products at all (PERF.md).
+//   its bytes back as 16-byte words, a half's 16 column scales as four.
+//   Moved in 16-byte cp.async pieces the same bytes took 30 us at gate / up
+//   with no products at all (PERF.md).
 // - Stream-K: the steps of all tiles, tile after tile, are cut into one
 //   contiguous range a block, the block count a multiple of the SM count,
 //   so every SM reads the same bytes to within a step a block (8 KB). A
 //   block that covers a whole tile stores y; a block that covers part of
 //   one adds its warps' sums in shared memory in warp order, writes them to
 //   the workspace (two slots a block: the segment at the head of its range
-//   and the one at its tail) and takes a ticket on the tile's counter; the
-//   last block adds the tile's parts in block order (all loads issued
-//   before the sums), rounds y to bf16 once and resets the counter. The
+//   and the one at its tail) and takes a ticket on the tile's counter (one
+//   acq_rel atomic); the last block adds the tile's parts in block order
+//   (16 parts' loads issued before their sums), rounds y to bf16 once and
+//   resets the counter. The
 //   order is fixed, so y is the same bit for bit from call to call, and a
 //   linear stays one launch.
 //
@@ -82,11 +85,14 @@
 // blocks share x through L2.
 // Split-K, in the same launch: where the (column blocks x row blocks) grid
 // does not fill the card the wrapper's split plan cuts the K stages into S
-// ranges of equal length (within one stage), one per grid z. Each block
-// writes its fp32 sums to a [S, M, N] workspace and takes a ticket on its
-// tile's counter; the last block adds the S sums in a fixed order, rounds
-// y to bf16 once and resets the counter (reduce_splits). One split takes an
-// instantiation without this code.
+// <= 16 ranges of equal length (within one stage), one per grid z, and a
+// tile's S blocks form one thread-block cluster. Each block leaves its fp32
+// sums in its shared memory; after a cluster barrier each block adds a
+// share of the tile's sums over the S blocks' shared memory in a fixed
+// order, rounds y to bf16 once and stores it (reduce_splits). The close of
+// the 7B's decode k / v, a fence, a ticket and the last block's serial
+// reads of 14 parts through L2, took half its time (PERF.md). One split
+// takes an instantiation without this code.
 // Any N: where 64 does not divide N (the ViT's gate / up, N = 3420) the
 // last block zero-fills the weights and scales of its columns past N and
 // stores only those below it. A packed row of N bytes is 16-byte aligned
@@ -105,6 +111,8 @@
 // halves at a time, in shared memory. No preset runs it on the card.
 #include <cuda.h>
 
+#include <atomic>
+
 #include "attn_common.cuh"
 #include "wgmma.cuh"
 
@@ -116,10 +124,26 @@ constexpr int kKS = 32;        // packed rows per stage: 32 k of each half
 constexpr int kGroup = 128;    // rows per scale group of the presets (a G of its own)
 constexpr int kFineG = 1;      // G: any other g, scales read per packed row
 constexpr int kWhole = 64;     // load_stage's WV when 64 divides N
+constexpr int kMaxSplits = 16; // splits of a tile at most: a cluster's blocks
+constexpr int kRedPitch = kBN + 4;  // fp32 row pitch of a block's sums at the close
 constexpr int kPitch = 80;     // shared row pitch in bytes of the staged
                                // nibbles and x tiles: 64 + 16 spreads the
                                // byte reads of a fragment over four bank
                                // groups and keeps ldmatrix conflict-free
+
+// Run `set` (a kernel's function attributes, which hold per device) the
+// first time a launcher runs on the current device, and not on later calls:
+// `done` holds a bit a device (devices past 63 set theirs every call)
+template <typename F>
+cudaError_t once_per_device(std::atomic<uint64_t>& done, F set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  if ((err = set()) == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 // One ring stage for blocks of 16 * MT rows: the packed rows [kKS][kBN]
 // (pitch kPitch), the x tiles of both halves [BM][kKS bf16] (pitch kPitch),
@@ -140,8 +164,8 @@ struct Int4Params {
   const uint8_t* wq;       // [K/2, N]
   const float* scale;      // [K/g, N]
   __nv_bfloat16* y;        // [M, N]
-  float* part;             // [splits, M, N] fp32 partial sums (splits > 1)
-  int* counters;           // one per (column block, row block), 0 between launches
+  float* part;             // the decode kernel's fp32 parts: 2 slots a block
+  int* counters;           // ... and its tile counters, 0 between launches
   int M, K, N, g, splits;
 };
 
@@ -268,70 +292,66 @@ __device__ __forceinline__ void quad(float (&v)[4], const float (&acc)[MT][2][4]
   v[2] = acc[mt][0][2 * half + 1], v[3] = acc[mt][1][2 * half + 1];
 }
 
-// Split-K's close, in the launch: each block writes its fp32 sums to its
-// split's slice of p.part, then takes a ticket on its tile's counter; the
-// block that takes the last one adds the splits' sums in the order 0 ..
-// splits - 1 (through L2: other blocks wrote them), rounds y to bf16 once
-// and sets the counter back to 0. The fixed order makes y the same bit for
-// bit from run to run.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float4 at `local`'s offset in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float4 ld_cluster_f4(const float* local, int rank) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(local));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Split-K's close, in the launch: the splits of a tile are one cluster
+// (grid z). Each block leaves its fp32 sums [rows][kBN] in its own shared
+// memory; after a cluster barrier block z takes every S-th quad of the
+// tile from z on and adds the S blocks' sums of it in the order 0 .. S - 1
+// (all S loads issued before the first add), rounds y to bf16 once and
+// stores it; a second barrier keeps each block's sums until the others have
+// read them. The fixed order makes y the same bit for bit from run to run.
 template <int MT, int WV>
 __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], const Int4Params& p,
-                                              int col0, int row0, int rows, int lane,
-                                              int tid) {
-  __shared__ int last;
+                                              unsigned char* smem, int n0, int wn0, int row0,
+                                              int rows, int lane, int tid) {
+  static_assert(Ring<MT>::BM * kRedPitch * 4 <= Ring<MT>::SMEM, "the sums fit in the ring");
+  float* red = reinterpret_cast<float*>(smem);
   const int g = lane >> 2, t = lane & 3;
-  const int c = col0 + 4 * t;
-  const bool vec = WV == kWhole || (p.N & 3) == 0;  // float4 parts, 16-byte aligned
-  const long long slice = (long long)p.M * p.N;
-  float* part = p.part + blockIdx.z * slice;
+  vr2::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = mt * 16 + g + 8 * half;
-      if (r >= rows) continue;
       float v[4];
       quad<MT>(v, acc, mt, half);
-      float* pr = part + (long long)(row0 + r) * p.N + c;
-      if (vec) {
-        if (c < p.N) *reinterpret_cast<float4*>(pr) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (c + i < p.N) pr[i] = v[i];
-      }
+      *reinterpret_cast<float4*>(red + (mt * 16 + g + 8 * half) * kRedPitch + wn0 + 4 * t) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
-  __threadfence();  // this block's sums, before its ticket
-  __syncthreads();
-  int* counter = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) last = atomicAdd(counter, 1) == p.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();  // every other block's sums, after their tickets
+  cluster_sync();  // every split's sums are in its shared memory
+  const int S = p.splits;
+  for (int i = blockIdx.z * kThreads + tid; i < rows * (kBN / 4); i += S * kThreads) {
+    const int r = i / (kBN / 4), c = 4 * (i % (kBN / 4));
+    const float* at = red + r * kRedPitch + c;
+    float4 got[kMaxSplits];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int z = 0; z < kMaxSplits; ++z)
+      if (z < S) got[z] = ld_cluster_f4(at, z);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = mt * 16 + g + 8 * half;
-      if (r >= rows) continue;
-      const float* pr = p.part + (long long)(row0 + r) * p.N + c;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int z = 0; z < p.splits; ++z, pr += slice) {
-        if (vec) {
-          if (c < p.N) {
-            const float4 q = __ldcg(reinterpret_cast<const float4*>(pr));
-            v[0] += q.x, v[1] += q.y, v[2] += q.z, v[3] += q.w;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (c + i < p.N) v[i] += __ldcg(pr + i);
-        }
-      }
-      store_quad<WV>(p, row0 + r, c, v);
-    }
-  if (tid == 0) *counter = 0;
+    for (int z = 0; z < kMaxSplits; ++z)
+      if (z < S) v[0] += got[z].x, v[1] += got[z].y, v[2] += got[z].z, v[3] += got[z].w;
+    store_quad<WV>(p, row0 + r, n0 + c, v);
+  }
+  cluster_sync();  // no block leaves while another reads its sums
 }
 
 template <int MT, int WV, int G, bool SPLIT>
@@ -445,7 +465,7 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
   }
 
   if constexpr (SPLIT) {
-    reduce_splits<MT, WV>(acc, p, n0 + wn0, row0, rows, lane, tid);
+    reduce_splits<MT, WV>(acc, p, smem, n0, wn0, row0, rows, lane, tid);
     return;
   }
 #pragma unroll
@@ -463,11 +483,30 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_kernel(const Int4Params 
 template <int MT, int WV, int G, bool SPLIT>
 cudaError_t launch_kernel(const Int4Params& p, cudaStream_t stream) {
   using R = Ring<MT>;
-  cudaError_t err = cudaFuncSetAttribute(int4_matmul_kernel<MT, WV, G, SPLIT>,
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = once_per_device(done, [] {
+    cudaError_t e = cudaFuncSetAttribute(int4_matmul_kernel<MT, WV, G, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+    if (e == cudaSuccess && SPLIT)  // clusters of up to 16 blocks, past the portable 8
+      e = cudaFuncSetAttribute(int4_matmul_kernel<MT, WV, G, SPLIT>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  });
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + kBN - 1) / kBN, (p.M + R::BM - 1) / R::BM, p.splits);
-  int4_matmul_kernel<MT, WV, G, SPLIT><<<grid, kThreads, R::SMEM, stream>>>(p);
+  if constexpr (!SPLIT) {
+    int4_matmul_kernel<MT, WV, G, SPLIT><<<grid, kThreads, R::SMEM, stream>>>(p);
+  } else {  // the splits of a tile form one cluster
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = 1, cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = p.splits;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid, cfg.blockDim = dim3(kThreads), cfg.dynamicSmemBytes = R::SMEM;
+    cfg.stream = stream, cfg.attrs = &cluster, cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, int4_matmul_kernel<MT, WV, G, SPLIT>, p)) != cudaSuccess)
+      return err;
+  }
   return cudaGetLastError();
 }
 
@@ -505,12 +544,6 @@ constexpr int kCols = 128;               // output columns of a tile: a 128-byte
 constexpr int kStepRows = 16 * kWarps;   // packed rows of a step
 constexpr int kScaleBox = 32;            // fp32 columns of a scale box (128 bytes)
 constexpr int kBlocksPerSm = 3;          // the shared memory below keeps it at 3
-constexpr bool kRawWeights = false;      // the raw weight words as A: a timing variant
-constexpr bool kNoCompute = false;       // no products (the loads and closes only): a variant
-constexpr bool kNoClose = false;         // no tile closes (no y): a timing variant
-constexpr bool kNoFence = false;         // the closes' fences left out: a timing variant
-constexpr bool kAcqRelTicket = false;    // the ticket one acq_rel atomic, no fences: a variant
-constexpr bool kNoTicket = false;        // every close stores its sums as y: a variant
 
 // One ring stage for MT 8-row tiles of x, each part a TMA box (1024-byte
 // aligned, as the 128-byte swizzle needs): the nibbles [64 packed rows]
@@ -562,7 +595,7 @@ __device__ __forceinline__ void close_segment(const Int4Params& p, const float* 
       for (int ww = 0; ww < kWarps; ++ww) v[m] += red[(ww * ROWS + m) * kCols + tid];
   }
   const int tb = T * ks, te = tb + ks;
-  if (kNoTicket || (sa == tb && sb == te)) {  // the whole tile
+  if (sa == tb && sb == te) {  // the whole tile
     if (col < p.N)
 #pragma unroll
       for (int m = 0; m < ROWS; ++m)
@@ -573,24 +606,19 @@ __device__ __forceinline__ void close_segment(const Int4Params& p, const float* 
 #pragma unroll
     for (int m = 0; m < ROWS; ++m)
       if (m < p.M) p.part[slot * slot_floats + m * kCols + tid] = v[m];
-    // the block's part is written; one fence orders it before the ticket,
-    // in the last warp: a fence waits for its thread's copies in flight,
-    // and warp 0's lanes keep the ring's TMA boxes in flight
+    // the block's part is written; one atomic with release and acquire
+    // semantics (after the barrier, so it orders the whole block's part)
+    // takes the ticket, in the last warp: warp 0 keeps the ring's TMA
+    // boxes in flight (a fence and an atomic there measured 1% slower)
     __syncthreads();
     const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
-    if (tid == kThreads - 1) {
-      if constexpr (kAcqRelTicket) {  // release this block's part, acquire the others'
-        int old;
-        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                     : "=r"(old)
-                     : "l"(p.counters + T)
-                     : "memory");
-        last = old == bl - bf;
-      } else {
-        if constexpr (!kNoFence) __threadfence();
-        last = atomicAdd(p.counters + T, 1) == bl - bf;
-        if (!kNoFence && last) __threadfence();  // every other block's part, after their tickets
-      }
+    if (tid == kThreads - 1) {  // release this block's part, acquire the others'
+      int old;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(old)
+                   : "l"(p.counters + T)
+                   : "memory");
+      last = old == bl - bf;
     }
     __syncthreads();
     if (last) {  // row tid / 32 (+ 4 k) of columns 4 (tid % 32) .. + 3, PB parts at a time
@@ -702,15 +730,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         const int sh = 4 * half;
         const uint32_t v01 = __byte_perm(r[0][i >> 1], r[1][i >> 1], sel) >> sh;
         const uint32_t v23 = __byte_perm(r[2][i >> 1], r[3][i >> 1], sel) >> sh;
+        const float s0 = (i & 1) ? sc[i >> 1].z : sc[i >> 1].x;  // column 2i
+        const float s1 = (i & 1) ? sc[i >> 1].w : sc[i >> 1].y;  // column 2i + 1
         uint32_t a[4];
-        if constexpr (kRawWeights) {
-          a[0] = v01, a[1] = v01 >> 8, a[2] = v23, a[3] = v23 >> 8;
-        } else {
-          const float s0 = (i & 1) ? sc[i >> 1].z : sc[i >> 1].x;  // column 2i
-          const float s1 = (i & 1) ? sc[i >> 1].w : sc[i >> 1].y;  // column 2i + 1
-          a[0] = scale_pair(nib_pair(v01), s0, s0), a[1] = scale_pair(nib_pair(v01 >> 8), s1, s1);
-          a[2] = scale_pair(nib_pair(v23), s0, s0), a[3] = scale_pair(nib_pair(v23 >> 8), s1, s1);
-        }
+        a[0] = scale_pair(nib_pair(v01), s0, s0), a[1] = scale_pair(nib_pair(v01 >> 8), s1, s1);
+        a[2] = scale_pair(nib_pair(v23), s0, s0), a[3] = scale_pair(nib_pair(v23 >> 8), s1, s1);
 #pragma unroll
         for (int jt = 0; jt < MT; ++jt) vr2::mma_bf16_16816(acc[i][jt], a, xf[jt].x, xf[jt].y);
       }
@@ -757,11 +781,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     for (; u0 + s < sb; ++s) {
       const unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
       vr2::mbar_wait(full + s % R::STAGES, (s / R::STAGES) & 1);
-      if constexpr (!kNoCompute) compute(st);
+      compute(st);
       __syncthreads();  // every warp is past the slot
       if (tid < 32 && s + R::STAGES < n) fill(s + R::STAGES);
     }
-    if constexpr (!kNoClose) flush(T, sa, sb);
+    flush(T, sa, sb);
     sa = sb;
   }
 }
@@ -782,16 +806,20 @@ inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, int ran
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the shared memory and the carveout that keep kBlocksPerSm blocks an SM
+// the shared memory and the carveout that keep kBlocksPerSm blocks an SM,
+// set once a device
 template <int MT>
 cudaError_t configure() {
-  cudaError_t err = cudaFuncSetAttribute(int4_decode_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Ring<MT>::SMEM);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(int4_decode_kernel<MT>,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              int(cudaSharedmemCarveoutMaxShared));
+  static std::atomic<uint64_t> done{0};
+  return once_per_device(done, [] {
+    cudaError_t err = cudaFuncSetAttribute(int4_decode_kernel<MT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Ring<MT>::SMEM);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(int4_decode_kernel<MT>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  });
 }
 
 template <int MT>
@@ -866,16 +894,16 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_f32_kernel(
 // decode kernel on that many blocks (M <= 16, 16 | N, 64 | g, 128 | K; at
 // most one block a step of 64 packed rows x 128 columns), part an fp32
 // workspace of 2 blocks M 128 floats and counters one int a 128-column
-// tile, all 0 (the launch leaves them 0). blocks = 0: the staged kernel, its K stages (32
-// packed rows each) cut into `splits` ranges, one per grid z; with splits >
-// 1, part is an fp32 [splits, M, N] workspace and counters one int per
-// (column block, row block) tile, all 0. Returns a cudaError_t.
+// tile, all 0 (the launch leaves them 0). blocks = 0: the staged kernel, its
+// K stages (32 packed rows each) cut into `splits` ranges (at most 16), one
+// per grid z, the splits of a tile one cluster; part and counters unused.
+// Returns a cudaError_t.
 extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale, void* y,
                                int M, int K, int N, int g, int splits, void* part,
                                void* counters, int blocks, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || g <= 0 || K % (2 * kKS) != 0 || (K / 2) % g != 0 ||
-      splits <= 0 || splits > K / (2 * kKS) || blocks < 0 ||
-      ((splits > 1 || blocks > 0) && (part == nullptr || counters == nullptr)))
+      splits <= 0 || splits > K / (2 * kKS) || splits > kMaxSplits || blocks < 0 ||
+      (blocks > 0 && (part == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
   const Int4Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
                      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
@@ -894,9 +922,10 @@ extern "C" int vr2_int4_matmul(const void* x, const void* wq, const void* scale,
   return int(launch_rows<4>(p, st));
 }
 
-// The decode kernel's resident blocks an SM (the occupancy calculator's
-// count, which the wrapper's plan takes to be kBlocksPerSm) for 8 and 16
-// rows of x into out[0], out[1]. Returns a cudaError_t.
+// The decode kernel's resident blocks an SM on the current device (the
+// occupancy calculator's count, which the wrapper's stream-K plan takes as
+// its blocks an SM) for 8 and 16 rows of x into out[0], out[1]. Returns a
+// cudaError_t.
 extern "C" int vr2_int4_matmul_layout(int* out) {
   cudaError_t err;
   if ((err = dec::configure<1>()) != cudaSuccess ||

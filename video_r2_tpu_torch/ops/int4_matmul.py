@@ -19,7 +19,8 @@ through an fp32 CUDA-core path; bf16 x of at most 16 rows over weights of
 down and head of the presets) through the decode kernel on the stream-K
 plan of `int4_decode_plan`; other bf16 x through the staged kernel, split
 over K in the same launch where `int4_split_plan` finds that the grid does
-not fill the card), outside autograd, and raises on anything
+not fill the card, a tile's splits one thread-block cluster), outside
+autograd, and raises on anything
 the kernel does not take; on CPU tensors
 it runs `int4_matmul_plain`, the JAX package's CPU path (dequantise to x's
 dtype, then one matmul). Which calls reach the wrapper is the reference's
@@ -42,15 +43,16 @@ KERNEL_K = 64             # K must be a multiple of this (a stage: 32 packed row
 KERNEL_MAX_ROWS = 1024    # the reference's row limit for its kernel
 KERNEL_COLUMNS = 64       # output columns of a staged kernel's block
 SPLIT_MIN_STAGES = 4      # split-K keeps at least this many stages a split
+SPLIT_MAX = 16            # ... and makes at most this many (a tile's splits are one cluster)
 DECODE_MAX_ROWS = 16      # the decode kernel's rows of x at most
 DECODE_COLUMNS = 128      # output columns of a decode tile
 DECODE_STEP_ROWS = 64     # packed rows of a step (16 a warp); 64 | K/2 and 64 | g
-DECODE_BLOCKS_PER_SM = 3  # resident decode blocks an SM (their shared memory allows 3)
-DECODE_MIN_STEPS = 1      # steps a decode block takes at least
+DECODE_TILE_ROWS = 8      # rows of an x tile of the decode kernel (its instances hold 1 or 2)
 # packed bytes (K/2 x N) from which the decode kernel takes a shape: below,
 # its cross-block closes cost more than the staged kernel's split-K (the
-# 7B's q / o, 6.4 MB: 0.0125-0.0131 device ms against 0.0110-0.0114, and
-# k / v the same either way; gate / up, down and the head read 34-272 MB:
+# 7B's q / o, 6.4 MB: 0.0125-0.0131 device ms against 0.0110-0.0114 with
+# the ticket close, 0.0097-0.0098 with the cluster close, and k / v the
+# same either way then, 0.0060 now; gate / up, down and the head, 34-272 MB:
 # 0.028-0.16 against 0.037-0.19. scripts/bench_int4_ffn.py, --staged for
 # the staged kernel, on an H100 80GB HBM3 at 700 W)
 DECODE_MIN_BYTES = 16 << 20
@@ -106,35 +108,39 @@ def int4_split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, list[tuple[i
     range [begin, end) of each split). A stage is 32 packed rows (64 k).
     S = 1 where the (column blocks x row blocks) grid already fills the
     card; otherwise S brings the grid to about SPLIT_BLOCKS_PER_SM blocks an
-    SM, capped so that each split keeps SPLIT_MIN_STAGES stages. The ranges
+    SM, capped so that each split keeps SPLIT_MIN_STAGES stages and at
+    SPLIT_MAX (a tile's splits are one thread-block cluster). The ranges
     are the kernel's own (grid z): consecutive, their lengths differing by
     at most one stage."""
     stages = K // KERNEL_K
     blocks = int4_tiles(M, N)
     S = 1
     if blocks < sms:
-        S = max(1, min(-(-SPLIT_BLOCKS_PER_SM * sms // blocks), stages // SPLIT_MIN_STAGES))
+        S = max(1, min(-(-SPLIT_BLOCKS_PER_SM * sms // blocks), stages // SPLIT_MIN_STAGES,
+                       SPLIT_MAX))
     base, rem = divmod(stages, S)
     return S, [(z * base + min(z, rem), (z + 1) * base + min(z + 1, rem)) for z in range(S)]
 
 
-def int4_decode_plan(M: int, K: int, N: int, g: int, sms: int) -> tuple[int, int, int] | None:
+def int4_decode_plan(M: int, K: int, N: int, g: int, sms: int,
+                     resident: int) -> tuple[int, int, int] | None:
     """The decode kernel's stream-K plan for x [M, K] @ [K, N] with group g
-    on a card of `sms` SMs: (blocks, tiles, steps), or None where the
-    decode kernel does not take the shape (more than DECODE_MAX_ROWS rows,
-    fewer than DECODE_MIN_BYTES packed bytes, N not a multiple of 16, K/2
-    or g not a multiple of DECODE_STEP_ROWS). A
-    step is DECODE_STEP_ROWS packed rows of a tile of DECODE_COLUMNS output
-    columns; the steps of all tiles, tile after tile, are cut into `blocks`
-    ranges (`int4_decode_ranges`), DECODE_BLOCKS_PER_SM an SM, so every SM
-    reads the same bytes to within a step a block, or fewer blocks where
-    there are too few steps for DECODE_MIN_STEPS a block."""
+    on a card of `sms` SMs that keeps `resident` decode blocks an SM (the
+    kernel's own count: `int4_decode_resident`): (blocks, tiles, steps), or
+    None where the decode kernel does not take the shape (more than
+    DECODE_MAX_ROWS rows, fewer than DECODE_MIN_BYTES packed bytes, N not a
+    multiple of 16, K/2 or g not a multiple of DECODE_STEP_ROWS). A step is
+    DECODE_STEP_ROWS packed rows of a tile of DECODE_COLUMNS output columns;
+    the steps of all tiles, tile after tile, are cut into `blocks` ranges
+    (`int4_decode_ranges`), `resident` an SM, so every SM reads the same
+    bytes to within a step a block, or a step a block where there are fewer
+    steps."""
     if (M > DECODE_MAX_ROWS or K // 2 * N < DECODE_MIN_BYTES or N % 16
             or g % DECODE_STEP_ROWS or (K // 2) % DECODE_STEP_ROWS):
         return None
     tiles = -(-N // DECODE_COLUMNS)
     steps = tiles * (K // 2 // DECODE_STEP_ROWS)
-    blocks = max(1, min(DECODE_BLOCKS_PER_SM * sms, steps // DECODE_MIN_STEPS))
+    blocks = min(resident * sms, steps)
     return blocks, tiles, steps
 
 
@@ -146,23 +152,31 @@ def int4_decode_ranges(steps: int, blocks: int) -> list[tuple[int, int]]:
 
 @functools.lru_cache(maxsize=256)
 def _launch_plan(M: int, K: int, N: int, g: int, index: int) -> tuple[int, int, int]:
-    """(blocks, splits, counters) of a bf16 launch on card `index`: the
-    decode kernel's blocks (0: the staged kernel), the staged kernel's split
-    plan at the card's SM count, and the tile counters either needs.
-    Cached: a decode step makes ~200 calls of a few shapes."""
+    """(blocks, splits, tiles) of a bf16 launch on card `index`: the decode
+    kernel's blocks and tiles (each tile a counter), or 0 blocks and the
+    staged kernel's split plan at the card's SM count. Cached: a decode step
+    makes ~200 calls of a few shapes."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    plan = int4_decode_plan(M, K, N, g, sms)
+    plan = None
+    if M <= DECODE_MAX_ROWS:
+        resident = int4_decode_resident(index)[M > DECODE_TILE_ROWS]
+        plan = int4_decode_plan(M, K, N, g, sms, resident)
     if plan is not None:
         return plan[0], 1, plan[1]
-    return 0, int4_split_plan(M, K, N, sms)[0], int4_tiles(M, N)
+    return 0, int4_split_plan(M, K, N, sms)[0], 0
 
 
-def int4_decode_resident() -> tuple[int, int]:
-    """The decode kernel's resident blocks an SM on the current card, for 8
-    and 16 rows of x (the occupancy calculator's; `int4_decode_plan` takes
-    DECODE_BLOCKS_PER_SM)."""
+@functools.lru_cache(maxsize=16)
+def int4_decode_resident(index: int) -> tuple[int, int]:
+    """The decode kernel's resident blocks an SM on card `index`, for up to
+    8 and up to 16 rows of x (the occupancy calculator's, of the kernel as
+    built: its shared memory and launch bounds set the count, and
+    `int4_decode_plan` takes it from here)."""
     out = (ctypes.c_int * 2)()
-    check(kernels().vr2_int4_matmul_layout(out), "int4 decode kernel layout")
+    with torch.cuda.device(index):
+        check(kernels().vr2_int4_matmul_layout(out), "int4 decode kernel layout")
+    if min(out) < 1:
+        raise RuntimeError(f"int4 decode kernel: {tuple(out)} blocks resident an SM")
     return out[0], out[1]
 
 
@@ -224,8 +238,6 @@ def _int4_cuda(x, wq, scale):
         part = counters = None
         if blocks:      # two parts of M x DECODE_COLUMNS a block
             part, counters = split_workspace(dev, stream, 2 * blocks * M * DECODE_COLUMNS, tiles)
-        elif S > 1:
-            part, counters = split_workspace(dev, stream, S * M * N, tiles)
         err = kernels().vr2_int4_matmul(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, g, S,
             None if part is None else part.data_ptr(),

@@ -2,12 +2,13 @@
 
 Where a kernel's natural grid leaves most of the card idle, the work is
 split across more blocks in the same launch: the int4 matmul's staged
-kernel splits its K (``int4_matmul.int4_split_plan``) and its decode kernel
-cuts every tile's steps into stream-K ranges, a block each
-(``int4_matmul.int4_decode_plan``), the decode-attention kernels
-(``csrc/decode_attn.cu``, ``csrc/paged_attn.cu``, through
-``csrc/split_decode.cuh``) the key range of each (sequence, kv head). Each
-split writes fp32 partials to a workspace and takes a ticket on its tile's
+kernel splits its K (``int4_matmul.int4_split_plan``; a tile's splits are
+one thread-block cluster and add their sums through its shared memory, with
+no workspace), its decode kernel cuts every tile's steps into stream-K
+ranges, a block each (``int4_matmul.int4_decode_plan``), and the
+decode-attention kernels (``csrc/decode_attn.cu``, ``csrc/paged_attn.cu``,
+through ``csrc/split_decode.cuh``) the key range of each (sequence, kv
+head). Each of these last two writes fp32 partials to a workspace and takes a ticket on its tile's
 counter; the last one combines the partials in a fixed order and sets the
 counter back to 0, so every launch leaves the counters 0 and kernels on one
 stream can share one workspace.
