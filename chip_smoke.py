@@ -68,9 +68,10 @@
    W8A8 prefill and its decode (T = 4: 32 slots of 8 rows), the paged
    pass's decode (T = 8: 64 slots of 8 rows); then the fp32 instance (fp32
    x over fp32 copies of the weights: ragged decode T = 16, GMM prefill
-   T = 512) within FP32_TOL; each case prints the kernels it ran (wgmma,
-   the decode kernel, mma.sync or fp32), their tile widths, blocks and
-   registers;
+   T = 512) within FP32_TOL; each int8-weight ragged decode case (T = 16,
+   4, 8) also times the bf16 decode kernel at its routing; each case prints
+   the kernels it ran (wgmma, the decode kernel, mma.sync or fp32), their
+   tile widths, blocks and registers;
 11. the judge: every 7B tensor of phases 1-9 freed, Qwen3-30B-A3B
    (qwen3_moe_30b_a3b(), 48 layers, all widths) built in bf16 with seeded
    random weights on the card; EngineJudge(ChatEngine(..., attn_impl=
@@ -172,7 +173,10 @@
    with the bound and the library calls (convert + torch.matmul x scale,
    the dispatcher's own path above its row limit; torch._weight_int8pack_mm
    where the card's torch takes it), the kernel and convert + matmul also
-   in a CUDA graph (device times); the kernel against convert + matmul at
+   in a CUDA graph (device times); where the decode kernel takes a shape,
+   its plan (a tile's K split over a thread-block cluster) and the staged
+   kernel's times, held against the plain version too; the kernel against
+   convert + matmul at
    M = 1 to 1024 at gate / up and q, the measurement behind
    INT8_KERNEL_MAX_ROWS; then scripts/microbench_int8.py's comparison at its
    shape (M 64, K 3584, N 18944, L 28): one all-layers launch, 28 stacked
@@ -188,7 +192,9 @@
    generate(attn_impl="flash", kv_quant="int8") of 64 greedy tokens, eos
    off, weight-only, with the launch counts set to 0 before and read after
    (the int8 kernel's count derived from the rows each linear sees and
-   INT8_KERNEL_MAX_ROWS, asserted); prefill ms, ms per decode step, tok/s;
+   INT8_KERNEL_MAX_ROWS, and its decode kernel's from the shapes alone:
+   every linear and the head at up to 16 rows, both asserted); prefill ms,
+   ms per decode step, tok/s;
    request 0's logits after prefill and after one decode step, kernel path
    vs plain path (the int8 kernel's plain version, plain prefill and ViT
    attention); the batch's logits after one decode step over the int8 cache
@@ -459,16 +465,24 @@ def ffn_launches() -> dict:
 
 
 def reset_launches() -> None:
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
+
     for fn in counters().values():
         fn.launches = 0
+    int8_matmul.decode_launches = 0
     for variant in ffn_launches():
         ffn_launches()[variant] = 0
 
 
 def read_launches() -> dict:
-    """Every wrapper's count; the grouped FFN's per variant, as moe_ffn_<variant>."""
+    """Every wrapper's count; the grouped FFN's per variant, as
+    moe_ffn_<variant>; the int8 matmul's launches of its decode kernel as
+    int8_matmul_decode (of int8_matmul's)."""
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
+
     out = {name: fn.launches for name, fn in counters().items()}
     out.update({f"moe_ffn_{v}": n for v, n in ffn_launches().items()})
+    out["int8_matmul_decode"] = int8_matmul.decode_launches
     return out
 
 
@@ -834,7 +848,7 @@ def register_report(log: Path) -> list[str]:
                       r"window_attn_bwd_kernel|moe_gate_up_kernel|moe_down_kernel|"
                       r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|moe_decode_kernel|"
                       r"gmm_bwd_terms_kernel|gmm_bwd_dx_kernel|gmm_bwd_dw_wgmma_kernel|"
-                      r"int4_matmul_kernel|"
+                      r"int4_matmul_kernel|int4_decode_kernel|int8_decode_kernel|"
                       r"int4_matmul_f32_kernel|int8_matmul_kernel|tc_kernel|f32_kernel)"
                       r"I(\w+)'", line)
         if m:
@@ -2112,12 +2126,13 @@ def ffn_launch_line(variant: str, A: int, C: int, H: int, I: int) -> str:
     if path == 2:
         rows, gu, dn = tiles
         nt = rows // 8
-        kgu = f"moe_decode_kernel<{nt},{gu // 64},2>"
-        kdn = f"moe_decode_kernel<{nt},{dn // 64},1>"
-        return (f"decode: tokens in boxes of {rows} rows; gate / up {gu} columns of I, "
-                f"{A * (I // gu)} blocks, {REGISTERS.get(kgu, 'registers not reported')}; "
-                f"down {dn} columns of H, {A * (H // dn)} blocks, "
-                f"{REGISTERS.get(kdn, 'registers not reported')}")
+        box = 128 if mode == 1 else 64       # a weight box's columns: 128 bytes
+        kgu = f"moe_decode_kernel<{nt},{gu // box},2,{mode}>"
+        kdn = f"moe_decode_kernel<{nt},{dn // box},1,{mode}>"
+        return (f"decode ({variant}): tokens in boxes of {rows} rows; gate / up {gu} "
+                f"columns of I, {A * -(-I // gu)} blocks, "
+                f"{REGISTERS.get(kgu, 'registers not reported')}; down {dn} columns of H, "
+                f"{A * -(-H // dn)} blocks, {REGISTERS.get(kdn, 'registers not reported')}")
     if path == 1:
         rows, gu, dn = tiles
         wg = rows // 64
@@ -2215,6 +2230,11 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
          **moe_bound(T * k, n_exp, H, I, variant)}
     if layout == "ragged":
         r["device_ms"] = graph_ms(run)
+        if variant == "int8":   # the bf16 decode kernel at the same routing, and its bound
+            bg, bu, bd = (layer["bf16"][n] for n in ("gate", "up", "down"))
+            same = lambda: ragged_expert_ffn(xs, ids, bg, bu, bd, blk_valid=valid)  # noqa: E731
+            r["bf16_kernel_ms"], r["bf16_kernel_device_ms"] = cuda_ms(same), graph_ms(same)
+            r["bf16_bound_ms"] = moe_bound(T * k, n_exp, H, I, "bf16")["bound_ms"]
         if library is not None:
             try:       # a capability probe of the yardstick, not of the port
                 r["library_device_ms"] = graph_ms(library)
@@ -2225,7 +2245,9 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     what = f"{variant} {'ragged decode' if layout == 'ragged' else 'GMM prefill'}, T={T}"
     report(name, what, (A, C, H, I), experts=n_exp, slack_blocks=slack, bi=bi,
            launches=ffn_launches()[variant] - before,
-           **{k_: v for k_, v in r.items() if v is not None})
+           **{k_: v for k_, v in r.items() if v is not None},
+           **({"library": "none: no single PyTorch call computes it"}
+              if variant == "int8" else {}))
     if not (torch.isfinite(out).all() and excess <= 1.0 and not out[valid == 0].any()):
         raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
@@ -2358,7 +2380,8 @@ class FfnRecorder:
     a timed pass runs with keep=False (a dict insert per call, no copies, no
     memory), and a short replay of it (the same prompts, 2 new tokens: its
     prefill and a decode step) with keep=True. Shares the wrapper's launch
-    counts."""
+    counts, and counts the calls of each (variant, csrc/moe_ffn.cu path)
+    in `paths` (ffn_kernel_path: 2 is the decode kernel)."""
 
     def __init__(self, keep: bool):
         from video_r2_tpu_torch.ops import moe_ragged
@@ -2367,9 +2390,19 @@ class FfnRecorder:
         self.launches = self.real.launches
         self.keep = keep
         self.calls = {}
+        self.paths = {}
 
     def __call__(self, x, ids, gate, up, down, block_i=512, blk_valid=None, x_scales=None):
+        import torch
+
+        from video_r2_tpu_torch.ops.moe_ragged import _weights, ffn_kernel_path
+
         variant = "w8a8" if x_scales is not None else "int8" if "kernel_q" in gate else "bf16"
+        mode = {"bf16": 0, "int8": 1, "w8a8": 2}[variant]
+        path = ffn_kernel_path(mode, x.shape[1], x.shape[2],
+                               _weights(gate, up, down)[1].shape[-1],
+                               x.dtype == torch.float32)[0]
+        self.paths[(variant, path)] = self.paths.get((variant, path), 0) + 1
         key = (variant, *x.shape[:2])
         if key not in self.calls:
             keep = lambda t: None if t is None else t.clone()  # noqa: E731
@@ -3099,8 +3132,11 @@ def judge_phase(card: str, device) -> dict:
     agree = float((got8.argmax(-1) == ref8.argmax(-1)).float().mean())
     print(f"judge int8 (W8A8 prefill, int8-weight decode): {len(answers8)} requests in "
           f"{wall8:.3f} s; prefill logits vs the bf16 model rel_l2={rel8:.3e} (tol "
-          f"{JUDGE_INT8_TOL}), argmax agreement {agree:.2f}; launches {launches8}",
-          flush=True)
+          f"{JUDGE_INT8_TOL}), argmax agreement {agree:.2f}; launches {launches8}; calls by "
+          f"(variant, path) {timed8.paths}", flush=True)
+    if timed8.paths.get(("int8", 2), 0) != launches8["moe_ffn_int8_ragged"]:
+        raise AssertionError(f"the int8 pass's ragged decode did not all take the decode "
+                             f"kernel (path 2): {timed8.paths}, {launches8}")
     if not (torch.isfinite(got8).all() and rel8 <= JUDGE_INT8_TOL):
         raise AssertionError(f"W8A8 judge logits disagree with bf16: {rel8}")
     for name in ("moe_ffn_w8a8_gmm", "moe_ffn_int8_ragged"):
@@ -3142,7 +3178,11 @@ def judge_phase(card: str, device) -> dict:
     n_tok = sum(len(t) for t in out.values())
     print(f"judge paged engine (int8 weights, bf16 pages): {len(out)} requests, {n_tok} "
           f"tokens in {wallp:.3f} s ({n_tok / wallp:.2f} tok/s, {windows} windows of "
-          f"{DECODE_STEPS}); launches {launchesp}", flush=True)
+          f"{DECODE_STEPS}); launches {launchesp}; calls by (variant, path) {timedp.paths}",
+          flush=True)
+    if timedp.paths.get(("int8", 2), 0) < launchesp["moe_ffn_int8_ragged"]:
+        raise AssertionError(f"the paged pass's ragged decode did not all take the decode "
+                             f"kernel (path 2): {timedp.paths}, {launchesp}")
     if None in rids or len(out) != JUDGE_PAGED_REQUESTS:
         raise AssertionError(f"paged judge pass lost requests: {rids}, {len(out)} done")
     if eng.pcache.available_pages() != avail0:
@@ -3220,14 +3260,29 @@ def rotation(x, wq, scale, copies: int):
     return rot
 
 
+def int8_plan(M: int, K: int, N: int):
+    """The decode kernel's splits of a tile's K on this card, or None where
+    the plan refuses the shape (the staged kernel's)."""
+    import torch
+
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    if not hasattr(m, "_decode_plan"):     # a port without the decode kernel
+        return None
+    return m._decode_plan(M, K, N, torch.cuda.current_device())
+
+
 def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict:
     """The int8 kernel at one shape against its plain version, cold weights;
     full: also the plain version's and _weight_int8pack_mm's times (else
-    the kernel and convert + matmul only, for the row-limit table)."""
+    the kernel and convert + matmul only, for the row-limit table), and
+    where the decode kernel takes the shape its plan (splits of a tile's K)
+    and the staged kernel's times (held against the plain version too)."""
     import math
 
     import torch
 
+    from video_r2_tpu_torch.ops import int8_matmul as m
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 
     wq, sc = int8_weights(gen, K, N)
@@ -3252,13 +3307,26 @@ def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict
         else:
             nk = rotation(x, wq.t().contiguous(), sc.to(x.dtype), copies)
             extra["int8pack_ms"] = cuda_ms(nk(pack))
+            try:   # a capability probe of the yardstick, not of the port
+                extra["int8pack_device_ms"] = graph_ms(nk(pack))
+            except RuntimeError as e:
+                extra["int8pack_device"] = f"none ({str(e).splitlines()[0][:120]})"
+        splits = int8_plan(M, K, N)
+        extra["kernel"] = "staged" if splits is None else "decode"
+        if splits is not None:   # the staged kernel, in the same run
+            extra["plan"] = f"{N // m.DECODE_COLUMNS * splits} blocks x {splits} splits"
+            staged = lambda a, w, s_: m._launch(  # noqa: E731
+                "vr2_int8_matmul", a, w, s_, (), False)
+            excess = max(excess, compare(staged(x, wq, sc), ref)[1])
+            extra["staged_ms"] = cuda_ms(rot(staged))
+            extra["staged_device_ms"] = graph_ms(rot(staged))
     report("int8_matmul", what, (M, K, N), copies=copies, **r, **extra)
     if not (torch.isfinite(out).all() and excess <= 1.0):
         raise AssertionError(f"int8_matmul [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
     del out, ref, rot
     torch.cuda.empty_cache()
-    return r
+    return {**r, **extra}
 
 
 def micro_phase(gen) -> dict:
@@ -3416,6 +3484,22 @@ def int8_expected_launches(cfg, reqs, B: int, S: int, T: int) -> tuple[int, str]
     return sum(parts.values()), ", ".join(f"{k} {v}" for k, v in parts.items())
 
 
+def int8_expected_decode(cfg, B: int, T: int) -> int:
+    """Of int8_expected_launches, those the decode kernel takes, from the
+    shapes alone (not from the wrapper's plan, so a plan that refused a 7B
+    shape fails the count): at 1 to 16 rows every decode step's 7 linears
+    a layer and the head, and the prefill's head, as the 7B's widths are
+    multiples of 128 with K of at least 4 steps of 64."""
+    tc = cfg.text
+    H, I, V = tc.hidden_size, tc.intermediate_size, tc.vocab_size
+    qd, kvd = tc.num_attention_heads * tc.head_dim, tc.num_key_value_heads * tc.head_dim
+    shapes = ((H, qd), (H, kvd), (H, kvd), (qd, H), (H, I), (H, I), (I, H), (H, V))
+    if not (0 < B <= 16 and all(N % 128 == 0 and K % 64 == 0 and K >= 256
+                                for K, N in shapes)):
+        return 0
+    return (T - 1) * (7 * tc.num_hidden_layers + 1) + 1
+
+
 def int8_request_check(model, runner, req, T: int) -> None:
     """Request 0 alone on the int8 model over an int8 cache, kernel path vs
     plain path (set_kernel_impl "plain", prefill and ViT attention "xla"):
@@ -3561,12 +3645,13 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
     steps = len(marks) - 1
     dec_s = t_end - marks[1]
     want, parts = int8_expected_launches(cfg, reqs, B, S, T)
+    want_dec = int8_expected_decode(cfg, B, T)
     print(f"int8 serving (a): {B} videos, prompt lengths {packed.lengths.tolist()} padded to "
           f"{S}, {T} greedy tokens each (eos off), weight-only, int8 KV: ViT {vit_ms:.1f} ms "
           f"({B} videos), prefill {(marks[1] - marks[0]) * 1e3:.1f} ms, {steps} decode steps "
           f"of {dec_s / steps * 1e3:.2f} ms, {B * steps / dec_s:.2f} tok/s, peak device "
-          f"memory {peak:.2f} GiB; launches {counted} (int8 expected {want}: {parts}) | "
-          f"{card}", flush=True)
+          f"memory {peak:.2f} GiB; launches {counted} (int8 expected {want}: {parts}; of them "
+          f"on the decode kernel {want_dec}) | {card}", flush=True)
     if res.sequences.shape != (B, T) or steps != T - 1:
         raise AssertionError(f"int8 generate: {res.sequences.shape} tokens, {steps} steps")
     if not ((res.sequences >= 0) & (res.sequences < cfg.text.vocab_size)).all():
@@ -3574,10 +3659,14 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
     if counted["int8_matmul"] != want:
         raise AssertionError(f"the int8 slice launched {counted['int8_matmul']} int8 "
                              f"kernels, not {want} ({parts})")
+    if counted["int8_matmul_decode"] != want_dec or not want_dec:
+        raise AssertionError(f"the int8 slice launched {counted['int8_matmul_decode']} int8 "
+                             f"decode kernels, not {want_dec}")
     for name in ("flash_attention", "window_attention"):
         if counted[name] <= 0:
             raise AssertionError(f"the int8 slice launched no {name} kernel")
     launches["int8_matmul"] = counted["int8_matmul"]
+    launches["int8_matmul_decode"] = counted["int8_matmul_decode"]
 
     int8_request_check(model, runner, reqs[0], T)
     ids_t = torch.as_tensor(packed.input_ids, device=device).long()
@@ -3701,7 +3790,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
+            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r},
+            **({"decode_launches": launches["int8_matmul_decode"]}
+               if name == "int8_matmul" else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

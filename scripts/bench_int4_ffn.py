@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""The int4 matmul at the 7B's decode shapes and the bf16 grouped expert FFN
-at the judge's GMM prefill, on one NVIDIA GPU: each against its plain
-version, timed with CUDA events beside one library call and the bound.
+"""The int4 and int8 matmuls at the 7B's decode shapes and the bf16 grouped
+expert FFN at the judge's GMM prefill, on one NVIDIA GPU: each against its
+plain version, timed with CUDA events beside one library call and the bound.
 
     python3 scripts/bench_int4_ffn.py                  # this checkout's port
     python3 scripts/bench_int4_ffn.py --root DIR       # another checkout's
     python3 scripts/bench_int4_ffn.py --step           # and an int4 decode step
-    python3 scripts/bench_int4_ffn.py --cases int4     # a subset: int4, ffn
+    python3 scripts/bench_int4_ffn.py --cases int4     # a subset: int4, int8, ffn
     python3 scripts/bench_int4_ffn.py --cases int4 --shapes 'decode q,decode k / v'
+    python3 scripts/bench_int4_ffn.py --cases int8 --eager  # host-inclusive times
 
 Shapes: the int4 kernel at B = 4 rows for the 7B's q, k / v, o, gate / up
 and down, at B = 1 for gate / up and the head, and at the merger's 784
 rows for fc1 (chip_smoke.py phase 12's cases: seeded weights quantized by
 quantize_kernel_int4, copies rotating past the L2 cache so each launch reads
-cold weights; the library call torch._weight_int4pack_mm); the grouped FFN
+cold weights; the library call torch._weight_int4pack_mm); the int8 kernel
+at B = 16 and B = 1 for q / o, k / v, gate / up, down and the head
+(chip_smoke.py phase 16's decode cases: chip_smoke.int8_case, with its
+decode plan and the staged kernel's times where the port has a decode
+kernel, convert + matmul and torch._weight_int8pack_mm, eager and device
+ms; with --eager instead the port's int8_matmul eager as a decode loop
+calls it, host time included: EAGER_REPS readings of EAGER_CALLS calls in a
+row, and where the port has a decode kernel its bare decode and staged
+launches the same way); the grouped FFN
 in bf16 at T = 4096 and 2048 tokens routed top 8 over the judge's 128
 experts (H 2048, I 768: phase 10's GMM prefill cases; the library call three
 torch._grouped_mm and the SwiGLU), with each of its kernels' device time
@@ -43,6 +52,12 @@ INT4_SHAPES = (("decode q", 4, 3584, 3584), ("decode k / v", 4, 3584, 512),
                ("decode o", 4, 3584, 3584), ("decode gate / up", 4, 3584, 18944),
                ("decode down", 4, 18944, 3584), ("B=1 gate / up", 1, 3584, 18944),
                ("B=1 head", 1, 3584, 152064), ("merger fc1", 784, 5120, 5120))
+# (what, rows, K, N): the 7B's int8 linears at decode, B = 16 and B = 1
+INT8_SHAPES = tuple((f"{b} {name}", M, K, N) for b, M in (("decode", 16), ("B=1", 1))
+                    for name, K, N in (("q / o", 3584, 3584), ("k / v", 3584, 512),
+                                       ("gate / up", 3584, 18944), ("down", 18944, 3584),
+                                       ("head", 3584, 152064)))
+EAGER_REPS, EAGER_CALLS = 7, 300
 FFN_TOKENS = (4096, 2048)
 STEP_LENGTHS = (1354, 1391, 1326, 1423)    # phase 13's prompt lengths
 
@@ -60,6 +75,39 @@ def kernel_us(fn, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     return {e.key[:80]: e.device_time_total / calls for e in prof.key_averages()
             if e.device_time_total > 0}
+
+
+def int8_eager(chip_smoke, gen, M: int, K: int, N: int) -> dict:
+    """{name: EAGER_REPS readings of ms a call}: the port's int8_matmul at x
+    [M, K] @ [K, N], EAGER_CALLS calls in a row on the next of chip_smoke's
+    cold copies of the weights, timed with CUDA events, so the host's time
+    a call counts where it is longer than the device's; and where the port
+    has a decode kernel, its bare decode and staged launches (the same
+    Python around both: the C side's host time apart)."""
+    import math
+
+    import torch
+
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    wq, sc = chip_smoke.int8_weights(gen, K, N)
+    x = torch.randn(M, K, generator=gen, device=gen.device).to(torch.bfloat16)
+    copies = max(1, math.ceil(chip_smoke.COLD_BYTES / (wq.numel() + 4.0 * sc.numel())))
+    rot = chip_smoke.rotation(x, wq, sc, copies)
+    fns = {"int8_matmul": m.int8_matmul}
+    splits = m._decode_plan(M, K, N, torch.cuda.current_device()) \
+        if hasattr(m, "_decode_plan") else None
+    if splits is not None:
+        fns["bare_decode"] = lambda a, w, s_: m._launch_decode(a, w, s_, splits)  # noqa: E731
+        fns["bare_staged"] = lambda a, w, s_: m._launch(  # noqa: E731
+            "vr2_int8_matmul", a, w, s_, (), False)
+    out = {name: [] for name in fns}
+    for _ in range(EAGER_REPS):     # the readings of each in turns
+        for name, fn in fns.items():
+            out[name].append(chip_smoke.cuda_ms(rot(fn), iters=EAGER_CALLS, warmup=copies))
+    del rot
+    torch.cuda.empty_cache()
+    return {"plan": "staged" if splits is None else f"decode, {splits} splits", **out}
 
 
 def decode_step_ms(device) -> list[float]:
@@ -139,12 +187,15 @@ def main() -> int:
                     help="the checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--step", action="store_true", help="also time an int4 decode step")
-    ap.add_argument("--cases", default="int4,ffn", help="comma-separated subset of int4, ffn")
+    ap.add_argument("--cases", default="int4,int8,ffn",
+                    help="comma-separated subset of int4, int8, ffn")
     ap.add_argument("--shapes", default=None,
                     help="int4: comma-separated subset of the shapes' names, as "
                          "'decode q,decode k / v'")
     ap.add_argument("--warm", action="store_true",
                     help="int4: one copy of the weights (L2-resident), not cold copies")
+    ap.add_argument("--eager", action="store_true",
+                    help="int8: the eager (host-inclusive) times alone")
     ap.add_argument("--staged", action="store_true",
                     help="int4: every shape on the staged kernel (no decode kernel)")
     args = ap.parse_args()
@@ -187,6 +238,23 @@ def main() -> int:
         if hasattr(int4_matmul, "int4_split_plan"):
             line["launch"] = chip_smoke.int4_launch_line(M, K, N, sms)
         print(json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
+    for what, M, K, N in INT8_SHAPES if "int8" in cases else ():
+        if args.shapes is not None and what not in args.shapes.split(","):
+            continue
+        if args.eager:
+            print(json.dumps({"label": args.label, "kernel": "int8_matmul eager", "what": what,
+                              "M": M, "K": K, "N": N,
+                              **int8_eager(chip_smoke, gen, M, K, N)}), flush=True)
+            continue
+        try:
+            r = chip_smoke.int8_case(gen, what, M, K, N)
+        except AssertionError as e:    # a variant that gives up the result
+            print(json.dumps({"label": args.label, "what": what, "error": str(e)}),
+                  flush=True)
+            continue
+        print(json.dumps({"label": args.label, "kernel": "int8_matmul", "what": what, "M": M,
+                          "K": K, "N": N, **r}), flush=True)
         torch.cuda.empty_cache()
     layer = judge_layer(device, chip_smoke.SEED + 3) if "ffn" in cases else None
     for T in FFN_TOKENS if "ffn" in cases else ():

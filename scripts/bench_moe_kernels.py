@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The MoE kernels of the PyTorch port at the judge's shapes, on one NVIDIA
-GPU: the bf16 ragged decode FFN and the GMM backward's dX and weight
-gradients, each timed eagerly and in a CUDA graph (device time) beside the
-library call timed both ways and the bound.
+GPU: the bf16 and int8-weight ragged decode FFN and the GMM backward's dX
+and weight gradients, each timed eagerly and in a CUDA graph (device time)
+beside the library call timed both ways (for int8 weights, which no single
+PyTorch call takes: the bf16 kernel at the same routing) and the bound.
 
     python3 scripts/bench_moe_kernels.py                 # this checkout's port
     python3 scripts/bench_moe_kernels.py --root DIR      # another checkout's
@@ -12,7 +13,8 @@ Shapes (Qwen3-30B-A3B: E 128, H 2048, I 768, top 8; one layer's weights,
 seeded and scaled like chip_smoke.py phase 10's): the grouped FFN (csrc/
 moe_ffn.cu) in the ragged decode table at phase 10's T = 16 (and phase 11's
 paged pass, T = 8), the library call three torch._grouped_mm and the
-SwiGLU over the routed rows; the bf16 GMM prefill FFN at T = 4096 (its
+SwiGLU over the routed rows; the same with the layer's int8 weights
+(quantize_kernel) at T = 16, 8 and 4 (phase 11's int8 pass); the bf16 GMM prefill FFN at T = 4096 (its
 wgmma kernels share the ring with dX); dX of the GMM backward (csrc/
 moe_gmm_bwd.cu) at phase 14's T = 4096 and phase 15's T = 2048, the
 library call chip_smoke.gmm_bwd_library's (five torch._grouped_mm and the
@@ -39,6 +41,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 DECODE_TOKENS = (16, 8)       # phase 10's ragged decode, phase 11's paged pass
+INT8_DECODE_TOKENS = (16, 8, 4)   # ... and phase 11's int8 pass
 PREFILL_TOKENS = 4096         # phase 10's GMM prefill
 DX_TOKENS = (4096, 2048)      # phases 14 and 15
 DW_TOKENS = 4096              # phase 14
@@ -104,9 +107,11 @@ def judge_layer(device, seed: int):
     return randw(H, E), leaves, gen
 
 
-def ffn_case(router, leaves, gen, T: int, layout: str) -> dict:
+def ffn_case(router, leaves, gen, T: int, layout: str, int8: dict | None = None) -> dict:
     """The bf16 grouped FFN at T tokens in the ragged table or the GMM
-    blocks: eager and device ms, the library's, the bound, its kernels."""
+    blocks: eager and device ms, the library's, the bound, its kernels; with
+    `int8` leaves (the ragged table only), the int8-weight FFN instead, the
+    bf16 kernel at the same routing in the library's place."""
     import torch
 
     import chip_smoke
@@ -121,20 +126,29 @@ def ffn_case(router, leaves, gen, T: int, layout: str) -> dict:
         xs, ids, valid, _ = moe_ragged.ragged_layout(x, topi, E)
     else:
         xs, ids, valid, _ = gmm_layout(x, topi, E, auto_block_rows(T * 8, E))
+    variant = "bf16" if int8 is None else "int8"
     g, u, d = (leaves[n] for n in ("gate", "up", "down"))
+    if int8 is None:
+        library = chip_smoke.grouped_mm_library(x, topi, leaves, E)
+    else:       # the yardstick: the bf16 kernel at the same routing
+        library = lambda g=g, u=u, d=d: moe_ragged.ragged_expert_ffn(  # noqa: E731
+            xs, ids, g, u, d, blk_valid=valid)
+        g, u, d = (int8[n] for n in ("gate", "up", "down"))
     run = lambda: moe_ragged.ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid)  # noqa: E731
     ref = moe_ragged.ragged_expert_ffn_plain(xs, ids, g, u, d, I, valid)
     err, excess = chip_smoke.compare(run(), ref)
-    library = chip_smoke.grouped_mm_library(x, topi, leaves, E)
     n_exp = int(torch.unique(topi).numel())
     r = {"ms": chip_smoke.cuda_ms(run), "device_ms": device_ms(run), "host_us": host_us(run),
          "library_ms": chip_smoke.cuda_ms(library) if library else None,
          "library_device_ms": device_ms(library) if library else None,
-         **chip_smoke.moe_bound(T * 8, n_exp, H, I, "bf16"),
+         **chip_smoke.moe_bound(T * 8, n_exp, H, I, variant),
          "max_abs_err": err, "excess": excess, "experts": n_exp,
          "shape": list(xs.shape), "kernels_us": kernel_us(run)}
+    if int8 is not None:
+        r["library"] = "the bf16 decode kernel at the same routing"
+        r["bf16_bound_ms"] = chip_smoke.moe_bound(T * 8, n_exp, H, I, "bf16")["bound_ms"]
     if hasattr(moe_ragged, "ffn_decode_tiles"):
-        r["launch"] = chip_smoke.ffn_launch_line("bf16", xs.shape[0], xs.shape[1], H, I)
+        r["launch"] = chip_smoke.ffn_launch_line(variant, xs.shape[0], xs.shape[1], H, I)
     return r
 
 
@@ -263,6 +277,14 @@ def main() -> int:
     for T in DECODE_TOKENS if "decode" in cases else ():
         emit("moe_ffn_bf16_ragged", f"ragged decode, T={T}",
              ffn_case(router, leaves, gen, T, "ragged"))
+    if "decode" in cases:
+        from video_r2_tpu_torch.models.quant import quantize_kernel
+
+        int8 = {n: quantize_kernel(leaf["kernel"]) for n, leaf in leaves.items()}
+        for T in INT8_DECODE_TOKENS:
+            emit("moe_ffn_int8_ragged", f"int8-weight ragged decode, T={T}",
+                 ffn_case(router, leaves, gen, T, "ragged", int8))
+        del int8
     if "prefill" in cases:
         emit("moe_ffn_bf16_gmm", f"GMM prefill, T={PREFILL_TOKENS}",
              ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm"))

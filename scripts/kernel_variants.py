@@ -18,14 +18,17 @@ kernel. The variants, and the sources whose text they match:
                        row-major like K (no transposing 2-byte stores)
   int4_nodequant_new   csrc/int4_matmul.cu of this tree: the decode
                        kernel's fragments are the raw weight words
-  int4_nocompute       the same source: the decode kernel's loads and tile
+  int4_nocompute       csrc/stream_k.cuh of this tree (the ring the int4
+                       and int8 decode kernels share; int8_nocompute is the
+                       same edit): the decode kernel's loads and tile
                        closes without its products
-  int4_noclose         the same source: the decode kernel without its tile
-                       closes (no y is written; ptxas then drops the
-                       products too, whose sums nothing reads: the loads
-                       alone)
-  int4_noticket        the same source: every tile close stores its sums
-                       as y (no parts, tickets or fixups)
+  int4_noclose         the same source (int8_noclose is the same edit):
+                       the decode kernel without its tile closes (no y is
+                       written; ptxas then drops the products too, whose
+                       sums nothing reads: the loads alone)
+  int4_noticket        csrc/stream_k.cuh of this tree (csrc/int4_matmul.cu
+                       of 9746d8c): every stream-K tile close stores its
+                       sums as y (no parts, tickets or fixups)
   int4_2blocks         the same source: 2 decode blocks an SM (6 stages)
   int4_4blocks         the same source: 4 decode blocks an SM (3 stages;
                        for x of up to 8 rows)
@@ -51,6 +54,18 @@ kernel. The variants, and the sources whose text they match:
                        and the shared-memory round trip alone)
   int4_split8          ops/int4_matmul.py of this tree: at most 8 splits
                        (clusters of 8, the portable size)
+  int8_noconvert       csrc/stream_k.cuh of this tree: the int8 decode
+                       kernels' A fragments (the matmul's and the MoE
+                       FFN's; moeq_noconvert is the same edit) are the raw
+                       weight words (no int8_pairs)
+  int8_nocompute       as int4_nocompute
+  int8_noclose         as int4_noclose
+  int8_4blocks         csrc/int8_matmul.cu of this tree: 4 decode blocks an
+                       SM (5 / 4 stages for 8 / 16 rows of x)
+  moe_3blocks          csrc/moe_ffn.cu of this tree: the decode kernel on 3
+                       blocks an SM at every width (4 / 3 / 3 stages for 1-2
+                       / 4 / 8 token tiles; bf16 and int8 weights alike)
+  moeq_noconvert       as int8_noconvert
 
 The variants of one source combine (int4_nocompute with int4_2blocks).
 """
@@ -84,6 +99,12 @@ RAW_DECODE = """\
         (void)s0, (void)s1;
 """
 
+# the ring and the int8 A fragments the decode kernels share (csrc/stream_k.cuh)
+DECODE_COMPUTE = "      compute(ring + slot * BYTES);\n"
+DECODE_FLUSH = "    flush(T, sa, sb);\n"
+INT8_PAIRS = "  for (int i = 0; i < 4; ++i) int8_pairs(wr[i], even[i], odd[i]);\n"
+RAW_PAIRS = "  for (int i = 0; i < 4; ++i) even[i] = wr[i], odd[i] = wr[i] >> 8;\n"
+
 # name -> [(file under csrc/, or a path from it, old text, new text)]
 VARIANTS = {
     "int4_nodequant": [("int4_matmul.cu", PARENT_INT4_DEQUANT, RAW_INT4)],
@@ -92,10 +113,10 @@ VARIANTS = {
         "vr2::load_tile_transposed<HD>(sVt, VP,",
         "vr2::load_tile<HD>(sVt, QP,")],
     "int4_nodequant_new": [("int4_matmul.cu", DECODE_DEQUANT, RAW_DECODE)],
-    "int4_nocompute": [("int4_matmul.cu", "      compute(st);\n", "")],
-    "int4_noclose": [("int4_matmul.cu", "    flush(T, sa, sb);\n", "")],
+    "int4_nocompute": [("stream_k.cuh", DECODE_COMPUTE, "")],
+    "int4_noclose": [("stream_k.cuh", DECODE_FLUSH, "")],
     "int4_noticket": [(
-        "int4_matmul.cu",
+        "stream_k.cuh",
         "  if (sa == tb && sb == te) {  // the whole tile",
         "  if (true) {  // the whole tile")],
     # the plan takes the resident count from the kernel (vr2_int4_matmul_layout)
@@ -121,20 +142,34 @@ VARIANTS = {
         "    S = 1\n    base, rem = divmod(stages, S)\n")],
     "int4_cluster_nosum": [(
         "int4_matmul.cu",
-        "      if (z < S) got[z] = ld_cluster_f4(at, z);\n",
+        "      if (z < S) got[z] = vr2::sk::ld_cluster_f4(at, z);\n",
         "      got[z] = make_float4(0.f, 0.f, 0.f, 0.f);\n")],
     "int4_cluster_local": [
-        ("int4_matmul.cu", "  cluster_sync();  // every split's sums are in its shared memory\n",
+        ("int4_matmul.cu",
+         "  vr2::sk::cluster_sync();  // every split's sums are in its shared memory\n",
          "  __syncthreads();\n"),
         ("int4_matmul.cu",
          "  for (int i = blockIdx.z * kThreads + tid; i < rows * (kBN / 4); i += S * kThreads) {",
          "  for (int i = tid; i < rows * (kBN / 4); i += kThreads) {"),
-        ("int4_matmul.cu", "      if (z < S) got[z] = ld_cluster_f4(at, z);\n",
+        ("int4_matmul.cu", "      if (z < S) got[z] = vr2::sk::ld_cluster_f4(at, z);\n",
          "      got[z] = z == 0 ? *reinterpret_cast<const float4*>(at)\n"
          "                      : make_float4(0.f, 0.f, 0.f, 0.f);\n"),
         ("int4_matmul.cu",
-         "  cluster_sync();  // no block leaves while another reads its sums\n", "")],
+         "  vr2::sk::cluster_sync();  // no block leaves while another reads its sums\n",
+         "")],
     "int4_split8": [("../ops/int4_matmul.py", "SPLIT_MAX = 16 ", "SPLIT_MAX = 8 ")],
+    "int8_noconvert": [("stream_k.cuh", INT8_PAIRS, RAW_PAIRS)],
+    "int8_nocompute": [("stream_k.cuh", DECODE_COMPUTE, "")],
+    "int8_noclose": [("stream_k.cuh", DECODE_FLUSH, "")],
+    "int8_4blocks": [
+        ("int8_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 4;"),
+        ("int8_matmul.cu", "static constexpr int STAGES = MT == 1 ? 7 : 6;",
+         "static constexpr int STAGES = MT == 1 ? 5 : 4;")],
+    "moe_3blocks": [(
+        "moe_ffn.cu",
+        "static constexpr int STAGES = Q && NT == 1 ? 4 : NT <= 2 ? 6 : NT == 4 ? 5 : 4;",
+        "static constexpr int STAGES = NT <= 2 ? 4 : 3;")],
+    "moeq_noconvert": [("stream_k.cuh", INT8_PAIRS, RAW_PAIRS)],
     "int4_staged_noload": [
         ("int4_matmul.cu",
          "      load_stage<MT, WV, G>(smem + s * R::BYTES, p, first + s, n0, row0, rows, tid);\n",

@@ -130,6 +130,58 @@ def test_int8_matmul_all_layers_plain_matches_the_microbench_kernel(rng):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+# the decode kernel's plan on an H100 (132 SMs, 3 blocks an SM) whose
+# clusters of S blocks the card holds at once are its slots over S
+def _clusters(resident=3, sms=132):
+    return tuple(resident * sms // S for S in range(1, 17))
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("K,N,plan", [
+    (3584, 3584, (392, 14)),        # q / o: 28 tiles, 14 splits of 4 steps
+    (3584, 512, (64, 16)),          # k / v: 4 tiles, the most splits a cluster holds
+    (3584, 18944, (296, 2)),        # gate / up: 148 tiles, 2 splits fill 296 of 396 slots
+    (18944, 3584, (392, 14)),       # down: 296 steps a tile
+    (3584, 152064, (1188, 1))])     # the head: 1188 tiles fill every slot, no split
+def test_int8_decode_plan_at_the_7b_shapes(M, K, N, plan):
+    """int8_decode_plan at the 7B's decode linears, B = 16 and B = 1
+    (blocks, splits): a tile's K split over a cluster where the tiles leave
+    slots idle (the grid within one wave of the resident slots), unsplit
+    where they fill every slot."""
+    S = int8_matmul.int8_decode_plan(M, K, N, 132, 3, _clusters())
+    assert (N // int8_matmul.DECODE_COLUMNS * S, S) == plan
+
+
+@pytest.mark.parametrize("M,K,N", [(17, 3584, 3584),   # more rows than the decode kernel's
+                                   (0, 3584, 3584),    # no rows
+                                   (4, 3584, 3420),    # N not a multiple of the tile (128)
+                                   (4, 1280, 500),
+                                   (4, 300, 512),      # K not in whole steps of 64
+                                   (4, 192, 512)])     # small K: 3 steps
+def test_int8_decode_plan_refuses(M, K, N):
+    """What the decode kernel does not take stays on the staged kernel."""
+    assert int8_matmul.int8_decode_plan(M, K, N, 132, 3, _clusters()) is None
+
+
+@pytest.mark.parametrize("K,N", [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+                                 (3584, 152064), (256, 128)])
+@pytest.mark.parametrize("sms,resident", [(132, 3), (132, 2), (114, 3), (8, 1)])
+def test_int8_decode_plan_keeps_one_wave(K, N, sms, resident):
+    """The plan never asks for more blocks than the resident slots hold
+    unless the tiles alone do, keeps DECODE_SPLIT_MIN_STEPS steps a split
+    and every cluster resident at once, and takes the most splits that
+    allows."""
+    m = int8_matmul
+    clusters = _clusters(resident, sms)
+    S = m.int8_decode_plan(4, K, N, sms, resident, clusters)
+    tiles, ks = N // m.DECODE_COLUMNS, K // m.DECODE_STEP_K
+    assert 1 <= S <= m.DECODE_MAX_SPLITS
+    assert S == 1 or (tiles * S <= resident * sms and tiles <= clusters[S - 1]
+                      and ks // S >= m.DECODE_SPLIT_MIN_STEPS)
+    assert S == m.DECODE_MAX_SPLITS or tiles * (S + 1) > resident * sms \
+        or ks // (S + 1) < m.DECODE_SPLIT_MIN_STEPS or tiles > clusters[S]
+
+
 @pytest.mark.parametrize("rows", [4, 40])
 def test_quantized_linear_auto_matches_jax(rng, monkeypatch, rows):
     """float32 x never reaches the int8 kernel's wrapper (the kernel takes

@@ -621,6 +621,26 @@ def test_moe_ffn_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # W8A8 with float weights
         moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"],
                                      x_scales=torch.ones(2, 8, device=cuda))
+    q = _moe_weights(gen, 4, 128, 128, "int8")
+    with pytest.raises(TypeError):                  # int8 weights, float32 activations
+        moe_ragged.ragged_expert_ffn(x.float(), ids, q["gate"], q["up"], q["down"])
+    with pytest.raises(ValueError):                 # int8 weights, bf16 scales of [E, I]
+        moe_ragged.ragged_expert_ffn(x, ids, q["gate"], q["up"], {
+            "kernel_q": q["down"]["kernel_q"], "scale": q["down"]["scale"][:, :64]})
+    from video_r2_tpu_torch.ops.cuda_build import kernels
+
+    p = lambda t: t.data_ptr()  # noqa: E731
+    h = torch.empty(2, 8, 128, dtype=torch.bfloat16, device=cuda)
+    for mode, path, tiles in ((2, 2, (8, 128, 128)),    # W8A8 has no decode kernel
+                              (1, 2, (8, 64, 128)),     # int8 gate / up tiles are 128 wide
+                              (1, 2, (8, 128, 64)),     # ... and down tiles 128 or 256
+                              (1, 1, (64, 128, 128))):  # nor a wgmma path
+        err = kernels().vr2_moe_ffn(
+            p(x), None, p(ids), p(ids), p(q["gate"]["kernel_q"]), p(q["gate"]["scale"]),
+            p(q["up"]["kernel_q"]), p(q["up"]["scale"]), p(q["down"]["kernel_q"]),
+            p(q["down"]["scale"]), p(h), None, None, p(h), 2, 8, 128, 128, 4, 128, mode,
+            path, *tiles, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (mode, path, tiles)
 
 
 @pytest.mark.cuda
@@ -1157,9 +1177,66 @@ def test_int8_linear_dispatch_by_rows(cuda):
         assert _close(y, int8_matmul_plain(x, fc1.kernel_q, fc1.scale))
 
 
+# (M, K, N): the 7B's decode linears (q / o, k / v, gate / up, down), a K
+# of 4 steps (two splits of 2) and one of 5 (splits of 2 and 3 steps) at
+# every row count of the decode kernel, the head (545 MB of weights) at B =
+# 1 and B = 16
+INT8_DECODE_CASES = [(M, K, N) for M in (1, 4, 8, 13, 16)
+                     for K, N in ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+                                  (256, 384), (320, 384))] + [(1, 3584, 152064), (16, 3584, 152064)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", INT8_DECODE_CASES)
+def test_int8_matmul_decode_grid(cuda, M, K, N):
+    """The decode kernel at every decode shape and row count: int8_decode_plan
+    picks it (counted as a decode launch; the head unsplit, every other
+    shape split over a cluster), the result within the forward bound of the
+    plain version, and a second call gives the same bits (the cluster adds
+    the splits in a fixed order)."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int8_operands(gen, M, K, N)
+    splits = m._decode_plan(M, K, N, cuda.index or 0)
+    assert splits is not None and (splits == 1) == (N == 152064)
+    before, dec = m.int8_matmul.launches, m.int8_matmul.decode_launches
+    out = m.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert (m.int8_matmul.launches, m.int8_matmul.decode_launches) == (before + 1, dec + 1)
+    assert _close(out, m.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(out, m.int8_matmul(x, wq, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(17, 3584, 512), (4, 1280, 3420), (4, 192, 512)])
+def test_int8_matmul_staged_where_the_plan_refuses(cuda, M, K, N):
+    """More than 16 rows, N not a multiple of 128 and a K under 4 steps stay
+    on the staged kernel (no decode launch counted), within the bound."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int8_operands(gen, M, K, N)
+    assert m._decode_plan(M, K, N, cuda.index or 0) is None
+    before, dec = m.int8_matmul.launches, m.int8_matmul.decode_launches
+    out = m.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert (m.int8_matmul.launches, m.int8_matmul.decode_launches) == (before + 1, dec)
+    assert _close(out, m.int8_matmul_plain(x, wq, scale))
+
+
 @pytest.mark.cuda
 def test_int8_matmul_refuses_what_it_does_not_take(cuda):
+    from video_r2_tpu_torch.ops import int8_matmul as m
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_stacked
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, wq, scale = _int8_operands(gen, 4, 512, 128)
+    for splits in (17, 9, 0):     # past 16 splits, past the steps, none
+        with pytest.raises(RuntimeError, match="decode kernel"):
+            m._launch_decode(x, wq, scale, splits)
+    with pytest.raises(RuntimeError, match="decode kernel"):     # 17 rows
+        m._launch_decode(_randn(gen, 17, 512), wq, scale, 1)
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     x, wq, scale = _int8_operands(gen, 4, 512, 128)
@@ -1965,16 +2042,17 @@ def test_tiny_fp32_model_on_the_card(cuda):
 # the fp32 instances of both files
 # ---------------------------------------------------------------------------
 
-def _decode_slots(gen, cuda, case, C, fp32):
+def _decode_slots(gen, cuda, case, C, dtype):
     """(x [A, C, H], ids, valid, weights) of one decode-grid case: "one": E 8
     at the judge's width, one active slot then 7 pad slots; "all": E 128 at
-    H 320 / I 192 (down in 64-column tiles), every expert active, then 2 pad
-    slots; "routed": E 128 at the judge's width, C tokens routed top 8
-    through ragged_layout (the path's table, ~88 experts at C = 16). The
-    pad slots' rows hold NaN: the kernel reads none of them (a token box
-    past C rows reads the next slot's rows and drops them)."""
+    H 320 / I 192 (down in 64-column tiles; int8: blocks over a tail of 64
+    columns), every expert active, then 2 pad slots; "routed": E 128 at the
+    judge's width, C tokens routed top 8 through ragged_layout (the path's
+    table, ~88 experts at C = 16). The pad slots' rows hold NaN: the kernel
+    reads none of them (a token box past C rows reads the next slot's rows
+    and drops them). dtype "int8": int8 weight leaves, bf16 x."""
     E, H, I = {"one": (8, 2048, 768), "all": (128, 320, 192), "routed": (128, 2048, 768)}[case]
-    w = _moe_weights(gen, E, H, I, "bf16")
+    w = _moe_weights(gen, E, H, I, "int8" if dtype == "int8" else "bf16")
     if case == "routed":
         router = torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5
         from video_r2_tpu_torch.models.moe import route
@@ -1990,26 +2068,26 @@ def _decode_slots(gen, cuda, case, C, fp32):
         valid = (torch.arange(len(ids), device=cuda) < len(live)).int()
         x = _randn(gen, len(ids), C, H)
     x[valid == 0] = float("nan")
-    if fp32:
+    if dtype == "fp32":
         x, w = x.float(), {k: {"kernel": v["kernel"].float()} for k, v in w.items()}
     return x, ids, valid, w
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "fp32"])
 @pytest.mark.parametrize("case", ["one", "all", "routed"])
 @pytest.mark.parametrize("C", [8, 13, 16, 32])
 def test_moe_ffn_decode_grid(cuda, C, case, dtype):
-    """The grouped FFN at C < 64 rows a slot: bf16 takes the decode kernel
-    (ffn_decode_tiles: C = 13 in boxes of 16 rows), fp32 x over fp32
-    weights the CUDA-core instance; against the plain version at the
-    forward bound (bf16) or FP32_TOL, pad slots exactly 0, one launch
-    counted per call."""
+    """The grouped FFN at C < 64 rows a slot: bf16 and int8 weights take
+    the decode kernel (ffn_decode_tiles: C = 13 in boxes of 16 rows), fp32
+    x over fp32 weights the CUDA-core instance; against the plain version
+    at the forward bound (bf16, int8) or FP32_TOL, pad slots exactly 0, one
+    launch counted per call."""
     gen = torch.Generator(device=cuda).manual_seed(C + len(case))
     fp32 = dtype == "fp32"
-    x, ids, valid, w = _decode_slots(gen, cuda, case, C, fp32)
-    H, I = x.shape[-1], w["gate"]["kernel"].shape[-1]
-    assert fp32 or moe_ragged.ffn_kernel_path(0, C, H, I)[0] == 2
+    x, ids, valid, w = _decode_slots(gen, cuda, case, C, dtype)
+    H, I = x.shape[-1], moe_ragged._weights(w["gate"], w["up"], w["down"])[1].shape[-1]
+    assert fp32 or moe_ragged.ffn_kernel_path(int(dtype == "int8"), C, H, I)[0] == 2
     before = dict(moe_ragged.ragged_expert_ffn.launches)
     out = moe_ragged.ragged_expert_ffn(x, ids, w["gate"], w["up"], w["down"], blk_valid=valid)
     torch.cuda.synchronize()
@@ -2072,14 +2150,19 @@ def test_gmm_bwd_dx_grid(cuda, bm, H, I, dtype, keep_h):
 
 def _moe_calls(cuda):
     """{name: (a call, the device kernels it runs)}: the bf16 ragged decode
-    at the judge's width (C = 16, the routed table), its fp32 instance, and
+    at the judge's width (C = 16, the routed table), its int8-weight and
+    fp32 instances, and
     the bf16 / fp32 dX pair at bm 128 over the grid's layout."""
     from video_r2_tpu_torch.ops import moe_gmm as gmm
 
     gen = torch.Generator(device=cuda).manual_seed(21)
-    calls = {}
+    x, ids, valid, w = _decode_slots(gen, cuda, "routed", 16, "int8")
+    calls = {"decode_int8": (
+        lambda x=x, ids=ids, valid=valid, w=w: moe_ragged.ragged_expert_ffn(
+            x, ids, w["gate"], w["up"], w["down"], blk_valid=valid),
+        ("moe_decode_kernel", "moe_decode_kernel"))}
     for dtype in ("bf16", "fp32"):
-        x, ids, valid, w = _decode_slots(gen, cuda, "routed", 16, dtype == "fp32")
+        x, ids, valid, w = _decode_slots(gen, cuda, "routed", 16, dtype)
         calls[f"decode_{dtype}"] = (
             lambda x=x, ids=ids, valid=valid, w=w: moe_ragged.ragged_expert_ffn(
                 x, ids, w["gate"], w["up"], w["down"], blk_valid=valid),
@@ -2119,7 +2202,8 @@ def test_moe_kernels_give_the_same_bits_twice(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["decode_bf16", "decode_fp32", "dx_bf16", "dx_fp32"])
+@pytest.mark.parametrize("name", ["decode_bf16", "decode_int8", "decode_fp32", "dx_bf16",
+                                  "dx_fp32"])
 def test_moe_kernels_run_their_two_device_kernels_a_call(cuda, name):
     """A warm call under torch.profiler runs exactly its two device kernels
     (gate / up then down; terms then dX) and nothing else on the card."""

@@ -244,7 +244,12 @@ def test_ffn_kernel_dispatch_rule(mode, C, H, I, tiles):
     (0, 16, 320, 192, False, (2, (16, 64, 64))),     # down in 64-column tiles
     (0, 128, 2048, 768, False, (1, (128, 128, 256))),  # the GMM prefill: wgmma
     (0, 200, 2048, 768, False, (0, (0, 0, 0))),      # mma.sync
-    (1, 16, 2048, 768, False, (0, (0, 0, 0))),       # int8 weights
+    (1, 16, 2048, 768, False, (2, (16, 128, 256))),  # int8 weights: the decode kernel
+    (1, 8, 2048, 768, False, (2, (8, 128, 256))),    # ... T <= 8
+    (1, 13, 2048, 768, False, (2, (16, 128, 256))),  # ... boxes of 16 rows, 3 dropped
+    (1, 32, 2048, 768, False, (2, (32, 128, 256))),  # ... RAGGED_MAX_TOKENS
+    (1, 16, 320, 192, False, (2, (16, 128, 128))),   # ... column tails of 64
+    (1, 128, 2048, 768, False, (0, (0, 0, 0))),      # the int8 GMM prefill: mma.sync
     (2, 128, 2048, 768, False, (0, (0, 0, 0))),      # W8A8
     (0, 16, 2048, 768, True, (3, (0, 0, 0))),        # fp32: CUDA cores
     (0, 128, 2048, 768, True, (3, (0, 0, 0)))])
@@ -270,6 +275,24 @@ def test_judge_ragged_decode_takes_the_decode_kernel(T):
     assert T <= moe.RAGGED_MAX_TOKENS and C == max(T, 8)
     assert path == 2 and rows == min(r for r in (8, 16, 32, 64) if r >= C)
     assert (gu, dn) == (64, 128)
+
+
+@pytest.mark.parametrize("T", [1, 4, 8, 13, 16, 32])
+def test_int8_judge_ragged_decode_takes_the_decode_kernel(T):
+    """Every ragged decode step of the int8-weight judge (mode 1, slots of
+    C = max(T, 8) rows) takes the decode kernel, its token boxes the fewest
+    of 8, 16, 32, 64 rows that hold C, its weight boxes 128 int8 columns
+    (down 256 columns a block at the judge's H 2048); the W8A8 pass's
+    slots stay on mma.sync."""
+    xt = torch.zeros(T, 2048)
+    topi = torch.arange(T * 8).reshape(T, 8) % 128
+    x, *_ = moe_ragged.ragged_layout(xt, topi, 128)
+    C = x.shape[1]
+    path, (rows, gu, dn) = moe_ragged.ffn_kernel_path(1, C, 2048, 768)
+    assert T <= moe.RAGGED_MAX_TOKENS and C == max(T, 8)
+    assert path == 2 and rows == min(r for r in (8, 16, 32, 64) if r >= C)
+    assert (gu, dn) == (128, 256)
+    assert moe_ragged.ffn_kernel_path(2, C, 2048, 768) == (0, (0, 0, 0))
 
 
 @pytest.mark.parametrize("T", [2048, 4096, 17408])

@@ -63,7 +63,9 @@
 //   (16 parts' loads issued before their sums), rounds y to bf16 once and
 //   resets the counter. The
 //   order is fixed, so y is the same bit for bit from call to call, and a
-//   linear stays one launch.
+//   linear stays one launch. The ring, the cut, the close and the cluster
+//   helpers of the staged kernel's split-K live in csrc/stream_k.cuh; the
+//   int8 decode kernel shares the ring and the cluster close.
 //
 // The staged kernel (everything else: M > 16, smaller weights such as the
 // decode q / o and k / v, where its split-K beats the decode kernel's
@@ -114,9 +116,12 @@
 #include <atomic>
 
 #include "attn_common.cuh"
+#include "stream_k.cuh"
 #include "wgmma.cuh"
 
 namespace {
+
+using vr2::sk::once_per_device;
 
 constexpr int kThreads = 128;  // 4 warps side by side over the columns
 constexpr int kBN = 64;        // output columns per block, 16 per warp
@@ -130,20 +135,6 @@ constexpr int kPitch = 80;     // shared row pitch in bytes of the staged
                                // nibbles and x tiles: 64 + 16 spreads the
                                // byte reads of a fragment over four bank
                                // groups and keeps ldmatrix conflict-free
-
-// Run `set` (a kernel's function attributes, which hold per device) the
-// first time a launcher runs on the current device, and not on later calls:
-// `done` holds a bit a device (devices past 63 set theirs every call)
-template <typename F>
-cudaError_t once_per_device(std::atomic<uint64_t>& done, F set) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  if ((err = set()) == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 // One ring stage for blocks of 16 * MT rows: the packed rows [kKS][kBN]
 // (pitch kPitch), the x tiles of both halves [BM][kKS bf16] (pitch kPitch),
@@ -292,25 +283,6 @@ __device__ __forceinline__ void quad(float (&v)[4], const float (&acc)[MT][2][4]
   v[2] = acc[mt][0][2 * half + 1], v[3] = acc[mt][1][2 * half + 1];
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the float4 at `local`'s offset in the shared memory of the cluster's block `rank`
-__device__ __forceinline__ float4 ld_cluster_f4(const float* local, int rank) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(local));
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // Split-K's close, in the launch: the splits of a tile are one cluster
 // (grid z). Each block leaves its fp32 sums [rows][kBN] in its own shared
 // memory; after a cluster barrier block z takes every S-th quad of the
@@ -336,7 +308,7 @@ __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], cons
       *reinterpret_cast<float4*>(red + (mt * 16 + g + 8 * half) * kRedPitch + wn0 + 4 * t) =
           make_float4(v[0], v[1], v[2], v[3]);
     }
-  cluster_sync();  // every split's sums are in its shared memory
+  vr2::sk::cluster_sync();  // every split's sums are in its shared memory
   const int S = p.splits;
   for (int i = blockIdx.z * kThreads + tid; i < rows * (kBN / 4); i += S * kThreads) {
     const int r = i / (kBN / 4), c = 4 * (i % (kBN / 4));
@@ -344,14 +316,14 @@ __device__ __forceinline__ void reduce_splits(const float (&acc)[MT][2][4], cons
     float4 got[kMaxSplits];
 #pragma unroll
     for (int z = 0; z < kMaxSplits; ++z)
-      if (z < S) got[z] = ld_cluster_f4(at, z);
+      if (z < S) got[z] = vr2::sk::ld_cluster_f4(at, z);
     float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int z = 0; z < kMaxSplits; ++z)
       if (z < S) v[0] += got[z].x, v[1] += got[z].y, v[2] += got[z].z, v[3] += got[z].w;
     store_quad<WV>(p, row0 + r, n0 + c, v);
   }
-  cluster_sync();  // no block leaves while another reads its sums
+  vr2::sk::cluster_sync();  // no block leaves while another reads its sums
 }
 
 template <int MT, int WV, int G, bool SPLIT>
@@ -562,94 +534,6 @@ struct Ring {
   static_assert(BYTES % kSwizzleAlign == 0, "stages stay 1024-byte aligned");
 };
 
-// the block that owns step u of U cut into G ranges [b U / G, (b + 1) U / G)
-__device__ __forceinline__ int owner(int u, int U, int G) {
-  return int(((long long)(u + 1) * G + U - 1) / U) - 1;
-}
-
-__device__ __forceinline__ int range_begin(int b, int U, int G) {
-  return int((long long)b * U / G);
-}
-
-// A tile segment's close: red holds each warp's sums [warp][row]
-// [column]; they are added in warp order, then the whole tile's y is
-// stored, or the block's part is written to its workspace slot (the head
-// or the tail of its range) and a ticket taken on the tile's counter; the
-// tile's last block adds the parts in block order (each thread a row and
-// four columns, 16 parts' loads issued before their sums), rounds y to bf16
-// once and resets the counter.
-template <int MT>
-__device__ __forceinline__ void close_segment(const Int4Params& p, const float* red, int T, int sa,
-                                           int sb, int u0, int U, int G, int ks) {
-  constexpr int ROWS = 8 * MT;
-  __shared__ int last;
-  const int tid = threadIdx.x, b = blockIdx.x;
-  __syncthreads();
-  const int col = T * kCols + tid;
-  float v[ROWS];
-#pragma unroll
-  for (int m = 0; m < ROWS; ++m) {
-    v[m] = 0.f;
-    if (m < p.M)
-#pragma unroll
-      for (int ww = 0; ww < kWarps; ++ww) v[m] += red[(ww * ROWS + m) * kCols + tid];
-  }
-  const int tb = T * ks, te = tb + ks;
-  if (sa == tb && sb == te) {  // the whole tile
-    if (col < p.N)
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-        if (m < p.M) p.y[(long long)m * p.N + col] = __float2bfloat16_rn(v[m]);
-  } else {
-    const long long slot_floats = (long long)p.M * kCols;
-    const int slot = T == u0 / ks ? 2 * b : 2 * b + 1;
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m)
-      if (m < p.M) p.part[slot * slot_floats + m * kCols + tid] = v[m];
-    // the block's part is written; one atomic with release and acquire
-    // semantics (after the barrier, so it orders the whole block's part)
-    // takes the ticket, in the last warp: warp 0 keeps the ring's TMA
-    // boxes in flight (a fence and an atomic there measured 1% slower)
-    __syncthreads();
-    const int bf = owner(tb, U, G), bl = owner(te - 1, U, G);
-    if (tid == kThreads - 1) {  // release this block's part, acquire the others'
-      int old;
-      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                   : "=r"(old)
-                   : "l"(p.counters + T)
-                   : "memory");
-      last = old == bl - bf;
-    }
-    __syncthreads();
-    if (last) {  // row tid / 32 (+ 4 k) of columns 4 (tid % 32) .. + 3, PB parts at a time
-      constexpr int PB = 16;
-      const int c4 = 4 * (tid & 31);
-      for (int r = tid >> 5; r < p.M; r += kWarps) {
-        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int c0 = bf; c0 <= bl; c0 += PB) {
-          float4 got[PB];
-#pragma unroll
-          for (int k = 0; k < PB; ++k) {
-            const int c = c0 + k;
-            const int cs = (c == bf && range_begin(c, U, G) < tb) ? 2 * c + 1 : 2 * c;
-            got[k] = c <= bl ? __ldcg(reinterpret_cast<const float4*>(
-                                   p.part + cs * slot_floats + r * kCols + c4))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-#pragma unroll
-          for (int k = 0; k < PB; ++k)
-            sum.x += got[k].x, sum.y += got[k].y, sum.z += got[k].z, sum.w += got[k].w;
-        }
-        if (T * kCols + c4 < p.N)  // 16 | N: all four columns or none
-          *reinterpret_cast<uint2*>(p.y + (long long)r * p.N + T * kCols + c4) =
-              make_uint2(vr2::pack_bf16(sum.x, sum.y), vr2::pack_bf16(sum.z, sum.w));
-      }
-      if (tid == kThreads - 1) p.counters[T] = 0;
-    }
-  }
-  __syncthreads();  // red is free for the next segment
-}
-
 template <int MT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     int4_decode_kernel(__grid_constant__ const CUtensorMap mw,
@@ -661,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int Kp = p.K / 2, ks = Kp / kStepRows, tiles = (p.N + kCols - 1) / kCols;
   const int U = tiles * ks, G = gridDim.x, b = blockIdx.x;
-  const int u0 = range_begin(b, U, G), u1 = range_begin(b + 1, U, G), n = u1 - u0;
+  const int u0 = vr2::sk::range_begin(b, U, G), u1 = vr2::sk::range_begin(b + 1, U, G);
   unsigned char* ring = vr2::swizzle_aligned(smem);
   float* red = reinterpret_cast<float*>(ring + R::STAGES * R::BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(red + R::RED / 4);
@@ -674,13 +558,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][jt][e] = 0.f;
 
-  // step s of the block's range into its slot: the nibbles of tile T, rows
-  // [64 j, 64 j + 64), x's columns of both halves, the scales of the step's
-  // group in both halves (warp 0)
-  auto fill = [&](int s) {
-    const int u = u0 + s, T = u / ks, pr = (u - T * ks) * kStepRows;
-    unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
-    uint64_t* bar = full + s % R::STAGES;
+  // unit u into its stage: the nibbles of tile T, rows [64 j, 64 j + 64),
+  // x's columns of both halves, the scales of the step's group in both
+  // halves (warp 0)
+  auto fill = [&](int u, unsigned char* st, uint64_t* bar) {
+    const int T = u / ks, pr = (u - T * ks) * kStepRows;
     vr2::tma_stage(bar, R::BYTES, 3 + kCols / kScaleBox, [&](int bx) {
       if (bx == 0)
         vr2::tma_load_2d(st, &mw, bar, T * kCols, pr);
@@ -758,52 +640,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][jt][e] = 0.f;
       }
-    close_segment<MT>(p, red, T, sa, sb, u0, U, G, ks);
+    const vr2::sk::Out out{p.y, p.part, p.counters, nullptr, p.M, p.N};
+    vr2::sk::close_segment<ROWS, kWarps>(out, red, T, sa, sb, u0, U, G, ks);
   };
 
-  // the ring: warp 0 keeps STAGES steps in flight; each slot is refilled
-  // once the whole block is past it
-  if (tid == 0) {
-    for (int i = 0; i < R::STAGES; ++i) vr2::mbar_init(full + i, 1);
-    vr2::mbar_init_fence();
-    // the descriptors, ahead of the first box
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&mw)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&mx)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ms)) : "memory");
-  }
-  __syncthreads();
-  if (tid < 32)
-    for (int s = 0; s < R::STAGES && s < n; ++s) fill(s);
-  // tile segment by tile segment: the steps' loop stays small (the close
-  // inside it ran the whole kernel ~2x slower on the card)
-  for (int sa = u0, s = 0; sa < u1;) {
-    const int T = sa / ks, sb = min(u1, (T + 1) * ks);
-    for (; u0 + s < sb; ++s) {
-      const unsigned char* st = ring + (s % R::STAGES) * R::BYTES;
-      vr2::mbar_wait(full + s % R::STAGES, (s / R::STAGES) & 1);
-      compute(st);
-      __syncthreads();  // every warp is past the slot
-      if (tid < 32 && s + R::STAGES < n) fill(s + R::STAGES);
-    }
-    flush(T, sa, sb);
-    sa = sb;
-  }
-}
-
-// A tensor map of `rank` dims (innermost first) with strides in bytes of
-// dims 1.., boxes `box`, the 128-byte swizzle or none; coordinates past
-// the end read zeros
-inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                             const void* base, const cuuint64_t* dims,
-                             const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
-  const vr2::EncodeTiled encode = vr2::tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, one,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  vr2::sk::decode_ring<R::STAGES, R::BYTES>(ring, full, u0, u1, ks, fill, compute, flush, &mw,
+                                             &mx, &ms);
 }
 
 // the shared memory and the carveout that keep kBlocksPerSm blocks an SM,
@@ -834,11 +676,11 @@ cudaError_t launch(const Int4Params& p, int blocks, cudaStream_t stream) {
   const cuuint64_t sd[3] = {cuuint64_t(p.N), cuuint64_t(groups), 2};
   const cuuint64_t ss[2] = {cuuint64_t(p.N) * 4, cuuint64_t(p.N) * 4 * groups};
   const cuuint32_t sb[3] = {kScaleBox, 1, 2};
-  if ((err = tiled_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.wq, wd, ws, wb, true)) !=
+  if ((err = vr2::sk::tiled_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.wq, wd, ws, wb, true)) !=
           cudaSuccess ||
       (err = vr2::box_map(&mx, p.x, p.K, p.M, 0, 8 * MT)) != cudaSuccess ||
-      (err = tiled_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.scale, sd, ss, sb, false)) !=
-          cudaSuccess)
+      (err = vr2::sk::tiled_map(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.scale, sd, ss, sb,
+                                false)) != cudaSuccess)
     return err;
   int4_decode_kernel<MT><<<blocks, kThreads, R::SMEM, stream>>>(mw, mx, ms, p);
   return cudaGetLastError();

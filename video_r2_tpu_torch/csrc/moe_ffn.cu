@@ -72,10 +72,17 @@
 // weight columns a warp are M (ldmatrix .trans from the box, no transpose
 // through registers), the C tokens N in tiles of 8 (C rounded up to 8, 16,
 // 32 or 64; the rows past C belong to the next slot and are dropped).
+// Mode 1 (int8 weights) at C < 64 takes the same kernel (its Q instances):
+// boxes of 64 k x 128 int8 columns, the bytes turned into bf16 pairs in
+// registers after an ldmatrix .trans of 16-bit pairs, the scales applied to
+// the fp32 sums in the epilogue. Its mma.sync predecessor (below) staged
+// the weights through registers in 16-byte pieces and ran a 16-row x tile
+// against slots of ~1.5 real rows: 0.4230 ms at the judge's T = 16, 28% of
+// its bound and slower than the bf16 kernel over twice the bytes.
 // fp32 x over fp32 weights (mode 0 only): the same two phases on the CUDA
 // cores (fp32_tile.cuh), h and y fp32.
-// Everything else (int8 weights, W8A8, bf16 at C >= 64 not a multiple of
-// 64): mma.sync in three launches (two for modes 0 and 1).
+// Everything else (int8 weights at C >= 64, W8A8, bf16 at C >= 64 not a
+// multiple of 64): mma.sync in three launches (two for modes 0 and 1).
 //   1. gate/up: one block per (a, 64 columns of I, BM rows); 4 warps side
 //      by side over the columns (16 each, both g and u), and for blocks of
 //      more than 64 rows a second row of 4 warps (BM = 128, 256 threads,
@@ -101,6 +108,7 @@
 
 #include "attn_common.cuh"
 #include "fp32_tile.cuh"
+#include "stream_k.cuh"
 #include "wgmma.cuh"
 
 namespace vr2 {
@@ -664,11 +672,11 @@ __global__ void __launch_bounds__(128 * WG, 1)
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// Mode 0 at C < 64 (the ragged decode's slots of max(T, 8) rows): the
+// Modes 0 and 1 at C < 64 (the ragged decode's slots of max(T, 8) rows): the
 // weights stream through a TMA ring in their own layout, the products swap
 // A and B so the weight columns are mma.sync's M side and the C tokens its
 // N side. Two launches of one kernel: gate / up (NW = 2) writes h, down
-// (NW = 1) writes y.
+// (NW = 1) writes y. Q: int8 weights (mode 1).
 // ---------------------------------------------------------------------------
 namespace dec {
 
@@ -676,19 +684,23 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kK = 64;          // k per ring stage: 64 rows of a weight box
 constexpr int kThreads = 128;   // 4 warps side by side over the block's columns
-constexpr int kBoxBytes = kK * 128;  // a weight box [64 k][64 columns]
+constexpr int kBoxBytes = kK * 128;  // a weight box [64 k][128 bytes]
 
 // A block's tiles: 8 NT token rows of x (or h) [8 NT][64 k] (one box), then
-// NW weight tiles of 64 MT columns [64 k][64 MT] (MT boxes of 64 columns),
-// all written by TMA with the 128-byte swizzle; STAGES stages (as many as
-// keep two blocks an SM: 100-112 KB of ring a block) and a barrier a stage.
-template <int NT, int MT, int NW>
+// NW weight tiles of MT boxes [64 k][128 bytes] (64 bf16 or 128 int8
+// columns each), all written by TMA with the 128-byte swizzle; STAGES
+// stages (as many as keep two blocks an SM: 100-112 KB of ring a block;
+// int8 weights under one token tile: 4 stages, three blocks an SM, which
+// measured 5% faster at the judge's T = 8 and 10% slower at T = 16,
+// scripts/kernel_variants.py moe_3blocks) and a barrier a stage.
+template <int NT, int MT, int NW, bool Q = false>
 struct Geo {
-  static constexpr int BM = 4 * 16 * MT;       // output columns of a block
+  static constexpr int BOX_COLS = Q ? 128 : 64;  // columns of a weight box
+  static constexpr int BM = BOX_COLS * MT;       // output columns of a block
   static constexpr int X_BYTES = NT * 8 * 128;
   static constexpr int W_BYTES = MT * kBoxBytes;
   static constexpr int STAGE = X_BYTES + NW * W_BYTES;
-  static constexpr int STAGES = NT <= 2 ? 6 : NT == 4 ? 5 : 4;
+  static constexpr int STAGES = Q && NT == 1 ? 4 : NT <= 2 ? 6 : NT == 4 ? 5 : 4;
   static constexpr int SMEM = kSwizzleAlign + STAGES * STAGE + STAGES * 8;
 };
 
@@ -697,38 +709,59 @@ struct Geo {
 // with NW = 1, x Wd (down). x (or h) comes from the 2-D map mx over [A C, K]
 // in boxes of 8 NT rows: the rows past C belong to the next slot (or read
 // zeros past the end) and are dropped, as each output row depends on its
-// own x row only. Warp w owns columns [m0 + 16 MT w, m0 + 16 MT (w + 1)):
-// its A fragments (weights [k][m], loaded transposed by ldmatrix) against
-// every token tile (B: x rows, k contiguous). Pad slots (valid 0) write
-// zeros (down) or nothing (gate / up: down never reads their h).
-template <int NT, int MT, int NW>
+// own x row only. A fragments: the weights [k][m] of a box by ldmatrix
+// .trans, against every token tile (B: x rows, k contiguous).
+// - bf16 (Q false): warp w owns columns [m0 + 16 MT w, + 16 MT), 16 a
+//   fragment.
+// - int8 (Q true; per-output-channel fp32 scales s0 / s1 [E, N]): ldmatrix
+//   cannot transpose bytes, so a k16 step takes 16-bit pairs (two columns'
+//   bytes of one k) by ldmatrix .trans, and int8_pairs splits each word into
+//   the exact bf16 pairs of its even and its odd column (no conversion
+//   instruction), the A fragments of two mma tiles (mma rows g and g + 8
+//   are columns 2g (+ 1) and 16 + 2g (+ 1) of the warp's 32 a box). Warp w
+//   owns columns [m0 + 128 c + 32 w, + 32) of each of the MT boxes c. The
+//   scales multiply the fp32 sums in the epilogue at mode 1's rounding
+//   points: g sg and u su before the SiLU, h rounded to bf16 (NW = 2); y sd
+//   rounded to bf16 (NW = 1). Columns at or past N (a block over a tail of
+//   64) read zeros by TMA and are not stored.
+// Pad slots (valid 0) write zeros (down) or nothing (gate / up: down never
+// reads their h).
+template <int NT, int MT, int NW, bool Q>
 __global__ void __launch_bounds__(kThreads)
     moe_decode_kernel(__grid_constant__ const CUtensorMap mx,
                       __grid_constant__ const CUtensorMap mw0,
-                      __grid_constant__ const CUtensorMap mw1, const int* __restrict__ ids,
+                      __grid_constant__ const CUtensorMap mw1, const float* __restrict__ s0,
+                      const float* __restrict__ s1, const int* __restrict__ ids,
                       const int* __restrict__ valid, bf16* __restrict__ out, int C, int K,
                       int N, int E) {
-  using G = Geo<NT, MT, NW>;
+  using G = Geo<NT, MT, NW, Q>;
+  constexpr int H2 = Q ? 2 : 1;  // accumulators a fragment: the even and odd columns
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * G::BM, a = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const long long row = (long long)a * C;
   if (valid[a] == 0) {
     if (NW == 1)
-      for (int i = tid; i < C * (G::BM / 8); i += kThreads)
-        *reinterpret_cast<uint4*>(out + (row + i / (G::BM / 8)) * N + m0 + 8 * (i % (G::BM / 8))) =
-            make_uint4(0u, 0u, 0u, 0u);
+      for (int i = tid; i < C * (G::BM / 8); i += kThreads) {
+        const int c = m0 + 8 * (i % (G::BM / 8));
+        if (c < N)  // 64 | N: a chunk of 8 lies wholly below N or past it
+          *reinterpret_cast<uint4*>(out + (row + i / (G::BM / 8)) * N + c) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
     return;
   }
   const int e = min(max(ids[a], 0), E - 1);
-  float acc[NW][MT][NT][4];
+  float acc[NW][MT][NT][H2][4];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) acc[w][mt][nt][0] = acc[w][mt][nt][1] =
-          acc[w][mt][nt][2] = acc[w][mt][nt][3] = 0.f;
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < H2; ++h)
+          acc[w][mt][nt][h][0] = acc[w][mt][nt][h][1] = acc[w][mt][nt][h][2] =
+              acc[w][mt][nt][h][3] = 0.f;
 
   unsigned char* ring = swizzle_aligned(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::STAGE);
@@ -744,7 +777,7 @@ __global__ void __launch_bounds__(kThreads)
           } else {
             const int w = (b - 1) / MT, c = (b - 1) % MT;
             tma_load_3d(st + G::X_BYTES + w * G::W_BYTES + c * kBoxBytes, w ? &mw1 : &mw0, bar,
-                        m0 + 64 * c, s * kK, e);
+                        m0 + G::BOX_COLS * c, s * kK, e);
           }
         });
       },
@@ -752,49 +785,76 @@ __global__ void __launch_bounds__(kThreads)
         const unsigned char* st = ring + slot * G::STAGE;
 #pragma unroll
         for (int ks = 0; ks < kK / 16; ++ks) {
-          // B: token tiles nt, nt + 1 (matrices: n lo / k lo, n lo / k hi,
-          // n hi / k lo, n hi / k hi)
           uint32_t b[NT][2];
-#pragma unroll
-          for (int nt = 0; nt < NT; nt += 2) {
-            uint32_t r[4];
-            const int n = nt * 8 + r8 + (NT > 1 ? 8 * (j4 >> 1) : 0);
-            ldsm_x4(r, sw128_at(st, n, ks * 32 + 16 * (j4 & 1)));
-            b[nt][0] = r[0], b[nt][1] = r[1];
-            if constexpr (NT > 1) b[nt + 1][0] = r[2], b[nt + 1][1] = r[3];
-          }
+          sk::x_b_frags<NT>(b, st, ks, lane);
 #pragma unroll
           for (int w = 0; w < NW; ++w)
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-              // A: 16 columns x 16 k of the weights, transposed (matrices:
-              // m lo / k lo, m hi / k lo, m lo / k hi, m hi / k hi)
-              const int mc = warp * 16 * MT + mt * 16;
-              uint32_t af[4];
-              ldsm_x4_trans(af, sw128_at(st + G::X_BYTES + w * G::W_BYTES + (mc / 64) * kBoxBytes,
-                                         ks * 16 + r8 + 8 * (j4 >> 1),
-                                         2 * (mc % 64 + 8 * (j4 & 1))));
+              const unsigned char* box = st + G::X_BYTES + w * G::W_BYTES;
+              uint32_t af[H2][4];
+              if constexpr (Q) {  // 16 k x the warp's 32 columns of box mt
+                sk::int8_a_frags(af[0], af[H2 - 1], box + mt * kBoxBytes, ks * 16, 32 * warp,
+                                 lane);
+              } else {
+                const int kr = ks * 16 + r8 + 8 * (j4 >> 1);
+                // 16 columns x 16 k, transposed (matrices: m lo / k lo, m hi
+                // / k lo, m lo / k hi, m hi / k hi)
+                const int mc = warp * 16 * MT + mt * 16;
+                ldsm_x4_trans(af[0], sw128_at(box + (mc / 64) * kBoxBytes, kr,
+                                              2 * (mc % 64 + 8 * (j4 & 1))));
+              }
 #pragma unroll
-              for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[w][mt][nt], af, b[nt][0], b[nt][1]);
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int h = 0; h < H2; ++h)
+                  mma_bf16_16816(acc[w][mt][nt][h], af[h], b[nt][0], b[nt][1]);
             }
         }
       });
 
-  // C fragment: acc[.][mt][nt][i] = out[token 8 nt + 2 t + (i & 1)][column
-  // mc + g + 8 (i >> 1)]
+  // C fragment: acc[.][mt][nt][h][i] = out[token 8 nt + 2 t + (i & 1)]
+  // [column m]: bf16 m = m0 + 16 MT warp + 16 mt + g + 8 (i >> 1); int8 m =
+  // m0 + 128 mt + 32 warp + 2 g + 16 (i >> 1) + h, the even and odd columns
+  // of a pair stored as one 32-bit word
+  if constexpr (Q) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int hi = 0; hi < 2; ++hi) {
+        const int m = m0 + 128 * mt + 32 * warp + 2 * g + 16 * hi;
+        if (m >= N) continue;
+        const float2 sa = __ldg(reinterpret_cast<const float2*>(s0 + (long long)e * N + m));
+        const float2 sb = __ldg(reinterpret_cast<const float2*>(s1 + (long long)e * N + m));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = nt * 8 + 2 * t + (i & 1);
-        if (n >= C) continue;
-        const int m = m0 + warp * 16 * MT + mt * 16 + g + 8 * (i >> 1);
-        const float v = NW == 2 ? silu(acc[0][mt][nt][i]) * acc[NW - 1][mt][nt][i]
-                                : acc[0][mt][nt][i];
-        out[(row + n) * N + m] = __float2bfloat16(v);
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int lo = 0; lo < 2; ++lo) {
+            const int n = nt * 8 + 2 * t + lo, i = 2 * hi + lo;
+            if (n >= C) continue;
+            float ve = acc[0][mt][nt][0][i] * sa.x, vo = acc[0][mt][nt][1][i] * sa.y;
+            if constexpr (NW == 2) {
+              ve = silu(ve) * (acc[NW - 1][mt][nt][0][i] * sb.x);
+              vo = silu(vo) * (acc[NW - 1][mt][nt][1][i] * sb.y);
+            }
+            *reinterpret_cast<uint32_t*>(out + (row + n) * N + m) = pack_bf16(ve, vo);
+          }
       }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = nt * 8 + 2 * t + (i & 1);
+          if (n >= C) continue;
+          const int m = m0 + warp * 16 * MT + mt * 16 + g + 8 * (i >> 1);
+          const float v = NW == 2 ? silu(acc[0][mt][nt][0][i]) * acc[NW - 1][mt][nt][0][i]
+                                  : acc[0][mt][nt][0][i];
+          out[(row + n) * N + m] = __float2bfloat16(v);
+        }
+  }
 }
 
 }  // namespace dec
@@ -954,44 +1014,56 @@ cudaError_t launch_wgmma_widths(const Args& p, int bn_gu, int bn_d, cudaStream_t
   return cudaErrorInvalidValue;
 }
 
-// Mode 0 at C < 64: the decode kernel twice, gate / up (64 columns of I a
-// block) then down (MT_D * 64 columns of H), x and h in boxes of 8 NT rows
-template <int NT, int MT_D>
+// Modes 0 and 1 at C < 64: the decode kernel twice, gate / up (one box of
+// 64 bf16 or 128 int8 columns of I a block) then down (MT_D boxes of H),
+// x and h in boxes of 8 NT rows; int8 blocks over a column tail of 64 read
+// zeros past it
+template <int NT, int MT_D, bool Q>
 cudaError_t launch_decode(const Args& p, cudaStream_t stream) {
   using dec::bf16;
-  using GU = dec::Geo<NT, 1, 2>;
-  using DN = dec::Geo<NT, MT_D, 1>;
+  using GU = dec::Geo<NT, 1, 2, Q>;
+  using DN = dec::Geo<NT, MT_D, 1, Q>;
   const uint64_t rows = (uint64_t)p.A * p.C;
   CUtensorMap mx, mwg, mwu, mh, mwd;
   cudaError_t err;
   if ((err = box_map(&mx, p.x, p.H, rows, 0, 8 * NT)) != cudaSuccess ||
-      (err = box_map(&mwg, p.wg, p.I, p.H, p.E, dec::kK)) != cudaSuccess ||
-      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, dec::kK)) != cudaSuccess ||
+      (err = box_map(&mwg, p.wg, p.I, p.H, p.E, dec::kK, Q)) != cudaSuccess ||
+      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, dec::kK, Q)) != cudaSuccess ||
       (err = box_map(&mh, p.h, p.I, rows, 0, 8 * NT)) != cudaSuccess ||
-      (err = box_map(&mwd, p.wd, p.H, p.I, p.E, dec::kK)) != cudaSuccess)
+      (err = box_map(&mwd, p.wd, p.H, p.I, p.E, dec::kK, Q)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, 1, 2>,
+  if ((err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, 1, 2, Q>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, GU::SMEM)) !=
           cudaSuccess ||
-      (err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, MT_D, 1>,
+      (err = cudaFuncSetAttribute(dec::moe_decode_kernel<NT, MT_D, 1, Q>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, DN::SMEM)) !=
           cudaSuccess)
     return err;
-  dec::moe_decode_kernel<NT, 1, 2><<<dim3(p.I / GU::BM, p.A), dec::kThreads, GU::SMEM, stream>>>(
-      mx, mwg, mwu, p.ids, p.valid, static_cast<bf16*>(p.h), p.C, p.H, p.I, p.E);
+  dec::moe_decode_kernel<NT, 1, 2, Q><<<dim3((p.I + GU::BM - 1) / GU::BM, p.A), dec::kThreads,
+                                        GU::SMEM, stream>>>(
+      mx, mwg, mwu, p.sg, p.su, p.ids, p.valid, static_cast<bf16*>(p.h), p.C, p.H, p.I, p.E);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dec::moe_decode_kernel<NT, MT_D, 1><<<dim3(p.H / DN::BM, p.A), dec::kThreads, DN::SMEM,
-                                        stream>>>(mh, mwd, mwd, p.ids, p.valid,
-                                                  static_cast<bf16*>(p.out), p.C, p.I, p.H, p.E);
+  dec::moe_decode_kernel<NT, MT_D, 1, Q><<<dim3((p.H + DN::BM - 1) / DN::BM, p.A),
+                                           dec::kThreads, DN::SMEM, stream>>>(
+      mh, mwd, mwd, p.sd, p.sd, p.ids, p.valid, static_cast<bf16*>(p.out), p.C, p.I, p.H, p.E);
   return cudaGetLastError();
 }
 
+// the tiles t1 (gate / up columns) and t2 (down columns) a mode takes: bf16
+// 64 and 64 or 128 (dividing H); int8 128 and 128 or 256
 template <int NT>
-cudaError_t launch_decode_widths(const Args& p, int bn_gu, int bn_d, cudaStream_t stream) {
-  if (bn_gu != 64) return cudaErrorInvalidValue;
-  if (bn_d == 128) return launch_decode<NT, 2>(p, stream);
-  if (bn_d == 64) return launch_decode<NT, 1>(p, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_decode_widths(const Args& p, int mode, int bn_gu, int bn_d,
+                                 cudaStream_t stream) {
+  if (mode == kInt8W) {
+    if (bn_gu != 128) return cudaErrorInvalidValue;
+    if (bn_d == 256) return launch_decode<NT, 2, true>(p, stream);
+    if (bn_d == 128) return launch_decode<NT, 1, true>(p, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (bn_gu != 64 || (bn_d != 64 && bn_d != 128) || p.H % bn_d != 0)
+    return cudaErrorInvalidValue;
+  return bn_d == 128 ? launch_decode<NT, 2, false>(p, stream)
+                     : launch_decode<NT, 1, false>(p, stream);
 }
 
 // Mode 0 over fp32 x and weights
@@ -1023,9 +1095,10 @@ cudaError_t launch_f32(const Args& p, cudaStream_t stream) {
 //   1: mode 0, the wgmma kernels: blocks of t0 rows (64 or 128, dividing C),
 //      gate / up tiles t1 columns of I (64 or 128, dividing I), down tiles t2
 //      columns of H (64 or 256, dividing H);
-//   2: mode 0 at C < 64, the decode kernel: x in boxes of t0 = 8, 16, 32 or
-//      64 rows (>= C), gate / up tiles t1 = 64 columns, down tiles t2 = 64 or
-//      128 columns (dividing H);
+//   2: mode 0 or 1 at C < 64, the decode kernel: x in boxes of t0 = 8, 16,
+//      32 or 64 rows (>= C); mode 0: gate / up tiles t1 = 64 columns, down
+//      tiles t2 = 64 or 128 columns (dividing H); mode 1: t1 = 128, t2 = 128
+//      or 256 (the last block of each over a tail of 64 columns, if any);
 //   3: mode 0 over fp32 x and weights, the CUDA-core kernels.
 extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
                            const int* valid, const void* wg, const float* sg, const void* wu,
@@ -1037,7 +1110,8 @@ extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
   const Args p{x, x_scales, ids, valid, wg, sg, wu, su, wd, sd, h, hq, ah, out,
                A, C, H, I, E, bi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path != 0 && mode != kBf16) return (int)cudaErrorInvalidValue;
+  if (path != 0 && mode != kBf16 && !(path == 2 && mode == kInt8W))
+    return (int)cudaErrorInvalidValue;
   switch (path) {
     case 0:
       switch (mode) {
@@ -1053,12 +1127,12 @@ extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
       return t0 == 128 ? launch_wgmma_widths<2>(p, t1, t2, s)
                        : launch_wgmma_widths<1>(p, t1, t2, s);
     case 2:
-      if (C > t0 || t2 <= 0 || H % t2 != 0) return (int)cudaErrorInvalidValue;
+      if (C > t0) return (int)cudaErrorInvalidValue;
       switch (t0) {
-        case 8: return launch_decode_widths<1>(p, t1, t2, s);
-        case 16: return launch_decode_widths<2>(p, t1, t2, s);
-        case 32: return launch_decode_widths<4>(p, t1, t2, s);
-        case 64: return launch_decode_widths<8>(p, t1, t2, s);
+        case 8: return launch_decode_widths<1>(p, mode, t1, t2, s);
+        case 16: return launch_decode_widths<2>(p, mode, t1, t2, s);
+        case 32: return launch_decode_widths<4>(p, mode, t1, t2, s);
+        case 64: return launch_decode_widths<8>(p, mode, t1, t2, s);
         default: return (int)cudaErrorInvalidValue;
       }
     case 3: return launch_f32(p, s);

@@ -455,16 +455,19 @@ inline EncodeTiled tensor_map_encoder() {
 // A bf16 tensor map with the 128-byte swizzle and boxes 64 elements (128
 // bytes) wide and `rows` rows: 2-D over [mid, inner], or 3-D over [E, mid,
 // inner] (E = 0: 2-D) with boxes of one [rows][64] slice. Coordinates past
-// the tensor's end read zeros.
+// the tensor's end read zeros. With `bytes` set, the same over a tensor of
+// bytes (int8), boxes 128 elements wide.
 inline cudaError_t box_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t mid,
-                           uint64_t E, uint32_t rows) {
+                           uint64_t E, uint32_t rows, bool bytes = false) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const uint64_t elem = bytes ? 1 : 2;
   const cuuint64_t dims[3] = {inner, mid, E};
-  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
-  const cuuint32_t box[3] = {64, rows, 1}, one[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, E ? 3 : 2,
-                            const_cast<void*>(base), dims, strides, box, one,
+  const cuuint64_t strides[2] = {inner * elem, inner * mid * elem};
+  const cuuint32_t box[3] = {uint32_t(128 / elem), rows, 1}, one[3] = {1, 1, 1};
+  const CUresult r = encode(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            E ? 3 : 2, const_cast<void*>(base), dims, strides, box, one,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -51,6 +51,8 @@ SIGNATURES = {
     "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
     "vr2_int8_matmul_stacked": [_P] * 4 + [_I] * 5 + [_P],
     "vr2_int8_matmul_all_layers": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_int8_matmul_decode": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_int8_matmul_layout": [_P],
 }
 
 

@@ -12,9 +12,9 @@ ops/moe_gmm.py (a block is a run of rows of one expert).
 On CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/moe_ffn.cu``, which replaces ``_ffn_kernel``, ``_ffn_kernel_q`` and
 ``_ffn_kernel_qq``; `ffn_kernel_path` picks its path: wgmma for bf16 blocks
-of a multiple of 64 rows, the decode kernel for bf16 blocks of fewer than
-64, CUDA cores for fp32, mma.sync for the rest) and raises on anything it
-does not take, a call under
+of a multiple of 64 rows, the decode kernel for bf16 and int8-weight blocks
+of fewer than 64, CUDA cores for fp32, mma.sync for the rest) and raises on
+anything it does not take, a call under
 autograd among them (the kernel has no backward; the float GMM path trains
 through ops/moe_gmm.py's autograd Function, which calls it without); on CPU tensors
 it runs `ragged_expert_ffn_plain` (a gathered bmm per chunk of blocks with
@@ -55,22 +55,29 @@ def ffn_wgmma_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] |
 
 
 def ffn_decode_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] | None:
-    """The decode kernel's tiles for mode 0 (bf16) at C < 64 rows a block
-    (the ragged decode's slots, the GMM layout's blocks of 8-32 rows):
-    (token rows a box: C rounded up to 8, 16, 32 or 64; gate / up columns
-    of I a block: 64; down columns of H a block: 128 where it divides H,
-    else 64). Anything else: None. H and I are multiples of 64."""
-    if mode != 0 or C >= WGMMA_ROWS:
+    """The decode kernel's tiles for mode 0 (bf16) or 1 (int8 weights) at
+    C < 64 rows a block (the ragged decode's slots, the GMM layout's blocks
+    of 8-32 rows): (token rows a box: C rounded up to 8, 16, 32 or 64; gate
+    / up columns of I a block; down columns of H a block). Mode 0: 64, and
+    128 where it divides H, else 64. Mode 1 (a weight box is 128 int8
+    columns): 128, and 256 where it divides H, else 128 (the last block over
+    a tail of 64 columns). Anything else (W8A8): None. H and I are multiples
+    of 64."""
+    if mode not in (0, 1) or C >= WGMMA_ROWS:
         return None
-    return next(r for r in (8, 16, 32, 64) if r >= C), 64, 128 if H % 128 == 0 else 64
+    rows = next(r for r in (8, 16, 32, 64) if r >= C)
+    if mode == 1:
+        return rows, 128, 256 if H % 256 == 0 else 128
+    return rows, 64, 128 if H % 128 == 0 else 64
 
 
 def ffn_kernel_path(mode: int, C: int, H: int, I: int,
                     fp32: bool = False) -> tuple[int, tuple[int, int, int]]:
     """(path, tiles) of csrc/moe_ffn.cu for a call: 3 for fp32 x over fp32
     weights (mode 0; CUDA cores), else 1 with ffn_wgmma_tiles' tiles, 2
-    with ffn_decode_tiles', or 0 (mma.sync; int8 weights, W8A8, bf16 at C
-    >= 64 not a multiple of 64) with no tiles (0, 0, 0)."""
+    with ffn_decode_tiles' (bf16 and int8 weights under 64 rows a block),
+    or 0 (mma.sync; int8 weights at C >= 64, W8A8, bf16 at C >= 64 not a
+    multiple of 64) with no tiles (0, 0, 0)."""
     if fp32:
         return 3, (0, 0, 0)
     for path, tiles in ((1, ffn_wgmma_tiles(mode, C, H, I)),
