@@ -363,6 +363,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "video_r2_tpu/ops/flash.py:164"),
     "window_attention_bwd_fp32": ("video_r2_tpu_torch/csrc/vit_window_attn_bwd.cu",
                                   "video_r2_tpu/ops/vit_window_attention.py:90"),
+    # the fp32 instances of the decode-attention kernels at head dim 12 (phase 18)
+    "paged_decode_attention_stacked_fp32": ("video_r2_tpu_torch/csrc/paged_attn.cu",
+                                            "video_r2_tpu/ops/paged_attention.py:91"),
+    "decode_attention_fp32": ("video_r2_tpu_torch/csrc/decode_attn.cu",
+                              "video_r2_tpu/ops/decode_attention.py:42"),
 }
 # the judge (phases 10 and 11)
 PEAK_INT8 = 1979e12               # int8 tensor-core TOP/s (H100 SXM data sheet)
@@ -464,6 +469,14 @@ def ffn_launches() -> dict:
     return moe_ragged.ragged_expert_ffn.launches
 
 
+def ffn_paths() -> dict:
+    """The grouped FFN wrapper's launch counts per (variant, path of
+    csrc/moe_ffn.cu): 0 mma.sync, 1 wgmma, 2 the decode kernel, 3 fp32."""
+    from video_r2_tpu_torch.ops import moe_ragged
+
+    return moe_ragged.ragged_expert_ffn.paths
+
+
 def reset_launches() -> None:
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
 
@@ -472,16 +485,19 @@ def reset_launches() -> None:
     int8_matmul.decode_launches = 0
     for variant in ffn_launches():
         ffn_launches()[variant] = 0
+    ffn_paths().clear()
 
 
 def read_launches() -> dict:
     """Every wrapper's count; the grouped FFN's per variant, as
-    moe_ffn_<variant>; the int8 matmul's launches of its decode kernel as
-    int8_matmul_decode (of int8_matmul's)."""
+    moe_ffn_<variant>, and per variant and path, as moe_ffn_<variant>_path<p>;
+    the int8 matmul's launches of its decode kernel as int8_matmul_decode (of
+    int8_matmul's)."""
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
 
     out = {name: fn.launches for name, fn in counters().items()}
     out.update({f"moe_ffn_{v}": n for v, n in ffn_launches().items()})
+    out.update({f"moe_ffn_{v}_path{p}": n for (v, p), n in ffn_paths().items()})
     out["int8_matmul_decode"] = int8_matmul.decode_launches
     return out
 
@@ -839,7 +855,8 @@ def template_args(mangled: str) -> list[str]:
 
 
 def register_report(log: Path) -> list[str]:
-    """One line per compiled kernel: registers and spill bytes (ptxas -v)."""
+    """One line per compiled kernel: registers and spill bytes (ptxas -v);
+    and every warning of ptxas that it serialised a kernel's wgmma."""
     out, name = [], None
     spill = ""
     for line in log.read_text().splitlines():
@@ -847,6 +864,7 @@ def register_report(log: Path) -> list[str]:
                       r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|window_attn_kernel|"
                       r"window_attn_bwd_kernel|moe_gate_up_kernel|moe_down_kernel|"
                       r"moe_gate_up_wgmma_kernel|moe_down_wgmma_kernel|moe_decode_kernel|"
+                      r"moe_int8_wgmma_kernel|"
                       r"gmm_bwd_terms_kernel|gmm_bwd_dx_kernel|gmm_bwd_dw_wgmma_kernel|"
                       r"int4_matmul_kernel|int4_decode_kernel|int8_decode_kernel|"
                       r"int4_matmul_f32_kernel|int8_matmul_kernel|tc_kernel|f32_kernel)"
@@ -855,6 +873,8 @@ def register_report(log: Path) -> list[str]:
             name, spill = f"{m.group(1)}<{','.join(template_args(m.group(2)))}>", ""
         elif "spill stores" in line:
             spill = line.strip()
+        elif "wgmma" in line and "serialized" in line:   # ptxas's C75xx warnings
+            out.append(line.strip())
         elif name and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             out.append(f"{name}: {regs} registers, {spill}")
@@ -1455,7 +1475,8 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
     plain = lambda l: decode_attention_stacked_plain(  # noqa: E731
         q, k, v, lens, slot_end, l, s_pad)
     out, ref = kernel(layer), plain(layer)
-    err, excess = compare(out, ref)
+    fp32 = q.dtype == torch.float32
+    err, excess = compare(out, ref, tol=FP32_TOL if fp32 else KERNEL_ATOL)
     at = [layer]
 
     def call(fn):
@@ -1477,8 +1498,9 @@ def decode_case(gen, what, q, k, v, lens, s_pad: int, slot_end: int, layer: int)
          "device_ms": graph_ms(call(kernel)),
          "plain_ms": cuda_ms(call(plain), iters=5), "library_ms": lib_ms,
          "library_device_ms": lib_device_ms,
-         **bound(4.0 * nh * hd * keys, 4.0 * q.numel() + 2.0 * 2 * keys * kh * hd
-                 + 4.0 * B)}
+         **bound(4.0 * nh * hd * keys, 2.0 * q.element_size() * q.numel()
+                 + 2.0 * k.element_size() * keys * kh * hd + 4.0 * B,
+                 PEAK_FP32 if fp32 else PEAK_BF16)}
     report("decode_attention", what, (B, nh, kh, hd, smax, layer), keys=int(keys), **r)
     if not (torch.isfinite(out).all() and excess <= 1.0):
         raise AssertionError(f"decode_attention [{what}] disagrees with its plain version: "
@@ -1946,19 +1968,23 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
 
 
 FP32_KERNELS = ("flash_attention", "window_attention", "flash_attention_fwd_lse",
-                "flash_bwd_dq", "flash_bwd_dkv", "window_attention_bwd")
+                "flash_bwd_dq", "flash_bwd_dkv", "window_attention_bwd",
+                "paged_decode_attention_stacked", "decode_attention")
 
 
 def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
     """Phase 18: tiny_test_config() (fp32; text head dim 12, vision 16) on
-    the card through the fp32 instances of the flash and window kernels.
-    First each instance against its plain version at the path's shapes
-    (the prefill, the tower's windows and full-attention groups, the SFT
-    batch's decoder and tower), timed; then, counted, a video question's
-    prefill logits and greedy tokens (DemoRunner.generate) and one
-    make_sft_step step (the tower trained), each against the same weights on
-    the CPU (the plain paths). Returns ({<kernel>_fp32: result}, {<kernel>
-    _fp32: launches of the counted run})."""
+    the card through the fp32 instances of the flash, window and
+    decode-attention kernels. First each instance against its plain version
+    at the path's shapes (the prefill, the tower's windows and
+    full-attention groups, the SFT batch's decoder and tower, the paged
+    engine's and generate's decode steps), timed; then, counted, a video
+    question's prefill logits and greedy tokens (DemoRunner.generate), one
+    make_sft_step step (the tower trained), three prompts through
+    PagedContinuousEngine and the question through generate(decode_impl=
+    "kernel"), each against the same weights on the CPU (the plain paths).
+    Returns ({<kernel>_fp32: result}, {<kernel>_fp32: launches of the
+    counted run})."""
     import numpy as np
     import torch
 
@@ -1966,7 +1992,9 @@ def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
     from video_r2_tpu_torch.data.config import DataConfig
     from video_r2_tpu_torch.data.sft import SFTCollator, SFTDataset
     from video_r2_tpu_torch.engine.chat import ByteTokenizer
-    from video_r2_tpu_torch.engine.generate import prefill
+    from video_r2_tpu_torch.engine.continuous import PagedContinuousEngine
+    from video_r2_tpu_torch.engine.generate import generate, prefill
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
     from video_r2_tpu_torch.models.config import tiny_test_config
     from video_r2_tpu_torch.models.decoder import KVCache
     from video_r2_tpu_torch.models.loader import init_params
@@ -2023,12 +2051,45 @@ def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
     results.update(window_case(gen, "tiny fp32 vit windows training",
                                torch.as_tensor(layout.valid, device=device), vc.num_heads,
                                vc.head_dim, training=True, dtype=torch.float32))
+    # the decode-attention kernels' fp32 instances at head dim 12 (width 32):
+    # the paged kernel at the engine's decode shapes, the head-major decode
+    # kernel at generate's (the question's width padded to 128 keys)
+    results.update(paged_case(gen, "tiny fp32 paged decode", cfg, [S0 + 5, 40, 130], 1,
+                              pages="fp32"))
+    L_t, kh_t, hd_t = tc.num_hidden_layers, tc.num_key_value_heads, tc.head_dim
+    smax = -(-(S0 + TINY_NEW_TOKENS) // 128) * 128
+    qd = rnd(2, tc.num_attention_heads, hd_t)
+    kd, vd = (rnd(L_t, 2, kh_t, smax, hd_t) for _ in range(2))
+    results["decode_attention"] = decode_case(
+        gen, "tiny fp32 decode", qd, kd, vd,
+        torch.tensor([S0, S0 - 7], dtype=torch.int32, device=device), S0, S0 + 5, L_t - 1)
 
-    # the path, counted: a question (prefill logits, greedy tokens), one SFT step
+    # the path, counted: a question (prefill logits, greedy tokens), one SFT
+    # step, three prompts through the paged engine (tokens, and the next-token
+    # logits after its first window), the question through generate(decode_impl=
+    # "kernel") (tokens and their logprobs)
+    prompts = [tok.encode(q) for q in QUESTIONS]
+    greedy = SamplingParams(max_new_tokens=TINY_NEW_TOKENS, eos_token_ids=(), pad_token_id=0)
     reset_launches()
-    logits, tokens, metrics = {}, {}, {}
+    logits, tokens, metrics, paged, decoded = {}, {}, {}, {}, {}
     for where, model in models.items():
         runner, dev = runners[where], model.device
+        eng = PagedContinuousEngine(model, num_slots=len(prompts), max_len=256, sp=greedy,
+                                    attn_impl=runner.impl, page_size=PAGE_SIZE)
+        rids = eng.submit_batch([(ids, TINY_NEW_TOKENS - 3 * i) for i, ids in enumerate(prompts)])
+        out, first = {}, None
+        while eng.num_active:
+            for rid, toks in eng.step(4):
+                out[rid] = toks
+            if first is None:
+                first = eng.last_logits.cpu().clone()
+        paged[where] = ([out[r] for r in rids], first)
+        res = generate(model, req.input_ids, req.lengths, greedy,
+                       position_ids=req.position_ids, rope_deltas=req.rope_deltas,
+                       vision_embeds=runner.vision_embeds(req),
+                       vision_token_id=cfg.video_token_id, attn_impl=runner.impl,
+                       decode_impl="kernel")
+        decoded[where] = (res.sequences, torch.as_tensor(res.logprobs))
         cache = KVCache.init(tc, 1, S0, torch.float32, dev)
         logits[where] = prefill(
             model, torch.as_tensor(req.input_ids, device=dev),
@@ -2050,6 +2111,20 @@ def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
     (loss, norm), (ref_loss, ref_norm) = metrics["kernel"], metrics["cpu"]
     loss_rel, norm_rel = abs(loss - ref_loss) / abs(ref_loss), abs(norm - ref_norm) / ref_norm
     launches = {f"{n}_fp32": counted[n] for n in FP32_KERNELS}
+    paged_same = paged["kernel"][0] == paged["cpu"][0]
+    paged_rel = rel_l2(paged["kernel"][1], paged["cpu"][1])
+    dec_same = bool(np.array_equal(decoded["kernel"][0], decoded["cpu"][0]))
+    dec_rel = rel_l2(decoded["kernel"][1], decoded["cpu"][1])
+    print(f"phase 18 tiny fp32 paged engine ({len(prompts)} prompts, page size {PAGE_SIZE}) "
+          f"on the card vs the CPU: tokens equal {paged_same}, next-token logits after the "
+          f"first window rel_l2={paged_rel:.3e}; generate(decode_impl='kernel'): tokens equal "
+          f"{dec_same}, their logprobs rel_l2={dec_rel:.3e} (tol {FP32_TOL}) | {card}",
+          flush=True)
+    if not (paged_same and dec_same and paged_rel <= FP32_TOL and dec_rel <= FP32_TOL
+            and torch.isfinite(paged["kernel"][1]).all()):
+        raise AssertionError(f"phase 18: the tiny fp32 paged engine or head-major decode on "
+                             f"the card disagrees with the CPU: paged tokens {paged_same}, "
+                             f"logits {paged_rel}; decode tokens {dec_same}, logprobs {dec_rel}")
     print(f"phase 18 tiny fp32 on the card vs the CPU: prefill logits rel_l2={rel:.3e} (tol "
           f"{FP32_TOL}); {TINY_NEW_TOKENS} greedy tokens equal: {same}; SFT step loss "
           f"{loss:.6f} vs {ref_loss:.6f} (rel {loss_rel:.3e}, tol {FP32_TOL}), grad_norm "
@@ -2133,6 +2208,15 @@ def ffn_launch_line(variant: str, A: int, C: int, H: int, I: int) -> str:
                 f"columns of I, {A * -(-I // gu)} blocks, "
                 f"{REGISTERS.get(kgu, 'registers not reported')}; down {dn} columns of H, "
                 f"{A * -(-H // dn)} blocks, {REGISTERS.get(kdn, 'registers not reported')}")
+    if path == 1 and mode:
+        rows, gu, dn = tiles
+        zt = A * (C // rows)
+        kgu = f"moe_int8_wgmma_kernel<{mode},{rows},2,1>"
+        kdn = f"moe_int8_wgmma_kernel<{mode},{rows},1,{dn // 128}>"
+        return (f"int8 wgmma ({variant}): {rows} rows a block, weight columns as M from "
+                f"registers; gate / up {gu} columns of I, {zt * -(-I // gu)} blocks, "
+                f"{REGISTERS.get(kgu, 'registers not reported')}; down {dn} columns of H, "
+                f"{zt * -(-H // dn)} blocks, {REGISTERS.get(kdn, 'registers not reported')}")
     if path == 1:
         rows, gu, dn = tiles
         wg = rows // 64
@@ -2183,7 +2267,9 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     """The grouped FFN kernel at one judge shape (T tokens routed top 8, in
     the ragged decode table or the GMM prefill blocks) against its plain
     version, with both times, the library call's and the bound; at decode
-    (the ragged table) also both device times (CUDA graphs)."""
+    (the ragged table) and for int8 weights or W8A8 also the device time (a
+    CUDA graph); for int8 weights or W8A8 the bf16 kernel at the same
+    routing beside it (no single PyTorch call computes either)."""
     import torch
 
     from video_r2_tpu_torch.models.moe import route
@@ -2209,12 +2295,14 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
     else:
         xs, ids, valid, _ = gmm_layout(x, topi, E, auto_block_rows(T * k, E))
     kw = {}
+    xs_float = xs                    # the bf16 kernel's operand at the same routing
     if variant == "w8a8":
         xs, ax = quantize_rows(xs)
         kw["x_scales"] = ax
     g, u, d = (leaves[n] for n in ("gate", "up", "down"))
     bi = _block_i(xs, moe_ragged._weights(g, u, d)[1], kw.get("x_scales"), 512)
     before = ffn_launches()[variant]
+    paths_before = dict(ffn_paths())
     run = lambda: ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid, **kw)  # noqa: E731
     plain = lambda: ragged_expert_ffn_plain(xs, ids, g, u, d, bi, valid,  # noqa: E731
                                             kw.get("x_scales"))
@@ -2228,13 +2316,14 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
          "plain_ms": cuda_ms(plain, iters=3, warmup=1),
          "library_ms": cuda_ms(library) if library is not None else None,
          **moe_bound(T * k, n_exp, H, I, variant)}
-    if layout == "ragged":
+    if layout == "ragged" or variant in ("int8", "w8a8"):
         r["device_ms"] = graph_ms(run)
-        if variant == "int8":   # the bf16 decode kernel at the same routing, and its bound
-            bg, bu, bd = (layer["bf16"][n] for n in ("gate", "up", "down"))
-            same = lambda: ragged_expert_ffn(xs, ids, bg, bu, bd, blk_valid=valid)  # noqa: E731
-            r["bf16_kernel_ms"], r["bf16_kernel_device_ms"] = cuda_ms(same), graph_ms(same)
-            r["bf16_bound_ms"] = moe_bound(T * k, n_exp, H, I, "bf16")["bound_ms"]
+    if variant in ("int8", "w8a8"):   # the bf16 kernel at the same routing, and its bound
+        bg, bu, bd = (layer["bf16"][n] for n in ("gate", "up", "down"))
+        same = lambda: ragged_expert_ffn(xs_float, ids, bg, bu, bd, blk_valid=valid)  # noqa: E731
+        r["bf16_kernel_ms"], r["bf16_kernel_device_ms"] = cuda_ms(same), graph_ms(same)
+        r["bf16_bound_ms"] = moe_bound(T * k, n_exp, H, I, "bf16")["bound_ms"]
+    if layout == "ragged":
         if library is not None:
             try:       # a capability probe of the yardstick, not of the port
                 r["library_device_ms"] = graph_ms(library)
@@ -2243,11 +2332,13 @@ def moe_case(gen, layer, T: int, layout: str, variant: str) -> dict:
                       f"no library device time", flush=True)
     name = f"moe_ffn_{variant}_{layout}"
     what = f"{variant} {'ragged decode' if layout == 'ragged' else 'GMM prefill'}, T={T}"
+    paths = {f"path{pth}": n - paths_before.get((v, pth), 0)
+             for (v, pth), n in ffn_paths().items() if v == variant}
     report(name, what, (A, C, H, I), experts=n_exp, slack_blocks=slack, bi=bi,
-           launches=ffn_launches()[variant] - before,
+           launches=ffn_launches()[variant] - before, launches_by_path=paths,
            **{k_: v for k_, v in r.items() if v is not None},
            **({"library": "none: no single PyTorch call computes it"}
-              if variant == "int8" else {}))
+              if variant in ("int8", "w8a8") else {}))
     if not (torch.isfinite(out).all() and excess <= 1.0 and not out[valid == 0].any()):
         raise AssertionError(f"{name} [{what}] disagrees with its plain version: "
                              f"{excess} x the tolerance")
@@ -2380,29 +2471,20 @@ class FfnRecorder:
     a timed pass runs with keep=False (a dict insert per call, no copies, no
     memory), and a short replay of it (the same prompts, 2 new tokens: its
     prefill and a decode step) with keep=True. Shares the wrapper's launch
-    counts, and counts the calls of each (variant, csrc/moe_ffn.cu path)
-    in `paths` (ffn_kernel_path: 2 is the decode kernel)."""
+    counts, by variant and by (variant, csrc/moe_ffn.cu path) in `paths`
+    (the wrapper counts them through the name this stand-in takes)."""
 
     def __init__(self, keep: bool):
         from video_r2_tpu_torch.ops import moe_ragged
 
         self.real = moe_ragged.ragged_expert_ffn
         self.launches = self.real.launches
+        self.paths = self.real.paths
         self.keep = keep
         self.calls = {}
-        self.paths = {}
 
     def __call__(self, x, ids, gate, up, down, block_i=512, blk_valid=None, x_scales=None):
-        import torch
-
-        from video_r2_tpu_torch.ops.moe_ragged import _weights, ffn_kernel_path
-
         variant = "w8a8" if x_scales is not None else "int8" if "kernel_q" in gate else "bf16"
-        mode = {"bf16": 0, "int8": 1, "w8a8": 2}[variant]
-        path = ffn_kernel_path(mode, x.shape[1], x.shape[2],
-                               _weights(gate, up, down)[1].shape[-1],
-                               x.dtype == torch.float32)[0]
-        self.paths[(variant, path)] = self.paths.get((variant, path), 0) + 1
         key = (variant, *x.shape[:2])
         if key not in self.calls:
             keep = lambda t: None if t is None else t.clone()  # noqa: E731
@@ -3145,6 +3227,12 @@ def judge_phase(card: str, device) -> dict:
     if launches8["moe_ffn_int8_gmm"] or launches8["moe_ffn_w8a8"] != launches8["moe_ffn_w8a8_gmm"]:
         raise AssertionError(f"the int8 pass ran W8A8 in decode or int8 weights with bf16 "
                              f"activations in prefill: {launches8}")
+    # every W8A8 prefill launch (one a layer) on the int8 wgmma kernels (path 1)
+    print(f"judge int8 pass: W8A8 prefill launches {launches8['moe_ffn_w8a8_gmm']}, on the "
+          f"wgmma path {launches8.get('moe_ffn_w8a8_path1', 0)}", flush=True)
+    if launches8.get("moe_ffn_w8a8_path1", 0) != launches8["moe_ffn_w8a8_gmm"]:
+        raise AssertionError(f"the int8 pass's W8A8 prefill did not all take the wgmma "
+                             f"kernels (path 1): {launches8}")
 
     # the paged engine on the same (int8) model
     sp = SamplingParams(eos_token_ids=(cfg.eos_token_id,), pad_token_id=cfg.pad_token_id)
@@ -3183,6 +3271,12 @@ def judge_phase(card: str, device) -> dict:
     if timedp.paths.get(("int8", 2), 0) < launchesp["moe_ffn_int8_ragged"]:
         raise AssertionError(f"the paged pass's ragged decode did not all take the decode "
                              f"kernel (path 2): {timedp.paths}, {launchesp}")
+    # every int8-weight prefill launch (one a layer) on the int8 wgmma kernels
+    print(f"judge paged pass: int8-weight prefill launches {launchesp['moe_ffn_int8_gmm']}, "
+          f"on the wgmma path {launchesp.get('moe_ffn_int8_path1', 0)}", flush=True)
+    if launchesp.get("moe_ffn_int8_path1", 0) != launchesp["moe_ffn_int8_gmm"]:
+        raise AssertionError(f"the paged pass's int8-weight prefill did not all take the "
+                             f"wgmma kernels (path 1): {launchesp}")
     if None in rids or len(out) != JUDGE_PAGED_REQUESTS:
         raise AssertionError(f"paged judge pass lost requests: {rids}, {len(out)} done")
     if eng.pcache.available_pages() != avail0:

@@ -13,9 +13,14 @@ Shapes (Qwen3-30B-A3B: E 128, H 2048, I 768, top 8; one layer's weights,
 seeded and scaled like chip_smoke.py phase 10's): the grouped FFN (csrc/
 moe_ffn.cu) in the ragged decode table at phase 10's T = 16 (and phase 11's
 paged pass, T = 8), the library call three torch._grouped_mm and the
-SwiGLU over the routed rows; the same with the layer's int8 weights
-(quantize_kernel) at T = 16, 8 and 4 (phase 11's int8 pass); the bf16 GMM prefill FFN at T = 4096 (its
-wgmma kernels share the ring with dX); dX of the GMM backward (csrc/
+SwiGLU over the routed rows (the GMM prefill cases also with the SM clock
+and power draw nvidia-smi reads while they run); the same with the
+layer's int8 weights
+(quantize_kernel) at T = 16, 8 and 4 (phase 11's int8 pass); the GMM
+prefill FFN at T = 4096 in bf16 (its wgmma kernels share the ring with
+dX), over the int8 weights with bf16 x and in W8A8 (int8 x by
+quantize_rows), the last two beside the bf16 kernel at the same routing;
+dX of the GMM backward (csrc/
 moe_gmm_bwd.cu) at phase 14's T = 4096 and phase 15's T = 2048, the
 library call chip_smoke.gmm_bwd_library's (five torch._grouped_mm and the
 SwiGLU terms); the weight gradients dWg / dWu and dWd at phase 14's T =
@@ -79,6 +84,33 @@ def host_us(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def under_load(fn, seconds: float = 2.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W), nvidia-smi's medians
+    over `seconds` of back-to-back calls of fn: what the timed calls ran at
+    (a card below its maximum clock under this load runs every rate below
+    the data sheet's)."""
+    import statistics
+    import time
+
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
+    smi.wait()
+    if not rows:
+        return {}
+    return {"sm_clock_mhz": statistics.median(float(c) for c, _ in rows),
+            "power_w": statistics.median(float(w) for _, w in rows)}
+
+
 def device_ms(fn) -> float | None:
     """chip_smoke.graph_ms, or None where a library call does not capture
     (a probe of the yardstick, not of the port)."""
@@ -107,11 +139,13 @@ def judge_layer(device, seed: int):
     return randw(H, E), leaves, gen
 
 
-def ffn_case(router, leaves, gen, T: int, layout: str, int8: dict | None = None) -> dict:
+def ffn_case(router, leaves, gen, T: int, layout: str, int8: dict | None = None,
+             w8a8: bool = False) -> dict:
     """The bf16 grouped FFN at T tokens in the ragged table or the GMM
     blocks: eager and device ms, the library's, the bound, its kernels; with
-    `int8` leaves (the ragged table only), the int8-weight FFN instead, the
-    bf16 kernel at the same routing in the library's place."""
+    `int8` leaves, the int8-weight FFN instead (with w8a8, over x quantized
+    by rows: W8A8), the bf16 kernel at the same routing in the library's
+    place."""
     import torch
 
     import chip_smoke
@@ -126,7 +160,7 @@ def ffn_case(router, leaves, gen, T: int, layout: str, int8: dict | None = None)
         xs, ids, valid, _ = moe_ragged.ragged_layout(x, topi, E)
     else:
         xs, ids, valid, _ = gmm_layout(x, topi, E, auto_block_rows(T * 8, E))
-    variant = "bf16" if int8 is None else "int8"
+    variant = "bf16" if int8 is None else "w8a8" if w8a8 else "int8"
     g, u, d = (leaves[n] for n in ("gate", "up", "down"))
     if int8 is None:
         library = chip_smoke.grouped_mm_library(x, topi, leaves, E)
@@ -134,18 +168,22 @@ def ffn_case(router, leaves, gen, T: int, layout: str, int8: dict | None = None)
         library = lambda g=g, u=u, d=d: moe_ragged.ragged_expert_ffn(  # noqa: E731
             xs, ids, g, u, d, blk_valid=valid)
         g, u, d = (int8[n] for n in ("gate", "up", "down"))
-    run = lambda: moe_ragged.ragged_expert_ffn(xs, ids, g, u, d, blk_valid=valid)  # noqa: E731
-    ref = moe_ragged.ragged_expert_ffn_plain(xs, ids, g, u, d, I, valid)
+    xq, ax = moe_ragged.quantize_rows(xs) if w8a8 else (xs, None)
+    run = lambda: moe_ragged.ragged_expert_ffn(xq, ids, g, u, d, blk_valid=valid,  # noqa: E731
+                                               x_scales=ax)
+    bi = moe_ragged._block_i(xq, moe_ragged._weights(g, u, d)[1], ax, 512)
+    ref = moe_ragged.ragged_expert_ffn_plain(xq, ids, g, u, d, bi, valid, ax)
     err, excess = chip_smoke.compare(run(), ref)
     n_exp = int(torch.unique(topi).numel())
     r = {"ms": chip_smoke.cuda_ms(run), "device_ms": device_ms(run), "host_us": host_us(run),
+         **(under_load(run) if layout == "gmm" else {}),
          "library_ms": chip_smoke.cuda_ms(library) if library else None,
          "library_device_ms": device_ms(library) if library else None,
          **chip_smoke.moe_bound(T * 8, n_exp, H, I, variant),
          "max_abs_err": err, "excess": excess, "experts": n_exp,
          "shape": list(xs.shape), "kernels_us": kernel_us(run)}
     if int8 is not None:
-        r["library"] = "the bf16 decode kernel at the same routing"
+        r["library"] = "the bf16 kernel at the same routing"
         r["bf16_bound_ms"] = chip_smoke.moe_bound(T * 8, n_exp, H, I, "bf16")["bound_ms"]
     if hasattr(moe_ragged, "ffn_decode_tiles"):
         r["launch"] = chip_smoke.ffn_launch_line(variant, xs.shape[0], xs.shape[1], H, I)
@@ -286,8 +324,16 @@ def main() -> int:
                  ffn_case(router, leaves, gen, T, "ragged", int8))
         del int8
     if "prefill" in cases:
+        from video_r2_tpu_torch.models.quant import quantize_kernel
+
         emit("moe_ffn_bf16_gmm", f"GMM prefill, T={PREFILL_TOKENS}",
              ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm"))
+        int8 = {n: quantize_kernel(leaf["kernel"]) for n, leaf in leaves.items()}
+        for variant in ("int8", "w8a8"):
+            emit(f"moe_ffn_{variant}_gmm", f"{variant} GMM prefill, T={PREFILL_TOKENS}",
+                 ffn_case(router, leaves, gen, PREFILL_TOKENS, "gmm", int8,
+                          w8a8=variant == "w8a8"))
+        del int8
         torch.cuda.empty_cache()
     for T in DX_TOKENS if "dx" in cases else ():
         emit("moe_gmm_bwd_dx", f"GMM backward dX, T={T}", dx_case(router, leaves, gen, T))

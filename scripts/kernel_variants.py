@@ -66,6 +66,44 @@ kernel. The variants, and the sources whose text they match:
                        blocks an SM at every width (4 / 3 / 3 stages for 1-2
                        / 4 / 8 token tiles; bf16 and int8 weights alike)
   moeq_noconvert       as int8_noconvert
+  moewq_noconvert      csrc/moe_ffn.cu of this tree: the int8-weight GMM
+                       prefill's wgmma kernels (moe_int8_wgmma_kernel, mode
+                       1) take the raw weight words as their A fragments
+                       (no int8_pairs)
+  moewq_noproducts     the same source: the int8-weight and W8A8 wgmma
+                       kernels issue no product (their fragments are formed
+                       and folded into one accumulator each, so ptxas keeps
+                       them; the loads, fragments and epilogue alone)
+  moewq_rowfast        the same source: the blocks of the int8 wgmma kernels
+                       in row-tile-fastest order (the row blocks of one
+                       weight tile in flight together, not the column tiles
+                       of one row block)
+  moewq_halfboxes      the same source: each weight box loaded as two boxes
+                       of half its k rows (twice the boxes a stage, the same
+                       bytes and layout)
+  moewq_halfring       the same source: half the ring (half the stages)
+  moewq_nofrags        the same source: the int8 wgmma kernels' products run
+                       on constant A fragments (no ldmatrix, no conversion)
+  moewq_ss             the same source, with moewq_nofrags: mode 1's products
+                       read A from shared memory (the weight box taken as a
+                       bf16 tile: wgmma's shared-memory form, not its
+                       register form)
+  moewq_oneexpert      the same source: every block of the int8 wgmma kernels
+                       reads expert 0's weights (L2-resident: what the weights'
+                       misses cost)
+  moewq_onerow         the same source: every block reads the x (or h) rows of
+                       row block 0 (L2-resident)
+  moe_bf16_loads       the same source: the bf16 wgmma kernels (gate / up and
+                       down) issue no product (their ring and epilogue alone)
+  moewq_halfx          the same source: the x (or h) box loaded on even stages
+                       only (odd stages reuse stale rows: half the rows' bytes)
+  moewq_halfw          the same source: the weight boxes loaded on even stages
+                       only (half the weights' bytes)
+  moewq_wait0          the same source: each stage waits for its own products
+                       (the next stage's fragments are not formed under them)
+  moewq_loads          the same source, with moewq_noproducts: nor do they
+                       form fragments (no ldmatrix, no conversion: the TMA
+                       ring, its barriers and the epilogue alone)
 
 The variants of one source combine (int4_nocompute with int4_2blocks).
 """
@@ -104,6 +142,37 @@ DECODE_COMPUTE = "      compute(ring + slot * BYTES);\n"
 DECODE_FLUSH = "    flush(T, sa, sb);\n"
 INT8_PAIRS = "  for (int i = 0; i < 4; ++i) int8_pairs(wr[i], even[i], odd[i]);\n"
 RAW_PAIRS = "  for (int i = 0; i < 4; ++i) even[i] = wr[i], odd[i] = wr[i] >> 8;\n"
+
+# the int8 wgmma kernels of the GMM prefill FFN (csrc/moe_ffn.cu, namespace wq)
+WQ_PAIRS = """\
+          int8_pairs(r[2 * q], f[kk][q][0], f[kk][q][1]);
+          int8_pairs(r[2 * q + 1], f[kk][q][2], f[kk][q][3]);
+"""
+WQ_RAW = """\
+          f[kk][q][0] = r[2 * q], f[kk][q][1] = r[2 * q] >> 8;
+          f[kk][q][2] = r[2 * q + 1], f[kk][q][3] = r[2 * q + 1] >> 8;
+"""
+WQ_PRODUCTS = """\
+      for (int u = 0; u < NU; ++u) {
+        if constexpr (MODE == kW8A8)
+          wgmma_rs<BN>(acc[u], f[kk][u], db, scale);
+        else
+          wgmma_rs<BN, 0>(acc[u], f[kk][u], db, scale);
+      }
+"""
+WQ_NO_PRODUCTS = """\
+      for (int u = 0; u < NU; ++u)
+        acc[u][0][0] += (Acc)(f[kk][u][0] ^ f[kk][u][1] ^ f[kk][u][2] ^ f[kk][u][3] ^ (uint32_t)db);
+"""
+WQ_LDSM_Q = """\
+        ldsm_x4_trans(r, sw128_at(st + (u ? box[NU - 1] : box[0]), kr,
+                                  (u ? c0[NU - 1] : c0[0]) % kBoxCols));
+"""
+WQ_LDSM_QQ = """\
+          ldsm_x4_trans(r, sw128_at(st + box[u], kr, c0[u] % kBoxCols));
+"""
+WQ_NO_LDSM_Q = "        r[0] = r[1] = r[2] = r[3] = kk;\n"
+WQ_NO_LDSM_QQ = "          r[0] = r[1] = r[2] = r[3] = kk;\n"
 
 # name -> [(file under csrc/, or a path from it, old text, new text)]
 VARIANTS = {
@@ -170,6 +239,71 @@ VARIANTS = {
         "static constexpr int STAGES = Q && NT == 1 ? 4 : NT <= 2 ? 6 : NT == 4 ? 5 : 4;",
         "static constexpr int STAGES = NT <= 2 ? 4 : 3;")],
     "moeq_noconvert": [("stream_k.cuh", INT8_PAIRS, RAW_PAIRS)],
+    "moewq_noconvert": [("moe_ffn.cu", WQ_PAIRS, WQ_RAW)],
+    "moewq_noproducts": [("moe_ffn.cu", WQ_PRODUCTS, WQ_NO_PRODUCTS)],
+    "moewq_rowfast": [("moe_ffn.cu",
+                       "  wg::block_coords((N + G::COLS - 1) / G::COLS, C / BN, a, z, j);\n",
+                       "  {\n    const int rz = gridDim.x / ((N + G::COLS - 1) / G::COLS);\n"
+                       "    j = blockIdx.x / rz;\n    a = blockIdx.x % rz / (C / BN);\n"
+                       "    z = blockIdx.x % rz % (C / BN);\n  }\n")],
+    "moewq_halfboxes": [
+        ("moe_ffn.cu", "    tma_stage(bar, G::STAGE, 1 + NW * NB, [&](int b) {",
+         "    tma_stage(bar, G::STAGE, 1 + 2 * NW * NB, [&](int b) {"),
+        ("moe_ffn.cu",
+         "        const int which = (b - 1) / NB, bx = (b - 1) % NB;\n"
+         "        tma_load_3d(st + G::X_BYTES + (b - 1) * G::BOX, which ? &mw1 : &mw0, bar,\n"
+         "                    n0 + kBoxCols * bx, k0, e);\n",
+         "        const int which = (b - 1) / 2 / NB, bx = (b - 1) / 2 % NB, hf = (b - 1) % 2;\n"
+         "        tma_load_3d(st + G::X_BYTES + (b - 1) / 2 * G::BOX + hf * G::BOX / 2,\n"
+         "                    which ? &mw1 : &mw0, bar, n0 + kBoxCols * bx, k0 + hf * G::KS / 2, e);\n"),
+        ("moe_ffn.cu", "p.I, p.H, p.E, GU::KS, true)) != cudaSuccess ||\n"
+         "      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, GU::KS, true))",
+         "p.I, p.H, p.E, GU::KS / 2, true)) != cudaSuccess ||\n"
+         "      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, GU::KS / 2, true))"),
+        ("moe_ffn.cu", "box_map(&mwd, p.wd, p.H, p.I, p.E, DN::KS, true)",
+         "box_map(&mwd, p.wd, p.H, p.I, p.E, DN::KS / 2, true)")],
+    "moewq_halfring": [("moe_ffn.cu", "constexpr int kRingBytes = 200 * 1024;",
+                        "constexpr int kRingBytes = 100 * 1024;")],
+    "moewq_nofrags": [("moe_ffn.cu", WQ_LDSM_Q, WQ_NO_LDSM_Q),
+                      ("moe_ffn.cu", WQ_LDSM_QQ, WQ_NO_LDSM_QQ)],
+    "moewq_ss": [("moe_ffn.cu", WQ_LDSM_Q, WQ_NO_LDSM_Q),
+                 ("moe_ffn.cu", WQ_LDSM_QQ, WQ_NO_LDSM_QQ),
+                 ("moe_ffn.cu", "          wgmma_rs<BN, 0>(acc[u], f[kk][u], db, scale);",
+                  "          wgmma_ss<BN, 0>(acc[u], desc_k_sw128(st + box[u], kk), db, scale);")],
+    "moewq_oneexpert": [("moe_ffn.cu",
+                         "  const int e = min(max(ids[a], 0), E - 1);\n  // tile u = (weight u / NB",
+                         "  const int e = 0;\n  // tile u = (weight u / NB")],
+    "moewq_onerow": [("moe_ffn.cu", "        tma_load_2d(st, &mx, bar, k0, row);\n      } else {\n"
+                      "        const int which",
+                      "        tma_load_2d(st, &mx, bar, k0, 0);\n      } else {\n"
+                      "        const int which")],
+    "moe_bf16_loads": [
+        ("moe_ffn.cu",
+         "          wgmma_ss<BN, 1>(g, da, desc_mn_sw128(st + R::A_BYTES, kk, kBoxBytes), 1);\n"
+         "          wgmma_ss<BN, 1>(u, da, desc_mn_sw128(st + R::A_BYTES + R::B_BYTES, kk, kBoxBytes), 1);\n",
+         "          g[0][0] += (float)(uint32_t)da;\n"),
+        ("moe_ffn.cu",
+         "          wgmma_ss<BN, 1>(acc, desc_k_sw128(st + w * kRows * 128, kk),\n"
+         "                          desc_mn_sw128(st + R::A_BYTES, kk, kBoxBytes), 1);\n",
+         "          acc[0][0] += (float)(uint32_t)desc_k_sw128(st + w * kRows * 128, kk);\n")],
+    "moewq_halfx": [("moe_ffn.cu", "    tma_stage(bar, G::STAGE, 1 + NW * NB, [&](int b) {",
+                     "    tma_stage(bar, G::STAGE - (s & 1) * G::X_BYTES, 1 + NW * NB, [&](int b) {"),
+                    ("moe_ffn.cu", "        tma_load_2d(st, &mx, bar, k0, row);\n      } else {\n"
+                     "        const int which",
+                     "        if (!(s & 1)) tma_load_2d(st, &mx, bar, k0, row);\n      } else {\n"
+                     "        const int which")],
+    "moewq_halfw": [("moe_ffn.cu", "    tma_stage(bar, G::STAGE, 1 + NW * NB, [&](int b) {",
+                     "    tma_stage(bar, G::STAGE - (s & 1) * NW * NB * G::BOX, 1 + NW * NB, [&](int b) {"),
+                    ("moe_ffn.cu", "        tma_load_3d(st + G::X_BYTES + (b - 1) * G::BOX, which ? &mw1 : &mw0, bar,\n"
+                     "                    n0 + kBoxCols * bx, k0, e);\n",
+                     "        if (!(s & 1))\n"
+                     "          tma_load_3d(st + G::X_BYTES + (b - 1) * G::BOX, which ? &mw1 : &mw0, bar,\n"
+                     "                      n0 + kBoxCols * bx, k0, e);\n")],
+    "moewq_wait0": [("moe_ffn.cu", "    wgmma_commit();\n    wgmma_wait<1>();\n",
+                     "    wgmma_commit();\n    wgmma_wait<0>();\n")],
+    "moewq_loads": [("moe_ffn.cu", WQ_PRODUCTS, WQ_NO_PRODUCTS),
+                    ("moe_ffn.cu", WQ_LDSM_Q, WQ_NO_LDSM_Q),
+                    ("moe_ffn.cu", WQ_LDSM_QQ, WQ_NO_LDSM_QQ)],
     "int4_staged_noload": [
         ("int4_matmul.cu",
          "      load_stage<MT, WV, G>(smem + s * R::BYTES, p, first + s, n0, row0, rows, tid);\n",

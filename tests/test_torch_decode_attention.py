@@ -52,7 +52,48 @@ def _sps(T_new):
 def test_decode_attention_matches_jax_kernel(rng, g, window, layer):
     """Ragged prompt lengths (one reaching into the second block, one past
     s_pad's block start), decode slots [s_pad, slot_end] or none."""
-    L, B, kh, smax, hd = 3, 3, 2, 256, 16
+    _decode_case(rng, g, window, layer, 16)
+
+
+@pytest.mark.parametrize("g", [2, 7])
+@pytest.mark.parametrize("window", ["on", "off"])
+def test_decode_attention_at_head_dim_12_matches_jax_kernel(rng, g, window):
+    """The tiny config's head dim 12 in fp32, as the fp32 instance of the
+    decode kernel takes it on the card (padded there to its width of 32)."""
+    _decode_case(rng, g, window, 1, 12)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 128, "bf16"),
+    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 80, ValueError),
+    (torch.bfloat16, 96, ValueError), (torch.bfloat16, 129, ValueError),
+    (torch.float32, 1, "fp32"), (torch.float32, 12, "fp32"), (torch.float32, 33, "fp32"),
+    (torch.float32, 96, "fp32"), (torch.float32, 128, "fp32"),
+    (torch.float32, 0, ValueError), (torch.float32, 129, ValueError),
+    (torch.float16, 64, TypeError), (torch.int8, 128, TypeError)])
+def test_decode_kernel_instance_routes_by_dtype_and_head_dim(dtype, hd, want):
+    """The routing of both decode-attention wrappers (the head-major decode
+    and the paged decode) on the card: bf16 to the tensor-core instances at
+    head dims 64 / 128, fp32 to the CUDA-core instances at any head dim from
+    1 to 128 (padded to a width of 32, 64 or 128), every other dtype
+    refused; the paged engine's cache set-up asks the same."""
+    from video_r2_tpu_torch.ops.paged_attention import check_kernel_sizes
+
+    if isinstance(want, str):
+        assert split.decode_kernel_instance(dtype, hd) == want
+        check_kernel_sizes(hd, 128, dtype)
+        width = split.split_width(hd)
+        assert width in split.DECODE_FP32_WIDTHS and hd <= width   # the smallest that holds hd
+        assert all(w < hd for w in split.DECODE_FP32_WIDTHS if w < width)
+    else:
+        with pytest.raises(want):
+            split.decode_kernel_instance(dtype, hd)
+        with pytest.raises(want):
+            check_kernel_sizes(hd, 128, dtype)
+
+
+def _decode_case(rng, g, window, layer, hd):
+    L, B, kh, smax = 3, 3, 2, 256
     s_pad = 140
     slot_end = s_pad + 5 if window == "on" else s_pad - 1
     lengths = np.array([137, 9, 140], np.int32)

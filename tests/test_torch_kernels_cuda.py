@@ -506,6 +506,21 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     scales = torch.zeros(k.shape[:4], device=cuda)
     with pytest.raises(TypeError, match="int8"):               # bf16 pages, scales given
         paged_decode_attention_stacked_quant(q, k, v, scales, scales, tables, lens, 0, 128)
+    with pytest.raises(ValueError, match="head dim"):          # bf16 at head dim 12
+        paged_decode_attention_stacked(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                                       v[..., :12].contiguous(), tables, lens, 0, 128)
+    for hd in (12, 96):           # fp32 q and pages at any head dim up to 128: taken
+        q32, k32, v32, t32, l32, _ = _paged_inputs(gen, [200, 100], 1, hd, 128, False)
+        q32, k32, v32 = q32.float(), k32.float(), v32.float()
+        out = paged_decode_attention_stacked(q32, k32, v32, t32, l32, 0, 128)
+        ref = paged_decode_attention_stacked_plain(q32, k32, v32, t32, l32, 0, 128)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and _close_as(out, ref, True), hd
+    q32, k32, v32, t32, l32, _ = _paged_inputs(gen, [200, 100], 1, 129, 128, False)
+    for dtype in (torch.float32, torch.bfloat16):              # head dim 129
+        with pytest.raises(ValueError, match="head dim"):
+            paged_decode_attention_stacked(q32.to(dtype), k32.to(dtype), v32.to(dtype), t32,
+                                           l32, 0, 128)
 
 
 def _moe_weights(gen, E, H, I, variant):
@@ -583,6 +598,53 @@ def test_moe_ffn_wgmma_matches_plain(cuda, C, H, I):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8", "w8a8"])
+@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("H,I,block_i", [(2048, 768, 512), (256, 256, 128), (320, 192, 512),
+                                         (320, 192, 64), (384, 320, 512)])
+def test_moe_ffn_int8_wgmma_matches_plain(cuda, variant, C, H, I, block_i):
+    """The int8-weight and W8A8 wgmma path (C a multiple of 64) over the
+    sorted GMM layout of experts with 1, 64, 65 and 200 rows, one token's x
+    all zero (its h row zero: W8A8's 1e-6 scale floor), slack blocks
+    present: at the judge's widths (bi = 384, two tiles), at bi = 128 of I =
+    256, at I = 192 (a gate / up tail of 64 columns; W8A8's down K of 1.5
+    stages) with bi = I and bi = 64 (a fold inside a stage), at H = 320 (a
+    down tail of 64 columns; W8A8's gate / up K of 2.5 stages) and H = 384
+    (int8: a down block over 128 columns past H); against the plain version,
+    the slack blocks exactly 0, one launch counted on path 1."""
+    from video_r2_tpu_torch.ops.moe_gmm import gmm_layout
+
+    gen = torch.Generator(device=cuda).manual_seed(C + H + I + block_i)
+    E = 8
+    w = _moe_weights(gen, E, H, I, "int8")
+    rows = {1: 1, 3: 64, 4: 65, 6: 200}
+    topi = torch.cat([torch.full((n,), e, device=cuda) for e, n in rows.items()])
+    topi = topi[torch.randperm(len(topi), generator=gen, device=cuda)][:, None]
+    xt = _randn(gen, len(topi), H)
+    xt[int((topi[:, 0] == 6).nonzero()[0])] = 0
+    xs, ids, valid, _ = gmm_layout(xt, topi, E, C)
+    kw = {}
+    if variant == "w8a8":
+        xs, ax = moe_ragged.quantize_rows(xs)
+        kw["x_scales"] = ax
+    mode = 2 if variant == "w8a8" else 1
+    assert moe_ragged.ffn_kernel_path(mode, C, H, I)[0] == 1 and not valid.all()
+    bi = moe_ragged._block_i(xs, w["gate"]["kernel_q"], kw.get("x_scales"), block_i)
+    assert bi == {768: 384, 256: 128, 192: min(block_i, 192), 320: 320}[I]
+    before = dict(moe_ragged.ragged_expert_ffn.paths)
+    out = moe_ragged.ragged_expert_ffn(xs, ids, w["gate"], w["up"], w["down"],
+                                       block_i=block_i, blk_valid=valid, **kw)
+    torch.cuda.synchronize()
+    after = moe_ragged.ragged_expert_ffn.paths
+    assert after == {**before, (variant, 1): before.get((variant, 1), 0) + 1}
+    ref = moe_ragged.ragged_expert_ffn_plain(xs, ids, w["gate"], w["up"], w["down"], bi,
+                                             valid, kw.get("x_scales"))
+    assert out.dtype == ref.dtype and out.shape == xs.shape
+    assert torch.isfinite(out).all() and not out[valid == 0].any()
+    assert _close(out, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
 def test_moe_paths_run_the_kernel(cuda, variant):
     """moe_mlp_ragged (T = 16) and moe_mlp_gmm (T = 512) through the kernel
@@ -634,7 +696,7 @@ def test_moe_ffn_refuses_what_it_does_not_take(cuda):
     for mode, path, tiles in ((2, 2, (8, 128, 128)),    # W8A8 has no decode kernel
                               (1, 2, (8, 64, 128)),     # int8 gate / up tiles are 128 wide
                               (1, 2, (8, 128, 64)),     # ... and down tiles 128 or 256
-                              (1, 1, (64, 128, 128))):  # nor a wgmma path
+                              (1, 1, (64, 128, 128))):  # C = 8 is no multiple of 64
         err = kernels().vr2_moe_ffn(
             p(x), None, p(ids), p(ids), p(q["gate"]["kernel_q"]), p(q["gate"]["scale"]),
             p(q["up"]["kernel_q"]), p(q["up"]["scale"]), p(q["down"]["kernel_q"]),
@@ -1569,7 +1631,10 @@ def test_decode_attention_kernel_fp32_matches_plain(cuda, window, g, hd):
 
 @pytest.mark.cuda
 def test_decode_attention_refuses_what_it_does_not_take(cuda):
-    from video_r2_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from video_r2_tpu_torch.ops.decode_attention import (
+        decode_attention_stacked,
+        decode_attention_stacked_plain,
+    )
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     lengths = torch.full((4,), 100, dtype=torch.int32, device=cuda)
@@ -1586,6 +1651,19 @@ def test_decode_attention_refuses_what_it_does_not_take(cuda):
     q, k, v = _decode_inputs(gen, 2, 80, smax=256)
     with pytest.raises(ValueError):                 # head dim 80
         decode_attention_stacked(q, k, v, lengths, 99, 0, 100)
+    for hd in (12, 96):           # fp32 at any head dim up to 128: taken
+        q, k, v = (x.float() for x in _decode_inputs(gen, 2, hd, smax=256))
+        out = decode_attention_stacked(q, k, v, lengths, 99, 0, 100)
+        ref = decode_attention_stacked_plain(q, k, v, lengths, 99, 0, 100)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and _close_as(out, ref, True), hd
+    q, k, v = _decode_inputs(gen, 2, 96, smax=256)
+    with pytest.raises(ValueError):                 # bf16 at head dim 96
+        decode_attention_stacked(q, k, v, lengths, 99, 0, 100)
+    q, k, v = _decode_inputs(gen, 2, 129, smax=256)
+    for x in (q, q.float()):                        # head dim 129
+        with pytest.raises(ValueError):
+            decode_attention_stacked(x, k.to(x.dtype), v.to(x.dtype), lengths, 99, 0, 100)
 
 
 # ---------------------------------------------------------------------------
@@ -1700,6 +1778,65 @@ def test_decode_attention_split_grid(cuda, monkeypatch, dtype, window, g, hd):
         assert out.dtype == q.dtype and out.shape == q.shape
         assert torch.isfinite(out).all(), S
         assert _close_as(out, ref, dtype == "fp32"), S
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [12, 33, 96])
+@pytest.mark.parametrize("case", ["paged_fp32", "paged_int8", "paged_w4", "decode"])
+def test_decode_kernels_fp32_any_head_dim(cuda, monkeypatch, case, hd):
+    """fp32 q at a head dim the instances do not have (the tiny config's 12;
+    33 and 96 padded to widths 64 and 128): the paged kernel over fp32 pages
+    (W = 1 and a W = 4 chunk) and int8 pages, the head-major decode kernel,
+    with one split, 5 and the wrapper's plan, against the plain versions
+    within FP32_TOL; every pool or cache row that no query admits NaN (the
+    element-wise fill reads none of them)."""
+    from video_r2_tpu_torch.ops import decode_attention as dec
+    from video_r2_tpu_torch.ops import paged_attention as paged
+
+    gen = torch.Generator(device=cuda).manual_seed(hd + len(case))
+    if case == "decode":
+        q, k, v = (x.float() for x in _decode_inputs(gen, 7, hd))
+        lengths = torch.tensor([1399, 1217, 300, 1408], dtype=torch.int32, device=cuda)
+        s_pad, slot_end = 1408, 1408 + 63
+        ref = dec.decode_attention_stacked_plain(q, k, v, lengths, slot_end, 2, s_pad)
+        kpos = torch.arange(k.shape[3], device=cuda)
+        stale = ~((kpos[None] < lengths[:, None])
+                  | ((kpos >= s_pad) & (kpos <= slot_end))[None])
+        k.permute(1, 3, 0, 2, 4)[stale] = float("nan")
+        v.permute(1, 3, 0, 2, 4)[stale] = float("nan")
+        run = lambda: dec.decode_attention_stacked(q, k, v, lengths, slot_end, 2, s_pad)  # noqa: E731
+        module, counter = dec, dec.decode_attention_stacked
+    else:
+        W, quant, ps = (4 if case == "paged_w4" else 1), case == "paged_int8", 128
+        lengths = [1, ps - 3, 2 * ps, 5 * ps + 17, 3 * ps + 1, 0]
+        q, k, v, tables, lens, (ks, vs) = _paged_inputs(gen, lengths, W, hd, ps, quant, kh=2,
+                                                        nh=14)
+        q = q.float()
+        if not quant:
+            k, v = k.float(), v.float()
+        ref = paged_decode_attention_stacked_plain(q, k, v, tables, lens, 1, ps, ks, vs)
+        stale = _stale_pages(tables, lens, W, k.shape[2], ps)
+        if quant:
+            k[:, :, stale] = -128
+            ks[:, :, stale] = float("nan")
+            vs[:, :, stale] = float("nan")
+        else:
+            k[:, :, stale] = float("nan")
+            v[:, :, stale] = float("nan")
+        run = lambda: paged_decode_attention_stacked(q, k, v, tables, lens, 1, ps, ks, vs)  # noqa: E731
+        module = paged
+        counter = (paged_decode_attention_stacked_quant if quant
+                   else paged_decode_attention_stacked)
+    for S in (1, 5, None):
+        _force_splits(monkeypatch, module, S)
+        before = counter.launches
+        out = run()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert out.shape == q.shape and out.dtype == torch.float32
+        assert torch.isfinite(out).all(), S
+        assert _close_as(out, ref, True), S
         monkeypatch.undo()
 
 

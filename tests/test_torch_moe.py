@@ -225,13 +225,19 @@ def test_moe_paths_match_jax(rng, variant):
     (0, 8, 2048, 768, None),
     (0, 40, 2048, 768, None),
     (0, 200, 2048, 768, None),
-    (1, 128, 2048, 768, None),              # int8 weights
-    (2, 128, 2048, 768, None),              # W8A8
-    (1, 64, 2048, 768, None)])
+    (1, 128, 2048, 768, (128, 128, 256)),   # int8 weights: boxes of 128 int8 columns
+    (2, 128, 2048, 768, (128, 128, 128)),   # W8A8
+    (1, 64, 2048, 768, (64, 128, 256)),
+    (2, 64, 2048, 768, (64, 128, 128)),
+    (1, 128, 320, 192, (128, 128, 256)),    # column tails of 64 read as zeros
+    (2, 256, 320, 192, (128, 128, 128)),
+    (2, 16, 2048, 768, None),               # W8A8 under 64 rows: mma.sync
+    (1, 200, 2048, 768, None),              # 64 does not divide C: mma.sync
+    (2, 200, 2048, 768, None)])
 def test_ffn_kernel_dispatch_rule(mode, C, H, I, tiles):
     """Which calls of the grouped FFN take the wgmma kernels, and their tiles
-    (rows, gate / up columns, down columns): bf16 blocks of a multiple of
-    64 rows."""
+    (rows, gate / up columns, down columns): blocks of a multiple of 64 rows
+    in every mode."""
     assert moe_ragged.ffn_wgmma_tiles(mode, C, H, I) == tiles
 
 
@@ -249,14 +255,20 @@ def test_ffn_kernel_dispatch_rule(mode, C, H, I, tiles):
     (1, 13, 2048, 768, False, (2, (16, 128, 256))),  # ... boxes of 16 rows, 3 dropped
     (1, 32, 2048, 768, False, (2, (32, 128, 256))),  # ... RAGGED_MAX_TOKENS
     (1, 16, 320, 192, False, (2, (16, 128, 128))),   # ... column tails of 64
-    (1, 128, 2048, 768, False, (0, (0, 0, 0))),      # the int8 GMM prefill: mma.sync
-    (2, 128, 2048, 768, False, (0, (0, 0, 0))),      # W8A8
+    (1, 128, 2048, 768, False, (1, (128, 128, 256))),  # the int8 GMM prefill: wgmma
+    (2, 128, 2048, 768, False, (1, (128, 128, 128))),  # W8A8
+    (1, 64, 2048, 768, False, (1, (64, 128, 256))),
+    (2, 64, 2048, 768, False, (1, (64, 128, 128))),
+    (2, 16, 2048, 768, False, (0, (0, 0, 0))),       # W8A8 under 64 rows: mma.sync
+    (1, 200, 2048, 768, False, (0, (0, 0, 0))),      # 64 does not divide C: mma.sync
+    (2, 200, 2048, 768, False, (0, (0, 0, 0))),
     (0, 16, 2048, 768, True, (3, (0, 0, 0))),        # fp32: CUDA cores
     (0, 128, 2048, 768, True, (3, (0, 0, 0)))])
 def test_ffn_kernel_path(mode, C, H, I, fp32, path):
     """csrc/moe_ffn.cu's path for a call and its tiles (ffn_kernel_path:
-    ffn_wgmma_tiles, then ffn_decode_tiles for bf16 blocks under 64 rows,
-    then mma.sync; fp32 x over fp32 weights on the CUDA cores)."""
+    ffn_wgmma_tiles for blocks of a multiple of 64 rows, then
+    ffn_decode_tiles for bf16 and int8-weight blocks under 64 rows, then
+    mma.sync; fp32 x over fp32 weights on the CUDA cores)."""
     assert moe_ragged.ffn_kernel_path(mode, C, H, I, fp32) == path
     if not fp32:
         assert moe_ragged.ffn_decode_tiles(mode, C, H, I) == (path[1] if path[0] == 2 else None)
@@ -302,6 +314,18 @@ def test_judge_gmm_prefill_takes_the_wgmma_kernels(T):
     blocks, and so the wgmma path."""
     bm = moe_gmm.auto_block_rows(T * 8, 128)
     assert bm == 128 and moe_ragged.ffn_wgmma_tiles(0, bm, 2048, 768) == (128, 128, 256)
+
+
+@pytest.mark.parametrize("T", [2816, 4096, 5430, 6656, 8192])
+@pytest.mark.parametrize("mode,tiles", [(1, (128, 128, 256)), (2, (128, 128, 128))])
+def test_judge_int8_gmm_prefill_takes_the_wgmma_kernels(T, mode, tiles):
+    """The quantized judge's GMM prefills, int8 weights (mode 1: the paged
+    pass's 8 prompts, 5430 tokens, or 6656 / 8192 padded) and W8A8 (mode 2:
+    the int8 pass's burst of 4 prompts padded to 2816 tokens), and both at
+    the table's T = 4096: 128-row blocks, and so the int8 wgmma kernels with
+    their tiles."""
+    bm = moe_gmm.auto_block_rows(T * 8, 128)
+    assert bm == 128 and moe_ragged.ffn_kernel_path(mode, bm, 2048, 768) == (1, tiles)
 
 
 def test_sorted_expert_layout_matches_jax(rng):

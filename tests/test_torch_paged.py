@@ -58,7 +58,19 @@ def _tables(rng, lengths, W, n_pages, max_pages):
 @pytest.mark.parametrize("case", ["bf16_w1", "page_boundary", "w3", "int8", "one_layer",
                                   "fp32_pages"])
 def test_paged_attention_matches_jax(rng, case):
-    Lyr, kh, nh, hd, n_pages, max_pages = 2, 2, 6, 16, 40, 8
+    _paged_case(rng, case, 16)
+
+
+@pytest.mark.parametrize("case", ["fp32_pages", "w3", "int8", "page_boundary"])
+def test_paged_attention_at_head_dim_12_matches_jax(rng, case):
+    """The tiny config's head dim 12, fp32 q over fp32 (or int8) pages: the
+    shapes the fp32 instance of the paged kernel runs on the card (a row of
+    12 elements, padded there to the instance's width of 32)."""
+    _paged_case(rng, case, 12)
+
+
+def _paged_case(rng, case, hd):
+    Lyr, kh, nh, n_pages, max_pages = 2, 2, 6, 40, 8
     W = 3 if case == "w3" else 1
     lengths = np.array({"page_boundary": [16, 32, 48]}.get(case, [37, 5, 70]), np.int32)
     tables = _tables(rng, lengths, W, n_pages, max_pages)

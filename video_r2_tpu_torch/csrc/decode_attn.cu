@@ -22,27 +22,19 @@
 // csrc/split_decode.cuh. Here: one (layer, sequence, kv head) is a
 // contiguous [Smax, hd] run, so tile t is rows [64 t, 64 t + 64) of it; g
 // <= 16 query rows take one 16-row tile (bf16) or a 16-row block (fp32).
+// bf16 at head dims 64 and 128; fp32 at any head dim from 1 to 128, on the
+// instance of width 32, 64 or 128.
 #include "split_decode.cuh"
 
 using namespace vr2::dsplit;
 
-namespace {
-
-template <int HD>
-cudaError_t dispatch(const Params& p, int elem_bytes, cudaStream_t st) {
-  if (elem_bytes == 2) return launch_tc<HD, 1, __nv_bfloat16, false>(p, st);
-  if (elem_bytes == 4) return launch_f32<HD, 16, float, false>(p, st);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
 // Plain C entry point, loaded with ctypes. q and o are contiguous
 // [B, nh, hd]; k / v the contiguous stacked cache [L, B, kh, smax, hd] with
-// smax a multiple of 128; all four bf16 (elem_bytes 2) or fp32 (4); lengths
-// int32 [B]; 0 <= layer < L; `splits` the wrapper's split plan (1 to
-// min(64, smax / 64)), and with splits > 1 an fp32 workspace `part` of
-// B kh splits (nh / kh) (hd + 2) floats and B kh int32 `counters`, 0 between
+// smax a multiple of 128; all four bf16 (elem_bytes 2; hd 64 or 128) or fp32
+// (4; hd 1 to 128); lengths int32 [B]; 0 <= layer < L; `splits` the
+// wrapper's split plan (1 to min(64, smax / 64)), and with splits > 1 an
+// fp32 workspace `part` of B kh splits (nh / kh) (w + 2) floats (w: hd
+// rounded up to 32, 64 or 128) and B kh int32 `counters`, 0 between
 // launches (each launch leaves them 0). Returns a cudaError_t.
 extern "C" int vr2_decode_attention(const void* q, const void* k, const void* v, void* o,
                                     const int* lengths, int B, int nh, int kh, int hd,
@@ -65,6 +57,7 @@ extern "C" int vr2_decode_attention(const void* q, const void* k, const void* v,
   p.nh = nh;
   p.kh = kh;
   p.g = nh / kh;
+  p.hd = hd;
   p.layer = layer;
   p.width = smax;
   p.lo = s_pad;
@@ -74,7 +67,13 @@ extern "C" int vr2_decode_attention(const void* q, const void* k, const void* v,
   p.scale = scale;
   if (!valid(p)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return int(dispatch<128>(p, elem_bytes, st));
-  if (hd == 64) return int(dispatch<64>(p, elem_bytes, st));
+  if (elem_bytes == 2) {
+    if (hd == 128) return int(launch_tc<128, 1, __nv_bfloat16, false>(p, st));
+    if (hd == 64) return int(launch_tc<64, 1, __nv_bfloat16, false>(p, st));
+  } else if (elem_bytes == 4) {
+    if (hd <= 32) return int(launch_f32<32, 16, float, false>(p, st));
+    if (hd <= 64) return int(launch_f32<64, 16, float, false>(p, st));
+    return int(launch_f32<128, 16, float, false>(p, st));
+  }
   return int(cudaErrorInvalidValue);
 }

@@ -79,10 +79,34 @@
 // the weights through registers in 16-byte pieces and ran a 16-row x tile
 // against slots of ~1.5 real rows: 0.4230 ms at the judge's T = 16, 28% of
 // its bound and slower than the bf16 kernel over twice the bytes.
+// Modes 1 and 2 with C a multiple of 64 (the int8-weight and W8A8 GMM
+// prefills: 64- and 128-row blocks): warpgroup wgmma fed by a TMA ring
+// (namespace wq below), gate / up then down, W8A8's quantise pass between
+// them. 8-bit wgmma reads a shared-memory operand only K-major, and the
+// weights are [E, K, N] with N contiguous (MN-major; their layout is the
+// parameters', which the plain version and the int8 decode kernels read
+// too), so the products swap A and B as the decode kernels do: the weight
+// columns are M, taken from registers, and the block's rows are N, the x
+// (or h) tile K-major in shared memory as TMA writes it. Warp 0 fills each
+// stage with one box of the rows (128 bytes of K a row) and one box of
+// [K, 128 int8 columns] per weight and 128 columns, all with the 128-byte
+// swizzle; each warp forms its A fragments of a k step by ldmatrix .trans
+// of 16-bit pairs from the weight box. Mode 1 splits them by int8_pairs into
+// exact bf16 (k16 products, fp32 sums, the scales on the sums); mode 2
+// picks the tiles' rows so a lane holds 4 consecutive k of its two columns
+// and joins them with one byte permute (s8 k32 products, int32 sums, folded
+// into fp32 at every bi boundary of the down product's K). A stage's
+// products are one commit group, and the next stage's fragments are formed
+// into a second register buffer while they run. Two warpgroups a block, 64
+// weight columns a product; the gate /
+// up block 128 columns of I x (64 or 128) rows (2 x 64 accumulators a
+// thread at 128 rows), the down block 256 (mode 1) or 128 (mode 2: an
+// int32 and an fp32 set) columns of H; a block over a column tail reads
+// zeros past it and stores nothing there.
 // fp32 x over fp32 weights (mode 0 only): the same two phases on the CUDA
 // cores (fp32_tile.cuh), h and y fp32.
-// Everything else (int8 weights at C >= 64, W8A8, bf16 at C >= 64 not a
-// multiple of 64): mma.sync in three launches (two for modes 0 and 1).
+// Everything else (W8A8 at C < 64, any mode at C >= 64 not a multiple of
+// 64): mma.sync in three launches (two for modes 0 and 1).
 //   1. gate/up: one block per (a, 64 columns of I, BM rows); 4 warps side
 //      by side over the columns (16 each, both g and u), and for blocks of
 //      more than 64 rows a second row of 4 warps (BM = 128, 256 threads,
@@ -672,6 +696,280 @@ __global__ void __launch_bounds__(128 * WG, 1)
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
+// Modes 1 and 2 with C a multiple of 64 (the int8-weight and W8A8 GMM
+// prefills' 64- and 128-row blocks): warpgroup wgmma fed by TMA, the weight
+// columns as M (A from registers) and the block's rows as N (B: the x or h
+// tile, K-major, from shared memory), in two launches (three for W8A8).
+// ---------------------------------------------------------------------------
+namespace wq {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;          // two warpgroups, 64 weight columns a product each
+constexpr int kBoxCols = 128;          // int8 columns of a weight box: 128 bytes
+constexpr int kRingBytes = 200 * 1024; // the ring's shared memory: one block an SM
+
+// A block's ring: STAGES stages of the block's BN rows of x (or h) [BN][KS k]
+// (one box, rows of 128 bytes: 64 bf16 in mode 1, 128 int8 in mode 2), then
+// NW weights' NB boxes [KS k][128 int8 columns], all written by TMA with the
+// 128-byte swizzle, and a barrier a stage. A product takes KSTEP k (32
+// bytes of an x row): a stage is four.
+template <int MODE, int BN, int NW, int NB>
+struct Geo {
+  static constexpr int KS = MODE == kInt8W ? 64 : 128;
+  static constexpr int KSTEP = MODE == kInt8W ? 16 : 32;
+  static constexpr int X_BYTES = BN * 128;
+  static constexpr int BOX = KS * kBoxCols;
+  static constexpr int STAGE = X_BYTES + NW * NB * BOX;
+  static constexpr int STAGES = kRingBytes / STAGE < 8 ? kRingBytes / STAGE : 8;
+  static constexpr int SMEM = kSwizzleAlign + STAGES * STAGE + STAGES * 8;
+  static constexpr int COLS = NB * kBoxCols;  // output columns of a block
+};
+
+// out[rows of block a, tile z] [BN, N] for the COLS columns from j COLS:
+// with NW = 2, silu(x Wg) * (x Wu) (mw0 / mw1 over [E, K, N], N contiguous,
+// int8: gate / up); with NW = 1, h Wd (down). Warpgroup w owns NB m64 tiles
+// of the weight columns, [64 (NB w + i), + 64) of the block's (i < NB), and
+// warp v of it 16 columns of each: its A fragment of k step kk, rows g and g
+// + 8 being columns 16 v + 2 g and 16 v + 2 g + 1 of the tile, comes from
+// one ldmatrix .trans of 16-bit pairs (two columns' bytes at one k):
+// - mode 1 (k16): int8_pairs splits each word into the exact bf16 pairs of
+//   its even and its odd column, a[0] / a[1] from k [0, 8), a[2] / a[3]
+//   from k [8, 16); one x4 load gives both tiles of a warpgroup;
+// - mode 2 (k32, A and B int8, int32 sums): four 8 x 8 tiles whose rows are
+//   k {0, 1, 4, 5, ..} and {2, 3, 6, 7, ..} (+ 16) of the step, so a lane
+//   holds k 4t, 4t + 1 and 4t + 2, 4t + 3 of its two columns; one byte
+//   permute each gives the 4 consecutive k of a column (s8 needs no
+//   conversion).
+// The accumulator of a tile, d[j][e], is column 16 v + 2 g + (e >> 1) of
+// it at row 8 j + 2 t + (e & 1) of the block: the even and odd columns of a
+// row sit in one thread, stored as one pair. Scales at mode 1's and 2's
+// rounding points (the header); W8A8's down product folds its int32 sums
+// into fp32 at every bi boundary of K (a wait on the products in flight,
+// then the next product starts the sum anew). Columns at or past N (a block
+// over a tail) read zeros by TMA and are not stored. Slack blocks (valid 0)
+// write zeros (down) or nothing (gate / up: down never reads their h).
+// A stage's fragments (all four k steps) are formed into one of two register
+// buffers, its products committed as one group, and the stage then waits
+// for the group before it: stage s + 1's fragments are formed while stage
+// s's products run, into the buffer stage s - 1 used (the ring's slot of
+// stage s - 1 is free then too, and takes stage s + STAGES - 1).
+template <int MODE, int BN, int NW, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    moe_int8_wgmma_kernel(__grid_constant__ const CUtensorMap mx,
+                          __grid_constant__ const CUtensorMap mw0,
+                          __grid_constant__ const CUtensorMap mw1,
+                          const float* __restrict__ rs, const float* __restrict__ s0,
+                          const float* __restrict__ s1, const int* __restrict__ ids,
+                          const int* __restrict__ valid, void* __restrict__ out, int C, int K,
+                          int N, int E, int bi) {
+  using G = Geo<MODE, BN, NW, NB>;
+  using Acc = typename std::conditional<MODE == kW8A8, int, float>::type;
+  constexpr int NU = NW * NB;                 // m64 tiles of a warpgroup
+  constexpr int STEPS = G::KS / G::KSTEP;     // products of a stage (k steps)
+  constexpr bool FOLD = MODE == kW8A8 && NW == 1;
+  static_assert(MODE == kW8A8 || NU == 2, "mode 1 loads both tiles of a warpgroup at once");
+  extern __shared__ __align__(128) unsigned char smem[];
+  int a, z, j;
+  wg::block_coords((N + G::COLS - 1) / G::COLS, C / BN, a, z, j);
+  const int n0 = j * G::COLS, row = a * C + z * BN, tid = threadIdx.x;
+  const int w = tid / 128, v = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (valid[a] == 0) {
+    if (NW == 1) {
+      const int cols = min(G::COLS, N - n0);
+      for (int i = tid; i < BN * cols; i += kThreads) {
+        const long long o = (long long)(row + i / cols) * N + n0 + i % cols;
+        if (MODE == kW8A8) static_cast<float*>(out)[o] = 0.f;
+        else static_cast<bf16*>(out)[o] = __float2bfloat16(0.f);
+      }
+    }
+    return;
+  }
+  const int e = min(max(ids[a], 0), E - 1);
+  // tile u = (weight u / NB, i = u % NB): its columns from c0[u] of the
+  // block, held in box (u / NB) NB + c0 / 128 of a stage
+  int c0[NU], box[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    c0[u] = 64 * (NB * w + u % NB) + 16 * v;
+    box[u] = G::X_BYTES + ((u / NB) * NB + c0[u] / kBoxCols) * G::BOX;
+  }
+  Acc acc[NU][BN / 8][4];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) zero_acc(acc[u]);
+  float facc[FOLD ? BN / 8 : 1][4];
+  float2 sdv = make_float2(1.f, 1.f);
+  if constexpr (FOLD) {
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) facc[jn][0] = facc[jn][1] = facc[jn][2] = facc[jn][3] = 0.f;
+    sdv = __ldg(reinterpret_cast<const float2*>(s0 + (long long)e * N + min(n0 + c0[0] + 2 * g, N - 2)));
+  }
+  int scale = 1;   // 0: the next product starts its sum anew (after a fold)
+
+  unsigned char* ring = swizzle_aligned(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::STAGE);
+  // an even number of stages (a last one past K reads zeros by TMA and adds
+  // nothing), so the loop below takes them two at a time
+  const int n_k = ((K + G::KS - 1) / G::KS + 1) & ~1;
+  if (tid == 0) {
+    for (int i = 0; i < G::STAGES; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int s) {  // warp 0: the rows' x (or h) box, then NW NB weight boxes
+    unsigned char* st = ring + (s % G::STAGES) * G::STAGE;
+    uint64_t* bar = full + s % G::STAGES;
+    const int k0 = s * G::KS;
+    tma_stage(bar, G::STAGE, 1 + NW * NB, [&](int b) {
+      if (b == 0) {
+        tma_load_2d(st, &mx, bar, k0, row);
+      } else {
+        const int which = (b - 1) / NB, bx = (b - 1) % NB;
+        tma_load_3d(st + G::X_BYTES + (b - 1) * G::BOX, which ? &mw1 : &mw0, bar,
+                    n0 + kBoxCols * bx, k0, e);
+      }
+    });
+  };
+  if (tid < 32)
+    for (int s = 0; s < G::STAGES - 1 && s < n_k; ++s) fill(s);
+
+  // Stage s: its fragments into f (all four steps), its products as one
+  // commit group, then a wait for stage s - 1's group, which frees both its
+  // ring slot (refilled with stage s + STAGES - 1) and its fragment
+  // registers (the other buffer, which stage s + 1 fills)
+  auto stage = [&](int s, uint32_t (&f)[STEPS][NU][4]) {
+    mbar_wait(full + s % G::STAGES, (s / G::STAGES) & 1);
+    const unsigned char* st = ring + (s % G::STAGES) * G::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) {
+      if constexpr (MODE == kInt8W) {
+        // lanes 0-15 address tile 0 (k [0, 8) then [8, 16)), 16-31 tile 1
+        const int u = lane >> 4;
+        const int kr = kk * 16 + 8 * ((lane >> 3) & 1) + (lane & 7);
+        uint32_t r[4];
+        ldsm_x4_trans(r, sw128_at(st + (u ? box[NU - 1] : box[0]), kr,
+                                  (u ? c0[NU - 1] : c0[0]) % kBoxCols));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          int8_pairs(r[2 * q], f[kk][q][0], f[kk][q][1]);
+          int8_pairs(r[2 * q + 1], f[kk][q][2], f[kk][q][3]);
+        }
+      } else {
+        // tile m of the x4: rows k 16 (m / 2) + 2 (m % 2) + 4 (i / 2) + i % 2
+        const int m = lane >> 3, i = lane & 7;
+        const int kr = kk * 32 + 16 * (m >> 1) + 2 * (m & 1) + 4 * (i >> 1) + (i & 1);
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, sw128_at(st + box[u], kr, c0[u] % kBoxCols));
+          f[kk][u][0] = __byte_perm(r[0], r[1], 0x6420);
+          f[kk][u][1] = __byte_perm(r[0], r[1], 0x7531);
+          f[kk][u][2] = __byte_perm(r[2], r[3], 0x6420);
+          f[kk][u][3] = __byte_perm(r[2], r[3], 0x7531);
+        }
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < STEPS; ++kk) {
+      const uint64_t db = desc_k_sw128(st, kk);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        if constexpr (MODE == kW8A8)
+          wgmma_rs<BN>(acc[u], f[kk][u], db, scale);
+        else
+          wgmma_rs<BN, 0>(acc[u], f[kk][u], db, scale);
+      }
+      scale = 1;
+      if constexpr (FOLD) {
+        // a group a step, so only the fold itself is conditional (a wait
+        // or a fence on a conditional path serialises every product)
+        wgmma_commit();
+        const int k_end = s * G::KS + (kk + 1) * G::KSTEP;
+        if (k_end % bi == 0 && k_end <= K) {   // the end of a bi tile of K
+          wgmma_wait<0>();
+          fence_regs(acc[0]);
+          const int tile = k_end / bi - 1, n_i = K / bi;
+#pragma unroll
+          for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+            for (int lo = 0; lo < 2; ++lo) {
+              const float ah = __ldg(rs + (long long)(row + 8 * jn + 2 * t + lo) * n_i + tile);
+              facc[jn][lo] += (float)acc[0][jn][lo] * ah * sdv.x;
+              facc[jn][2 + lo] += (float)acc[0][jn][2 + lo] * ah * sdv.y;
+            }
+          scale = 0;
+        }
+        wgmma_fence();
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    __syncthreads();  // every warp is done with stage s - 1's slot
+    if (tid < 32 && s + G::STAGES - 1 < n_k) fill(s + G::STAGES - 1);
+  };
+  uint32_t fa[STEPS][NU][4], fb[STEPS][NU][4];
+  for (int s = 0; s < n_k; s += 2) {
+    stage(s, fa);
+    stage(s + 1, fb);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < NU; ++u) fence_regs(acc[u]);
+
+  // the epilogue: rows 8 jn + 2 t + lo of the block, columns (c, c + 1)
+  if constexpr (NW == 2) {
+    const int c = n0 + c0[0] + 2 * g;
+    if (c >= N) return;
+    const float2 sg = __ldg(reinterpret_cast<const float2*>(s0 + (long long)e * N + c));
+    const float2 su = __ldg(reinterpret_cast<const float2*>(s1 + (long long)e * N + c));
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo) {
+        const long long r = row + 8 * jn + 2 * t + lo;
+        const float ax = MODE == kW8A8 ? __ldg(rs + r) : 1.f;
+        const float g0 = (float)acc[0][jn][lo] * ax * sg.x;
+        const float g1 = (float)acc[0][jn][2 + lo] * ax * sg.y;
+        const float u0 = (float)acc[1][jn][lo] * ax * su.x;
+        const float u1 = (float)acc[1][jn][2 + lo] * ax * su.y;
+        if constexpr (MODE == kW8A8)
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + r * N + c) =
+              make_float2(silu(g0) * u0, silu(g1) * u1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + r * N + c) =
+              pack_bf16(silu(g0) * u0, silu(g1) * u1);
+      }
+  } else if constexpr (FOLD) {
+    const int c = n0 + c0[0] + 2 * g;
+    if (c >= N) return;
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                   (long long)(row + 8 * jn + 2 * t + lo) * N + c) =
+            make_float2(facc[jn][lo], facc[jn][2 + lo]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int c = n0 + c0[u] + 2 * g;
+      if (c >= N) continue;
+      const float2 sd = __ldg(reinterpret_cast<const float2*>(s0 + (long long)e * N + c));
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo)
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) +
+                                       (long long)(row + 8 * jn + 2 * t + lo) * N + c) =
+              pack_bf16(acc[u][jn][lo] * sd.x, acc[u][jn][2 + lo] * sd.y);
+    }
+  }
+}
+
+}  // namespace wq
+
+// ---------------------------------------------------------------------------
 // Modes 0 and 1 at C < 64 (the ragged decode's slots of max(T, 8) rows): the
 // weights stream through a TMA ring in their own layout, the products swap
 // A and B so the weight columns are mma.sync's M side and the C tokens its
@@ -1014,6 +1312,58 @@ cudaError_t launch_wgmma_widths(const Args& p, int bn_gu, int bn_d, cudaStream_t
   return cudaErrorInvalidValue;
 }
 
+// Modes 1 and 2 at C % BN == 0: the int8 wgmma gate / up (128 columns of I a
+// block), mode 2's quantise pass, then the int8 wgmma down (NB_D boxes of
+// 128 columns of H a block)
+template <int MODE, int BN, int NB_D>
+cudaError_t launch_wgmma_q(const Args& p, cudaStream_t stream) {
+  using GU = wq::Geo<MODE, BN, 2, 1>;
+  using DN = wq::Geo<MODE, BN, 1, NB_D>;
+  constexpr bool Q8 = MODE == kW8A8;   // x and h int8: boxes of 128 bytes
+  const uint64_t rows = (uint64_t)p.A * p.C;
+  CUtensorMap mx, mwg, mwu, mh, mwd;
+  cudaError_t err;
+  const void* hs = Q8 ? static_cast<const void*>(p.hq) : p.h;
+  if ((err = box_map(&mx, p.x, p.H, rows, 0, BN, Q8)) != cudaSuccess ||
+      (err = box_map(&mwg, p.wg, p.I, p.H, p.E, GU::KS, true)) != cudaSuccess ||
+      (err = box_map(&mwu, p.wu, p.I, p.H, p.E, GU::KS, true)) != cudaSuccess ||
+      (err = box_map(&mh, hs, p.I, rows, 0, BN, Q8)) != cudaSuccess ||
+      (err = box_map(&mwd, p.wd, p.H, p.I, p.E, DN::KS, true)) != cudaSuccess)
+    return err;
+  auto gate_up = wq::moe_int8_wgmma_kernel<MODE, BN, 2, 1>;
+  auto down = wq::moe_int8_wgmma_kernel<MODE, BN, 1, NB_D>;
+  if ((err = cudaFuncSetAttribute(gate_up, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  GU::SMEM)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(down, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  DN::SMEM)) != cudaSuccess)
+    return err;
+  const int zt = p.C / BN;
+  gate_up<<<p.A * zt * ((p.I + GU::COLS - 1) / GU::COLS), wq::kThreads, GU::SMEM, stream>>>(
+      mx, mwg, mwu, p.x_scales, p.sg, p.su, p.ids, p.valid, p.h, p.C, p.H, p.I, p.E, p.bi);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (Q8) {
+    const long long units = (long long)p.A * p.C * (p.I / p.bi);
+    const int per = 128 / kWarp;
+    moe_quantize_h_kernel<<<(unsigned)((units + per - 1) / per), 128, 0, stream>>>(
+        static_cast<const float*>(p.h), p.valid, p.hq, p.ah, p.A, p.C, p.I, p.bi);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  down<<<p.A * zt * ((p.H + DN::COLS - 1) / DN::COLS), wq::kThreads, DN::SMEM, stream>>>(
+      mh, mwd, mwd, p.ah, p.sd, p.sd, p.ids, p.valid, p.out, p.C, p.I, p.H, p.E, p.bi);
+  return cudaGetLastError();
+}
+
+// the tiles a mode takes: mode 1 down tiles of 256 columns of H (two boxes;
+// a block over a tail reads zeros past H), mode 2 of 128
+template <int BN>
+cudaError_t launch_wgmma_q_widths(const Args& p, int mode, int bn_gu, int bn_d,
+                                  cudaStream_t stream) {
+  if (bn_gu != wq::kBoxCols) return cudaErrorInvalidValue;
+  if (mode == kInt8W && bn_d == 2 * wq::kBoxCols) return launch_wgmma_q<kInt8W, BN, 2>(p, stream);
+  if (mode == kW8A8 && bn_d == wq::kBoxCols) return launch_wgmma_q<kW8A8, BN, 1>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
 // Modes 0 and 1 at C < 64: the decode kernel twice, gate / up (one box of
 // 64 bf16 or 128 int8 columns of I a block) then down (MT_D boxes of H),
 // x and h in boxes of 8 NT rows; int8 blocks over a column tail of 64 read
@@ -1092,9 +1442,11 @@ cudaError_t launch_f32(const Args& p, cudaStream_t stream) {
 // I % 64 == 0 and, in mode 2, bi % 64 == 0 and I % bi == 0. The path
 // (ops/moe_ragged.py::ffn_kernel_path picks it, with its tiles t0, t1, t2):
 //   0: the mma.sync kernels (any mode, any C);
-//   1: mode 0, the wgmma kernels: blocks of t0 rows (64 or 128, dividing C),
+//   1: the wgmma kernels: blocks of t0 rows (64 or 128, dividing C); mode 0:
 //      gate / up tiles t1 columns of I (64 or 128, dividing I), down tiles t2
-//      columns of H (64 or 256, dividing H);
+//      columns of H (64 or 256, dividing H); modes 1 and 2: t1 = 128, and t2
+//      = 256 (mode 1) or 128 (mode 2), the last block of each over a tail of
+//      64 or 128 columns, if any;
 //   2: mode 0 or 1 at C < 64, the decode kernel: x in boxes of t0 = 8, 16,
 //      32 or 64 rows (>= C); mode 0: gate / up tiles t1 = 64 columns, down
 //      tiles t2 = 64 or 128 columns (dividing H); mode 1: t1 = 128, t2 = 128
@@ -1110,7 +1462,7 @@ extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
   const Args p{x, x_scales, ids, valid, wg, sg, wu, su, wd, sd, h, hq, ah, out,
                A, C, H, I, E, bi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path != 0 && mode != kBf16 && !(path == 2 && mode == kInt8W))
+  if ((path == 2 && mode == kW8A8) || (path == 3 && mode != kBf16))
     return (int)cudaErrorInvalidValue;
   switch (path) {
     case 0:
@@ -1121,9 +1473,12 @@ extern "C" int vr2_moe_ffn(const void* x, const float* x_scales, const int* ids,
         default: return (int)cudaErrorInvalidValue;
       }
     case 1:
-      if ((t0 != 64 && t0 != 128) || t1 <= 0 || t2 <= 0 || C % t0 != 0 || I % t1 != 0 ||
-          H % t2 != 0)
+      if ((t0 != 64 && t0 != 128) || t1 <= 0 || t2 <= 0 || C % t0 != 0)
         return (int)cudaErrorInvalidValue;
+      if (mode != kBf16)
+        return t0 == 128 ? launch_wgmma_q_widths<128>(p, mode, t1, t2, s)
+                         : launch_wgmma_q_widths<64>(p, mode, t1, t2, s);
+      if (I % t1 != 0 || H % t2 != 0) return (int)cudaErrorInvalidValue;
       return t0 == 128 ? launch_wgmma_widths<2>(p, t1, t2, s)
                        : launch_wgmma_widths<1>(p, t1, t2, s);
     case 2:

@@ -24,7 +24,8 @@
 // csrc/split_decode.cuh. Here: tile t of a sequence is rows [64 t mod ps,
 // + 64) of page table[b][64 t / ps] (page sizes 64 and 128, so a tile lies
 // in one page); W g <= 64 query rows take 1, 2 or 4 row tiles of 16 (bf16 q)
-// or a 64-row block (fp32 q).
+// or a 64-row block (fp32 q). bf16 q at head dims 64 and 128; fp32 q at any
+// head dim from 1 to 128, on the instance of width 32, 64 or 128.
 #include "split_decode.cuh"
 
 using namespace vr2::dsplit;
@@ -32,26 +33,29 @@ using namespace vr2::dsplit;
 namespace {
 
 template <int HD>
-cudaError_t dispatch(const Params& p, int elem_bytes, bool quant, cudaStream_t st) {
-  if (elem_bytes == 2)
-    return quant ? launch_tc_rows<HD, int8_t, true>(p, st)
-                 : launch_tc_rows<HD, __nv_bfloat16, true>(p, st);
-  if (elem_bytes == 4)
-    return quant ? launch_f32<HD, kMaxRows, int8_t, true>(p, st)
-                 : launch_f32<HD, kMaxRows, float, true>(p, st);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch_bf16(const Params& p, bool quant, cudaStream_t st) {
+  return quant ? launch_tc_rows<HD, int8_t, true>(p, st)
+               : launch_tc_rows<HD, __nv_bfloat16, true>(p, st);
+}
+
+template <int HD>
+cudaError_t dispatch_f32(const Params& p, bool quant, cudaStream_t st) {
+  return quant ? launch_f32<HD, kMaxRows, int8_t, true>(p, st)
+               : launch_f32<HD, kMaxRows, float, true>(p, st);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q and o are contiguous
-// [B, W, nh, hd], bf16 (elem_bytes 2) or fp32 (4); k / v the contiguous
+// [B, W, nh, hd], bf16 (elem_bytes 2; hd 64 or 128) or fp32 (4; hd 1 to
+// 128); k / v the contiguous
 // pool [L, kh, num_pages, page_size, hd] of q's type, or int8 when k_scale /
 // v_scale (fp32 [L, kh, num_pages, page_size]) are given; tables int32
 // [B, max_pages], every entry a row reads a valid page id; lengths int32
 // [B]; `splits` the wrapper's split plan (1 to min(64, max_pages page_size /
 // 64)), and with splits > 1 an fp32 workspace `part` of B kh splits W
-// (nh / kh) (hd + 2) floats and B kh int32 `counters`, 0 between launches
+// (nh / kh) (w + 2) floats (w: hd rounded up to 32, 64 or 128) and B kh
+// int32 `counters`, 0 between launches
 // (each launch leaves them 0). Returns a cudaError_t.
 extern "C" int vr2_paged_decode_attention(const void* q, const void* k, const void* v,
                                           const void* k_scale, const void* v_scale,
@@ -80,6 +84,7 @@ extern "C" int vr2_paged_decode_attention(const void* q, const void* k, const vo
   p.nh = nh;
   p.kh = kh;
   p.g = nh / kh;
+  p.hd = hd;
   p.layer = layer;
   p.width = page_size;
   p.num_pages = num_pages;
@@ -92,7 +97,13 @@ extern "C" int vr2_paged_decode_attention(const void* q, const void* k, const vo
   if (!valid(p)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
-  if (hd == 128) return int(dispatch<128>(p, elem_bytes, quant, st));
-  if (hd == 64) return int(dispatch<64>(p, elem_bytes, quant, st));
+  if (elem_bytes == 2) {
+    if (hd == 128) return int(dispatch_bf16<128>(p, quant, st));
+    if (hd == 64) return int(dispatch_bf16<64>(p, quant, st));
+  } else if (elem_bytes == 4) {
+    if (hd <= 32) return int(dispatch_f32<32>(p, quant, st));
+    if (hd <= 64) return int(dispatch_f32<64>(p, quant, st));
+    return int(dispatch_f32<128>(p, quant, st));
+  }
   return int(cudaErrorInvalidValue);
 }

@@ -43,7 +43,16 @@
 // - fp32 q (f32_kernel, over fp32 or int8 rows): CUDA-core fp32 FMA, every
 //   operand and product fp32, the same split, ring and combine; the block
 //   reduces each tile together (scores one key per thread, the softmax a row
-//   per warp, P V four dims per thread), three barriers a tile.
+//   per warp, P V four dims per thread), three barriers a tile. Any head dim
+//   from 1 to 128, as the JAX kernels take any: the instance of the
+//   smallest compiled width (32, 64 or 128) that holds it, the true head dim
+//   p.hd at run time. At p.hd == HD the ring is filled by cp.async as for
+//   bf16; below it (a row of 12 fp32 or int8 elements is not a whole number
+//   of 16-byte pieces, nor aligned to one) each element is read and stored
+//   by the block's threads, the dims past p.hd zero in shared memory (they
+//   add 0 to every score, and their output columns are never stored). bf16
+//   q keeps head dims 64 and 128 on the tensor cores (wrappers route through
+//   ops/split.py::decode_kernel_instance).
 // - With S > 1 each block writes its rows' (max, sum, accumulator) to an
 //   fp32 workspace, takes a ticket on its (sequence, kv head)'s counter
 //   after a __threadfence, and the block that takes the last one adds the S
@@ -85,9 +94,11 @@ struct Params {
   void* o;                 // q's shape and type
   const int* lengths;      // [B]
   const int* tables;       // paged: [B, max_pages]; decode: null
-  float* part;             // S > 1: acc [B kh S R hd], then max and sum [B kh S R]
+  float* part;             // S > 1: acc [B kh S R HD] (the instance's width), then
+                           // max and sum [B kh S R]
   int* counters;           // S > 1: [B kh], 0 between launches
   int B, W, nh, kh, g;     // R = W g query rows a (sequence, kv head)
+  int hd;                  // the head dim: the instance's HD, or (fp32) below it
   int layer, width;        // decode: width = Smax; paged: width = page size
   int num_pages, max_pages;
   int lo, hi;              // keys [lo, hi] admitted for every row (decode slots)
@@ -159,22 +170,35 @@ struct Ring {
 };
 
 // Start the copies of tile t into stage `st`: admitted key rows, the rest
-// zero-filled (no read)
+// zero-filled (no read). Rows of p.hd < HD elements (fp32 instances only)
+// are copied element by element, the dims past p.hd zero.
 template <typename T, int HD, bool PAGED>
 __device__ __forceinline__ void load_tile(unsigned char* st, const Params& p, const Span& s,
                                           int b, int h, int t) {
   using RG = Ring<T, HD>;
   constexpr int CH = RG::ROW / 16;
   const long long row = tile_row<PAGED>(p, b, h, t);
-  const char* gk = static_cast<const char*>(p.k) + row * RG::ROW;
-  const char* gv = static_cast<const char*>(p.v) + row * RG::ROW;
   const int k0 = t * kTile;
-  for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
-    const int j = i / CH, c = (i % CH) * 16;
-    const bool ok = k0 + j < s.ext || in_window(p, k0 + j);
-    const int off = j * RG::ROW + c;
-    cp_async_zfill<16>(st + j * RG::PITCH + c, ok ? gk + off : gk, ok);
-    cp_async_zfill<16>(st + RG::KV + j * RG::PITCH + c, ok ? gv + off : gv, ok);
+  if (p.hd == HD) {
+    const char* gk = static_cast<const char*>(p.k) + row * RG::ROW;
+    const char* gv = static_cast<const char*>(p.v) + row * RG::ROW;
+    for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
+      const int j = i / CH, c = (i % CH) * 16;
+      const bool ok = k0 + j < s.ext || in_window(p, k0 + j);
+      const int off = j * RG::ROW + c;
+      cp_async_zfill<16>(st + j * RG::PITCH + c, ok ? gk + off : gk, ok);
+      cp_async_zfill<16>(st + RG::KV + j * RG::PITCH + c, ok ? gv + off : gv, ok);
+    }
+  } else if constexpr (sizeof(T) != 2) {  // bf16 instances always run at p.hd == HD
+    const T* gk = static_cast<const T*>(p.k) + row * p.hd;
+    const T* gv = static_cast<const T*>(p.v) + row * p.hd;
+    for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
+      const int j = i / HD, d = i % HD;
+      const bool ok = d < p.hd && (k0 + j < s.ext || in_window(p, k0 + j));
+      const long long off = (long long)j * p.hd + d;
+      *reinterpret_cast<T*>(st + j * RG::PITCH + d * sizeof(T)) = ok ? gk[off] : T(0);
+      *reinterpret_cast<T*>(st + RG::KV + j * RG::PITCH + d * sizeof(T)) = ok ? gv[off] : T(0);
+    }
   }
   if constexpr (sizeof(T) == 1) {  // thread i < 64: k scale of key i; else v scale of i - 64
     const int j = threadIdx.x % kTile;
@@ -266,6 +290,22 @@ __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
 }
 
+// dims [d, d + 4) of output row `qrow` (rows p.hd elements apart): one
+// vector store at p.hd == HD, else the dims below p.hd one at a time (fp32
+// instances only)
+template <int HD, typename TO>
+__device__ __forceinline__ void store_out(const Params& p, TO* o, long long qrow, int d,
+                                          float4 x) {
+  if (p.hd == HD) {
+    store4(o + qrow * HD + d, x);
+  } else if constexpr (sizeof(TO) == 4) {
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < p.hd) o[qrow * p.hd + d + i] = v[i];
+  }
+}
+
 __device__ __forceinline__ void fma4(float4& a, float w, float4 x) {
   a.x += w * x.x;
   a.y += w * x.y;
@@ -309,8 +349,8 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
       const int r = i / Q4, d = 4 * (i % Q4);
       const float4 a = merged(r, d);
       const float inv = 1.f / fmaxf(e.L[r], 1e-30f);
-      store4(o + qo_row(p, b, h, r) * HD + d,
-             make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+      store_out<HD>(p, o, qo_row(p, b, h, r), d,
+                    make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     }
   } else {
     const int bh = b * p.kh + h, S = p.splits;
@@ -372,8 +412,8 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
           fma4(a, w, __ldcg(reinterpret_cast<const float4*>(pacc + (rb + s * R + r) * HD + d)));
       }
       const float inv = 1.f / fmaxf(e.L[r], 1e-30f);
-      store4(o + qo_row(p, b, h, r) * HD + d,
-             make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+      store_out<HD>(p, o, qo_row(p, b, h, r), d,
+                    make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     }
     if (tid == 0) p.counters[bh] = 0;
   }
@@ -629,8 +669,10 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Params p) {
   auto setup = [&]() {
     const float* q = static_cast<const float*>(p.q);
     const float sc = p.scale * kLog2e;
-    for (int i = tid; i < R * HD; i += kThreads)
-      sQ[i] = q[qo_row(p, b, h, i / HD) * HD + i % HD] * sc;
+    for (int i = tid; i < R * HD; i += kThreads) {
+      const int d = i % HD;
+      sQ[i] = d < p.hd ? q[qo_row(p, b, h, i / HD) * p.hd + d] * sc : 0.f;
+    }
     for (int r = tid; r < R; r += kThreads) {
       sM[r] = kNeg;
       sL[r] = 0.f;
@@ -792,6 +834,7 @@ cudaError_t launch_f32(Params p, cudaStream_t stream) {
 inline bool valid(const Params& p) {
   const int R = p.W * p.g;
   return p.B > 0 && p.W > 0 && p.kh > 0 && p.g > 0 && R <= kMaxRows && p.n_tiles > 0 &&
+         p.hd > 0 && p.hd <= 128 &&
          p.splits >= 1 && p.splits <= std::min(kMaxSplits, p.n_tiles) &&
          (p.splits == 1 || (p.part != nullptr && p.counters != nullptr));
 }

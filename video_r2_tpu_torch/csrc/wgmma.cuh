@@ -1,7 +1,8 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) for the port's kernels:
 // shared-memory descriptors of the layout without swizzle and of the
 // 128-byte swizzle, the fences, the bf16 products with fp32 accumulators the
-// flash kernels and the MoE kernels use, and the TMA loads, their
+// flash kernels and the MoE kernels use, the int8 products with int32
+// accumulators of the W8A8 expert FFN, and the TMA loads, their
 // tensor-map encoder, the shared-memory barriers (mbarrier) that count their
 // bytes and the ring of stages they fill (tma_ring), which feed the flash
 // forward, the grouped expert FFN and the GMM backward, and the TMA store
@@ -72,6 +73,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
 // Move registers between the warpgroups of a block (setmaxnreg; every
 // thread of a warpgroup executes it): a producer gives registers up, the
 // consumers take them, so a block whose launch bounds cap every thread at
@@ -94,7 +103,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers (each warp's 16 rows
 // as the A fragment of mma.sync m16n8k16), B in shared memory MN-major
-// (descriptor db, N contiguous); accumulate when scale_d != 0
+// (descriptor db, N contiguous; TB = 1, the transpose bit of B) or K-major
+// (TB = 0); accumulate when scale_d != 0
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -105,7 +116,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -114,7 +125,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 80] (+)= A[64 x 16] B[16 x 80], A in registers (each warp's 16 rows
@@ -147,7 +158,9 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[10][4], const uint32_t (
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers (each warp's 16 rows
 // as the A fragment of mma.sync m16n8k16), B in shared memory MN-major
-// (descriptor db, N contiguous); accumulate when scale_d != 0
+// (descriptor db, N contiguous; TB = 1) or K-major (TB = 0); accumulate when
+// scale_d != 0
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -162,7 +175,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -179,7 +192,96 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x N] (+)= A B for N = 64 or 128, A in registers (bf16, k16) and B in
+// shared memory MN-major (TB = 1) or K-major (TB = 0)
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs_n64<TB>(d, a, db, scale_d);
+  else
+    wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+
+// D[64 x 64] (+)= A[64 x 32] B[32 x 64] in int8 with int32 sums, A in
+// registers (each warp's 16 rows as the A fragment of mma.sync m16n8k32:
+// a[0] rows g, k 4t .. 4t + 3; a[1] rows g + 8; a[2], a[3] the same at k +
+// 16), B in shared memory K-major (the only layout of 8-bit operands;
+// descriptor db); accumulate when scale_d != 0
+__device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] B[32 x 128] in int8 with int32 sums, A in
+// registers (each warp's 16 rows as the A fragment of mma.sync m16n8k32:
+// a[0] rows g, k 4t .. 4t + 3; a[1] rows g + 8; a[2], a[3] the same at k +
+// 16), B in shared memory K-major (the only layout of 8-bit operands;
+// descriptor db); accumulate when scale_d != 0
+__device__ __forceinline__ void wgmma_rs_s8_n128(int (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// the same in int8 (k32), B K-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(int (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs_s8_n64(d, a, db, scale_d);
+  else
+    wgmma_rs_s8_n128(d, a, db, scale_d);
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], both in shared memory: A K-major
@@ -508,10 +610,10 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(const unsigned char* tile, int
 // the kernel (C7515: non-wgmma instructions define accumulator registers
 // inside the pipeline): the bf16 FFN's gate / up ran 35% slower so on an
 // H100.
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&d)[N][4]) {
+template <int N, typename T>
+__device__ __forceinline__ void zero_acc(T (&d)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+  for (int i = 0; i < N; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = T(0);
   fence_regs(d);
 }
 

@@ -654,7 +654,7 @@ class PagedContinuousEngine(ContinuousEngine):
     def _init_cache(self, dtype) -> None:
         ps = self._page_size
         if self.device.type == "cuda":
-            check_kernel_sizes(self.cfg.text.head_dim, ps)
+            check_kernel_sizes(self.cfg.text.head_dim, ps, dtype)
         # page-align max_len: the bucket fallback and the prompt scatter need it
         self.max_len = -(-self.max_len // ps) * ps
         max_pages = self.max_len // ps

@@ -11,8 +11,10 @@ window off.
 
 `decode_attention_stacked` replaces ``_decode_kernel`` (the TPU kernel
 behind the JAX ``decode_attention_stacked``). On CUDA tensors it launches
-``csrc/decode_attn.cu`` (bf16 or fp32, one type for q and the cache, head
-dims 64 and 128, up to 16 query heads per kv head; each sequence's keys
+``csrc/decode_attn.cu`` (bf16 or fp32, one type for q and the cache; bf16
+at head dims 64 and 128, fp32 at any head dim up to 128, the instance
+picked by `split.decode_kernel_instance`; up to 16 query heads per kv
+head; each sequence's keys
 split across blocks by `split.decode_split_plan` where B kh blocks do not
 fill the card, one launch a call) and raises on anything it does not take;
 on CPU tensors it runs `decode_attention_stacked_plain`: fp32 scores over
@@ -25,11 +27,16 @@ from __future__ import annotations
 import torch
 
 from .cuda_build import check, kernels
-from .split import SPLIT_TILE, decode_splits, split_workspace
+from .split import (
+    SPLIT_TILE,
+    decode_kernel_instance,
+    decode_splits,
+    split_width,
+    split_workspace,
+)
 
 NEG_INF = -1e30
 BLOCK_S = 128
-KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 16     # query heads per kv head one block holds
 
 
@@ -77,8 +84,7 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     if Bc != B or hdc != hd or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode kernel: caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"decode kernel: head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    decode_kernel_instance(q.dtype, hd)
     if nh % kh or nh // kh > KERNEL_MAX_GROUP:
         raise ValueError(f"decode kernel: {nh} query heads over {kh} kv heads; needs kv "
                          f"heads dividing query heads and at most {KERNEL_MAX_GROUP} "
@@ -89,8 +95,6 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     if not 0 <= layer < L:
         raise ValueError(f"decode kernel: layer {layer} of {L}")
     dev = q.device
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"decode kernel: q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != dev:
             raise ValueError(f"decode kernel: {name} on {t.device}, q on {dev}")
@@ -107,7 +111,8 @@ def _decode_cuda(q, k_cache, v_cache, lengths, slot_end, layer, s_pad):
     S = decode_splits(B * kh, smax // SPLIT_TILE, dev.index)
     part = counters = None
     if S > 1:
-        part, counters = split_workspace(dev, stream, B * kh * S * (nh // kh) * (hd + 2),
+        part, counters = split_workspace(dev, stream,
+                                         B * kh * S * (nh // kh) * (split_width(hd) + 2),
                                          B * kh)
     err = kernels().vr2_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),

@@ -11,9 +11,10 @@ ops/moe_gmm.py (a block is a run of rows of one expert).
 
 On CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/moe_ffn.cu``, which replaces ``_ffn_kernel``, ``_ffn_kernel_q`` and
-``_ffn_kernel_qq``; `ffn_kernel_path` picks its path: wgmma for bf16 blocks
-of a multiple of 64 rows, the decode kernel for bf16 and int8-weight blocks
-of fewer than 64, CUDA cores for fp32, mma.sync for the rest) and raises on
+``_ffn_kernel_qq``; `ffn_kernel_path` picks its path: wgmma for blocks of a
+multiple of 64 rows (bf16, int8 weights and W8A8), the decode kernel for
+bf16 and int8-weight blocks of fewer than 64, CUDA cores for fp32,
+mma.sync for the rest) and raises on
 anything it does not take, a call under
 autograd among them (the kernel has no backward; the float GMM path trains
 through ops/moe_gmm.py's autograd Function, which calls it without); on CPU tensors
@@ -41,17 +42,24 @@ WGMMA_ROWS = 64           # rows of a warpgroup in the wgmma kernels
 
 
 def ffn_wgmma_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] | None:
-    """The kernel's path for a call: mode 0 (bf16) with C a multiple of 64
-    (the GMM prefill's 64- and 128-row blocks) takes the wgmma kernels,
-    returned as their tiles (rows a block: 128 where 128 divides C, else 64;
-    gate / up columns of I a block: 128 where it divides I, else 64; down
-    columns of H a block: 256 where it divides H, else 64). Everything else
-    (blocks below 64 rows, int8 weights, W8A8): None. H and I are multiples
-    of 64 (the wrapper checks)."""
-    if mode != 0 or C % WGMMA_ROWS:
+    """The kernel's path for a call: every mode with C a multiple of 64 (the
+    GMM prefill's 64- and 128-row blocks) takes the wgmma kernels, returned
+    as their tiles (rows a block: 128 where 128 divides C, else 64; gate /
+    up columns of I a block; down columns of H a block). Mode 0 (bf16): 128
+    where it divides I, else 64; 256 where it divides H, else 64. Modes 1
+    (int8 weights) and 2 (W8A8), whose weight boxes are 128 int8 columns:
+    128, and 256 (mode 1) or 128 (mode 2), the last block over a tail of 64
+    or 128 columns, if any. Blocks below 64 rows, or of a number of rows
+    that 64 does not divide: None. H and I are multiples of 64 (the wrapper
+    checks)."""
+    if mode not in (0, 1, 2) or C % WGMMA_ROWS:
         return None
-    return (2 * WGMMA_ROWS if C % (2 * WGMMA_ROWS) == 0 else WGMMA_ROWS,
-            128 if I % 128 == 0 else 64, 256 if H % 256 == 0 else 64)
+    rows = 2 * WGMMA_ROWS if C % (2 * WGMMA_ROWS) == 0 else WGMMA_ROWS
+    if mode == 1:
+        return rows, 128, 256
+    if mode == 2:
+        return rows, 128, 128
+    return rows, 128 if I % 128 == 0 else 64, 256 if H % 256 == 0 else 64
 
 
 def ffn_decode_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] | None:
@@ -74,10 +82,10 @@ def ffn_decode_tiles(mode: int, C: int, H: int, I: int) -> tuple[int, int, int] 
 def ffn_kernel_path(mode: int, C: int, H: int, I: int,
                     fp32: bool = False) -> tuple[int, tuple[int, int, int]]:
     """(path, tiles) of csrc/moe_ffn.cu for a call: 3 for fp32 x over fp32
-    weights (mode 0; CUDA cores), else 1 with ffn_wgmma_tiles' tiles, 2
-    with ffn_decode_tiles' (bf16 and int8 weights under 64 rows a block),
-    or 0 (mma.sync; int8 weights at C >= 64, W8A8, bf16 at C >= 64 not a
-    multiple of 64) with no tiles (0, 0, 0)."""
+    weights (mode 0; CUDA cores), else 1 with ffn_wgmma_tiles' tiles (any
+    mode at C a multiple of 64), 2 with ffn_decode_tiles' (bf16 and int8
+    weights under 64 rows a block), or 0 (mma.sync: W8A8 under 64 rows, and
+    any mode at C >= 64 not a multiple of 64) with no tiles (0, 0, 0)."""
     if fp32:
         return 3, (0, 0, 0)
     for path, tiles in ((1, ffn_wgmma_tiles(mode, C, H, I)),
@@ -151,14 +159,18 @@ def ragged_expert_ffn(x_slots: torch.Tensor, active_ids: torch.Tensor, gate: dic
             "the grouped FFN kernel has no backward: under autograd, float expert "
             "weights train through the GMM path (ops/moe_gmm.moe_mlp_gmm_diff); the "
             "ragged path and int8 / W8A8 weights do not train")
-    out = _moe_ffn_cuda(x_slots, active_ids, gate, up, down, bi, blk_valid, x_scales)
-    ragged_expert_ffn.launches["w8a8" if x_scales is not None else "int8" if quant else
-                               "fp32" if x_slots.dtype == torch.float32 else "bf16"] += 1
+    out, path = _moe_ffn_cuda(x_slots, active_ids, gate, up, down, bi, blk_valid, x_scales)
+    variant = ("w8a8" if x_scales is not None else "int8" if quant else
+               "fp32" if x_slots.dtype == torch.float32 else "bf16")
+    ragged_expert_ffn.launches[variant] += 1
+    ragged_expert_ffn.paths[(variant, path)] = ragged_expert_ffn.paths.get((variant, path), 0) + 1
     return out
 
 
 # kernel launches per variant: bf16, int8 weights, W8A8, fp32
 ragged_expert_ffn.launches = {"bf16": 0, "int8": 0, "w8a8": 0, "fp32": 0}
+# the same per (variant, path of csrc/moe_ffn.cu: ffn_kernel_path's first item)
+ragged_expert_ffn.paths = {}
 
 
 def ragged_expert_ffn_plain(x_slots, active_ids, gate: dict, up: dict, down: dict,
@@ -209,7 +221,8 @@ def ragged_expert_ffn_plain(x_slots, active_ids, gate: dict, up: dict, down: dic
 
 
 def _moe_ffn_cuda(x, ids, gate, up, down, bi, blk_valid, x_scales):
-    """Check the operands and launch csrc/moe_ffn.cu."""
+    """Check the operands and launch csrc/moe_ffn.cu: (out, the path it
+    took)."""
     quant, wg, sg, wu, su, wd, sd = _weights(gate, up, down)
     w8a8 = x_scales is not None
     mode = 2 if w8a8 else 1 if quant else 0
@@ -273,7 +286,7 @@ def _moe_ffn_cuda(x, ids, gate, up, down, bi, blk_valid, x_scales):
         h.data_ptr(), ptr(hq), ptr(ah), out.data_ptr(), A, C, H, I, E, bi, mode, path,
         *tiles, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "moe expert FFN kernel")
-    return out
+    return out, path
 
 
 def quantize_rows(x: torch.Tensor, keepdims: bool = False):

@@ -18,7 +18,9 @@ max-length reservation.
 
 On CUDA tensors each wrapper launches the hand-written kernel
 (``csrc/paged_attn.cu``: bf16 or fp32 q, as the JAX kernels take both,
-over pages of q's type or int8 pages; each sequence's keys split across
+over pages of q's type or int8 pages; bf16 at head dims 64 and 128, fp32 at
+any head dim up to 128, the instance picked by
+`split.decode_kernel_instance`; each sequence's keys split across
 blocks by `split.decode_split_plan` where B kh blocks do not fill the card,
 one launch a call) and raises on anything it does not take; on CPU tensors
 it runs `paged_decode_attention_stacked_plain` (gather through the table,
@@ -40,10 +42,15 @@ import torch
 
 from ..models.decoder import quantize_kv
 from .cuda_build import check, kernels
-from .split import SPLIT_TILE, decode_splits, split_workspace
+from .split import (
+    SPLIT_TILE,
+    decode_kernel_instance,
+    decode_splits,
+    split_width,
+    split_workspace,
+)
 
 DEFAULT_PAGE_SIZE = 128
-KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_PAGE_SIZES = (64, 128)
 KERNEL_MAX_ROWS = 64      # W * (nh / kh) query rows one block holds
 
@@ -156,10 +163,10 @@ def paged_decode_attention_stacked_plain(q, k_pages, v_pages, page_tables, lengt
     return o if multi else o[:, 0]
 
 
-def check_kernel_sizes(head_dim: int, page_size: int) -> None:
-    """Raise unless the CUDA kernel takes this head dim and page size."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged kernel: head dim {head_dim} not in {KERNEL_HEAD_DIMS}")
+def check_kernel_sizes(head_dim: int, page_size: int, dtype: torch.dtype) -> None:
+    """Raise unless the CUDA kernel takes q of `dtype` at this head dim
+    (decode_kernel_instance) and this page size."""
+    decode_kernel_instance(dtype, head_dim)
     if page_size not in KERNEL_PAGE_SIZES:
         raise ValueError(f"paged kernel: page size {page_size} not in "
                          f"{KERNEL_PAGE_SIZES}")
@@ -174,7 +181,7 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
         raise ValueError(f"paged kernel: pool must be [L, kh, N, page_size, hd], got "
                          f"{tuple(k_pages.shape)}")
     L, kh, N, ps = k_pages.shape[:4]
-    check_kernel_sizes(hd, page_size)
+    check_kernel_sizes(hd, page_size, q.dtype)
     quant = k_scales is not None
     dev = q.device
     if ps != page_size or k_pages.shape[4] != hd or v_pages.shape != k_pages.shape:
@@ -185,8 +192,6 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
         raise ValueError(f"paged kernel: {W} x {nh} query heads over {kh} kv heads; "
                          f"needs kv heads dividing query heads and at most "
                          f"{KERNEL_MAX_ROWS} query rows per kv head")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"paged kernel: q must be bfloat16 or float32, got {q.dtype}")
     page_dtype = torch.int8 if quant else q.dtype
     operands = [("k_pages", k_pages, page_dtype), ("v_pages", v_pages, page_dtype)]
     if quant:
@@ -216,8 +221,8 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
     S = decode_splits(B * kh, max_pages * page_size // SPLIT_TILE, dev.index)
     part = counters = None
     if S > 1:
-        part, counters = split_workspace(dev, stream, B * kh * S * W * (nh // kh) * (hd + 2),
-                                         B * kh)
+        part, counters = split_workspace(
+            dev, stream, B * kh * S * W * (nh // kh) * (split_width(hd) + 2), B * kh)
     err = kernels().vr2_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,

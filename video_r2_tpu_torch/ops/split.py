@@ -24,6 +24,9 @@ SPLIT_TILE = 64           # keys a tile of the decode-attention kernels
 SPLIT_BLOCKS_PER_SM = 3   # a split plan aims the grid at this many blocks an SM
 SPLIT_MIN_TILES = 3       # ... and keeps at least this many tiles a split
 SPLIT_MAX = 64            # splits the decode-attention kernels combine at most
+DECODE_BF16_HEAD_DIMS = (64, 128)   # the decode-attention kernels' tensor-core instances
+DECODE_FP32_WIDTHS = (32, 64, 128)  # their fp32 instances: any head dim up to 128,
+                                    # padded to the first width that holds it
 # SPLIT_MIN_TILES, measured by scripts/bench_decode_attn.py --splits on an
 # NVIDIA H100 80GB HBM3 at 700 W: device ms at S = 2 / 4 / 6 / 8 / 12 / 16 /
 # 24 splits, the paged bf16 case of chip_smoke.py phase 8 (32 blocks, 24
@@ -50,6 +53,34 @@ def decode_split_plan(blocks: int, tiles: int, sms: int) -> tuple[int, list[tupl
                        SPLIT_MAX))
     base, rem = divmod(tiles, S)
     return S, [(z * base + min(z, rem), (z + 1) * base + min(z + 1, rem)) for z in range(S)]
+
+
+def decode_kernel_instance(dtype: torch.dtype, hd: int) -> str:
+    """The instance of the decode-attention kernels (the head-major decode,
+    csrc/decode_attn.cu, and the paged decode, csrc/paged_attn.cu) that
+    takes q of `dtype` at head dim `hd`: "bf16" (the tensor-core instances,
+    head dims in DECODE_BF16_HEAD_DIMS) or "fp32" (the CUDA-core instances,
+    any head dim from 1 to the last of DECODE_FP32_WIDTHS). Raises TypeError
+    on any other dtype and ValueError on a head dim the instance does not
+    take."""
+    if dtype == torch.bfloat16:
+        if hd not in DECODE_BF16_HEAD_DIMS:
+            raise ValueError(f"decode-attention kernel: bf16 head dim {hd} not in "
+                             f"{DECODE_BF16_HEAD_DIMS}")
+        return "bf16"
+    if dtype == torch.float32:
+        if not 0 < hd <= DECODE_FP32_WIDTHS[-1]:
+            raise ValueError(f"decode-attention kernel: fp32 head dim {hd} not in [1, "
+                             f"{DECODE_FP32_WIDTHS[-1]}]")
+        return "fp32"
+    raise TypeError(f"decode-attention kernel: q must be torch.bfloat16 or torch.float32, "
+                    f"got {dtype}")
+
+
+def split_width(hd: int) -> int:
+    """The width of the decode-attention instance that runs head dim `hd`
+    (hd itself for bf16): the stride of a row of its split workspace."""
+    return next(w for w in DECODE_FP32_WIDTHS if w >= hd)
 
 
 @functools.lru_cache(maxsize=256)
