@@ -173,16 +173,18 @@
    with the bound and the library calls (convert + torch.matmul x scale,
    the dispatcher's own path above its row limit; torch._weight_int8pack_mm
    where the card's torch takes it), the kernel and convert + matmul also
-   in a CUDA graph (device times); where the decode kernel takes a shape,
-   its plan (a tile's K split over a thread-block cluster) and the staged
-   kernel's times, held against the plain version too; the kernel against
-   convert + matmul at
-   M = 1 to 1024 at gate / up and q, the measurement behind
-   INT8_KERNEL_MAX_ROWS; then scripts/microbench_int8.py's comparison at its
-   shape (M 64, K 3584, N 18944, L 28): one all-layers launch, 28 stacked
-   launches and 28 convert + matmul, in GB/s, with the launch counts set to
-   0 before and read after, the all-layers and stacked outputs held against
-   their plain versions on three layers; last the flash kernel at phase
+   in a CUDA graph (device times); the route each call took (decode, wide
+   or element-load kernel, from the wrapper's counts) and its plan; where
+   the decode kernel takes a shape, the wide kernel's times there, held
+   against the plain version too; the kernel against convert + matmul at
+   M = 1 to 1024 at gate / up and q, with each call's route, the
+   measurement behind INT8_KERNEL_MAX_ROWS; then scripts/microbench_int8.py's
+   comparison at its shape (M 64, K 3584, N 18944, L 28): one all-layers
+   launch, 28 stacked launches and 28 convert + matmul, in GB/s, with the
+   launch counts set to 0 before and read after (every one on the wide
+   kernel, asserted), then the two entries' device times (CUDA graphs),
+   the all-layers and stacked outputs held against their plain versions on
+   three layers; last the flash kernel at phase
    17's prefill shapes, (a)'s quantized fill (B = 16, Sq = Sk = the padded
    prompt, the batch's lengths) and one (b) chunk (64 full prompts of 256);
 17. int8 serving (after phase 16, on the same model; the int8 / float byte
@@ -192,8 +194,9 @@
    generate(attn_impl="flash", kv_quant="int8") of 64 greedy tokens, eos
    off, weight-only, with the launch counts set to 0 before and read after
    (the int8 kernel's count derived from the rows each linear sees and
-   INT8_KERNEL_MAX_ROWS, and its decode kernel's from the shapes alone:
-   every linear and the head at up to 16 rows, both asserted); prefill ms,
+   INT8_KERNEL_MAX_ROWS, its decode kernel's from the shapes alone:
+   every linear and the head at up to 16 rows, and the rest on the wide
+   kernel, all asserted); prefill ms,
    ms per decode step, tok/s;
    request 0's logits after prefill and after one decode step, kernel path
    vs plain path (the int8 kernel's plain version, plain prefill and ViT
@@ -204,7 +207,9 @@
    bench.py's scan decodes them all), attn_impl="flash", act_quant="int8"
    (W8A8 prefill and, at B >= 192, W8A8 decode), kv_quant="int8",
    prefill_chunk=64: one warm run, then 3 timed runs, decode tok/s (their
-   median, and each) under bench.py's metric name, launches, peak memory.
+   median, and each) under bench.py's metric name, launches (the int8
+   kernel's, the prefill chunks' head, all on the wide kernel, asserted),
+   peak memory.
 18. the tiny fp32 model (first, before phase 3): tiny_test_config() (text
    head dim 12, vision 16) with seeded weights on the card and the same
    weights on the CPU; the fp32 instances of the flash forward (serving,
@@ -346,6 +351,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "video_r2_tpu/ops/moe_gmm.py:258"),
     "int8_matmul": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
                     "video_r2_tpu/ops/int8_matmul.py:23"),
+    # the one-layer entry at 17-256 rows (the wide kernel; phase 16's bench
+    # prefill head, launched by phase 17(b)'s prefill chunks)
+    "int8_matmul_wide": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
+                         "video_r2_tpu/ops/int8_matmul.py:23"),
     "int8_matmul_stacked": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
                             "video_r2_tpu/ops/int8_matmul.py:81"),
     "int8_matmul_all_layers": ("video_r2_tpu_torch/csrc/int8_matmul.cu",
@@ -477,12 +486,24 @@ def ffn_paths() -> dict:
     return moe_ragged.ragged_expert_ffn.paths
 
 
+def int8_wide_counters() -> dict:
+    """{count name: the int8 wrapper whose .wide_launches counts its launches
+    of the wide kernel} (none for a port without it)."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    return {f"{name}_wide": fn for name, fn in (
+        ("int8_matmul", m.int8_matmul), ("int8_matmul_stacked", m.int8_matmul_stacked),
+        ("int8_matmul_all_layers", m.int8_matmul_all_layers)) if hasattr(fn, "wide_launches")}
+
+
 def reset_launches() -> None:
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
 
     for fn in counters().values():
         fn.launches = 0
     int8_matmul.decode_launches = 0
+    for fn in int8_wide_counters().values():
+        fn.wide_launches = 0
     for variant in ffn_launches():
         ffn_launches()[variant] = 0
     ffn_paths().clear()
@@ -492,13 +513,15 @@ def read_launches() -> dict:
     """Every wrapper's count; the grouped FFN's per variant, as
     moe_ffn_<variant>, and per variant and path, as moe_ffn_<variant>_path<p>;
     the int8 matmul's launches of its decode kernel as int8_matmul_decode (of
-    int8_matmul's)."""
+    int8_matmul's), and each int8 wrapper's of the wide kernel as
+    <name>_wide."""
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
 
     out = {name: fn.launches for name, fn in counters().items()}
     out.update({f"moe_ffn_{v}": n for v, n in ffn_launches().items()})
     out.update({f"moe_ffn_{v}_path{p}": n for (v, p), n in ffn_paths().items()})
     out["int8_matmul_decode"] = int8_matmul.decode_launches
+    out.update({name: fn.wide_launches for name, fn in int8_wide_counters().items()})
     return out
 
 
@@ -3356,7 +3379,7 @@ def rotation(x, wq, scale, copies: int):
 
 def int8_plan(M: int, K: int, N: int):
     """The decode kernel's splits of a tile's K on this card, or None where
-    the plan refuses the shape (the staged kernel's)."""
+    the plan refuses the shape."""
     import torch
 
     from video_r2_tpu_torch.ops import int8_matmul as m
@@ -3366,12 +3389,26 @@ def int8_plan(M: int, K: int, N: int):
     return m._decode_plan(M, K, N, torch.cuda.current_device())
 
 
+def int8_other(m):
+    """(name, fn(x, wq, scale)) of the int8 kernel a decode shape is timed
+    against: the wide kernel (a port with it), else the staged kernel."""
+    if hasattr(m, "_wide_plan"):
+        def wide(a, w, s_):
+            dims = m._check(a, w, s_, 2)
+            plan = m._wide_plan(dims[0], dims[1], dims[3], 1, a.get_device())
+            return m._launch(a, w, s_, dims, 0, 1, False, plan)
+        return "wide", wide
+    return "staged", lambda a, w, s_: m._launch("vr2_int8_matmul", a, w, s_, (), False)
+
+
 def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict:
     """The int8 kernel at one shape against its plain version, cold weights;
     full: also the plain version's and _weight_int8pack_mm's times (else
-    the kernel and convert + matmul only, for the row-limit table), and
-    where the decode kernel takes the shape its plan (splits of a tile's K)
-    and the staged kernel's times (held against the plain version too)."""
+    the kernel and convert + matmul only, for the row-limit table). The
+    route int8_matmul took (decode, wide, element: from the wrapper's
+    counts; staged for a port before the wide kernel) and its plan; where
+    the decode kernel takes the shape, the wide kernel's times at the same
+    shape (held against the plain version too)."""
     import math
 
     import torch
@@ -3384,12 +3421,24 @@ def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict
     w_bytes = wq.numel() + 4.0 * sc.numel()
     copies = max(1, math.ceil(COLD_BYTES / w_bytes))
     rot = rotation(x, wq, sc, copies)
+    counts = lambda: (int8_matmul.decode_launches,  # noqa: E731
+                      getattr(int8_matmul, "wide_launches", 0))
+    before = counts()
     out, ref = int8_matmul(x, wq, sc), int8_matmul_plain(x, wq, sc)
+    dec, wide = (a - b for a, b in zip(counts(), before))
+    route = ("decode" if dec else "wide" if wide else
+             "element" if hasattr(m, "_wide_plan") else "staged")
     err, excess = compare(out, ref)
     r = {"max_abs_err": err, "excess": excess, "ms": cuda_ms(rot(int8_matmul)),
          "library_ms": cuda_ms(rot(convert_matmul)),
          **bound(2.0 * M * K * N, 2.0 * M * K + w_bytes + 2.0 * M * N)}
-    extra = {}
+    extra = {"kernel": route}
+    if route == "decode":
+        extra["plan"] = f"{N // m.DECODE_COLUMNS * int8_plan(M, K, N)} blocks x " \
+                        f"{int8_plan(M, K, N)} splits"
+    elif route == "wide":
+        rows, S = m._wide_plan(M, K, N, 1, torch.cuda.current_device())
+        extra["plan"] = f"{rows}-row tiles x {S} splits"
     if full:    # device times (a CUDA graph): at decode rows the eager ones are host time
         r["device_ms"] = graph_ms(rot(int8_matmul))
         r["library_device_ms"] = graph_ms(rot(convert_matmul))
@@ -3405,15 +3454,11 @@ def int8_case(gen, what: str, M: int, K: int, N: int, full: bool = True) -> dict
                 extra["int8pack_device_ms"] = graph_ms(nk(pack))
             except RuntimeError as e:
                 extra["int8pack_device"] = f"none ({str(e).splitlines()[0][:120]})"
-        splits = int8_plan(M, K, N)
-        extra["kernel"] = "staged" if splits is None else "decode"
-        if splits is not None:   # the staged kernel, in the same run
-            extra["plan"] = f"{N // m.DECODE_COLUMNS * splits} blocks x {splits} splits"
-            staged = lambda a, w, s_: m._launch(  # noqa: E731
-                "vr2_int8_matmul", a, w, s_, (), False)
-            excess = max(excess, compare(staged(x, wq, sc), ref)[1])
-            extra["staged_ms"] = cuda_ms(rot(staged))
-            extra["staged_device_ms"] = graph_ms(rot(staged))
+        if route == "decode":   # the other kernel, in the same run
+            name, other = int8_other(m)
+            excess = max(excess, compare(other(x, wq, sc), ref)[1])
+            extra[f"{name}_ms"] = cuda_ms(rot(other))
+            extra[f"{name}_device_ms"] = graph_ms(rot(other))
     report("int8_matmul", what, (M, K, N), copies=copies, **r, **extra)
     if not (torch.isfinite(out).all() and excess <= 1.0):
         raise AssertionError(f"int8_matmul [{what}] disagrees with its plain version: "
@@ -3450,6 +3495,12 @@ def micro_phase(gen) -> dict:
     stacked_ms = cuda_ms(lambda: [int8_matmul_stacked(x, wq, scale, i) for i in range(L)],
                          iters=10)
     counted = read_launches()
+    # device times (CUDA graphs: 5 all-layers launches, 2 x 28 stacked), not counted
+    all_dev = graph_ms(lambda: int8_matmul_all_layers(x, wq, scale), iters=5)
+    stacked_dev = graph_ms(lambda: [int8_matmul_stacked(x, wq, scale, i) for i in range(L)],
+                           iters=2)
+    wide = {n: counted.get(f"{n}_wide") for n in ("int8_matmul_all_layers",
+                                                 "int8_matmul_stacked")}
     conv_ms = cuda_ms(lambda: [convert_matmul(x, wq[i], scale[i]) for i in range(L)],
                       iters=10)
     lib_all = cuda_ms(lambda: torch.matmul(x, wq.to(x.dtype)) * scale[:, None].to(x.dtype),
@@ -3464,30 +3515,38 @@ def micro_phase(gen) -> dict:
     err_all = compare(out_all[L - 1], int8_matmul_plain(x, wq[L - 1], scale[L - 1]))[0]
     print(f"microbench_int8 shape [{M},{K}]x[{K},{N}] x{L}: {gb:.2f} GB int8, bound "
           f"{gb * 1e9 / PEAK_BYTES * 1e3:.3f} ms: all-layers (1 launch) {all_ms:.4f} ms "
-          f"{bw(all_ms):.0f} GB/s | stacked ({L} launches) {stacked_ms:.4f} ms "
-          f"{bw(stacked_ms):.0f} GB/s | convert + matmul x {L} {conv_ms:.4f} ms "
-          f"{bw(conv_ms):.0f} GB/s | one convert + matmul over the stack {lib_all:.4f} ms | "
-          f"plain {plain_all:.4f} ms; kernel vs plain on layers 0, {L // 2}, {L - 1}: "
-          f"{worst:.3f} x the tolerance; launches {counted['int8_matmul_all_layers']} "
-          f"all-layers, {counted['int8_matmul_stacked']} stacked", flush=True)
+          f"{bw(all_ms):.0f} GB/s, device {all_dev:.4f} ms {bw(all_dev):.0f} GB/s | stacked "
+          f"({L} launches) {stacked_ms:.4f} ms {bw(stacked_ms):.0f} GB/s, device "
+          f"{stacked_dev:.4f} ms {bw(stacked_dev):.0f} GB/s | convert + matmul x {L} "
+          f"{conv_ms:.4f} ms {bw(conv_ms):.0f} GB/s | one convert + matmul over the stack "
+          f"{lib_all:.4f} ms | plain {plain_all:.4f} ms; kernel vs plain on layers 0, "
+          f"{L // 2}, {L - 1}: {worst:.3f} x the tolerance; launches "
+          f"{counted['int8_matmul_all_layers']} all-layers ({wide['int8_matmul_all_layers']} "
+          f"on the wide kernel), {counted['int8_matmul_stacked']} stacked "
+          f"({wide['int8_matmul_stacked']} wide)", flush=True)
     if not (torch.isfinite(out_all).all() and worst <= 1.0):
         raise AssertionError(f"the microbench's int8 kernels disagree with plain: {worst}")
+    for name, n in wide.items():
+        if n is not None and n != counted[name]:
+            raise AssertionError(f"{name}: {n} of {counted[name]} launches on the wide kernel")
     per = lambda n_layers: bound(2.0 * M * K * N * n_layers,  # noqa: E731
                                  2.0 * M * K + n_layers * (K * N + 4.0 * N + 2.0 * M * N))
     del wq, out_all
     torch.cuda.empty_cache()
     return {"int8_matmul_all_layers": {
-                "max_abs_err": err_all, "ms": all_ms, "plain_ms": plain_all,
-                "library_ms": lib_all, "launches": counted["int8_matmul_all_layers"], **per(L)},
+                "max_abs_err": err_all, "ms": all_ms, "device_ms": all_dev,
+                "plain_ms": plain_all, "library_ms": lib_all,
+                "launches": counted["int8_matmul_all_layers"], **per(L)},
             "int8_matmul_stacked": {
-                "max_abs_err": err_all, "ms": stacked_ms / L, "plain_ms": plain_all / L,
-                "library_ms": conv_ms / L, "launches": counted["int8_matmul_stacked"],
-                **per(1)}}
+                "max_abs_err": err_all, "ms": stacked_ms / L, "device_ms": stacked_dev / L,
+                "plain_ms": plain_all / L, "library_ms": conv_ms / L,
+                "launches": counted["int8_matmul_stacked"], **per(1)}}
 
 
 def int8_kernel_phase(cfg, batch, device) -> dict:
     """Phase 16. Returns the kernels line's rows of the three entries:
-    decode gate / up at B = 16; the microbench's stacked and all-layers."""
+    decode gate / up at B = 16; the wide kernel at the bench prefill head;
+    the microbench's stacked and all-layers."""
     import torch
 
     from video_r2_tpu_torch.ops.int8_matmul import INT8_KERNEL_MAX_ROWS
@@ -3525,13 +3584,14 @@ def int8_kernel_phase(cfg, batch, device) -> dict:
     for M in INT8_ROWS:
         for what, K, N in (("gate / up", H, I), ("q", H, qd)):
             r = int8_case(gen, f"row limit, {what}", M, K, N, full=False)
-            table[(M, what)] = (r["ms"], r["library_ms"])
+            table[(M, what)] = (r["ms"], r["library_ms"], r["kernel"])
     wins = [M for M in INT8_ROWS if all(table[(M, w)][0] <= table[(M, w)][1]
                                         for w in ("gate / up", "q"))]
-    print("INT8_KERNEL_MAX_ROWS table (ms, kernel / convert + matmul, cold weights): "
-          + "; ".join(f"M={M}: gate / up {table[(M, 'gate / up')][0]:.4f} / "
-                      f"{table[(M, 'gate / up')][1]:.4f}, q {table[(M, 'q')][0]:.4f} / "
-                      f"{table[(M, 'q')][1]:.4f}" for M in INT8_ROWS)
+    print("INT8_KERNEL_MAX_ROWS table (ms, kernel / convert + matmul, cold weights; the "
+          "kernel's route): "
+          + "; ".join(f"M={M}: " + ", ".join(
+              f"{w} {table[(M, w)][0]:.4f} / {table[(M, w)][1]:.4f} ({table[(M, w)][2]})"
+              for w in ("gate / up", "q")) for M in INT8_ROWS)
           + f"; the kernel no slower at both shapes at M in {wins}: the largest "
           f"{max(wins) if wins else 0}; INT8_KERNEL_MAX_ROWS = {INT8_KERNEL_MAX_ROWS}",
           flush=True)
@@ -3557,7 +3617,8 @@ def int8_kernel_phase(cfg, batch, device) -> dict:
         flash_case(gen, what, q, k, v, lens, True, None, training=False)
         del q, k, v
         torch.cuda.empty_cache()
-    return {"int8_matmul": results[(B, H, I)], **micro}
+    return {"int8_matmul": results[(B, H, I)],
+            "int8_matmul_wide": results[(BENCH_CHUNK, H, V)], **micro}
 
 
 def int8_expected_launches(cfg, reqs, B: int, S: int, T: int) -> tuple[int, str]:
@@ -3756,6 +3817,12 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
     if counted["int8_matmul_decode"] != want_dec or not want_dec:
         raise AssertionError(f"the int8 slice launched {counted['int8_matmul_decode']} int8 "
                              f"decode kernels, not {want_dec}")
+    # every other int8 launch here is on the wide kernel: the text and merger
+    # widths map onto TMA, and the ViT's linears (N or K 3420) see more rows
+    # than INT8_KERNEL_MAX_ROWS
+    if counted["int8_matmul_wide"] != want - want_dec:
+        raise AssertionError(f"the int8 slice launched {counted['int8_matmul_wide']} int8 "
+                             f"wide kernels, not {want - want_dec}")
     for name in ("flash_attention", "window_attention"):
         if counted[name] <= 0:
             raise AssertionError(f"the int8 slice launched no {name} kernel")
@@ -3817,8 +3884,10 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
     tok_s = [BENCH_B * BENCH_NEW / t for t in times]
     print(f"int8 serving (b), bench.py's workload: B={BENCH_B}, {BENCH_PROMPT}-token prompts, "
           f"{BENCH_NEW} new tokens, W8A8 + int8 KV, prefill_chunk={BENCH_CHUNK}: runs "
-          f"{[round(t, 4) for t in times]} s, peak device memory {peak:.2f} GiB; launches of "
-          f"the last run {bench_launches}", flush=True)
+          f"{[round(t, 4) for t in times]} s, {[round(t, 1) for t in tok_s]} tok/s, peak "
+          f"device memory {peak:.2f} GiB; launches of the last run {bench_launches} (the "
+          f"int8 kernel {bench_launches['int8_matmul']}: the prefill chunks' head, "
+          f"{bench_launches['int8_matmul_wide']} of them on the wide kernel)", flush=True)
     print(json.dumps({"metric": BENCH_METRIC, "value": round(statistics.median(tok_s), 1),
                       "runs": [round(t, 1) for t in tok_s], "unit": "tokens/sec",
                       "card": card}), flush=True)
@@ -3827,6 +3896,10 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
         raise AssertionError(f"bench workload: bad tokens {res.sequences.shape}")
     if bench_launches["flash_attention"] <= 0:
         raise AssertionError("the bench workload launched no flash kernel")
+    if not 0 < bench_launches["int8_matmul_wide"] == bench_launches["int8_matmul"]:
+        raise AssertionError(f"the bench workload's int8 launches {bench_launches['int8_matmul']}"
+                             f", on the wide kernel {bench_launches['int8_matmul_wide']}")
+    launches["int8_matmul_wide"] = bench_launches["int8_matmul_wide"]
     return kernel_results, launches
 
 

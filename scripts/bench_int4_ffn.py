@@ -9,6 +9,7 @@ plain version, timed with CUDA events beside one library call and the bound.
     python3 scripts/bench_int4_ffn.py --cases int4     # a subset: int4, int8, ffn
     python3 scripts/bench_int4_ffn.py --cases int4 --shapes 'decode q,decode k / v'
     python3 scripts/bench_int4_ffn.py --cases int8 --eager  # host-inclusive times
+    python3 scripts/bench_int4_ffn.py --cases int8_wide,int8_micro   # 17-256 rows
 
 Shapes: the int4 kernel at B = 4 rows for the 7B's q, k / v, o, gate / up
 and down, at B = 1 for gate / up and the head, and at the merger's 784
@@ -17,12 +18,19 @@ quantize_kernel_int4, copies rotating past the L2 cache so each launch reads
 cold weights; the library call torch._weight_int4pack_mm); the int8 kernel
 at B = 16 and B = 1 for q / o, k / v, gate / up, down and the head
 (chip_smoke.py phase 16's decode cases: chip_smoke.int8_case, with its
-decode plan and the staged kernel's times where the port has a decode
-kernel, convert + matmul and torch._weight_int8pack_mm, eager and device
-ms; with --eager instead the port's int8_matmul eager as a decode loop
-calls it, host time included: EAGER_REPS readings of EAGER_CALLS calls in a
-row, and where the port has a decode kernel its bare decode and staged
-launches the same way); the grouped FFN
+decode plan and the wide kernel's times (the staged kernel's on a port
+before it) where the port has a decode kernel, convert + matmul and
+torch._weight_int8pack_mm, eager and device ms; with --eager instead the
+port's int8_matmul eager as a decode loop calls it, host time included:
+EAGER_REPS readings of EAGER_CALLS calls in a row, and where the port has
+a decode kernel its bare decode and wide (or staged) launches the same
+way); int8_wide: the int8 kernel at 17, 64, 128 and 256
+rows of q / o, k / v, gate / up and down and at the bench's 64-row prefill
+head (the same chip_smoke.int8_case, with the route each call took: the
+wide kernel on this tree, the staged kernel on its parent); int8_micro:
+chip_smoke.micro_phase, scripts/microbench_int8.py's 28 stacked launches
+and one all-layers launch (M 64, K 3584, N 18944), eager and device ms;
+the grouped FFN
 in bf16 at T = 4096 and 2048 tokens routed top 8 over the judge's 128
 experts (H 2048, I 768: phase 10's GMM prefill cases; the library call three
 torch._grouped_mm and the SwiGLU), with each of its kernels' device time
@@ -57,6 +65,13 @@ INT8_SHAPES = tuple((f"{b} {name}", M, K, N) for b, M in (("decode", 16), ("B=1"
                     for name, K, N in (("q / o", 3584, 3584), ("k / v", 3584, 512),
                                        ("gate / up", 3584, 18944), ("down", 18944, 3584),
                                        ("head", 3584, 152064)))
+# (what, rows, K, N): the 7B's int8 linears at 17-256 rows (chunked and
+# small-batch prefill, the logprob passes), and the bench's prefill head
+INT8_WIDE_SHAPES = tuple((f"{M} rows {name}", M, K, N) for M in (17, 64, 128, 256)
+                         for name, K, N in (("q / o", 3584, 3584), ("k / v", 3584, 512),
+                                            ("gate / up", 3584, 18944),
+                                            ("down", 18944, 3584))) \
+    + (("bench prefill head", 64, 3584, 152064),)
 EAGER_REPS, EAGER_CALLS = 7, 300
 FFN_TOKENS = (4096, 2048)
 STEP_LENGTHS = (1354, 1391, 1326, 1423)    # phase 13's prompt lengths
@@ -82,8 +97,10 @@ def int8_eager(chip_smoke, gen, M: int, K: int, N: int) -> dict:
     [M, K] @ [K, N], EAGER_CALLS calls in a row on the next of chip_smoke's
     cold copies of the weights, timed with CUDA events, so the host's time
     a call counts where it is longer than the device's; and where the port
-    has a decode kernel, its bare decode and staged launches (the same
-    Python around both: the C side's host time apart)."""
+    has a decode kernel, its bare decode launches and those of the kernel
+    it is timed against (chip_smoke.int8_other: the wide kernel, or the
+    staged one on a port before it; the same Python around both: the C
+    side's host time apart)."""
     import math
 
     import torch
@@ -99,15 +116,16 @@ def int8_eager(chip_smoke, gen, M: int, K: int, N: int) -> dict:
         if hasattr(m, "_decode_plan") else None
     if splits is not None:
         fns["bare_decode"] = lambda a, w, s_: m._launch_decode(a, w, s_, splits)  # noqa: E731
-        fns["bare_staged"] = lambda a, w, s_: m._launch(  # noqa: E731
-            "vr2_int8_matmul", a, w, s_, (), False)
+        name, other = chip_smoke.int8_other(m)
+        fns[f"bare_{name}"] = other
     out = {name: [] for name in fns}
     for _ in range(EAGER_REPS):     # the readings of each in turns
         for name, fn in fns.items():
             out[name].append(chip_smoke.cuda_ms(rot(fn), iters=EAGER_CALLS, warmup=copies))
     del rot
     torch.cuda.empty_cache()
-    return {"plan": "staged" if splits is None else f"decode, {splits} splits", **out}
+    return {"plan": "not the decode kernel" if splits is None else f"decode, {splits} splits",
+            **out}
 
 
 def decode_step_ms(device) -> list[float]:
@@ -188,7 +206,8 @@ def main() -> int:
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--step", action="store_true", help="also time an int4 decode step")
     ap.add_argument("--cases", default="int4,int8,ffn",
-                    help="comma-separated subset of int4, int8, ffn")
+                    help="comma-separated subset of int4, int8, int8_wide, int8_micro, "
+                         "ffn")
     ap.add_argument("--shapes", default=None,
                     help="int4: comma-separated subset of the shapes' names, as "
                          "'decode q,decode k / v'")
@@ -239,7 +258,9 @@ def main() -> int:
             line["launch"] = chip_smoke.int4_launch_line(M, K, N, sms)
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
-    for what, M, K, N in INT8_SHAPES if "int8" in cases else ():
+    int8_shapes = (INT8_SHAPES if "int8" in cases else ()) + \
+        (INT8_WIDE_SHAPES if "int8_wide" in cases else ())
+    for what, M, K, N in int8_shapes:
         if args.shapes is not None and what not in args.shapes.split(","):
             continue
         if args.eager:
@@ -255,6 +276,14 @@ def main() -> int:
             continue
         print(json.dumps({"label": args.label, "kernel": "int8_matmul", "what": what, "M": M,
                           "K": K, "N": N, **r}), flush=True)
+        torch.cuda.empty_cache()
+    if "int8_micro" in cases:
+        try:
+            print(json.dumps({"label": args.label, "kernel": "int8 microbench",
+                              **chip_smoke.micro_phase(gen)}), flush=True)
+        except AssertionError as e:    # a variant that gives up the result (its times
+            print(json.dumps({"label": args.label, "what": "int8 microbench",  # are on
+                              "error": str(e)}), flush=True)       # the line above)
         torch.cuda.empty_cache()
     layer = judge_layer(device, chip_smoke.SEED + 3) if "ffn" in cases else None
     for T in FFN_TOKENS if "ffn" in cases else ():

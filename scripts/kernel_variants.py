@@ -104,6 +104,21 @@ kernel. The variants, and the sources whose text they match:
   moewq_loads          the same source, with moewq_noproducts: nor do they
                        form fragments (no ldmatrix, no conversion: the TMA
                        ring, its barriers and the epilogue alone)
+  int8w_noconvert      csrc/int8_matmul.cu of this tree: the wide kernel's A
+                       fragments are the raw weight words (no conversion)
+  int8w_noproducts     the same source: the wide kernel issues no product
+                       (its fragments are formed and folded into one
+                       accumulator, so ptxas keeps them; the ring, the
+                       fragments and the epilogue alone)
+  int8w_loads          the same source, with int8w_noproducts and
+                       int8w_noconvert: nor does it load fragments (no
+                       ldmatrix: the TMA ring, its barriers and the
+                       epilogue alone)
+  int8w_1block         the same source: the 32- and 64-row tiles on one
+                       block an SM (the 128-row tile's ring and registers)
+  int8w_depth3         the same source: three fragment buffers, the
+                       products of two stages in flight while the next
+                       stage's fragments are formed (not one)
 
 The variants of one source combine (int4_nocompute with int4_2blocks).
 """
@@ -115,6 +130,24 @@ import shutil
 import sys
 from pathlib import Path
 
+INT8W_LDSM = "      vr2::ldsm_x4_trans(r, vr2::sw128_at(st, 32 * h + lane, c0));\n"
+INT8W_NO_LDSM = "      r[0] = r[1] = r[2] = r[3] = 0x01020304u * (h + 1) + lane;\n"
+INT8W_PAIRS = """\
+        vr2::int8_pairs(r[2 * q], f[2 * h + q][0], f[2 * h + q][1]);
+        vr2::int8_pairs(r[2 * q + 1], f[2 * h + q][2], f[2 * h + q][3]);
+"""
+INT8W_RAW = """\
+        f[2 * h + q][0] = f[2 * h + q][1] = r[2 * q];
+        f[2 * h + q][2] = f[2 * h + q][3] = r[2 * q + 1];
+"""
+INT8W_PRODUCTS = """\
+    for (int kk = 0; kk < 4; ++kk)
+      vr2::wgmma_rs<BN, 0>(acc, f[kk], vr2::desc_k_sw128(st + G::W_BYTES, kk), 1);
+"""
+INT8W_NO_PRODUCTS = """\
+    for (int kk = 0; kk < 4; ++kk)
+      acc[0][0] += __uint_as_float((f[kk][0] ^ f[kk][1] ^ f[kk][2] ^ f[kk][3]) & 0x3fffffffu);
+"""
 PARENT_INT4_DEQUANT = """\
           blo[nt][0] = vr2::pack_bf16(nib(u0, slo[nt]), nib(u1, slo[nt]));
           blo[nt][1] = vr2::pack_bf16(nib(u2, slo[nt]), nib(u3, slo[nt]));
@@ -230,6 +263,14 @@ VARIANTS = {
     "int8_noconvert": [("stream_k.cuh", INT8_PAIRS, RAW_PAIRS)],
     "int8_nocompute": [("stream_k.cuh", DECODE_COMPUTE, "")],
     "int8_noclose": [("stream_k.cuh", DECODE_FLUSH, "")],
+    "int8w_noconvert": [("int8_matmul.cu", INT8W_PAIRS, INT8W_RAW)],
+    "int8w_noproducts": [("int8_matmul.cu", INT8W_PRODUCTS, INT8W_NO_PRODUCTS)],
+    "int8w_loads": [("int8_matmul.cu", INT8W_PAIRS, INT8W_RAW),
+                    ("int8_matmul.cu", INT8W_PRODUCTS, INT8W_NO_PRODUCTS),
+                    ("int8_matmul.cu", INT8W_LDSM, INT8W_NO_LDSM)],
+    "int8w_1block": [("int8_matmul.cu", "  static constexpr int MINB = BN <= 64 ? 2 : 1;\n",
+                      "  static constexpr int MINB = 1;\n")],
+    "int8w_depth3": [("int8_matmul.cu", "constexpr int kDepth = 2;", "constexpr int kDepth = 3;")],
     "int8_4blocks": [
         ("int8_matmul.cu", "constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 4;"),
         ("int8_matmul.cu", "static constexpr int STAGES = MT == 1 ? 7 : 6;",

@@ -101,10 +101,12 @@ def test_int8_matmul_plain_matches_jax_kernel(rng, dtype, rtol, atol):
                                rtol=rtol, atol=atol)
 
 
-def test_int8_matmul_stacked_plain_matches_jax_kernel(rng):
+@pytest.mark.parametrize("M", [8, 17, 64])
+def test_int8_matmul_stacked_plain_matches_jax_kernel(rng, M):
     """Every layer of a stack, read in place by the JAX kernel's scalar
-    prefetch."""
-    L, M, K, N = 3, 8, 256, 384
+    prefetch; M 17 and 64: rows of the wide kernel's 32- and 64-row tiles,
+    which the card's stacked entry takes."""
+    L, K, N = 3, 256, 384
     x = rng.normal(size=(M, K)).astype(np.float32)
     wq, scale = _int8_leaf(rng, L, K, N)
     for layer in range(L):
@@ -114,13 +116,15 @@ def test_int8_matmul_stacked_plain_matches_jax_kernel(rng):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
-def test_int8_matmul_all_layers_plain_matches_the_microbench_kernel(rng):
+@pytest.mark.parametrize("M", [8, 17, 64])
+def test_int8_matmul_all_layers_plain_matches_the_microbench_kernel(rng, M):
     """The all-layers plain version against scripts/microbench_int8.py's
-    one-launch kernel (grid (L, N / 512, K / 512))."""
+    one-launch kernel (grid (L, N / 512, K / 512)); M 64 is the
+    microbench's own row count."""
     spec = importlib.util.spec_from_file_location("microbench_int8", MICROBENCH)
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
-    L, M, K, N = 2, 8, 512, 512
+    L, K, N = 2, 512, 512
     x = rng.normal(size=(M, K)).astype(np.float32)
     wq, scale = _int8_leaf(rng, L, K, N)
     with pltpu.force_tpu_interpret_mode():
@@ -180,6 +184,130 @@ def test_int8_decode_plan_keeps_one_wave(K, N, sms, resident):
                       and ks // S >= m.DECODE_SPLIT_MIN_STEPS)
     assert S == m.DECODE_MAX_SPLITS or tiles * (S + 1) > resident * sms \
         or ks // (S + 1) < m.DECODE_SPLIT_MIN_STEPS or tiles > clusters[S]
+
+
+# the wide kernel's residency on an H100 (132 SMs), as its layout entry
+# reads it: two blocks an SM of the 32- and 64-row instances, one of the
+# 128-row instance, and the clusters of S = 1 .. 16 blocks each holds at once
+H100_WIDE_LAYOUT = ((2, 2, 1), (
+    (264, 132, 79, 62, 47, 39, 32, 30, 23, 21, 16, 16, 14, 14, 14, 14),
+    (264, 132, 79, 62, 47, 39, 32, 30, 23, 21, 16, 16, 14, 14, 14, 14),
+    (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)))
+
+
+@pytest.mark.parametrize("M,K,N,layers,plan", [
+    (17, 3584, 3584, 1, (32, 4)),       # q / o: 28 tiles, one block an SM
+    (64, 3584, 3584, 1, (64, 4)),
+    (128, 3584, 3584, 1, (128, 4)),
+    (256, 3584, 3584, 1, (128, 2)),     # two row tiles of 128
+    (64, 3584, 512, 1, (64, 16)),       # k / v: 4 tiles, the most splits a cluster holds
+    (256, 3584, 512, 1, (128, 9)),      # 8 tiles: 9 clusters of 9 resident, 7 of 10
+    (64, 3584, 18944, 1, (64, 1)),      # gate / up: 148 tiles, more than the SMs
+    (256, 3584, 18944, 1, (128, 1)),
+    (64, 18944, 3584, 1, (64, 4)),      # down: 296 steps a tile
+    (64, 3584, 152064, 1, (64, 1)),     # the bench's prefill head: 1188 tiles
+    (64, 3584, 18944, 28, (64, 1)),     # the microbench's all-layers launch
+    (784, 5120, 5120, 1, (128, 1)),     # 7 row tiles of the merger's 40 column tiles
+    (16, 192, 512, 1, (32, 1)),         # 3 steps: a split would keep 1
+    (40, 2400, 1024, 1, (64, 16))])     # a K tail (37.5 steps): 8 tiles
+def test_int8_wide_plan_at_the_7b_shapes(M, K, N, layers, plan):
+    """int8_wide_plan on an H100's counts: the row tile (the smallest
+    instance that holds M, 128-row tiles past it), and a tile's K split
+    over a cluster where the tiles leave SMs idle, at most one block an SM,
+    unsplit where the tiles fill them."""
+    assert int8_matmul.int8_wide_plan(M, K, N, layers, 132, H100_WIDE_LAYOUT[1]) == plan
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 3420, 1280),   # K % 8: x's rows not 16-byte pitched
+                                   (64, 1280, 3420),   # N % 16: the weights' rows
+                                   (32, 300, 500), (4, 301, 197), (17, 64, 1),
+                                   (0, 3584, 3584)])   # no rows
+def test_int8_wide_plan_refuses(M, K, N):
+    """What TMA cannot map goes to the element-load kernel."""
+    assert int8_matmul.int8_wide_plan(M, K, N, 1, 132, H100_WIDE_LAYOUT[1]) is None
+
+
+@pytest.mark.parametrize("M", [17, 64, 128, 256])
+@pytest.mark.parametrize("K,N,layers", [(3584, 3584, 1), (3584, 512, 1), (3584, 18944, 1),
+                                        (18944, 3584, 1), (3584, 152064, 1), (256, 128, 1),
+                                        (3584, 18944, 28)])
+@pytest.mark.parametrize("sms,resident", [(132, (2, 2, 1)), (132, (1, 1, 1)), (114, (2, 2, 1)),
+                                          (8, (1, 1, 1))])
+def test_int8_wide_plan_keeps_one_wave(M, K, N, layers, sms, resident):
+    """A split grid holds at most one block an SM with every cluster
+    resident at once, keeps WIDE_SPLIT_MIN_STEPS steps a split, and takes
+    the most splits that allows; the row tile is the smallest instance
+    that holds M."""
+    m = int8_matmul
+    clusters = tuple(tuple(r * sms // S for S in range(1, 17)) for r in resident)
+    rows, S = m.int8_wide_plan(M, K, N, layers, sms, clusters)
+    i = m.WIDE_ROWS.index(rows)
+    blocks = -(-M // rows) * -(-N // m.WIDE_COLUMNS) * layers
+    ks = -(-K // m.WIDE_STEP_K)
+    assert rows == min(r for r in m.WIDE_ROWS if r >= min(M, m.WIDE_ROWS[-1]))
+    assert 1 <= S <= m.WIDE_MAX_SPLITS
+    assert S == 1 or (blocks * S <= sms and blocks <= clusters[i][S - 1]
+                      and ks // S >= m.WIDE_SPLIT_MIN_STEPS)
+    assert S == m.WIDE_MAX_SPLITS or blocks * (S + 1) > sms \
+        or ks // (S + 1) < m.WIDE_SPLIT_MIN_STEPS or blocks > clusters[i][S]
+
+
+@pytest.mark.parametrize("rows,K,N,route", [
+    (16, 3584, 3584, "decode"),        # the decode kernel's rows
+    (17, 3584, 3584, "wide"), (64, 3584, 3584, "wide"), (256, 3584, 3584, "wide"),
+    (64, 3584, 152064, "wide"),        # the bench's prefill head
+    (257, 3584, 3584, None),           # past INT8_KERNEL_MAX_ROWS: convert + matmul
+    (16, 3584, 3420, "element"),       # N % 16: the decode plan and TMA refuse it
+    (64, 1280, 3420, "element"), (64, 3420, 1280, "element")])
+def test_quantized_linear_auto_routes_by_shape(monkeypatch, rows, K, N, route):
+    """The kernel each call takes, chosen by shape before any launch, on an
+    H100's counts: the dispatcher's int8 linear over tensors that hold no
+    data (the meta device, so the wrapper's CUDA branch runs), the three
+    launch functions replaced by recorders."""
+    m = int8_matmul
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: type("Props", (), {"multi_processor_count": 132}))
+    monkeypatch.setattr(m, "int8_decode_layout",
+                        lambda index: ((3, 3), (_clusters(), _clusters())))
+    monkeypatch.setattr(m, "int8_wide_layout", lambda index: H100_WIDE_LAYOUT)
+    m._decode_plan.cache_clear()
+    m._wide_plan.cache_clear()
+    calls = []
+
+    def launch(x, wq, scale, dims, layer0, layers, all_layers, plan):
+        calls.append("element" if plan is None else "wide")
+        return torch.empty(((layers,) if all_layers else ()) + (dims[0], dims[3]),
+                           dtype=torch.bfloat16, device="meta")
+
+    def launch_decode(x, wq, scale, splits, dims=None):
+        calls.append("decode")
+        return torch.empty(dims[0], dims[3], dtype=torch.bfloat16, device="meta")
+
+    monkeypatch.setattr(m, "_launch", launch)
+    monkeypatch.setattr(m, "_launch_decode", launch_decode)
+    try:
+        meta = lambda *shape, dtype: torch.empty(*shape, dtype=dtype, device="meta")  # noqa: E731
+        x = meta(rows, K, dtype=torch.bfloat16)
+        wq, scale = meta(K, N, dtype=torch.int8), meta(N, dtype=torch.float32)
+        before = (m.int8_matmul.launches, m.int8_matmul.decode_launches,
+                  m.int8_matmul.wide_launches)
+        assert m.quantized_linear_auto(x, wq, scale).shape == (rows, N)
+        assert calls == ([] if route is None else [route])
+        assert (m.int8_matmul.launches, m.int8_matmul.decode_launches,
+                m.int8_matmul.wide_launches) == tuple(
+            b + d for b, d in zip(before, (route is not None, route == "decode",
+                                           route == "wide")))
+        # the stacked and all-layers entries never take the decode kernel
+        calls.clear()
+        wq2, scale2 = meta(2, K, N, dtype=torch.int8), meta(2, N, dtype=torch.float32)
+        m.int8_matmul_stacked(x, wq2, scale2, 1)
+        assert m.int8_matmul_all_layers(x, wq2, scale2).shape == (2, rows, N)
+        assert calls == ["element" if route == "element" else "wide"] * 2
+    finally:
+        m.int8_matmul.launches, m.int8_matmul.decode_launches, m.int8_matmul.wide_launches = \
+            before
+        m._decode_plan.cache_clear()
+        m._wide_plan.cache_clear()
 
 
 @pytest.mark.parametrize("rows", [4, 40])

@@ -1146,20 +1146,35 @@ def _int8_operands(gen, M, K, N, L=None):
     return _randn(gen, M, K), leaf["kernel_q"], leaf["scale"]
 
 
+def _int8_route(m, before=None):
+    """The int8 wrappers' (launches, decode, wide) counts, summed over the
+    three entries; with `before`, the difference."""
+    now = (m.int8_matmul.launches + m.int8_matmul_stacked.launches
+           + m.int8_matmul_all_layers.launches, m.int8_matmul.decode_launches,
+           m.int8_matmul.wide_launches + m.int8_matmul_stacked.wide_launches
+           + m.int8_matmul_all_layers.wide_launches)
+    return now if before is None else tuple(a - b for a, b in zip(now, before))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 16, 40, 784])
 @pytest.mark.parametrize("K,N", INT8_SHAPES)
 def test_int8_matmul_kernel_matches_plain(cuda, M, K, N):
-    """Every row capacity (16, 32 and 64-row blocks; 784 rows are 13 row
-    blocks) and every copy path."""
+    """Every kernel and instance: the decode kernel (1 and 16 rows where it
+    takes the shape), the wide kernel's 32-row tile (1 and 16 rows it does
+    not take), 64-row tile (40) and 128-row tiles (784 rows are 7), and the
+    element-load kernel where TMA cannot map the shape (K % 8, N % 16)."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     x, wq, scale = _int8_operands(gen, M, K, N)
-    before = int8_matmul.launches
+    before = _int8_route(m)
     out = int8_matmul(x, wq, scale)
     torch.cuda.synchronize()
-    assert int8_matmul.launches == before + 1
+    decode = m._decode_plan(M, K, N, cuda.index or 0) is not None
+    wide = not decode and K % 8 == 0 and N % 16 == 0
+    assert _int8_route(m, before) == (1, int(decode), int(wide))
     ref = int8_matmul_plain(x, wq, scale)
     assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == (M, N)
     assert _close(out, ref)
@@ -1168,7 +1183,7 @@ def test_int8_matmul_kernel_matches_plain(cuda, M, K, N):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 16, 100])
 def test_int8_matmul_kernel_at_the_head(cuda, M):
-    """The 7B head (3584 -> 152064, 2376 column blocks)."""
+    """The 7B head (3584 -> 152064, 1188 column tiles)."""
     from video_r2_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 
     gen = torch.Generator(device=cuda).manual_seed(M)
@@ -1176,13 +1191,78 @@ def test_int8_matmul_kernel_at_the_head(cuda, M):
     assert _close(int8_matmul(x, wq, scale), int8_matmul_plain(x, wq, scale))
 
 
+# (K, N) of the 7B's int8 linears at 17-256 rows: q / o, k / v, gate / up,
+# down; the head at the bench's 64-row prefill chunk
+INT8_WIDE_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+INT8_WIDE_CASES = [(M, K, N) for M in (17, 24, 40, 64, 65, 128, 200, 256)
+                   for K, N in INT8_WIDE_SHAPES] + [(64, 3584, 152064)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 64])
-@pytest.mark.parametrize("K,N", [(3584, 512), (1280, 3420), (301, 197)])
+@pytest.mark.parametrize("M,K,N", INT8_WIDE_CASES)
+def test_int8_matmul_wide_matches_plain(cuda, M, K, N):
+    """The wide kernel at every 7B shape of 17-256 rows (every row tile:
+    17-32 rows on the 32-row instance, 40-64 on the 64-row one, 65-128 on
+    the 128-row one, 200 and 256 as two 128-row tiles) and the head at 64
+    rows: int8_matmul launches it (counted), within the forward bound of
+    the plain version, and a second call gives the same bits (a split
+    tile's sums are added in a fixed order)."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, wq, scale = _int8_operands(gen, M, K, N)
+    rows, S = m._wide_plan(M, K, N, 1, cuda.index or 0)
+    assert rows == (32 if M <= 32 else 64 if M <= 64 else 128)
+    assert 1 <= S <= m.WIDE_MAX_SPLITS and (S > 1) == (N <= 3584)
+    before = _int8_route(m)
+    out = m.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _int8_route(m, before) == (1, 0, 1)
+    assert _close(out, m.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(out, m.int8_matmul(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_wide_replays_in_a_cuda_graph(cuda):
+    """The wide kernel's launches (q at 64 rows: split over a cluster; gate
+    / up at 40 rows: unsplit) captured in a CUDA graph after a larger call
+    (256 rows of the same weights), then replayed on new x: each replay
+    gives the eager call's bits (no workspace or counter is left between
+    launches)."""
+    from video_r2_tpu_torch.ops.int8_matmul import int8_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ops = [_int8_operands(gen, M, K, N) for M, K, N in ((64, 3584, 3584), (40, 3584, 18944))]
+    for x, wq, sc in ops:
+        int8_matmul(_randn(gen, 256, x.shape[1]), wq, sc)
+    xs = [x.clone() for x, _, _ in ops]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x, (_, wq, sc) in zip(xs, ops):
+            int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [int8_matmul(x, wq, sc) for x, (_, wq, sc) in zip(xs, ops)]
+    for step in range(2):
+        for x in xs:
+            x.copy_(_randn(gen, *x.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, o, (_, wq, sc) in zip(xs, outs, ops):
+            assert torch.equal(o, int8_matmul(x, wq, sc)), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 17, 64])
+@pytest.mark.parametrize("K,N", [(3584, 512), (3584, 18944), (1280, 3420), (301, 197)])
 def test_int8_stacked_and_all_layers_kernels_match_plain(cuda, M, K, N):
-    """The stacked entry on every layer but the first of a 3-layer stack
-    (read in place) and the all-layers entry, against their plain
-    versions."""
+    """The stacked entry on layers 0, L / 2 and L - 1 of a 3-layer stack
+    (read in place) and the all-layers entry, against their plain versions;
+    TMA-mappable widths on the wide kernel, the others (N 3420, K 301) on
+    the element-load kernel, counted."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
     from video_r2_tpu_torch.ops.int8_matmul import (
         int8_matmul_all_layers,
         int8_matmul_all_layers_plain,
@@ -1192,17 +1272,41 @@ def test_int8_stacked_and_all_layers_kernels_match_plain(cuda, M, K, N):
 
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     x, wq, scale = _int8_operands(gen, M, K, N, L=3)
-    for layer in (1, 2):
-        before = int8_matmul_stacked.launches
+    wide = int(K % 8 == 0 and N % 16 == 0)
+    for layer in (0, 1, 2):
+        before = _int8_route(m)
         out = int8_matmul_stacked(x, wq, scale, layer)
         torch.cuda.synchronize()
-        assert int8_matmul_stacked.launches == before + 1
+        assert _int8_route(m, before) == (1, 0, wide)
         assert _close(out, int8_matmul_stacked_plain(x, wq, scale, layer)), layer
-    before = int8_matmul_all_layers.launches
+    before = _int8_route(m)
     out = int8_matmul_all_layers(x, wq, scale)
     torch.cuda.synchronize()
-    assert int8_matmul_all_layers.launches == before + 1 and out.shape == (3, M, N)
+    assert _int8_route(m, before) == (1, 0, wide) and out.shape == (3, M, N)
     assert _close(out, int8_matmul_all_layers_plain(x, wq, scale))
+    assert torch.equal(out, int8_matmul_all_layers(x, wq, scale))
+
+
+@pytest.mark.cuda
+def test_int8_all_layers_at_the_microbench_shape(cuda):
+    """scripts/microbench_int8.py's shape: 28 layers of 3584 x 18944 at 64
+    rows in one all-layers launch (1.9 GB of int8 weights), and the stacked
+    entry on layers 0, 14 and 27, against the plain version."""
+    from video_r2_tpu_torch.ops import int8_matmul as m
+
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    L, M, K, N = 28, 64, 3584, 18944
+    wq = torch.randint(-127, 128, (L, K, N), generator=gen, device=cuda, dtype=torch.int8)
+    scale = torch.rand(L, N, generator=gen, device=cuda) * 0.009 + 0.001
+    x = (_randn(gen, M, K) * K ** -0.5).to(torch.bfloat16)
+    before = _int8_route(m)
+    out = m.int8_matmul_all_layers(x, wq, scale)
+    torch.cuda.synchronize()
+    assert _int8_route(m, before) == (1, 0, 1) and out.shape == (L, M, N)
+    for layer in (0, L // 2, L - 1):
+        ref = m.int8_matmul_plain(x, wq[layer], scale[layer])
+        assert _close(out[layer], ref), layer
+        assert _close(m.int8_matmul_stacked(x, wq, scale, layer), ref), layer
 
 
 @pytest.mark.cuda
@@ -1271,19 +1375,24 @@ def test_int8_matmul_decode_grid(cuda, M, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(17, 3584, 512), (4, 1280, 3420), (4, 192, 512)])
+@pytest.mark.parametrize("M,K,N", [(17, 3584, 512), (4, 1280, 3420), (4, 192, 512),
+                                   (24, 3420, 1280), (17, 1280, 3420)])
 def test_int8_matmul_staged_where_the_plan_refuses(cuda, M, K, N):
-    """More than 16 rows, N not a multiple of 128 and a K under 4 steps stay
-    on the staged kernel (no decode launch counted), within the bound."""
+    """What the decode plan refuses (more than 16 rows, N not a multiple of
+    128, a K under 4 steps) goes to the wide kernel where TMA can map the
+    operands and to the element-load kernel where it cannot (N 3420, K
+    3420), counted (no decode launch), within the bound."""
     from video_r2_tpu_torch.ops import int8_matmul as m
 
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     x, wq, scale = _int8_operands(gen, M, K, N)
     assert m._decode_plan(M, K, N, cuda.index or 0) is None
-    before, dec = m.int8_matmul.launches, m.int8_matmul.decode_launches
+    wide = int(K % 8 == 0 and N % 16 == 0)
+    assert (m._wide_plan(M, K, N, 1, cuda.index or 0) is not None) == bool(wide)
+    before = _int8_route(m)
     out = m.int8_matmul(x, wq, scale)
     torch.cuda.synchronize()
-    assert (m.int8_matmul.launches, m.int8_matmul.decode_launches) == (before + 1, dec)
+    assert _int8_route(m, before) == (1, 0, wide)
     assert _close(out, m.int8_matmul_plain(x, wq, scale))
 
 
@@ -1314,6 +1423,22 @@ def test_int8_matmul_refuses_what_it_does_not_take(cuda):
         int8_matmul(x[:0], wq, scale)
     with pytest.raises(ValueError):                 # a layer past the stack
         int8_matmul_stacked(x, wq[None], scale[None], 1)
+    # the wide kernel's route (64 rows) and the stacked and all-layers entries
+    x, wq, scale = _int8_operands(gen, 64, 512, 256, L=2)
+    for call in (lambda a: m.int8_matmul(a, wq[0], scale[0]),
+                 lambda a: m.int8_matmul_stacked(a, wq, scale, 1),
+                 lambda a: m.int8_matmul_all_layers(a, wq, scale)):
+        with pytest.raises(TypeError):              # float32 activations
+            call(x.float())
+        with pytest.raises(NotImplementedError):    # under autograd
+            call(x.clone().requires_grad_(True))
+    assert m.int8_matmul_all_layers(x, wq, scale).shape == (2, 64, 256)
+    y = torch.empty(64, 256, dtype=torch.bfloat16, device=cuda)
+    # past 16 splits, past the 8 steps, no split; no such row tile
+    for rows, splits in ((64, 17), (64, 9), (64, 0), (48, 1)):
+        assert m.kernels().vr2_int8_matmul_wide(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            64, 512, 256, 2, 0, 1, rows, splits, 0) != 0
 
 
 def _gmm_layout(gen, cuda, bm, E=8, H=256):

@@ -101,6 +101,25 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A in registers, B in shared memory
+// MN-major (TB = 1) or K-major (TB = 0), as for N = 64
+template <int TB = 1>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers (each warp's 16 rows
 // as the A fragment of mma.sync m16n8k16), B in shared memory MN-major
 // (descriptor db, N contiguous; TB = 1, the transpose bit of B) or K-major
@@ -195,13 +214,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// D[64 x N] (+)= A B for N = 64 or 128, A in registers (bf16, k16) and B in
-// shared memory MN-major (TB = 1) or K-major (TB = 0)
+// D[64 x N] (+)= A B for N = 32, 64 or 128, A in registers (bf16, k16) and B
+// in shared memory MN-major (TB = 1) or K-major (TB = 0)
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs: N is 32, 64 or 128");
+  if constexpr (N == 32)
+    wgmma_rs_n32<TB>(d, a, db, scale_d);
+  else if constexpr (N == 64)
     wgmma_rs_n64<TB>(d, a, db, scale_d);
   else
     wgmma_rs_n128<TB>(d, a, db, scale_d);

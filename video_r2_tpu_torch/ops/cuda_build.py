@@ -48,9 +48,9 @@ SIGNATURES = {
     "vr2_int4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_int4_matmul_layout": [_P],
     "vr2_decode_attention": [_P] * 5 + [_I] * 11 + [_F, _P, _P, _P],
-    "vr2_int8_matmul": [_P] * 4 + [_I] * 3 + [_P],
-    "vr2_int8_matmul_stacked": [_P] * 4 + [_I] * 5 + [_P],
-    "vr2_int8_matmul_all_layers": [_P] * 4 + [_I] * 4 + [_P],
+    "vr2_int8_matmul_wide": [_P] * 4 + [_I] * 8 + [_P],
+    "vr2_int8_matmul_wide_layout": [_P],
+    "vr2_int8_matmul_elem": [_P] * 4 + [_I] * 6 + [_P],
     "vr2_int8_matmul_decode": [_P] * 4 + [_I] * 4 + [_P],
     "vr2_int8_matmul_layout": [_P],
 }

@@ -13,12 +13,16 @@ kernels compute it. Three wrappers, one per TPU kernel:
 - `int8_matmul_all_layers` (the microbench's ``_kernel_all``): every layer
   of the stack in one launch, out [L, M, N].
 
-On CUDA tensors each launches its entry of ``csrc/int8_matmul.cu`` (bf16 x
-of any M >= 1 rows, any K and N), outside autograd, and raises
-on anything the kernel does not take; on CPU tensors it runs its `*_plain`
-version. `int8_matmul` sends 1 to 16 rows over a K of at least 256 and an N
-that 128 divides (the 7B's decode linears and head) to the decode kernel,
-on the plan of `int8_decode_plan`, and the rest to the staged kernel.
+On CUDA tensors each launches a kernel of ``csrc/int8_matmul.cu`` (bf16
+x of any M >= 1 rows, any K and N), outside autograd, and raises on
+anything the kernels do not take; on CPU tensors it runs its `*_plain`
+version. The kernel is chosen by shape, up front: `int8_matmul` sends 1 to
+16 rows over a K of at least 256 and an N that 128 divides (the 7B's
+decode linears and head) to the decode kernel, on the plan of
+`int8_decode_plan`; every other shape whose rows TMA can map (K % 8 == 0,
+N % 16 == 0), of all three wrappers, goes to the wide kernel (TMA and
+wgmma), on the plan of `int8_wide_plan`; the rest (the ViT's 3420, odd
+widths) to the element-load kernel.
 `quantized_linear_auto` is the dispatcher the int8 linears call
 (models/layers.py::Linear): 1 to `INT8_KERNEL_MAX_ROWS` rows of bf16
 activations go to `int8_matmul` (the plain version on the CPU); more rows,
@@ -63,6 +67,12 @@ DECODE_MIN_STEPS = 4      # K / DECODE_STEP_K at least: a smaller K stays on the
 DECODE_SPLIT_MIN_STEPS = 2  # a split keeps at least this many steps
 DECODE_MAX_SPLITS = 16    # splits of a tile at most: one thread-block cluster
 
+WIDE_ROWS = (32, 64, 128)  # the wide kernel's row tiles (wgmma's N), one instance each
+WIDE_COLUMNS = 128         # output columns of a wide block: a 128-byte box row of int8
+WIDE_STEP_K = 64           # k of a wide stage
+WIDE_SPLIT_MIN_STEPS = 2   # a split keeps at least this many steps
+WIDE_MAX_SPLITS = 16       # splits of a tile at most: one thread-block cluster
+
 
 def int8_matmul_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(x @ wq) * scale in fp32, rounded once to x's dtype: x [M, K], wq
@@ -87,21 +97,36 @@ def _refuse_autograd(x, scale) -> None:
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ wq [K, N] int8, times scale [N] fp32 -> [M, N] in x's
-    dtype. CUDA tensors launch the kernel; CPU tensors run the plain
-    version."""
+    dtype. CUDA tensors launch the kernel `int8_route` picks by shape
+    (decode, wide or element-load); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, wq, scale)
     _refuse_autograd(x, scale)
-    splits = None
-    if x.dim() == 2 and wq.dim() == 2 and x.shape[0] <= DECODE_MAX_ROWS:
-        splits = _decode_plan(x.shape[0], wq.shape[0], wq.shape[1], x.get_device())
-    if splits is None:
-        out = _launch("vr2_int8_matmul", x, wq, scale, (), False)
-    else:
-        out = _launch_decode(x, wq, scale, splits)
+    dims = _check(x, wq, scale, 2)
+    route, plan = int8_route(dims[0], dims[1], dims[3], 1, x.get_device())
+    if route == "decode":
+        out = _launch_decode(x, wq, scale, plan, dims)
         int8_matmul.decode_launches += 1
+    else:
+        out = _launch(x, wq, scale, dims, 0, 1, False, plan)
+        int8_matmul.wide_launches += route == "wide"
     int8_matmul.launches += 1
     return out
+
+
+def int8_route(M: int, K: int, N: int, layers: int, index: int,
+               decode: bool = True) -> tuple[str, object]:
+    """The kernel a CUDA call of x [M, K] @ [K, N] over `layers` layers
+    takes on card `index`, by shape, up front: ("decode", splits) where
+    `decode` (the one-layer entry) and the decode plan takes the shape,
+    else ("wide", (row tile, splits)) where TMA can map the operands, else
+    ("element", None)."""
+    if decode and M <= DECODE_MAX_ROWS:
+        splits = _decode_plan(M, K, N, index)
+        if splits is not None:
+            return "decode", splits
+    plan = _wide_plan(M, K, N, layers, index)
+    return ("element", None) if plan is None else ("wide", plan)
 
 
 def int8_decode_plan(M: int, K: int, N: int, sms: int, resident: int,
@@ -157,6 +182,62 @@ def _decode_plan(M: int, K: int, N: int, index: int) -> int | None:
     return int8_decode_plan(M, K, N, sms, resident[big], clusters[big])
 
 
+def int8_wide_plan(M: int, K: int, N: int, layers: int, sms: int,
+                   clusters: tuple[tuple[int, ...], ...]) -> tuple[int, int] | None:
+    """The wide kernel's (row tile, splits S of a tile's K) for x [M, K] @
+    [K, N] over `layers` layers on a card of `sms` SMs that holds
+    clusters[i][S - 1] clusters of S blocks of instance i (row tile
+    WIDE_ROWS[i]) at once (the kernel's own counts: `int8_wide_layout`),
+    or None where TMA cannot map the operands (K % 8: x's row pitch, N %
+    16: the weights'; the element-load kernel takes those). The row tile
+    is the smallest instance that holds M (M past the largest: row tiles
+    of it); a block is one row tile of WIDE_COLUMNS output columns of one
+    layer. S = 1 where the blocks alone give every SM one, else the
+    largest S <= WIDE_MAX_SPLITS that keeps WIDE_SPLIT_MIN_STEPS steps of
+    WIDE_STEP_K a split, at most one block an SM and every cluster
+    resident at once. Measured on an H100 (PERF.md): a split grid past one
+    block an SM, or past one wave, is slower (q / o at 64 rows: 4 splits
+    0.0107 ms, 8 splits 0.0131; gate / up's 148 tiles: unsplit 0.0363, 2
+    splits 0.0468)."""
+    if M < 1 or K < 1 or N < 1 or layers < 1 or K % 8 or N % 16:
+        return None
+    i = next((i for i, r in enumerate(WIDE_ROWS) if M <= r), len(WIDE_ROWS) - 1)
+    rows = WIDE_ROWS[i]
+    blocks = -(-M // rows) * -(-N // WIDE_COLUMNS) * layers
+    ks = -(-K // WIDE_STEP_K)
+    S = 1
+    for s in range(2, min(WIDE_MAX_SPLITS, ks // WIDE_SPLIT_MIN_STEPS) + 1):
+        if blocks * s <= sms and blocks <= clusters[i][s - 1]:
+            S = s
+    return rows, S
+
+
+@functools.lru_cache(maxsize=16)
+def int8_wide_layout(index: int) -> tuple[tuple[int, ...], tuple[tuple[int, ...], ...]]:
+    """The wide kernel's residency on card `index` (the occupancy
+    calculator's, of the kernel as built): (blocks an SM of each instance
+    of WIDE_ROWS, and for each the clusters of S = 1 .. 16 blocks the card
+    holds at once)."""
+    n = WIDE_MAX_SPLITS + 1
+    out = (ctypes.c_int * (n * len(WIDE_ROWS)))()
+    with torch.cuda.device(index):
+        check(kernels().vr2_int8_matmul_wide_layout(out), "int8 wide kernel layout")
+    resident = tuple(out[n * i] for i in range(len(WIDE_ROWS)))
+    if min(resident) < 1:
+        raise RuntimeError(f"int8 wide kernel: {resident} blocks resident an SM")
+    return resident, tuple(tuple(out[n * i + 1:n * i + n]) for i in range(len(WIDE_ROWS)))
+
+
+@functools.lru_cache(maxsize=256)
+def _wide_plan(M: int, K: int, N: int, layers: int, index: int) -> tuple[int, int] | None:
+    """int8_wide_plan on card `index`. Cached: a prefill makes ~200 calls
+    of a few shapes."""
+    if K % 8 or N % 16:
+        return None
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return int8_wide_plan(M, K, N, layers, sms, int8_wide_layout(index)[1])
+
+
 def int8_matmul_stacked(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                         layer: int) -> torch.Tensor:
     """x [M, K] @ wq[layer] (wq [L, K, N] int8), times scale[layer] (scale
@@ -167,7 +248,10 @@ def int8_matmul_stacked(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     L = wq.shape[0] if wq.dim() == 3 else 0
     if not 0 <= layer < L:
         raise ValueError(f"int8 kernel: layer {layer} of a stack of {L}")
-    out = _launch("vr2_int8_matmul_stacked", x, wq, scale, (L, layer), False)
+    dims = _check(x, wq, scale, 3)
+    route, plan = int8_route(dims[0], dims[1], dims[3], 1, x.get_device(), decode=False)
+    out = _launch(x, wq, scale, dims, layer, 1, False, plan)
+    int8_matmul_stacked.wide_launches += route == "wide"
     int8_matmul_stacked.launches += 1
     return out
 
@@ -179,34 +263,48 @@ def int8_matmul_all_layers(x: torch.Tensor, wq: torch.Tensor,
     if x.device.type == "cpu":
         return int8_matmul_all_layers_plain(x, wq, scale)
     _refuse_autograd(x, scale)
-    out = _launch("vr2_int8_matmul_all_layers", x, wq, scale, (wq.shape[0],), True)
+    dims = _check(x, wq, scale, 3)
+    route, plan = int8_route(dims[0], dims[1], dims[3], dims[2], x.get_device(), decode=False)
+    out = _launch(x, wq, scale, dims, 0, dims[2], True, plan)
+    int8_matmul_all_layers.wide_launches += route == "wide"
     int8_matmul_all_layers.launches += 1
     return out
 
 
-int8_matmul.launches = 0              # kernel launches (CUDA only), either kernel
+int8_matmul.launches = 0              # kernel launches (CUDA only), any kernel
 int8_matmul.decode_launches = 0       # ... of them on the decode kernel
+int8_matmul.wide_launches = 0         # ... of them on the wide kernel
 int8_matmul_stacked.launches = 0
+int8_matmul_stacked.wide_launches = 0
 int8_matmul_all_layers.launches = 0
+int8_matmul_all_layers.wide_launches = 0
 
 
-def _launch(entry: str, x, wq, scale, extra: tuple, all_layers: bool) -> torch.Tensor:
-    """Check the operands (wq [K, N] and scale [N] for the one-layer entry,
-    wq [L, K, N] and scale [L, N] for the others) and launch `entry`."""
-    M, K, L, N = _check(x, wq, scale, 2 if entry == "vr2_int8_matmul" else 3)
+def _launch(x, wq, scale, dims: tuple[int, int, int, int], layer0: int, layers: int,
+            all_layers: bool, plan: tuple[int, int] | None) -> torch.Tensor:
+    """Launch layers layer0 .. layer0 + layers - 1 of checked operands
+    (dims: _check's (M, K, L, N)) on the wide kernel with plan (row tile,
+    splits), or on the element-load kernel where plan is None: y
+    [(layers,) M, N]."""
+    M, K, L, N = dims
     dev = x.device
-    out = torch.empty(((L,) if all_layers else ()) + (M, N), dtype=torch.bfloat16, device=dev)
-    err = getattr(kernels(), entry)(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(), M, K, N, *extra,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    check(err, f"int8 matmul kernel ({entry})")
+    out = torch.empty(((layers,) if all_layers else ()) + (M, N), dtype=torch.bfloat16,
+                      device=dev)
+    args = (x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, L,
+            layer0, layers)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan is None:
+        check(kernels().vr2_int8_matmul_elem(*args, stream), "int8 matmul element-load kernel")
+    else:
+        check(kernels().vr2_int8_matmul_wide(*args, *plan, stream), "int8 matmul wide kernel")
     return out
 
 
-def _launch_decode(x, wq, scale, splits: int) -> torch.Tensor:
-    """Check the operands (wq [K, N], scale [N]) and launch the decode
-    kernel with `splits` splits of each tile's K."""
-    M, K, _, N = _check(x, wq, scale, 2)
+def _launch_decode(x, wq, scale, splits: int, dims=None) -> torch.Tensor:
+    """Launch the decode kernel with `splits` splits of each tile's K on
+    operands x, wq [K, N], scale [N] (checked here unless dims holds
+    _check's (M, K, L, N))."""
+    M, K, _, N = dims or _check(x, wq, scale, 2)
     dev = x.device
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = kernels().vr2_int8_matmul_decode(
