@@ -27,7 +27,9 @@
    forward); the dq + dk/dv pair's time
    beside the SDPA backward on one line, with each launch's blocks per SM
    (grid blocks over the SMs, and those the occupancy calculator keeps
-   resident on one);
+   resident on one); the window backward's persistent grid (blocks,
+   resident blocks an SM, (head, window) items a block) and the ptxas
+   registers and spills of its instance, beside its device time;
 7. training slice: LoRA SFT (r=64, alpha=64) on 2 records of 16 synthetic
    frames at 392x392 (grid (8, 28, 28), 1568 video tokens each) with a
    think-style question and answer: step-1 loss and adapter gradients of
@@ -831,11 +833,31 @@ def window_case(gen, what, valid, nh, hd, training: bool, dtype=None) -> dict:
     if fp32:
         r["excess"] = excess
     report("window_attention_bwd", what, (S, nh, hd), **r)
+    print(f"window backward [{what}]: {window_bwd_grid(nh * nw, hd, fp32)}; device "
+          f"{r['device_ms']:.4f} ms", flush=True)
     if not (excess <= 1.0 if fp32 else max(rels) <= GRAD_REL_L2):
         raise AssertionError(f"window_attention_bwd [{what}] disagrees with its plain "
                              f"version: relative L2 dq/dk/dv {rels}, {excess} x the "
                              f"tolerance")
     return {"window_attention_bwd": r}
+
+
+def window_bwd_grid(items: int, hd: int, fp32: bool) -> str:
+    """The window backward's launch: the bf16 kernel's persistent grid
+    (blocks, resident blocks an SM, (head, window) items a block) and the
+    ptxas line of its instance; the fp32 instance's block a (head, window)."""
+    from video_r2_tpu_torch.ops import vit_window_attention as win
+
+    if fp32:
+        return f"fp32 instance, {items} blocks of 256 threads, one (head, window) each"
+    if not hasattr(win, "window_bwd_layout"):    # a checkout before the persistent grid
+        return f"{items} blocks of 128 threads, one (head, window) each"
+    threads, resident, sms = win.window_bwd_layout(hd)
+    blocks = min(items, resident * sms)
+    kernel = f"window_attn_bwd_kernel<{hd}>"
+    return (f"{blocks} blocks of {threads} threads ({resident} resident an SM on {sms} "
+            f"SMs), {items / blocks:.2f} (head, window) items a block; {kernel}: "
+            f"{REGISTERS.get(kernel, 'registers not reported')}")
 
 
 def vit_full_inputs(gen, layout, nh, hd, device, dtype=None):

@@ -6,7 +6,8 @@ backward) and the bound, with the blocks each launch puts on an SM.
 
     python3 scripts/bench_flash_bwd.py                  # this checkout's port
     python3 scripts/bench_flash_bwd.py --root DIR       # another checkout's
-    python3 scripts/bench_flash_bwd.py --cases window   # a subset: fwd, bwd, window
+    python3 scripts/bench_flash_bwd.py --cases window   # a subset: fwd, bwd, window,
+                                                        # window_bwd
 
 Forward shapes (chip_smoke.py's phases 3, 6, 15 and 16): the 7B's causal
 prefill (B 3, Sq 1408, Sk 1440, lengths 1408 / 1311 / 704, 28 / 4 heads of
@@ -23,10 +24,13 @@ the slots padding). The window forward (chip_smoke.py phase 3's "vit
 windows": the 8-frame clip's 4096 slots in 64-slot windows, the valid-slot
 mask from plan_vision_layout, 16 heads of 80, strided views of one qkv)
 through chip_smoke.py's window_case, from this checkout, on the port under
---root: eager and CUDA-graph device times beside SDPA's. Inputs are seeded
-unit normals in bf16. Prints one JSON line a shape, then the card's name
-and power limit (nvidia-smi). To
-compare two versions on one card, run them in turns in one command
+--root: eager and CUDA-graph device times beside SDPA's. The window
+backward (window_bwd: chip_smoke.py phase 6's "vit windows training", the
+training batch's two 16-frame clips, 16384 slots, 16 heads of 80) the same
+way, with SDPA's backward (its forward + backward less its forward) and the
+launch's persistent grid. Inputs are seeded unit normals in bf16. Prints
+one JSON line a shape, then the card's name and power limit (nvidia-smi).
+To compare two versions on one card, run them in turns in one command
 (parent, change, change, parent).
 """
 
@@ -59,7 +63,9 @@ SHAPES = {
     "judge training": dict(B=2, S=1024, nh=32, kh=4, hd=128, lengths=(643, 709)),
     "vit full training": dict(B=16, S=1024, nh=16, kh=16, hd=80, lengths=None),
 }
-WINDOW_SHAPES = {"vit windows": dict(grid=(4, 28, 28), nh=16, hd=80)}
+WINDOW_SHAPES = {"vit windows": dict(grids=((4, 28, 28),), nh=16, hd=80, training=False),
+                 "vit windows training": dict(grids=((8, 28, 28),) * 2, nh=16, hd=80,
+                                              training=True)}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -214,9 +220,10 @@ def run_shape(name: str, B, S, nh, kh, hd, lengths) -> dict:
     return r
 
 
-def run_window_shape(name: str, grid, nh, hd) -> dict:
-    """The window forward at one clip's layout: chip_smoke.py's window_case
-    (kernel vs plain, eager and device times, SDPA's, the bound)."""
+def run_window_shape(name: str, grids, nh, hd, training) -> dict:
+    """The window forward (or backward, `training`) at the clips' layout:
+    chip_smoke.py's window_case (kernel vs plain, eager and device times,
+    SDPA's, the bound; the backward's grid line)."""
     import torch
 
     import chip_smoke
@@ -224,10 +231,11 @@ def run_window_shape(name: str, grid, nh, hd) -> dict:
     from video_r2_tpu_torch.models.vision import plan_vision_layout
 
     dev = torch.device("cuda")
-    layout = plan_vision_layout([grid], qwen25vl_7b().vision)
+    layout = plan_vision_layout(list(grids), qwen25vl_7b().vision)
     valid = torch.as_tensor(layout.valid, device=dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
-    r = chip_smoke.window_case(gen, name, valid, nh, hd, training=False)["window_attention"]
+    r = chip_smoke.window_case(gen, name, valid, nh, hd, training=training)
+    r = r["window_attention_bwd" if training else "window_attention"]
     return {"shape": name, "S": int(valid.shape[0]), "nh": nh, "hd": hd,
             "valid": int(valid.sum()), **r}
 
@@ -237,8 +245,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
-    ap.add_argument("--cases", default="fwd,bwd,window",
-                    help="comma-separated subset of fwd, bwd, window")
+    ap.add_argument("--cases", default="fwd,bwd,window,window_bwd",
+                    help="comma-separated subset of fwd, bwd, window, window_bwd")
     args = ap.parse_args()
     import torch
 
@@ -250,13 +258,16 @@ def main() -> int:
     from video_r2_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_build.kernels()
+    lib = cuda_build.kernels()
+    import chip_smoke    # the ptxas lines of the --root build, for the grid lines
+
+    chip_smoke.register_report(Path(lib._name).with_suffix(".log"))
     cases = set(args.cases.split(","))
     runs = [(run_fwd_shape, name, shape) for name, shape in FWD_SHAPES.items()
             if "fwd" in cases]
     runs += [(run_shape, name, shape) for name, shape in SHAPES.items() if "bwd" in cases]
     runs += [(run_window_shape, name, shape) for name, shape in WINDOW_SHAPES.items()
-             if "window" in cases]
+             if ("window_bwd" if shape["training"] else "window") in cases]
     for fn, name, shape in runs:
         try:
             r = fn(name, **shape)

@@ -119,6 +119,37 @@ kernel. The variants, and the sources whose text they match:
   int8w_depth3         the same source: three fragment buffers, the
                        products of two stages in flight while the next
                        stage's fragments are formed (not one)
+  winbwd_noproducts    csrc/attn_common.cuh of this tree: no mma.sync
+                       product (each is a fold of its fragments into one
+                       sum, so ptxas keeps the ldmatrix loads), in every
+                       kernel of the copy; timed on the bf16 window
+                       backward: its ring, fragments, softmax, P / dS tiles
+                       and stores
+  winbwd_nostores      csrc/vit_window_attn_bwd.cu of this tree: no
+                       gradient reaches device memory
+                       (the shared-memory staging is kept, its read-back
+                       and the 16-byte stores dropped)
+  winbwd_loads         the same source: the ring alone (each window's q, k,
+                       v, dO and flags land, and nothing reads them: no
+                       fragment, product or store)
+  winbwd_directstores  the same source: each gradient stored from its C
+                       fragments as 4-byte bf16 pairs (the parent's
+                       stores), with no shared-memory staging
+  winbwd_windowsfast   the same source: the (head, window) items windows
+                       fastest, the forward's order (a block walks windows
+                       of one head; neighbouring heads' pieces of a row
+                       meet half a block's range apart)
+  winbwd_stages2       the same source: a ring of 2 stages (two blocks an
+                       SM at hd 64 / 80: 106 KB of shared memory each)
+  winbwd_stages4       the same source: a ring of 4 stages at hd 64 / 80
+                       (194 KB at hd 80; hd 128 keeps 3)
+  winbwd_bulkstores    the same source: each gradient's 16 staged rows of a
+                       warp leave by bulk asynchronous copies
+                       (cp.async.bulk, one row a lane) in place of 16-byte
+                       stores; a lane waits for its copies' reads before
+                       its rows are written again or the ring refills
+  winbwd_streamstores  the same source: the gradients' 16-byte stores with
+                       the streaming hint (st.global.cs, __stcs)
 
 The variants of one source combine (int4_nocompute with int4_2blocks).
 """
@@ -206,6 +237,77 @@ WQ_LDSM_QQ = """\
 """
 WQ_NO_LDSM_Q = "        r[0] = r[1] = r[2] = r[3] = kk;\n"
 WQ_NO_LDSM_QQ = "          r[0] = r[1] = r[2] = r[3] = kk;\n"
+
+# the bf16 window backward (csrc/vit_window_attn_bwd.cu)
+WINBWD_MMA = """\
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+"""
+WINBWD_NO_MMA = "  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & 0x3fffffffu);\n"
+WINBWD_STORE = """\
+    *reinterpret_cast<uint4*>(out + ((long long)(s0 + r0 + r) * nh + h) * HD + c) =
+        *reinterpret_cast<const uint4*>(stage + (r0 + r) * QP + c);
+"""
+WINBWD_STAGED = """\
+  __syncwarp();  // the lanes' reads of these rows for the last gradient are done
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    __nv_bfloat16* row = stage + (r0 + g + 8 * ri) * QP + 2 * t;
+"""
+WINBWD_DIRECT = """\
+  (void)stage, (void)CH;
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    __nv_bfloat16* row = out + ((long long)(s0 + r0 + g + 8 * ri) * nh + h) * HD + 2 * t;
+"""
+WINBWD_STORE_LOOP = """\
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += vr2::kWarp) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    *reinterpret_cast<uint4*>(out + ((long long)(s0 + r0 + r) * nh + h) * HD + c) =
+        *reinterpret_cast<const uint4*>(stage + (r0 + r) * QP + c);
+  }
+"""
+WINBWD_BULK = """\
+  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");  // the rows, for the copies
+  __syncwarp();
+  (void)CH;
+  if (lane < 16) {
+    const unsigned src =
+        static_cast<unsigned>(__cvta_generic_to_shared(stage + (r0 + lane) * QP));
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n" ::"l"(
+                     out + ((long long)(s0 + r0 + lane) * nh + h) * HD),
+                 "r"(src), "r"(HD * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+  }
+"""
+WINBWD_TOP = ("    __syncthreads();  // ... every thread's; the last window's stage, P and dS "
+              "are free\n")
+WINBWD_TOP_BULK = ("    asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\");\n"
+                   + WINBWD_TOP)
+WINBWD_END = """\
+                     pass == 0 ? 1.f : p.scale);
+    }
+  }
+}
+"""
+WINBWD_END_BULK = """\
+                     pass == 0 ? 1.f : p.scale);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");
+}
+"""
+WINBWD_REFILL = """\
+    if (nx < end)
+      load_window<HD>(smem_raw + (sl == 0 ? W::STAGES - 1 : sl - 1) * W::BYTES, p, nx, tid);
+    vr2::cp_async_commit();
+"""
 
 # name -> [(file under csrc/, or a path from it, old text, new text)]
 VARIANTS = {
@@ -345,6 +447,31 @@ VARIANTS = {
     "moewq_loads": [("moe_ffn.cu", WQ_PRODUCTS, WQ_NO_PRODUCTS),
                     ("moe_ffn.cu", WQ_LDSM_Q, WQ_NO_LDSM_Q),
                     ("moe_ffn.cu", WQ_LDSM_QQ, WQ_NO_LDSM_QQ)],
+    "winbwd_noproducts": [("attn_common.cuh", WINBWD_MMA, WINBWD_NO_MMA)],
+    "winbwd_nostores": [("vit_window_attn_bwd.cu", WINBWD_STORE, "    (void)out, (void)c;\n")],
+    "winbwd_loads": [("vit_window_attn_bwd.cu", WINBWD_REFILL, WINBWD_REFILL + "    continue;\n")],
+    "winbwd_directstores": [("vit_window_attn_bwd.cu", WINBWD_STAGED, WINBWD_DIRECT),
+                            ("vit_window_attn_bwd.cu", WINBWD_STORE, "    (void)c;\n")],
+    "winbwd_windowsfast": [
+        ("vit_window_attn_bwd.cu", "  const int h = item % p.nh, s0 = item / p.nh * WP;\n",
+         "  const int h = item / p.nw, s0 = (item - h * p.nw) * WP;\n"),
+        ("vit_window_attn_bwd.cu", "    const int h = it % p.nh, s0 = it / p.nh * WP;\n",
+         "    const int h = it / p.nw, s0 = (it - h * p.nw) * WP;\n")],
+    "winbwd_stages2": [("vit_window_attn_bwd.cu", "  static constexpr int STAGES = 3;\n",
+                        "  static constexpr int STAGES = 2;\n")],
+    "winbwd_stages4": [("vit_window_attn_bwd.cu", "  static constexpr int STAGES = 3;\n",
+                        "  static constexpr int STAGES = HD == 128 ? 3 : 4;\n")],
+    "winbwd_bulkstores": [
+        ("vit_window_attn_bwd.cu", WINBWD_STAGED,
+         "  if (lane < 16) asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\");\n"
+         + WINBWD_STAGED),
+        ("vit_window_attn_bwd.cu", WINBWD_STORE_LOOP, WINBWD_BULK),
+        ("vit_window_attn_bwd.cu", WINBWD_TOP, WINBWD_TOP_BULK),
+        ("vit_window_attn_bwd.cu", WINBWD_END, WINBWD_END_BULK)],
+    "winbwd_streamstores": [("vit_window_attn_bwd.cu", WINBWD_STORE, """\
+    __stcs(reinterpret_cast<uint4*>(out + ((long long)(s0 + r0 + r) * nh + h) * HD + c),
+           *reinterpret_cast<const uint4*>(stage + (r0 + r) * QP + c));
+""")],
     "int4_staged_noload": [
         ("int4_matmul.cu",
          "      load_stage<MT, WV, G>(smem + s * R::BYTES, p, first + s, n0, row0, rows, tid);\n",

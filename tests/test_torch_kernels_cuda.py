@@ -391,6 +391,44 @@ def test_window_bwd_kernel_matches_plain(cuda, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_window_bwd_kernel_grid_cases(cuda, hd, layout):
+    """The backward twin of test_window_kernel_grid_cases: 65 windows x 16
+    heads, so the persistent grid's blocks walk ranges of unequal length;
+    fully invalid windows in the middle and at the end (zero gradients
+    there); a window with one valid slot; q / k / v as strided views of one
+    qkv or as three contiguous tensors; `valid` at an odd address (a slice
+    of a larger bool tensor); one launch a call, and a repeat call gives
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + len(layout))
+    S, nh = 65 * 64, 16
+    if layout == "strided":
+        qkv = _randn(gen, S, 3, nh, hd)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    else:
+        q, k, v = (_randn(gen, S, nh, hd) for _ in range(3))
+    dout = _randn(gen, S, nh, hd)
+    flags = torch.rand(S + 1, generator=gen, device=cuda) < 0.8
+    valid = flags[1:]                             # an odd address
+    valid[64 * 20: 64 * 21] = False               # a fully invalid window in the middle
+    valid[-64:] = False                           # ... and at the end
+    valid[64 * 33: 64 * 33 + 63] = False          # one valid slot in a window
+    assert valid.data_ptr() % 2 == 1
+    before = window_attention_bwd.launches
+    grads = window_attention_bwd(q, k, v, valid, dout)
+    assert window_attention_bwd.launches == before + 1
+    again = window_attention_bwd(q, k, v, valid, dout)
+    assert window_attention_bwd.launches == before + 2
+    ref = window_attention_bwd_plain(q, k, v, valid, dout)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip("qkv", grads, again, ref):
+        assert torch.equal(a, b), name
+        assert _rel_l2(a, c) <= GRAD_REL_L2, (name, _rel_l2(a, c))
+        assert not a[64 * 20: 64 * 21].any() and not a[-64:].any(), name
+
+
+@pytest.mark.cuda
 def test_autograd_runs_the_kernels(cuda):
     """flash_attention / window_attention with gradients on: the forward
     with LSE and the three backward kernels launch, and the gradients match

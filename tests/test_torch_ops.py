@@ -19,7 +19,7 @@ from video_r2_tpu.ops.vit_window_attention import window_attention as j_window
 from video_r2_tpu_torch.ops import cuda_build
 from video_r2_tpu_torch.ops.attention import dot_product_attention
 from video_r2_tpu_torch.ops.flash import flash_attention, kernel_instance
-from video_r2_tpu_torch.ops.vit_window_attention import window_attention
+from video_r2_tpu_torch.ops.vit_window_attention import _aligned_flags, window_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -90,6 +90,19 @@ def test_window_matches_jax_kernel_on_valid_rows(rng):
     ref = j_window(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    jnp.asarray(valid), wp=wp, interpret=True)
     np.testing.assert_allclose(ours.numpy()[valid], np.asarray(ref)[valid], **TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 16, 3])
+def test_window_flags_are_aligned_for_the_kernels(offset):
+    """The window kernels copy a window's 64 flags as 16-byte chunks: the
+    wrappers' helper hands on an aligned contiguous `valid` as it is, and
+    a copy of a misaligned view (here a slice of a larger bool tensor)."""
+    big = torch.rand(offset + 256, generator=torch.Generator().manual_seed(offset)) < 0.5
+    valid = big[offset:]
+    out = _aligned_flags(valid, valid.device)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 0
+    assert torch.equal(out, valid)
+    assert (out is valid) == (offset != 3)
 
 
 @pytest.mark.parametrize("case", ["decode", "prefill_xla", "prefill_flash"])

@@ -135,13 +135,16 @@ def test_flash_bwd_plain_matches_jax_kernels_at_an_offset(rng, q_offset):
         np.testing.assert_allclose(a.numpy(), b, err_msg=name, **GRAD_TOL)
 
 
-def test_window_bwd_plain_matches_jax(rng):
-    """A ragged window and a fully invalid one; the loss reads valid rows
+@pytest.mark.parametrize("hd", [16, 80])
+def test_window_bwd_plain_matches_jax(rng, hd):
+    """A ragged window, a window with one valid slot and a fully invalid
+    one, at a small head dim and the ViT's (80); the loss reads valid rows
     only, as the ViT's does (pad rows never reach its output)."""
-    wp, nh, hd, S = 64, 4, 16, 512
+    wp, nh, S = 64, 4, 512
     q, k, v, cot = (rng.normal(size=(S, nh, hd)).astype(np.float32) for _ in range(4))
     valid = np.ones(S, bool)
     valid[40:wp] = False             # ragged window
+    valid[3 * wp: 4 * wp - 1] = False  # one valid slot (the window's last)
     valid[-wp:] = False              # whole final window invalid
     cot = cot * valid[:, None, None]
 

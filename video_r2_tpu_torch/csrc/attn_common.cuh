@@ -1,6 +1,6 @@
 // Shared device pieces of the port's kernels: the bf16 tensor-core product
-// and its fragment helpers, ldmatrix, cp.async, warp reductions, the
-// int8-to-bf16 unpacking of staged rows and the staging of bf16 tiles.
+// and its fragment helpers, ldmatrix, cp.async, warp reductions and the
+// int8-to-bf16 unpacking of staged rows.
 //
 // Every product is one warp-wide mma.sync.m16n8k16 (bf16 in, fp32 out). With
 // lane = 4 * g + t (g = lane / 4, t = lane % 4) its operands sit as follows:
@@ -156,44 +156,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy a [rows, HD] bf16 tile whose rows are `row_stride` elements apart in
-// global memory into shared memory with row pitch `pitch`; rows at or past
-// `valid_rows` are zero. 16-byte vector accesses: HD, the strides and the
-// base address must be multiples of 8 elements (the wrappers check).
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int pitch,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int rows,
-                                          int valid_rows, int tid, int nthreads) {
-  constexpr int kChunks = HD / 8;
-  for (int i = tid; i < rows * kChunks; i += nthreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch + c) = v;
-  }
-}
-
-// Same, stored transposed: dst[c * pitch + r] = src[r][c], so that a
-// product whose B operand runs over consecutive rows (the window
-// backward's) reads it as one 32-bit shared load.
-template <int HD>
-__device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* dst, int pitch,
-                                                     const __nv_bfloat16* src,
-                                                     long long row_stride, int rows,
-                                                     int valid_rows, int tid,
-                                                     int nthreads) {
-  constexpr int kChunks = HD / 8;
-  for (int i = tid; i < rows * kChunks; i += nthreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * pitch + r] = e[j];
-  }
 }
 
 }  // namespace vr2

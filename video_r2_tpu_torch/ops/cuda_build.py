@@ -39,6 +39,7 @@ SIGNATURES = {
     "vr2_window_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _F, _I, _P],
     "vr2_window_attention_bwd": [_P] * 8 + [_I, _I, _I] + [_L] * 6 + [_F, _I, _P],
+    "vr2_window_attention_bwd_layout": [_I, _P],
     "vr2_paged_decode_attention": [_P] * 8 + [_I] * 11 + [_F, _P, _P, _P],
     "vr2_moe_ffn": [_P] * 14 + [_I] * 11 + [_P],
     "vr2_moe_gmm_bwd_dx": [_P] * 11 + [_I] * 8 + [_P],

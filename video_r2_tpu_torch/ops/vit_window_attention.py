@@ -24,6 +24,8 @@ downstream; every version here emits 0 there and gives them zero gradients
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import check, kernels
@@ -137,14 +139,20 @@ def _window_operands(q, k, v, valid, wp):
     if valid.shape != (S,) or valid.dtype != torch.bool:
         raise ValueError(f"valid must be bool [{S}], got {valid.dtype} "
                          f"{tuple(valid.shape)}")
-    return valid.to(q.device).contiguous()
+    return _aligned_flags(valid, q.device)
+
+
+def _aligned_flags(valid: torch.Tensor, device) -> torch.Tensor:
+    """`valid` on `device`, contiguous and 16-byte aligned (the bf16 kernels
+    copy a window's 64 flags as four 16-byte chunks): the tensor itself
+    where it already is, else a copy."""
+    valid = valid.to(device).contiguous()
+    return valid.clone() if valid.data_ptr() % 16 else valid
 
 
 def _window_cuda(q, k, v, valid, wp):
     S, nh, hd = q.shape
     valid = _window_operands(q, k, v, valid, wp)
-    if valid.data_ptr() % 16:       # the bf16 kernel copies a window's flags as 16 bytes
-        valid = valid.clone()
     out = torch.empty((S, nh, hd), dtype=q.dtype, device=q.device)
     err = kernels().vr2_window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
@@ -176,3 +184,13 @@ def _window_bwd_cuda(q, k, v, valid, dout, wp):
     check(err, "window_attention backward kernel")
     window_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def window_bwd_layout(hd: int) -> tuple[int, int, int]:
+    """(threads a block, blocks resident an SM, the card's SMs) of the bf16
+    window backward at head dim `hd`: its persistent grid is min(heads x
+    windows, resident x SMs) blocks, each walking a contiguous range of
+    (head, window) items."""
+    out = (ctypes.c_int * 3)()
+    check(kernels().vr2_window_attention_bwd_layout(int(hd), out), "window backward layout")
+    return out[0], out[1], out[2]
