@@ -211,7 +211,16 @@
    prefill_chunk=64: one warm run, then 3 timed runs, decode tok/s (their
    median, and each) under bench.py's metric name, launches (the int8
    kernel's, the prefill chunks' head, all on the wide kernel, asserted),
-   peak memory.
+   peak memory; (c) QLoRA-GRPO over the same int8 base: one cycle through
+   apps/train_grpo.train (which takes init_lora_for_quantized, r 64 on the
+   int8 linears, and make_lora_grpo_step) on the "batch" backend (1 prompt
+   on a 2-frame clip x 4 rollouts x 32 tokens, the default rewards),
+   counted: the int8 kernel's decode route (the decode
+   steps) and wide route (the merger's 196 rows in the prompt's ViT pass)
+   launched, no refusal in the loss (the int8 linears under adapters take
+   convert + matmul), KL exactly 0, a finite loss, the adapters moved, its
+   metrics.jsonl line and checkpoint written; its peak memory beside phase
+   19's bf16 peak.
 18. the tiny fp32 model (first, before phase 3): tiny_test_config() (text
    head dim 12, vision 16) with seeded weights on the card and the same
    weights on the CPU; the fp32 instances of the flash forward (serving,
@@ -222,11 +231,36 @@
    question's prefill logits (relative L2 within FP32_TOL of the CPU's),
    its greedy tokens through DemoRunner.generate (equal) and one
    make_sft_step step with the tower trained (loss within FP32_TOL, the
-   gradients' global norm within 1e-3 of the CPU's); every fp32 instance
-   launched.
+   gradients' global norm within 1e-3 of the CPU's), then one full-parameter
+   make_grpo_step GRPO cycle (greedy batch rollouts, G 2, another seeded
+   tiny model as the reference policy): completion tokens equal, loss and
+   the gradients' global norm within FP32_TOL of the CPU's; every fp32
+   instance launched.
+19. LoRA-GRPO (after phase 9, on the same 7B before phase 12 quantizes it):
+   train_grpo.sh's per-GPU share (1 prompt, num_generations 8, beta 0.04,
+   lr 1e-6) with 128 new tokens (the recipe's 1024 cut for time): a
+   think-style question on 8 synthetic frames of 392x392 with the default
+   system message, LoRA r 64 / alpha 64 on the default targets, rollouts on
+   PagedContinuousEngine (step(8)), temperature 1, top_k 50, the default
+   rewards (accuracy, format, TAR; weights 1, 1, 1) with a fake judge
+   (GroundingJudge) and the HashingEmbedder. (a) on the first rollout batch
+   of a GRPORunner (B 8 x prompt + 128): the flash kernels at its shape
+   (segment ids for the [prompt_pad | completion] gap) against their plain
+   versions; per_token_logps kernel path ("flash") vs plain path ("xla")
+   in nats over the completion (max |d| <= LOGP_MAX_ABS, RMS of exp(d) - 1
+   <= LOGP_RATIO_RMS, with a control that drops the flash forward's causal
+   mask above both), step 1's loss and adapter gradients within phase 7's
+   bounds, and a control with the dq kernel's output zeroed above them;
+   one decode window of the rollout engine under the profiler (launches,
+   busy ms, idle share); (b) two cycles through apps/train_grpo.train
+   (init_lora, make_lora_grpo_step, the module as its own reference
+   policy, metrics.jsonl, a checkpoint), counted: the window, flash
+   (serving and training) and bf16 paged kernels launched, cycle 1's KL
+   exactly 0, finite losses, the adapters moved; (c) s a cycle, the phase
+   timer's split, rollout tokens/s, peak memory.
 
-Phase order: 18, 1-9, 12-13 (one 7B, freed), 10, 14, 11 with 15 (the
-judge, freed), 16-17 (a new 7B).
+Phase order: 18, 1-9, 19, 12-13 (one 7B, freed), 10, 14, 11 with 15 (the
+judge, freed), 16-17 with 17(c) (a new 7B).
 
 Prints a JSON line of per-kernel results, then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
@@ -237,6 +271,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -269,6 +304,14 @@ LOGITS_TOL = 5e-2    # relative L2 of last-token logits, kernel vs plain path:
 # attention output and its gradient, over 28 decoder layers, 32 ViT layers)
 PATH_LOSS_RTOL = 1e-2
 PATH_GRAD_REL_L2 = 5e-2
+# GRPO's per-token log-probs, kernel vs plain path, in nats over the
+# completion tokens (phase 19(a)), where the loss reads them through
+# exp(lp - old) and exp(ref - lp). On an H100 80GB HBM3 (700 W) the sound
+# path read max |d| 6.350e-2 and relative L2 2.288e-3 (|lp| ~12, so an RMS
+# near 2.7e-2); at 0.125 the worst token's ratio stays within 14%, under the
+# clip's 0.2, and the RMS of exp(d) - 1 within 5%
+LOGP_MAX_ABS = 0.125
+LOGP_RATIO_RMS = 5e-2
 # the least time: the larger of bytes / 3.35 TB/s and operations / 989
 # TFLOP/s bf16 (67 TFLOP/s fp32 outside the tensor cores; H100 SXM data
 # sheet, dense)
@@ -431,6 +474,21 @@ INT8_QUESTIONS = tuple(INT4_QUESTIONS[i % 4] + " Give the time of each event." *
 BENCH_B, BENCH_PROMPT, BENCH_NEW, BENCH_CHUNK = 256, 256, 128, 64   # bench.py's workload
 BENCH_METRIC = "decode_tokens_per_sec_chip_qwen25vl7b_int8_w8a8_kv8_b256"
 MICRO_M, MICRO_K, MICRO_N, MICRO_L = 64, 3584, 18944, 28   # scripts/microbench_int8.py
+# GRPO (phases 19 and 17(c)): train_grpo.sh's per-GPU share (global batch 8
+# over 8 GPUs: 1 prompt, num_generations 8, beta 0.04, lr 1e-6, prompts up to
+# 32768 tokens), with 128 new tokens where the recipe has 1024 (cut for time)
+GRPO_G, GRPO_NEW, GRPO_LR = 8, 128, 1e-6
+GRPO_MAX_PROMPT = 32768                   # the recipe's max_prompt_length
+QLORA_G, QLORA_NEW = 4, 32                # phase 17(c)
+GRPO_QUESTION = ("What does the person pick up first?\nA. a red cup\nB. a book\n"
+                 "C. a phone\nD. a pen")
+GRPO_ANSWER = ("<think>Let me think. At 00:01 the person walks to the table, then at "
+               "00:03 picks up a red cup.</think><answer>A</answer>")
+GRPO_GROUNDING = {"00:01": "The person walks to the table.",
+                  "00:03": "The person picks up a red cup."}
+GRPO_HIT = {"00:01": "The person walks to the table."}     # matches the ground truth
+GRPO_MISS = {"00:40": "A bird flies over the house."}      # matches nothing
+TAR = "temporal_grounding_sentence_embedding_consistency_reward"
 
 
 def card_line() -> str:
@@ -1998,6 +2056,9 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     # phase 9: batched serving through the paged engine
     paged_runs = serving_phase(model, runner, requests, card)
 
+    # phase 19: LoRA-GRPO with paged rollouts
+    grpo_launches = grpo_phase(model, card, device)
+
     # phases 12 and 13: int4 serving through the head-major decode kernel
     batch = video_batch(runner, cfg, INT4_QUESTIONS)
     kernel_results.update(int4_kernel_phase(cfg, batch, device))
@@ -2009,6 +2070,7 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     launches["paged_decode_attention_stacked_quant"] = \
         paged_runs["int8"]["paged_decode_attention_stacked_quant"]
     launches.update(int4_runs)
+    launches["phase19"] = grpo_launches
     return kernel_results, launches
 
 
@@ -2149,6 +2211,7 @@ def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
         tensors = {n: torch.as_tensor(a, device=dev) for n, a in batch.arrays.items()}
         _, m = step(state, tensors)
         metrics[where] = (float(m["loss"]), float(m["grad_norm"]))
+    tiny_grpo_cycle(models, tok, data, frames, card)
     torch.cuda.synchronize()
     counted = read_launches()
     rel = rel_l2(logits["kernel"], logits["cpu"])
@@ -3747,9 +3810,9 @@ def kv_attention_times(cfg, B: int, smax: int, device) -> str:
             f"(rel_l2 {rel:.2e})")
 
 
-def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
-    """Phases 16 and 17 on a fresh Qwen2.5-VL-7B, int8 in place. Returns
-    (kernels line rows, launches)."""
+def int8_serving_phase(card: str, device, bf16_grpo_peak: float) -> tuple[dict, dict]:
+    """Phases 16, 17 and 17(c) on a fresh Qwen2.5-VL-7B, int8 in place.
+    Returns (kernels line rows, launches; 17(c)'s under "phase17c")."""
     import numpy as np
     import torch
 
@@ -3922,7 +3985,444 @@ def int8_serving_phase(card: str, device) -> tuple[dict, dict]:
         raise AssertionError(f"the bench workload's int8 launches {bench_launches['int8_matmul']}"
                              f", on the wide kernel {bench_launches['int8_matmul_wide']}")
     launches["int8_matmul_wide"] = bench_launches["int8_matmul_wide"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 17(c): QLoRA-GRPO over the int8 base
+    launches["phase17c"] = qlora_phase(model, card, bf16_grpo_peak)
     return kernel_results, launches
+
+
+# ---------------------------------------------------------------------------
+# GRPO (phases 19, 18's GRPO cycle, 17(c))
+# ---------------------------------------------------------------------------
+
+def grpo_sample(n_frames: int, seed: int) -> dict:
+    """One GRPO prompt as data/grpo.py makes it from a record: a think-style
+    multiple-choice question on `n_frames` synthetic frames of 392x392 at 2
+    fps (8 frames: grid (4, 28, 28), 784 video tokens), the default system
+    message, the answer and a temporal ground truth for the TAR reward."""
+    import numpy as np
+
+    from video_r2_tpu_torch.apps.demo import THINK_POST_PROMPT
+    from video_r2_tpu_torch.data.config import DataConfig
+    from video_r2_tpu_torch.data.grpo import GRPODataset
+
+    frames = np.random.default_rng(seed).integers(
+        0, 256, (n_frames, FRAME_HW, FRAME_HW, 3), np.uint8)
+    rec = {"video": frames, "video_fps": 2.0,
+           "conversations": [{"from": "human",
+                              "value": f"<video>\n{GRPO_QUESTION}{THINK_POST_PROMPT}"},
+                             {"from": "gpt", "value": GRPO_ANSWER}],
+           "temporal_grounding": GRPO_GROUNDING}
+    return GRPODataset([rec], DataConfig(fps=2.0))[0]
+
+
+class GroundingJudge:
+    """A fake judge for the TAR reward over any number of rollout batches:
+    in each batch its extraction replies alternate by row a claim that
+    matches the ground truth and one that matches nothing, so the TAR
+    rewards differ within a group, and every consistency reply is TRUE.
+    Its `chat_many` answers in row order (chat_many would otherwise fan a
+    client out over threads)."""
+
+    def chat_many(self, requests, on_error: str = "raise") -> list[str]:
+        from video_r2_tpu_torch.rewards.temporal import EXTRACTION_SYSTEM
+
+        return [json.dumps(GRPO_HIT if i % 2 == 0 else GRPO_MISS)
+                if system == EXTRACTION_SYSTEM else "TRUE"
+                for i, (system, _) in enumerate(requests)]
+
+    def chat(self, system: str, user: str) -> str:
+        return self.chat_many([(system, user)])[0]
+
+
+def grpo_runner(model, gcfg, step, seed: int):
+    """GRPORunner over `model` with the default rewards (accuracy, format,
+    TAR; weights 1, 1, 1), the GroundingJudge, the HashingEmbedder, flash
+    attention; the reference policy is the same module with its adapters
+    removed (phase 19(a); the cycles go through apps/train_grpo.train)."""
+    from video_r2_tpu_torch.apps.train_grpo import DEFAULT_REWARDS
+    from video_r2_tpu_torch.engine.chat import ByteTokenizer
+    from video_r2_tpu_torch.rewards.embedding import HashingEmbedder
+    from video_r2_tpu_torch.rewards.registry import load_reward_funcs
+    from video_r2_tpu_torch.train.grpo_runner import GRPORunner
+
+    return GRPORunner(model, gcfg, ByteTokenizer(), load_reward_funcs(list(DEFAULT_REWARDS)),
+                      list(DEFAULT_REWARDS), step, ref_model=model,
+                      judge=GroundingJudge(), embedder=HashingEmbedder(),
+                      attn_impl="flash", seed=seed)
+
+
+def grpo_train(model, gcfg, lcfg, sample, cycles: int, what: str, card: str) -> tuple:
+    """`cycles` LoRA-GRPO cycles over `model` through apps/train_grpo.train,
+    the entry point a user calls: its adapter init (init_lora_for_quantized
+    over an int8 base), the module itself as the reference policy, its
+    metrics.jsonl and final checkpoint (under build/, removed after), with
+    the GroundingJudge and the HashingEmbedder; counted. Returns (per-cycle
+    metrics, launches, peak GiB, the largest |lora_b|: 0 at the start)."""
+    import torch
+
+    from video_r2_tpu_torch.apps.train_grpo import DEFAULT_REWARDS, train
+    from video_r2_tpu_torch.config import AppConfig, RunConfig
+    from video_r2_tpu_torch.rewards.embedding import HashingEmbedder
+    from video_r2_tpu_torch.train.optim import OptimConfig
+
+    run_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_grpo"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    app = AppConfig(run=RunConfig(output_dir=str(run_dir), max_steps=cycles,
+                                  save_steps=10 ** 6, use_lora=True, seed=SEED,
+                                  resume=False),
+                    grpo=gcfg, lora=lcfg,
+                    optim=OptimConfig(learning_rate=GRPO_LR, total_steps=cycles))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, out = train(app, model, [sample], reward_names=DEFAULT_REWARDS,
+                       judge=GroundingJudge(), embedder=HashingEmbedder())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logged = (run_dir / "metrics.jsonl").read_text().splitlines()
+    ckpts = sorted(p.name for p in run_dir.glob("checkpoint-*"))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    moved = max(float(p.detach().abs().max()) for n, p in state.params.items()
+                if n.endswith("lora_b"))
+    G = gcfg.num_generations
+    for m in out:
+        split = {k.removeprefix("profiling/").removesuffix("_s"): round(v, 4)
+                 for k, v in m.items() if k.startswith("profiling/")}
+        toks = m["completion_len_mean"] * G
+        print(f"{what} cycle {m['cycle']}: {m['s_per_cycle']:.3f} s; loss {m['loss']:.6e} kl "
+              f"{m['kl']:.6e} grad_norm {m['grad_norm']:.4e} reward {m['reward_mean']:.3f} "
+              f"(accuracy {m['rewards/accuracy_reward/mean']:.3f}, format "
+              f"{m['rewards/format_reward/mean']:.3f}, TAR "
+              f"{m[f'rewards/{TAR}/mean']:.3f}; embedder {m['embedder']}), completion tokens "
+              f"{toks:.0f} (len {m['completion_len_min']:.0f}-{m['completion_len_max']:.0f}), "
+              f"rollout {toks / m['profiling/rollout_generate_s']:.1f} tok/s; phase s {split} "
+              f"| {card}", flush=True)
+    print(f"{what}: apps/train_grpo.train wrote {len(logged)} metrics.jsonl lines and "
+          f"{ckpts}; peak device memory {peak:.2f} GiB; adapters moved by {moved:.3e} at "
+          f"most over {state.step} steps; launches {launches}", flush=True)
+    for m in out:
+        if not all(math.isfinite(m[k]) for k in ("loss", "kl", "grad_norm")):
+            raise AssertionError(f"{what} cycle {m['cycle']}: non-finite metrics {m}")
+    if out[0]["kl"] != 0.0:
+        raise AssertionError(f"{what}: cycle 1's KL is {out[0]['kl']}, not 0 (B = 0 makes "
+                             f"the policy its base)")
+    if len(logged) != cycles or ckpts != [f"checkpoint-{cycles}"]:
+        raise AssertionError(f"{what}: the entry point logged {len(logged)} cycles of "
+                             f"{cycles} and saved {ckpts}")
+    if not moved > 0:
+        raise AssertionError(f"{what}: the adapters did not move")
+    return out, launches, peak, moved
+
+
+def grpo_path_check(model, runner, params, batch, card) -> None:
+    """Phase 19(a) on the first rollout batch: per_token_logps and step 1's
+    loss and adapter gradients, kernel path (attn_impl "flash") against the
+    plain path ("xla"), each with its own ref logps (adapters removed). The
+    log-probs are held in nats over the completion tokens, where the loss
+    reads them through exp(lp - old) and exp(ref - lp), and a control with
+    the flash forward's causal mask dropped must read above those bounds; a
+    control with the dq kernel's output zeroed must read above the
+    gradients' bound."""
+    import torch
+
+    from video_r2_tpu_torch.ops import flash as flash_mod
+    from video_r2_tpu_torch.train.grpo import grpo_loss, per_token_logps
+    from video_r2_tpu_torch.train.lora import adapters_disabled
+
+    gcfg = runner.gcfg
+    C = batch["completion_mask"].shape[1]
+    keep = batch["completion_mask"] == 1
+    args = (batch["input_ids"], batch["position_ids"], batch["attention_mask"], C,
+            gcfg.temperature, gcfg.logp_chunk_size)
+    real_bwd, real_fwd = flash_mod.flash_attention_bwd, flash_mod._flash_cuda
+
+    def zero_dq(*a, **kw):         # the gradients' control: the dq kernel's output zeroed
+        dq, dk, dv = real_bwd(*a, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    def no_causal(q, k, v, kv_lengths, causal, *a, **kw):   # the log-probs' control
+        return real_fwd(q, k, v, kv_lengths, False, *a, **kw)
+
+    def logp_error(lp) -> tuple[float, float]:
+        """(max |lp - plain|, RMS of exp(lp - plain) - 1) over the completion."""
+        d = (lp.float() - lps["plain"].float())[keep]
+        return float(d.abs().max()), float((torch.expm1(d) ** 2).mean().sqrt())
+
+    out, lps = {}, {}
+    for impl, attn in (("kernel", "flash"), ("plain", "xla"), ("control", "flash")):
+        with torch.no_grad():
+            lps[impl] = per_token_logps(model, *args, video_embeds=batch["video_embeds"],
+                                        attn_impl=attn)
+            with adapters_disabled(model):
+                ref = per_token_logps(model, *args, video_embeds=batch["video_embeds"],
+                                      attn_impl=attn)
+        for p in params.values():
+            p.grad = None
+        flash_mod.flash_attention_bwd = zero_dq if impl == "control" else real_bwd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            loss, _ = grpo_loss(model, gcfg, {**batch, "ref_per_token_logps": ref},
+                                attn_impl=attn)
+            loss.backward()
+        finally:
+            flash_mod.flash_attention_bwd = real_bwd
+        grads = torch.cat([p.grad.flatten() for p in params.values()])
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), grads, time.perf_counter() - t0)
+    flash_mod._flash_cuda = no_causal
+    try:
+        with torch.no_grad():
+            lps["no_causal"] = per_token_logps(model, *args,
+                                               video_embeds=batch["video_embeds"],
+                                               attn_impl="flash")
+    finally:
+        flash_mod._flash_cuda = real_fwd
+    (lk, gk, tk), (lp, gp, tp) = out["kernel"], out["plain"]
+    scale = float(batch["advantages"].abs().mean())      # the policy term's size
+    loss_rel = abs(lk - lp) / max(abs(lp), scale)
+    grad_rel, control_rel = rel_l2(gk, gp), rel_l2(out["control"][1], gp)
+    lp_rel = rel_l2(lps["kernel"][keep], lps["plain"][keep])
+    lp_abs, lp_rms = logp_error(lps["kernel"])
+    ctl_abs, ctl_rms = logp_error(lps["no_causal"])
+    print(f"phase 19(a) B={batch['input_ids'].shape[0]} x {batch['input_ids'].shape[1]} "
+          f"(prompt + {C}): log-probs kernel vs plain path over the completion: max "
+          f"|d| {lp_abs:.3e} nats (tol {LOGP_MAX_ABS}), RMS of exp(d) - 1 {lp_rms:.3e} (tol "
+          f"{LOGP_RATIO_RMS}), rel_l2 {lp_rel:.3e} (tol {LOGITS_TOL}); control (causal mask "
+          f"dropped) max |d| {ctl_abs:.3e}, RMS {ctl_rms:.3e}; step-1 loss kernel {lk:.6e} "
+          f"plain {lp:.6e} (diff over max(|loss|, mean |adv| {scale:.3e}) {loss_rel:.3e}, tol "
+          f"{PATH_LOSS_RTOL}); adapter gradients rel L2 {grad_rel:.3e} (tol "
+          f"{PATH_GRAD_REL_L2}), |g| {float(gp.norm()):.4e}; fwd+bwd s kernel {tk:.3f} plain "
+          f"{tp:.3f}; control (dq zeroed) rel L2 {control_rel:.3e} | {card}", flush=True)
+    if not (lp_abs <= LOGP_MAX_ABS and lp_rms <= LOGP_RATIO_RMS and lp_rel <= LOGITS_TOL
+            and loss_rel <= PATH_LOSS_RTOL and grad_rel <= PATH_GRAD_REL_L2
+            and torch.isfinite(gk).all() and float(gp.norm()) > 0):
+        raise AssertionError(f"phase 19(a): kernel path disagrees with the plain path: "
+                             f"log-probs max {lp_abs} RMS {lp_rms} rel {lp_rel}, loss "
+                             f"{loss_rel}, gradients {grad_rel}")
+    if not (ctl_abs > LOGP_MAX_ABS and ctl_rms > LOGP_RATIO_RMS):
+        raise AssertionError(f"phase 19(a): the log-prob bounds do not see a forward "
+                             f"without its causal mask: max {ctl_abs}, RMS {ctl_rms}")
+    if not control_rel > PATH_GRAD_REL_L2:
+        raise AssertionError(f"phase 19(a): the bound {PATH_GRAD_REL_L2} does not see a "
+                             f"zeroed dq: control rel L2 {control_rel}")
+    for p in params.values():
+        p.grad = None
+
+
+def decode_window_idle(eng, prepared, G: int, steps: int) -> str:
+    """One decode window (`steps` tokens of G forked rollouts of one prompt)
+    of the paged engine under torch.profiler: launches, device busy ms, wall
+    ms and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+
+    sp = SamplingParams(do_sample=True, top_k=50, max_new_tokens=4 * steps,
+                        eos_token_ids=())
+    rid = eng.submit(list(prepared.input_ids), max_new_tokens=4 * steps, sp=sp,
+                     vision_embeds=prepared.video_embeds,
+                     video_grid_thw=prepared.video_grid_thw,
+                     second_per_grid_ts=prepared.second_per_grid_ts)
+    rids = [rid] + eng.fork(rid, n=G - 1)
+    eng.step(steps)                                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step(steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    for r in rids:
+        eng.request_cancel(r)
+    eng.step(1)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return f"{G} rollouts, window of {steps}: {wall:.2f} ms wall (idle share not measured)"
+    busy = sum(e.device_time for e in kernels) / 1e3
+    return (f"{G} rollouts, window of {steps}: {len(kernels)} launches, {busy:.2f} ms busy "
+            f"of {wall:.2f} ms under the profiler ({100 * (1 - busy / wall):.1f}% idle)")
+
+
+def grpo_phase(model, card: str, device) -> dict:
+    """Phase 19: LoRA-GRPO on the 7B (bf16) with paged rollouts. Returns the
+    launches of the counted cycles, and the peak memory as "peak_gib"."""
+    import torch
+
+    from video_r2_tpu_torch.train.grpo import GRPOConfig
+    from video_r2_tpu_torch.train.lora import (
+        LoRAConfig,
+        attach_lora,
+        detach_lora,
+        init_lora,
+        lora_param_count,
+        make_lora_grpo_step,
+    )
+
+    gcfg = GRPOConfig(num_generations=GRPO_G, beta=0.04, max_completion_length=GRPO_NEW,
+                      max_prompt_length=GRPO_MAX_PROMPT, temperature=1.0, top_p=1.0,
+                      top_k=50, rollout_backend="paged",
+                      rollout_decode_steps=DECODE_STEPS, reward_weights=(1.0, 1.0, 1.0))
+    lcfg = LoRAConfig()                                   # r 64, alpha 64
+    params = attach_lora(model, init_lora(model, lcfg, seed=SEED), lcfg)
+    step = make_lora_grpo_step(model, gcfg, attn_impl="flash")
+    runner = grpo_runner(model, gcfg, step, SEED)
+    sample = grpo_sample(N_FRAMES, SEED + 19)
+    print(f"phase 19: LoRA-GRPO, r {lcfg.r} alpha {lcfg.alpha} "
+          f"({lora_param_count(params) / 1e6:.1f} M adapter params), 1 prompt x G "
+          f"{GRPO_G}, {GRPO_NEW} new tokens, paged rollouts (step({DECODE_STEPS})), beta "
+          f"{gcfg.beta}, lr {GRPO_LR}", flush=True)
+
+    # (a) on the first rollout batch
+    batch, m0 = runner.rollout_and_score([sample])
+    P = batch["input_ids"].shape[1] - GRPO_NEW
+    print(f"phase 19 first rollout batch: prompt {P} (padded), completion lengths "
+          f"{batch['completion_mask'].sum(1).tolist()}, rewards mean {m0['reward_mean']:.3f}, "
+          f"advantages {[round(a, 3) for a in batch['advantages'].tolist()]}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    tc = model.cfg.text
+    B, S = batch["input_ids"].shape
+    randn = lambda *s: torch.randn(  # noqa: E731
+        *s, generator=gen, device=device).to(torch.bfloat16)
+    seg = torch.where(batch["attention_mask"] == 1, 1, -1).int()
+    q, k, v = randn(B, S, tc.num_attention_heads, tc.head_dim), *(
+        randn(B, S, tc.num_key_value_heads, tc.head_dim) for _ in range(2))
+    full = torch.full((B,), S, dtype=torch.int32, device=device)
+    # the no-grad log-prob passes (serving forward) and the loss (training)
+    flash_case(gen, "grpo log-probs", q, k, v, full, True, seg, training=False)
+    flash_case(gen, "grpo loss", q, k, v, full, True, seg, training=True)
+    del q, k, v
+    grpo_path_check(model, runner, params, batch, card)
+    window = decode_window_idle(runner._rollout_eng, runner.prepare_prompt(sample), GRPO_G,
+                                DECODE_STEPS)
+    print(f"phase 19: one decode window of the rollout engine: {window} | {card}", flush=True)
+    detach_lora(model)
+    del batch, runner, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two cycles through apps/train_grpo.train, counted
+    _, launches, peak, _ = grpo_train(model, gcfg, lcfg, sample, 2, "phase 19", card)
+    for name in ("window_attention", "flash_attention", "paged_decode_attention_stacked",
+                 "flash_attention_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 19 launched no {name} kernel: {launches}")
+    detach_lora(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "peak_gib": peak}
+
+
+def qlora_phase(model, card: str, bf16_peak: float) -> dict:
+    """Phase 17(c): QLoRA-GRPO over the int8 7B (after 17(b)): one cycle
+    through apps/train_grpo.train (which takes init_lora_for_quantized over
+    the int8 linears) on the "batch" backend (1 prompt on a 2-frame clip x
+    QLORA_G rollouts x QLORA_NEW tokens), counted. Returns its launches."""
+    import torch
+
+    from video_r2_tpu_torch.train.grpo import GRPOConfig
+    from video_r2_tpu_torch.train.lora import LoRAConfig, detach_lora
+
+    gcfg = GRPOConfig(num_generations=QLORA_G, beta=0.04, max_completion_length=QLORA_NEW,
+                      max_prompt_length=GRPO_MAX_PROMPT, temperature=1.0, top_p=1.0,
+                      top_k=50, rollout_backend="batch",
+                      reward_weights=(1.0, 1.0, 1.0))
+    lcfg = LoRAConfig()
+    # 2 frames: 784 patches, so the merger's int8 linears see 196 rows (the
+    # wide kernel) in the prompt's ViT pass; the decode steps' 4 rows take the
+    # decode kernel; the loss's rows (and the no-grad passes over the same
+    # rows) exceed INT8_KERNEL_MAX_ROWS and convert
+    sample = grpo_sample(SHORT_FRAMES, SEED + 17)
+    print(f"phase 17(c): QLoRA-GRPO over the int8 7B, r {lcfg.r} on the int8 linears, "
+          f"1 prompt x G {QLORA_G}, {QLORA_NEW} new tokens, batch rollouts", flush=True)
+    _, launches, peak, _ = grpo_train(model, gcfg, lcfg, sample, 1, "phase 17(c)", card)
+    print(f"phase 17(c): no refusal in the loss (the int8 linears under adapters took "
+          f"convert + matmul); int8 kernel launches {launches['int8_matmul']} (decode kernel "
+          f"{launches['int8_matmul_decode']}, wide {launches['int8_matmul_wide']}); peak "
+          f"device memory int8 base {peak:.2f} GiB vs the bf16 7B's in phase 19 "
+          f"{bf16_peak:.2f} GiB | {card}", flush=True)
+    if launches["int8_matmul_decode"] <= 0 or launches["int8_matmul_wide"] <= 0:
+        raise AssertionError(f"phase 17(c): the rollouts launched no int8 decode or wide "
+                             f"kernel: {launches}")
+    detach_lora(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recorded(runner) -> list:
+    """Keep every (batch, metrics) that runner.rollout_and_score returns."""
+    kept, orig = [], runner.rollout_and_score
+
+    def wrapped(samples):
+        kept.append(orig(samples))
+        return kept[-1]
+
+    runner.rollout_and_score = wrapped
+    return kept
+
+
+def parity_reward(completions, **kw):
+    """A deterministic reward by row (phase 18's GRPO cycle)."""
+    return [float(i % 2) for i in range(len(completions))]
+
+
+def tiny_grpo_cycle(models: dict, tok, data, frames, card: str) -> None:
+    """Phase 18's GRPO cycle: one full-parameter make_grpo_step cycle with
+    greedy (top_k=1) rollouts on the "batch" backend, the tiny model on the
+    card against the same weights on the CPU. The reference policy is
+    another seeded tiny model, so the KL term's gradient is real (greedy
+    rollouts make a group's G completions one sequence, and the advantages
+    of a group sum to 0)."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.data.grpo import GRPODataset
+    from video_r2_tpu_torch.models.loader import init_params
+    from video_r2_tpu_torch.rewards.format import format_reward
+    from video_r2_tpu_torch.train.grpo import GRPOConfig, make_grpo_step
+    from video_r2_tpu_torch.train.grpo_runner import GRPORunner
+    from video_r2_tpu_torch.train.optim import OptimConfig
+    from video_r2_tpu_torch.train.sft import init_train_state
+
+    gcfg = GRPOConfig(num_generations=2, beta=0.04, max_completion_length=TINY_NEW_TOKENS,
+                      top_k=1, rollout_backend="batch", logp_chunk_size=64,
+                      max_prompt_length=1024)
+    sample = GRPODataset([{"video": frames, "conversations": [
+        {"from": "human", "value": f"<video>\n{TRAIN_QA[0][0]}"}]}], data)[0]
+    snap = {k: v.clone() for k, v in models["cpu"].state_dict().items()}
+    ref_state = init_params(models["cpu"].cfg, seed=SEED + 1, device="cpu").state_dict()
+    got = {}
+    for where, model in models.items():
+        model.load_state_dict(snap)
+        ref = init_params(model.cfg, seed=SEED + 1, device=model.device)
+        ref.load_state_dict(ref_state)
+        impl = "flash" if where == "kernel" else "xla"
+        model.requires_grad_(True)
+        state = init_train_state(dict(model.named_parameters()), OptimConfig())
+        step = make_grpo_step(model, gcfg, attn_impl=impl)
+        runner = GRPORunner(model, gcfg, tok, [parity_reward, format_reward],
+                            ["parity_reward", "format_reward"], step, ref_model=ref,
+                            attn_impl=impl)
+        kept = recorded(runner)
+        _, m = runner.train_cycle(state, [sample])
+        got[where] = (kept[0][0]["input_ids"].cpu().numpy(), m["loss"], m["grad_norm"],
+                      m["kl"])
+    (ids, loss, norm, kl), (ref_ids, ref_loss, ref_norm, ref_kl) = got["kernel"], got["cpu"]
+    same = bool(np.array_equal(ids, ref_ids))
+    loss_rel, norm_rel = abs(loss - ref_loss) / abs(ref_loss), abs(norm - ref_norm) / ref_norm
+    print(f"phase 18 GRPO cycle (full-parameter make_grpo_step, greedy batch rollouts, "
+          f"G 2 x {TINY_NEW_TOKENS} tokens) on the card vs the CPU: completion tokens equal "
+          f"{same}; loss {loss:.6e} vs {ref_loss:.6e} (rel {loss_rel:.3e}, tol {FP32_TOL}), "
+          f"grad_norm {norm:.6e} vs {ref_norm:.6e} (rel {norm_rel:.3e}, tol {FP32_TOL}), kl "
+          f"{kl:.6e} vs {ref_kl:.6e} | {card}", flush=True)
+    if not (same and loss_rel <= FP32_TOL and norm_rel <= FP32_TOL):
+        raise AssertionError(f"phase 18: the tiny GRPO cycle on the card disagrees with the "
+                             f"CPU: tokens equal {same}, loss {loss_rel}, grad_norm {norm_rel}")
 
 
 def main() -> int:
@@ -3966,7 +4466,8 @@ def main() -> int:
     launches.update(judge_phase(card, device))
     gc.collect()
     torch.cuda.empty_cache()
-    int8_results, int8_launches = int8_serving_phase(card, device)   # phases 16 and 17
+    int8_results, int8_launches = int8_serving_phase(    # phases 16, 17 and 17(c)
+        card, device, launches["phase19"]["peak_gib"])
     kernel_results.update(int8_results)
     launches.update(int8_launches)
 
@@ -3981,7 +4482,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r},
             **({"decode_launches": launches["int8_matmul_decode"]}
-               if name == "int8_matmul" else {})})
+               if name == "int8_matmul" else {}),
+            # the GRPO paths' launches: phase 19 (LoRA-GRPO, bf16 7B) and 17(c)
+            # (QLoRA-GRPO, int8 7B)
+            "grpo_launches": {phase: launches[phase].get(name, 0)
+                              for phase in ("phase19", "phase17c")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

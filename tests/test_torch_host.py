@@ -52,7 +52,10 @@ for name in names:
 for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
              "ops.moe_ragged", "ops.moe_gmm", "models.moe", "models.quant",
              "engine.server", "rewards.judge", "ops.int4_matmul",
-             "ops.decode_attention", "ops.int8_matmul"):
+             "ops.decode_attention", "ops.int8_matmul", "rewards.accuracy",
+             "rewards.format", "rewards.parsing", "rewards.embedding",
+             "rewards.temporal", "rewards.registry", "train.grpo", "train.grpo_runner",
+             "ops.logprobs", "data.grpo", "apps.train_grpo", "utils.profiling"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
@@ -211,18 +214,20 @@ def test_app_config_copy_matches():
     """Every field the port's config keeps has the JAX default, and the same
     command line parses to the same values."""
     ours, ref = app.AppConfig(), japp.AppConfig()
-    for section in ("run", "data", "optim", "sft", "lora"):
+    for section in ("run", "data", "optim", "sft", "grpo", "lora"):
         a, b = getattr(ours, section), getattr(ref, section)
         for f in dataclasses.fields(a):
             assert getattr(a, f.name) == getattr(b, f.name), (section, f.name)
     argv = ["--run.max_steps", "7", "--run.use_lora=true", "--lora.r", "16",
             "--optim.vision_lr", "3e-6", "--lora.targets", "attn,q,kernel",
-            "--data.fps", "2.0", "--sft.ce_chunk_size=512"]
+            "--data.fps", "2.0", "--sft.ce_chunk_size=512", "--grpo.reward_weights",
+            "1,0.5,2", "--grpo.rollout_backend=paged", "--grpo.beta", "0.0"]
     ours, ref = app.parse_config(argv), japp.parse_config(argv)
     assert (ours.run.max_steps, ours.run.use_lora, ours.lora.r, ours.optim.vision_lr,
             ours.lora.targets, ours.data.fps, ours.sft.ce_chunk_size) == (
         ref.run.max_steps, ref.run.use_lora, ref.lora.r, ref.optim.vision_lr,
         ref.lora.targets, ref.data.fps, ref.sft.ce_chunk_size)
+    assert dataclasses.asdict(ours.grpo) == dataclasses.asdict(ref.grpo)
     assert ours.model_config() == config.qwen25vl_7b()
 
 
@@ -246,3 +251,55 @@ def test_judge_copy_matches():
                 == jserver._apply_stop("a xST b", jserver._norm_stop(stop)))
     assert (app.AppConfig(run=app.RunConfig(model_preset="qwen3-moe-30b-a3b"))
             .model_config() == config.qwen3_moe_30b_a3b())
+
+
+@pytest.mark.parametrize("name", ["parsing", "format", "accuracy", "embedding", "temporal",
+                                  "registry"])
+def test_reward_copies_match(name):
+    """Each reward module's functions and classes are the original's source,
+    line for line, and its constants are equal; load_reward_funcs finds the
+    same names."""
+    import importlib
+
+    ours = importlib.import_module(f"video_r2_tpu_torch.rewards.{name}")
+    ref = importlib.import_module(f"video_r2_tpu.rewards.{name}")
+    defs = [n for n, v in vars(ref).items()
+            if (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == ref.__name__]
+    assert defs
+    for n in defs:
+        assert inspect.getsource(getattr(ours, n)) == inspect.getsource(getattr(ref, n)), n
+    for n in (n for n in vars(ref) if n.isupper()):
+        assert getattr(ours, n) == getattr(ref, n), n
+    if name == "registry":
+        from video_r2_tpu.rewards.registry import _discover as j_discover
+
+        assert sorted(ours._discover()) == sorted(j_discover())
+        names = ["accuracy", "format_reward",
+                 "temporal_grounding_sentence_embedding_consistency_reward"]
+        assert [f.__name__ for f in ours.load_reward_funcs(names)] == [
+            f.__name__ for f in ref.load_reward_funcs(names)]
+        with pytest.raises(ValueError, match="Unknown reward"):
+            ours.load_reward_funcs(["nope"])
+
+
+def test_grpo_host_copies_match():
+    """The GRPO host functions, the phase timer and the package exports
+    equal the originals."""
+    from video_r2_tpu import rewards as jrewards
+    from video_r2_tpu.train import grpo as jgrpo
+    from video_r2_tpu.utils import profiling as jprofiling
+    from video_r2_tpu_torch import rewards
+    from video_r2_tpu_torch.train import grpo
+    from video_r2_tpu_torch.utils import profiling
+
+    for n in ("completion_mask_from_ids", "combine_rewards", "compute_advantages"):
+        assert inspect.getsource(getattr(grpo, n)) == inspect.getsource(getattr(jgrpo, n)), n
+    for n in ("PhaseTimer", "profiling_phase"):
+        assert inspect.getsource(getattr(profiling, n)) == inspect.getsource(
+            getattr(jprofiling, n)), n
+    assert rewards.__all__ == jrewards.__all__
+    timer = profiling.PhaseTimer()
+    for _ in range(2):
+        with profiling.profiling_phase(timer, "a"):
+            pass
+    assert list(timer.metrics()) == ["profiling/a_s"] and timer.metrics() == {}

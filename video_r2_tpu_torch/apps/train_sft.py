@@ -12,7 +12,7 @@ otherwise every parameter does. Each step's loss, grad_norm and seconds go
 to the log every ``run.log_steps`` and to ``<output_dir>/metrics.jsonl``;
 ``checkpoint-<step>/`` every ``run.save_steps`` and at the end, and a run
 resumes from the latest one. The merged HF export waits for the HF loader
-port (ROADMAP Queue 1 #4).
+port (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ def main(argv=None, app: AppConfig | None = None,
     app = app or parse_config(argv)
     if app.run.checkpoint or app.run.tokenizer:
         raise NotImplementedError("loading HF weights and the BPE tokenizer wait "
-                                  "for the HF loader port (ROADMAP Queue 1 #4)")
+                                  "for the HF loader port (ROADMAP Queue 1 #9)")
     cfg = app.model_config()
     model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype)
     dataset = SFTDataset(app.data.data_path, ByteTokenizer(), cfg, app.data)

@@ -1,9 +1,9 @@
 """Typed configuration tree + CLI binding for the port's entry points.
 
-A copy of the parts of ``video_r2_tpu/config.py`` that the SFT trainer
-reads (that module imports the JAX package's trainers): `RunConfig`'s
+A copy of the parts of ``video_r2_tpu/config.py`` that the SFT and GRPO
+trainers read (that module imports the JAX package's trainers): `RunConfig`'s
 run and training-loop fields, `AppConfig` over the run / data / optim /
-sft / lora sections, `parse_config` (``--config file.json`` plus
+sft / grpo / lora sections, `parse_config` (``--config file.json`` plus
 ``--section.field value``) and `resolve_attn_impl`, whose "auto" picks
 the flash kernels on a CUDA device as the JAX one picks them on the TPU.
 tests/test_torch_host.py holds the copied fields equal to the originals.
@@ -20,6 +20,7 @@ import torch
 
 from .data.config import DataConfig
 from .models.config import ModelConfig, qwen3_moe_30b_a3b, qwen25vl_7b, tiny_test_config
+from .train.grpo import GRPOConfig
 from .train.lora import LoRAConfig
 from .train.optim import OptimConfig
 from .train.sft import SFTConfig
@@ -57,6 +58,7 @@ class AppConfig:
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     sft: SFTConfig = field(default_factory=SFTConfig)
+    grpo: GRPOConfig = field(default_factory=GRPOConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
 
     def model_config(self) -> ModelConfig:

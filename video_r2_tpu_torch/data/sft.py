@@ -3,9 +3,9 @@
 Port of ``video_r2_tpu/data/sft.py`` for video records whose ``"video"``
 holds decoded frames (the JAX frames passthrough, ``data/sft.py:98-99``,
 read by ``video/reader.py::read_video_frames_list``): the same frame
-sampling and resize plan (video/geometry.py), then video/api.py's
-``video_features``. A video *file* needs the video reader and raises, as do
-image records and timestamp / subtitle burn-in (ROADMAP Queue 1 #3).
+sampling and resize plan (video/geometry.py), through video/api.py's
+``fetch_video``. A video *file* needs the video reader and raises, as do
+image records and timestamp / subtitle burn-in (ROADMAP Queue 1 #4).
 
 The collator emits what the train step consumes: right-padded, bucketed
 input_ids / labels / attention_mask, M-RoPE position_ids (host-planned),
@@ -24,8 +24,7 @@ from ..engine.chat import expand_vision_placeholders
 from ..models.config import ModelConfig
 from ..models.mrope import get_rope_index
 from ..models.vision import VisionLayout, plan_vision_layout
-from ..video.api import VideoFeatures, video_features
-from ..video.geometry import plan_video_geometry
+from ..video.api import VideoFeatures, VideoPreprocessConfig, fetch_video
 from .config import DataConfig
 from .constants import DEFAULT_SYSTEM_MESSAGE, IGNORE_INDEX, IM_END, IM_START, VIDEO_PAD
 from .conversion import llava_to_openai
@@ -58,38 +57,29 @@ class SFTDataset:
         return len(self.records)
 
     def _frames_features(self, frames, rec: dict) -> VideoFeatures:
-        """Decoded frames -> features, planned as the JAX frames backend
-        plans them (video_fps from the record, default 1)."""
+        """Decoded frames -> features through video/api.py::fetch_video,
+        planned as the JAX frames backend plans them (video_fps from the
+        record, default 1)."""
         d = self.dcfg
-        if d.write_timestamps or d.write_subtitles:
-            raise NotImplementedError("timestamp / subtitle burn-in needs the video "
-                                      "reader port (ROADMAP Queue 1 #3)")
-        arr = np.asarray(np.stack(frames) if isinstance(frames, (list, tuple))
-                         else frames, dtype=np.uint8)
-        ele = {"min_pixels": d.video_min_pixels, "max_pixels": d.video_max_pixels,
+        ele = {"video": frames, "video_fps": float(rec.get("video_fps", 1.0)),
+               "min_pixels": d.video_min_pixels, "max_pixels": d.video_max_pixels,
                "fps": d.fps}
         if d.video_resized_width:
             ele["resized_width"] = d.video_resized_width
             ele["resized_height"] = d.video_resized_height
-        plan = plan_video_geometry(ele, arr.shape[0], float(rec.get("video_fps", 1.0)),
-                                   fps_max_frames=d.fps_max_frames,
-                                   native_height=arr.shape[1], native_width=arr.shape[2])
-        return video_features(arr[list(plan.frame_indices)], plan.resized_height,
-                              plan.resized_width, plan.sample_fps)
+        return fetch_video(ele, VideoPreprocessConfig(
+            fps_max_frames=d.fps_max_frames, write_timestamps=d.write_timestamps,
+            write_subtitles=d.write_subtitles))
 
     def _load_videos(self, rec: dict) -> list[VideoFeatures]:
         if "image" in rec:
-            raise NotImplementedError("image records are not ported yet")
+            raise NotImplementedError("image records need the image reader port "
+                                      "(ROADMAP Queue 1 #4)")
         if "video" not in rec:
             return []
         items = rec["video"]
         if isinstance(items, str) or (isinstance(items, np.ndarray) and items.ndim == 4):
             items = [items]
-        for f in items:
-            if isinstance(f, str):
-                raise NotImplementedError(
-                    f"video file {f!r}: decoding files needs the video reader port "
-                    "(ROADMAP Queue 1 #3); pass decoded uint8 frames [T, H, W, 3]")
         return [self._frames_features(f, rec) for f in items]
 
     def __getitem__(self, i: int) -> SFTExample:

@@ -7,7 +7,9 @@ numpy arrays, bf16 included) and copies it into a Qwen25VL, splitting the
 stacked leaves, so both packages compute on the same weights in the tests.
 `load_jax_lora` does the same for a JAX adapter tree (``train/lora.py``:
 ``{"a": [L, in, r], "b": [L, r, out]}`` under each adapted kernel) onto the
-adapters attached to the port's modules, so both train the same adapters.
+adapters attached to the port's modules, so both train the same adapters
+(``init_lora_for_quantized``'s tree too: its adapters sit under the
+``kernel`` of each adapted int8 linear, as the JAX function renames them).
 The MoE leaves ([L, E, ...]) split on L only, and the leaves of a
 quantized tree (8-bit {kernel_q, scale}, 4-bit {kernel_q4, scale4}) load
 into a model quantized alike (models/quant.py), int8 copied as int8 and the

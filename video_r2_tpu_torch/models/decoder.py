@@ -220,14 +220,18 @@ class DecoderLayer(nn.Module):
     def forward(self, x, cos, sin, bias, k_cache=None, v_cache=None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False, act_quant: str | None = None,
-                head_major: bool = False, kv_scales=None):
+                head_major: bool = False, kv_scales=None, segment_ids=None):
         """k_cache / v_cache: this layer's cache, written in place at
         [cache_position, cache_position + S): seq-major [B, Smax, kh, hd],
         attended over whole, or (head_major) [B, kh, Smax, hd], with the
         attention over the local k / v; None attends over the local k / v.
         kv_scales: this layer's (k_scale, v_scale) [B, Smax, kh] of an int8
         cache, written with it; a causal call (the fill) then attends over
-        the local k / v, any other over the whole int8 cache with `bias`."""
+        the local k / v, any other over the whole int8 cache with `bias`.
+        segment_ids [B, S]: on the path without a cache (the training
+        forward), key j is admitted for query i only where
+        segment_ids[b, i] == segment_ids[b, j] (the flash kernel's segment
+        masking); the cache paths do not take them."""
         S = x.shape[1]
         q, k, v = self.qkv(x, cos, sin, act_quant)
         if kv_scales is not None:
@@ -247,7 +251,8 @@ class DecoderLayer(nn.Module):
             v_cache[:, cache_position:cache_position + S] = v
             k, v = k_cache, v_cache
         attn = dot_product_attention(q, k, v, bias=bias, kv_lengths=kv_lengths,
-                                     causal=causal, impl=attn_impl)
+                                     causal=causal, impl=attn_impl,
+                                     segment_ids=segment_ids if k_cache is None else None)
         return self.finish(x, attn, act_quant)
 
 
@@ -267,7 +272,8 @@ class Decoder(nn.Module):
                 cache: KVCache | DecodeKVCache | QuantKVCache | None = None,
                 cache_position: int = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False,
-                remat: bool = False, act_quant: str | None = None) -> torch.Tensor:
+                remat: bool = False, act_quant: str | None = None,
+                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
         bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
         [B, S, H]; `cache` (if given) is updated in place (a DecodeKVCache by
@@ -275,14 +281,16 @@ class Decoder(nn.Module):
         fill when causal, with bias None, else by a decode step). remat:
         under autograd, keep only each layer's input and recompute the layer
         in the backward (gradient checkpointing). act_quant="int8": W8A8 on
-        int8 weights."""
+        int8 weights. segment_ids [B, S] (no cache): attention stays within
+        a segment, as the JAX decoder_forward's segment_ids; under remat
+        they travel as an argument of the checkpointed layer."""
         head_major = isinstance(cache, DecodeKVCache)
         quant = isinstance(cache, QuantKVCache)
         for i, layer in enumerate(self.layers):
             kc, vc = (cache.k[i], cache.v[i]) if cache is not None else (None, None)
             scales = (cache.k_scale[i], cache.v_scale[i]) if quant else None
             args = (hidden, cos, sin, bias, kc, vc, cache_position, attn_impl,
-                    kv_lengths, causal, act_quant, head_major, scales)
+                    kv_lengths, causal, act_quant, head_major, scales, segment_ids)
             if remat and torch.is_grad_enabled():
                 hidden = checkpoint(layer, *args, use_reentrant=False)
             else:

@@ -26,7 +26,9 @@ def dot_product_attention(
     impl: str = "xla",
 ) -> torch.Tensor:
     """GQA attention, fp32 accumulation. Returns [B, Sq, num_heads, head_dim].
-    impl="xla" names the plain path, as in the JAX package."""
+    impl="xla" names the plain path, as in the JAX package. segment_ids
+    (with kv_lengths, no bias) admit key j for query i only within one
+    segment, on the flash path and on the plain path it falls back to."""
     if impl not in ("xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "flash" and kv_lengths is not None and q.shape[1] > 8:
@@ -41,6 +43,8 @@ def dot_product_attention(
         if causal:
             i = torch.arange(Sq, device=q.device)[:, None]
             allowed = allowed & (j <= i)[None]
+        if segment_ids is not None:
+            allowed = allowed & (segment_ids[:, :, None] == segment_ids[:, None, :])
         bias = torch.where(allowed[:, None], 0.0, NEG_INF)
     return plain_attention(q, k, v, bias)
 

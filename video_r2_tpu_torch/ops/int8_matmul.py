@@ -347,12 +347,17 @@ def quantized_linear_auto(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor
                           impl: str = "kernel") -> torch.Tensor:
     """x [..., K] @ an int8 leaf (wq [K, N], scale [N]) -> [..., N]: 1 to
     INT8_KERNEL_MAX_ROWS rows of bf16 x through `int8_matmul` (impl="plain":
-    its plain version); more rows, or x of another dtype, converted to x's
-    dtype and multiplied with torch.matmul, the scale in x's dtype, as the
-    reference's XLA path. Chosen by dtype and rows up front."""
+    its plain version); more rows, x of another dtype, or a call that needs
+    a gradient (grad enabled and x or scale requiring it: QLoRA's frozen
+    base under adapters), converted to x's dtype and multiplied with
+    torch.matmul, the scale in x's dtype, as the reference's XLA path, so
+    autograd forms dX = dY (W s)^T. Chosen by dtype, rows and autograd up
+    front."""
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
-    if x.dtype == torch.bfloat16 and 0 < x2.shape[0] <= INT8_KERNEL_MAX_ROWS:
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad)
+    if (x.dtype == torch.bfloat16 and 0 < x2.shape[0] <= INT8_KERNEL_MAX_ROWS
+            and not needs_grad):
         fn = int8_matmul if impl == "kernel" else int8_matmul_plain
         y = fn(x2.contiguous(), wq, scale)
     else:
