@@ -20,6 +20,7 @@ from video_r2_tpu.models.config import tiny_test_config as j_tiny
 from video_r2_tpu.models.loader import init_params as j_init
 from video_r2_tpu.models.vision import plan_vision_layout as j_plan
 from video_r2_tpu.models.vision import vit_forward as j_vit
+from video_r2_tpu_torch.apps import demo
 from video_r2_tpu_torch.apps.demo import DemoRunner
 from video_r2_tpu_torch.engine import sampling
 from video_r2_tpu_torch.engine.chat import (
@@ -99,12 +100,13 @@ def test_greedy_generate_token_exact(models, rng, video, chunk):
 
 
 def test_demo_runner_token_exact(models, monkeypatch):
-    """End to end from decoded frames: the JAX DemoRunner gets the same
-    VideoFeatures in place of its file reader (fetch_video)."""
+    """End to end from decoded frames: both DemoRunners get the same
+    VideoFeatures in place of their file reader (fetch_video)."""
     jparams, model = models
     frames = np.random.default_rng(3).integers(0, 256, (4, 112, 168, 3), np.uint8)
     feats = video_features(frames, 112, 168, sample_fps=1.5)
     monkeypatch.setattr(jdemo, "fetch_video", lambda ele, cfg: feats)
+    monkeypatch.setattr(demo, "fetch_video", lambda ele, cfg: feats)
     seen = []
     j_gen = jdemo.generate
     monkeypatch.setattr(jdemo, "generate",
@@ -114,7 +116,7 @@ def test_demo_runner_token_exact(models, monkeypatch):
     ref = jdemo.DemoRunner(jparams, j_tiny(), tok, impl="flash").answer(
         "clip.mp4", question, max_new_tokens=8)
     runner = DemoRunner(model, tok, impl="flash")
-    assert runner.answer(feats, question, max_new_tokens=8) == ref
+    assert runner.answer("clip.mp4", question, max_new_tokens=8) == ref
     req = runner.prepare(feats, question)
     flash = runner.generate(req, 8)
     np.testing.assert_array_equal(flash.sequences, seen[0].sequences)

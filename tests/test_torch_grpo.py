@@ -36,6 +36,7 @@ import torch
 
 from video_r2_tpu.data.config import DataConfig as JDataConfig
 from video_r2_tpu.data.grpo import GRPODataset as JGRPODataset
+from video_r2_tpu.video.api import fetch_video as j_fetch_video
 from video_r2_tpu.models.config import tiny_test_config as j_tiny
 from video_r2_tpu.models.loader import init_params as j_init
 from video_r2_tpu.models.quant import quantize_params as j_quantize_params
@@ -72,6 +73,7 @@ from video_r2_tpu_torch.train.lora import (
 )
 from video_r2_tpu_torch.train.optim import OptimConfig
 from video_r2_tpu_torch.train.sft import init_train_state
+from video_r2_tpu_torch.video.api import fetch_video
 
 T = torch.from_numpy
 LKW = dict(r=4, alpha=8)
@@ -496,7 +498,7 @@ def _frame_records(rng):
              "conversations": [{"from": "human", "value": "Count <video> them."}]}]
 
 
-def test_grpo_dataset_matches_jax(rng):
+def test_grpo_dataset_matches_jax(rng, tmp_path):
     records = _frame_records(rng)
     dkw = dict(video_min_pixels=4 * 28 * 28, video_max_pixels=56 * 84, fps=2.0)
     ours = GRPODataset(records, DataConfig(**dkw))
@@ -519,10 +521,28 @@ def test_grpo_dataset_matches_jax(rng):
                         assert ea[k] is eb[k]
                     else:
                         assert ea[k] == eb[k], k
-    for bad in ({"video": "clip.mp4", "conversations": []},
-                {"image": "a.jpg", "conversations": []}):
-        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-            GRPODataset([bad], DataConfig())[0]
+    # a video file (refused until the video reader was ported) resolves
+    # under image_folder with its .srt under video_subtitles_folder, as in
+    # the JAX dataset; the runner's fetch_video then decodes it
+    from tests.test_torch_video import SRT, _write_mp4
+
+    folder = tmp_path
+    _write_mp4(folder / "clip.mp4", n=12, hw=(56, 84))
+    (folder / "clip.srt").write_text(SRT)
+    rec = {"video": "clip.mp4", "key_frame": "00:01",
+           "conversations": [{"from": "human", "value": "<video>\nWhat moves?"},
+                             {"from": "gpt", "value": "<answer>A</answer>"}]}
+    dkw = dict(dkw, image_folder=str(folder), video_subtitles_folder=str(folder))
+    a, b = GRPODataset([rec], DataConfig(**dkw))[0], JGRPODataset([rec], JDataConfig(**dkw))[0]
+    assert a == b
+    ele = a["prompt"][1]["content"][0]
+    assert ele["video"] == str(folder / "clip.mp4")
+    assert ele["subtitles"] == str(folder / "clip.srt")
+    feats, jfeats = fetch_video(ele), j_fetch_video(ele)
+    np.testing.assert_array_equal(feats.patches, jfeats.patches)
+    assert feats.grid_thw == jfeats.grid_thw
+    with pytest.raises(NotImplementedError, match="image inputs"):
+        GRPODataset([{"image": "a.jpg", "conversations": []}], DataConfig())[0]
 
 
 def test_runner_refuses_to_cut_a_video_prompt(base):

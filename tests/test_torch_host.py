@@ -45,6 +45,8 @@ REPO = Path(__file__).resolve().parent.parent
 _IMPORT_ALL = """
 import sys, pkgutil, importlib
 sys.modules["jax"] = None            # any `import jax` now raises ImportError
+sys.modules["cv2"] = None            # the card's machine has neither cv2 nor PIL
+sys.modules["PIL"] = None
 import video_r2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -55,7 +57,11 @@ for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
              "ops.decode_attention", "ops.int8_matmul", "rewards.accuracy",
              "rewards.format", "rewards.parsing", "rewards.embedding",
              "rewards.temporal", "rewards.registry", "train.grpo", "train.grpo_runner",
-             "ops.logprobs", "data.grpo", "apps.train_grpo", "utils.profiling"):
+             "ops.logprobs", "data.grpo", "apps.train_grpo", "utils.profiling",
+             "video.reader", "video.overlay", "video.srt", "video.cache", "data.prefetch",
+             "evalharness.engine_backend", "evalharness.runner", "evalharness.regression",
+             "evalharness.tasks.benchmarks", "evalharness.tasks.tempcompass",
+             "apps.common", "apps.run_eval", "apps.demo"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)

@@ -146,10 +146,34 @@ def test_collator_matches_jax():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f.name)
 
 
-def test_dataset_refuses_video_files():
-    ds = SFTDataset([{"video": "clip.mp4", "conversations": []}], ByteTokenizer(),
+def test_dataset_refuses_video_files(tmp_path):
+    """Video files, which the dataset refused until the video reader was
+    ported, now decode: a record naming an mp4 under image_folder (its .srt
+    under video_subtitles_folder, timestamps and subtitles burned in) gives
+    the JAX dataset's example exactly. Image records are still refused."""
+    from tests.test_torch_video import SRT, _write_mp4
+
+    _write_mp4(tmp_path / "clip.mp4", n=30, hw=(56, 84))
+    (tmp_path / "subs").mkdir()
+    (tmp_path / "subs" / "clip.srt").write_text(SRT)
+    rec = {"video": "clip.mp4", "video_fps": 5.0, "conversations": [
+        {"from": "human", "value": "<video>\nWhat moves?"},
+        {"from": "gpt", "value": "<think>hmm</think><answer>left</answer>"}]}
+    dkw = dict(DATA, image_folder=str(tmp_path), video_subtitles_folder=str(tmp_path / "subs"),
+               write_timestamps=True, write_subtitles=True)
+    ours = SFTDataset([rec], ByteTokenizer(SPECIALS), tiny_test_config(), DataConfig(**dkw))[0]
+    ref = JSFTDataset([rec], JByteTokenizer(SPECIALS), j_tiny(), JDataConfig(**dkw))[0]
+    for f in ("input_ids", "labels", "video_patches"):
+        np.testing.assert_array_equal(getattr(ours, f), getattr(ref, f), err_msg=f)
+    assert ours.video_grid_thw == ref.video_grid_thw
+    assert ours.second_per_grid_ts == ref.second_per_grid_ts
+    plain = SFTDataset([rec], ByteTokenizer(SPECIALS), tiny_test_config(),
+                       DataConfig(**dict(dkw, write_timestamps=False,
+                                         write_subtitles=False)))[0]
+    assert not np.array_equal(plain.video_patches, ours.video_patches)
+    ds = SFTDataset([{"image": "a.jpg", "conversations": []}], ByteTokenizer(),
                     tiny_test_config(), DataConfig())
-    with pytest.raises(NotImplementedError, match="video reader"):
+    with pytest.raises(NotImplementedError, match="image inputs"):
         ds[0]
 
 
@@ -231,8 +255,9 @@ def test_lora_attach_and_merge_match_jax(base, rng, include_vision):
     assert all(m.lora_a is None for m in merged.modules() if isinstance(m, Linear))
     assert not any(p.requires_grad for p in merged.parameters())
     feats = video_features(_records(4)[1]["video"][:4], 56, 84, sample_fps=2.0)
-    assert isinstance(DemoRunner(merged, ByteTokenizer(SPECIALS)).answer(
-        feats, "Why?", max_new_tokens=3), str)
+    runner = DemoRunner(merged, ByteTokenizer(SPECIALS))
+    res = runner.generate(runner.prepare(feats, "Why?"), 3)
+    assert res.sequences.shape == (1, 3) and 1 <= res.lengths[0] <= 3
     assert model.model.layers[0].attn.q.lora_a is params["model.layers.0.attn.q.lora_a"]
     detach_lora(model)
     assert not any(n.endswith("lora_a") for n, _ in model.named_parameters())

@@ -1,0 +1,70 @@
+"""Shared app bootstrap: the model, tokenizer and mesh from an AppConfig.
+
+Port of ``video_r2_tpu/apps/common.py``. `build_model` builds the preset
+with seeded random weights on the card (``device``, "cuda" unless the caller
+asks for another) and quantizes it in place for ``run.weight_quant``
+(models/quant.py). Loading an HF checkpoint or a BPE tokenizer waits for the
+HF loader port (ROADMAP Queue 1 #9), and a mesh for the parallelism port
+(Queue 1 #8): each raises.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..config import AppConfig
+from ..engine.chat import ByteTokenizer
+from ..models.loader import init_params
+from ..models.quant import quantize_params
+
+logger = logging.getLogger("video_r2_tpu_torch")
+
+
+def setup_logging():
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+
+def build_model(app: AppConfig, device: str | torch.device = "cuda"):
+    """The preset's Qwen25VL with seeded weights on `device`; weight_quant
+    "int8" / "int4" quantizes it in place (weight-only). A CUDA device that
+    is not there raises: the entry points never fall back to the CPU."""
+    cfg = app.model_config()
+    wq = app.run.weight_quant
+    if wq not in ("", None, "int8", "int4"):
+        # a typo ('in8', 'int_4') would otherwise silently load int8
+        raise ValueError(
+            f"run.weight_quant must be '', 'int8', or 'int4' (got {wq!r})")
+    if app.run.checkpoint:
+        raise NotImplementedError("loading HF weights waits for the HF loader port "
+                                  "(ROADMAP Queue 1 #9)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model is built on the card, and no CUDA device is "
+                           "available (a caller that wants the CPU builds its own "
+                           "model and passes it in)")
+    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype, device=device)
+    if wq:
+        quantize_params(model, bits=4 if wq == "int4" else 8)
+    logger.warning("no checkpoint given - seeded random weights%s",
+                   f" ({wq} weight-only)" if wq else "")
+    return model
+
+
+def build_tokenizer(app: AppConfig):
+    if app.run.tokenizer:
+        raise NotImplementedError("the BPE tokenizer waits for the HF loader port "
+                                  "(ROADMAP Queue 1 #9)")
+    return ByteTokenizer()
+
+
+def build_mesh(app: AppConfig):
+    """None for one device; a mesh raises until the parallelism port."""
+    r = app.run
+    if r.dp * r.pp * r.fsdp * r.sp * r.ep * r.tp <= 1:
+        return None
+    raise NotImplementedError("a device mesh waits for the parallelism port "
+                              "(ROADMAP Queue 1 #8)")

@@ -6,8 +6,8 @@ Usage (the card; weights seeded at random until the HF loader is ported):
       --grpo.reward_weights 1,1,1 --grpo.rollout_backend paged \\
       --run.max_steps 500 --run.output_dir out/
 
-The dataset's records hold decoded uint8 frames under ``"video"``
-(data/grpo.py; video files raise until the video reader is ported). `main`
+The dataset's records hold a video file or decoded uint8 frames under
+``"video"`` (data/grpo.py; image records raise). `main`
 builds the model, the byte tokenizer and the dataset from the config;
 `train` is the loop, for any model and dataset (chip_smoke.py hands it the
 7B and an in-memory dataset). With ``run.use_lora`` only the adapters train
@@ -34,7 +34,6 @@ import numpy as np
 from ..config import AppConfig, parse_config, resolve_attn_impl
 from ..data.grpo import GRPODataset
 from ..engine.chat import ByteTokenizer
-from ..models.loader import init_params
 from ..models.model import Qwen25VL
 from ..rewards.embedding import load_embedder
 from ..rewards.judge import OpenAICompatClient
@@ -52,6 +51,7 @@ from ..train.lora import (
 )
 from ..train.sft import TrainState, init_train_state
 from ..utils.metrics_log import MetricsLogger
+from .common import build_mesh, build_model, build_tokenizer
 
 logger = logging.getLogger("video_r2_tpu_torch.train_grpo")
 
@@ -139,13 +139,14 @@ def main(argv=None, app: AppConfig | None = None, batch_size: int = 1,
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     app = app or parse_config(argv)
-    if app.run.checkpoint or app.run.tokenizer:
-        raise NotImplementedError("loading HF weights and the BPE tokenizer wait "
-                                  "for the HF loader port (ROADMAP Queue 1 #9)")
-    cfg = app.model_config()
-    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype)
+    if app.run.weight_quant == "int4":
+        raise NotImplementedError("run.weight_quant='int4': LoRA over int4 weights is "
+                                  "not ported (int8 runs QLoRA)")
+    build_mesh(app)
+    model = build_model(app)     # weight_quant "int8": QLoRA in `train`
     dataset = GRPODataset(app.data.data_path, app.data)
-    state, _ = train(app, model, dataset, batch_size, reward_names, judge, embedder)
+    state, _ = train(app, model, dataset, batch_size, reward_names, judge, embedder,
+                     tokenizer=build_tokenizer(app))
     return state
 
 

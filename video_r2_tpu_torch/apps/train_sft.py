@@ -26,13 +26,12 @@ import torch
 
 from ..config import AppConfig, parse_config, resolve_attn_impl
 from ..data.sft import SFTCollator, SFTDataset
-from ..engine.chat import ByteTokenizer
-from ..models.loader import init_params
 from ..models.model import Qwen25VL
 from ..train.checkpoint import resume_or_none, save_checkpoint
 from ..train.lora import attach_lora, init_lora, lora_param_count
 from ..train.sft import TrainState, init_train_state, make_lora_sft_step, make_sft_step
 from ..utils.metrics_log import MetricsLogger
+from .common import build_mesh, build_model, build_tokenizer
 
 logger = logging.getLogger("video_r2_tpu_torch.train_sft")
 
@@ -120,12 +119,12 @@ def main(argv=None, app: AppConfig | None = None,
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     app = app or parse_config(argv)
-    if app.run.checkpoint or app.run.tokenizer:
-        raise NotImplementedError("loading HF weights and the BPE tokenizer wait "
-                                  "for the HF loader port (ROADMAP Queue 1 #9)")
-    cfg = app.model_config()
-    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype)
-    dataset = SFTDataset(app.data.data_path, ByteTokenizer(), cfg, app.data)
+    if app.run.weight_quant:
+        raise NotImplementedError("run.weight_quant: SFT over a quantized base is "
+                                  "not ported (QLoRA runs in apps/train_grpo.py)")
+    build_mesh(app)
+    model = build_model(app)
+    dataset = SFTDataset(app.data.data_path, build_tokenizer(app), model.cfg, app.data)
     state, _ = train(app, model, dataset, batch_size)
     return state
 

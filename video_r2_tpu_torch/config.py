@@ -1,12 +1,13 @@
 """Typed configuration tree + CLI binding for the port's entry points.
 
-A copy of the parts of ``video_r2_tpu/config.py`` that the SFT and GRPO
-trainers read (that module imports the JAX package's trainers): `RunConfig`'s
-run and training-loop fields, `AppConfig` over the run / data / optim /
-sft / grpo / lora sections, `parse_config` (``--config file.json`` plus
-``--section.field value``) and `resolve_attn_impl`, whose "auto" picks
-the flash kernels on a CUDA device as the JAX one picks them on the TPU.
-tests/test_torch_host.py holds the copied fields equal to the originals.
+A copy of the parts of ``video_r2_tpu/config.py`` that the port's entry
+points read (that module imports the JAX package's trainers): `RunConfig`'s
+run, mesh, training-loop and weight_quant fields, `EvalConfig`, `AppConfig`
+over the run / eval / data / optim / sft / grpo / lora sections,
+`parse_config` (``--config file.json`` plus ``--section.field value``) and
+`resolve_attn_impl`, whose "auto" picks the flash kernels on a CUDA device as
+the JAX one picks them on the TPU. tests/test_torch_host.py and
+tests/test_torch_eval.py hold the copied fields equal to the originals.
 """
 
 from __future__ import annotations
@@ -42,6 +43,15 @@ class RunConfig:
     output_dir: str = "output"
     seed: int = 0
     dtype: str = "bfloat16"
+    # mesh: CLI-parity fields only (the JAX --run.dp .. --run.tp flags); their
+    # one reader, apps/common.py::build_mesh, raises past one device until
+    # the parallelism port gives them a real one (ROADMAP Queue 1 #8)
+    dp: int = 1
+    pp: int = 1
+    fsdp: int = 1
+    sp: int = 1
+    ep: int = 1
+    tp: int = 1
     # training loop
     max_steps: int = 1000
     save_steps: int = 500
@@ -50,11 +60,37 @@ class RunConfig:
     resume: bool = True
     use_lora: bool = False
     attn_impl: str = "auto"           # auto -> flash on a CUDA device, xla elsewhere
+    weight_quant: str = ""            # "int8" / "int4": weight-only quantized
+                                      # params (apps/common.py::build_model)
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Eval-harness backend options (the reference's --model_args string,
+    run_all.sh:31, as first-class flags)."""
+
+    max_num_frames: int = 128         # FPS_MAX_FRAMES
+    max_pixels: int = 151200
+    min_pixels: int = 100352
+    fps: float = 0.0                  # 0 = qwen_vl_utils default sampling
+    batch_size: int = 8
+    system_prompt: str = "You are a helpful assistant."
+    engine_mode: str = "batch"        # "batch" | "paged" (continuous)
+    engine_max_len: int = 0           # 0 = size from the longest prompt
+    act_quant: str = ""               # "int8": W8A8 prefill
+    kv_quant: str = ""                # "int8": int8 KV cache
+    vit_act_quant: str = ""           # "int8": W8A8 ViT (activation shift)
+    window_divisible: bool = False    # ViT-window resize bucketing
+    patch_dtype: str = "float32"      # "float16": half the patch transfer
+    decode_steps: int = 8             # paged: tokens per decode dispatch
+    spec_decode: int = 0              # paged: K-draft speculative decoding
+                                      # (raises: ROADMAP Queue 1 #6)
 
 
 @dataclass(frozen=True)
 class AppConfig:
     run: RunConfig = field(default_factory=RunConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     sft: SFTConfig = field(default_factory=SFTConfig)

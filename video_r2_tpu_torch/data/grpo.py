@@ -1,24 +1,26 @@
 """GRPO dataset: LLaVA records -> prompt-only samples with the GT answer and
 the temporal ground truth.
 
-Port of ``video_r2_tpu/data/grpo.py`` for records whose ``"video"`` holds
-decoded uint8 frames ([T, H, W, 3], or a list of such clips): the media
-placeholders are deleted from the text (the media travel structurally, as
-video elements the GRPO runner reads through video/api.py::fetch_video),
-and the sample carries the assistant's answer plus ``temporal_captions`` /
-``temporal_grounding`` for the TAR reward. Video files and image records
-raise until the video reader is ported (ROADMAP Queue 1 #4).
+Port of ``video_r2_tpu/data/grpo.py`` for video records: ``"video"`` holds
+a file (resolved under ``image_folder``) or decoded uint8 frames ([T, H, W,
+3], or a list of such clips). The media placeholders are deleted from the
+text (the media travel structurally, as video elements the GRPO runner reads
+through video/api.py::fetch_video), and the sample carries the assistant's
+answer plus ``temporal_captions`` / ``temporal_grounding`` for the TAR
+reward. Image records raise: image prompts into the model wait for a later
+slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import json
-
-import numpy as np
+import os
+from pathlib import Path
 
 from .config import DataConfig
 from .constants import DEFAULT_SYSTEM_MESSAGE
 from .conversion import llava_to_openai
+from .sft import _resolve
 
 
 class GRPODataset:
@@ -40,19 +42,24 @@ class GRPODataset:
         contents: list[dict] = []
 
         if "image" in rec:
-            raise NotImplementedError("image records need the image reader port "
-                                      "(ROADMAP Queue 1 #4)")
+            raise NotImplementedError(
+                "image records: image prompts into the model are not ported yet "
+                "(ROADMAP Queue 1, image inputs)")
         if is_video:
-            clips = rec["video"] if isinstance(rec["video"], list) else [rec["video"]]
+            files = rec["video"] if isinstance(rec["video"], list) else [rec["video"]]
             key_frames = rec.get("key_frame", "")
             if isinstance(key_frames, str):
                 key_frames = [key_frames]
-            for f, kf in zip(clips, key_frames + [""] * (len(clips) - len(key_frames))):
-                if not isinstance(f, np.ndarray):
-                    raise NotImplementedError(
-                        f"video {f!r}: decoding files needs the video reader port "
-                        "(ROADMAP Queue 1 #4); pass decoded uint8 frames [T, H, W, 3]")
-                ele = {"type": "video", "video": f, "subtitles": None, "key_frame": kf,
+            for f, kf in zip(files, key_frames + [""] * (len(files) - len(key_frames))):
+                sub = None
+                if self.dcfg.video_subtitles_folder and isinstance(f, str):
+                    cand = Path(os.path.join(self.dcfg.video_subtitles_folder, f)
+                                ).with_suffix(".srt")
+                    sub = str(cand) if cand.exists() else None
+                ele = {"type": "video",
+                       "video": _resolve(f, self.dcfg.image_folder)
+                       if isinstance(f, str) else f,
+                       "subtitles": sub, "key_frame": kf,
                        "min_pixels": self.dcfg.video_min_pixels,
                        "max_pixels": self.dcfg.video_max_pixels,
                        "fps": self.dcfg.fps}

@@ -1,11 +1,13 @@
 """SFT dataset + collator: LLaVA records -> masked-CE batches.
 
-Port of ``video_r2_tpu/data/sft.py`` for video records whose ``"video"``
-holds decoded frames (the JAX frames passthrough, ``data/sft.py:98-99``,
-read by ``video/reader.py::read_video_frames_list``): the same frame
-sampling and resize plan (video/geometry.py), through video/api.py's
-``fetch_video``. A video *file* needs the video reader and raises, as do
-image records and timestamp / subtitle burn-in (ROADMAP Queue 1 #4).
+Port of ``video_r2_tpu/data/sft.py`` for video records: ``"video"`` holds
+a file (resolved under ``image_folder``, decoded with cv2) or decoded uint8
+frames (the JAX frames passthrough, ``data/sft.py:98-99``), each through
+video/api.py's ``fetch_video`` with the same frame sampling and resize plan,
+the sibling ``.srt`` under ``video_subtitles_folder`` and the timestamp /
+subtitle burn-in the data config asks for. Image records raise: image inputs
+into the model (``image_patches`` / ``image_grid_thw`` in the batch and the
+loss) wait for a later slice (ROADMAP Queue 1).
 
 The collator emits what the train step consumes: right-padded, bucketed
 input_ids / labels / attention_mask, M-RoPE position_ids (host-planned),
@@ -15,7 +17,9 @@ the concatenated video patches and the planned VisionLayout.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -28,6 +32,12 @@ from ..video.api import VideoFeatures, VideoPreprocessConfig, fetch_video
 from .config import DataConfig
 from .constants import DEFAULT_SYSTEM_MESSAGE, IGNORE_INDEX, IM_END, IM_START, VIDEO_PAD
 from .conversion import llava_to_openai
+
+
+def _resolve(path: str, folder: str) -> str:
+    if os.path.exists(path) or path.startswith("http"):
+        return path
+    return os.path.join(folder, path)
 
 
 @dataclass
@@ -52,35 +62,44 @@ class SFTDataset:
         self.cfg = cfg
         self.dcfg = dcfg
         self.system_message = system_message
+        self.vcfg = VideoPreprocessConfig(
+            fps_max_frames=dcfg.fps_max_frames,
+            write_timestamps=dcfg.write_timestamps,
+            write_subtitles=dcfg.write_subtitles,
+        )
 
     def __len__(self):
         return len(self.records)
 
-    def _frames_features(self, frames, rec: dict) -> VideoFeatures:
-        """Decoded frames -> features through video/api.py::fetch_video,
-        planned as the JAX frames backend plans them (video_fps from the
-        record, default 1)."""
-        d = self.dcfg
-        ele = {"video": frames, "video_fps": float(rec.get("video_fps", 1.0)),
-               "min_pixels": d.video_min_pixels, "max_pixels": d.video_max_pixels,
-               "fps": d.fps}
-        if d.video_resized_width:
-            ele["resized_width"] = d.video_resized_width
-            ele["resized_height"] = d.video_resized_height
-        return fetch_video(ele, VideoPreprocessConfig(
-            fps_max_frames=d.fps_max_frames, write_timestamps=d.write_timestamps,
-            write_subtitles=d.write_subtitles))
-
     def _load_videos(self, rec: dict) -> list[VideoFeatures]:
+        """The record's videos through fetch_video, each element built as
+        the JAX dataset's ``_load_vision`` builds it."""
         if "image" in rec:
-            raise NotImplementedError("image records need the image reader port "
-                                      "(ROADMAP Queue 1 #4)")
+            raise NotImplementedError(
+                "image records: image inputs into the model (image_patches / "
+                "image_grid_thw in the SFT batch and the loss) are not ported yet "
+                "(ROADMAP Queue 1, image inputs)")
         if "video" not in rec:
             return []
-        items = rec["video"]
-        if isinstance(items, str) or (isinstance(items, np.ndarray) and items.ndim == 4):
-            items = [items]
-        return [self._frames_features(f, rec) for f in items]
+        d = self.dcfg
+        files = rec["video"] if isinstance(rec["video"], list) else [rec["video"]]
+        videos = []
+        for f in files:
+            sub = None
+            if d.video_subtitles_folder and isinstance(f, str):
+                cand = Path(os.path.join(d.video_subtitles_folder, f)).with_suffix(".srt")
+                sub = str(cand) if cand.exists() else None
+            ele = {"video": _resolve(f, d.image_folder) if isinstance(f, str) else f,
+                   "subtitles": sub,
+                   "min_pixels": d.video_min_pixels, "max_pixels": d.video_max_pixels,
+                   "fps": d.fps}
+            if d.video_resized_width:
+                ele["resized_width"] = d.video_resized_width
+                ele["resized_height"] = d.video_resized_height
+            if "video_fps" in rec:
+                ele["video_fps"] = rec["video_fps"]
+            videos.append(fetch_video(ele, self.vcfg))
+        return videos
 
     def __getitem__(self, i: int) -> SFTExample:
         rec = self.records[i]

@@ -109,9 +109,13 @@ def lm_head(model: Qwen25VL, hidden: torch.Tensor,
 def forward(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor,
             attention_mask: torch.Tensor | None = None,
             video_patches: torch.Tensor | None = None,
-            video_layout: VisionLayout | None = None) -> torch.Tensor:
-    """Full forward without a cache: logits [B, S, V]. position_ids
-    [3, B, S] from mrope.get_rope_index, attention_mask [B, S] 1 = valid."""
+            video_layout: VisionLayout | None = None, attn_impl: str = "xla",
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full forward without a cache: logits [B, S, V], or with return_hidden
+    the final-normed hidden [B, S, H]. position_ids [3, B, S] from
+    mrope.get_rope_index, attention_mask [B, S] 1 = valid (right padding).
+    attn_impl: the decoder's attention, "xla" (plain, a causal + padding
+    bias) or "flash" (the kernel, causal over each row's valid prefix)."""
     cfg = model.cfg
     device = model.device
     input_ids = torch.as_tensor(input_ids, device=device)
@@ -124,6 +128,15 @@ def forward(model: Qwen25VL, input_ids: torch.Tensor, position_ids: torch.Tensor
                              dtype=h.dtype)
     mask = (torch.as_tensor(attention_mask, device=device)
             if attention_mask is not None else None)
-    bias = causal_mask_bias(input_ids.shape[1], mask, device)
-    h = model.model(h, cos, sin, bias)
+    if attn_impl == "flash":
+        # the flash kernel masks by causality and the valid prefix itself
+        B, S = input_ids.shape
+        lengths = (mask.sum(-1).int() if mask is not None
+                   else torch.full((B,), S, dtype=torch.int32, device=device))
+        h = model.model(h, cos, sin, None, attn_impl=attn_impl, kv_lengths=lengths,
+                        causal=True)
+    else:
+        h = model.model(h, cos, sin, causal_mask_bias(input_ids.shape[1], mask, device))
+    if return_hidden:
+        return h
     return lm_head(model, h)

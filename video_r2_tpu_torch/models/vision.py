@@ -211,11 +211,11 @@ class VisionBlock(nn.Module):
         self.mlp = MLP(D, cfg.intermediate_size, True, **kw)
 
     def forward(self, x, cos, sin, valid, full_gather, use_full: bool, wp: int,
-                attn_impl: str):
+                attn_impl: str, act_quant: str | None = None):
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
         s = x.shape[0]
         h = self.norm1(x)
-        qkv = self.attn.qkv(h).reshape(s, 3, nh, hd)
+        qkv = self.attn.qkv(h, act_quant).reshape(s, 3, nh, hd)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
         q, k = apply_rotary(q, k, cos[:, None, :], sin[:, None, :])
         scale = hd ** -0.5
@@ -226,8 +226,8 @@ class VisionBlock(nn.Module):
             attn = window_attention(q, k, v, valid, wp=wp)
         else:
             attn = window_attention_plain(q, k, v, valid, wp)
-        x = x + self.attn.proj(attn.reshape(s, nh * hd))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.attn.proj(attn.reshape(s, nh * hd), act_quant)
+        return x + self.mlp(self.norm2(x), act_quant)
 
 
 class PatchMerger(nn.Module):
@@ -242,9 +242,9 @@ class PatchMerger(nn.Module):
         self.fc1 = Linear(D4, D4, True, **kw)
         self.fc2 = Linear(D4, cfg.out_hidden_size, True, **kw)
 
-    def forward(self, x):
+    def forward(self, x, act_quant: str | None = None):
         u = self.ln_q(x).reshape(x.shape[0] // self.cfg.spatial_merge_unit, -1)
-        return self.fc2(torch.nn.functional.gelu(self.fc1(u)))
+        return self.fc2(torch.nn.functional.gelu(self.fc1(u, act_quant)), act_quant)
 
 
 class VisionTower(nn.Module):
@@ -259,7 +259,8 @@ class VisionTower(nn.Module):
 
 
 def vit_forward(tower: VisionTower, patches: torch.Tensor, layout: VisionLayout,
-                attn_impl: str = "auto", remat: bool = False) -> torch.Tensor:
+                attn_impl: str = "auto", remat: bool = False,
+                act_quant: str | None = None) -> torch.Tensor:
     """patches [S_real, C*tps*p*p] -> merged vision embeddings
     [S_real/4, out_hidden] in the order the processor emitted patches.
 
@@ -267,7 +268,9 @@ def vit_forward(tower: VisionTower, patches: torch.Tensor, layout: VisionLayout,
     (the JAX package picks its Pallas kernels on the TPU the same way) and
     the plain path elsewhere; "xla" / "kernel" force a path. Both run under
     autograd (the kernels through their backward kernels). remat: under
-    autograd, recompute each block in the backward."""
+    autograd, recompute each block in the backward. act_quant="int8": W8A8
+    in the blocks' and the merger's linears on int8 weights (as the JAX
+    tower's act_quant; the patch embed stays a float matmul)."""
     cfg = tower.cfg
     w = tower.patch_embed.kernel
     device = w.device
@@ -287,10 +290,10 @@ def vit_forward(tower: VisionTower, patches: torch.Tensor, layout: VisionLayout,
     full = set(cfg.fullatt_block_indexes)
     for i, block in enumerate(tower.blocks):
         args = (x, cos, sin, valid, full_gather, i in full,
-                layout.window_patches, attn_impl)
+                layout.window_patches, attn_impl, act_quant)
         if remat and torch.is_grad_enabled():
             x = checkpoint(block, *args, use_reentrant=False)
         else:
             x = block(*args)
-    u = tower.merger(x)
+    u = tower.merger(x, act_quant)
     return u[as_t(layout.out_unit_gather).long()]

@@ -5,7 +5,7 @@ Port of the save/resume half of ``video_r2_tpu/train/checkpoint.py``:
 highest step resumes), keeping ``save_total_limit`` of them. Each holds
 ``state.pt``: the trained parameters (the adapters for LoRA), the optimizer
 and schedule state, and the step, via ``torch.save``. The merged HF export
-(``export_hf_checkpoint``) waits for the HF loader port (ROADMAP Queue 1 #4).
+(``export_hf_checkpoint``) waits for the HF loader port (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations

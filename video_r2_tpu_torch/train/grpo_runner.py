@@ -26,7 +26,7 @@ rollouts would no longer sample the current policy (a fault of the JAX
 runner, which keeps the cache across cycles). The G rollouts of a prompt
 share its pages through `fork`, which needs no cache.
 
-Not ported: image prompts (ROADMAP Queue 1 #4), a mesh (Queue 1 #8).
+Not ported: image prompts (ROADMAP Queue 1, image inputs), a mesh (Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -115,8 +115,9 @@ class GRPORunner:
                     if ele.get("type") == "video" or "video" in ele:
                         feats.append(fetch_video(ele))
                     elif ele.get("type") == "image" or "image" in ele:
-                        raise NotImplementedError("image prompts need the image reader "
-                                                  "port (ROADMAP Queue 1 #4)")
+                        raise NotImplementedError(
+                            "image prompts into the model are not ported yet "
+                            "(ROADMAP Queue 1, image inputs)")
         embeds = None
         grids = [f.grid_thw for f in feats]
         spgs = [f.second_per_grid_t for f in feats]

@@ -1,8 +1,10 @@
 """Host preprocessing: uint8 frames -> normalized, patchified ViT input.
 
 A copy of the host path of ``video_r2_tpu/video/device_preprocess.py``
-(``grid_thw_for``, ``preprocess_frames_host``); tests/test_torch_host.py holds
-the two equal. PIL is imported only when frames need resizing.
+(``grid_thw_for``, ``preprocess_frames_host``, ``preprocess_frames_np``);
+tests/test_torch_host.py holds the two equal. PIL is imported only when
+frames need resizing. The JAX package's "device" backend (its fused jitted
+graph) is not ported: ``preprocess_frames_np`` refuses it (ROADMAP Queue 1).
 
 Patch layout (HF Qwen2VLImageProcessor._preprocess): frames padded to a
 multiple of temporal_patch_size by repeating the last frame, then
@@ -30,6 +32,18 @@ def grid_thw_for(t: int, target_h: int, target_w: int) -> tuple[int, int, int]:
     return (gt, target_h // PATCH_SIZE, target_w // PATCH_SIZE)
 
 
+def preprocess_frames_np(frames_uint8: np.ndarray, target_h: int, target_w: int,
+                         out_dtype=np.float32, backend: str = "host",
+                         ) -> tuple[np.ndarray, tuple[int, int, int]]:
+    """(patches, grid_thw) as numpy, on the host (backend "host")."""
+    if backend == "device":
+        raise NotImplementedError(
+            "preprocess_backend='device' (video/device_preprocess.py) is not ported "
+            "yet (ROADMAP Queue 1); use 'host'")
+    return (preprocess_frames_host(frames_uint8, target_h, target_w, out_dtype),
+            grid_thw_for(frames_uint8.shape[0], target_h, target_w))
+
+
 def preprocess_frames_host(frames_uint8: np.ndarray, target_h: int,
                            target_w: int, out_dtype=np.float32) -> np.ndarray:
     """(T, H, W, C) uint8 frames -> (gt*gh*gw, C*tps*p*p) patches: PIL bicubic
@@ -37,7 +51,11 @@ def preprocess_frames_host(frames_uint8: np.ndarray, target_h: int,
     a per-channel lookup table (bit-exact vs (x/255 - mean)/std in f32)."""
     t = frames_uint8.shape[0]
     if frames_uint8.shape[1:3] != (target_h, target_w):
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError("resizing frames (preprocess_frames_host) needs PIL "
+                              "(the Pillow package), which is not installed") from e
 
         frames_uint8 = np.stack([
             np.asarray(Image.fromarray(f).resize((target_w, target_h),
