@@ -283,14 +283,38 @@
    (the first submit_batch's 8 prompts at their full budget). Phase 17(d),
    after 17(b) on the int8 7B: one batch-mode pass of EngineModel(kv_quant=
    "int8") over 8 mvbench_think docs, 32 tokens, every doc answered and the
-   int8 decode kernel launched.
+   int8 decode kernel launched. Phase 20(c), after phase 20 on the same
+   model: models/attention_tap.py over the first batch's request 0, its
+   prompt and 64-token completion (S ~3.4k, completion_window the
+   completion, key chunks of 2048, the ViT from its patches), once with
+   attn_impl "flash" and once on the plain path, counted: the two masses
+   within TAP_TOL, the flash kernel launched; ms and peak memory of each.
+21. the post-hoc judge path (after phase 11, on its int8 Qwen3-30B-A3B,
+   phase 11's engines gone): apps/serve's construction (parse_args +
+   build_engine) over scripts/serve_judge.sh's MoE stand-in (--paged
+   --kv-quant int8 --decode-window 8, 16 slots; --max-len 8192 and 32 new
+   tokens, cut for time, no prompt cut; --spec-decode and --prefill-chunk
+   not ported)
+   served on 127.0.0.1 in a thread, then, counted, apps/test_judge,
+   apps/postprocess tac, vas and summarize over phase 20's batch-mode
+   samples tree (16 rows); requests served and failed (HTTP errors and
+   failed admissions, asserted 0), requests/s, client latency p50 / p95,
+   decode tok/s, admissions by route (packed, submit_batch, single) with
+   the prompt lengths each took, the kernels' launches, peak memory, the
+   TAC and VAS summary keys; the outputs' key sets equal those the same
+   functions write under a fixed judge; then, the loop stopped, one decode
+   window under the profiler (idle share) and packed admission on the
+   served engine: four short judge prompts in one row, each one's logits
+   against its solo prefill within PACKED_TOL, a control without segment
+   ids above it.
 
-Phase order: 18, 1-9, 19, 20, 12-13 (one 7B, freed), 10, 14, 11 with 15
-(the judge, freed), 16-17 with 17(d) and 17(c) (a new 7B).
+Phase order: 18, 1-9, 19, 20 with 20(c), 12-13 (one 7B, freed), 10, 14, 11
+with 15, then 21 (the judge, freed), 16-17 with 17(d) and 17(c) (a new
+7B).
 
 Prints a JSON line of per-kernel results (each row's launches on its path,
-grpo_launches of phases 19 / 17(c), eval_launches of phase 20), then the
-card line, and last
+grpo_launches of phases 19 / 17(c), eval_launches of phase 20,
+posthoc_launches of phases 20(c) / 21), then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
 non-zero and that line is not printed. Without CUDA it exits 1 at once.
 """
@@ -524,6 +548,20 @@ TAR = "temporal_grounding_sentence_embedding_consistency_reward"
 EVAL_TASKS = ("mvbench_think", "videomme_think")
 EVAL_DOCS, EVAL_FRAMES, EVAL_HW = 8, 32, (336, 448)
 EVAL_NEW_TOKENS, EVAL_TF_TOKENS, INT8_EVAL_TOKENS = 64, 16, 32
+# the attention tap (phase 20(c)): a mass in [0, 1] from the same weights,
+# the flash path (bf16 kernels in 27 layers) against the plain path
+TAP_KEY_CHUNK, TAP_TOL = 2048, 1e-2
+# the post-hoc judge path (phase 21): scripts/serve_judge.sh's MoE stand-in
+# (--paged --kv-quant int8 over int8 weights, --decode-window 8) with
+# --max-len 8192 (32768 there; the longest VAS prompt over phase 20's rows
+# is ~4.7k byte tokens, so none is cut) and 32 new tokens (1024 there), cut
+# for time; --spec-decode and --prefill-chunk are not ported
+SERVE_ARGV = ("--paged", "--kv-quant", "int8", "--decode-window", "8", "--max-len", "8192",
+              "--run.model_preset", "qwen3-moe-30b-a3b", "--run.weight_quant", "int8")
+SERVE_SLOTS, SERVE_NEW_TOKENS = 16, 32
+PACKED_TOL = 1e-2    # relative L2 of a packed prompt's logits against its solo prefill
+READY_MESSAGES = [{"role": "system", "content": "You are a precise assistant."},
+                  {"role": "user", "content": "Reply with exactly the word READY."}]
 
 
 def card_line() -> str:
@@ -1189,7 +1227,8 @@ def training_phase(model, cfg, card, device, kernel_results):
 def paged_case(gen, what, cfg, lengths, W, pages="bf16", one_layer=False) -> dict:
     """The paged decode kernel at one shape against its plain version, with
     the library call (SDPA over K/V already gathered dense). The pool has
-    the model's 28 layers; each timed launch reads the next layer, so its
+    the model's layers (28 on the 7B, 48 on the judge); each timed launch
+    reads the next layer, so its
     pages come from device memory, as in the decode step, where each
     layer's weights pass through the L2 cache between two calls. pages:
     "bf16" (bf16 q), "int8" (bf16 q over int8 pages) or "fp32" (fp32 q and
@@ -2101,8 +2140,10 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 20: the eval path (EngineModel + evaluate), batch then paged
-    eval_launches = eval_phase(model, card, device)
+    # phase 20: the eval path (EngineModel + evaluate), batch then paged,
+    # and 20(c), the attention tap; the batch pass's samples tree stays for
+    # phase 21
+    eval_launches, tap_launches, eval_tree = eval_phase(model, card, device)
 
     # phases 12 and 13: int4 serving through the head-major decode kernel
     batch = video_batch(runner, cfg, INT4_QUESTIONS)
@@ -2117,6 +2158,8 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     launches.update(int4_runs)
     launches["phase19"] = grpo_launches
     launches["phase20"] = eval_launches
+    launches["phase20c"] = tap_launches
+    launches["phase20_tree"] = eval_tree
     return kernel_results, launches
 
 
@@ -3221,9 +3264,11 @@ def moe_training_phase(model, cfg, tok, card: str) -> dict:
     return {"moe_gmm_bwd_dx": launches["moe_gmm_bwd_dx"]}
 
 
-def judge_phase(card: str, device) -> dict:
-    """Phase 11. Returns the launches of the judge's bf16 run (bf16 FFN
-    entries) and of its int8 pass (int8 and W8A8 entries)."""
+def judge_phase(card: str, device, tree: Path) -> dict:
+    """Phase 11, then phase 21 on its int8 model over phase 20's samples
+    `tree`. Returns the launches of the judge's bf16 run (bf16 FFN entries),
+    of its int8 pass (int8 and W8A8 entries) and, as "phase21", of the
+    served judge."""
     import torch
 
     from video_r2_tpu_torch.engine.chat import ByteTokenizer
@@ -3449,11 +3494,402 @@ def judge_phase(card: str, device) -> dict:
         paged_pass(2)
     replay.check("judge paged pass", timedp)
     print(f"peak device memory (judge passes): {peak:.2f} GiB", flush=True)
-    return {"moe_ffn_bf16_ragged": launches["moe_ffn_bf16_ragged"],
+    del judge, judge8, short, short8, replay     # phase 11's engines and operands
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = posthoc_judge_phase(model, tree, card)        # phase 21
+    return {"phase21": served,
+            "moe_ffn_bf16_ragged": launches["moe_ffn_bf16_ragged"],
             "moe_ffn_bf16_gmm": launches["moe_ffn_bf16_gmm"],
             "moe_ffn_int8_ragged": launches8["moe_ffn_int8_ragged"],
             "moe_ffn_int8_gmm": launchesp["moe_ffn_int8_gmm"],
             "moe_ffn_w8a8_gmm": launches8["moe_ffn_w8a8_gmm"], **trained}
+
+
+def served_window_idle(eng, ids: list) -> str:
+    """One decode window of the served engine (its decode_window tokens for
+    len(ids) requests admitted by submit_batch) under the profiler."""
+    rids = eng.submit_batch([(x, 4 * eng.decode_window) for x in ids])
+    return profiled_window(eng, rids, eng.decode_window,
+                           f"{sum(r is not None for r in rids)} requests")
+
+
+def set_int8_impl(model, impl: str) -> None:
+    """"kernel" or "plain" for the int8 linears only (models/layers.py)."""
+    for mod in model.modules():
+        if hasattr(mod, "int8_impl"):
+            mod.int8_impl = impl
+
+
+def packed_check(eng, chat, card: str) -> None:
+    """Packed admission on the served engine (its loop stopped): four short
+    judge prompts in one row of the top bucket through submit_packed, each
+    prompt's last-token logits against its solo prefill (the same prompt
+    alone in a row of the same width, so every product has the shapes of
+    the packed pass) within PACKED_TOL; a control that drops the segment
+    ids must land above PACKED_TOL for every prompt that is not first in
+    the row. Printed beside it, the engine's bucket-width solo prefill
+    three ways: through the kernels, with the int8 linears on their plain
+    version (at 128 rows the kernel route is the int8 wide kernel; 512
+    rows take convert + matmul on both routes, as the 2048-row packed pass
+    does), and with that and attn_impl "xla" too."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.engine import continuous
+
+    msgs = [READY_MESSAGES]
+    msgs += [[{"role": "system", "content": JUDGE_SYSTEM},
+              {"role": "user", "content": " ".join(JUDGE_STEPS[:k])}] for k in (1, 2, 3)]
+    ids = [chat._encode(m) for m in msgs]
+    ps, width = eng._page_size, max(eng.prompt_buckets)
+    spans = [-(-len(x) // ps) * ps for x in ids]
+    assert sum(spans) <= width and eng.num_active == 0, (spans, eng.num_active)
+
+    def admit(items):
+        rids = eng.submit_packed(items)
+        slots = [next(i for i, r in enumerate(eng.slot_req) if r is not None and r.rid == rid)
+                 for rid in rids]
+        logits = eng.last_logits[slots].clone()
+        for r in rids:
+            eng.request_cancel(r)
+        eng.step(1)
+        return logits
+
+    @torch.inference_mode()
+    def bucket_solo(attn_impl):
+        out = []
+        for x in ids:
+            S = eng._bucket(len(x))
+            row = np.full((1, S), eng.cfg.pad_token_id, np.int64)
+            row[0, :len(x)] = x
+            pos = np.broadcast_to(np.arange(S), (3, 1, S)).copy()
+            lens = torch.tensor([len(x)], dtype=torch.int32, device=eng.device)
+            hidden, _ = continuous._prefill_rows(eng.model, eng._t(row), eng._t(pos), lens,
+                                                 None, attn_impl)
+            out.append(continuous._last_logits(eng.model, hidden, lens))
+        return torch.cat(out)
+
+    reset_launches()
+    packed = admit([(x, 2) for x in ids])
+    flash = read_launches()["flash_attention"]
+    solo = torch.cat([admit([(x, 2)]) for x in ids])
+    reset_launches()
+    bucket = bucket_solo(eng.attn_impl)
+    wide = read_launches()["int8_matmul_wide"]
+    set_int8_impl(eng.model, "plain")
+    try:
+        bucket_plain8 = bucket_solo(eng.attn_impl)
+        bucket_xla = bucket_solo("xla")
+    finally:
+        set_int8_impl(eng.model, "kernel")
+    real = continuous._prefill_packed_into_pages
+    continuous._prefill_packed_into_pages = lambda *a, **k: real(*a[:5], None, *a[6:], **k)
+    try:
+        control = admit([(x, 2) for x in ids])
+    finally:
+        continuous._prefill_packed_into_pages = real
+
+    def rels(a, b):
+        return [rel_l2(a[i], b[i]) for i in range(len(ids))]
+
+    def fmt(r):
+        return "[" + ", ".join(f"{x:.3e}" for x in r) + "]"
+
+    rel, rel_ctrl = rels(packed, solo), rels(control, solo)
+    print(f"phase 21 packed admission: prompts of {[len(x) for x in ids]} tokens in one row "
+          f"of {width} ({flash} flash launches); logits vs the solo prefill rel_l2 "
+          f"{fmt(rel)} (tol {PACKED_TOL}); control without segment ids {fmt(rel_ctrl)} "
+          f"(prompts after the first must be above the tol) | {card}", flush=True)
+    print(f"phase 21 packed vs the bucket-width solo prefill (buckets "
+          f"{[eng._bucket(len(x)) for x in ids]}, {wide} int8 wide launches on the kernel "
+          f"route): through the kernels {fmt(rels(packed, bucket))}; int8 linears plain "
+          f"{fmt(rels(packed, bucket_plain8))}; int8 linears plain and attn xla "
+          f"{fmt(rels(packed, bucket_xla))}; kernels vs int8 linears plain at the same width "
+          f"{fmt(rels(bucket, bucket_plain8))} | {card}", flush=True)
+    if not (torch.isfinite(packed).all() and max(rel) <= PACKED_TOL and flash > 0):
+        raise AssertionError(f"phase 21: packed prompts disagree with their solo prefill: "
+                             f"{rel}")
+    if not min(rel_ctrl[1:]) > PACKED_TOL:
+        raise AssertionError(f"phase 21: the control without segment ids stayed within the "
+                             f"bound: {rel_ctrl}")
+
+
+def served_step_check(eng, chat, card: str) -> None:
+    """The served engine (its loop stopped, its prefix cache off for the
+    check) against its own plain path: test_judge's prompt (a 128-row
+    bucket, so the int8 wide kernel) and the longest of phase 11's
+    TAC-style requests, admitted one at a time; their logits after the
+    prompt and after one decode step over the int8 pages. The plain path is
+    the same engine with attn_impl "xla" and every int8 linear, grouped FFN
+    and the paged decode attention on its plain version, over pages it
+    writes itself; its step is teacher-forced (handed the kernel path's
+    prefill logits, so greedy picks the same token). Within
+    JUDGE_LOGITS_TOL, the bound phase 11 holds this model's kernel path to."""
+    import torch
+
+    from video_r2_tpu_torch.engine import continuous
+    from video_r2_tpu_torch.ops.paged_attention import paged_decode_attention_stacked_plain
+
+    ids = [chat._encode(READY_MESSAGES)] + judge_prompt_ids(chat.tok, judge_requests()[-1:])
+    assert eng.num_active == 0
+
+    @torch.inference_mode()
+    def run(forced=None):
+        rids = [eng.submit(x, 4) for x in ids]
+        slots = [next(i for i, r in enumerate(eng.slot_req) if r is not None and r.rid == rid)
+                 for rid in rids]
+        first = eng.last_logits[slots].clone()
+        if forced is not None:
+            eng.last_logits[slots] = forced
+        eng.step(1)
+        after = eng.last_logits[slots].clone()
+        for r in rids:
+            eng.request_cancel(r)
+        eng.step(1)
+        return first, after
+
+    kept = (eng.prefix_cache, eng.attn_impl, continuous.paged_decode_attention_stacked)
+    eng.prefix_cache = False
+    try:
+        reset_launches()
+        kernel = run()
+        k_launches = read_launches()
+        set_kernel_impl(eng.model, "plain")
+        eng.attn_impl = "xla"
+        continuous.paged_decode_attention_stacked = paged_decode_attention_stacked_plain
+        reset_launches()
+        plain = run(forced=kernel[0])
+        p_launches = read_launches()
+    finally:
+        set_kernel_impl(eng.model, "kernel")
+        eng.prefix_cache, eng.attn_impl, continuous.paged_decode_attention_stacked = kept
+    names = ("flash_attention", "int8_matmul_wide", "int8_matmul_decode",
+             "paged_decode_attention_stacked_quant", "moe_ffn_int8")
+    rel = [[rel_l2(kernel[i][b], plain[i][b]) for b in range(len(ids))] for i in (0, 1)]
+    print(f"phase 21 served engine vs its plain path, prompts of {[len(x) for x in ids]} "
+          f"tokens: logits after the prompt rel_l2 {[f'{r:.3e}' for r in rel[0]]}, after one "
+          f"decode step over int8 pages {[f'{r:.3e}' for r in rel[1]]} (tol "
+          f"{JUDGE_LOGITS_TOL}); argmax {kernel[0].argmax(-1).tolist()} vs "
+          f"{plain[0].argmax(-1).tolist()}, after the step {kernel[1].argmax(-1).tolist()} vs "
+          f"{plain[1].argmax(-1).tolist()}; launches kernel path "
+          f"{ {n: k_launches[n] for n in names} }, plain path "
+          f"{ {n: p_launches[n] for n in names} } | {card}", flush=True)
+    if any(k_launches[n] <= 0 for n in names) or any(p_launches[n] for n in names):
+        raise AssertionError(f"phase 21: the kernel path missed a kernel, or the plain path "
+                             f"launched one: {k_launches} / {p_launches}")
+    if not (all(torch.isfinite(t).all() for t in (*kernel, *plain))
+            and max(max(r) for r in rel) <= JUDGE_LOGITS_TOL):
+        raise AssertionError(f"phase 21: the served engine disagrees with its plain path: "
+                             f"{rel}")
+
+
+def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
+    """Phase 21: the post-hoc judge path on phase 11's int8 Qwen3-30B-A3B
+    (the model apps/common.build_model makes for SERVE_ARGV's config: the
+    same seed, quantize_params in place). apps/serve's construction
+    (parse_args + build_engine) over SERVE_ARGV with SERVE_SLOTS slots and
+    SERVE_NEW_TOKENS tokens an answer, served on 127.0.0.1 in a thread;
+    then apps/test_judge, apps/postprocess tac, vas and summarize over
+    phase 20's samples tree (mvbench_think and videomme_think, 8 rows each)
+    against it, counted. Every HTTP request is timed (client latency), its
+    prompt length kept and its errors counted; the loop's admissions by
+    route are engine.loop_stats, and the decode windows' tokens and seconds
+    are recorded. Fails on any failed request or admission, a TAC / VAS
+    output whose keys differ from those the same functions write with a
+    fixed judge, or a kernel of the path not launched. Then, on the engine
+    with its loop stopped, one decode window under the profiler, the packed
+    admission check and the engine against its plain path; with the engine
+    freed, the kernels at the served shapes (served_kernel_cases). Returns
+    the path's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.apps import postprocess as pp_app
+    from video_r2_tpu_torch.apps import serve as serve_app
+    from video_r2_tpu_torch.apps import test_judge
+    from video_r2_tpu_torch.apps.common import build_tokenizer
+    from video_r2_tpu_torch.engine.server import serve
+    from video_r2_tpu_torch.evalharness import postprocess
+    from video_r2_tpu_torch.rewards import judge as judge_mod
+    from video_r2_tpu_torch.rewards.judge import StaticJudge
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    app, opts, _, _ = serve_app.parse_args(list(SERVE_ARGV))
+    if app.model_config() != model.cfg:
+        raise AssertionError("phase 21: the served config is not phase 11's model's")
+    tok = build_tokenizer(app)
+    chat = serve_app.build_engine(app, model, tok, max_new_tokens=SERVE_NEW_TOKENS,
+                                  num_slots=SERVE_SLOTS, **opts)
+    eng = chat._cont
+    server = serve(chat, host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{server.server_address[1]}/v1"
+    print(f"phase 21: apps/serve {' '.join(SERVE_ARGV)} (num_slots {SERVE_SLOTS}, "
+          f"max_new_tokens {SERVE_NEW_TOKENS}; --spec-decode and --prefill-chunk left out) "
+          f"on {base}, attn_impl {chat.attn_impl}, page size {eng._page_size}, buckets "
+          f"{eng.prompt_buckets}; predictions {sorted(p.name for p in tree.iterdir())} | "
+          f"{card}", flush=True)
+
+    # the client side: every request timed, every error counted
+    latencies, errors, lengths = [], [], []
+    real_chat = judge_mod.OpenAICompatClient.chat
+
+    def timed_chat(self, system, user):
+        lengths.append(len(chat._encode([{"role": "system", "content": system},
+                                         {"role": "user", "content": user}])))
+        t0 = time.perf_counter()
+        try:
+            out = real_chat(self, system, user)
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"{type(e).__name__}: {e}")
+            raise
+        latencies.append(time.perf_counter() - t0)
+        return out
+
+    # the server side: the decode windows' tokens, seconds and FFN launches
+    decode = {"tokens": 0, "s": 0.0, "windows": 0, "ffn": {}}
+
+    def windowed(active, steps):
+        before = dict(ffn_launches())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = real_decode(active, steps)           # synchronizes (tokens to the host)
+        decode["s"] += time.perf_counter() - t0
+        decode["tokens"] += int(np.asarray(active).sum()) * steps
+        decode["windows"] += 1
+        for v, n in ffn_launches().items():
+            decode["ffn"][v] = decode["ffn"].get(v, 0) + n - before.get(v, 0)
+        return toks
+
+    real_decode = eng._decode_all
+    eng._decode_all = windowed
+    judge_mod.OpenAICompatClient.chat = timed_chat
+    out = Path(tempfile.mkdtemp(prefix="vr2_posthoc_"))
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        ready = test_judge.main(["--base", base])
+        pp_app.main(["tac", "--predictions", str(tree), "--out", str(out / "tac"),
+                     "--judge-base", base])
+        pp_app.main(["vas", "--predictions", str(tree), "--out", str(out / "vas"),
+                     "--judge-base", base])
+        summary = pp_app.main(["summarize", "--tac", str(out / "tac"),
+                               "--vas", str(out / "vas")])
+        wall = time.perf_counter() - t0
+    finally:
+        judge_mod.OpenAICompatClient.chat = real_chat
+        server.shutdown()
+        server.server_close()
+        chat.shutdown()
+        del eng._decode_all
+    launches = read_launches()
+    ffn = {v: n for v, n in ffn_launches().items() if n}
+    launches["moe_ffn_int8_ragged"] = decode["ffn"].get("int8", 0)
+    launches["moe_ffn_int8_gmm"] = ffn.get("int8", 0) - launches["moe_ffn_int8_ragged"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    failed = eng.loop_stats["failed"]
+    lat = sorted(latencies)
+    p50, p95 = (lat[min(len(lat) - 1, int(q * len(lat)))] if lat else float("nan")
+                for q in (0.5, 0.95))
+    # the loop packs an idle burst's prompts whose page-rounded span is at
+    # most half the top bucket (engine/continuous.py::_run_loop_impl)
+    packable = [n for n in lengths
+                if 2 * -(-n // eng._page_size) * eng._page_size <= max(eng.prompt_buckets)]
+    too_long = [n for n in lengths if n not in packable]
+    span_split = lambda v: (len(v), min(v), max(v)) if v else (0,)  # noqa: E731
+    kept = ("flash_attention", "paged_decode_attention_stacked_quant", "moe_ffn_int8_ragged",
+            "moe_ffn_int8_gmm", "int8_matmul", "int8_matmul_decode", "int8_matmul_wide")
+    print(f"phase 21: {len(latencies)} requests served, {len(errors) + failed} failed "
+          f"({len(errors)} HTTP errors, {failed} failed admissions) in {wall:.3f} s = "
+          f"{len(latencies) / wall:.4f} requests/s; client latency p50 {p50:.3f} s, p95 "
+          f"{p95:.3f} s; decode {decode['tokens']} slot-tokens in {decode['windows']} windows, "
+          f"{decode['s']:.3f} s = {decode['tokens'] / max(decode['s'], 1e-9):.2f} tok/s; "
+          f"admissions {dict(eng.loop_stats)}; prompt tokens (n, min, max) packable "
+          f"{span_split(packable)}, too long to pack {span_split(too_long)}; launches "
+          f"{ {k: launches[k] for k in kept} }; "
+          f"grouped FFN by variant {ffn}; peak device memory {peak:.2f} GiB | {card}",
+          flush=True)
+    print(f"phase 21 test_judge answer: {ready[:60]!r}; summary keys: tac "
+          f"{ {k: sorted(v) for k, v in summary['tac'].items()} }, vas "
+          f"{ {k: sorted(v) for k, v in summary['vas'].items()} }", flush=True)
+    if errors or failed or len(latencies) < 1 + 4 * 16:
+        raise AssertionError(f"phase 21: failed requests ({errors[:3]}, {failed} failed "
+                             f"admissions) or too few served ({len(latencies)})")
+    if max(lengths) + SERVE_NEW_TOKENS + 1 > eng.max_len:
+        raise AssertionError(f"phase 21: a prompt of {max(lengths)} tokens was cut to the "
+                             f"slot's room ({eng.max_len - SERVE_NEW_TOKENS - 1})")
+    for name in ("flash_attention", "paged_decode_attention_stacked_quant",
+                 "moe_ffn_int8_ragged", "moe_ffn_int8_gmm", "int8_matmul"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 21 launched no {name}: {launches}")
+
+    # the outputs, with the key sets the same functions write under a fixed judge
+    ref = out / "ref"
+    postprocess.run_all_tac(tree, StaticJudge("A"), ref / "tac")
+    postprocess.run_all_vas(tree, StaticJudge('{"score": 5, "rationale": "r"}'), ref / "vas")
+
+    def keys(root):
+        found = {}
+        for f in sorted(root.rglob("*.json*")):
+            text = f.read_text()
+            objs = ([json.loads(line) for line in text.splitlines() if line.strip()]
+                    if f.suffix == ".jsonl" else [json.loads(text)])
+            found[str(f.relative_to(root))] = sorted({k for o in objs for k in o})
+        return found
+
+    for what in ("tac", "vas"):
+        got, want = keys(out / what), keys(ref / what)
+        if not got or got != want or "error" in json.dumps(json.load(open(
+                out / what / ("all_summaries.json" if what == "tac"
+                              else "vas_summaries.json")))):
+            raise AssertionError(f"phase 21: {what} outputs {got} differ from {want}, or a "
+                                 f"benchmark failed")
+    print(f"phase 21 outputs: {sum(len(keys(out / w)) for w in ('tac', 'vas'))} files with "
+          f"the key sets of the reference functions", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+
+    # the engine, its loop stopped: one decode window, packed admission, and
+    # the engine against its plain path
+    window = served_window_idle(eng, judge_prompt_ids(tok, judge_requests()))
+    print(f"phase 21 decode window under the profiler: {window} | {card}", flush=True)
+    packed_check(eng, chat, card)
+    served_step_check(eng, chat, card)
+    del eng, chat, server, windowed, real_decode     # the engine's pools go
+    gc.collect()
+    torch.cuda.empty_cache()
+    served_kernel_cases(model.cfg, lengths, card)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s in all | {card}", flush=True)
+    return launches
+
+
+def served_kernel_cases(cfg, lengths: list[int], card: str) -> None:
+    """The kernels of phase 21 that no other phase holds at the judge's
+    shapes, against their plain versions: the paged decode over int8 pages
+    at 16 served contexts (the served slots at most; 16 of the served
+    prompt lengths, evenly spaced in their sorted order from the shortest
+    to the longest, each plus SERVE_NEW_TOKENS: the last decode step's),
+    and the int8 matmul at the judge's q, k / v, o and
+    head widths with 128 rows (a 128-row bucket's prefill takes the wide
+    kernel)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    served = sorted(lengths)
+    contexts = [served[round(i * (len(served) - 1) / 15)] + SERVE_NEW_TOKENS
+                for i in range(16)]
+    paged_case(gen, "judge serve decode, int8 pages, W=1", cfg, contexts, 1, "int8")
+    tc = cfg.text
+    H, q_w, kv_w = tc.hidden_size, tc.num_attention_heads * tc.head_dim, \
+        tc.num_key_value_heads * tc.head_dim
+    for what, K, N in (("q", H, q_w), ("k / v", H, kv_w), ("o", q_w, H),
+                       ("head", H, tc.vocab_size)):
+        int8_case(gen, f"judge {what}, 128 rows", 128, K, N)
+    print(f"phase 21 kernels at the served shapes: paged decode over int8 pages at "
+          f"{len(contexts)} contexts {contexts}, int8 matmul at q / k / v "
+          f"/ o / head widths with 128 rows: each within its tolerance | {card}", flush=True)
 
 
 def int8_weights(gen, K: int, N: int, L: int | None = None):
@@ -4262,7 +4698,7 @@ class EvalTimers:
             setattr(owner, name, value)
 
 
-def eval_phase(model, card: str, device) -> dict:
+def eval_phase(model, card: str, device) -> tuple[dict, dict, Path]:
     """Phase 20: apps/run_eval's path (EngineModel + evaluate) on the bf16
     7B over mvbench_think and videomme_think, EVAL_DOCS docs each (one
     in-memory clip of 32-36 frames at 336x448, 1 fps), the app's eval
@@ -4276,7 +4712,9 @@ def eval_phase(model, card: str, device) -> dict:
     after the counted passes). Prints docs/s, prefill ms a
     batch, decode tok/s, the device loop's wait on the prefetch loader and
     its share, the peak memory, and the share of docs whose batch and paged
-    responses are equal. Returns the kernels' launches over both modes."""
+    responses are equal. Then phase 20(c). Returns the kernels' launches
+    over both modes, those of 20(c)'s flash run, and the batch pass's
+    samples tree (kept for phase 21)."""
     import tempfile
 
     import numpy as np
@@ -4397,7 +4835,69 @@ def eval_phase(model, card: str, device) -> dict:
           f"s | {card}", flush=True)
     if not (torch.isfinite(got).all() and rel <= LOGITS_TOL):
         raise AssertionError(f"phase 20: kernel path logits disagree: {rel}")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    tap_launches = attention_tap_phase(model, first, card)      # phase 20(c)
+    shutil.rmtree(out_dir / "paged", ignore_errors=True)
+    return launches, tap_launches, out_dir / "batch"
+
+
+def attention_tap_phase(model, first, card: str) -> dict:
+    """Phase 20(c): models/attention_tap.py on the bf16 7B over phase 20's
+    first doc, its prompt and its completion (S tokens, the completion's W
+    as completion_window, key chunks of 2048), once with attn_impl="flash"
+    (the ViT's kernels and the flash kernel in layers [0, L-1)) and once on
+    the plain path, each after a warm call, counted: the two masses within
+    TAP_TOL, each in [0, 1], the flash kernel launched on the first and no
+    kernel on the second. Prints each run's ms and peak memory. Returns the
+    flash run's launches."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.models.attention_tap import attention_to_video_scores
+    from video_r2_tpu_torch.models.mrope import get_rope_index
+    from video_r2_tpu_torch.models.vision import plan_vision_layout
+
+    cfg, dev = model.cfg, model.device
+    (ids, feats), gen_tokens = first
+    seq = np.asarray([list(ids) + list(gen_tokens)], np.int64)
+    S, W = seq.shape[1], len(gen_tokens)
+    pos, _ = get_rope_index(seq, cfg, video_grid_thw=np.asarray([f.grid_thw for f in feats]),
+                            second_per_grid_ts=np.asarray([f.second_per_grid_t
+                                                           for f in feats]))
+    amask = np.ones_like(seq)
+    qmask = np.zeros_like(seq)
+    qmask[:, S - W:] = 1
+    patches = torch.as_tensor(np.concatenate([f.patches for f in feats]), device=dev)
+    layout = plan_vision_layout([f.grid_thw for f in feats], cfg.vision)
+    runs = {}
+    for impl in ("flash", "xla"):
+        def tap():
+            return attention_to_video_scores(model, seq, pos, amask, qmask,
+                                             video_patches=patches, video_layout=layout,
+                                             completion_window=W, key_chunk=TAP_KEY_CHUNK,
+                                             attn_impl=impl)
+        tap()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        score = tap()
+        torch.cuda.synchronize()
+        runs[impl] = (float(score[0]), (time.perf_counter() - t0) * 1e3,
+                      torch.cuda.max_memory_allocated() / 2 ** 30, read_launches())
+    (fl, fl_ms, fl_peak, launches), (pl, pl_ms, pl_peak, plain) = runs["flash"], runs["xla"]
+    n_video = int((seq == cfg.video_token_id).sum())
+    print(f"phase 20(c) attention tap on the bf16 7B: S {S} ({n_video} video tokens), "
+          f"completion_window {W}, key_chunk {TAP_KEY_CHUNK}: mass on "
+          f"video {fl:.6f} (flash) vs {pl:.6f} (plain), |d| {abs(fl - pl):.3e} (tol {TAP_TOL}); "
+          f"flash {fl_ms:.1f} ms, peak {fl_peak:.2f} GiB; plain {pl_ms:.1f} ms, peak "
+          f"{pl_peak:.2f} GiB; flash launches flash_attention {launches['flash_attention']}, "
+          f"window_attention {launches['window_attention']} | {card}", flush=True)
+    if not (0.0 <= fl <= 1.0 and 0.0 <= pl <= 1.0 and abs(fl - pl) <= TAP_TOL):
+        raise AssertionError(f"phase 20(c): the tap's masses disagree: {fl} vs {pl}")
+    if launches["flash_attention"] <= 0 or any(n for k, n in plain.items()
+                                               if k in KERNELS):
+        raise AssertionError(f"phase 20(c): the flash path launched no flash kernel, or "
+                             f"the plain path launched one: {launches}, {plain}")
     return launches
 
 
@@ -4654,11 +5154,7 @@ def grpo_path_check(model, runner, params, batch, card) -> None:
 
 def decode_window_idle(eng, prepared, G: int, steps: int) -> str:
     """One decode window (`steps` tokens of G forked rollouts of one prompt)
-    of the paged engine under torch.profiler: launches, device busy ms, wall
-    ms and the idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    of the paged engine under the profiler."""
     from video_r2_tpu_torch.engine.sampling import SamplingParams
 
     sp = SamplingParams(do_sample=True, top_k=50, max_new_tokens=4 * steps,
@@ -4667,7 +5163,16 @@ def decode_window_idle(eng, prepared, G: int, steps: int) -> str:
                      vision_embeds=prepared.video_embeds,
                      video_grid_thw=prepared.video_grid_thw,
                      second_per_grid_ts=prepared.second_per_grid_ts)
-    rids = [rid] + eng.fork(rid, n=G - 1)
+    return profiled_window(eng, [rid] + eng.fork(rid, n=G - 1), steps, f"{G} rollouts")
+
+
+def profiled_window(eng, rids: list, steps: int, what: str) -> str:
+    """A warm window of `steps` tokens, then one under torch.profiler, of
+    the paged engine's active requests `rids` (cancelled after): launches,
+    device busy ms, wall ms and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     eng.step(steps)                                      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4680,9 +5185,9 @@ def decode_window_idle(eng, prepared, G: int, steps: int) -> str:
     eng.step(1)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return f"{G} rollouts, window of {steps}: {wall:.2f} ms wall (idle share not measured)"
+        return f"{what}, window of {steps}: {wall:.2f} ms wall (idle share not measured)"
     busy = sum(e.device_time for e in kernels) / 1e3
-    return (f"{G} rollouts, window of {steps}: {len(kernels)} launches, {busy:.2f} ms busy "
+    return (f"{what}, window of {steps}: {len(kernels)} launches, {busy:.2f} ms busy "
             f"of {wall:.2f} ms under the profiler ({100 * (1 - busy / wall):.1f}% idle)")
 
 
@@ -4901,7 +5406,9 @@ def main() -> int:
     # the dW kernels' launches are phase 14's run (the LoRA step trains no
     # expert and launches none); dX's are phase 15's steps
     launches.update({n: r["launches"] for n, r in gmm_bwd.items()})
-    launches.update(judge_phase(card, device))
+    tree = launches.pop("phase20_tree")
+    launches.update(judge_phase(card, device, tree))   # phase 11 with 15, then 21
+    shutil.rmtree(tree.parent, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     int8_results, int8_launches = int8_serving_phase(    # phases 16, 17 and 17(c)
@@ -4926,7 +5433,11 @@ def main() -> int:
             "grpo_launches": {phase: launches[phase].get(name, 0)
                               for phase in ("phase19", "phase17c")},
             # the eval path's launches: phase 20 (batch and paged, bf16 7B)
-            "eval_launches": launches["phase20"].get(name, 0)})
+            "eval_launches": launches["phase20"].get(name, 0),
+            # the post-hoc path's: the attention tap (20(c), bf16 7B) and the
+            # served judge (21, int8 Qwen3-30B-A3B)
+            "posthoc_launches": {phase: launches[phase].get(name, 0)
+                                 for phase in ("phase20c", "phase21")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

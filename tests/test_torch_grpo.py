@@ -592,3 +592,63 @@ def test_train_grpo_app_two_cycles_checkpoint_resume(base, tmp_path):
     with adapters_disabled(model2):
         assert not any(n.endswith(".lora_a") for n, _ in model2.named_parameters())
     assert any(n.endswith(".lora_a") for n, _ in model2.named_parameters())
+
+
+# ---------------------------------------------------------------------------
+# the apps' refusals over quantized bases, and QLoRA through the app
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["sft_weight_quant", "grpo_int4", "grpo_full_over_int8"])
+def test_apps_refuse_quantized_bases_they_cannot_train(base, case, tmp_path):
+    """apps/train_sft.main refuses any weight_quant and apps/train_grpo.main
+    int4 before building a model (so with no card too); apps/train_grpo.train
+    refuses full-parameter GRPO over an int8 base, whose int8 leaves take
+    no gradient, before it touches the model."""
+    from video_r2_tpu_torch.apps import train_sft as app_sft
+
+    if case == "sft_weight_quant":
+        with pytest.raises(NotImplementedError, match="SFT over a quantized base"):
+            app_sft.main(app=AppConfig(run=RunConfig(weight_quant="int8")))
+    elif case == "grpo_int4":
+        with pytest.raises(NotImplementedError, match="int4"):
+            app_grpo.main(app=AppConfig(run=RunConfig(weight_quant="int4")))
+    else:
+        q_tree = jax.tree.map(np.asarray, j_quantize_params(base[0], bits=8))
+        model = _port_model(q_tree, quantized=True)
+        app = AppConfig(run=RunConfig(output_dir=str(tmp_path), use_lora=False,
+                                      model_preset="tiny-test", dtype="float32"))
+        with pytest.raises(NotImplementedError, match="full-parameter GRPO over a "
+                                                      "quantized base"):
+            app_grpo.train(app, model, None, judge=StaticJudge(["TRUE"]),
+                           embedder=HashingEmbedder())
+        assert not any(p.requires_grad for p in model.parameters()
+                       if not p.is_floating_point())
+
+
+def test_train_grpo_app_qlora_over_int8(base, tmp_path):
+    """apps/train_grpo.train over the int8 tiny model (QLoRA): the adapters
+    sit on the int8 linears (init_lora_for_quantized: no float kernel left
+    there), one cycle is finite, and only the adapters moved."""
+    jparams, _ = base
+    model = _port_model(jax.tree.map(np.asarray, j_quantize_params(jparams, bits=8)),
+                        quantized=True)
+    base_before = {n: p.clone() for n, p in model.named_parameters()}
+    data = DataConfig(video_min_pixels=4 * 28 * 28, video_max_pixels=56 * 84, fps=2.0)
+    app = AppConfig(run=RunConfig(output_dir=str(tmp_path), max_steps=1, save_steps=1,
+                                  use_lora=True, model_preset="tiny-test", dtype="float32"),
+                    data=data, lora=LoRAConfig(**LKW),
+                    grpo=grpo.GRPOConfig(num_generations=2, max_completion_length=4,
+                                         logp_chunk_size=8))
+    state, hist = app_grpo.train(app, model, GRPODataset(
+        _frame_records(np.random.default_rng(2)), data),
+        judge=StaticJudge(["TRUE"]), embedder=HashingEmbedder(),
+        tokenizer=ByteTokenizer(SPECIALS))
+    adapted = {n[:-len(".lora_a")] for n, _ in model.named_parameters()
+               if n.endswith(".lora_a")}
+    mods = dict(model.named_modules())
+    assert adapted and all(mods[n].kernel is None and mods[n].kernel_q is not None
+                           for n in adapted)
+    assert state.step == 1 and len(hist) == 1
+    assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
+    assert all(torch.equal(p, base_before[n]) for n, p in model.named_parameters()
+               if "lora" not in n)

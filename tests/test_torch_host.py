@@ -61,7 +61,9 @@ for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
              "video.reader", "video.overlay", "video.srt", "video.cache", "data.prefetch",
              "evalharness.engine_backend", "evalharness.runner", "evalharness.regression",
              "evalharness.tasks.benchmarks", "evalharness.tasks.tempcompass",
-             "apps.common", "apps.run_eval", "apps.demo"):
+             "apps.common", "apps.run_eval", "apps.demo", "evalharness.tac",
+             "evalharness.vas", "evalharness.postprocess", "apps.serve", "apps.postprocess",
+             "apps.test_judge", "models.attention_tap"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)

@@ -340,10 +340,5 @@ def test_engine_options_not_ported_raise(models):
     for kw in ({"spec_decode": 2}, {"prefill_chunk_tokens": 16}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             PagedContinuousEngine(model, page_size=PS, **kw)
-    eng = PagedContinuousEngine(model, num_slots=2, max_len=32, page_size=PS)
-    with pytest.raises(NotImplementedError):
-        eng.submit_packed([([5, 6, 7], 2)])
-    with pytest.raises(NotImplementedError):
-        eng.run_loop(None, None)
     with pytest.raises(ValueError):
         PagedContinuousEngine(model, page_size=PS, kv_quant="int4")

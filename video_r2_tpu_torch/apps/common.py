@@ -15,7 +15,15 @@ import logging
 import torch
 
 from ..config import AppConfig
-from ..engine.chat import ByteTokenizer
+from ..engine.chat import (
+    IM_END,
+    IM_START,
+    IMAGE_PAD,
+    VIDEO_PAD,
+    VISION_END,
+    VISION_START,
+    ByteTokenizer,
+)
 from ..models.loader import init_params
 from ..models.quant import quantize_params
 
@@ -55,10 +63,20 @@ def build_model(app: AppConfig, device: str | torch.device = "cuda"):
 
 
 def build_tokenizer(app: AppConfig):
+    """The byte tokenizer. A preset whose vocabulary stops below the Qwen
+    special ids (tiny-test) gets the config's own special ids, and <|im_start|>
+    the first id past the bytes, so that every id it emits has an embedding
+    row (the JAX package's gather clamps such ids; an index here raises)."""
     if app.run.tokenizer:
         raise NotImplementedError("the BPE tokenizer waits for the HF loader port "
                                   "(ROADMAP Queue 1 #9)")
-    return ByteTokenizer()
+    cfg = app.model_config()
+    if cfg.text.vocab_size > max(ByteTokenizer.SPECIALS.values()):
+        return ByteTokenizer()
+    return ByteTokenizer({
+        "<|endoftext|>": cfg.pad_token_id, IM_START: 256, IM_END: cfg.eos_token_id,
+        VISION_START: cfg.vision_start_token_id, VISION_END: cfg.vision_end_token_id,
+        IMAGE_PAD: cfg.image_token_id, VIDEO_PAD: cfg.video_token_id})
 
 
 def build_mesh(app: AppConfig):

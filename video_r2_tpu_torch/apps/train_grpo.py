@@ -67,6 +67,13 @@ def train(app: AppConfig, model: Qwen25VL, dataset, batch_size: int = 1,
     Returns the state and one metrics record per cycle (with "cycle" and
     "s_per_cycle")."""
     run, gcfg = app.run, app.grpo
+    if not run.use_lora and any(getattr(m, "kernel_q", None) is not None
+                                or getattr(m, "kernel_q4", None) is not None
+                                for m in model.modules()):
+        raise NotImplementedError("full-parameter GRPO over a quantized base "
+                                  "(run.use_lora=False on int8 / int4 weights) is not "
+                                  "ported: quantized weights take no gradient (int8 "
+                                  "runs QLoRA with run.use_lora=True)")
     impl = resolve_attn_impl(run, model.device)
     reward_names = list(reward_names)
     reward_funcs = load_reward_funcs(reward_names)

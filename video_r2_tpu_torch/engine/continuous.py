@@ -16,21 +16,32 @@ frees at once, so short requests do not wait for long ones.
   over bf16 pages or int8 pages with per-(token, head) scales
   (kv_quant="int8"). `submit_batch` prefills same-bucket bursts in one
   decoder pass each, multimodal ones with their ViT embeds concatenated in
-  row order (the eval backend's admission path).
+  row order (the eval backend's admission path); `submit_packed` packs
+  short text prompts into shared rows, kept apart by segment ids, and
+  prefills the whole burst in one pass (the judge's admission path).
+
+`run_loop` is the threaded server loop (engine/server.py's continuous
+mode): it pulls requests from a queue, admits them (an idle burst packed
+or batched, else a budgeted trickle between decode windows) and decodes
+`decode_window` tokens a step until stopped. Only the loop's thread
+touches the device; callers only enqueue.
 
 The JAX package's jitted steps become plain functions that update the KV
 store in place; a decode window (`step(steps=n)`) is a Python loop of n
 decode bodies that keeps its tokens on the device and synchronises once.
 Sampling draws from the engine's seeded torch.Generator. Not ported yet,
 and raising NotImplementedError when asked for: speculative decoding
-(spec_decode), chunked prefill (prefill_chunk_tokens), packed admission
-(submit_packed), the threaded server loop (run_loop) and meshes.
+(spec_decode), chunked prefill (prefill_chunk_tokens) and meshes
+(ROADMAP Queue 1 #6, #8).
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import queue
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -125,15 +136,17 @@ def _prefill_into_pages_batch(model, kv, pids, ids, position_ids, lengths,
     slice). Returns last-token logits [K, V]."""
     hidden, tmp = _prefill_rows(model, ids, position_ids, lengths, vision_embeds,
                                 attn_impl)
-    L, K, S, kh, hd = tmp.k.shape
-    npb = S // page_size
-
-    def to_pages(x):   # [L, K, S, kh, hd] -> [L, kh, K * npb, ps, hd]
-        return (x.reshape(L, K, npb, page_size, kh, hd).permute(0, 4, 1, 2, 3, 5)
-                .reshape(L, kh, K * npb, page_size, hd))
-
-    _scatter_pages(kv, to_pages(tmp.k), to_pages(tmp.v), pids.reshape(-1))
+    _scatter_pages(kv, _rows_to_pages(tmp.k, page_size),
+                   _rows_to_pages(tmp.v, page_size), pids.reshape(-1))
     return _last_logits(model, hidden, lengths)
+
+
+def _rows_to_pages(x, page_size: int):
+    """Cache rows [L, K, S, kh, hd] -> pages [L, kh, K * S / ps, ps, hd]."""
+    L, K, S, kh, hd = x.shape
+    npb = S // page_size
+    return (x.reshape(L, K, npb, page_size, kh, hd).permute(0, 4, 1, 2, 3, 5)
+            .reshape(L, kh, K * npb, page_size, hd))
 
 
 def _prefill_into_pages(model, kv, pids, ids, position_ids, length,
@@ -142,6 +155,30 @@ def _prefill_into_pages(model, kv, pids, ids, position_ids, length,
     """One prompt ([1, bucket]) into its pages pids [bucket / page_size]."""
     return _prefill_into_pages_batch(model, kv, pids[None], ids, position_ids, length,
                                      vision_embeds, attn_impl, page_size)[0]
+
+
+def _prefill_packed_into_pages(model, kv, pids, ids, position_ids, seg_ids, last_rc,
+                               attn_impl: str = "xla", page_size: int = 128):
+    """Sequence-packed admission prefill: many short prompts share each row
+    of ids [R, S] in page-aligned spans, kept apart by seg_ids [R, S]
+    (request ordinal + 1, pads -2) through the flash kernel's segment
+    masking (or the plain path's equal mask), one decoder pass for the
+    whole burst. pids [R, S / page_size]: page destinations (the trash page
+    for unowned chunks); last_rc [n, 2]: (row, col) of each request's last
+    token. seg_ids None drops the masking: each prompt then attends to the
+    prompts before it in its row (the fault the tests' control shows).
+    Returns last-token logits [n, V]."""
+    h = _embed(model, ids)
+    cos, sin = mrope_cos_sin(position_ids, model.cfg, dtype=h.dtype)
+    R, S = ids.shape
+    tmp = KVCache.init(model.cfg.text, R, S, h.dtype, h.device)
+    lengths = torch.full((R,), S, dtype=torch.int32, device=h.device)
+    hidden = model.model(h, cos, sin, None, cache=tmp, cache_position=0,
+                         attn_impl=attn_impl, kv_lengths=lengths, causal=True,
+                         segment_ids=seg_ids)
+    _scatter_pages(kv, _rows_to_pages(tmp.k, page_size),
+                   _rows_to_pages(tmp.v, page_size), pids.reshape(-1))
+    return lm_head(model, hidden[last_rc[:, 0], last_rc[:, 1]]).float()
 
 
 def _prefix_page_hashes(ids: np.ndarray, page_size: int,
@@ -364,9 +401,10 @@ class ContinuousEngine:
                  sp: SamplingParams | None = None, attn_impl: str = "xla",
                  prompt_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
                  embed_bucket: int = 256, seed: int = 0, spec_decode: int = 0,
-                 prefill_chunk_tokens: int = 0, mesh=None):
+                 prefill_chunk_tokens: int = 0, mesh=None, decode_window: int = 1):
         """The device is the model's. attn_impl: prefill attention, "flash",
-        "xla" (plain) or "auto" (flash on a CUDA device)."""
+        "xla" (plain) or "auto" (flash on a CUDA device). decode_window:
+        tokens a step of `run_loop` decodes (`step(steps=decode_window)`)."""
         for name, asked in (("spec_decode", spec_decode),
                             ("prefill_chunk_tokens", prefill_chunk_tokens),
                             ("mesh", mesh is not None)):
@@ -383,6 +421,7 @@ class ContinuousEngine:
         self.attn_impl = attn_impl
         self.num_slots = num_slots
         self.max_len = max_len
+        self.decode_window = decode_window
         self.embed_bucket = embed_bucket   # vision embeds pad to multiples of this
         self.sp = sp or SamplingParams(
             max_new_tokens=max_len, eos_token_ids=(cfg.eos_token_id,),
@@ -403,6 +442,9 @@ class ContinuousEngine:
         self._next_rid = 0
         # rids whose callers gave up; step() finishes them with their tokens
         self._cancel_rids: set[int] = set()
+        # run_loop's admissions by route, and the requests it answered empty
+        # because their admission raised
+        self.loop_stats = {"packed": 0, "batch": 0, "single": 0, "failed": 0}
 
     def _t(self, x, dtype=torch.long) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -588,9 +630,14 @@ class ContinuousEngine:
             self._release_slot(slot)
         return finished
 
-    def run_loop(self, *args, **kwargs):
-        raise NotImplementedError("the threaded server loop is not ported to the "
-                                  "PyTorch engine yet")
+    @torch.inference_mode()
+    def run_loop(self, request_queue: "queue.Queue", stop: threading.Event,
+                 idle_sleep: float = 0.005, admit_per_step: int = 1):
+        """The server loop (run it on its own thread): admit and decode
+        until `stop` is set. Grad mode is thread-local, so the loop enters
+        inference mode itself."""
+        return _run_loop_impl(self, request_queue, stop, idle_sleep,
+                              admit_per_step=admit_per_step)
 
     # -- KV-layout hooks (contiguous implementation) ------------------------
     def _init_cache(self, dtype) -> None:
@@ -929,9 +976,94 @@ class PagedContinuousEngine(ContinuousEngine):
                 self.last_logits[self._t(free[:K])] = logits[:K]
         return rids
 
+    @torch.inference_mode()
     def submit_packed(self, items: list, row_width: int | None = None) -> list:
-        raise NotImplementedError("packed admission (submit_packed) is not ported "
-                                  "to the PyTorch engine yet")
+        """Admit a burst of SHORT TEXT prompts with sequence-packed prefill:
+        each prompt takes a page-aligned span inside shared rows of
+        `row_width` (default the top prompt bucket), masked from its
+        neighbours by segment ids, and the whole burst prefills in one pass.
+
+        items: (prompt_ids, max_new_tokens[, done_cb[, sp[, tok_cb]]]).
+        Returns rids aligned with items (None = too long to pack, or no free
+        slot, budget or pages: the caller retries or routes it through
+        submit_batch). A failed prefill returns the burst's pages and raises."""
+        rids: list = [None] * len(items)
+        pc, ps = self.pcache, self._page_size
+        width = row_width or max(self.prompt_buckets)
+        entries = []
+        for n, it in enumerate(items):
+            if len(it) > 5 and it[5] is not None:
+                # packing is text-only: dropping the vision triple would
+                # prefill <|video_pad|> runs as raw pad embeddings
+                raise ValueError("submit_packed is text-only; route multimodal items "
+                                 "through submit_batch")
+            ids = self._prompt_plan(it[0], it[1], multimodal=False)
+            span = -(-ids.shape[0] // ps) * ps
+            if span > width:
+                continue
+            cb, spr, tok_cb = (tuple(it[2:5]) + (None,) * 3)[:3]
+            entries.append((n, ids, it[1], cb, spr, tok_cb, span))
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        entries = entries[:len(free)]
+        # the prefill token budget: drop trailing entries until the packed
+        # rows fit one pass; callers retry the Nones
+        while entries and sum(e[6] for e in entries) + width > self.prefill_token_budget:
+            entries.pop()
+        need_pages = sum(e[6] // ps for e in entries)
+        while entries and pc.available_pages() < need_pages:
+            need_pages -= entries.pop()[6] // ps
+        if not entries:
+            return rids
+
+        placements, row_fill = [], []        # first-fit spans into rows
+        for e in entries:
+            row = next((r for r, f in enumerate(row_fill) if f + e[6] <= width), None)
+            if row is None:
+                row_fill.append(0)
+                row = len(row_fill) - 1
+            placements.append((e, row, row_fill[row]))
+            row_fill[row] += e[6]
+        R = len(row_fill)
+        ids_p = np.full((R, width), self.cfg.pad_token_id, np.int32)
+        seg = np.full((R, width), -2, np.int32)
+        pos = np.zeros((3, R, width), np.int64)
+        pids = np.full((R, width // ps), self.trash_page, np.int32)
+        last_rc = np.zeros((len(placements), 2), np.int64)
+        page_lists = []
+        for q, ((_, ids, *_rest, span), row, col) in enumerate(placements):
+            L = ids.shape[0]
+            ids_p[row, col:col + L] = ids
+            seg[row, col:col + span][:L] = q + 1
+            pos[:, row, col:col + L] = np.arange(L)[None]   # text positions restart
+            pages = [pc._alloc() for _ in range(span // ps)]
+            page_lists.append(pages)
+            pids[row, col // ps:col // ps + len(pages)] = pages
+            last_rc[q] = (row, col + L - 1)
+        try:
+            logits = _prefill_packed_into_pages(
+                self.model, self._kv(), self._t(pids), self._t(ids_p), self._t(pos),
+                self._t(seg, torch.int32), self._t(last_rc), self.attn_impl, ps)
+        except Exception:
+            self._free([pg for pages in page_lists for pg in pages])
+            raise
+        for q, ((n, ids, mnt, cb, spr, tok_cb, span), row, col) in enumerate(placements):
+            slot = free[q]
+            true_len = ids.shape[0]
+            np_used = -(-true_len // ps)
+            pc.page_tables[slot] = -1
+            pc.page_tables[slot, :np_used] = page_lists[q][:np_used]
+            self._free(page_lists[q][np_used:])
+            pc.lengths[slot] = true_len
+            # a packed prompt's KV equals its standalone prefill's (positions
+            # restart, segments masked), so its full pages join the prefix cache
+            self._register_prefix(ids, page_lists[q][:np_used])
+            req = _Request(self._new_rid(), ids_p[row:row + 1, col:col + true_len],
+                           pos[:, row:row + 1, col:col + true_len], 0, mnt, cb, sp=spr,
+                           tok_cb=tok_cb)
+            self._occupy(slot, req, true_len)
+            rids[n] = req.rid
+        self.last_logits[self._t(free[:len(placements)])] = logits
+        return rids
 
     def _release_slot(self, slot: int) -> None:
         self.pcache.release(slot)
@@ -941,3 +1073,86 @@ class PagedContinuousEngine(ContinuousEngine):
             src, dst, cow_last=self.cur_len[src] % self._page_size != 0)
         if cow is not None:
             _copy_page(self._kv(), *cow)
+
+
+def _run_loop_impl(engine, request_queue: "queue.Queue", stop: threading.Event,
+                   idle_sleep: float = 0.005, admit_per_step: int = 1) -> None:
+    """Pull (prompt_ids, max_new_tokens, done_cb[, sp[, tok_cb]]) items;
+    admit and decode until stopped.
+
+    Admission is budgeted: while any slot decodes, at most `admit_per_step`
+    prefills run between decode windows, so a burst of arrivals cannot
+    stall every active stream for the whole burst's prefill. An idle engine
+    with more than one request queued admits the burst at once: short
+    prompts (a span of at most half the top bucket, no prefix-cache hit)
+    packed into shared rows, the rest through same-bucket batched prefill;
+    a request that finds no slot goes back on the queue. A request whose
+    admission raises is answered done_cb(-1, []) (an empty completion) and
+    counted in engine.loop_stats["failed"], with the error logged."""
+    stats = engine.loop_stats
+
+    def failed(group, what):
+        _log.exception("run_loop: %s failed for %d request(s)", what, len(group))
+        stats["failed"] += len(group)
+        for it in group:
+            if len(it) > 2 and it[2]:
+                it[2](-1, [])
+
+    while not stop.is_set():
+        admitted = 0
+        budget = engine.num_slots if engine.num_active == 0 else admit_per_step
+        if (engine.num_active == 0 and hasattr(engine, "submit_batch")
+                and request_queue.qsize() > 1):
+            burst = []
+            while len(burst) < engine.num_slots:
+                try:
+                    burst.append(request_queue.get_nowait())
+                except queue.Empty:
+                    break
+            ps = getattr(engine, "_page_size", None)
+            width = max(engine.prompt_buckets)
+            match_len = getattr(engine, "prefix_match_len", None)
+            packable, rest = [], []
+            for it in burst:
+                span = (-(-len(it[0]) // ps) * ps) if ps else None
+                # a prefix-cache hit skips packing: packed rows restart
+                # positions and cannot attend cached history
+                hit = bool(match_len and match_len(it[0]))
+                (packable if ps and span * 2 <= width and not hit else rest).append(it)
+            if len(packable) < 2:
+                rest, packable = packable + rest, []
+            for route, submit, group in (("packed", getattr(engine, "submit_packed", None),
+                                          packable),
+                                         ("batch", engine.submit_batch, rest)):
+                if not group:
+                    continue
+                try:
+                    rids = submit(group)
+                except Exception:
+                    failed(group, f"{route} admission")
+                    continue
+                for it, rid in zip(group, rids):
+                    if rid is None:
+                        request_queue.put(it)   # retried when slots free up
+                    else:
+                        stats[route] += 1
+                        admitted += 1
+        while engine.num_active < engine.num_slots and admitted < budget:
+            try:
+                item = request_queue.get_nowait()
+            except queue.Empty:
+                break
+            prompt_ids, mnt, cb = item[:3]
+            sp = item[3] if len(item) > 3 else None
+            tok_cb = item[4] if len(item) > 4 else None
+            try:
+                engine.submit(prompt_ids, mnt, cb, sp=sp, tok_cb=tok_cb)
+            except Exception:   # one bad request must not end the loop
+                failed([item], "admission")
+                continue
+            stats["single"] += 1
+            admitted += 1       # only admissions that succeed take budget
+        if engine.num_active:
+            engine.step(engine.decode_window)
+        elif not admitted:
+            time.sleep(idle_sleep)

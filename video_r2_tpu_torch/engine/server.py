@@ -1,20 +1,30 @@
 """OpenAI-compatible chat server on the port's engine (the judge role).
 
-Port of the batch mode of ``video_r2_tpu/engine/server.py``: `ChatEngine`
-renders chats, tokenizes them and runs one batched `generate` per call
-(a burst of judge requests is one batch, `chat_batch`), behind a lock;
-`make_handler` / `serve` put it behind a stdlib HTTP server with
-/v1/chat/completions (stop strings, n, stream) and /metrics. Not ported
-yet, and raising NotImplementedError when asked for: the continuous
-serving loop (continuous=True needs run_loop; the continuous engine's
-options, num_slots to prefix_cache, come with it), speculative decoding,
-meshes and the Qwen3-Next family. kv_quant="int8" runs each batch on the
-int8 KV cache (engine/generate.py).
+Port of ``video_r2_tpu/engine/server.py``: `ChatEngine` renders chats and
+tokenizes them; `make_handler` / `serve` put it behind a stdlib HTTP server
+with /v1/chat/completions (stop strings, n, stream) and /metrics.
+
+- Batch mode (continuous=False) runs one batched `generate` per call (a
+  burst of judge requests is one batch, `chat_batch`), behind a lock;
+  kv_quant="int8" runs each batch on the int8 KV cache.
+- Continuous mode (continuous=True) runs the slot engine or, with
+  engine_kind="paged", the paged engine (kv_quant="int8" pages there) on a
+  loop thread (`run_loop`): concurrent HTTP requests share one decode loop,
+  an idle burst of short judge prompts is admitted packed. The loop's
+  thread is the only one that touches the device; the handler threads
+  enqueue and wait. `chat_stream` streams per token, and a stop string
+  cancels its request on the engine.
+
+Not ported yet, and raising NotImplementedError when asked for:
+speculative decoding, chunked prefill and meshes (ROADMAP Queue 1 #6, #8)
+and the Qwen3-Next family with its prefix store's switch, prefix_cache=False
+(#7).
 """
 
 from __future__ import annotations
 
 import json
+import queue as queue_mod
 import threading
 import time
 import uuid
@@ -45,24 +55,44 @@ def _apply_stop(text: str, stops: list[str]) -> str:
 
 
 class ChatEngine:
-    """Thread-safe text-only chat generation on a model (judge role), one
-    batched generate per call. attn_impl "flash" runs prefill attention
-    through the flash kernel; act_quant="int8" runs prefill W8A8 on an int8
-    model (models/quant.py); kv_quant="int8" keeps the KV cache in int8."""
+    """Thread-safe text-only chat generation on a model (judge role). attn_impl
+    "flash" runs prefill attention through the flash kernel; act_quant="int8"
+    runs batch-mode prefill W8A8 on an int8 model (models/quant.py);
+    kv_quant="int8" keeps the KV cache in int8 (batch mode, or the paged
+    engine's pages). continuous=True serves from one decode loop on a
+    background thread: num_slots requests decode together, max_len tokens a
+    request; engine_kind "slots" (contiguous cache) or "paged" (page_size);
+    decode_window tokens a loop step."""
 
     def __init__(self, model, cfg, tokenizer, model_name: str = "video-r2-tpu",
                  max_new_tokens: int = 1024, attn_impl: str = "xla",
                  act_quant: str | None = None, continuous: bool = False,
-                 mesh=None, kv_quant: str | None = None, spec_decode: int = 0):
+                 num_slots: int = 8, max_len: int = 4096, mesh=None,
+                 engine_kind: str = "slots", page_size: int = 128,
+                 kv_quant: str | None = None, spec_decode: int = 0,
+                 decode_window: int = 1, prefill_chunk_tokens: int = 0,
+                 prefix_cache: bool = True):
         if not isinstance(cfg, ModelConfig):
             raise NotImplementedError(f"{type(cfg).__name__} (the Qwen3-Next family) is "
-                                      f"not ported to the PyTorch package yet")
-        for name, asked in (("continuous serving (continuous=True)", continuous),
-                            ("speculative decoding (spec_decode)", spec_decode),
-                            ("sharded serving (mesh)", mesh is not None)):
+                                      f"not ported to the PyTorch package yet (ROADMAP "
+                                      f"Queue 1 #7)")
+        for name, asked, item in (
+                ("speculative decoding (spec_decode)", spec_decode, 6),
+                ("chunked prefill (prefill_chunk_tokens)", prefill_chunk_tokens, 6),
+                ("sharded serving (mesh)", mesh is not None, 8),
+                ("the Qwen3-Next prefix store's switch (prefix_cache=False)",
+                 not prefix_cache, 7)):
             if asked:
                 raise NotImplementedError(f"{name} is not ported to the PyTorch "
-                                          f"ChatEngine yet")
+                                          f"ChatEngine yet (ROADMAP Queue 1 #{item})")
+        if engine_kind != "slots" and not continuous:
+            raise ValueError(
+                f"engine_kind={engine_kind!r} requires continuous=True "
+                "(non-continuous mode serializes whole generate() calls)")
+        if continuous and engine_kind == "slots" and kv_quant:
+            raise ValueError(
+                "kv_quant with continuous=True requires the paged engine "
+                "(--paged): the slot engine's contiguous cache is bf16-only")
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer
@@ -76,9 +106,31 @@ class ChatEngine:
         self._lock = threading.Lock()
         self._seed = 0
         self._queue = None
+        if continuous:
+            from .continuous import ContinuousEngine, PagedContinuousEngine
+
+            # the paged engine keeps its automatic prefix cache on, as in the
+            # reference, where prefix_cache switches only the Qwen3-Next store
+            kw = ({"page_size": page_size, "kv_quant": kv_quant}
+                  if engine_kind == "paged" else {})
+            eng_cls = PagedContinuousEngine if engine_kind == "paged" else ContinuousEngine
+            self._cont = eng_cls(
+                model, num_slots=num_slots, max_len=max_len,
+                sp=SamplingParams(eos_token_ids=(cfg.eos_token_id,),
+                                  pad_token_id=cfg.pad_token_id),
+                attn_impl=attn_impl, decode_window=max(decode_window, 1), **kw)
+            self._queue = queue_mod.Queue()
+            self._stop = threading.Event()
+            self._thread = threading.Thread(
+                target=self._cont.run_loop, args=(self._queue, self._stop),
+                daemon=True)
+            self._thread.start()
 
     def shutdown(self):
-        pass
+        """Stop the loop thread (continuous mode) and wait for it."""
+        if self._queue is not None:
+            self._stop.set()
+            self._thread.join(timeout=60)
 
     def _sampling(self, temperature, top_p, top_k, max_tokens) -> SamplingParams:
         return SamplingParams(
@@ -86,12 +138,103 @@ class ChatEngine:
             top_p=top_p, top_k=top_k, max_new_tokens=max_tokens or self.max_new_tokens,
             eos_token_ids=(self.cfg.eos_token_id,), pad_token_id=self.cfg.pad_token_id)
 
+    def _encode(self, messages: list[dict]) -> list[int]:
+        return self.tok.encode(render_messages(messages, add_generation_prompt=True,
+                                               default_system=None))
+
+    def _enqueue(self, ids, sp: SamplingParams, done_cb, tok_cb) -> None:
+        if not self._thread.is_alive():
+            raise RuntimeError("the serving loop has stopped")
+        self._queue.put((ids, sp.max_new_tokens, done_cb, sp, tok_cb))
+
+    def _wait(self, done: threading.Event) -> None:
+        """Wait for the loop to answer; raise if its thread dies first (an
+        error on the device ends the loop, and no answer would come)."""
+        while not done.wait(1.0):
+            if not self._thread.is_alive():
+                raise RuntimeError("the serving loop stopped before answering")
+
     def chat_stream(self, messages: list[dict], temperature: float = 0.0,
                     top_p: float = 1.0, top_k: int = 0,
                     max_tokens: int | None = None, stop=None):
-        """Yield text deltas (OpenAI stream=true): batch mode sends the
-        whole answer as one chunk."""
-        yield self.chat(messages, temperature, top_p, top_k, max_tokens, stop=stop)
+        """Yield text deltas as tokens arrive (OpenAI stream=true).
+
+        Continuous mode streams per decoded token (window granularity);
+        batch mode sends the whole answer as one chunk. With `stop` strings,
+        emission holds back max(len(stop))-1 chars so a stop string never
+        partially reaches the client, and a hit cancels the request on the
+        engine (the slot frees instead of burning its remaining budget)."""
+        stops = _norm_stop(stop)
+        if self._queue is None:
+            yield self.chat(messages, temperature, top_p, top_k, max_tokens, stop=stop)
+            return
+        sp = self._sampling(temperature, top_p, top_k, max_tokens)
+        q: queue_mod.Queue = queue_mod.Queue()
+        state = {"rid": None}
+
+        def tok_cb(rid, t):
+            state["rid"] = rid
+            q.put(t)
+
+        self._enqueue(self._encode(messages), sp, lambda rid, toks: q.put(None), tok_cb)
+        hold = max((len(s) for s in stops), default=1) - 1
+        toks: list[int] = []
+        emitted = ""
+        cur = ""
+        stopped = False
+        while True:
+            try:
+                t = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if not self._thread.is_alive():
+                    raise RuntimeError("the serving loop stopped before answering")
+                continue
+            if t is None:
+                break
+            toks.append(t)
+            cur = self.tok.decode(toks, skip_special_tokens=True)
+            if cur.endswith("\ufffd"):
+                continue  # mid-UTF-8 token boundary: hold until complete
+            if stops and any(s in cur for s in stops):
+                cur = _apply_stop(cur, stops)
+                if cur.startswith(emitted) and len(cur) > len(emitted):
+                    yield cur[len(emitted):]
+                emitted = cur
+                stopped = True
+                if state["rid"] is not None:
+                    self._cont.request_cancel(state["rid"])
+                break
+            safe = cur[:max(len(emitted), len(cur) - hold)] if stops else cur
+            if safe.startswith(emitted) and len(safe) > len(emitted):
+                delta = safe[len(emitted):]
+                emitted = safe
+                yield delta
+        # flush what a trailing hold-back kept; if decoding went
+        # non-monotonic there is no unsent suffix to recover
+        if not stopped:
+            if stops:
+                cur = _apply_stop(cur, stops)
+            if cur != emitted and cur.startswith(emitted):
+                yield cur[len(emitted):]
+
+    def _stop_watcher(self, stops: list[str]):
+        """tok_cb that cancels a continuous request as soon as its decoded
+        text holds a stop string (without it the slot would burn its whole
+        budget and only the truncation would hide it). It decodes a tail
+        window of tokens, long enough for the longest stop string, so the
+        loop thread does no work quadratic in the answer's length."""
+        if not stops or self._queue is None:
+            return None
+        acc: list[int] = []
+        w_tok = max(len(s) for s in stops) + 32
+
+        def watch(rid, t):
+            acc.append(t)
+            txt = self.tok.decode(acc[-w_tok:], skip_special_tokens=True)
+            if any(s in txt for s in stops):
+                self._cont.request_cancel(rid)
+
+        return watch
 
     def chat(self, messages: list[dict], temperature: float = 0.0,
              top_p: float = 1.0, top_k: int = 0,
@@ -109,13 +252,30 @@ class ChatEngine:
                    temperature: float = 0.0, top_p: float = 1.0,
                    top_k: int = 0, max_tokens: int | None = None,
                    stop=None) -> list[str]:
-        """A burst of chats in one batched generate (the TAC/VAS judge
-        pattern: many same-shape prompts at temperature 0)."""
+        """A burst of chats (the TAC/VAS judge pattern: many same-shape
+        prompts at temperature 0). Continuous mode submits them all to the
+        shared loop and waits; batch mode runs one batched generate. A
+        request whose admission failed comes back as "" (the loop counts
+        it in the engine's loop_stats)."""
         sp = self._sampling(temperature, top_p, top_k, max_tokens)
         stops = _norm_stop(stop)
-        ids_list = [self.tok.encode(render_messages(
-            m, add_generation_prompt=True, default_system=None))
-            for m in messages_list]
+        ids_list = [self._encode(m) for m in messages_list]
+        if self._queue is not None:
+            boxes = []
+            for ids in ids_list:
+                done = threading.Event()
+                box = {}
+
+                def cb(rid, toks, box=box, done=done):
+                    box["tokens"] = toks
+                    done.set()
+
+                self._enqueue(ids, sp, cb, self._stop_watcher(stops))
+                boxes.append((box, done))
+            for _, done in boxes:
+                self._wait(done)
+            return [_apply_stop(self.tok.decode(b["tokens"], skip_special_tokens=True),
+                                stops) for b, _ in boxes]
         packed = pack_prompts(ids_list, pad_id=self.cfg.pad_token_id)
         with self._lock:
             self._seed += 1
@@ -125,10 +285,21 @@ class ChatEngine:
                 for i in range(len(ids_list))]
 
     def stats(self) -> dict:
-        """Operator telemetry for /metrics."""
-        return {"model": self.model_name, "continuous": False,
-                "spec_decode": self.spec_decode, "kv_quant": self.kv_quant,
-                "mesh": None}
+        """Operator telemetry for /metrics: slot and page occupancy in
+        continuous mode."""
+        s = {"model": self.model_name, "continuous": self._queue is not None,
+             "spec_decode": self.spec_decode, "kv_quant": self.kv_quant,
+             "mesh": None}
+        if self._queue is not None:
+            eng = self._cont
+            s.update(active_requests=eng.num_active, num_slots=eng.num_slots,
+                     spec_stats={})
+            pc = getattr(eng, "pcache", None)
+            if pc is not None:
+                s.update(pages_total=int(pc.k.shape[2]),
+                         pages_free=len(pc.free_pages),
+                         pages_cached=len(pc.evictable))
+        return s
 
 
 def make_handler(engine: ChatEngine):

@@ -228,10 +228,11 @@ class DecoderLayer(nn.Module):
         kv_scales: this layer's (k_scale, v_scale) [B, Smax, kh] of an int8
         cache, written with it; a causal call (the fill) then attends over
         the local k / v, any other over the whole int8 cache with `bias`.
-        segment_ids [B, S]: on the path without a cache (the training
-        forward), key j is admitted for query i only where
+        segment_ids [B, S]: key j is admitted for query i only where
         segment_ids[b, i] == segment_ids[b, j] (the flash kernel's segment
-        masking); the cache paths do not take them."""
+        masking), without a cache (the training forward) and in a fill from
+        position 0 (packed admission): a seq-major fill with segment ids
+        attends over the local k / v, which the ids index."""
         S = x.shape[1]
         q, k, v = self.qkv(x, cos, sin, act_quant)
         if kv_scales is not None:
@@ -249,10 +250,13 @@ class DecoderLayer(nn.Module):
         elif k_cache is not None:
             k_cache[:, cache_position:cache_position + S] = k
             v_cache[:, cache_position:cache_position + S] = v
-            k, v = k_cache, v_cache
+            if segment_ids is None:
+                k, v = k_cache, v_cache
+            elif cache_position != 0:
+                raise ValueError("segment_ids need a fill from cache position 0")
         attn = dot_product_attention(q, k, v, bias=bias, kv_lengths=kv_lengths,
                                      causal=causal, impl=attn_impl,
-                                     segment_ids=segment_ids if k_cache is None else None)
+                                     segment_ids=segment_ids)
         return self.finish(x, attn, act_quant)
 
 
@@ -281,9 +285,10 @@ class Decoder(nn.Module):
         fill when causal, with bias None, else by a decode step). remat:
         under autograd, keep only each layer's input and recompute the layer
         in the backward (gradient checkpointing). act_quant="int8": W8A8 on
-        int8 weights. segment_ids [B, S] (no cache): attention stays within
-        a segment, as the JAX decoder_forward's segment_ids; under remat
-        they travel as an argument of the checkpointed layer."""
+        int8 weights. segment_ids [B, S] (no cache, or a fill from position
+        0 into any of the three caches): attention stays within a segment,
+        as the JAX decoder_forward's segment_ids; under remat they travel as
+        an argument of the checkpointed layer."""
         head_major = isinstance(cache, DecodeKVCache)
         quant = isinstance(cache, QuantKVCache)
         for i, layer in enumerate(self.layers):
