@@ -307,14 +307,50 @@
    served engine: four short judge prompts in one row, each one's logits
    against its solo prefill within PACKED_TOL, a control without segment
    ids above it.
+22. speculative decoding and chunked prefill (scripts/serve_judge.sh's
+   --spec-decode 8 --prefill-chunk 2048), in four places: (a) the paged
+   kernel at the verify chunks the paths give it against its plain version
+   (phase 8's tolerance, device ms, the bytes bound, SDPA): bf16 pages at
+   the 7B's g = 7 with W = 9 (63 query rows, 22(d)'s rounds) and W = 5 (35
+   rows, 22(d)'s GRPO rollouts), and fp32 q and pages at W = 10 (70 rows:
+   two row groups, checked only) at phase 8's contexts; int8 pages at the
+   judge's g = 8 (72 rows, two row groups) at phase 21's served contexts;
+   the int8 matmul at the judge's widths with 22(c)'s 144 verify rows and
+   the grouped FFN at its 144 (GMM) and 9 (ragged) tokens; (b) on the tiny
+   fp32 config (after phase 18): spec (K = 4) against plain greedy, tokens
+   equal, in generate, the slot engine and the paged engine over fp32 and
+   int8 pages (mid-stream admission), and chunked against whole prefill,
+   tokens equal, on the slot and paged engines; then the paged kernel at
+   those verify chunks (W = 5, g = 2, fp32 q over fp32 and int8 pages)
+   against its plain version; (c) after phase 21, on its
+   int8 judge: apps/serve with SPEC_ARGV (phase 21's flags plus
+   --spec-decode 8 --prefill-chunk 2048) over the same TAC / VAS requests
+   through HTTP, counted: 0 failed; printed beside phase 21's plain figures:
+   requests/s, p50 / p95, slot-tokens/s, tokens a spec round a slot, the
+   chunked prefills, and how many answers and tokens agree with phase 21's;
+   then, the loop stopped, a verify round's logits (drafts from the
+   engine's history) against the engine's plain path teacher-forced on the
+   same chunks, at full load (16 served prompts, 144 rows: the int8 wide
+   kernel and the GMM route) and with one slot (the longest TAC prompt, 9
+   rows: the int8 decode kernel and the ragged route), and a 5k-token
+   prompt's logits
+   after its chunked prefill against its whole prefill, each within
+   JUDGE_LOGITS_TOL; (d) on the bf16 7B: phase 20's batch pass again with
+   spec_decode = 8 (docs/s, answers equal to phase 20's, printed), one
+   phase-19 GRPO cycle with rollout_spec_decode = 4 (loss finite; cycle s,
+   tokens a round), and ms of a verify round against ms of a plain step of
+   the paged engine at B = 16 (K = 8), with _reject_all's floor.
 
-Phase order: 18, 1-9, 19, 20 with 20(c), 12-13 (one 7B, freed), 10, 14, 11
-with 15, then 21 (the judge, freed), 16-17 with 17(d) and 17(c) (a new
-7B).
+Phase order: 18 with 22(b), 1-9 with 22(a), 19 and 20 with 22(d), 20(c),
+12-13 (one 7B, freed), 10, 14, 11 with 15, then 21 with 22(a) and 22(c)
+(the judge, freed), 16-17 with 17(d) and 17(c) (a new 7B).
 
 Prints a JSON line of per-kernel results (each row's launches on its path,
 grpo_launches of phases 19 / 17(c), eval_launches of phase 20,
-posthoc_launches of phases 20(c) / 21), then the card line, and last
+posthoc_launches of phases 20(c) / 21, spec_launches of phase 22(c); the
+paged kernel's verify-chunk cases as rows of their own, each with its case
+and its launches: those of 22(b) / (c) / (d)'s verify chunks at that
+shape), then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
 non-zero and that line is not printed. Without CUDA it exits 1 at once.
 """
@@ -560,6 +596,35 @@ SERVE_ARGV = ("--paged", "--kv-quant", "int8", "--decode-window", "8", "--max-le
               "--run.model_preset", "qwen3-moe-30b-a3b", "--run.weight_quant", "int8")
 SERVE_SLOTS, SERVE_NEW_TOKENS = 16, 32
 PACKED_TOL = 1e-2    # relative L2 of a packed prompt's logits against its solo prefill
+# speculative decoding and chunked prefill (phase 22): serve_judge.sh:46-48's
+# --spec-decode 8 --prefill-chunk 2048 on phase 21's flags; K = 4 on the
+# tiny config and GRPO's rollouts (grpo_runner's spec rollouts), 8 elsewhere
+SPEC_K, SPEC_CHUNK, SPEC_K_SMALL, SPEC_B = 8, 2048, 4, 16
+SPEC_ARGV = SERVE_ARGV + ("--spec-decode", str(SPEC_K), "--prefill-chunk", str(SPEC_CHUNK))
+# the paged kernel's verify-chunk rows of the kernels line: name -> (the
+# wrapper's row it extends, the case: its shape, and the run its launches
+# come from, at that shape)
+VERIFY_KERNELS = {
+    "paged_decode_attention_stacked_quant_verify": (
+        "paged_decode_attention_stacked_quant",
+        "the judge, bf16 q over int8 pages, W = 9, g = 8 (72 rows); launches: 22(c)'s "
+        "served run"),
+    "paged_decode_attention_stacked_verify": (
+        "paged_decode_attention_stacked",
+        "the 7B, bf16 pages, W = 9, g = 7 (63 rows); launches: 22(d)'s verify rounds at "
+        "B = 16"),
+    "paged_decode_attention_stacked_verify_k4": (
+        "paged_decode_attention_stacked",
+        "the 7B, bf16 pages, W = 5, g = 7 (35 rows); launches: 22(d)'s GRPO cycle"),
+    "paged_decode_attention_stacked_fp32_verify": (
+        "paged_decode_attention_stacked",
+        "the tiny config, fp32 q and pages, W = 5, g = 2, hd 12 (10 rows); launches: "
+        "22(b)'s paged engine over fp32 pages"),
+    "paged_decode_attention_stacked_quant_fp32_verify": (
+        "paged_decode_attention_stacked_quant",
+        "the tiny config, fp32 q over int8 pages, W = 5, g = 2, hd 12 (10 rows); "
+        "launches: 22(b)'s paged engine over int8 pages"),
+}
 READY_MESSAGES = [{"role": "system", "content": "You are a precise assistant."},
                   {"role": "user", "content": "Reply with exactly the word READY."}]
 
@@ -1231,8 +1296,9 @@ def paged_case(gen, what, cfg, lengths, W, pages="bf16", one_layer=False) -> dic
     reads the next layer, so its
     pages come from device memory, as in the decode step, where each
     layer's weights pass through the L2 cache between two calls. pages:
-    "bf16" (bf16 q), "int8" (bf16 q over int8 pages) or "fp32" (fp32 q and
-    pages). Kernel and library call are timed eagerly (ms, library_ms: at
+    "bf16" (bf16 q), "int8" (bf16 q over int8 pages), "fp32" (fp32 q and
+    pages) or "int8_fp32q" (fp32 q over int8 pages: the fp32 model's int8
+    KV). Kernel and library call are timed eagerly (ms, library_ms: at
     these sizes the wrapper's host time sets the eager time) and in a CUDA
     graph (device_ms, library_device_ms)."""
     import torch
@@ -1248,7 +1314,7 @@ def paged_case(gen, what, cfg, lengths, W, pages="bf16", one_layer=False) -> dic
     kh, nh, hd, ps, n_layers = (tc.num_key_value_heads, tc.num_attention_heads,
                                 tc.head_dim, PAGE_SIZE, tc.num_hidden_layers)
     dev = gen.device
-    quant, fp32 = pages == "int8", pages == "fp32"
+    quant, fp32 = pages.startswith("int8"), pages in ("fp32", "int8_fp32q")
     B = len(lengths)
     need = [-(-(L + W - 1) // ps) for L in lengths]
     max_pages, n_pages = max(need), 1 + sum(need)       # page 0: the trash page
@@ -2131,12 +2197,26 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     paged_case(gen, "fp32 q and pages, W=1", cfg, decode_lens, 1, "fp32")
     kernel_results.update(paged_case(gen, "one-layer pool, W=1", cfg, decode_lens, 1,
                                      one_layer=True))
+    # phase 22(a): the 7B's verify chunks, rows of the kernels line: SPEC_K +
+    # 1 tokens (63 query rows a kv head, 22(d)'s spec rounds) and
+    # SPEC_K_SMALL + 1 (35 rows, 22(d)'s GRPO rollouts); and the fp32
+    # instance at 70 rows (two row groups), checked only (no path runs it)
+    for name, K in (("paged_decode_attention_stacked_verify", SPEC_K),
+                    ("paged_decode_attention_stacked_verify_k4", SPEC_K_SMALL)):
+        kernel_results[name] = paged_case(
+            gen, f"phase 22(a) verify chunk K={K}, W={K + 1}", cfg, decode_lens,
+            K + 1)["paged_decode_attention_stacked"]
+    paged_case(gen, f"phase 22(a) fp32 q and pages, W={SPEC_K + 2}", cfg, decode_lens,
+               SPEC_K + 2, "fp32")
 
     # phase 9: batched serving through the paged engine
     paged_runs = serving_phase(model, runner, requests, card)
 
-    # phase 19: LoRA-GRPO with paged rollouts
+    # phase 19: LoRA-GRPO with paged rollouts (and 22(d)'s spec cycle)
     grpo_launches = grpo_phase(model, card, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    verify_launches = spec_step_timing(model, card)          # phase 22(d)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2156,10 +2236,12 @@ def video_slices(card: str, device) -> tuple[dict, dict]:
     launches["paged_decode_attention_stacked_quant"] = \
         paged_runs["int8"]["paged_decode_attention_stacked_quant"]
     launches.update(int4_runs)
+    launches["paged_decode_attention_stacked_verify_k4"] = grpo_launches.pop("verify_launches")
     launches["phase19"] = grpo_launches
     launches["phase20"] = eval_launches
     launches["phase20c"] = tap_launches
     launches["phase20_tree"] = eval_tree
+    launches["paged_decode_attention_stacked_verify"] = verify_launches
     return kernel_results, launches
 
 
@@ -2335,7 +2417,9 @@ def tiny_fp32_phase(card: str, device) -> tuple[dict, dict]:
     if any(n <= 0 for n in launches.values()):
         raise AssertionError(f"phase 18: the tiny path launched no kernel of {launches}")
     tiny_eval_check(models, tok, card)
-    return {f"{n}_fp32": r for n, r in results.items()}, launches
+    verify, verify_launches = tiny_spec_check(models["kernel"], tok, card)     # 22(b)
+    launches.update(verify_launches)
+    return {**{f"{n}_fp32": r for n, r in results.items()}, **verify}, launches
 
 
 def moe_bound(rows: int, n_experts: int, H: int, I: int, variant: str) -> dict:
@@ -2557,8 +2641,8 @@ def moe_kernel_phase(device) -> dict:
     weights (bf16, and their int8 quantization): first the table's shapes
     (T = 16 decode, T = 4096 prefill; these give the kernels line), then the
     token counts phase 11's passes give it (the bf16 burst's prefill, the
-    int8 pass's prefill and decode, the paged pass's decode) and phase 15's
-    LoRA step (its 2 x 1024 tokens, bf16)."""
+    int8 pass's prefill and decode, the paged pass's decode), phase 22(c)'s
+    verify passes and phase 15's LoRA step (its 2 x 1024 tokens, bf16)."""
     import torch
 
     from video_r2_tpu_torch.engine.chat import ByteTokenizer, pack_prompts
@@ -2593,6 +2677,10 @@ def moe_kernel_phase(device) -> dict:
                                (burst(JUDGE_INT8_REQUESTS), "gmm", "w8a8"),
                                (JUDGE_INT8_REQUESTS, "ragged", "int8"),
                                (JUDGE_PAGED_REQUESTS, "ragged", "int8"),
+                               # phase 22(c)'s verify passes: every served
+                               # slot's K + 1 tokens, and one slot's
+                               (SERVE_SLOTS * (SPEC_K + 1), "gmm", "int8"),
+                               (SPEC_K + 1, "ragged", "int8"),
                                (MOE_LORA_B * MOE_LORA_S, "gmm", "bf16")):
         moe_ffn_case(gen, layer, T, layout, variant)
     return results
@@ -3267,8 +3355,9 @@ def moe_training_phase(model, cfg, tok, card: str) -> dict:
 def judge_phase(card: str, device, tree: Path) -> dict:
     """Phase 11, then phase 21 on its int8 model over phase 20's samples
     `tree`. Returns the launches of the judge's bf16 run (bf16 FFN entries),
-    of its int8 pass (int8 and W8A8 entries) and, as "phase21", of the
-    served judge."""
+    of its int8 pass (int8 and W8A8 entries), as "phase21" and "phase22"
+    of the served judge without and with spec decode and chunked prefill
+    (phase 22(c)), and phase 22(a)'s judge verify-chunk kernel result."""
     import torch
 
     from video_r2_tpu_torch.engine.chat import ByteTokenizer
@@ -3497,8 +3586,10 @@ def judge_phase(card: str, device, tree: Path) -> dict:
     del judge, judge8, short, short8, replay     # phase 11's engines and operands
     gc.collect()
     torch.cuda.empty_cache()
-    served = posthoc_judge_phase(model, tree, card)        # phase 21
-    return {"phase21": served,
+    served, plain = posthoc_judge_phase(model, tree, card)        # phase 21
+    spec = served_spec_phase(model, tree, card, plain)            # phase 22(c)
+    return {"phase21": served, "phase22": spec,
+            "paged_decode_attention_stacked_quant_verify": plain["verify_kernel"],
             "moe_ffn_bf16_ragged": launches["moe_ffn_bf16_ragged"],
             "moe_ffn_bf16_gmm": launches["moe_ffn_bf16_gmm"],
             "moe_ffn_int8_ragged": launches8["moe_ffn_int8_ragged"],
@@ -3684,57 +3775,32 @@ def served_step_check(eng, chat, card: str) -> None:
                              f"{rel}")
 
 
-def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
-    """Phase 21: the post-hoc judge path on phase 11's int8 Qwen3-30B-A3B
-    (the model apps/common.build_model makes for SERVE_ARGV's config: the
-    same seed, quantize_params in place). apps/serve's construction
-    (parse_args + build_engine) over SERVE_ARGV with SERVE_SLOTS slots and
-    SERVE_NEW_TOKENS tokens an answer, served on 127.0.0.1 in a thread;
-    then apps/test_judge, apps/postprocess tac, vas and summarize over
-    phase 20's samples tree (mvbench_think and videomme_think, 8 rows each)
-    against it, counted. Every HTTP request is timed (client latency), its
-    prompt length kept and its errors counted; the loop's admissions by
-    route are engine.loop_stats, and the decode windows' tokens and seconds
-    are recorded. Fails on any failed request or admission, a TAC / VAS
-    output whose keys differ from those the same functions write with a
-    fixed judge, or a kernel of the path not launched. Then, on the engine
-    with its loop stopped, one decode window under the profiler, the packed
-    admission check and the engine against its plain path; with the engine
-    freed, the kernels at the served shapes (served_kernel_cases). Returns
-    the path's launches."""
+def serve_http(chat, tree: Path) -> dict:
+    """Serve `chat` on 127.0.0.1 in a thread and run apps/test_judge, then
+    apps/postprocess tac, vas and summarize over the samples `tree` against
+    it; counted (the launch counts set to 0 before, read after). Every HTTP
+    request is timed (client latency), its prompt length kept, its errors
+    counted; each finished request's tokens are kept by prompt; the
+    engine's decode windows (plain windows and spec dispatches) are timed
+    and their slot-tokens counted, with the grouped FFN's launches inside
+    them. Returns the run's figures."""
     import tempfile
 
     import numpy as np
     import torch
 
     from video_r2_tpu_torch.apps import postprocess as pp_app
-    from video_r2_tpu_torch.apps import serve as serve_app
     from video_r2_tpu_torch.apps import test_judge
-    from video_r2_tpu_torch.apps.common import build_tokenizer
     from video_r2_tpu_torch.engine.server import serve
-    from video_r2_tpu_torch.evalharness import postprocess
     from video_r2_tpu_torch.rewards import judge as judge_mod
-    from video_r2_tpu_torch.rewards.judge import StaticJudge
 
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    app, opts, _, _ = serve_app.parse_args(list(SERVE_ARGV))
-    if app.model_config() != model.cfg:
-        raise AssertionError("phase 21: the served config is not phase 11's model's")
-    tok = build_tokenizer(app)
-    chat = serve_app.build_engine(app, model, tok, max_new_tokens=SERVE_NEW_TOKENS,
-                                  num_slots=SERVE_SLOTS, **opts)
     eng = chat._cont
+    torch.cuda.reset_peak_memory_stats()
     server = serve(chat, host="127.0.0.1", port=0, background=True)
     base = f"http://127.0.0.1:{server.server_address[1]}/v1"
-    print(f"phase 21: apps/serve {' '.join(SERVE_ARGV)} (num_slots {SERVE_SLOTS}, "
-          f"max_new_tokens {SERVE_NEW_TOKENS}; --spec-decode and --prefill-chunk left out) "
-          f"on {base}, attn_impl {chat.attn_impl}, page size {eng._page_size}, buckets "
-          f"{eng.prompt_buckets}; predictions {sorted(p.name for p in tree.iterdir())} | "
-          f"{card}", flush=True)
 
     # the client side: every request timed, every error counted
-    latencies, errors, lengths = [], [], []
+    latencies, errors, lengths, outputs = [], [], [], {}
     real_chat = judge_mod.OpenAICompatClient.chat
 
     def timed_chat(self, system, user):
@@ -3749,23 +3815,41 @@ def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
         latencies.append(time.perf_counter() - t0)
         return out
 
-    # the server side: the decode windows' tokens, seconds and FFN launches
+    def kept_step(steps=1):
+        """The engine's step, its finished requests' tokens kept by prompt
+        (trailing pad dropped: the admission routes pad differently)."""
+        prompts = {r.rid: r.prompt_ids for r in eng.slot_req if r is not None}
+        done = real_step(steps)
+        for rid, toks in done:
+            ids = [int(x) for x in np.asarray(prompts[rid]).reshape(-1)]
+            while ids and ids[-1] == eng.cfg.pad_token_id:
+                ids.pop()
+            outputs[tuple(ids)] = [int(t) for t in toks]
+        return done
+
+    # the server side: the decode windows' slot-tokens, seconds and FFN launches
     decode = {"tokens": 0, "s": 0.0, "windows": 0, "ffn": {}}
 
-    def windowed(active, steps):
-        before = dict(ffn_launches())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = real_decode(active, steps)           # synchronizes (tokens to the host)
-        decode["s"] += time.perf_counter() - t0
-        decode["tokens"] += int(np.asarray(active).sum()) * steps
-        decode["windows"] += 1
-        for v, n in ffn_launches().items():
-            decode["ffn"][v] = decode["ffn"].get(v, 0) + n - before.get(v, 0)
-        return toks
+    def windowed(fn, tokens):
+        def run(active, steps):
+            before = dict(ffn_launches())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(active, steps)           # synchronizes (tokens to the host)
+            decode["s"] += time.perf_counter() - t0
+            decode["tokens"] += tokens(active, steps, out)
+            decode["windows"] += 1
+            for v, n in ffn_launches().items():
+                decode["ffn"][v] = decode["ffn"].get(v, 0) + n - before.get(v, 0)
+            return out
+        return run
 
-    real_decode = eng._decode_all
-    eng._decode_all = windowed
+    eng._decode_all = windowed(eng._decode_all,
+                               lambda active, steps, _: int(np.asarray(active).sum()) * steps)
+    eng._spec_dispatch = windowed(eng._spec_dispatch,
+                                  lambda active, steps, out: int(out[1].sum()))
+    real_step = eng.step
+    eng.step = kept_step
     judge_mod.OpenAICompatClient.chat = timed_chat
     out = Path(tempfile.mkdtemp(prefix="vr2_posthoc_"))
     reset_launches()
@@ -3784,16 +3868,60 @@ def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
         server.shutdown()
         server.server_close()
         chat.shutdown()
-        del eng._decode_all
-    launches = read_launches()
-    ffn = {v: n for v, n in ffn_launches().items() if n}
-    launches["moe_ffn_int8_ragged"] = decode["ffn"].get("int8", 0)
-    launches["moe_ffn_int8_gmm"] = ffn.get("int8", 0) - launches["moe_ffn_int8_ragged"]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    failed = eng.loop_stats["failed"]
+        del eng._decode_all, eng._spec_dispatch, eng.step
     lat = sorted(latencies)
     p50, p95 = (lat[min(len(lat) - 1, int(q * len(lat)))] if lat else float("nan")
                 for q in (0.5, 0.95))
+    return {"launches": read_launches(), "ffn": {v: n for v, n in ffn_launches().items() if n},
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30, "served": len(latencies),
+            "errors": errors, "failed": len(errors) + eng.loop_stats["failed"], "wall": wall,
+            "p50": p50, "p95": p95, "lengths": lengths, "outputs": outputs,
+            "tokens": decode["tokens"], "s": max(decode["s"], 1e-9),
+            "windows": decode["windows"], "decode_ffn": decode["ffn"], "ready": ready,
+            "summary": summary, "out": out}
+
+
+def posthoc_judge_phase(model, tree: Path, card: str) -> tuple[dict, dict]:
+    """Phase 21: the post-hoc judge path on phase 11's int8 Qwen3-30B-A3B
+    (the model apps/common.build_model makes for SERVE_ARGV's config: the
+    same seed, quantize_params in place). apps/serve's construction
+    (parse_args + build_engine) over SERVE_ARGV with SERVE_SLOTS slots and
+    SERVE_NEW_TOKENS tokens an answer, then serve_http: apps/test_judge,
+    apps/postprocess tac, vas and summarize over phase 20's samples tree
+    (mvbench_think and videomme_think, 8 rows each) against it, counted;
+    the loop's admissions by route are engine.loop_stats. Fails on any
+    failed request or admission, a TAC / VAS output whose keys differ from
+    those the same functions write with a fixed judge, or a kernel of the
+    path not launched. Then, on the engine with its loop stopped, one decode
+    window under the profiler, the packed admission check and the engine
+    against its plain path; with the engine freed, the kernels at the
+    served shapes (served_kernel_cases, with phase 22(a)'s verify chunk).
+    Returns (the path's launches, the run's figures for phase 22(c))."""
+    import torch
+
+    from video_r2_tpu_torch.apps import serve as serve_app
+    from video_r2_tpu_torch.apps.common import build_tokenizer
+    from video_r2_tpu_torch.evalharness import postprocess
+    from video_r2_tpu_torch.rewards.judge import StaticJudge
+
+    t_phase = time.perf_counter()
+    app, opts, _, _ = serve_app.parse_args(list(SERVE_ARGV))
+    if app.model_config() != model.cfg:
+        raise AssertionError("phase 21: the served config is not phase 11's model's")
+    tok = build_tokenizer(app)
+    chat = serve_app.build_engine(app, model, tok, max_new_tokens=SERVE_NEW_TOKENS,
+                                  num_slots=SERVE_SLOTS, **opts)
+    eng = chat._cont
+    print(f"phase 21: apps/serve {' '.join(SERVE_ARGV)} (num_slots {SERVE_SLOTS}, "
+          f"max_new_tokens {SERVE_NEW_TOKENS}; --spec-decode and --prefill-chunk: phase "
+          f"22(c)), attn_impl {chat.attn_impl}, page size {eng._page_size}, buckets "
+          f"{eng.prompt_buckets}; predictions {sorted(p.name for p in tree.iterdir())} | "
+          f"{card}", flush=True)
+    run = serve_http(chat, tree)
+    launches, ffn, lengths, out = run["launches"], run["ffn"], run["lengths"], run["out"]
+    launches["moe_ffn_int8_ragged"] = run["decode_ffn"].get("int8", 0)
+    launches["moe_ffn_int8_gmm"] = ffn.get("int8", 0) - launches["moe_ffn_int8_ragged"]
+    failed = eng.loop_stats["failed"]
     # the loop packs an idle burst's prompts whose page-rounded span is at
     # most half the top bucket (engine/continuous.py::_run_loop_impl)
     packable = [n for n in lengths
@@ -3802,22 +3930,22 @@ def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
     span_split = lambda v: (len(v), min(v), max(v)) if v else (0,)  # noqa: E731
     kept = ("flash_attention", "paged_decode_attention_stacked_quant", "moe_ffn_int8_ragged",
             "moe_ffn_int8_gmm", "int8_matmul", "int8_matmul_decode", "int8_matmul_wide")
-    print(f"phase 21: {len(latencies)} requests served, {len(errors) + failed} failed "
-          f"({len(errors)} HTTP errors, {failed} failed admissions) in {wall:.3f} s = "
-          f"{len(latencies) / wall:.4f} requests/s; client latency p50 {p50:.3f} s, p95 "
-          f"{p95:.3f} s; decode {decode['tokens']} slot-tokens in {decode['windows']} windows, "
-          f"{decode['s']:.3f} s = {decode['tokens'] / max(decode['s'], 1e-9):.2f} tok/s; "
-          f"admissions {dict(eng.loop_stats)}; prompt tokens (n, min, max) packable "
-          f"{span_split(packable)}, too long to pack {span_split(too_long)}; launches "
-          f"{ {k: launches[k] for k in kept} }; "
-          f"grouped FFN by variant {ffn}; peak device memory {peak:.2f} GiB | {card}",
-          flush=True)
-    print(f"phase 21 test_judge answer: {ready[:60]!r}; summary keys: tac "
+    print(f"phase 21: {run['served']} requests served, {run['failed']} failed "
+          f"({len(run['errors'])} HTTP errors, {failed} failed admissions) in "
+          f"{run['wall']:.3f} s = {run['served'] / run['wall']:.4f} requests/s; client "
+          f"latency p50 {run['p50']:.3f} s, p95 {run['p95']:.3f} s; decode {run['tokens']} "
+          f"slot-tokens in {run['windows']} windows, {run['s']:.3f} s = "
+          f"{run['tokens'] / run['s']:.2f} tok/s; admissions {dict(eng.loop_stats)}; prompt "
+          f"tokens (n, min, max) packable {span_split(packable)}, too long to pack "
+          f"{span_split(too_long)}; launches { {k: launches[k] for k in kept} }; grouped FFN "
+          f"by variant {ffn}; peak device memory {run['peak']:.2f} GiB | {card}", flush=True)
+    summary = run["summary"]
+    print(f"phase 21 test_judge answer: {run['ready'][:60]!r}; summary keys: tac "
           f"{ {k: sorted(v) for k, v in summary['tac'].items()} }, vas "
           f"{ {k: sorted(v) for k, v in summary['vas'].items()} }", flush=True)
-    if errors or failed or len(latencies) < 1 + 4 * 16:
-        raise AssertionError(f"phase 21: failed requests ({errors[:3]}, {failed} failed "
-                             f"admissions) or too few served ({len(latencies)})")
+    if run["failed"] or run["served"] < 1 + 4 * 16:
+        raise AssertionError(f"phase 21: failed requests ({run['errors'][:3]}, {failed} "
+                             f"failed admissions) or too few served ({run['served']})")
     if max(lengths) + SERVE_NEW_TOKENS + 1 > eng.max_len:
         raise AssertionError(f"phase 21: a prompt of {max(lengths)} tokens was cut to the "
                              f"slot's room ({eng.max_len - SERVE_NEW_TOKENS - 1})")
@@ -3857,23 +3985,27 @@ def posthoc_judge_phase(model, tree: Path, card: str) -> dict:
     print(f"phase 21 decode window under the profiler: {window} | {card}", flush=True)
     packed_check(eng, chat, card)
     served_step_check(eng, chat, card)
-    del eng, chat, server, windowed, real_decode     # the engine's pools go
+    del eng, chat                          # the engine's pools go
     gc.collect()
     torch.cuda.empty_cache()
-    served_kernel_cases(model.cfg, lengths, card)
+    verify = served_kernel_cases(model.cfg, lengths, card)
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s in all | {card}", flush=True)
-    return launches
+    return launches, {**run, "verify_kernel": verify}
 
 
-def served_kernel_cases(cfg, lengths: list[int], card: str) -> None:
+def served_kernel_cases(cfg, lengths: list[int], card: str) -> dict:
     """The kernels of phase 21 that no other phase holds at the judge's
     shapes, against their plain versions: the paged decode over int8 pages
     at 16 served contexts (the served slots at most; 16 of the served
     prompt lengths, evenly spaced in their sorted order from the shortest
     to the longest, each plus SERVE_NEW_TOKENS: the last decode step's),
-    and the int8 matmul at the judge's q, k / v, o and
-    head widths with 128 rows (a 128-row bucket's prefill takes the wide
-    kernel)."""
+    and the int8 matmul at the judge's q, k / v, o and head widths with 128
+    rows (a 128-row bucket's prefill takes the wide kernel) and with phase
+    22(c)'s verify passes' SERVE_SLOTS (K + 1) rows (the wide kernel's two
+    row tiles, the second partial); then phase 22(a)'s judge case: the
+    paged kernel over int8 pages at the same contexts with verify chunks of
+    SPEC_K + 1 tokens (72 query rows a kv head: two row groups). Returns
+    that case's result."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
@@ -3881,15 +4013,21 @@ def served_kernel_cases(cfg, lengths: list[int], card: str) -> None:
     contexts = [served[round(i * (len(served) - 1) / 15)] + SERVE_NEW_TOKENS
                 for i in range(16)]
     paged_case(gen, "judge serve decode, int8 pages, W=1", cfg, contexts, 1, "int8")
+    verify = paged_case(gen, f"phase 22(a) judge verify chunk K={SPEC_K}, int8 pages, "
+                        f"W={SPEC_K + 1}", cfg, contexts, SPEC_K + 1, "int8")
     tc = cfg.text
     H, q_w, kv_w = tc.hidden_size, tc.num_attention_heads * tc.head_dim, \
         tc.num_key_value_heads * tc.head_dim
+    verify_rows = SERVE_SLOTS * (SPEC_K + 1)
     for what, K, N in (("q", H, q_w), ("k / v", H, kv_w), ("o", q_w, H),
                        ("head", H, tc.vocab_size)):
-        int8_case(gen, f"judge {what}, 128 rows", 128, K, N)
+        for M in (128, verify_rows):
+            int8_case(gen, f"judge {what}, {M} rows", M, K, N)
     print(f"phase 21 kernels at the served shapes: paged decode over int8 pages at "
-          f"{len(contexts)} contexts {contexts}, int8 matmul at q / k / v "
-          f"/ o / head widths with 128 rows: each within its tolerance | {card}", flush=True)
+          f"{len(contexts)} contexts {contexts} (W = 1 and phase 22(a)'s W = {SPEC_K + 1}), "
+          f"int8 matmul at q / k / v / o / head widths with 128 rows and 22(c)'s "
+          f"{verify_rows} verify rows: each within its tolerance | {card}", flush=True)
+    return verify["paged_decode_attention_stacked_quant"]
 
 
 def int8_weights(gen, K: int, N: int, L: int | None = None):
@@ -4805,6 +4943,7 @@ def eval_phase(model, card: str, device) -> tuple[dict, dict, Path]:
     for name in ("flash_attention", "window_attention", "paged_decode_attention_stacked"):
         if launches[name] <= 0:
             raise AssertionError(f"phase 20 launched no {name} kernel: {launches}")
+    spec_eval_pass(model, tok, docs, responses, card)          # phase 22(d)
 
     # the paged decode kernel at the paged pass's contexts (its first
     # submit_batch's prompts at their full budget) against its plain version
@@ -5192,8 +5331,10 @@ def profiled_window(eng, rids: list, steps: int, what: str) -> str:
 
 
 def grpo_phase(model, card: str, device) -> dict:
-    """Phase 19: LoRA-GRPO on the 7B (bf16) with paged rollouts. Returns the
-    launches of the counted cycles, and the peak memory as "peak_gib"."""
+    """Phase 19: LoRA-GRPO on the 7B (bf16) with paged rollouts, then 22(d)'s
+    cycle with speculative rollouts. Returns the launches of the counted
+    cycles, the peak memory as "peak_gib", and the paged kernel's launches
+    in 22(d)'s verify chunks as "verify_launches"."""
     import torch
 
     from video_r2_tpu_torch.train.grpo import GRPOConfig
@@ -5257,7 +5398,28 @@ def grpo_phase(model, card: str, device) -> dict:
     detach_lora(model)
     gc.collect()
     torch.cuda.empty_cache()
-    return {**launches, "peak_gib": peak}
+
+    # phase 22(d): one cycle with speculative rollouts (rejection sampling)
+    from dataclasses import replace
+
+    from video_r2_tpu_torch.engine.continuous import PagedContinuousEngine
+
+    with SpecCounter(PagedContinuousEngine) as sc:
+        out, spec_launches, _, _ = grpo_train(
+            model, replace(gcfg, rollout_spec_decode=SPEC_K_SMALL), lcfg, sample, 1,
+            f"phase 22(d) GRPO, rollout_spec_decode {SPEC_K_SMALL}", card)
+    verify = sc.verify["paged_decode_attention_stacked"]
+    print(f"phase 22(d) GRPO cycle with rollout_spec_decode {SPEC_K_SMALL}: "
+          f"{out[0]['s_per_cycle']:.3f} s, loss {out[0]['loss']:.6e}; "
+          f"{sc.stat('spec_dispatches')} spec dispatches, {sc.per_round():.3f} tokens a round "
+          f"a slot; paged launches {spec_launches['paged_decode_attention_stacked']} "
+          f"({verify} in verify chunks) | {card}", flush=True)
+    if sc.stat("spec_dispatches") <= 0 or verify <= 0:
+        raise AssertionError("phase 22(d): the GRPO rollouts did not speculate")
+    detach_lora(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "peak_gib": peak, "verify_launches": verify}
 
 
 def qlora_phase(model, card: str, bf16_peak: float) -> dict:
@@ -5368,6 +5530,496 @@ def tiny_grpo_cycle(models: dict, tok, data, frames, card: str) -> None:
                              f"CPU: tokens equal {same}, loss {loss_rel}, grad_norm {norm_rel}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: speculative decoding and chunked prefill
+# ---------------------------------------------------------------------------
+
+class SpecCounter:
+    """While active, an engine class's speculative dispatches: the spec_stats
+    of the engines they ran on (read against their values at each engine's
+    first dispatch), the verify rounds a slot (rounds x active slots), and
+    the paged kernels' launches inside them (the verify chunks'), by
+    wrapper."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.stats = {}                     # id(spec_stats) -> (spec_stats, at first)
+        self.slot_rounds = 0
+        self.verify = {}
+
+    def __enter__(self):
+        import numpy as np
+
+        from video_r2_tpu_torch.ops import paged_attention as paged
+
+        real = self.real = self.cls._spec_dispatch
+        wrappers = {n: getattr(paged, n) for n in ("paged_decode_attention_stacked",
+                                                   "paged_decode_attention_stacked_quant")}
+        self.verify = dict.fromkeys(wrappers, 0)
+
+        def counted(eng, active, rounds):
+            self.stats.setdefault(id(eng.spec_stats), (eng.spec_stats, dict(eng.spec_stats)))
+            before = {n: w.launches for n, w in wrappers.items()}
+            out = real(eng, active, rounds)
+            self.slot_rounds += rounds * int(np.asarray(active).sum())
+            for n, w in wrappers.items():
+                self.verify[n] += w.launches - before[n]
+            return out
+
+        self.cls._spec_dispatch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._spec_dispatch = self.real
+
+    def stat(self, key: str) -> int:
+        return sum(st[key] - first[key] for st, first in self.stats.values())
+
+    @property
+    def verify_launches(self) -> int:
+        return sum(self.verify.values())
+
+    def per_round(self) -> float:
+        return self.stat("spec_tokens") / max(self.slot_rounds, 1)
+
+
+class RaggedCounter:
+    """While active, counts the grouped FFN's launches made on the MoE
+    block's ragged route (models/moe.py: at most RAGGED_MAX_TOKENS tokens);
+    the rest of a run's FFN launches took the GMM route."""
+
+    def __enter__(self):
+        from video_r2_tpu_torch.ops import moe_ragged
+
+        self.launches, real = {}, moe_ragged.moe_mlp_ragged
+        self.mod, self.real = moe_ragged, real
+
+        def counted(*a, **k):
+            before = dict(ffn_launches())
+            out = real(*a, **k)
+            for v, n in ffn_launches().items():
+                self.launches[v] = self.launches.get(v, 0) + n - before.get(v, 0)
+            return out
+
+        moe_ragged.moe_mlp_ragged = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_mlp_ragged = self.real
+
+
+def drive_engine(eng, prompts, T: int, steps: int) -> list:
+    """Two prompts admitted, the rest as slots free (mid-stream); every
+    answer, in submission order."""
+    rids = [eng.submit(p, max_new_tokens=T) for p in prompts[:2]]
+    out, left = {}, list(prompts[2:])
+    while eng.num_active or left:
+        for rid, toks in eng.step(steps):
+            out[rid] = [int(t) for t in toks]
+        if left and eng.num_active < eng.num_slots:
+            rids.append(eng.submit(left.pop(0), max_new_tokens=T))
+    return [out[r] for r in rids]
+
+
+def tiny_spec_check(model, tok, card: str) -> tuple[dict, dict]:
+    """Phase 22(b) on the tiny fp32 model on the card: spec (K = 4) against
+    plain greedy in generate, the slot engine and the paged engine over fp32
+    and int8 pages (three prompts, one lookup-friendly, the third admitted
+    mid-stream), then chunked (a chunk of a page) against whole prefill on
+    the slot and paged engines, tokens equal each; then the paged kernel at
+    the verify chunks it ran (W = K + 1, the two slots' last contexts, fp32
+    q over fp32 and over int8 pages) against its plain version. Returns
+    ({row of the kernels line: that case}, {row: the launches in the paged
+    engines' verify chunks over those pages})."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.engine.chat import pack_prompts
+    from video_r2_tpu_torch.engine.continuous import ContinuousEngine, PagedContinuousEngine
+    from video_r2_tpu_torch.engine.generate import generate
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+
+    greedy = SamplingParams(max_new_tokens=TINY_NEW_TOKENS, eos_token_ids=(), pad_token_id=0)
+    prompts = [tok.encode("the cup is on the table, " * 4)] + [tok.encode(q)
+                                                               for q in QUESTIONS[:2]]
+    long_p = tok.encode(" ".join(JUDGE_STEPS))                   # > one page of 128
+    packed = pack_prompts(prompts, pad_id=0)
+    K = SPEC_K_SMALL
+    res = {"generate": [generate(model, packed.input_ids, packed.lengths, greedy,
+                                 spec_decode=k).sequences for k in (0, K)]}
+    kw = dict(num_slots=2, max_len=256, sp=greedy, prompt_buckets=(128, 256))
+    with SpecCounter(PagedContinuousEngine) as sc:
+        for what, cls, extra in (("slots", ContinuousEngine, {}),
+                                 ("paged fp32 pages", PagedContinuousEngine,
+                                  {"page_size": PAGE_SIZE}),
+                                 ("paged int8 pages", PagedContinuousEngine,
+                                  {"page_size": PAGE_SIZE, "kv_quant": "int8"})):
+            res[what] = [drive_engine(cls(model, spec_decode=k, **kw, **extra), prompts,
+                                      TINY_NEW_TOKENS, 2) for k in (0, K)]
+    for what, cls, chunk, extra in (("slots chunked", ContinuousEngine, 64, {}),
+                                    ("paged chunked", PagedContinuousEngine, PAGE_SIZE,
+                                     {"page_size": PAGE_SIZE})):
+        res[what] = [drive_engine(cls(model, prefill_chunk_tokens=c, **kw, **extra),
+                                  [long_p, prompts[1]], TINY_NEW_TOKENS, 2)
+                     for c in (0, chunk)]
+    same = {what: bool(np.array_equal(a, b)) for what, (a, b) in res.items()}
+    print(f"phase 22(b) tiny fp32 on the card, K = {K}: spec vs plain greedy tokens equal "
+          f"{ {w: v for w, v in same.items() if 'chunked' not in w} }; chunked ({len(long_p)}"
+          f"-token prompt) vs whole prefill tokens equal "
+          f"{ {w: v for w, v in same.items() if 'chunked' in w} }; paged spec: "
+          f"{sc.stat('spec_dispatches')} dispatches, {sc.per_round():.3f} tokens a round a "
+          f"slot, verify-chunk launches of the paged kernel {sc.verify} | {card}", flush=True)
+    if not all(same.values()) or min(sc.verify.values()) <= 0:
+        raise AssertionError(f"phase 22(b): the tiny model's spec or chunked tokens differ "
+                             f"from plain greedy on the card, or no verify chunk reached the "
+                             f"paged kernel: {same}, {sc.verify}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    contexts = [len(p) + TINY_NEW_TOKENS for p in prompts[:2]]
+    cases, launches = {}, {}
+    for row, pages, wrapper in (
+            ("paged_decode_attention_stacked_fp32_verify", "fp32",
+             "paged_decode_attention_stacked"),
+            ("paged_decode_attention_stacked_quant_fp32_verify", "int8_fp32q",
+             "paged_decode_attention_stacked_quant")):
+        cases[row] = paged_case(gen, f"phase 22(b) tiny verify chunk K={K}, {pages} pages",
+                                model.cfg, contexts, K + 1, pages)[wrapper]
+        launches[row] = sc.verify[wrapper]
+    return cases, launches
+
+
+def agreement(plain: dict, spec: dict) -> tuple[int, int, int, int]:
+    """(answers equal, answers compared, tokens agreeing as a common prefix,
+    tokens) between two runs' generated tokens for the same prompts."""
+    keys = sorted(set(plain) & set(spec))
+    same = sum(plain[k] == spec[k] for k in keys)
+    agree = total = 0
+    for k in keys:
+        a, b = plain[k], spec[k]
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        agree, total = agree + n, total + max(len(a), len(b))
+    return same, len(keys), agree, total
+
+
+def verify_round(eng, prompts: list) -> tuple:
+    """One verify round of the served engine (its loop stopped) for
+    `prompts`, admitted one by one into free slots with whole prefill: each
+    slot's pending token and the K drafts its history gives, at its
+    frontier, through the kernels (the paged kernel over int8 pages, the
+    int8 linears, the grouped FFN), then through the engine's plain path
+    (every kernel on its plain version) teacher-forced on the same chunks.
+    Returns (kernel logits [N, K + 1, V], plain logits, chunks, the kernel
+    path's launches with the FFN's ragged ones as moe_ffn_int8_ragged, the
+    plain path's)."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.engine import continuous
+    from video_r2_tpu_torch.engine.spec_decode import embed_chunk
+    from video_r2_tpu_torch.models.model import lm_head
+    from video_r2_tpu_torch.models.mrope import mrope_cos_sin
+    from video_r2_tpu_torch.ops.paged_attention import paged_decode_attention_stacked_plain
+
+    K, ps, pc, model, N = eng.spec_decode, eng._page_size, eng.pcache, eng.model, len(prompts)
+    kept = (eng.prefix_cache, eng.prefill_chunk_tokens,
+            continuous.paged_decode_attention_stacked)
+    eng.prefix_cache, eng.prefill_chunk_tokens = False, 0
+    rids = []
+    try:
+        with torch.inference_mode():
+            rids = [eng.submit(ids, 4) for ids in prompts]
+            slots = [next(i for i, r in enumerate(eng.slot_req)
+                          if r is not None and r.rid == rid) for rid in rids]
+            at = eng._t(slots)
+            cur = eng._t(eng.cur_len[slots])
+            chunk, _ = continuous._spec_draft(eng.hist[at], eng.last_logits[at].argmax(-1),
+                                              cur, K, False)
+            for slot in slots:
+                pc.lengths[slot] = int(eng.cur_len[slot])
+                pc.ensure_capacity(slot, K + 1)
+            row = pc.page_tables[slots]
+            tables = eng._t(np.where(row >= 0, row, eng.trash_page), torch.int32)
+            ar = torch.arange(K + 1, device=cur.device)
+            tokpos = cur[:, None] + ar
+            pid = tables.gather(1, tokpos // ps).long()
+            pos = (eng._t(eng.pos_base[slots]) + cur)[:, None] + ar
+
+            def verify():
+                emb = embed_chunk(model, chunk)
+                cos, sin = mrope_cos_sin(pos[None].expand(3, N, K + 1), model.cfg,
+                                         dtype=emb.dtype)
+                x = continuous._paged_decoder_pass(model, eng._kv(), emb, cos, sin, pid,
+                                                   tokpos % ps, tables, cur, ps)
+                return lm_head(model, x).float()                    # [N, K + 1, V]
+
+            reset_launches()
+            with RaggedCounter() as rc:
+                kernel = verify()
+            k_launches = read_launches()
+            k_launches["moe_ffn_int8_ragged"] = rc.launches.get("int8", 0)
+            set_kernel_impl(model, "plain")
+            continuous.paged_decode_attention_stacked = paged_decode_attention_stacked_plain
+            reset_launches()
+            plain = verify()
+            p_launches = read_launches()
+    finally:
+        set_kernel_impl(model, "kernel")
+        (eng.prefix_cache, eng.prefill_chunk_tokens,
+         continuous.paged_decode_attention_stacked) = kept
+        for rid in rids:
+            eng.request_cancel(rid)
+        eng.step(1)
+    return kernel, plain, chunk, k_launches, p_launches
+
+
+def verify_round_check(eng, chat, served: list, card: str) -> None:
+    """Phase 22(c), the served engine's loop stopped: verify_round at the
+    served run's full load (SERVE_SLOTS of its prompts, evenly spaced by
+    length from the shortest to the longest: N (K + 1) = 144 rows take the
+    int8 wide kernel and the grouped FFN's GMM route) and with one slot (the
+    longest of phase 11's TAC-style prompts: K + 1 rows take the int8
+    decode kernel and the FFN's ragged route, RAGGED_MAX_TOKENS), each
+    against the engine's plain path within JUDGE_LOGITS_TOL, each route
+    asserted launched on the kernel path and none on the plain one."""
+    import torch
+
+    by_len = sorted(served, key=len)
+    full = [list(by_len[round(i * (len(by_len) - 1) / (SERVE_SLOTS - 1))])
+            for i in range(SERVE_SLOTS)]
+    cases = (("full load", full, ("int8_matmul_wide", "moe_ffn_int8_gmm")),
+             ("one slot", judge_prompt_ids(chat.tok, judge_requests()[-1:]),
+              ("int8_matmul_decode", "moe_ffn_int8_ragged")))
+    names = ("paged_decode_attention_stacked_quant", "int8_matmul", "moe_ffn_int8")
+    for what, prompts, routes in cases:
+        kernel, plain, chunk, k_launches, p_launches = verify_round(eng, prompts)
+        k_launches["moe_ffn_int8_gmm"] = (k_launches["moe_ffn_int8"]
+                                          - k_launches["moe_ffn_int8_ragged"])
+        N, W = chunk.shape
+        rel = rel_l2(kernel, plain)
+        worst = max(rel_l2(kernel[b], plain[b]) for b in range(N))
+        agree = (kernel.argmax(-1) == plain.argmax(-1)).sum().item()
+        print(f"phase 22(c) verify round, {what}: {N} slots x {W} tokens = {N * W} rows "
+              f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens; first "
+              f"chunk {chunk[0].tolist()}) kernel vs plain path, teacher-forced: logits rel_l2 "
+              f"{rel:.3e} (worst slot {worst:.3e}; tol {JUDGE_LOGITS_TOL}), argmax equal at "
+              f"{agree} of {N * W} rows; launches kernel path "
+              f"{ {n: k_launches[n] for n in names + routes} }, plain "
+              f"{ {n: p_launches.get(n, 0) for n in names} } | {card}", flush=True)
+        if (any(k_launches[n] <= 0 for n in names + routes)
+                or any(p_launches.get(n, 0) for n in names)
+                or not (torch.isfinite(kernel).all() and rel <= JUDGE_LOGITS_TOL)):
+            raise AssertionError(f"phase 22(c): the verify round ({what}) disagrees with the "
+                                 f"plain path ({rel}) or took the wrong route: {k_launches} "
+                                 f"/ {p_launches}")
+def chunked_prefill_check(eng, chat, card: str) -> None:
+    """Phase 22(c), the loop stopped: a ~5k-token judge prompt through the
+    served engine's chunked prefill (chunks of 2048: the first through the
+    flash prefill, the rest through the suffix prefill over the int8 pages
+    so far) against its whole prefill: the last token's logits within
+    JUDGE_LOGITS_TOL (the later chunks read the earlier ones' int8-rounded
+    pages, the whole prefill its own k / v)."""
+    import torch
+
+    user = " ".join(JUDGE_STEPS * 24)
+    ids = chat._encode([{"role": "system", "content": JUDGE_SYSTEM},
+                        {"role": "user", "content": user}])
+    kept = (eng.prefix_cache, eng.prefill_chunk_tokens)
+    eng.prefix_cache = False
+
+    def prefilled():
+        rid = eng.submit(ids, 4)
+        slot = next(i for i, r in enumerate(eng.slot_req) if r is not None and r.rid == rid)
+        chunks = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            while eng.prefilling[slot]:
+                eng._advance_prefill()
+                chunks += 1
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        logits = eng.last_logits[slot].clone()
+        eng.request_cancel(rid)
+        eng.step(1)
+        return logits, chunks, ms
+
+    try:
+        chunked, n_chunks, chunk_ms = prefilled()
+        eng.prefill_chunk_tokens = 0
+        whole, _, _ = prefilled()
+    finally:
+        eng.prefix_cache, eng.prefill_chunk_tokens = kept
+    rel = rel_l2(chunked, whole)
+    print(f"phase 22(c) chunked prefill ({len(ids)} tokens in {n_chunks} chunks of "
+          f"{eng.prefill_chunk_tokens}, {chunk_ms:.1f} ms) vs the whole prefill: last logits "
+          f"rel_l2 {rel:.3e} (tol {JUDGE_LOGITS_TOL}), argmax {int(chunked.argmax())} vs "
+          f"{int(whole.argmax())} | {card}", flush=True)
+    if not (n_chunks > 1 and torch.isfinite(chunked).all() and rel <= JUDGE_LOGITS_TOL):
+        raise AssertionError(f"phase 22(c): the chunked prefill disagrees with the whole "
+                             f"one: {rel} over {n_chunks} chunks")
+
+
+def served_spec_phase(model, tree: Path, card: str, plain: dict) -> dict:
+    """Phase 22(c): apps/serve with SPEC_ARGV on phase 21's int8 judge over
+    the same TAC / VAS requests through HTTP (serve_http), counted; then
+    the verify-round and chunked-prefill checks on the engine. `plain`:
+    phase 21's run, printed beside. Returns the launches of the served run
+    and, as "verify_launches", the paged kernel's in verify chunks."""
+    import torch
+
+    from video_r2_tpu_torch.apps import serve as serve_app
+    from video_r2_tpu_torch.apps.common import build_tokenizer
+    from video_r2_tpu_torch.engine.continuous import PagedContinuousEngine
+
+    t_phase = time.perf_counter()
+    app, opts, _, _ = serve_app.parse_args(list(SPEC_ARGV))
+    if (opts["spec_decode"], opts["prefill_chunk_tokens"]) != (SPEC_K, SPEC_CHUNK):
+        raise AssertionError(f"phase 22(c): apps/serve parsed {opts}")
+    tok = build_tokenizer(app)
+    chat = serve_app.build_engine(app, model, tok, max_new_tokens=SERVE_NEW_TOKENS,
+                                  num_slots=SERVE_SLOTS, **opts)
+    eng = chat._cont
+    deferred = []
+    real_defer = eng._defer_prefill
+    eng._defer_prefill = lambda *a, **k: (deferred.append(a[3]), real_defer(*a, **k))
+    with SpecCounter(PagedContinuousEngine) as sc, RaggedCounter() as rc:
+        run = serve_http(chat, tree)
+    del eng._defer_prefill
+    launches = run["launches"]
+    launches["moe_ffn_int8_ragged"] = rc.launches.get("int8", 0)
+    launches["moe_ffn_int8_gmm"] = run["ffn"].get("int8", 0) - launches["moe_ffn_int8_ragged"]
+    st = dict(eng.spec_stats)
+    same, n, agree, total = agreement(plain["outputs"], run["outputs"])
+    kept = ("flash_attention", "paged_decode_attention_stacked_quant", "int8_matmul",
+            "int8_matmul_decode", "int8_matmul_wide", "moe_ffn_int8_ragged", "moe_ffn_int8_gmm")
+    print(f"phase 22(c): apps/serve {' '.join(SPEC_ARGV)}: {run['served']} requests, "
+          f"{run['failed']} failed, {run['served'] / run['wall']:.4f} requests/s (phase 21 "
+          f"plain {plain['served'] / plain['wall']:.4f}); p50 {run['p50']:.3f} s, p95 "
+          f"{run['p95']:.3f} s (plain {plain['p50']:.3f} / {plain['p95']:.3f}); slot-tokens "
+          f"{run['tokens']} in {run['s']:.3f} s of decode = {run['tokens'] / run['s']:.2f} "
+          f"tok/s (plain {plain['tokens'] / plain['s']:.2f}); spec dispatches "
+          f"{st['spec_dispatches']}, rounds {st['spec_rounds']}, tokens {st['spec_tokens']} "
+          f"({sc.per_round():.3f} tokens a round a slot), plain dispatches "
+          f"{st['plain_dispatches']}; chunked prefills {len(deferred)} (prompts "
+          f"{sorted(deferred)}); answers equal to phase 21's {same} of {n} prompts, tokens "
+          f"agreeing as a prefix {agree} of {total}; admissions {dict(eng.loop_stats)}; launches "
+          f"{ {k: launches[k] for k in kept} }, {sc.verify_launches} paged launches in verify "
+          f"chunks; peak {run['peak']:.2f} GiB | {card}", flush=True)
+    if run["failed"] or run["served"] < 1 + 4 * 16:
+        raise AssertionError(f"phase 22(c): failed requests or too few served: {run}")
+    # how many prompts chunk varies with the admission route a request
+    # takes (a prefix-cache hit or a batched admission prefills whole);
+    # chunked_prefill_check holds the chunked prefill itself
+    if st["spec_dispatches"] <= 0 or sc.verify_launches <= 0:
+        raise AssertionError(f"phase 22(c): no spec dispatch or no verify chunk on the "
+                             f"paged kernel: {st}, {sc.verify_launches}")
+    # every verify pass carries all SERVE_SLOTS rows (K + 1 tokens each, idle
+    # slots too), past RAGGED_MAX_TOKENS: the served run's FFN takes the GMM
+    # route; verify_round_check holds that load and, with one slot, the
+    # ragged route
+    for name in kept:
+        if launches[name] <= 0 and name != "moe_ffn_int8_ragged":
+            raise AssertionError(f"phase 22(c) launched no {name}: {launches}")
+    verify_round_check(eng, chat, list(run["outputs"]), card)
+    chunked_prefill_check(eng, chat, card)
+    del eng, chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 22(c): {time.perf_counter() - t_phase:.1f} s in all | {card}", flush=True)
+    return {**launches, "verify_launches": sc.verify["paged_decode_attention_stacked_quant"]}
+
+
+def spec_eval_pass(model, tok, docs: dict, responses: dict, card: str) -> None:
+    """Phase 22(d): phase 20's batch pass again with spec_decode = SPEC_K:
+    docs/s and how many answers equal phase 20's (printed: bf16 verify
+    chunks and single-token steps round differently)."""
+    import torch
+
+    from video_r2_tpu_torch.config import EvalConfig
+    from video_r2_tpu_torch.evalharness import EngineModel, evaluate, get_task
+
+    ev = EvalConfig()
+    tasks = []
+    for t in EVAL_TASKS:
+        task = get_task(t, docs=docs[t])
+        task.config.generation_kwargs["max_new_tokens"] = EVAL_NEW_TOKENS
+        tasks.append(task)
+    em = EngineModel(model, tok, max_num_frames=ev.max_num_frames, max_pixels=ev.max_pixels,
+                     min_pixels=ev.min_pixels, batch_size=ev.batch_size,
+                     system_prompt=ev.system_prompt, attn_impl="flash", engine_mode="batch",
+                     spec_decode=SPEC_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = evaluate(em, tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {t: [r["resps"][0][0] for r in out["samples"][t]] for t in EVAL_TASKS}
+    same = [a == b for t in EVAL_TASKS for a, b in zip(got[t], responses[("batch", t)])]
+    n = sum(len(v) for v in got.values())
+    print(f"phase 22(d) eval, batch mode with spec_decode = {SPEC_K}: {n} docs in {wall:.3f} s "
+          f"= {n / wall:.4f} docs/s; answers equal to phase 20's batch pass {sum(same)} of "
+          f"{len(same)} (printed) | {card}", flush=True)
+    if n != len(same) or not all(isinstance(x, str) for v in got.values() for x in v):
+        raise AssertionError(f"phase 22(d): the spec eval pass lost docs: {n}")
+
+
+def spec_step_timing(model, card: str) -> int:
+    """Phase 22(d): the paged engine (bf16 pages, flash prefill) on the 7B at
+    B = SPEC_B, K = SPEC_K: ms of a plain decode step against ms of one
+    verify round through _step_spec (9 tokens a slot, the paged kernel at
+    63 query rows) and of a round under _reject_all (the zero-acceptance
+    floor), medians of 5 after a warm one each. Returns the verify chunks'
+    paged launches."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.engine.chat import ByteTokenizer
+    from video_r2_tpu_torch.engine.continuous import PagedContinuousEngine
+    from video_r2_tpu_torch.engine.sampling import SamplingParams
+
+    tok = ByteTokenizer()
+    sp = SamplingParams(eos_token_ids=(), pad_token_id=0)
+    eng = PagedContinuousEngine(model, num_slots=SPEC_B, max_len=2048, sp=sp,
+                                attn_impl="flash", page_size=PAGE_SIZE, spec_decode=SPEC_K,
+                                prefix_cache=False)
+    prompts = [tok.encode((INT4_QUESTIONS[i % 4] + " ") * (2 + i % 3)) for i in range(SPEC_B)]
+    rids = eng.submit_batch([(p, 1500) for p in prompts])
+    assert None not in rids
+    active = np.ones(SPEC_B, bool)
+
+    def plain_step():
+        eng._decode_all(active, 1)
+        eng.cur_len = eng.cur_len + 1
+
+    def timed(fn):
+        fn()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ms)
+
+    with torch.inference_mode(), SpecCounter(PagedContinuousEngine) as sc:
+        plain_ms = timed(plain_step)
+        verify_ms = timed(lambda: eng._step_spec(active, 1))
+        per_round = sc.per_round()
+        eng._spec_reject_all = True
+        floor_ms = timed(lambda: eng._step_spec(active, 1))
+    print(f"phase 22(d) the 7B's paged engine at B = {SPEC_B}, K = {SPEC_K}: a plain decode step "
+          f"{plain_ms:.2f} ms, a verify round {verify_ms:.2f} ms ({per_round:.3f} tokens a "
+          f"round a slot before the floor), a _reject_all round {floor_ms:.2f} ms (medians of "
+          f"5); {sc.verify_launches} paged launches in verify chunks | {card}", flush=True)
+    for r in rids:
+        eng.request_cancel(r)
+    eng.step(1)
+    if sc.verify_launches <= 0:
+        raise AssertionError("phase 22(d): no verify chunk reached the paged kernel")
+    return sc.verify["paged_decode_attention_stacked"]
+
+
 def main() -> int:
     import torch
 
@@ -5407,7 +6059,12 @@ def main() -> int:
     # expert and launches none); dX's are phase 15's steps
     launches.update({n: r["launches"] for n, r in gmm_bwd.items()})
     tree = launches.pop("phase20_tree")
-    launches.update(judge_phase(card, device, tree))   # phase 11 with 15, then 21
+    judged = judge_phase(card, device, tree)   # phase 11 with 15, then 21 and 22(c)
+    kernel_results["paged_decode_attention_stacked_quant_verify"] = judged.pop(
+        "paged_decode_attention_stacked_quant_verify")
+    launches.update(judged)
+    launches["paged_decode_attention_stacked_quant_verify"] = \
+        launches["phase22"]["verify_launches"]
     shutil.rmtree(tree.parent, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5437,7 +6094,17 @@ def main() -> int:
             # the post-hoc path's: the attention tap (20(c), bf16 7B) and the
             # served judge (21, int8 Qwen3-30B-A3B)
             "posthoc_launches": {phase: launches[phase].get(name, 0)
-                                 for phase in ("phase20c", "phase21")}})
+                                 for phase in ("phase20c", "phase21")},
+            # the served judge with spec decode and chunked prefill (22(c))
+            "spec_launches": launches["phase22"].get(name, 0)})
+    for name, (base, case) in VERIFY_KERNELS.items():   # phase 22(a)'s cases
+        r = kernel_results[name]
+        source, replaces = KERNELS[base]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "case": case, "launches": launches[name],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_ms", "library_device_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

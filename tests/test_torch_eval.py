@@ -211,8 +211,7 @@ def test_build_model_and_refusals(monkeypatch):
     m = init_params(tiny_test_config(), seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         EngineBackend(m, ByteTokenizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        EngineBackend(m, ByteTokenizer(), spec_decode=3)
+    assert EngineBackend(m, ByteTokenizer(), spec_decode=3).spec_decode == 3   # ported
 
 
 @pytest.mark.parametrize("mode", ["batch", "paged"])

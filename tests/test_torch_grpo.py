@@ -152,8 +152,7 @@ def test_host_functions_match_jax(rng, case):
 
 
 def test_config_refuses_what_the_port_cannot_run():
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        grpo.GRPOConfig(rollout_spec_decode=2)
+    assert grpo.GRPOConfig(rollout_spec_decode=2).rollout_spec_decode == 2   # ported
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         grpo.make_grpo_step(None, grpo.GRPOConfig(), mesh=object())
 

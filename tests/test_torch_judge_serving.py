@@ -397,10 +397,17 @@ def test_serve_args_become_engine_keywords(models):
         assert eng._cont.kv_quant == "int8" and eng._cont.max_len == 2048
     finally:
         eng.shutdown()
-    for flag in ("--spec-decode", "--prefill-chunk"):
-        _, o, _, _ = serve_app.parse_args(["--paged", flag, "4"])
-        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-            serve_app.build_engine(app, model, tok, **o)
+    # serve_judge.sh's --spec-decode / --prefill-chunk reach the engine
+    _, o, _, _ = serve_app.parse_args(["--paged", "--spec-decode", "8", "--prefill-chunk",
+                                       "2048", "--max-len", "4096", "--device", "cpu"])
+    assert (o["spec_decode"], o["prefill_chunk_tokens"]) == (8, 2048)
+    eng = serve_app.build_engine(app, model, tok, **o)
+    try:
+        assert (eng._cont.spec_decode, eng._cont.prefill_chunk_tokens) == (8, 2048)
+        assert eng.stats()["spec_stats"] == {"spec_dispatches": 0, "spec_rounds": 0,
+                                             "spec_tokens": 0, "plain_dispatches": 0}
+    finally:
+        eng.shutdown()
 
 
 def _free_port() -> int:

@@ -538,8 +538,11 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention_stacked(q, k.transpose(0, 1), v.transpose(0, 1), tables,
                                        lens, 0, 128)
-    with pytest.raises(ValueError, match="query rows"):
-        qw = _randn(gen, 2, 16, 28, 128)               # 16 x 7 rows > 64
+    with pytest.raises(ValueError, match="KERNEL_MAX_ROWS = 128"):
+        qw = _randn(gen, 2, 19, 28, 128)               # 19 x 7 = 133 rows > 128
+        paged_decode_attention_stacked(qw, k, v, tables, lens, 0, 128)
+    with pytest.raises(ValueError, match="KERNEL_MAX_ROWS = 128"):   # 17 x 8 = 136 rows
+        qw = _randn(gen, 2, 17, 32, 128)
         paged_decode_attention_stacked(qw, k, v, tables, lens, 0, 128)
     scales = torch.zeros(k.shape[:4], device=cuda)
     with pytest.raises(TypeError, match="int8"):               # bf16 pages, scales given
@@ -1861,7 +1864,8 @@ def _stale_pages(tables, lens, W, n_pages, ps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "int8", "fp32", "int8_fp32q"])
-@pytest.mark.parametrize("g,W", [(7, 1), (8, 1), (16, 1), (7, 4), (16, 4)])
+@pytest.mark.parametrize("g,W", [(7, 1), (8, 1), (16, 1), (7, 4), (16, 4), (7, 9), (8, 9),
+                                 (16, 8)])
 @pytest.mark.parametrize("hd,ps", [(128, 128), (128, 64), (64, 128), (64, 64)])
 def test_paged_kernel_split_grid(cuda, monkeypatch, hd, ps, g, W, dtype):
     """bf16 q over bf16 / int8 pages (tensor cores) and fp32 q over fp32 /
@@ -1870,7 +1874,10 @@ def test_paged_kernel_split_grid(cuda, monkeypatch, hd, ps, g, W, dtype):
     lengths of 1 to 6 pages, a row of length 1 (every later split of it
     empty) and an inactive slot of length 0 on the trash page (it emits 0 at
     W = 1); every pool row that no query admits (page tails, the trash page
-    past the chunk) is NaN, which must not reach the output."""
+    past the chunk) is NaN, which must not reach the output. W = 9 is a
+    verify chunk at K = 8: the 7B's g = 7 (63 query rows, one block) and the
+    judge's g = 8 (72 rows, two blocks of 36); g = 16 at W = 8 is the
+    128-row limit (two blocks of 64)."""
     from video_r2_tpu_torch.ops import paged_attention as paged
 
     gen = torch.Generator(device=cuda).manual_seed(hd + ps + g + W)

@@ -337,8 +337,11 @@ def test_slot_paged_and_generate_agree(models):
 
 def test_engine_options_not_ported_raise(models):
     _, model = models
-    for kw in ({"spec_decode": 2}, {"prefill_chunk_tokens": 16}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            PagedContinuousEngine(model, page_size=PS, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        PagedContinuousEngine(model, page_size=PS, mesh=object())
+    # speculative decoding and chunked prefill are ported: taken (the chunk
+    # rounded up to a page)
+    eng = PagedContinuousEngine(model, page_size=PS, spec_decode=2, prefill_chunk_tokens=20)
+    assert (eng.spec_decode, eng.prefill_chunk_tokens) == (2, 2 * PS)
     with pytest.raises(ValueError):
         PagedContinuousEngine(model, page_size=PS, kv_quant="int4")

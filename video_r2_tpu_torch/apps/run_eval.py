@@ -8,9 +8,10 @@ weights until the HF loader is ported):
 
 `main` builds the model on the card (it raises where there is none) and
 calls `run_eval`, which takes the parsed arguments and a model already
-built, on any device (the CPU tests hand it one). `--run.checkpoint`,
-`--run.tokenizer`, a mesh (`--run.tp` etc. past one device) and
-`--eval.spec_decode` raise until their ports land (ROADMAP Queue 1).
+built, on any device (the CPU tests hand it one). `--eval.spec_decode K`
+decodes speculatively (K n-gram drafts a verify round). `--run.checkpoint`,
+`--run.tokenizer` and a mesh (`--run.tp` etc. past one device) raise until
+their ports land (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ Port of ``video_r2_tpu/apps/serve.py`` with its flags (``--port``,
 `build_model` (seeded random weights on the card, ``--run.weight_quant``),
 `build_tokenizer` and `build_mesh`. ``--device cpu`` builds the model on the
 CPU instead (the kernels' plain versions); the default is the card, and a
-missing card raises. ``--spec-decode`` and ``--prefill-chunk`` above 0 raise
-until their port (ROADMAP Queue 1 #6).
+missing card raises. ``--spec-decode K`` speculates with K n-gram drafts a
+verify round and ``--prefill-chunk C`` prefills longer prompts a chunk of C
+tokens a step (scripts/serve_judge.sh passes 8 and 2048).
 
 Usage:
   python -m video_r2_tpu_torch.apps.serve --run.model_preset qwen3-moe-30b-a3b \\

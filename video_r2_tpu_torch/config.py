@@ -83,8 +83,8 @@ class EvalConfig:
     window_divisible: bool = False    # ViT-window resize bucketing
     patch_dtype: str = "float32"      # "float16": half the patch transfer
     decode_steps: int = 8             # paged: tokens per decode dispatch
-    spec_decode: int = 0              # paged: K-draft speculative decoding
-                                      # (raises: ROADMAP Queue 1 #6)
+    spec_decode: int = 0              # K-draft speculative decoding (batch and
+                                      # paged; greedy: plain greedy's answers)
 
 
 @dataclass(frozen=True)

@@ -79,7 +79,9 @@ constexpr int kThreads = 128;             // 4 warps
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kTile = 64;                 // keys a tile
 constexpr int kMaxSplits = 64;
-constexpr int kMaxRows = 64;              // W g query rows a block
+constexpr int kMaxRows = 64;              // query rows a block
+constexpr int kMaxQueryRows = 128;        // W g query rows a (sequence, kv head): up to
+                                          // two blocks of kMaxRows (grid z)
 constexpr int kSmemPerSM = 233472;        // shared memory of an SM, 1 KB a block reserved
 constexpr float kNeg = -1e30f;            // the TPU kernels' masked score
 constexpr float kLog2e = 1.4426950408889634f;
@@ -96,8 +98,9 @@ struct Params {
   const int* tables;       // paged: [B, max_pages]; decode: null
   float* part;             // S > 1: acc [B kh S R HD] (the instance's width), then
                            // max and sum [B kh S R]
-  int* counters;           // S > 1: [B kh], 0 between launches
+  int* counters;           // S > 1: [B kh Z] (Z row groups), 0 between launches
   int B, W, nh, kh, g;     // R = W g query rows a (sequence, kv head)
+  int rows;                // query rows a block: block z takes rows [z rows, + rows)
   int hd;                  // the head dim: the instance's HD, or (fp32) below it
   int layer, width;        // decode: width = Smax; paged: width = page size
   int num_pages, max_pages;
@@ -321,7 +324,8 @@ template <int HD, bool SPLIT, typename TO>
 __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int RP, int b,
                                        int h, int z, bool any) {
   constexpr int Q4 = HD / 4;
-  const int tid = threadIdx.x, R = p.W * p.g;
+  const int Rt = p.W * p.g, row0 = blockIdx.z * p.rows;
+  const int tid = threadIdx.x, R = min(p.rows, Rt - row0);  // the block's rows from row0
   const Epi e(base, KG, RP, HD);
   for (int r = tid; r < R; r += kThreads) {
     float M = kNeg;
@@ -349,17 +353,17 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
       const int r = i / Q4, d = 4 * (i % Q4);
       const float4 a = merged(r, d);
       const float inv = 1.f / fmaxf(e.L[r], 1e-30f);
-      store_out<HD>(p, o, qo_row(p, b, h, r), d,
+      store_out<HD>(p, o, qo_row(p, b, h, row0 + r), d,
                     make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     }
   } else {
-    const int bh = b * p.kh + h, S = p.splits;
-    const long long rows = (long long)p.B * p.kh * S * R;
+    const int bh = b * p.kh + h, S = p.splits, ct = bh * gridDim.z + blockIdx.z;
+    const long long rows = (long long)p.B * p.kh * S * Rt;
     float* pacc = p.part;
     float* pm = pacc + rows * HD;
     float* pl = pm + rows;
-    const long long rb = (long long)bh * S * R;  // row of split 0, query row 0
-    const long long r0 = rb + (long long)z * R;
+    const long long rb = (long long)bh * S * Rt + row0;  // row of split 0, the block's row 0
+    const long long r0 = rb + (long long)z * Rt;
     if (any) {
       for (int i = tid; i < R * Q4; i += kThreads) {
         const int r = i / Q4, d = 4 * (i % Q4);
@@ -373,7 +377,7 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
     __threadfence();  // this block's partial, before its ticket
     __syncthreads();
     __shared__ int last;
-    if (tid == 0) last = atomicAdd(p.counters + bh, 1) == S - 1;
+    if (tid == 0) last = atomicAdd(p.counters + ct, 1) == S - 1;
     __syncthreads();
     if (!last) return;
     __threadfence();  // every other split's partial, after their tickets
@@ -383,8 +387,9 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
     float* cm = e.acc;
     float* cl = e.acc + S * R;
     for (int i = tid; i < S * R; i += kThreads) {
-      cm[i] = __ldcg(pm + rb + i);
-      cl[i] = __ldcg(pl + rb + i);
+      const long long at = rb + (long long)(i / R) * Rt + i % R;
+      cm[i] = __ldcg(pm + at);
+      cl[i] = __ldcg(pl + at);
     }
     __syncthreads();
     for (int r = tid; r < R; r += kThreads) {
@@ -409,13 +414,15 @@ __device__ __forceinline__ void finish(const Params& p, float* base, int KG, int
       for (int s = 0; s < S; ++s) {
         const float w = cm[s * R + r];
         if (w != 0.f)
-          fma4(a, w, __ldcg(reinterpret_cast<const float4*>(pacc + (rb + s * R + r) * HD + d)));
+          fma4(a, w,
+               __ldcg(reinterpret_cast<const float4*>(pacc + (rb + (long long)s * Rt + r) * HD +
+                                                      d)));
       }
       const float inv = 1.f / fmaxf(e.L[r], 1e-30f);
-      store_out<HD>(p, o, qo_row(p, b, h, r), d,
+      store_out<HD>(p, o, qo_row(p, b, h, row0 + r), d,
                     make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     }
-    if (tid == 0) p.counters[bh] = 0;
+    if (tid == 0) p.counters[ct] = 0;
   }
 }
 
@@ -442,10 +449,10 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) tc_kernel(const Par
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int g = lane / 4, t = lane % 4;
   const int mt = warp % MT, kg = warp / MT, kb = kg * KW;  // kb: the warp's first key
-  const int R = p.W * p.g;
-  const int r0 = 16 * mt + g, r1 = r0 + 8;  // the lane's two query rows
+  const int row0 = blockIdx.z * p.rows, R = min(p.rows, p.W * p.g - row0);
+  const int r0 = 16 * mt + g, r1 = r0 + 8;  // the lane's two query rows (of the block's)
   const Span s = make_span(p, b, z);
-  const int lim0 = s.lim + r0 / p.g, lim1 = s.lim + r1 / p.g;
+  const int lim0 = s.lim + (row0 + r0) / p.g, lim1 = s.lim + (row0 + r1) / p.g;
   const float sc = p.scale * kLog2e;
 
   uint32_t qf[HD / 16][4];  // Q's A fragments, one per k step of 16 dims
@@ -456,8 +463,8 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) tc_kernel(const Par
 
   auto setup = [&]() {
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-    const __nv_bfloat16* q0 = q + (r0 < R ? qo_row(p, b, h, r0) * HD : 0);
-    const __nv_bfloat16* q1 = q + (r1 < R ? qo_row(p, b, h, r1) * HD : 0);
+    const __nv_bfloat16* q0 = q + (r0 < R ? qo_row(p, b, h, row0 + r0) * HD : 0);
+    const __nv_bfloat16* q1 = q + (r1 < R ? qo_row(p, b, h, row0 + r1) * HD : 0);
 #pragma unroll
     for (int c = 0; c < HD / 16; ++c) {
       if constexpr (!Q8) {
@@ -647,7 +654,7 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Params p) {
 
   const int b = blockIdx.x / p.kh, h = blockIdx.x % p.kh, z = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  const int R = p.W * p.g;
+  const int row0 = blockIdx.z * p.rows, R = min(p.rows, p.W * p.g - row0);
   const Span s = make_span(p, b, z);
   const int d = 4 * (tid % PL), pg = tid / PL;
   float4 acc[PR];
@@ -671,7 +678,7 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Params p) {
     const float sc = p.scale * kLog2e;
     for (int i = tid; i < R * HD; i += kThreads) {
       const int d = i % HD;
-      sQ[i] = d < p.hd ? q[qo_row(p, b, h, i / HD) * p.hd + d] * sc : 0.f;
+      sQ[i] = d < p.hd ? q[qo_row(p, b, h, row0 + i / HD) * p.hd + d] * sc : 0.f;
     }
     for (int r = tid; r < R; r += kThreads) {
       sM[r] = kNeg;
@@ -705,7 +712,7 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Params p) {
       for (int i = 0; i < QR; ++i) {
         const int r = grp + QG * i;
         if (r < R) {
-          const bool ok = kpos < s.lim + r / p.g || in_window(p, kpos);
+          const bool ok = kpos < s.lim + (row0 + r) / p.g || in_window(p, kpos);
           sS[r * kTile + j] = ok ? sx[i] * ks : kNeg;
         }
       }
@@ -781,7 +788,8 @@ cudaError_t launch(Kernel kernel, const Params& p, size_t smem, cudaStream_t str
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.B * p.kh, p.splits), kThreads, smem, stream>>>(p);
+  const int R = p.W * p.g;
+  kernel<<<dim3(p.B * p.kh, p.splits, (R + p.rows - 1) / p.rows), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -797,11 +805,20 @@ inline int sm_count() {
 // The tensor-core kernel for bf16 q: a ring stage for each tile of the
 // split's run (all in flight at once), up to 4, as many as fit beside the
 // other blocks an SM holds when the grid runs in one wave
+// Query rows a block takes of R, at most cap: R in ceil(R / cap) groups, as even as can
+// be (one group where R <= cap, as at every decode step)
+inline int block_rows(int R, int cap) {
+  const int n = (R + cap - 1) / cap;
+  return (R + n - 1) / n;
+}
+
 template <int HD, int MT, typename T, bool PAGED>
 cudaError_t launch_tc(Params p, cudaStream_t stream) {
   constexpr int STAGE = Ring<T, HD>::STAGE;
+  p.rows = block_rows(p.W * p.g, 16 * MT);
   const int run = (p.n_tiles + p.splits - 1) / p.splits;
-  const int sms = sm_count(), grid = p.B * p.kh * p.splits;
+  const int sms = sm_count(),
+            grid = p.B * p.kh * p.splits * ((p.W * p.g + p.rows - 1) / p.rows);
   const int per_sm = std::max(1, (grid + sms - 1) / sms);
   p.stages = std::max(1, std::min({run, 4, (kSmemPerSM / per_sm - 1024) / STAGE}));
   const size_t smem = std::max(size_t(p.stages) * STAGE,
@@ -812,7 +829,7 @@ cudaError_t launch_tc(Params p, cudaStream_t stream) {
 
 template <int HD, typename T, bool PAGED>
 cudaError_t launch_tc_rows(const Params& p, cudaStream_t stream) {
-  const int R = p.W * p.g;
+  const int R = block_rows(p.W * p.g, kMaxRows);  // rows a block
   if (R <= 16) return launch_tc<HD, 1, T, PAGED>(p, stream);
   if (R <= 32) return launch_tc<HD, 2, T, PAGED>(p, stream);
   return launch_tc<HD, 4, T, PAGED>(p, stream);
@@ -825,6 +842,7 @@ cudaError_t launch_f32(Params p, cudaStream_t stream) {
   constexpr size_t EPI = size_t(Epi::floats(1, MR, HD)) * 4;
   constexpr size_t BASE = ((RING > EPI ? RING : EPI) + 15) / 16 * 16;
   p.stages = 2;
+  p.rows = block_rows(p.W * p.g, MR);
   const size_t smem = BASE + size_t(MR) * (HD + kTile + 3) * 4;
   if (p.splits > 1) return launch(f32_kernel<HD, MR, T, PAGED, true>, p, smem, stream);
   return launch(f32_kernel<HD, MR, T, PAGED, false>, p, smem, stream);
@@ -833,7 +851,7 @@ cudaError_t launch_f32(Params p, cudaStream_t stream) {
 // Checks common to both entry points
 inline bool valid(const Params& p) {
   const int R = p.W * p.g;
-  return p.B > 0 && p.W > 0 && p.kh > 0 && p.g > 0 && R <= kMaxRows && p.n_tiles > 0 &&
+  return p.B > 0 && p.W > 0 && p.kh > 0 && p.g > 0 && R <= kMaxQueryRows && p.n_tiles > 0 &&
          p.hd > 0 && p.hd <= 128 &&
          p.splits >= 1 && p.splits <= std::min(kMaxSplits, p.n_tiles) &&
          (p.splits == 1 || (p.part != nullptr && p.counters != nullptr));

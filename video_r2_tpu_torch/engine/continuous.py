@@ -26,13 +26,27 @@ or batched, else a budgeted trickle between decode windows) and decodes
 `decode_window` tokens a step until stopped. Only the loop's thread
 touches the device; callers only enqueue.
 
+`spec_decode=K` speculates inside the loop (engine/spec_decode.py's n-gram
+drafts): a dispatch runs `steps` verify rounds, each one decoder pass over a
+[slots, K + 1] chunk written at every slot's own frontier (the slot engine's
+cache by per-row writes, the paged pool at per-token (page, offset), read by
+the paged kernel's multi-query chunk), drafting from a device-side history
+of each slot's prompt and tokens. Greedy slots accept a draft where it
+equals the argmax, sampled slots by rejection sampling under their own
+filters, in one pool; a sampled slot's rejected draft is masked from its
+next pending token, also across a plain-decode fallback.
+`prefill_chunk_tokens=C` prefills a longer prompt (text on the slot
+engine, text or video on the paged one) a chunk of C tokens per step(),
+between decode windows: the slot engine's chunks attend over the slot's
+cache with an offset-causal bias (plain attention), the paged engine's
+first chunk goes through the flash prefill and each later one through the
+suffix prefill over the pages written so far.
+
 The JAX package's jitted steps become plain functions that update the KV
 store in place; a decode window (`step(steps=n)`) is a Python loop of n
-decode bodies that keeps its tokens on the device and synchronises once.
-Sampling draws from the engine's seeded torch.Generator. Not ported yet,
-and raising NotImplementedError when asked for: speculative decoding
-(spec_decode), chunked prefill (prefill_chunk_tokens) and meshes
-(ROADMAP Queue 1 #6, #8).
+decode bodies (or n verify rounds) that keeps its tokens on the device and
+synchronises once. Sampling draws from the engine's seeded
+torch.Generator. A mesh raises NotImplementedError (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -59,6 +73,14 @@ from ..ops.paged_attention import (
     paged_decode_attention_stacked,
 )
 from .sampling import SamplingParams, sample_token_per_slot
+from .spec_decode import (
+    _spec_accept,
+    _spec_draft,
+    _spec_hist_update,
+    _spec_tok0,
+    embed_chunk,
+    reject_mask,
+)
 
 NEG_INF = -1e30
 _log = logging.getLogger(__name__)
@@ -110,6 +132,26 @@ def _prefill_into_slot(model, cache: KVCache, slot: int, ids, position_ids, leng
         dst[:, slot] = 0
         dst[:, slot, :S] = src[:, 0]
     return _last_logits(model, hidden, length)[0]
+
+
+def _prefill_slot_chunk(model, cache: KVCache, slot: int, ids, position_ids, start: int,
+                        valid: int):
+    """One chunk of a slot's prompt ([1, C] at token offset `start`) into
+    row `slot` of the contiguous cache, in place: the chunk attends over the
+    row's rows [0, start) and itself causally (an offset-causal bias over
+    the whole row, so the plain attention), its KV written at [start,
+    start + C). Returns the logits [V] of the prompt's last valid token
+    (`valid` tokens in all), meaningful on the last chunk."""
+    h = _embed(model, ids)
+    cos, sin = mrope_cos_sin(position_ids, model.cfg, dtype=h.dtype)
+    C = ids.shape[1]
+    tmp = KVCache(cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1])   # views
+    i = torch.arange(C, device=h.device)[:, None]
+    j = torch.arange(cache.k.shape[2], device=h.device)[None, :]
+    bias = torch.where((j <= start + i)[None, None], 0.0, NEG_INF)
+    hidden = model.model(h, cos, sin, bias, cache=tmp, cache_position=start,
+                         attn_impl="xla")
+    return lm_head(model, hidden[0, min(max(valid - start - 1, 0), C - 1)]).float()
 
 
 def _scatter_pages(kv, kk, vv, flat) -> None:
@@ -216,18 +258,22 @@ def _prefill_suffix_into_pages(model, kv, prefix_pids, new_pids, ids, position_i
     cos, sin = mrope_cos_sin(position_ids, model.cfg, dtype=h.dtype)
     S_suf = ids.shape[1]
     K_pref = prefix_pids.shape[0] * page_size
-    kp, vp = kv[0][:, :, prefix_pids], kv[1][:, :, prefix_pids]   # [L, kh, m, ps, hd]
-    if len(kv) == 4:
-        kp = kp.float() * kv[2][:, :, prefix_pids][..., None]
-        vp = vp.float() * kv[3][:, :, prefix_pids][..., None]
-    L, kh, _, _, hd = kp.shape
-    zeros = torch.zeros((L, 1, S_suf, kh, hd), dtype=h.dtype, device=h.device)
+    L, kh, _, _, hd = kv[0].shape
 
-    def history(x):    # [L, kh, m, ps, hd] -> [L, 1, K_pref + S_suf, kh, hd]
-        x = x.reshape(L, kh, K_pref, hd).transpose(1, 2)[:, None].to(h.dtype)
-        return torch.cat([x, zeros], dim=2)
+    def history(pool, scale):   # -> [L, 1, K_pref + S_suf, kh, hd] in h's dtype
+        # a layer at a time, so an int8 pool's fp32 dequantisation stays one
+        # layer's (a whole judge prefix in fp32 would be GBs)
+        out = torch.zeros((L, 1, K_pref + S_suf, kh, hd), dtype=h.dtype, device=h.device)
+        for l in range(L):
+            x = pool[l][:, prefix_pids]                        # [kh, m, ps, hd]
+            if scale is not None:
+                x = x.float() * scale[l][:, prefix_pids][..., None]
+            out[l, 0, :K_pref] = x.reshape(kh, K_pref, hd).transpose(0, 1).to(h.dtype)
+        return out
 
-    tmp = KVCache(history(kp), history(vp))
+    quant = len(kv) == 4
+    tmp = KVCache(history(kv[0], kv[2] if quant else None),
+                  history(kv[1], kv[3] if quant else None))
     i = torch.arange(S_suf, device=h.device)[:, None]
     j = torch.arange(K_pref + S_suf, device=h.device)[None, :]
     allowed = ((j < prefix_len[:, None, None])
@@ -364,6 +410,84 @@ def _decode_multi(model, cache, sp, last_logits, cur_len, pos_base, active, samp
     return torch.stack(toks), last_logits, cur_len
 
 
+def _spec_rounds(model, verify, last_logits, cur_len, pos_base, active, pad_id, hist,
+                 rej, samp, generator, K: int, rounds: int, greedy_only: bool,
+                 _reject_all: bool):
+    """`rounds` speculative rounds for every slot: pending token, drafts,
+    one verify pass verify(emb [N, K + 1, H], cos, sin, cur_len) -> hidden,
+    acceptance, history. hist is updated in place. Returns (chunks [R, N,
+    K + 1], commits [R, N], next pending logits, rejected drafts, cur_len),
+    all on the device."""
+    N = last_logits.shape[0]
+    W = K + 1
+    ar = torch.arange(W, device=last_logits.device)
+    chunks, commits = [], []
+    logits = last_logits
+    for _ in range(rounds):
+        tok0 = _spec_tok0(logits, generator, samp, active, pad_id, rej, greedy_only)
+        chunk, drafts = _spec_draft(hist, tok0, cur_len, K, _reject_all)
+        emb = embed_chunk(model, chunk)
+        pos = (pos_base + cur_len)[:, None] + ar
+        cos, sin = mrope_cos_sin(pos[None].expand(3, N, W), model.cfg, dtype=emb.dtype)
+        logits_w = lm_head(model, verify(emb, cos, sin, cur_len)).float()   # [N, W, V]
+        n_commit, logits, rej = _spec_accept(logits_w, drafts, logits, active, K, samp,
+                                             generator, greedy_only)
+        _spec_hist_update(hist, chunk, cur_len, n_commit)
+        cur_len = cur_len + n_commit
+        chunks.append(chunk)
+        commits.append(n_commit)
+    return torch.stack(chunks), torch.stack(commits), logits, rej, cur_len
+
+
+def _decode_spec(model, cache: KVCache, last_logits, cur_len, pos_base, active, pad_id,
+                 hist, rej, samp, generator, K: int, rounds: int = 1,
+                 greedy_only: bool = False, _reject_all: bool = False):
+    """Speculative rounds over the contiguous slot cache: each round's
+    [N, K + 1] chunk is written at every slot's frontier (per-row writes)
+    and attends over keys <= its position (plain attention). The caller
+    guarantees cur_len + rounds (K + 1) fits the cache."""
+    max_len = cache.k.shape[2]
+    W = K + 1
+
+    def verify(emb, cos, sin, cur):
+        # an idle slot's junk chunk stays inside its row (its stale frontier
+        # may sit within K + 1 of the end)
+        cur = torch.where(active, cur, cur.clamp(max=max_len - W))
+        j = torch.arange(max_len, device=emb.device)[None, None, :]
+        i = torch.arange(W, device=emb.device)[None, :, None]
+        bias = torch.where((j <= cur[:, None, None] + i)[:, None], 0.0, NEG_INF)
+        return model.model(emb, cos, sin, bias, cache=cache, cache_position=cur,
+                           attn_impl="xla")
+
+    return _spec_rounds(model, verify, last_logits, cur_len, pos_base, active, pad_id, hist,
+                        rej, samp, generator, K, rounds, greedy_only, _reject_all)
+
+
+def _paged_decode_spec(model, kv, last_logits, cur_len, pos_base, active, pad_id, hist,
+                       rej, samp, generator, page_tables, trash_page: int, K: int,
+                       rounds: int = 1, page_size: int = 128, greedy_only: bool = False,
+                       _reject_all: bool = False):
+    """Speculative rounds over the paged pool: each round's chunk KV goes
+    into the slots' pages at per-token (page, offset) coordinates (chunks
+    may cross a page boundary; the caller allocates pages for the whole
+    window), and one multi-query call of the paged kernel a layer verifies
+    every chunk, causal within the chunk. page_tables sanitised as for
+    _paged_decode_body."""
+    W = K + 1
+    max_pages = page_tables.shape[1]
+    rows = torch.arange(last_logits.shape[0], device=last_logits.device)[:, None]
+
+    def verify(emb, cos, sin, cur):
+        tokpos = cur[:, None] + torch.arange(W, device=cur.device)
+        pid = page_tables[rows, (tokpos // page_size).clamp(max=max_pages - 1)].long()
+        pid = torch.where(active[:, None], pid, trash_page)
+        return _paged_decoder_pass(model, kv, emb, cos, sin, pid, tokpos % page_size,
+                                   page_tables, cur, page_size)
+
+    return _spec_rounds(model, verify, last_logits, cur_len, pos_base, active, pad_id, hist,
+                        rej, samp, generator, K, rounds, greedy_only, _reject_all)
+
+
 def _copy_page(kv, src: int, dst: int) -> None:
     """Copy one page across the layer stack (copy-on-write of a forked
     prompt's partial last page); int8 pools copy their scale pages too."""
@@ -404,13 +528,13 @@ class ContinuousEngine:
                  prefill_chunk_tokens: int = 0, mesh=None, decode_window: int = 1):
         """The device is the model's. attn_impl: prefill attention, "flash",
         "xla" (plain) or "auto" (flash on a CUDA device). decode_window:
-        tokens a step of `run_loop` decodes (`step(steps=decode_window)`)."""
-        for name, asked in (("spec_decode", spec_decode),
-                            ("prefill_chunk_tokens", prefill_chunk_tokens),
-                            ("mesh", mesh is not None)):
-            if asked:
-                raise NotImplementedError(f"{name} is not ported to the PyTorch "
-                                          f"engine yet")
+        tokens a step of `run_loop` decodes (`step(steps=decode_window)`;
+        with spec_decode, verify rounds). spec_decode=K: K n-gram drafts a
+        verify round. prefill_chunk_tokens=C: prompts longer than C prefill
+        a chunk of C a step() (0: off)."""
+        if mesh is not None:
+            raise NotImplementedError("a mesh (sharded serving) is not ported to the "
+                                      "PyTorch engine yet (ROADMAP Queue 1 #8)")
         if attn_impl not in ("xla", "flash", "auto"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.model = model
@@ -422,12 +546,31 @@ class ContinuousEngine:
         self.num_slots = num_slots
         self.max_len = max_len
         self.decode_window = decode_window
+        self.spec_decode = spec_decode
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self._pending_prefill: list[dict] = []   # chunked prefills, oldest first
         self.embed_bucket = embed_bucket   # vision embeds pad to multiples of this
         self.sp = sp or SamplingParams(
             max_new_tokens=max_len, eos_token_ids=(cfg.eos_token_id,),
             pad_token_id=cfg.pad_token_id)
         self.prompt_buckets = tuple(sorted(b for b in prompt_buckets if b <= max_len))
         self._init_cache(model.model.embed_tokens.embedding.dtype)
+        self.hist = self._spec_rej = None
+        if spec_decode:
+            # each slot's [prompt | tokens] (drafting reads it on the device),
+            # over self.max_len (the paged engine rounds it to pages)
+            self.hist = torch.full((num_slots, self.max_len + spec_decode + 2),
+                                   self.sp.pad_token_id, dtype=torch.long,
+                                   device=self.device)
+            # a sampled slot's draft rejected at its frontier (-1: none): its
+            # next pending token samples from the residual without it
+            self._spec_rej = torch.full((num_slots,), -1, dtype=torch.long,
+                                        device=self.device)
+        # committed tokens against verify rounds (acceptance = tokens a
+        # round a slot - 1) and spec against plain dispatches: K's tuning signal
+        self.spec_stats = {"spec_dispatches": 0, "spec_rounds": 0, "spec_tokens": 0,
+                           "plain_dispatches": 0}
+        self._spec_reject_all = False   # profiling: the zero-acceptance verify floor
         self.last_logits = torch.zeros((num_slots, cfg.text.vocab_size),
                                        dtype=torch.float32, device=self.device)
         self.cur_len = np.zeros((num_slots,), np.int32)
@@ -438,6 +581,7 @@ class ContinuousEngine:
         self.slot_top_k = np.zeros((num_slots,), np.int32)
         self.slot_do_sample = np.zeros((num_slots,), bool)
         self.slot_req: list[Optional[_Request]] = [None] * num_slots
+        self.prefilling = np.zeros((num_slots,), bool)   # chunked prefill in flight
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_rid = 0
         # rids whose callers gave up; step() finishes them with their tokens
@@ -496,6 +640,13 @@ class ContinuousEngine:
         self.slot_top_k[slot] = rsp.top_k
         self.slot_do_sample[slot] = rsp.do_sample
         self.slot_req[slot] = req
+        if self.hist is not None:
+            # the slot's drafting history starts as [prompt | pad ...] (every
+            # admission comes here, so drafting never reads an earlier
+            # occupant's tokens); its tokens extend it at the frontier
+            self.hist[slot] = self.sp.pad_token_id
+            self.hist[slot, :true_len] = self._t(np.asarray(req.prompt_ids)[0, :true_len])
+            self._spec_rej[slot] = -1
 
     def _new_rid(self) -> int:
         rid = self._next_rid
@@ -546,6 +697,9 @@ class ContinuousEngine:
         req = self.slot_req[src]
         if req.tokens:
             raise ValueError("fork requires an un-decoded source request")
+        if self.prefilling[src]:
+            raise ValueError("cannot fork a request whose chunked prefill is still in "
+                             "flight (partial KV); wait for admission to complete")
         out = []
         for _ in range(n):
             slot = next((i for i, r in enumerate(self.slot_req) if r is None), None)
@@ -556,6 +710,9 @@ class ContinuousEngine:
                 self._new_rid(), req.prompt_ids, req.position_ids, req.rope_delta,
                 req.max_new_tokens, None, sp=req.sp)
             self.last_logits[slot] = self.last_logits[src]
+            if self.hist is not None:
+                self.hist[slot] = self.hist[src]
+                self._spec_rej[slot] = self._spec_rej[src]
             for arr in (self.cur_len, self.pos_base, self.budget, self.slot_temp,
                         self.slot_top_p, self.slot_top_k, self.slot_do_sample):
                 arr[slot] = arr[src]
@@ -572,15 +729,32 @@ class ContinuousEngine:
         if self.num_active == 0:
             return []
         finished_early = self._apply_cancels()
-        active = np.asarray([r is not None for r in self.slot_req])
+        self._advance_prefill()          # chunked prefill: one chunk a step()
+        active = np.asarray([r is not None for r in self.slot_req]) & ~self.prefilling
         if not active.any():
             return finished_early
         start_len = self.cur_len.copy()
         room = int(min(self.max_len - 1 - self.cur_len[s]
                        for s in range(self.num_slots) if active[s]))
+        K = self.spec_decode
+        # spec only while a full window of rounds fits every slot's room
+        if K and (room - 1) // (K + 1) >= steps and self._spec_ready(active, steps):
+            return finished_early + self._step_spec(active, steps)
+        if K and bool((self._spec_rej[self._t(active, torch.bool)] >= 0).any()):
+            # a sampled slot's rejected draft is pending from the last spec
+            # dispatch, and the plain sampler would ignore the residual mask:
+            # consume it by one verify round, or (no room or no pages, only
+            # within K + 1 tokens of the cap) mask the token in the raw
+            # pending logits and clear the state
+            if room > K + 1 and self._spec_ready(active, 1):
+                return finished_early + self._step_spec(active, 1)
+            self.last_logits = reject_mask(self.last_logits, self._spec_rej)
+            self._spec_rej.fill_(-1)
         w = 1
         while w * 2 <= min(steps, max(room, 1)):
             w *= 2
+        if K:
+            self.spec_stats["plain_dispatches"] += 1
         toks = self._decode_all(active, w)                  # [w, N] on the host
         self.cur_len = np.where(active, start_len + w, start_len).astype(np.int32)
 
@@ -588,8 +762,8 @@ class ContinuousEngine:
         done = [False] * self.num_slots
         for si in range(toks.shape[0]):
             for slot, req in enumerate(self.slot_req):
-                if req is None or done[slot]:
-                    continue
+                if req is None or done[slot] or not active[slot]:
+                    continue        # inactive: mid-chunked-prefill, its tokens are pad
                 t = int(toks[si, slot])
                 req.tokens.append(t)
                 if req.tok_cb:
@@ -608,19 +782,71 @@ class ContinuousEngine:
                 self._release_slot(slot)
         return finished_early + finished
 
+    def _step_spec(self, active, steps: int) -> list[tuple[int, list[int]]]:
+        """One dispatch of `steps` verify rounds for the active slots; each
+        round commits 1 + accepted tokens a slot. The caller guarantees the
+        whole window fits every slot's room. Same finish bookkeeping as
+        step()."""
+        chunks, commits = self._spec_dispatch(active, steps)   # [R, N, W], [R, N]
+        self.spec_stats["spec_dispatches"] += 1
+        self.spec_stats["spec_rounds"] += int(commits.shape[0])
+        self.spec_stats["spec_tokens"] += int(commits.sum())
+        finished = []
+        done = [False] * self.num_slots
+        for ri in range(chunks.shape[0]):
+            for slot, req in enumerate(self.slot_req):
+                if req is None or done[slot] or not active[slot]:
+                    continue
+                rsp = req.sp or self.sp
+                for i in range(int(commits[ri, slot])):
+                    t = int(chunks[ri, slot, i])
+                    req.tokens.append(t)
+                    if req.tok_cb:
+                        req.tok_cb(req.rid, t)
+                    self.budget[slot] -= 1
+                    out_of_room = self.cur_len[slot] >= self.max_len - 1
+                    if t in rsp.eos_token_ids or self.budget[slot] <= 0 or out_of_room:
+                        finished.append((req.rid, list(req.tokens)))
+                        if req.done_cb:
+                            req.done_cb(req.rid, list(req.tokens))
+                        done[slot] = True
+                        break       # later tokens and rounds past the end: dropped
+        for slot, d in enumerate(done):
+            if d:
+                self.slot_req[slot] = None
+                self._release_slot(slot)
+        return finished
+
+    def _spec_args(self, active) -> tuple:
+        """The dispatch's device state: (last logits, cur_len, pos_base,
+        active, pad id, history, rejected drafts, sampling, generator)."""
+        samp, _ = self._sampling(active)
+        return (self.last_logits, self._t(self.cur_len), self._t(self.pos_base),
+                self._t(active, torch.bool), self.sp.pad_token_id, self.hist,
+                self._spec_rej, samp, self._gen)
+
+    def _spec_finish(self, out) -> tuple[np.ndarray, np.ndarray]:
+        """Keep a dispatch's device state; its chunks and commits to the host
+        (the dispatch's one sync)."""
+        chunks, commits, self.last_logits, self._spec_rej, new_len = out
+        self.cur_len = new_len.cpu().numpy().astype(np.int32)
+        return chunks.cpu().numpy(), commits.cpu().numpy()
+
     def request_cancel(self, rid: int) -> None:
         """Mark a request for cancellation (client disconnect, stop string):
         the next step() finishes it with its tokens so far and frees its slot."""
         self._cancel_rids.add(rid)
 
     def _apply_cancels(self) -> list[tuple[int, list[int]]]:
+        """Finish cancelled slots; a slot still in its chunked prefill is
+        deferred (its rid stays marked) until the prefill completes."""
         if not self._cancel_rids:
             return []
         # self-clean: requests that already finished normally
         self._cancel_rids &= {r.rid for r in self.slot_req if r is not None}
         finished = []
         for slot, req in enumerate(self.slot_req):
-            if req is None or req.rid not in self._cancel_rids:
+            if req is None or req.rid not in self._cancel_rids or self.prefilling[slot]:
                 continue
             self._cancel_rids.discard(req.rid)
             finished.append((req.rid, list(req.tokens)))
@@ -645,9 +871,49 @@ class ContinuousEngine:
                                   self.device)
 
     def _prefill_slot(self, slot, padded, pos, true_len, vision_embeds=None):
+        ck = self.prefill_chunk_tokens
+        if ck and vision_embeds is None and true_len > ck:
+            # chunked: step() prefills a chunk a call, between decode windows
+            self._defer_prefill(slot, padded, pos, true_len)
+            return None
         return _prefill_into_slot(self.model, self.cache, slot, self._t(padded),
                                   self._t(pos), self._t([true_len], torch.int32),
                                   vision_embeds, self.attn_impl)
+
+    def _defer_prefill(self, slot, padded, pos, true_len, **extra) -> None:
+        self._pending_prefill.append({"slot": slot, "padded": np.asarray(padded),
+                                      "pos": np.asarray(pos), "true_len": int(true_len),
+                                      "done": 0, **extra})
+        self.prefilling[slot] = True
+
+    def _advance_prefill(self) -> None:
+        """Chunked prefill: the oldest pending prompt by one chunk."""
+        if not self._pending_prefill:
+            return
+        st = self._pending_prefill[0]
+        start = st["done"]
+        end = min(start + self.prefill_chunk_tokens, st["padded"].shape[1])
+        logits = _prefill_slot_chunk(self.model, self.cache, st["slot"],
+                                     self._t(st["padded"][:, start:end]),
+                                     self._t(st["pos"][:, :, start:end]), start,
+                                     st["true_len"])
+        self._chunk_done(st, end, logits)
+
+    def _chunk_done(self, st, end: int, logits) -> None:
+        st["done"] = end
+        if end >= st["true_len"]:      # what is left of the bucket is pad
+            self.last_logits[st["slot"]] = logits
+            self.prefilling[st["slot"]] = False
+            self._pending_prefill.pop(0)
+
+    def _spec_ready(self, active, steps: int) -> bool:
+        return True      # the contiguous cache holds max_len for every slot
+
+    def _spec_dispatch(self, active, rounds: int):
+        return self._spec_finish(_decode_spec(
+            self.model, self.cache, *self._spec_args(active), self.spec_decode, rounds,
+            greedy_only=not self.slot_do_sample[active].any(),
+            _reject_all=self._spec_reject_all))
 
     def _sampling(self, active):
         """(per-slot sampling tensors or None, greedy_only) for a decode window."""
@@ -694,6 +960,10 @@ class PagedContinuousEngine(ContinuousEngine):
         self._media_key = None   # threaded from submit() into _prefill_slot
         self.prefill_token_budget = prefill_token_budget
         super().__init__(model, *args, **kwargs)
+        # page-aligned chunks: later chunks ride the suffix prefill, whose KV
+        # scatter is a page at a time
+        if self.prefill_chunk_tokens:
+            self.prefill_chunk_tokens = -(-self.prefill_chunk_tokens // page_size) * page_size
         # buckets must be page-aligned for the prompt scatter
         self.prompt_buckets = tuple(b for b in self.prompt_buckets
                                     if b % page_size == 0) or (self.max_len,)
@@ -845,6 +1115,13 @@ class PagedContinuousEngine(ContinuousEngine):
         if pc.available_pages() < np_all:
             raise RuntimeError("paged KV cache out of pages")
         pids = [pc._alloc() for _ in range(np_all)]  # refcount 1 each
+        ck = self.prefill_chunk_tokens
+        if ck and true_len > ck:
+            # chunked: every page now, the prefill a chunk a step(); a video
+            # prompt's chunks take their slices of the merged embeds
+            self._defer_prefill(slot, padded, pos, true_len, pids=pids,
+                                embeds=vision_embeds, media_key=self._media_key)
+            return None
         logits = _prefill_into_pages(
             self.model, self._kv(), self._t(pids), self._t(padded), self._t(pos),
             self._t([true_len], torch.int32), vision_embeds, self.attn_impl, ps)
@@ -862,6 +1139,66 @@ class PagedContinuousEngine(ContinuousEngine):
         self._free(pids[np_used:])
         pc.lengths[slot] = true_len
         self._register_prefix(ids, pids[:np_used], media_key=media_key)
+
+    def _advance_prefill(self) -> None:
+        """The oldest pending prompt by one page-aligned chunk: the first
+        through the whole-prompt prefill (flash), each later one through the
+        suffix prefill over the pages written so far."""
+        if not self._pending_prefill:
+            return
+        st = self._pending_prefill[0]
+        ps, pids = self._page_size, st["pids"]
+        start, true_len = st["done"], st["true_len"]
+        end = min(start + self.prefill_chunk_tokens, st["padded"].shape[1])
+        new = self._t(pids[start // ps:-(-end // ps)])
+        ids_c = self._t(st["padded"][:, start:end])
+        pos_c = self._t(st["pos"][:, :, start:end])
+        embeds_c = None
+        if st["embeds"] is not None:
+            vis = np.isin(st["padded"][0], self._vision_ids())
+            n_pre, n_in = int(vis[:start].sum()), int(vis[start:end].sum())
+            if n_in:
+                embeds_c = self._pad_embeds(st["embeds"][n_pre:n_pre + n_in])
+        if start == 0:
+            logits = _prefill_into_pages(
+                self.model, self._kv(), new, ids_c, pos_c,
+                self._t([min(true_len, end)], torch.int32), embeds_c, self.attn_impl, ps)
+        else:
+            m = start // ps
+            m_pad = 1
+            while m_pad < m:
+                m_pad *= 2
+            pref = np.full((m_pad,), self.trash_page, np.int32)
+            pref[:m] = pids[:m]
+            logits = _prefill_suffix_into_pages(
+                self.model, self._kv(), self._t(pref), new, ids_c, pos_c, self._t([start]),
+                self._t([min(true_len, end) - start]), embeds_c, ps)
+        if end >= true_len:
+            self._finish_prompt_pages(st["slot"], pids, true_len,
+                                      st["padded"][0, :true_len], media_key=st["media_key"])
+        self._chunk_done(st, end, logits)
+
+    def _spec_ready(self, active, steps: int) -> bool:
+        """Pages for the whole verify window (rounds x (K + 1) tokens an
+        active slot) must be there up front; else plain decode."""
+        pc, ps = self.pcache, self._page_size
+        span = steps * (self.spec_decode + 1)
+        need = sum(max(0, -(-(int(self.cur_len[s]) + span) // ps)
+                       - int((pc.page_tables[s] >= 0).sum()))
+                   for s in np.flatnonzero(active))
+        return pc.available_pages() >= need
+
+    def _spec_dispatch(self, active, rounds: int):
+        pc = self.pcache
+        pc.lengths[:] = self.cur_len
+        for slot in np.flatnonzero(active):
+            pc.ensure_capacity(int(slot), rounds * (self.spec_decode + 1))
+        tables = np.where(pc.page_tables >= 0, pc.page_tables, self.trash_page)
+        return self._spec_finish(_paged_decode_spec(
+            self.model, self._kv(), *self._spec_args(active), self._t(tables, torch.int32),
+            self.trash_page, self.spec_decode, rounds, self._page_size,
+            greedy_only=not self.slot_do_sample[active].any(),
+            _reject_all=self._spec_reject_all))
 
     def _decode_all(self, active, steps: int) -> np.ndarray:
         pc = self.pcache

@@ -1,6 +1,6 @@
 """Batched autoregressive generation: prefill + a Python decode loop.
 
-Port of ``video_r2_tpu/engine/generate.py`` (no speculation):
+Port of ``video_r2_tpu/engine/generate.py``:
 
 - right-padded prompts with per-sample lengths; the KV cache is addressed by
   true position and decode step t writes the fixed slot S + t for the whole
@@ -29,7 +29,12 @@ Port of ``video_r2_tpu/engine/generate.py`` (no speculation):
   bf16 k / v, decode over the int8 cache (ops/attention.py::
   quant_dot_product_attention). It composes with act_quant, prefill_chunk
   and attn_impl="flash", not with decode_impl="kernel" (a bf16 head-major
-  cache), as in the reference.
+  cache), as in the reference;
+- spec_decode=K > 0 decodes by speculative decoding (engine/spec_decode.py:
+  K n-gram drafts verified a pass; greedy gives plain greedy's tokens,
+  sampled a sample of its distribution) over the seq-major cache, bf16 or
+  int8 (kv_quant), widened to S + T + K + 1 for the last verify chunk;
+  decode_impl is then "xla", as in the reference.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..models.model import Qwen25VL, lm_head, merge_vision_embeddings
 from ..models.mrope import get_rope_index, mrope_cos_sin
 from ..ops.decode_attention import BLOCK_S
 from .sampling import SamplingParams, sample_token
+from .spec_decode import spec_decode as spec_decode_loop
 
 NEG_INF = -1e30
 
@@ -166,17 +172,20 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
              prefill_chunk: int | None = None,
              act_quant: str | None = None, decode_impl: str = "auto",
              decode_act_quant: str | None = "auto",
-             kv_quant: str | None = None) -> GenerationResult:
+             kv_quant: str | None = None, spec_decode: int = 0) -> GenerationResult:
     """Host-orchestrated batched generation on the model's device.
     attn_impl="flash" runs prefill attention through the flash kernel;
     act_quant="int8": W8A8 prefill; decode_act_quant "auto": int8 iff
     act_quant is int8 and B >= 192. decode_impl: "kernel" (the head-major
     decode kernel), "xla" (the plain decode), "auto" ("xla").
-    kv_quant="int8": the int8 KV cache."""
+    kv_quant="int8": the int8 KV cache. spec_decode=K: speculative
+    decoding with K drafts a verify pass (decode_impl then "xla")."""
     if decode_impl not in ("auto", "xla", "kernel"):
         raise ValueError(f"unknown decode_impl {decode_impl!r}")
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    if spec_decode:
+        decode_impl = "xla"    # verify chunks scatter into the seq-major cache
     if kv_quant and decode_impl == "kernel":
         raise ValueError("kv_quant='int8' keeps the seq-major int8 cache; "
                          "decode_impl='kernel' reads a bf16 head-major one")
@@ -206,10 +215,11 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
         # the kernel reads whole blocks of BLOCK_S rows; decode slots start at S
         max_cache = -(-(S + sp.max_new_tokens) // BLOCK_S) * BLOCK_S
         cache = DecodeKVCache.init(cfg.text, B, max_cache, dtype, device)
-    elif kv_quant:
-        cache = QuantKVCache.init(cfg.text, B, S + sp.max_new_tokens, device)
     else:
-        cache = KVCache.init(cfg.text, B, S + sp.max_new_tokens, dtype, device)
+        # spec decode's last verify chunk can reach S + T + K
+        width = S + sp.max_new_tokens + (spec_decode + 1 if spec_decode else 0)
+        cache = (QuantKVCache.init(cfg.text, B, width, device) if kv_quant
+                 else KVCache.init(cfg.text, B, width, dtype, device))
     ids_t = torch.as_tensor(input_ids, dtype=torch.long, device=device)
     pos_t = torch.as_tensor(position_ids, dtype=torch.long, device=device)
     len_t = torch.as_tensor(lengths, dtype=torch.int32, device=device)
@@ -240,9 +250,14 @@ def generate(model: Qwen25VL, input_ids: np.ndarray, lengths: np.ndarray,
                          vision_token_id, attn_impl, act_quant)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    deltas_t = torch.as_tensor(rope_deltas, dtype=torch.long, device=device)
+    if spec_decode:
+        toks, logps, gen_len, _ = spec_decode_loop(
+            model, sp, logits, cache, len_t, deltas_t, ids_t, s_pad=S, spec_k=spec_decode,
+            act_quant=decode_act_quant, generator=gen)
+        return GenerationResult(toks.cpu().numpy(), gen_len.cpu().numpy(),
+                                logps.cpu().numpy())
     toks, logps, gen_len = decode(
-        model, sp, logits, cache, len_t,
-        torch.as_tensor(rope_deltas, dtype=torch.long, device=device),
-        gen, s_pad=S, attn_impl=attn_impl, act_quant=decode_act_quant)
+        model, sp, logits, cache, len_t, deltas_t, gen, s_pad=S, attn_impl=attn_impl, act_quant=decode_act_quant)
     return GenerationResult(toks.cpu().numpy(), gen_len.cpu().numpy(),
                             logps.cpu().numpy())

@@ -14,11 +14,14 @@ with /v1/chat/completions (stop strings, n, stream) and /metrics.
   thread is the only one that touches the device; the handler threads
   enqueue and wait. `chat_stream` streams per token, and a stop string
   cancels its request on the engine.
+- spec_decode=K speculates with K n-gram drafts a verify round: batch mode
+  through generate(spec_decode=K), continuous mode inside either engine's
+  loop (its spec_stats in /metrics); prefill_chunk_tokens=C prefills a
+  continuous engine's longer prompts a chunk of C a step.
 
-Not ported yet, and raising NotImplementedError when asked for:
-speculative decoding, chunked prefill and meshes (ROADMAP Queue 1 #6, #8)
-and the Qwen3-Next family with its prefix store's switch, prefix_cache=False
-(#7).
+Not ported yet, and raising NotImplementedError when asked for: meshes
+(ROADMAP Queue 1 #8) and the Qwen3-Next family with its prefix store's
+switch, prefix_cache=False (#7).
 """
 
 from __future__ import annotations
@@ -62,7 +65,9 @@ class ChatEngine:
     engine's pages). continuous=True serves from one decode loop on a
     background thread: num_slots requests decode together, max_len tokens a
     request; engine_kind "slots" (contiguous cache) or "paged" (page_size);
-    decode_window tokens a loop step."""
+    decode_window tokens a loop step (verify rounds under spec_decode).
+    spec_decode=K: speculative decoding, K drafts a round, in both modes;
+    prefill_chunk_tokens: chunked prefill in continuous mode."""
 
     def __init__(self, model, cfg, tokenizer, model_name: str = "video-r2-tpu",
                  max_new_tokens: int = 1024, attn_impl: str = "xla",
@@ -77,8 +82,6 @@ class ChatEngine:
                                       f"not ported to the PyTorch package yet (ROADMAP "
                                       f"Queue 1 #7)")
         for name, asked, item in (
-                ("speculative decoding (spec_decode)", spec_decode, 6),
-                ("chunked prefill (prefill_chunk_tokens)", prefill_chunk_tokens, 6),
                 ("sharded serving (mesh)", mesh is not None, 8),
                 ("the Qwen3-Next prefix store's switch (prefix_cache=False)",
                  not prefix_cache, 7)):
@@ -118,7 +121,8 @@ class ChatEngine:
                 model, num_slots=num_slots, max_len=max_len,
                 sp=SamplingParams(eos_token_ids=(cfg.eos_token_id,),
                                   pad_token_id=cfg.pad_token_id),
-                attn_impl=attn_impl, decode_window=max(decode_window, 1), **kw)
+                attn_impl=attn_impl, decode_window=max(decode_window, 1),
+                spec_decode=spec_decode, prefill_chunk_tokens=prefill_chunk_tokens, **kw)
             self._queue = queue_mod.Queue()
             self._stop = threading.Event()
             self._thread = threading.Thread(
@@ -246,7 +250,8 @@ class ChatEngine:
         """One batched generate (callers hold the lock)."""
         return generate(self.model, packed.input_ids, packed.lengths, sp,
                         seed=self._seed, attn_impl=self.attn_impl,
-                        act_quant=self.act_quant, kv_quant=self.kv_quant)
+                        act_quant=self.act_quant, kv_quant=self.kv_quant,
+                        spec_decode=self.spec_decode)
 
     def chat_batch(self, messages_list: list[list[dict]],
                    temperature: float = 0.0, top_p: float = 1.0,
@@ -285,15 +290,15 @@ class ChatEngine:
                 for i in range(len(ids_list))]
 
     def stats(self) -> dict:
-        """Operator telemetry for /metrics: slot and page occupancy in
-        continuous mode."""
+        """Operator telemetry for /metrics: slot and page occupancy and the
+        speculative-decoding counters in continuous mode."""
         s = {"model": self.model_name, "continuous": self._queue is not None,
              "spec_decode": self.spec_decode, "kv_quant": self.kv_quant,
              "mesh": None}
         if self._queue is not None:
             eng = self._cont
             s.update(active_requests=eng.num_active, num_slots=eng.num_slots,
-                     spec_stats={})
+                     spec_stats=dict(eng.spec_stats))
             pc = getattr(eng, "pcache", None)
             if pc is not None:
                 s.update(pages_total=int(pc.k.shape[2]),

@@ -12,8 +12,10 @@ back in order.
 Host preprocessing (`_prepare`: video decode, burn-in, patchify, tokenize)
 runs on prefetch workers ahead of the card, and touches no torch CUDA state
 (data/prefetch.py's contract), so forked workers under VR2_DECODE_PROCS
-stay safe. The JAX backend's mesh and spec_decode options raise until the
-parallelism and speculative-decoding ports (ROADMAP Queue 1 #8, #6).
+stay safe. spec_decode=K decodes speculatively (K n-gram drafts a verify
+round; eval generation is greedy, so the answers are plain greedy's) in
+batch mode and in paged mode. The JAX backend's mesh option raises until
+the parallelism port (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -54,9 +56,6 @@ class EngineBackend:
         if mesh is not None:
             raise NotImplementedError("a mesh (multi-GPU eval) waits for the "
                                       "parallelism port (ROADMAP Queue 1 #8)")
-        if spec_decode:
-            raise NotImplementedError("spec_decode > 0 waits for the speculative "
-                                      "decoding port (ROADMAP Queue 1 #6)")
         if engine_mode not in ("batch", "paged"):
             raise ValueError(f"unknown engine_mode {engine_mode!r}")
         if attn_impl == "auto":
@@ -335,7 +334,7 @@ class EngineBackend:
                        vision_token_id=self.cfg.video_token_id,
                        seed=self.seed, attn_impl=self.attn_impl,
                        act_quant=self.act_quant, kv_quant=self.kv_quant,
-                       prefill_chunk=pc)
+                       prefill_chunk=pc, spec_decode=self.spec_decode)
         out = {}
         for row, idx in enumerate(indices):
             ids = res.sequences[row][: res.lengths[row]]
@@ -364,7 +363,7 @@ class EngineBackend:
             sp=SamplingParams(eos_token_ids=(self.cfg.eos_token_id,),
                               pad_token_id=self.cfg.pad_token_id),
             attn_impl=self.attn_impl, prompt_buckets=tuple(buckets),
-            page_size=ps, kv_quant=self.kv_quant)
+            page_size=ps, kv_quant=self.kv_quant, spec_decode=self.spec_decode)
         return self._cont
 
     def _run_continuous(self, loader, indices, gen_kwargs):

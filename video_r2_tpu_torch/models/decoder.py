@@ -218,11 +218,13 @@ class DecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x), act_quant)
 
     def forward(self, x, cos, sin, bias, k_cache=None, v_cache=None,
-                cache_position: int = 0, attn_impl: str = "xla",
+                cache_position: int | torch.Tensor = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False, act_quant: str | None = None,
                 head_major: bool = False, kv_scales=None, segment_ids=None):
         """k_cache / v_cache: this layer's cache, written in place at
-        [cache_position, cache_position + S): seq-major [B, Smax, kh, hd],
+        [cache_position, cache_position + S) (a [B] tensor cache_position:
+        row b's at [pos_b, pos_b + S); seq-major caches only): seq-major
+        [B, Smax, kh, hd],
         attended over whole, or (head_major) [B, kh, Smax, hd], with the
         attention over the local k / v; None attends over the local k / v.
         kv_scales: this layer's (k_scale, v_scale) [B, Smax, kh] of an int8
@@ -235,11 +237,18 @@ class DecoderLayer(nn.Module):
         attends over the local k / v, which the ids index."""
         S = x.shape[1]
         q, k, v = self.qkv(x, cos, sin, act_quant)
+        if torch.is_tensor(cache_position):
+            # per-row frontiers [B]: row b's S tokens land at [pos_b, pos_b + S)
+            # (speculative decoding's verify chunks)
+            span = (torch.arange(x.shape[0], device=x.device)[:, None],
+                    cache_position.to(x.device).long()[:, None]
+                    + torch.arange(S, device=x.device))
+        else:
+            span = (slice(None), slice(cache_position, cache_position + S))
         if kv_scales is not None:
             (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-            span = slice(cache_position, cache_position + S)
-            k_cache[:, span], v_cache[:, span] = kq, vq
-            kv_scales[0][:, span], kv_scales[1][:, span] = ks, vs
+            k_cache[span], v_cache[span] = kq, vq
+            kv_scales[0][span], kv_scales[1][span] = ks, vs
             if not causal:
                 attn = quant_dot_product_attention(q, k_cache, kv_scales[0], v_cache,
                                                    kv_scales[1], bias)
@@ -248,11 +257,11 @@ class DecoderLayer(nn.Module):
             k_cache[:, :, cache_position:cache_position + S] = k.transpose(1, 2)
             v_cache[:, :, cache_position:cache_position + S] = v.transpose(1, 2)
         elif k_cache is not None:
-            k_cache[:, cache_position:cache_position + S] = k
-            v_cache[:, cache_position:cache_position + S] = v
+            k_cache[span] = k
+            v_cache[span] = v
             if segment_ids is None:
                 k, v = k_cache, v_cache
-            elif cache_position != 0:
+            elif torch.is_tensor(cache_position) or cache_position != 0:
                 raise ValueError("segment_ids need a fill from cache position 0")
         attn = dot_product_attention(q, k, v, bias=bias, kv_lengths=kv_lengths,
                                      causal=causal, impl=attn_impl,
@@ -274,12 +283,15 @@ class Decoder(nn.Module):
 
     def forward(self, hidden, cos, sin, bias,
                 cache: KVCache | DecodeKVCache | QuantKVCache | None = None,
-                cache_position: int = 0, attn_impl: str = "xla",
+                cache_position: int | torch.Tensor = 0, attn_impl: str = "xla",
                 kv_lengths=None, causal: bool = False,
                 remat: bool = False, act_quant: str | None = None,
                 segment_ids: torch.Tensor | None = None) -> torch.Tensor:
         """hidden [B, S, H] input embeddings, cos/sin [B, S, head_dim],
-        bias [B, 1, S, Skv] additive or None. Returns the final-normed hidden
+        bias [B, 1, S, Skv] additive or None. cache_position: the first row
+        the S tokens' k / v take, or per-row frontiers [B] (a KVCache or
+        QuantKVCache: row b's tokens at [pos_b, pos_b + S), the verify
+        chunks of speculative decoding). Returns the final-normed hidden
         [B, S, H]; `cache` (if given) is updated in place (a DecodeKVCache by
         the head-major fill, with bias None; a QuantKVCache by the quantized
         fill when causal, with bias None, else by a decode step). remat:

@@ -22,7 +22,9 @@ over pages of q's type or int8 pages; bf16 at head dims 64 and 128, fp32 at
 any head dim up to 128, the instance picked by
 `split.decode_kernel_instance`; each sequence's keys split across
 blocks by `split.decode_split_plan` where B kh blocks do not fill the card,
-one launch a call) and raises on anything it does not take; on CPU tensors
+one launch a call; up to KERNEL_MAX_ROWS = 128 query rows W * (nh / kh) per
+kv head, above KERNEL_BLOCK_ROWS in two blocks) and raises on anything it
+does not take, a chunk of more query rows by name; on CPU tensors
 it runs `paged_decode_attention_stacked_plain` (gather through the table,
 fp32 scores, softmax and P @ V, the same mask). A row that admits no key
 emits 0 (the engine always passes lengths >= 1).
@@ -52,7 +54,8 @@ from .split import (
 
 DEFAULT_PAGE_SIZE = 128
 KERNEL_PAGE_SIZES = (64, 128)
-KERNEL_MAX_ROWS = 64      # W * (nh / kh) query rows one block holds
+KERNEL_MAX_ROWS = 128     # W * (nh / kh) query rows a (sequence, kv head)
+KERNEL_BLOCK_ROWS = 64    # ... one block holds: more take two blocks (row groups)
 
 
 def paged_decode_attention_stacked(
@@ -172,6 +175,25 @@ def check_kernel_sizes(head_dim: int, page_size: int, dtype: torch.dtype) -> Non
                          f"{KERNEL_PAGE_SIZES}")
 
 
+def check_query_rows(W: int, nh: int, kh: int) -> None:
+    """Raise unless the CUDA kernel takes a W-token chunk of nh query heads
+    over kh kv heads: kv heads dividing query heads, and W * (nh / kh) query
+    rows per kv head at most KERNEL_MAX_ROWS (a verify chunk of K + 1
+    tokens: K <= 15 at the judge's g = 8, K <= 17 at the 7B's g = 7)."""
+    if kh <= 0 or nh % kh:
+        raise ValueError(f"paged kernel: {kh} kv heads do not divide {nh} query heads")
+    if W * (nh // kh) > KERNEL_MAX_ROWS:
+        raise ValueError(f"paged kernel: {W} tokens x {nh // kh} query heads per kv head "
+                         f"= {W * (nh // kh)} query rows, above the kernel's limit of "
+                         f"KERNEL_MAX_ROWS = {KERNEL_MAX_ROWS}")
+
+
+def row_groups(rows: int) -> int:
+    """Blocks a (sequence, kv head) takes for `rows` query rows: 1 up to
+    KERNEL_BLOCK_ROWS, else 2 of even halves (the kernel's grid z)."""
+    return -(-rows // KERNEL_BLOCK_ROWS)
+
+
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
                 layer, page_size):
     """Check the operands and launch csrc/paged_attn.cu."""
@@ -188,10 +210,7 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
         raise ValueError(f"paged kernel: pools {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not fit page size {page_size} "
                          f"and q {tuple(q.shape)}")
-    if nh % kh or W * (nh // kh) > KERNEL_MAX_ROWS:
-        raise ValueError(f"paged kernel: {W} x {nh} query heads over {kh} kv heads; "
-                         f"needs kv heads dividing query heads and at most "
-                         f"{KERNEL_MAX_ROWS} query rows per kv head")
+    check_query_rows(W, nh, kh)
     page_dtype = torch.int8 if quant else q.dtype
     operands = [("k_pages", k_pages, page_dtype), ("v_pages", v_pages, page_dtype)]
     if quant:
@@ -218,11 +237,13 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, page_tables, lengths,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     max_pages = tables.shape[1]
-    S = decode_splits(B * kh, max_pages * page_size // SPLIT_TILE, dev.index)
+    groups = row_groups(W * (nh // kh))
+    S = decode_splits(B * kh * groups, max_pages * page_size // SPLIT_TILE, dev.index)
     part = counters = None
     if S > 1:
         part, counters = split_workspace(
-            dev, stream, B * kh * S * W * (nh // kh) * (split_width(hd) + 2), B * kh)
+            dev, stream, B * kh * S * W * (nh // kh) * (split_width(hd) + 2),
+            B * kh * groups)
     err = kernels().vr2_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,

@@ -2,9 +2,10 @@
 
 Port of ``video_r2_tpu/train/grpo.py`` (single device):
 
-- `GRPOConfig` keeps every field and default of the JAX one; a value the
-  port cannot run raises NotImplementedError naming its ROADMAP item
-  (speculative rollouts, Queue 1 #6; a mesh, Queue 1 #8).
+- `GRPOConfig` keeps every field and default of the JAX one;
+  rollout_spec_decode speculates on both rollout routes (rejection
+  sampling: the rollouts are sampled), and a mesh, which the port cannot
+  run, raises NotImplementedError naming its ROADMAP item (Queue 1 #8).
 - The host functions (`completion_mask_from_ids`, `combine_rewards`,
   `compute_advantages`) are numpy, the JAX package's code line for line
   (tests/test_torch_host.py holds their source equal).
@@ -84,12 +85,6 @@ class GRPOConfig:
     # distribution, engine/spec_decode.py). Rollout completions quote the
     # prompt's subtitles/options/format strings, the drafting workload
     rollout_spec_decode: int = 0
-
-    def __post_init__(self):
-        if self.rollout_spec_decode > 0:
-            raise NotImplementedError("speculative rollouts (rollout_spec_decode > 0) "
-                                      "wait for the speculative decoding port "
-                                      "(ROADMAP Queue 1 #6)")
 
 
 # ---------------------------------------------------------------------------

@@ -200,7 +200,8 @@ class GRPORunner:
                                position_ids=pos, rope_deltas=deltas[:, 0],
                                vision_embeds=embeds,
                                vision_token_id=cfg.video_token_id, seed=self._seed,
-                               attn_impl=self.attn_impl)
+                               attn_impl=self.attn_impl,
+                               spec_decode=self.gcfg.rollout_spec_decode)
                 completion_ids, gen_lengths = res.sequences, res.lengths
 
         cmask = completion_mask_from_ids(
@@ -336,7 +337,7 @@ class GRPORunner:
                               pad_token_id=self.cfg.pad_token_id),
             attn_impl=self.attn_impl, prompt_buckets=tuple(buckets),
             page_size=page, seed=self._seed, kv_quant=self.gcfg.rollout_kv_quant,
-            prefix_cache=False)
+            prefix_cache=False, spec_decode=self.gcfg.rollout_spec_decode)
         return self._rollout_eng
 
     def _rollout_continuous(self, token_lists, prepared, G, sp):
