@@ -7,7 +7,7 @@ backward) and the bound, with the blocks each launch puts on an SM.
     python3 scripts/bench_flash_bwd.py                  # this checkout's port
     python3 scripts/bench_flash_bwd.py --root DIR       # another checkout's
     python3 scripts/bench_flash_bwd.py --cases window   # a subset: fwd, bwd, window,
-                                                        # window_bwd
+                                                        # window_bwd, next
 
 Forward shapes (chip_smoke.py's phases 3, 6, 15 and 16): the 7B's causal
 prefill (B 3, Sq 1408, Sk 1440, lengths 1408 / 1311 / 704, 28 / 4 heads of
@@ -15,7 +15,10 @@ prefill (B 3, Sq 1408, Sk 1440, lengths 1408 / 1311 / 704, 28 / 4 heads of
 groups of 1024 slots, 784 valid, 16 heads of 80, segment ids from
 plan_vision_layout: valid slots 1, padding -2), the int8 fill (B 16, S
 1536, lengths 1536 - 13 i) and one bench chunk (B 64, S 256), then with LSE
-the training shapes below (the ViT's at 16 frames: 8 groups).
+the training shapes below (the ViT's at 16 frames: 8 groups). "next": the
+serving forward at head dim 256 (chip_smoke.py phase 23: the Qwen3-Next
+judge's 2048-token prefill chunk, B 1, 16 / 2 heads, causal, and phase
+23(c)'s 4 judge prompts, B 4, S 704).
 Backward shapes (phases 6 and 15): the 7B decoder's LoRA step (B 2, S 2432,
 lengths 2422 / 2342, 28 / 4 heads of 128, causal), the judge's (B 2, S 1024,
 lengths 643 / 709, 32 / 4 heads of 128, causal) and the ViT's
@@ -57,6 +60,12 @@ FWD_SHAPES = {
     "judge training": dict(B=2, Sq=1024, Sk=1024, nh=32, kh=4, hd=128,
                            lengths=(643, 709), lse=True),
     "vit full training": dict(grid=(8, 28, 28), nh=16, hd=80, lse=True),
+}
+NEXT_SHAPES = {
+    "next prefill chunk": dict(B=1, Sq=2048, Sk=2048, nh=16, kh=2, hd=256,
+                               lengths=(2048,), lse=False),
+    "next judge prompts": dict(B=4, Sq=704, Sk=704, nh=16, kh=2, hd=256,
+                               lengths=(559, 625, 622, 670), lse=False),
 }
 SHAPES = {
     "decoder training": dict(B=2, S=2432, nh=28, kh=4, hd=128, lengths=(2422, 2342)),
@@ -246,7 +255,7 @@ def main() -> int:
                     help="the checkout whose video_r2_tpu_torch is timed")
     ap.add_argument("--label", default="", help="a name printed with each line")
     ap.add_argument("--cases", default="fwd,bwd,window,window_bwd",
-                    help="comma-separated subset of fwd, bwd, window, window_bwd")
+                    help="comma-separated subset of fwd, bwd, window, window_bwd, next")
     args = ap.parse_args()
     import torch
 
@@ -265,6 +274,8 @@ def main() -> int:
     cases = set(args.cases.split(","))
     runs = [(run_fwd_shape, name, shape) for name, shape in FWD_SHAPES.items()
             if "fwd" in cases]
+    runs += [(run_fwd_shape, name, shape) for name, shape in NEXT_SHAPES.items()
+             if "next" in cases]
     runs += [(run_shape, name, shape) for name, shape in SHAPES.items() if "bwd" in cases]
     runs += [(run_window_shape, name, shape) for name, shape in WINDOW_SHAPES.items()
              if ("window_bwd" if shape["training"] else "window") in cases]

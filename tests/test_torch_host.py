@@ -63,7 +63,8 @@ for name in ("ops.paged_attention", "engine.continuous", "engine.sampling",
              "evalharness.tasks.benchmarks", "evalharness.tasks.tempcompass",
              "apps.common", "apps.run_eval", "apps.demo", "evalharness.tac",
              "evalharness.vas", "evalharness.postprocess", "apps.serve", "apps.postprocess",
-             "apps.test_judge", "models.attention_tap"):
+             "apps.test_judge", "models.attention_tap", "models.qwen3_next",
+             "engine.next_continuous"):
     assert pkg.__name__ + "." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "video_r2_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
@@ -78,7 +79,8 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.strip()) >= 20   # every module was walked
 
 
-@pytest.mark.parametrize("name", ["qwen25vl_7b", "tiny_test_config", "qwen3_moe_30b_a3b"])
+@pytest.mark.parametrize("name", ["qwen25vl_7b", "tiny_test_config", "qwen3_moe_30b_a3b",
+                                  "qwen25vl_3b", "qwen25vl_72b"])
 def test_config_copy_matches(name):
     """Every field the port keeps equals the JAX config's, nested ones too."""
     ours, ref = getattr(config, name)(), getattr(jconfig, name)()

@@ -140,6 +140,45 @@ def test_flash_kernel_matches_plain(cuda, hd):
     assert flash_attention.launches == before + 4
 
 
+# (Sq, Sk, q_offset, kv lengths): the hd-256 instance's cases
+HD256_CASES = {"causal": (300, 300, 0, [300, 300]),
+               "kv_lengths": (300, 300, 0, [300, 77]),
+               "q_offset": (192, 333, 141, [333, 250])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HD256_CASES))
+def test_flash_kernel_hd256_matches_plain(cuda, case):
+    """The serving forward at head dim 256 (the Qwen3-Next judge's gated
+    attention, 16 / 2 heads): causal over whole rows, with ragged kv
+    lengths, and a suffix at q_offset over a longer prefix (the prefix
+    store's continuation), against the plain version."""
+    Sq, Sk, q_offset, lens = HD256_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(256 + Sq)
+    B, nh, kh, hd = 2, 16, 2, 256
+    q, k, v = _randn(gen, B, Sq, nh, hd), _randn(gen, B, Sk, kh, hd), _randn(gen, B, Sk, kh, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_lengths=lengths, causal=True, q_offset=q_offset)
+    ref = flash_attention_plain(q, k, v, lengths, True, q_offset)
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_head_dims_it_does_not_take(cuda):
+    """bf16 at head dim 256 has the serving forward alone: the forward with
+    LSE (training) refuses it, as does a head dim with no instance."""
+    q = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="serving forward alone"):
+        flash_attention_fwd_lse(q, q, q, lengths)
+    q = torch.zeros(1, 64, 2, 192, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 192"):
+        flash_attention(q, q, q)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 80, 128])
 def test_window_kernel_matches_plain(cuda, hd):
@@ -307,10 +346,11 @@ def test_flash_fwd_kernels_give_the_same_bits_twice(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_fwd_kernel_layout_fits(cuda, hd):
     """The forward's block (two consumer warpgroups over 128 query rows and
-    a producer warp, Q and the K / V ring in shared memory) fits on an SM."""
+    a producer warp, Q and the K / V ring in shared memory) fits on an SM
+    (at head dim 256 with a two-slot ring)."""
     rows, warpgroups, resident = flash_fwd_layout(hd)
     assert (rows, warpgroups) == (128, 2) and resident >= 1
 

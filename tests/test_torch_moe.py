@@ -515,10 +515,12 @@ def test_paged_engine_moe_matches_jax(judge):
 
 def test_options_not_ported_raise(judge):
     model, _, cfg, _ = judge
-    for kw in ({"mesh": object()},
-               {"continuous": True, "engine_kind": "paged", "prefix_cache": False}):
-        with pytest.raises(NotImplementedError):
-            ChatEngine(model, cfg, ByteTokenizer(SPECIALS), **kw)
+    with pytest.raises(NotImplementedError):
+        ChatEngine(model, cfg, ByteTokenizer(SPECIALS), mesh=object())
+    # prefix_cache switches only the Qwen3-Next store, as in the reference:
+    # this family takes it and keeps no store
+    assert ChatEngine(model, cfg, ByteTokenizer(SPECIALS),
+                      prefix_cache=False)._prefix_store is None
     # the reference's own refusals: int8 KV on the slot engine, and the
     # paged engine outside continuous mode
     for kw in ({"continuous": True, "kv_quant": "int8"}, {"engine_kind": "paged"}):

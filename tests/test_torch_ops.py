@@ -135,6 +135,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 80, "bf16"), (torch.bfloat16, 128, "bf16"),
     (torch.bfloat16, 12, ValueError), (torch.bfloat16, 96, ValueError),
+    (torch.bfloat16, 256, ValueError),
     (torch.float32, 12, "fp32"), (torch.float32, 16, "fp32"), (torch.float32, 80, "fp32"),
     (torch.float32, 128, "fp32"), (torch.float32, 136, ValueError),
     (torch.float16, 64, TypeError), (torch.float64, 12, TypeError)])
@@ -147,6 +148,17 @@ def test_kernel_instance_routes_by_dtype_and_head_dim(dtype, hd, want):
     else:
         with pytest.raises(want):
             kernel_instance(dtype, hd)
+
+
+def test_kernel_instance_takes_head_dim_256_for_serving_alone():
+    """bf16 at head dim 256 (the Qwen3-Next judge's gated attention) routes
+    to the flash serving forward's instance, and to no LSE, backward or
+    window instance."""
+    assert kernel_instance(torch.bfloat16, 256, serving=True) == "bf16"
+    with pytest.raises(ValueError, match="serving forward alone"):
+        kernel_instance(torch.bfloat16, 256)
+    with pytest.raises(ValueError, match="not in"):
+        kernel_instance(torch.bfloat16, 192, serving=True)
 
 
 @pytest.mark.parametrize("what", ["flash", "window"])

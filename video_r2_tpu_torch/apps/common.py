@@ -2,7 +2,8 @@
 
 Port of ``video_r2_tpu/apps/common.py``. `build_model` builds the preset
 with seeded random weights on the card (``device``, "cuda" unless the caller
-asks for another) and quantizes it in place for ``run.weight_quant``
+asks for another), a Qwen25VL or, for the Qwen3-Next preset, a Qwen3Next
+(models/qwen3_next.py), and quantizes it in place for ``run.weight_quant``
 (models/quant.py). Loading an HF checkpoint or a BPE tokenizer waits for the
 HF loader port (ROADMAP Queue 1 #9), and a mesh for the parallelism port
 (Queue 1 #8): each raises.
@@ -25,6 +26,11 @@ from ..engine.chat import (
     ByteTokenizer,
 )
 from ..models.loader import init_params
+from ..models.qwen3_next import (
+    init_qwen3_next_params,
+    is_qwen3_next_config,
+    quantize_qwen3_next_params,
+)
 from ..models.quant import quantize_params
 
 logger = logging.getLogger("video_r2_tpu_torch")
@@ -37,7 +43,8 @@ def setup_logging():
 
 
 def build_model(app: AppConfig, device: str | torch.device = "cuda"):
-    """The preset's Qwen25VL with seeded weights on `device`; weight_quant
+    """The preset's model (Qwen25VL, or Qwen3Next for the Next preset) with
+    seeded weights on `device`; weight_quant
     "int8" / "int4" quantizes it in place (weight-only). A CUDA device that
     is not there raises: the entry points never fall back to the CPU."""
     cfg = app.model_config()
@@ -54,9 +61,15 @@ def build_model(app: AppConfig, device: str | torch.device = "cuda"):
         raise RuntimeError("the model is built on the card, and no CUDA device is "
                            "available (a caller that wants the CPU builds its own "
                            "model and passes it in)")
-    model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype, device=device)
-    if wq:
-        quantize_params(model, bits=4 if wq == "int4" else 8)
+    bits = 4 if wq == "int4" else 8
+    if is_qwen3_next_config(cfg):
+        model = init_qwen3_next_params(cfg, seed=app.run.seed, device=device)
+        if wq:
+            quantize_qwen3_next_params(model, bits=bits)
+    else:
+        model = init_params(cfg, seed=app.run.seed, dtype=cfg.dtype, device=device)
+        if wq:
+            quantize_params(model, bits=bits)
     logger.warning("no checkpoint given - seeded random weights%s",
                    f" ({wq} weight-only)" if wq else "")
     return model
@@ -71,7 +84,7 @@ def build_tokenizer(app: AppConfig):
         raise NotImplementedError("the BPE tokenizer waits for the HF loader port "
                                   "(ROADMAP Queue 1 #9)")
     cfg = app.model_config()
-    if cfg.text.vocab_size > max(ByteTokenizer.SPECIALS.values()):
+    if is_qwen3_next_config(cfg) or cfg.text.vocab_size > max(ByteTokenizer.SPECIALS.values()):
         return ByteTokenizer()
     return ByteTokenizer({
         "<|endoftext|>": cfg.pad_token_id, IM_START: 256, IM_END: cfg.eos_token_id,

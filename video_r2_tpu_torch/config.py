@@ -20,7 +20,15 @@ from typing import Any, get_args, get_origin
 import torch
 
 from .data.config import DataConfig
-from .models.config import ModelConfig, qwen3_moe_30b_a3b, qwen25vl_7b, tiny_test_config
+from .models.config import (
+    ModelConfig,
+    qwen3_moe_30b_a3b,
+    qwen25vl_3b,
+    qwen25vl_7b,
+    qwen25vl_72b,
+    tiny_test_config,
+)
+from .models.qwen3_next import Qwen3NextConfig, qwen3_next_80b_a3b
 from .train.grpo import GRPOConfig
 from .train.lora import LoRAConfig
 from .train.optim import OptimConfig
@@ -28,7 +36,12 @@ from .train.sft import SFTConfig
 
 MODEL_PRESETS = {
     "qwen25vl-7b": qwen25vl_7b,
-    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "qwen25vl-3b": qwen25vl_3b,
+    "qwen25vl-72b": qwen25vl_72b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,   # judge-class MoE (text only)
+    # the reference's own judge (serve_qwen3.sh:11): the hybrid DeltaNet
+    # family, models/qwen3_next.py
+    "qwen3-next-80b-a3b": qwen3_next_80b_a3b,
     "tiny-test": tiny_test_config,
 }
 
@@ -97,7 +110,9 @@ class AppConfig:
     grpo: GRPOConfig = field(default_factory=GRPOConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
 
-    def model_config(self) -> ModelConfig:
+    def model_config(self) -> ModelConfig | Qwen3NextConfig:
+        """The preset's config (a ModelConfig, or a Qwen3NextConfig for the
+        Next family) in run.dtype."""
         return dataclasses.replace(MODEL_PRESETS[self.run.model_preset](),
                                    dtype=self.run.dtype)
 

@@ -73,6 +73,13 @@
 // it rounds the next P), and the softmax adds the rest. 128-key tiles ran
 // within 5% either way, and so did rings of 3 to 6 slots. At the ViT's
 // groups the mask of the windows that hold padding costs a quarter.
+// Head dim 256 (the Qwen3-Next judge's gated attention; the serving
+// instance alone) keeps the design with a two-slot ring (a 64 KB Q tile and
+// 64 KB slots) and P V as one n256 product: O is 128 fp32 registers a
+// consumer thread. Two n128 products over the halves of O had ptxas
+// serialise the wgmmas (C7520); the n256 product does not and runs faster
+// (scripts/bench_flash_bwd.py --cases next, PERF.md §6), at the cost of 12
+// bytes of spill that ptxas -v reports.
 #include <climits>
 #include <cmath>
 
@@ -95,8 +102,11 @@ constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // and a producer warpgroup
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // The K / V ring. A consumer waits for tile j before it releases tile
 // j - 1, so two slots would do; measured, 3 to 6 ran within 5% of each
-// other at every shape of scripts/bench_flash_bwd.py
-constexpr int STAGES = 4;
+// other at every shape of scripts/bench_flash_bwd.py. Head dim 256 (the
+// Qwen3-Next judge's gated attention) takes two: its Q tile is 64 KB and a
+// slot 64 KB, so four would ask 321 KB of the 227 KB a block may have.
+template <int HD>
+constexpr int stages() { return HD > 128 ? 2 : 4; }
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -118,11 +128,13 @@ struct Geo {
   static constexpr bool SW128 = HD % 64 == 0;  // 128-byte swizzled boxes, else core matrices
   static constexpr int BOX_W = SW128 ? 64 : 8;
   static constexpr int NBOX = HD / BOX_W;
+  static constexpr int STAGES = stages<HD>();
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int T_BYTES = BK * HD * 2;  // one K or V tile
   static constexpr int STAGE = 2 * T_BYTES;
   static constexpr int BARRIERS = 2 * STAGES + 1;
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE + BARRIERS * 8;
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory");
 };
 
 // Descriptors of k16 step kk. 128-byte swizzle: a box is rows of 128 bytes
@@ -168,12 +180,15 @@ __device__ __forceinline__ void issue_s(float (&s)[BK / 8][4], const unsigned ch
 }
 
 // O[64 x HD] += P V for P's register A operands, issued and not waited on
+// (head dim 256: one n256 product over V's four column boxes)
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 8][4], const uint32_t (&pa)[BK / 16][4],
                                          const unsigned char* sv) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    if constexpr (HD == 128)
+    if constexpr (HD == 256)
+      vr2::wgmma_rs_n256(o, pa[kk], desc_v<HD>(sv, kk), 1);
+    else if constexpr (HD == 128)
       vr2::wgmma_rs_n128(o, pa[kk], desc_v<HD>(sv, kk), 1);
     else if constexpr (HD == 80)
       vr2::wgmma_rs_n80(o, pa[kk], desc_v<HD>(sv, kk), 1);
@@ -199,6 +214,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                      __grid_constant__ const CUtensorMap mk,
                      __grid_constant__ const CUtensorMap mv, const FlashParams p) {
   using G = Geo<HD>;
+  constexpr int STAGES = G::STAGES;
   constexpr int NT = BK / 8;   // 8-key column blocks of a score tile
   constexpr int DT = HD / 8;   // 8-wide column blocks of the output
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -467,11 +483,14 @@ cudaError_t launch_hd(const FlashParams& p, const Operands& x, cudaStream_t stre
 }
 
 // (rows of a block, consumer warpgroups of a block, blocks resident on an SM)
+// of the serving instance at head dim 256 (it has no LSE instance), else of
+// the LSE instance
 template <int HD>
 int layout(int* out) {
-  if (set_smem<HD, true>() != cudaSuccess) return -1;
+  constexpr bool LSE = HD != 256;
+  if (set_smem<HD, LSE>() != cudaSuccess) return -1;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], flash_fwd_kernel<HD, true>, THREADS, Geo<HD>::SMEM);
+      &out[2], flash_fwd_kernel<HD, LSE>, THREADS, Geo<HD>::SMEM);
   out[0] = BQ;
   out[1] = WGS;
   return int(err);
@@ -600,9 +619,10 @@ cudaError_t launch_f32(const F32Params& p, cudaStream_t stream) {
 
 // Plain C entry point, loaded with ctypes. q / k / v are read by stride
 // (elements; bf16: the row and head strides multiples of 8, the bases
-// 16-byte aligned, hd 64, 80 or 128; fp32 (fp32 != 0): any strides, hd up
-// to 128); the output is a contiguous [B, Sq, nh, hd] of q's type; lse
-// (fp32 [B, nh, Sq]) may be null. Returns a cudaError_t.
+// 16-byte aligned, hd 64, 80, 128 or 256; fp32 (fp32 != 0): any strides, hd
+// up to 128); the output is a contiguous [B, Sq, nh, hd] of q's type; lse
+// (fp32 [B, nh, Sq]) may be null, and must be at hd 256 (the serving
+// instance alone: the judge is not trained). Returns a cudaError_t.
 extern "C" int vr2_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_lengths,
     const int* seg, int B, int Sq, int Sk, int nh, int kh, int hd, long long q_sb,
@@ -637,6 +657,8 @@ extern "C" int vr2_flash_attention_fwd(
     case 64: return launch_hd<64>(p, x, st);
     case 80: return launch_hd<80>(p, x, st);
     case 128: return launch_hd<128>(p, x, st);
+    case 256:
+      return p.lse != nullptr ? int(cudaErrorInvalidValue) : int(launch<256, false>(p, x, st));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -649,6 +671,7 @@ extern "C" int vr2_flash_attention_fwd_layout(int hd, int* out) {
     case 64: return layout<64>(out);
     case 80: return layout<80>(out);
     case 128: return layout<128>(out);
+    case 256: return layout<256>(out);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -19,9 +19,14 @@ with /v1/chat/completions (stop strings, n, stream) and /metrics.
   loop (its spec_stats in /metrics); prefill_chunk_tokens=C prefills a
   continuous engine's longer prompts a chunk of C a step.
 
-Not ported yet, and raising NotImplementedError when asked for: meshes
-(ROADMAP Queue 1 #8) and the Qwen3-Next family with its prefix store's
-switch, prefix_cache=False (#7).
+- A Qwen3-Next config (models/qwen3_next.py, the reference's judge) serves
+  in batch mode through generate_packed (generate_spec under spec_decode;
+  kv_quant / act_quant ride its config), with NextPrefixStore reusing a
+  burst's shared prefix across calls unless prefix_cache=False, and in
+  continuous mode on engine/next_continuous.py's slot engine; the paged
+  engine and continuous kv_quant are refused for it, as in the reference.
+
+A mesh (ROADMAP Queue 1 #8) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..models.config import ModelConfig
+from ..models.qwen3_next import is_qwen3_next_config
 from .chat import pack_prompts, render_messages
 from .generate import generate
 from .sampling import SamplingParams
@@ -77,17 +83,29 @@ class ChatEngine:
                  kv_quant: str | None = None, spec_decode: int = 0,
                  decode_window: int = 1, prefill_chunk_tokens: int = 0,
                  prefix_cache: bool = True):
-        if not isinstance(cfg, ModelConfig):
-            raise NotImplementedError(f"{type(cfg).__name__} (the Qwen3-Next family) is "
-                                      f"not ported to the PyTorch package yet (ROADMAP "
-                                      f"Queue 1 #7)")
-        for name, asked, item in (
-                ("sharded serving (mesh)", mesh is not None, 8),
-                ("the Qwen3-Next prefix store's switch (prefix_cache=False)",
-                 not prefix_cache, 7)):
-            if asked:
-                raise NotImplementedError(f"{name} is not ported to the PyTorch "
-                                          f"ChatEngine yet (ROADMAP Queue 1 #{item})")
+        if mesh is not None:
+            raise NotImplementedError("sharded serving (mesh) is not ported to the "
+                                      "PyTorch ChatEngine yet (ROADMAP Queue 1 #8)")
+        self._next = is_qwen3_next_config(cfg)
+        if not (self._next or isinstance(cfg, ModelConfig)):
+            raise NotImplementedError(f"ChatEngine serves a ModelConfig or a "
+                                      f"Qwen3NextConfig; {type(cfg).__name__} is no "
+                                      f"family the port has")
+        if self._next:
+            # the paged engine and the slot engine's int8 cache serve the
+            # homogeneous-KV family only (the hybrid slot cache is bf16)
+            unsupported = [n for n, v in (
+                ("engine_kind=paged", continuous and engine_kind == "paged"),
+                ("continuous+kv_quant", continuous and kv_quant)) if v]
+            if unsupported:
+                raise ValueError(
+                    "Qwen3-Next serving supports batch mode (spec + kv/act quant + "
+                    "the prefix store) and slot-continuous mode (spec + chunked "
+                    f"prefill): unsupported option(s) {unsupported}")
+            # serving quantization rides the model config: int8 KV strips for
+            # the full-attention layers, W8A8 prefill linears on int8 weights
+            if kv_quant or act_quant:
+                cfg = cfg.replace(kv_quant=kv_quant, act_quant=act_quant)
         if engine_kind != "slots" and not continuous:
             raise ValueError(
                 f"engine_kind={engine_kind!r} requires continuous=True "
@@ -109,7 +127,24 @@ class ChatEngine:
         self._lock = threading.Lock()
         self._seed = 0
         self._queue = None
-        if continuous:
+        # Qwen3-Next bursts share a system + rubric prefix: its hybrid state
+        # is kept across calls and only the suffixes prefill (exact; with
+        # kv_quant the finished prompt cache quantizes as the packed path's)
+        self._prefix_store = None
+        if self._next and prefix_cache and not continuous:
+            from ..models.qwen3_next import NextPrefixStore
+
+            self._prefix_store = NextPrefixStore()
+        if continuous and self._next:
+            from .next_continuous import Qwen3NextContinuousEngine
+
+            self._cont = Qwen3NextContinuousEngine(
+                model, cfg, num_slots=num_slots, max_len=max_len,
+                sp=SamplingParams(eos_token_ids=(cfg.eos_token_id,),
+                                  pad_token_id=cfg.pad_token_id),
+                spec_decode=spec_decode, prefill_chunk_tokens=prefill_chunk_tokens,
+                decode_window=max(decode_window, 1))
+        elif continuous:
             from .continuous import ContinuousEngine, PagedContinuousEngine
 
             # the paged engine keeps its automatic prefix cache on, as in the
@@ -123,6 +158,7 @@ class ChatEngine:
                                   pad_token_id=cfg.pad_token_id),
                 attn_impl=attn_impl, decode_window=max(decode_window, 1),
                 spec_decode=spec_decode, prefill_chunk_tokens=prefill_chunk_tokens, **kw)
+        if continuous:
             self._queue = queue_mod.Queue()
             self._stop = threading.Event()
             self._thread = threading.Thread(
@@ -248,6 +284,14 @@ class ChatEngine:
 
     def _batch_generate(self, packed, sp):
         """One batched generate (callers hold the lock)."""
+        if self._next:
+            from ..models.qwen3_next import generate_packed, generate_spec
+
+            if self.spec_decode:
+                return generate_spec(self.model, self.cfg, packed.input_ids, packed.lengths,
+                                     sp, spec_k=self.spec_decode, seed=self._seed)
+            return generate_packed(self.model, self.cfg, packed.input_ids, packed.lengths,
+                                   sp, seed=self._seed)
         return generate(self.model, packed.input_ids, packed.lengths, sp,
                         seed=self._seed, attn_impl=self.attn_impl,
                         act_quant=self.act_quant, kv_quant=self.kv_quant,
@@ -281,10 +325,14 @@ class ChatEngine:
                 self._wait(done)
             return [_apply_stop(self.tok.decode(b["tokens"], skip_special_tokens=True),
                                 stops) for b, _ in boxes]
-        packed = pack_prompts(ids_list, pad_id=self.cfg.pad_token_id)
         with self._lock:
             self._seed += 1
-            res = self._batch_generate(packed, sp)
+            if self._prefix_store is not None and len(ids_list) > 1:
+                res = self._prefix_store.generate(self.model, self.cfg, ids_list, sp,
+                                                  seed=self._seed, spec_k=self.spec_decode)
+            else:
+                res = self._batch_generate(
+                    pack_prompts(ids_list, pad_id=self.cfg.pad_token_id), sp)
         return [_apply_stop(self.tok.decode(res.sequences[i][: res.lengths[i]],
                                             skip_special_tokens=True), stops)
                 for i in range(len(ids_list))]
@@ -295,6 +343,9 @@ class ChatEngine:
         s = {"model": self.model_name, "continuous": self._queue is not None,
              "spec_decode": self.spec_decode, "kv_quant": self.kv_quant,
              "mesh": None}
+        if self._prefix_store is not None:
+            s.update(prefix_cache_hits=self._prefix_store.hits,
+                     prefix_cache_misses=self._prefix_store.misses)
         if self._queue is not None:
             eng = self._cont
             s.update(active_requests=eng.num_active, num_slots=eng.num_slots,

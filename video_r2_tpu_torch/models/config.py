@@ -102,6 +102,27 @@ def qwen25vl_7b() -> ModelConfig:
     return ModelConfig()
 
 
+def qwen25vl_3b() -> ModelConfig:
+    """Qwen/Qwen2.5-VL-3B-Instruct."""
+    return ModelConfig(
+        text=TextConfig(hidden_size=2048, intermediate_size=11008,
+                        num_hidden_layers=36, num_attention_heads=16,
+                        num_key_value_heads=2, vocab_size=151936,
+                        tie_word_embeddings=True),
+        vision=VisionConfig(out_hidden_size=2048),
+    )
+
+
+def qwen25vl_72b() -> ModelConfig:
+    """Qwen/Qwen2.5-VL-72B-Instruct."""
+    return ModelConfig(
+        text=TextConfig(hidden_size=8192, intermediate_size=29568,
+                        num_hidden_layers=80, num_attention_heads=64,
+                        num_key_value_heads=8),
+        vision=VisionConfig(out_hidden_size=8192),
+    )
+
+
 def qwen3_moe_30b_a3b() -> ModelConfig:
     """Qwen3-30B-A3B (MoE), the judge model served on one card: 48 layers,
     32 / 4 heads of 128, 128 experts of width 768, top 8, qk-norm, no

@@ -13,7 +13,9 @@ adapters attached to the port's modules, so both train the same adapters
 The MoE leaves ([L, E, ...]) split on L only, and the leaves of a
 quantized tree (8-bit {kernel_q, scale}, 4-bit {kernel_q4, scale4}) load
 into a model quantized alike (models/quant.py), int8 copied as int8 and the
-scales as fp32.
+scales as fp32. `load_jax_next_params` carries the Qwen3-Next tree
+(``models/qwen3_next.py``: leaves under ``groups/lin`` stacked [G, 3, ...],
+under ``groups/full`` [G, ...]) into the port's Qwen3Next the same way.
 """
 
 from __future__ import annotations
@@ -44,12 +46,49 @@ def flatten_jax_tree(tree: dict, prefix: tuple[str, ...] = ()) -> dict[str, np.n
     return out
 
 
+def flatten_next_tree(tree: dict) -> dict[str, np.ndarray]:
+    """A Qwen3-Next tree -> {module state_dict name: array}: the [G, 3]
+    DeltaNet leaves split into groups.{g}.lin.{s}, the [G] attention
+    leaves into groups.{g}.full."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                walk(val, path + (key,))
+            return
+        arr = np.asarray(node)
+        if path[:2] == ("groups", "lin"):
+            for g in range(arr.shape[0]):
+                for s in range(arr.shape[1]):
+                    out[".".join(("groups", str(g), "lin", str(s)) + path[2:])] = arr[g, s]
+        elif path[:2] == ("groups", "full"):
+            for g in range(arr.shape[0]):
+                out[".".join(("groups", str(g), "full") + path[2:])] = arr[g]
+        else:
+            out[".".join(path)] = arr
+
+    walk(tree, ())
+    return out
+
+
+@torch.no_grad()
+def load_jax_next_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Copy a JAX Qwen3-Next tree (``jax.tree.map(np.asarray, params)``,
+    int8 / int4 leaves included) into a Qwen3Next quantized alike; the rules
+    of load_jax_params. Returns `module`."""
+    return _copy_flat(module, flatten_next_tree(tree))
+
+
 @torch.no_grad()
 def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
     """Copy a JAX params tree into `module` (names and shapes must match
     exactly; float values cast to each parameter's dtype, int8 copied as
     is). Returns `module`."""
-    flat = flatten_jax_tree(tree)
+    return _copy_flat(module, flatten_jax_tree(tree))
+
+
+def _copy_flat(module: nn.Module, flat: dict[str, np.ndarray]) -> nn.Module:
     params = dict(module.named_parameters())
     missing, extra = params.keys() - flat.keys(), flat.keys() - params.keys()
     if missing or extra:

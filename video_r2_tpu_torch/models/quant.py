@@ -73,21 +73,24 @@ def _matches(path: tuple, suffixes) -> bool:
 
 @torch.no_grad()
 def quantize_params(model: nn.Module, include_embedding: bool = False,
-                    bits: int = 8, group_size: int = INT4_GROUP_SIZE) -> nn.Module:
+                    bits: int = 8, group_size: int = INT4_GROUP_SIZE,
+                    extra_suffixes: tuple = ()) -> nn.Module:
     """Quantize every targeted kernel of `model` in place (a module's
     ``kernel`` parameter is replaced by its quantized leaves; biases stay).
     bits=4 uses group-wise int4 where the input dim K permits
     (K % (2 group_size) == 0: the 7B decoder, LM head, ViT attention and
     gate / up, and merger) and int8 elsewhere (the 7B ViT's down
     projection); MoE experts are int8 whatever the bits. include_embedding
-    casts the embedding table to bf16. Returns `model`."""
+    casts the embedding table to bf16. extra_suffixes: more module paths
+    to quantize, for model families whose modules are named otherwise (the
+    Qwen3-Next judge passes its own). Returns `model`."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
+    suffixes = QUANT_SUFFIXES + MOE_SUFFIXES + tuple(extra_suffixes)
     for name, mod in model.named_modules():
         w = getattr(mod, "kernel", None)
         path = tuple(name.split(".")) + ("kernel",)
-        if not isinstance(w, nn.Parameter) or not _matches(path, QUANT_SUFFIXES
-                                                            + MOE_SUFFIXES):
+        if not isinstance(w, nn.Parameter) or not _matches(path, suffixes):
             continue
         if (bits == 4 and not _matches(path, MOE_SUFFIXES)
                 and w.shape[-2] % (2 * group_size) == 0):

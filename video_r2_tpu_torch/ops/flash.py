@@ -8,8 +8,9 @@ the FA2 recompute backward from it (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``). On CUDA tensors every step launches a
 hand-written Hopper kernel (``csrc/flash_attn.cu``, ``csrc/flash_attn_bwd.cu``)
 and raises on anything the kernels do not take: `kernel_instance` routes
-bf16 operands to the tensor-core kernels (head dims 64 / 80 / 128) and fp32
-operands to their fp32 instances on the CUDA cores (any head dim up to
+bf16 operands to the tensor-core kernels (head dims 64 / 80 / 128, and 256
+for the serving forward alone: the Qwen3-Next judge's gated attention) and
+fp32 operands to their fp32 instances on the CUDA cores (any head dim up to
 128); other dtypes raise TypeError. On CPU tensors the same Function runs
 the plain PyTorch versions (`flash_attention_fwd_lse_plain`,
 `flash_attention_bwd_plain`), which the CPU tests hold against the JAX
@@ -29,21 +30,26 @@ import torch
 
 from .cuda_build import check, kernels
 
-KERNEL_HEAD_DIMS = (64, 80, 128)   # the bf16 kernels'
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)   # the bf16 kernels'
+SERVING_ONLY_HEAD_DIMS = (256,)   # the serving forward's alone: no LSE, backward or window
 FP32_MAX_HEAD_DIM = 128             # the fp32 instances take any head dim up to it
 NO_KEY_LSE = 1e30   # LSE of a row that admits no key: exp(s - lse) == 0
 
 
-def kernel_instance(dtype: torch.dtype, hd: int) -> str:
+def kernel_instance(dtype: torch.dtype, hd: int, serving: bool = False) -> str:
     """The instance of the attention kernels (flash and window, forward and
     backward) that takes operands of `dtype` at head dim `hd`: "bf16" (the
-    tensor-core kernels; head dims in KERNEL_HEAD_DIMS) or "fp32" (their
-    fp32 instances on the CUDA cores; any head dim up to FP32_MAX_HEAD_DIM).
-    Raises TypeError on any other dtype and ValueError on a head dim the
-    instance does not take."""
+    tensor-core kernels; head dims in KERNEL_HEAD_DIMS, those in
+    SERVING_ONLY_HEAD_DIMS only for the flash serving forward, `serving`)
+    or "fp32" (their fp32 instances on the CUDA cores; any head dim up to
+    FP32_MAX_HEAD_DIM). Raises TypeError on any other dtype and ValueError
+    on a head dim the instance does not take."""
     if dtype == torch.bfloat16:
         if hd not in KERNEL_HEAD_DIMS:
             raise ValueError(f"attention kernel: bf16 head dim {hd} not in {KERNEL_HEAD_DIMS}")
+        if hd in SERVING_ONLY_HEAD_DIMS and not serving:
+            raise ValueError(f"attention kernel: bf16 head dim {hd} has the flash serving "
+                             f"forward alone (no LSE, backward or window instance)")
         return "bf16"
     if dtype == torch.float32:
         if not 0 < hd <= FP32_MAX_HEAD_DIM:
@@ -224,12 +230,12 @@ def _check_operand(name: str, x: torch.Tensor, device, dtype) -> None:
                          f"strides {x.stride()}")
 
 
-def _kernel_inputs(q, k, v, kv_lengths, segment_ids):
+def _kernel_inputs(q, k, v, kv_lengths, segment_ids, serving: bool = False):
     """Check the operands; (lengths int32 [B], segments int32 [B, Sk] or
-    None), contiguous on q's device."""
+    None), contiguous on q's device. serving: for the serving forward."""
     B, Sq, nh, hd = q.shape
     Sk, kh = k.shape[1], k.shape[2]
-    kernel_instance(q.dtype, hd)
+    kernel_instance(q.dtype, hd, serving)
     if k.shape != (B, Sk, kh, hd) or v.shape != k.shape:
         raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -256,7 +262,7 @@ def _flash_cuda(q, k, v, kv_lengths, causal, q_offset, segment_ids,
     """Launch csrc/flash_attn.cu: (out, lse or None)."""
     B, Sq, nh, hd = q.shape
     Sk, kh = k.shape[1], k.shape[2]
-    lengths, seg = _kernel_inputs(q, k, v, kv_lengths, segment_ids)
+    lengths, seg = _kernel_inputs(q, k, v, kv_lengths, segment_ids, serving=not with_lse)
     out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
