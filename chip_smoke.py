@@ -362,25 +362,45 @@
    failed: requests/s, p50 / p95, decode tok/s, spec tokens a round, the
    chunked prefills, launches by kernel; then a spec dispatch and a plain
    decode window under the profiler (idle share).
+24. Qwen3-Next training (models/qwen3_next.py::next_loss,
+   make_next_lora_sft_step): (a) its kernels at its shapes against their
+   plain versions: the flash forward with LSE, dq and dk/dv at head dim 256
+   (B = 2, S = 2048, 16 / 2 heads, causal, kv lengths (2048, 1536)) with
+   their times, bounds, device ms (CUDA graphs) and SDPA's forward /
+   backward, a suffix at q_offset 1536 and packed segments; the GMM dX
+   kernel at E 512, top 10, T = 4096 (40960 routed rows) with its bound and
+   torch._grouped_mm; (b) the small fp32 config's LoRA step on the card
+   against the CPU (loss and adapter gradients within 1e-4; the fp32
+   flash training, FFN and dX instances launched); (c) on 23(c)'s bf16
+   model: LoRA r 64 over NEXT_LORA_TARGETS at B 2 x S 2048, step 1's loss
+   and adapter gradients through the kernels against the plain path with
+   the kernel path's expert ids replayed (PATH_LOSS_RTOL, PATH_GRAD_REL_L2)
+   and a control (the dX kernel's output zeroed) above the bound, then 3
+   steps: s/step, tokens/s, peak GiB, launches; (d) after 23(d) served,
+   QLoRA over the int8 model (init_lora_for_quantized): 3 steps on the same
+   batch, the loss falls, peak GiB, launches.
 
 Phase order: 18 with 22(b), 1-9 with 22(a), 19 and 20 with 22(d), 20(c),
 12-13 (one 7B, freed), 10, 14, 11 with 15, then 21 with 22(a) and 22(c)
-(the judge, freed), 23 (the Next judge, freed), 16-17 with 17(d) and 17(c)
-(a new 7B).
+(the judge, freed), 23 with 24 (the Next judge: 23(a), 23(b), 24(a),
+24(b), 23(c), 24(c), 23(d), 24(d); freed), 16-17 with 17(d) and 17(c) (a
+new 7B).
 
 Prints a JSON line of per-kernel results (each row's launches on its path,
 grpo_launches of phases 19 / 17(c), eval_launches of phase 20,
 posthoc_launches of phases 20(c) / 21, spec_launches of phase 22(c),
-next_launches of phase 23(c) / (d); the paged kernel's verify-chunk cases
-and phase 23(a)'s cases at the Next judge's shapes as rows of their own,
-each with its case and its launches: those of 22(b) / (c) / (d)'s verify
-chunks at that shape, and phase 23's), then the card line, and last
+next_launches of phase 23(c) / (d), next_train_launches of phase 24(c) /
+(d); the paged kernel's verify-chunk cases and phase 23(a)'s and 24(a)'s
+cases at the Next judge's shapes as rows of their own, each with its case
+and its launches: those of 22(b) / (c) / (d)'s verify chunks at that
+shape, phase 23's and phase 24's), then the card line, and last
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
 non-zero and that line is not printed. Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -672,6 +692,29 @@ NEXT_KERNELS = {
     "moe_ffn_int8_ragged_next": ("moe_ffn_int8_ragged", "E 512 top 10, H 2048 I 512, T=8"),
     "moe_ffn_int8_gmm_next": ("moe_ffn_int8_gmm", "E 512 top 10, H 2048 I 512, T=2048"),
     "int8_matmul_next": ("int8_matmul", "qkvz 2048 -> 12288 at 3 rows"),
+}
+# Qwen3-Next training (phase 24): LoRA r 64 / alpha 64 over NEXT_LORA_TARGETS
+# on phase 23(c)'s bf16 model (24(c)) and QLoRA on 23(d)'s int8 one (24(d)),
+# B 2 x S 2048, lengths (2048, 1536), the first 256 labels -100; Adam at a
+# constant 1e-3, 3 steps each
+NEXT_TRAIN_B, NEXT_TRAIN_S, NEXT_TRAIN_LENGTHS = 2, 2048, (2048, 1536)
+NEXT_TRAIN_MASKED, NEXT_TRAIN_STEPS, NEXT_TRAIN_LR = 256, 3, 1e-3
+# phase 24(b): the small fp32 config's LoRA step on the card vs the CPU (the
+# same fp32 products in other orders; the card's flash and grouped FFN
+# instances against the CPU's dense attention and plain FFN)
+NEXT_SMALL_TRAIN_TOL = 1e-4
+# phase 24(a)'s rows of the kernels line: name -> (the wrapper's row it
+# extends, the case); launches: phase 24(c) and (d)'s steps
+NEXT_TRAIN_KERNELS = {
+    "flash_attention_fwd_lse_hd256": (
+        "flash_attention_fwd_lse", "hd 256, B=2 S=2048, 16/2 heads, causal, lengths "
+        "(2048, 1536)"),
+    "flash_bwd_dq_hd256": ("flash_bwd_dq", "hd 256, B=2 S=2048, 16/2 heads, causal, lengths "
+                                           "(2048, 1536)"),
+    "flash_bwd_dkv_hd256": ("flash_bwd_dkv", "hd 256, B=2 S=2048, 16/2 heads, causal, lengths "
+                                             "(2048, 1536); two launches a call, dV then dK"),
+    "moe_gmm_bwd_dx_next": ("moe_gmm_bwd_dx", "E 512 top 10, H 2048 I 512, T=4096 (40960 "
+                                              "routed rows)"),
 }
 READY_MESSAGES = [{"role": "system", "content": "You are a precise assistant."},
                   {"role": "user", "content": "Reply with exactly the word READY."}]
@@ -6298,8 +6341,10 @@ class RouteRecorder:
     """While active, models/moe.py's route: "record" keeps every call's
     (weights, expert ids) in order; "replay" returns the recorded ones in
     the same order (the plain path then takes the kernel path's experts);
-    "compare" runs the real route and counts the tokens whose expert set
-    differs from the recorded call's."""
+    "ids" replays the recorded expert ids alone and gathers their weights
+    from this call's own router probabilities (so the router keeps its
+    gradient path under autograd); "compare" runs the real route and counts
+    the tokens whose expert set differs from the recorded call's."""
 
     def __init__(self, mode: str, calls=None):
         self.mode, self.calls, self.i = mode, calls if calls is not None else [], 0
@@ -6313,12 +6358,19 @@ class RouteRecorder:
         self.mod, real = moe, moe.route
 
         def route(router_kernel, x, k, norm_topk_prob):
-            if self.mode == "replay":
+            if self.mode in ("replay", "ids"):
                 self.i += 1
-                return self.calls[self.i - 1]
+                if self.mode == "replay":
+                    return self.calls[self.i - 1]
+                topi = self.calls[self.i - 1][1]
+                probs = torch.softmax(x.float() @ router_kernel.float(), dim=-1)
+                topv = probs.gather(-1, topi)
+                if norm_topk_prob:
+                    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+                return topv.to(x.dtype), topi
             topv, topi = real(router_kernel, x, k, norm_topk_prob)
             if self.mode == "record":
-                self.calls.append((topv, topi))
+                self.calls.append((topv.detach(), topi))
             else:
                 ref = self.calls[self.i][1]
                 self.i += 1
@@ -6437,6 +6489,8 @@ def next_judge_phase(card: str, device, tree: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     small = next_small_check(card, device)
+    results.update(next_train_kernel_cases(card, device))     # phase 24(a)
+    small_train = next_small_train_check(card, device)        # phase 24(b)
     # (c): the full-width model, NEXT_LAYERS deep
     app, opts, _, _ = serve_app.parse_args(list(NEXT_ARGV))
     cfg = dataclasses.replace(app.model_config(), num_hidden_layers=NEXT_LAYERS)
@@ -6461,6 +6515,7 @@ def next_judge_phase(card: str, device, tree: Path) -> dict:
     for name in ("flash_attention", "moe_ffn_bf16_ragged", "moe_ffn_bf16_gmm"):
         if c_launches[name] <= 0:
             raise AssertionError(f"phase 23(c) launched no {name}: {c_launches}")
+    train_c = next_lora_phase(model, card)                    # phase 24(c)
     # (d): int8 in place, served as serve_judge.sh serves the Next preset
     t0 = time.perf_counter()
     nx.quantize_qwen3_next_params(model)
@@ -6524,20 +6579,590 @@ def next_judge_phase(card: str, device, tree: Path) -> dict:
     if win["int8_matmul_decode"] <= 0 or win["moe_ffn_int8"] <= 0:
         raise AssertionError(f"phase 23(d): the decode windows launched no int8 decode "
                              f"kernel or grouped FFN: {win}")
-    del eng, chat, model
+    del eng, chat
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s in all | {card}", flush=True)
+    train_d = next_qlora_phase(model, card)                   # phase 24(d)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phases 23 and 24: {time.perf_counter() - t_phase:.1f} s in all | {card}",
+          flush=True)
     total = {n: c_launches.get(n, 0) + launches.get(n, 0) + win.get(n, 0)
              for n in set(c_launches) | set(launches) | set(win)}
+    # phase 24's training launches; every grouped FFN launch there is a GMM one
+    train = {n: train_c.get(n, 0) + train_d.get(n, 0) for n in set(train_c) | set(train_d)}
+    train["moe_ffn_bf16_gmm"], train["moe_ffn_int8_gmm"] = train_c["moe_ffn_bf16"], \
+        train_d["moe_ffn_int8"]
     rows = {"flash_attention_hd256": total["flash_attention"],
             "flash_attention_hd256_offset": c_launches["flash_attention"],
             "moe_ffn_bf16_ragged_next": c_launches["moe_ffn_bf16_ragged"],
             "moe_ffn_bf16_gmm_next": c_launches["moe_ffn_bf16_gmm"],
             "moe_ffn_int8_ragged_next": launches["moe_ffn_int8_ragged"],
             "moe_ffn_int8_gmm_next": launches["moe_ffn_int8_gmm"],
-            "int8_matmul_next": total["int8_matmul"]}
-    return results, {**rows, "phase23": total, "phase23b": small}
+            "int8_matmul_next": total["int8_matmul"],
+            **{name: train[base] for name, (base, _) in NEXT_TRAIN_KERNELS.items()}}
+    return results, {**rows, "phase23": total, "phase23b": small, "phase24": train,
+                     "phase24b": small_train}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: Qwen3-Next training (models/qwen3_next.py::next_loss,
+# make_next_lora_sft_step)
+# ---------------------------------------------------------------------------
+
+def flash_train_check(what: str, q, k, v, lengths, causal: bool, q_offset: int, seg,
+                      dout) -> None:
+    """The forward with LSE, dq and dk/dv on one input against their plain
+    versions (the backward from the plain forward's out and LSE), at the
+    flash bounds; printed, and raised on a miss."""
+    from video_r2_tpu_torch.ops.flash import (
+        NO_KEY_LSE,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd_lse,
+        flash_attention_fwd_lse_plain,
+    )
+
+    args = (q, k, v, lengths, causal, q_offset, seg)
+    (out, lse), (ref_out, ref_lse) = flash_attention_fwd_lse(*args), \
+        flash_attention_fwd_lse_plain(*args)
+    bargs = (lengths, causal, q_offset, seg)
+    grads = flash_attention_bwd(q, k, v, ref_out, dout, ref_lse, *bargs)
+    ref = flash_attention_bwd_plain(q, k, v, ref_out, dout, ref_lse, *bargs)
+    err, excess = compare(out, ref_out)
+    has_key = ref_lse < NO_KEY_LSE
+    lse_err = float((lse - ref_lse)[has_key].abs().max())
+    rels = [rel_l2(a, b) for a, b in zip(grads, ref)]
+    print(f"kernel flash training kernels [{what}] shape={tuple(q.shape)} x "
+          f"{tuple(k.shape)}: out max_abs_err={err:.4g} ({excess:.3f} x the tolerance), lse "
+          f"{lse_err:.3e} (tol {LSE_ATOL}), dq / dk / dv rel_l2 "
+          f"{' / '.join(f'{r:.3e}' for r in rels)} (tol {GRAD_REL_L2})", flush=True)
+    if not (excess <= 1.0 and lse_err <= LSE_ATOL and max(rels) <= GRAD_REL_L2):
+        raise AssertionError(f"flash training kernels [{what}] disagree with their plain "
+                             f"versions: out {excess}, lse {lse_err}, grads {rels}")
+
+
+def next_train_kernel_cases(card: str, device) -> dict:
+    """Phase 24(a): the kernels of Next training at its shapes, each against
+    its plain version. Flash at hd 256 (B = 2, S = 2048, 16 / 2 heads,
+    causal, kv lengths (2048, 1536); flash_case: the forward with LSE, dq
+    and dk/dv with their times, bounds and SDPA's forward / backward), each
+    also as a device time (20 launches in a CUDA graph) beside SDPA's; a
+    suffix at q_offset and packed segments checked; then the GMM dX kernel
+    at E 512, top 10, T = 4096 (40960 routed rows) with its bound and the
+    library call. Returns the kernels-line rows."""
+    import torch
+
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.models.qwen3_next import qwen3_next_80b_a3b
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+    from video_r2_tpu_torch.ops.flash import (
+        attention_delta,
+        flash_attention_fwd_lse,
+        flash_attention_fwd_lse_plain,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+    )
+
+    t0 = time.perf_counter()
+    cfg = qwen3_next_80b_a3b()
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    B, S = NEXT_TRAIN_B, NEXT_TRAIN_S
+    nh, kh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device).to(torch.bfloat16)  # noqa: E731
+    q, k, v, dout = rnd(B, S, nh, hd), rnd(B, S, kh, hd), rnd(B, S, kh, hd), rnd(B, S, nh, hd)
+    lengths = torch.tensor(NEXT_TRAIN_LENGTHS, dtype=torch.int32, device=device)
+    r = flash_case(gen, "Qwen3-Next training, hd 256", q, k, v, lengths, True, None,
+                   training=True)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, lengths, True)
+    bargs = (q, k, v, dout, lse, attention_delta(out, dout), lengths, True, 0, None)
+    r["flash_attention_fwd_lse"]["device_ms"] = graph_ms(
+        lambda: flash_attention_fwd_lse(q, k, v, lengths, True))
+    r["flash_bwd_dq"]["device_ms"] = graph_ms(lambda: flash_bwd_dq_cuda(*bargs))
+    r["flash_bwd_dkv"]["device_ms"] = graph_ms(lambda: flash_bwd_dkv_cuda(*bargs))
+    lib_fwd, lib_fwd_bwd = library_device_ms(q, k, v, admitted(lengths, S, S, True, None)[:, None],
+                                             dout)
+    r["flash_attention_fwd_lse"]["library_device_ms"] = lib_fwd
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):   # SDPA's backward: fwd + bwd less fwd
+        r[name]["library_device_ms"] = lib_fwd_bwd - lib_fwd
+    print(f"phase 24(a) hd 256 device ms (CUDA graph): fwd+lse "
+          f"{r['flash_attention_fwd_lse']['device_ms']:.4f} (SDPA fwd {lib_fwd:.4f}), dq "
+          f"{r['flash_bwd_dq']['device_ms']:.4f} + dk/dv {r['flash_bwd_dkv']['device_ms']:.4f} "
+          f"(SDPA bwd {lib_fwd_bwd - lib_fwd:.4f}); bounds "
+          f"{r['flash_attention_fwd_lse']['bound_ms']:.4f} / {r['flash_bwd_dq']['bound_ms']:.4f}"
+          f" / {r['flash_bwd_dkv']['bound_ms']:.4f} | {card}", flush=True)
+    results = {f"{name}_hd256": case for name, case in r.items()}
+    del out, lse, bargs
+    # a suffix at q_offset over the whole prefix, and packed segments
+    P = S - NEXT_SUFFIX
+    flash_train_check(f"hd 256, {NEXT_SUFFIX} rows at q_offset {P}", q[:, P:].contiguous(), k,
+                      v, torch.full((B,), S, dtype=torch.int32, device=device), True, P, None,
+                      dout[:, P:].contiguous())
+    pos = torch.arange(S, device=device)
+    seg = torch.where(pos < 700, 1, torch.where(pos < 1500, 2, torch.where(pos < 1900, 3, -2)))
+    flash_train_check("hd 256, 3 packed segments and padding", q, k, v,
+                      torch.full((B,), S, dtype=torch.int32, device=device), True, 0,
+                      seg.int()[None].expand(B, S).contiguous(), dout)
+    del q, k, v, dout
+
+    # the GMM dX kernel at the Next layer's shapes
+    E, H, I, topk = (cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size,
+                     cfg.num_experts_per_tok)
+    T = NEXT_TRAIN_B * NEXT_TRAIN_S
+    randw = lambda *s: (torch.randn(*s, generator=gen, device=device)  # noqa: E731
+                        * s[-2] ** -0.5).to(torch.bfloat16)
+    wg, wu, wd = randw(E, H, I), randw(E, H, I), randw(E, I, H)
+    with torch.no_grad():
+        xt = rnd(T, H)
+        topv, topi = route(randw(H, E), xt, topk, cfg.norm_topk_prob)
+        bm = gmm.auto_block_rows(T * topk, E)
+        xs, ids, valid, dst = gmm.gmm_layout(xt, topi, E, bm)
+        dys = gmm.sorted_dy(torch.randn(T * topk, H, generator=gen, device=device), topv, dst,
+                            xs.shape, xs.dtype)
+        dx, dg, du, h = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd, keep_h=True)
+        pdx, pdg, pdu, _ = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd)
+        rel, terms = rel_l2(dx, pdx), max(compare(a, b)[1] for a, b in ((dg, pdg), (du, pdu)))
+        err = float((dx - pdx).abs().max())
+        del pdx, pdg, pdu
+        n_exp = int(torch.unique(topi).numel())
+        run = torch.zeros(E, dtype=torch.int32, device=device).index_add_(
+            0, ids.long(), valid.int()) * bm
+        lib = gmm_bwd_library(xs, dg, du, h, dys, wg, wu, wd, run)["moe_gmm_bwd_dx"]
+        del dx, dg, du, h
+        kern = lambda: gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd)  # noqa: E731
+        dx_r = {"max_abs_err": err, "rel_l2": rel, "ms": cuda_ms(kern, iters=10),
+                "device_ms": graph_ms(kern, iters=10),
+                "plain_ms": cuda_ms(lambda: gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu,
+                                                                 wd), iters=2, warmup=1),
+                "library_ms": cuda_ms(lib, iters=10) if lib is not None else None,
+                **gmm_bwd_bounds(T * topk, n_exp, E, H, I)["moe_gmm_bwd_dx"]}
+    report("moe_gmm_bwd_dx", f"Qwen3-Next layer, T={T}, {n_exp} experts routed",
+           (xs.shape[0], bm, H, I), **{n: x for n, x in dx_r.items() if x is not None})
+    print(f"phase 24(a) dX: {gmm_dx_launch_line(xs.shape[0], bm, H, I)}; terms dg / du "
+          f"{terms:.3f} x the tolerance", flush=True)
+    if not (rel <= GRAD_REL_L2 and terms <= 1.0):
+        raise AssertionError(f"phase 24(a): the dX kernel at the Next shape disagrees with its "
+                             f"plain version: rel L2 {rel}, terms {terms}")
+    results["moe_gmm_bwd_dx_next"] = dx_r
+    del xs, dys, wg, wu, wd, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 24(a): {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return results
+
+
+def next_small_train_check(card: str, device) -> dict:
+    """Phase 24(b): the small fp32 Next model (phase 23(b)'s, seeded on the
+    CPU, copied to the card) with the same LoRA adapters (r 8, B drawn
+    nonzero) takes one make_next_lora_sft_step step on the card and on the
+    CPU: the loss and the adapter gradients within NEXT_SMALL_TRAIN_TOL
+    (relative), and the fp32 flash training and grouped FFN / dX instances
+    launched (counts set to 0 before, read after). Returns the launches."""
+    import copy
+
+    import torch
+
+    from video_r2_tpu_torch.models import qwen3_next as nx
+    from video_r2_tpu_torch.train.lora import LoRAConfig, attach_lora, init_lora
+    from video_r2_tpu_torch.train.optim import OptimConfig
+    from video_r2_tpu_torch.train.sft import init_train_state
+
+    t0 = time.perf_counter()
+    cfg = next_small_config()
+    cpu = nx.init_qwen3_next_params(cfg, seed=SEED + 241, device="cpu")
+    models = {"cpu": cpu, "card": copy.deepcopy(cpu).to(device)}
+    lcfg = LoRAConfig(r=8, alpha=16, targets=nx.NEXT_LORA_TARGETS)
+    lora = init_lora(cpu, lcfg, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 241)
+    for name, t in lora.items():
+        if name.endswith("lora_b"):
+            t.normal_(0.0, 0.02, generator=gen)
+    B, S = 2, 96
+    ids = torch.randint(2, cfg.vocab_size, (B, S), generator=gen)
+    lengths = torch.tensor([S, 70])
+    labels = torch.full_like(ids, -100)
+    labels[:, :-1] = ids[:, 1:]
+    labels[:, :8] = -100
+    labels[1, 69:] = -100
+    out, launches = {}, {}
+    for where, model in models.items():
+        params = attach_lora(model, {n: t.clone().to(model.device) for n, t in lora.items()},
+                             lcfg)
+        state = init_train_state(params, OptimConfig(learning_rate=NEXT_TRAIN_LR,
+                                                     warmup_ratio=0.0, schedule="constant"))
+        batch = {n: t.to(model.device) for n, t in
+                 (("input_ids", ids), ("labels", labels), ("lengths", lengths))}
+        reset_launches()
+        state, m = nx.make_next_lora_sft_step(model, cfg)(state, batch)
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        out[where] = (float(m["loss"]), torch.cat([p.grad.flatten().cpu() for p in
+                                                   params.values()]))
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = rel_l2(out["card"][1], out["cpu"][1])
+    kept = ("flash_attention_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "moe_ffn_fp32",
+            "moe_gmm_bwd_dx")
+    print(f"phase 24(b) small fp32 Qwen3-Next LoRA step on the card vs the CPU (B {B} x S {S}, "
+          f"{cfg.num_hidden_layers} layers): loss {out['card'][0]:.6f} vs {out['cpu'][0]:.6f} "
+          f"(rel {loss_rel:.3e}), adapter gradients rel L2 {grad_rel:.3e} (tol "
+          f"{NEXT_SMALL_TRAIN_TOL}); launches { {n: launches[n] for n in kept} }; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    if not (loss_rel <= NEXT_SMALL_TRAIN_TOL and grad_rel <= NEXT_SMALL_TRAIN_TOL
+            and min(launches[n] for n in kept) > 0):
+        raise AssertionError(f"phase 24(b): the card's LoRA step differs from the CPU's, or an "
+                             f"fp32 instance never ran: loss {loss_rel}, gradients {grad_rel}, "
+                             f"{launches}")
+    return launches
+
+
+def next_train_batch(cfg, device) -> dict:
+    """NEXT_TRAIN_B rows of seeded token ids, right-padded to NEXT_TRAIN_S at
+    NEXT_TRAIN_LENGTHS, the labels the next token (next_loss takes them at
+    the same position), -100 over the first NEXT_TRAIN_MASKED positions and
+    past each row's end."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 242)
+    B, S = NEXT_TRAIN_B, NEXT_TRAIN_S
+    lengths = torch.tensor(NEXT_TRAIN_LENGTHS, device=device)
+    pos = torch.arange(S, device=device)[None]
+    ids = torch.randint(2, cfg.vocab_size, (B, S), generator=gen, device=device)
+    ids = torch.where(pos < lengths[:, None], ids, cfg.pad_token_id)
+    labels = torch.full_like(ids, -100)
+    labels[:, :-1] = ids[:, 1:]
+    keep = (pos >= NEXT_TRAIN_MASKED) & (pos < lengths[:, None] - 1)
+    return {"input_ids": ids, "labels": torch.where(keep, labels, -100), "lengths": lengths}
+
+
+def next_train_steps(model, params, batch, what: str, card: str) -> tuple[list, dict, float]:
+    """NEXT_TRAIN_STEPS make_next_lora_sft_step steps over `batch` with Adam
+    at a constant NEXT_TRAIN_LR, each timed, with the launch counts set to 0
+    before and read after: (losses, launches, peak GiB)."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.models import qwen3_next as nx
+    from video_r2_tpu_torch.train.optim import OptimConfig
+    from video_r2_tpu_torch.train.sft import init_train_state
+
+    state = init_train_state(params, OptimConfig(learning_rate=NEXT_TRAIN_LR, warmup_ratio=0.0,
+                                                 schedule="constant"))
+    step = nx.make_next_lora_sft_step(model, model.cfg)
+    n_tok = int(batch["lengths"].sum())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for i in range(NEXT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(m["loss"]))
+        print(f"{what} step {i + 1}: loss {losses[-1]:.6f}, grad_norm {float(m['grad_norm']):.4e},"
+              f" {dt:.3f} s/step, {n_tok / dt:.1f} tokens/s "
+              f"({NEXT_TRAIN_B * NEXT_TRAIN_S / dt:.1f} padded)", flush=True)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return losses, launches, peak
+
+
+def next_train_want(model, variant: str) -> dict:
+    """The launches NEXT_TRAIN_STEPS steps make: per step the flash training
+    kernels once a gated attention layer; the grouped FFN twice a MoE layer
+    (the forward and the backward's d_topv recompute) and the dX kernel once;
+    no dW kernel (no expert trains)."""
+    G, L, n = model.cfg.num_groups, model.cfg.num_hidden_layers, NEXT_TRAIN_STEPS
+    return {"flash_attention_fwd_lse": G * n, "flash_bwd_dq": G * n, "flash_bwd_dkv": G * n,
+            f"moe_ffn_{variant}": 2 * L * n, "moe_gmm_bwd_dx": L * n, "moe_gmm_bwd_dw": 0,
+            "moe_gmm_bwd_dwd": 0}
+
+
+def flash_bwd_bf16_operands(q, k, v, out, dout, lse, kv_lengths, causal=True, q_offset=0,
+                            segment_ids=None):
+    """ops/flash.py::flash_attention_bwd_plain with P and dS rounded to the
+    operands' dtype before the products that take them, where the bf16
+    kernels round them (csrc/flash_attn_bwd.cu); the JAX kernels and the
+    plain version keep them fp32. The reference that separates a kernel
+    fault from that designed rounding in a whole step's gradients."""
+    import torch
+
+    from video_r2_tpu_torch.ops.flash import _admitted, _grouped
+
+    B, Sq, nh, hd = q.shape
+    Sk, kh = k.shape[1], k.shape[2]
+    g, scale = nh // kh, hd ** -0.5
+    qf, dof, kf, vf = _grouped(q, kh), _grouped(dout, kh), k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    ok = _admitted(B, Sq, Sk, kv_lengths, causal, q_offset, segment_ids, q.device)
+    p = torch.where(ok[:, None, None], torch.exp(s - lse.reshape(B, kh, g, Sq, 1)), 0.0)
+    delta = (dof * _grouped(out, kh)).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dof, vf) - delta)
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.reshape(B, Sq, nh, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class StepKernelChecks:
+    """While active, the training step's kernel wrappers (the flash forward
+    with LSE and backward, as _FlashFn calls them; the grouped FFN and the
+    GMM dX, as _GmmExpertFFN calls them) are stood in for: mode "check"
+    returns every kernel's result and holds it against its plain version on
+    the same operands (outputs at the kernel tolerance, the LSE at LSE_ATOL,
+    gradients at GRAD_REL_L2), keeping the worst of each; mode "plain_bwd"
+    runs the backward's plain versions (flash dq / dk / dv and dX) and
+    leaves the forwards on the kernels; mode "matched_bwd" the same with
+    flash_bwd_bf16_operands for the flash backward; mode "plain" runs the
+    flash forward's plain version too (with ffn_impl "plain" on the model:
+    the whole plain path). The stand-ins for the forward and dX take the .launches their
+    wrappers add to."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.worst = {"flash fwd excess": 0.0, "flash lse": 0.0, "flash bwd rel_l2": 0.0,
+                      "ffn excess": 0.0, "dX rel_l2": 0.0}
+        self.calls = dict.fromkeys(("flash fwd", "flash bwd", "ffn", "dX"), 0)
+
+    def _note(self, key: str, value: float) -> None:
+        self.worst[key] = max(self.worst[key], value)
+
+    def __enter__(self):
+        from video_r2_tpu_torch.ops import flash as fl
+        from video_r2_tpu_torch.ops import moe_gmm as gmm
+        from video_r2_tpu_torch.ops import moe_ragged
+
+        self.real = (fl.flash_attention_fwd_lse, fl.flash_attention_bwd,
+                     gmm.ragged_expert_ffn, gmm.gmm_bwd_dx)
+        real_fwd, real_bwd, real_ffn, real_dx = self.real
+        checking = self.mode == "check"
+
+        def fwd(q, k, v, kv_lengths, causal=True, q_offset=0, segment_ids=None):
+            if self.mode == "plain":
+                return fl.flash_attention_fwd_lse_plain(q, k, v, kv_lengths, causal, q_offset,
+                                                        segment_ids)
+            out = real_fwd(q, k, v, kv_lengths, causal, q_offset, segment_ids)
+            if checking:
+                ref = fl.flash_attention_fwd_lse_plain(q, k, v, kv_lengths, causal, q_offset,
+                                                       segment_ids)
+                self._note("flash fwd excess", compare(out[0], ref[0])[1])
+                has_key = ref[1] < fl.NO_KEY_LSE
+                self._note("flash lse", float((out[1] - ref[1])[has_key].abs().max()))
+                self.calls["flash fwd"] += 1
+            return out
+
+        def bwd(q, k, v, out, dout, lse, kv_lengths, causal=True, q_offset=0,
+                segment_ids=None):
+            args = (q, k, v, out, dout, lse, kv_lengths, causal, q_offset, segment_ids)
+            ref = (flash_bwd_bf16_operands if self.mode == "matched_bwd"
+                   else fl.flash_attention_bwd_plain)(*args)
+            if not checking:
+                return ref
+            got = real_bwd(*args)
+            self._note("flash bwd rel_l2", max(rel_l2(a, b) for a, b in zip(got, ref)))
+            self.calls["flash bwd"] += 1
+            return got
+
+        def ffn(x, ids, gate, up, down, block_i=512, blk_valid=None, x_scales=None):
+            out = real_ffn(x, ids, gate, up, down, block_i=block_i, blk_valid=blk_valid,
+                           x_scales=x_scales)
+            if checking:
+                ref = moe_ragged._plain_ffn(x, ids, gate, up, down, block_i, blk_valid, x_scales)
+                self._note("ffn excess", compare(out, ref)[1])
+                self.calls["ffn"] += 1
+            return out
+
+        def dx(xs, dYs, ids, valid, wg, wu, wd, keep_h=False):
+            ref = gmm.gmm_bwd_dx_plain(xs, dYs, ids, valid, wg, wu, wd, keep_h)
+            if not checking:
+                return ref
+            got = real_dx(xs, dYs, ids, valid, wg, wu, wd, keep_h)
+            self._note("dX rel_l2", rel_l2(got[0], ref[0]))
+            self.calls["dX"] += 1
+            return got
+
+        fwd.launches = dx.launches = 0
+        fl.flash_attention_fwd_lse, fl.flash_attention_bwd = fwd, bwd
+        gmm.ragged_expert_ffn, gmm.gmm_bwd_dx = ffn, dx
+        return self
+
+    def __exit__(self, *exc):
+        from video_r2_tpu_torch.ops import flash as fl
+        from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+        (fl.flash_attention_fwd_lse, fl.flash_attention_bwd, gmm.ragged_expert_ffn,
+         gmm.gmm_bwd_dx) = self.real
+
+    def passed(self) -> bool:
+        w = self.worst
+        return (w["flash fwd excess"] <= 1.0 and w["flash lse"] <= LSE_ATOL
+                and w["flash bwd rel_l2"] <= GRAD_REL_L2 and w["ffn excess"] <= 1.0
+                and w["dX rel_l2"] <= GRAD_REL_L2 and min(self.calls.values()) > 0)
+
+
+def next_lora_phase(model, card: str) -> dict:
+    """Phase 24(c): LoRA SFT (r 64, alpha 64, NEXT_LORA_TARGETS, B drawn
+    nonzero so every adapter has a gradient) over phase 23(c)'s bf16 model
+    on next_train_batch, then NEXT_TRAIN_STEPS steps, counted. Step 1,
+    every pass with the kernel pass's expert ids (RouteRecorder "ids": the
+    pass's own router weights, so the router keeps its gradient):
+    - the kernel pass, with every flash forward / backward, grouped FFN and
+      dX call of the step held against its plain version on that call's
+      own operands (StepKernelChecks "check");
+    - the plain path (flash, FFN and the GMM backward all plain): the loss
+      within PATH_LOSS_RTOL; its adapter gradients' gap is printed, beside
+      the kernel pass run again (the spread from the order of its fp32
+      atomic adds alone): at 12 noise-weight layers the step's gradients
+      move by more than PATH_GRAD_REL_L2 under any bf16 rounding change
+      of the forward (PERF.md §6);
+    - the backward's plain versions under the kernel forwards (flash dq /
+      dk / dv and dX plain), printed; and the same with the flash backward's
+      P and dS rounded where the kernels round them
+      (flash_bwd_bf16_operands; the GMM plain versions round where its
+      kernels do): adapter gradients within PATH_GRAD_REL_L2 of the kernel
+      pass, and the kernel pass with the dX kernel's output zeroed as a
+      control the bound must see.
+    Leaves the model without adapters. Returns the steps' launches."""
+    import numpy as np
+    import torch
+
+    from video_r2_tpu_torch.models import qwen3_next as nx
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+    from video_r2_tpu_torch.train.lora import (
+        LoRAConfig,
+        attach_lora,
+        detach_lora,
+        init_lora,
+        lora_param_count,
+    )
+
+    t_phase = time.perf_counter()
+    lcfg = LoRAConfig(r=64, alpha=64, targets=nx.NEXT_LORA_TARGETS)
+    params = attach_lora(model, init_lora(model, lcfg, seed=SEED), lcfg)
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 243)
+    with torch.no_grad():
+        for name, p in params.items():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02, generator=gen)
+    batch = next_train_batch(model.cfg, model.device)
+    print(f"phase 24(c) batch: B={NEXT_TRAIN_B} x S={NEXT_TRAIN_S}, lengths "
+          f"{list(NEXT_TRAIN_LENGTHS)}, labelled {int((batch['labels'] != -100).sum())}; "
+          f"{lora_param_count(params) / 1e6:.1f} M adapter params over "
+          f"{model.cfg.num_hidden_layers} layers", flush=True)
+    real_dx = gmm._bwd_dx_cuda
+
+    def zero_dx(*args):            # the control: the dX kernel's output zeroed
+        dx, *rest = real_dx(*args)
+        return (torch.zeros_like(dx), *rest)
+
+    checks = StepKernelChecks("check")
+    passes = {"kernel": checks, "kernel again": None, "plain": StepKernelChecks("plain"),
+              "plain backward": StepKernelChecks("plain_bwd"),
+              "matched backward": StepKernelChecks("matched_bwd"), "control": None}
+    calls, out = [], {}
+    for impl, stand_in in passes.items():
+        set_kernel_impl(model, "plain" if impl == "plain" else "kernel")
+        gmm._bwd_dx_cuda = zero_dx if impl == "control" else real_dx
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with RouteRecorder("record" if impl == "kernel" else "ids", calls), \
+                    stand_in or contextlib.nullcontext():
+                loss = nx.next_loss(model, model.cfg, batch["input_ids"], batch["labels"],
+                                    batch["lengths"])
+                loss.backward()
+        finally:
+            gmm._bwd_dx_cuda = real_dx
+        torch.cuda.synchronize()
+        out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in params.values()]),
+                     time.perf_counter() - t0)
+        del loss
+    set_kernel_impl(model, "kernel")
+    gk = out["kernel"][1]
+    lk, lp = out["kernel"][0], out["plain"][0]
+    loss_rel = abs(lk - lp) / abs(lp)
+    rel = {impl: rel_l2(out[impl][1], gk) for impl in passes if impl != "kernel"}
+    # the control against the bound's reference, as the bound reads it
+    control_rel = rel_l2(out["control"][1], out["matched backward"][1])
+    print(f"phase 24(c) step 1, every call of the kernel pass vs its plain version on its own "
+          f"operands: {checks.calls} calls, worst {checks.worst} (tolerances: x 1.0, "
+          f"{LSE_ATOL}, {GRAD_REL_L2})", flush=True)
+    print(f"phase 24(c) step 1: loss kernel {lk:.6f} plain path {lp:.6f} (rel {loss_rel:.3e}, "
+          f"tol {PATH_LOSS_RTOL}); adapter gradients, relative L2 to the kernel pass: the "
+          f"backward's plain versions with the kernels' rounding {rel['matched backward']:.3e} "
+          f"(tol {PATH_GRAD_REL_L2}); printed: the backward's plain versions "
+          f"{rel['plain backward']:.3e}, the kernel pass again {rel['kernel again']:.3e}, the "
+          f"plain path {rel['plain']:.3e}; control (dX zeroed) {control_rel:.3e}; |g| "
+          f"{float(gk.norm()):.4e}; "
+          f"fwd+bwd s kernel {out['kernel again'][2]:.3f} plain {out['plain'][2]:.3f} | "
+          f"{card}", flush=True)
+    if not (checks.passed() and np.isfinite(lk) and loss_rel <= PATH_LOSS_RTOL
+            and rel["matched backward"] <= PATH_GRAD_REL_L2 and torch.isfinite(gk).all()):
+        raise AssertionError(f"phase 24(c): the kernel path disagrees with the plain path: "
+                             f"calls {checks.worst}, loss rel {loss_rel}, gradients {rel}")
+    if not control_rel > PATH_GRAD_REL_L2:
+        raise AssertionError(f"phase 24(c): the bound {PATH_GRAD_REL_L2} does not see a zeroed "
+                             f"dX: control rel L2 {control_rel}")
+    del out, gk, calls
+    losses, launches, peak = next_train_steps(model, params, batch, "phase 24(c) LoRA", card)
+    want = next_train_want(model, "bf16")
+    print(f"phase 24(c): LoRA SFT over qwen3_next_80b_a3b ({model.cfg.num_hidden_layers} "
+          f"layers, bf16), {NEXT_TRAIN_STEPS} steps, peak device memory {peak:.2f} GiB; launches "
+          f"{ {n: launches[n] for n in want} }; {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+    detach_lora(model)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"phase 24(c): launches {launches}, expected {want}")
+    return launches
+
+
+def next_qlora_phase(model, card: str) -> dict:
+    """Phase 24(d): QLoRA over phase 23(d)'s int8 model (after it served):
+    init_lora_for_quantized (B = 0) over NEXT_LORA_TARGETS, NEXT_TRAIN_STEPS
+    steps over next_train_batch, counted; the loss falls, as the reference's
+    test asserts. Leaves the model without adapters. Returns the launches."""
+    import torch
+
+    from video_r2_tpu_torch.models import qwen3_next as nx
+    from video_r2_tpu_torch.train.lora import (
+        LoRAConfig,
+        attach_lora,
+        detach_lora,
+        init_lora_for_quantized,
+        lora_param_count,
+    )
+
+    t0 = time.perf_counter()
+    lcfg = LoRAConfig(r=64, alpha=64, targets=nx.NEXT_LORA_TARGETS)
+    params = attach_lora(model, init_lora_for_quantized(model, lcfg, seed=SEED), lcfg)
+    batch = next_train_batch(model.cfg, model.device)
+    losses, launches, peak = next_train_steps(model, params, batch, "phase 24(d) QLoRA", card)
+    want = next_train_want(model, "int8")
+    print(f"phase 24(d): QLoRA over the int8 qwen3_next_80b_a3b "
+          f"({model.cfg.num_hidden_layers} layers), {lora_param_count(params) / 1e6:.1f} M "
+          f"adapter params, {NEXT_TRAIN_STEPS} steps, losses {[f'{x:.6f}' for x in losses]}, "
+          f"peak device memory {peak:.2f} GiB; launches { {n: launches[n] for n in want} }; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    detach_lora(model)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(launches[n] != c for n, c in want.items()) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 24(d): launches {launches} (expected {want}) or the loss "
+                             f"did not fall: {losses}")
+    return launches
 
 
 def main() -> int:
@@ -6623,7 +7248,9 @@ def main() -> int:
             # the served judge with spec decode and chunked prefill (22(c))
             "spec_launches": launches["phase22"].get(name, 0),
             # the Qwen3-Next judge (23(c) bf16, 23(d) served int8)
-            "next_launches": launches["phase23"].get(name, 0)})
+            "next_launches": launches["phase23"].get(name, 0),
+            # its training (24(c) LoRA over bf16, 24(d) QLoRA over int8)
+            "next_train_launches": launches["phase24"].get(name, 0)})
     for name, (base, case) in VERIFY_KERNELS.items():   # phase 22(a)'s cases
         r = kernel_results[name]
         source, replaces = KERNELS[base]
@@ -6631,8 +7258,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "case": case, "launches": launches[name],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "device_ms", "library_device_ms")}})
-    for name, (base, case) in NEXT_KERNELS.items():     # phase 23(a)'s cases
+                                 "library_ms", "device_ms", "library_device_ms")},
+            "next_train_launches": launches["phase24"].get(base, 0)})
+    # phase 23(a)'s and 24(a)'s cases
+    for name, (base, case) in {**NEXT_KERNELS, **NEXT_TRAIN_KERNELS}.items():
         r = kernel_results[name]
         source, replaces = KERNELS[base]
         kernels.append({
@@ -6640,7 +7269,8 @@ def main() -> int:
             "case": case, "launches": launches[name],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
+            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r},
+            "next_train_launches": launches["phase24"].get(base, 0)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -168,15 +168,120 @@ def test_flash_kernel_hd256_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_head_dims_it_does_not_take(cuda):
-    """bf16 at head dim 256 has the serving forward alone: the forward with
-    LSE (training) refuses it, as does a head dim with no instance."""
-    q = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
-    lengths = torch.full((1,), 64, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="serving forward alone"):
-        flash_attention_fwd_lse(q, q, q, lengths)
+    """bf16 at head dim 256 has flash instances alone: the window kernels
+    refuse it, and the flash kernels refuse a head dim with no instance."""
+    w = torch.zeros(128, 2, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="no window instance"):
+        window_attention(w, w, w, torch.ones(128, dtype=torch.bool, device=cuda))
     q = torch.zeros(1, 64, 2, 192, dtype=torch.bfloat16, device=cuda)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head dim 192"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim 192"):
+        flash_attention_fwd_lse(q, q, q, lengths)
+
+
+# (Sq, Sk, q_offset, kv lengths, causal, segments): the hd-256 training
+# instances' cases (the judge's 16 / 2 heads)
+HD256_TRAIN_CASES = {"causal_lengths": (320, 320, 0, [320, 200], True, False),
+                     "q_offset": (192, 333, 141, [333, 250], True, False),
+                     "segments": (300, 300, 0, [300, 300], True, True)}
+
+
+def _hd256_inputs(cuda, case, nh=16, kh=2):
+    Sq, Sk, q_offset, lens, causal, segmented = HD256_TRAIN_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(256 + Sq + q_offset)
+    B, hd = len(lens), 256
+    q, dout = _randn(gen, B, Sq, nh, hd), _randn(gen, B, Sq, nh, hd)
+    k, v = _randn(gen, B, Sk, kh, hd), _randn(gen, B, Sk, kh, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    seg = None
+    if segmented:    # three packed segments, then padding
+        pos = torch.arange(Sk, device=cuda)
+        seg = torch.where(pos < 100, 1, torch.where(pos < 230, 2, torch.where(pos < 280, 3, -2)))
+        seg = seg.int()[None].expand(B, Sk).contiguous()
+    return q, k, v, dout, lengths, causal, q_offset, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HD256_TRAIN_CASES))
+def test_flash_training_kernels_hd256_match_plain(cuda, case):
+    """The forward with LSE, dq and dk/dv at head dim 256 (Qwen3-Next's
+    next_loss; dk/dv in two launches, dV then dK) against the plain
+    versions: causal with ragged kv lengths, a suffix at q_offset over a
+    longer prefix, packed segments. Each wrapper counts one launch, and
+    dk / dv are zero past the kv length."""
+    q, k, v, dout, lengths, causal, q_offset, seg = _hd256_inputs(cuda, case)
+    before = (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    out, lse = flash_attention_fwd_lse(q, k, v, lengths, causal, q_offset, seg)
+    ref_out, ref_lse = flash_attention_fwd_lse_plain(q, k, v, lengths, causal, q_offset, seg)
+    grads = flash_attention_bwd(q, k, v, ref_out, dout, ref_lse, lengths, causal, q_offset,
+                                seg)
+    ref = flash_attention_bwd_plain(q, k, v, ref_out, dout, ref_lse, lengths, causal,
+                                    q_offset, seg)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+    has_key = ref_lse < NO_KEY_LSE
+    assert _close(out, ref_out)
+    assert float((lse - ref_lse)[has_key].abs().max()) <= LSE_ATOL
+    for name, a, b in zip("qkv", grads, ref):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+    for b, n in enumerate(lengths.tolist()):
+        assert not grads[1][b, n:].any() and not grads[2][b, n:].any()
+
+
+@pytest.mark.cuda
+def test_flash_training_kernels_hd256_repeat_and_replay_in_a_graph(cuda):
+    """Without GQA every hd-256 training kernel writes its outputs itself
+    (no atomics): two eager calls give the same bits, and the three
+    wrappers captured in one CUDA graph replay to those bits. Under GQA the
+    autograd Function launches all three and its gradients match
+    torch.autograd through the plain forward."""
+    q, k, v, dout, lengths, causal, q_offset, seg = _hd256_inputs(cuda, "causal_lengths",
+                                                                  nh=4, kh=4)
+
+    def run():
+        out, lse = flash_attention_fwd_lse(q, k, v, lengths, causal, q_offset, seg)
+        return (out, lse, *flash_attention_bwd(q, k, v, out, dout, lse, lengths, causal,
+                                               q_offset, seg))
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, a))
+
+    q, k, v, dout, lengths, causal, _, _ = _hd256_inputs(cuda, "causal_lengths")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+              flash_bwd_dkv_cuda.launches)
+    grads = torch.autograd.grad(flash_attention(q, k, v, kv_lengths=lengths), (q, k, v),
+                                dout)
+    ref = torch.autograd.grad(flash_attention_plain(q, k, v, lengths), (q, k, v), dout)
+    assert (flash_attention_fwd_lse.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+    for name, x, y in zip("qkv", grads, ref):
+        assert _rel_l2(x, y) <= GRAD_REL_L2, (name, _rel_l2(x, y))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_hd256_layout(cuda):
+    """At head dim 256 a backward block is one warpgroup over 64 resident
+    rows (a [64, 256] tile is 32 KB; a two-stage ring), and fits on an SM."""
+    for dkv in (False, True):
+        rows, warpgroups, resident = flash_bwd_layout(256, dkv)
+        assert (rows, warpgroups) == (64, 1) and resident >= 1
 
 
 @pytest.mark.cuda
@@ -1620,6 +1725,65 @@ def test_moe_mlp_under_autograd_runs_the_backward_kernels(cuda, train_experts):
                 gmm.gmm_bwd_dwd.launches - before[2]) == (int(impl == "kernel"), n_dw, n_dw)
     for a, b in zip(grads["kernel"], grads["plain"]):
         assert a.dtype == b.dtype and _rel_l2(a, b) <= GRAD_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+def test_moe_training_route_at_next_width(cuda, variant):
+    """models/moe.py::moe_mlp_train at the Qwen3-Next judge's width (E 512,
+    top 10, H 2048, I 512; 512 tokens, 5120 routed rows) under autograd,
+    with bf16 experts and with int8 ones (QLoRA: the forward and the
+    recompute on the int8-weight FFN instance, dX over the experts
+    dequantized for the call): the grouped FFN and the dX kernel launch
+    (no dW kernel), and the gradients of x and the router match the plain
+    path (ffn_impl="plain") within GRAD_REL_L2."""
+    from video_r2_tpu_torch.models.moe import moe_mlp_train
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(512)
+    E, H, I, k = 512, 2048, 512, 10
+    router = (torch.randn(H, E, generator=gen, device=cuda) * H ** -0.5).requires_grad_()
+    p = {"router": {"kernel": router}, "experts": _moe_weights(gen, E, H, I, variant)}
+    x = _randn(gen, 1, 512, H).requires_grad_()
+    cot = _randn(gen, 1, 512, H)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        before = (dict(moe_ragged.ragged_expert_ffn.launches), gmm.gmm_bwd_dx.launches,
+                  gmm.gmm_bwd_dw.launches + gmm.gmm_bwd_dwd.launches)
+        out = moe_mlp_train(p, x, k, True, ffn_impl=impl)
+        grads[impl] = torch.autograd.grad((out.float() * cot.float()).sum(), (x, router))
+        torch.cuda.synchronize()
+        kernel = int(impl == "kernel")
+        assert moe_ragged.ragged_expert_ffn.launches[variant] - before[0][variant] == 2 * kernel
+        assert (gmm.gmm_bwd_dx.launches - before[1],
+                gmm.gmm_bwd_dw.launches + gmm.gmm_bwd_dwd.launches - before[2]) == (kernel, 0)
+    for name, a, b in zip(("x", "router"), grads["kernel"], grads["plain"]):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [64, 128])
+def test_gmm_bwd_dx_at_next_width(cuda, bm):
+    """The dX kernel at E 512, H 2048, I 512 over the sorted layout of 512
+    tokens routed top 10 (5120 rows, runs of ~10 rows an expert padded to a
+    block each) against its plain version."""
+    from video_r2_tpu_torch.models.moe import route
+    from video_r2_tpu_torch.ops import moe_gmm as gmm
+
+    gen = torch.Generator(device=cuda).manual_seed(bm)
+    E, H, I, k, T = 512, 2048, 512, 10, 512
+    w = _moe_weights(gen, E, H, I, "bf16")
+    wg, wu, wd = (w[n]["kernel"] for n in ("gate", "up", "down"))
+    xt = _randn(gen, T, H)
+    _, topi = route(torch.randn(H, E, generator=gen, device=cuda), xt, k, True)
+    xs, ids, valid, _ = gmm.gmm_layout(xt, topi, E, bm)
+    dys = torch.where(xs != 0, _randn(gen, *xs.shape), 0.0).to(torch.bfloat16)
+    dx, dg, du, _ = gmm.gmm_bwd_dx(xs, dys, ids, valid, wg, wu, wd)
+    rdx, rdg, rdu, _ = gmm.gmm_bwd_dx_plain(xs, dys, ids, valid, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert _close(dg, rdg) and _close(du, rdu)
+    assert _rel_l2(dx, rdx) <= GRAD_REL_L2
 
 
 @pytest.mark.cuda

@@ -135,30 +135,35 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 80, "bf16"), (torch.bfloat16, 128, "bf16"),
     (torch.bfloat16, 12, ValueError), (torch.bfloat16, 96, ValueError),
-    (torch.bfloat16, 256, ValueError),
+    (torch.bfloat16, 256, "bf16"),
     (torch.float32, 12, "fp32"), (torch.float32, 16, "fp32"), (torch.float32, 80, "fp32"),
     (torch.float32, 128, "fp32"), (torch.float32, 136, ValueError),
     (torch.float16, 64, TypeError), (torch.float64, 12, TypeError)])
 def test_kernel_instance_routes_by_dtype_and_head_dim(dtype, hd, want):
     """The flash and window wrappers' routing on the card: bf16 to the
-    tensor-core kernels at head dims 64 / 80 / 128, fp32 to the CUDA-core
-    instances at any head dim up to 128, every other dtype refused."""
+    tensor-core kernels at head dims 64 / 80 / 128, and 256 for the flash
+    kernels (forward with LSE and backward too) but not the window kernels,
+    fp32 to the CUDA-core instances at any head dim up to 128, every other
+    dtype refused."""
     if isinstance(want, str):
         assert kernel_instance(dtype, hd) == want
+        if hd == 256:
+            with pytest.raises(ValueError, match="no window instance"):
+                kernel_instance(dtype, hd, window=True)
     else:
         with pytest.raises(want):
             kernel_instance(dtype, hd)
 
 
 def test_kernel_instance_takes_head_dim_256_for_serving_alone():
-    """bf16 at head dim 256 (the Qwen3-Next judge's gated attention) routes
-    to the flash serving forward's instance, and to no LSE, backward or
-    window instance."""
-    assert kernel_instance(torch.bfloat16, 256, serving=True) == "bf16"
-    with pytest.raises(ValueError, match="serving forward alone"):
-        kernel_instance(torch.bfloat16, 256)
+    """bf16 at head dim 256 (the Qwen3-Next judge's gated attention, served
+    and trained) routes to the flash instances (the forward, with LSE, and
+    the backward), and to no window instance."""
+    assert kernel_instance(torch.bfloat16, 256) == "bf16"
+    with pytest.raises(ValueError, match="no window instance"):
+        kernel_instance(torch.bfloat16, 256, window=True)
     with pytest.raises(ValueError, match="not in"):
-        kernel_instance(torch.bfloat16, 192, serving=True)
+        kernel_instance(torch.bfloat16, 192)
 
 
 @pytest.mark.parametrize("what", ["flash", "window"])

@@ -73,13 +73,15 @@
 // it rounds the next P), and the softmax adds the rest. 128-key tiles ran
 // within 5% either way, and so did rings of 3 to 6 slots. At the ViT's
 // groups the mask of the windows that hold padding costs a quarter.
-// Head dim 256 (the Qwen3-Next judge's gated attention; the serving
-// instance alone) keeps the design with a two-slot ring (a 64 KB Q tile and
-// 64 KB slots) and P V as one n256 product: O is 128 fp32 registers a
-// consumer thread. Two n128 products over the halves of O had ptxas
-// serialise the wgmmas (C7520); the n256 product does not and runs faster
+// Head dim 256 (the Qwen3-Next judge's gated attention, served and
+// trained) keeps the design with a two-slot ring (a 64 KB Q tile and 64 KB
+// slots) and P V as one n256 product: O is 128 fp32 registers a consumer
+// thread. Two n128 products over the halves of O had ptxas serialise the
+// wgmmas (C7520); the n256 product does not and runs faster
 // (scripts/bench_flash_bwd.py --cases next, PERF.md §6), at the cost of 12
-// bytes of spill that ptxas -v reports.
+// bytes of spill that ptxas -v reports for the serving instance. The LSE
+// instance at 256 (Qwen3-Next's next_loss) adds only the row store of the
+// epilogue, as at the other head dims.
 #include <climits>
 #include <cmath>
 
@@ -483,14 +485,12 @@ cudaError_t launch_hd(const FlashParams& p, const Operands& x, cudaStream_t stre
 }
 
 // (rows of a block, consumer warpgroups of a block, blocks resident on an SM)
-// of the serving instance at head dim 256 (it has no LSE instance), else of
-// the LSE instance
+// of the LSE instance
 template <int HD>
 int layout(int* out) {
-  constexpr bool LSE = HD != 256;
-  if (set_smem<HD, LSE>() != cudaSuccess) return -1;
+  if (set_smem<HD, true>() != cudaSuccess) return -1;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], flash_fwd_kernel<HD, LSE>, THREADS, Geo<HD>::SMEM);
+      &out[2], flash_fwd_kernel<HD, true>, THREADS, Geo<HD>::SMEM);
   out[0] = BQ;
   out[1] = WGS;
   return int(err);
@@ -621,8 +621,7 @@ cudaError_t launch_f32(const F32Params& p, cudaStream_t stream) {
 // (elements; bf16: the row and head strides multiples of 8, the bases
 // 16-byte aligned, hd 64, 80, 128 or 256; fp32 (fp32 != 0): any strides, hd
 // up to 128); the output is a contiguous [B, Sq, nh, hd] of q's type; lse
-// (fp32 [B, nh, Sq]) may be null, and must be at hd 256 (the serving
-// instance alone: the judge is not trained). Returns a cudaError_t.
+// (fp32 [B, nh, Sq]) may be null. Returns a cudaError_t.
 extern "C" int vr2_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_lengths,
     const int* seg, int B, int Sq, int Sk, int nh, int kh, int hd, long long q_sb,
@@ -657,8 +656,7 @@ extern "C" int vr2_flash_attention_fwd(
     case 64: return launch_hd<64>(p, x, st);
     case 80: return launch_hd<80>(p, x, st);
     case 128: return launch_hd<128>(p, x, st);
-    case 256:
-      return p.lse != nullptr ? int(cudaErrorInvalidValue) : int(launch<256, false>(p, x, st));
+    case 256: return launch_hd<256>(p, x, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

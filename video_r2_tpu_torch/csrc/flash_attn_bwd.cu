@@ -46,7 +46,7 @@
 //   zero-filled, with one barrier per tile;
 // - every product is a warpgroup wgmma (wgmma.cuh) on tiles stored in core
 //   matrices without swizzle, which any head dim that 16 divides can use
-//   (64, 80, 128): S = Q K^T-type products read both operands from shared
+//   (64, 80, 128, 256): S = Q K^T-type products read both operands from shared
 //   memory K-major; dq = dS K, dv = P^T dO and dk = dS^T Q take their A
 //   operand from the registers of the C fragments (rounded to bf16, as FA3
 //   does) and read B MN-major from the same tile, so no transposed copy
@@ -59,6 +59,15 @@
 //   S are the A operand of the next product); causal blocks skip the tiles
 //   past the diagonal on both sides, and keys past the kv length get zeros
 //   without a loop.
+// Head dim 256 (Qwen3-Next's gated attention under next_loss; the
+// counterpart of the same two TPU kernels at that head dim) keeps the
+// design with a smaller block: a [64, 256] bf16 tile is 32 KB, so a block
+// is one warpgroup over 64 resident rows with a two-stage ring (~193 KB of
+// shared memory). dq's [64, 256] fp32 sum is 128 registers a thread and
+// fits beside S and dP; dK and dV together would be 256, so the dk/dv entry
+// makes two launches, dV (S and P^T dO) then dK (S, dP and dS^T Q), each
+// recomputing S. A simple design that is right; its time, bound and
+// ptxas report are in PERF.md §6.
 #include <climits>
 #include <cmath>
 
@@ -71,11 +80,25 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BT = 64;        // rows of a streamed tile, and of each warpgroup (4 warps x 16)
-constexpr int WGS = 2;        // warpgroups of a block, side by side over its resident rows
-constexpr int THREADS = 128 * WGS;
-constexpr int RB = BT * WGS;  // resident rows of a block (query rows for dq, keys for dk/dv)
-constexpr int STAGES = 3;     // the ring of streamed tiles
+// warpgroups of a block, side by side over its resident rows, and the
+// stages of the ring of streamed tiles: two and three up to head dim 128;
+// one and two at 256, where a [64, 256] tile is 32 KB (two warpgroups with
+// two stages would ask 256 KB of the 227 KB a block may have)
+template <int HD>
+__host__ __device__ constexpr int wgs() { return HD > 128 ? 1 : 2; }
+template <int HD>
+__host__ __device__ constexpr int stages() { return HD > 128 ? 2 : 3; }
+template <int HD>
+__host__ __device__ constexpr int threads() { return 128 * wgs<HD>(); }
+// query rows for dq, keys for dk/dv
+template <int HD>
+__host__ __device__ constexpr int resident_rows() { return BT * wgs<HD>(); }
 constexpr float LOG2E = 1.4426950408889634f;
+// what a dk/dv launch writes: both (head dims up to 128), or at 256, where
+// dK and dV of 64 keys are 256 fp32 registers a thread, dV and dK in two
+// launches that each recompute S (5 products a tile pair where one launch
+// has 4)
+enum DkvPart : int { DKV_BOTH = 0, DKV_DV = 1, DKV_DK = 2 };
 
 struct FlashBwdParams {
   const bf16* q;              // [B, Sq, nh, hd] by stride
@@ -118,7 +141,7 @@ template <int HD>
 __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src, long long stride,
                                            int valid, const bf16* base, int tid) {
   constexpr int CH = HD / 8;
-  for (int i = tid; i < BT * CH; i += THREADS) {
+  for (int i = tid; i < BT * CH; i += threads<HD>()) {
     const int r = (i / (8 * CH)) * 8 + i % 8, c = ((i / 8) % CH) * 8;
     const bool ok = r < valid;
     vr2::cp_async_zfill<16>(dst + i * 8, ok ? src + r * stride + c : base, ok);
@@ -130,7 +153,7 @@ __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src, long long
 template <typename T>
 __device__ __forceinline__ void async_row(T* dst, const T* src, int valid, const T* base,
                                           int tid) {
-  for (int i = tid; i < BT; i += THREADS) {
+  for (int i = tid; i < BT; i += 128) {  // the first warpgroup
     const bool ok = i < valid;
     vr2::cp_async_zfill<4>(dst + i, ok ? src + i : base, ok);
   }
@@ -164,7 +187,9 @@ __device__ __forceinline__ void wg_frags_by_tile(float (&acc)[HD / 8][4],
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) {
     const uint64_t desc = vr2::smem_desc(t + kk * 16 * HD, Tile<HD>::ROWS8, 128);
-    if constexpr (HD == 128)
+    if constexpr (HD == 256)
+      vr2::wgmma_rs_n256(acc, xa[kk], desc, 1);
+    else if constexpr (HD == 128)
       vr2::wgmma_rs_n128(acc, xa[kk], desc, 1);
     else if constexpr (HD == 80)
       vr2::wgmma_rs_n80(acc, xa[kk], desc, 1);
@@ -230,14 +255,16 @@ __device__ __forceinline__ void close_products(float (&acc)[HD / 8][4],
 template <int HD>
 struct DqSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 4;
-  static constexpr int BYTES = 2 * WGS * Tile<HD>::BYTES + STAGES * STAGE;
+  static constexpr int BYTES = 2 * wgs<HD>() * Tile<HD>::BYTES + stages<HD>() * STAGE;
+  static_assert(BYTES <= 227 * 1024, "a block's shared memory");
 };
 
 // dq for one (RB query rows, head, batch): loops over the key tiles the
 // forward visited; warpgroup w owns rows [64 w, 64 w + 64), each warp 16.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(const FlashBwdParams p) {
+__global__ void __launch_bounds__(threads<HD>(), 1) flash_bwd_dq_kernel(const FlashBwdParams p) {
   using S = DqSmem<HD>;
+  constexpr int WGS = wgs<HD>(), STAGES = stages<HD>(), RB = resident_rows<HD>();
   constexpr int NT = BT / 8;    // 8-key column blocks of a score tile
   constexpr int DT = HD / 8;    // 8-wide column blocks of dq
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -376,16 +403,20 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_kernel(const FlashBwd
 template <int HD>
 struct DkvSmem {
   static constexpr int STAGE = 2 * Tile<HD>::BYTES + BT * 12;
-  static constexpr int BYTES = 2 * WGS * Tile<HD>::BYTES + STAGES * STAGE;
+  static constexpr int BYTES = 2 * wgs<HD>() * Tile<HD>::BYTES + stages<HD>() * STAGE;
+  static_assert(BYTES <= 227 * 1024, "a block's shared memory");
 };
 
 // dk / dv for one (RB keys, query head, batch): loops over the query tiles
 // that reach these keys. The products run transposed (keys as rows):
 // warpgroup w owns keys [64 w, 64 w + 64), each warp 16, so S^T, P^T and
-// dS^T are C fragments whose rows are this warp's keys.
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBwdParams p) {
+// dS^T are C fragments whose rows are this warp's keys. PART says which of
+// dK and dV the launch forms (DkvPart).
+template <int HD, int PART>
+__global__ void __launch_bounds__(threads<HD>(), 1) flash_bwd_dkv_kernel(const FlashBwdParams p) {
   using S = DkvSmem<HD>;
+  constexpr int WGS = wgs<HD>(), STAGES = stages<HD>(), RB = resident_rows<HD>();
+  constexpr bool DO_DV = PART != DKV_DK, DO_DK = PART != DKV_DV;
   constexpr int NT = BT / 8;    // 8-query column blocks of a transposed score tile
   constexpr int DT = HD / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -423,18 +454,20 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
     async_tile<HD>(sQ + Tile<HD>::ELEMS, dob + q0 * do_ss, do_ss, p.Sq - q0, p.dout, tid);
     float* sLse = reinterpret_cast<float*>(sQ + 2 * Tile<HD>::ELEMS);
     async_row(sLse, p.lse + rows + q0, p.Sq - q0, p.lse, tid);
-    async_row(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
+    if constexpr (DO_DK) async_row(sLse + BT, p.delta + rows + q0, p.Sq - q0, p.delta, tid);
     if (segb != nullptr)
       async_row(reinterpret_cast<int*>(sLse + 2 * BT), segb + q0, p.Sq - q0, p.seg, tid);
   };
-  if (qt_lo < n_qt) {  // K and V join the first query tile's group
+  if (qt_lo < n_qt) {  // K and V join the first query tile's group (dV alone needs no V)
 #pragma unroll
     for (int w = 0; w < WGS; ++w) {
       const int r0 = k0 + w * BT;
       async_tile<HD>(sK + w * Tile<HD>::ELEMS, p.k + b * p.k_sb + hk * p.k_sh + r0 * p.k_ss,
                      p.k_ss, p.Sk - r0, p.k, tid);
-      async_tile<HD>(sV + w * Tile<HD>::ELEMS, p.v + b * p.v_sb + hk * p.v_sh + r0 * p.v_ss,
-                     p.v_ss, p.Sk - r0, p.v, tid);
+      if constexpr (DO_DK)
+        async_tile<HD>(sV + w * Tile<HD>::ELEMS,
+                       p.v + b * p.v_sb + hk * p.v_sh + r0 * p.v_ss, p.v_ss, p.Sk - r0, p.v,
+                       tid);
     }
   }
 #pragma unroll
@@ -455,11 +488,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
       if (key[i] < p.Sk) kseg[i] = segb[key[i]];
   }
 
-  float dk[DT][4], dv[DT][4];
+  float dk[DT][4], dv[DT][4];  // the one a launch does not form is never touched
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DO_DK) dk[d][e] = 0.f;
+      if constexpr (DO_DV) dv[d][e] = 0.f;
+    }
 
   for (int qt = qt_lo; qt < n_qt; ++qt) {
     const int i = qt - qt_lo, q0 = qt * BT;
@@ -474,13 +510,21 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
     const float* sDelta = sLse + BT;
     const int* sQseg = reinterpret_cast<const int*>(sDelta + BT);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys x 64 queries
+    // S^T = K Q^T and (for dK) dP^T = V dO^T for this warpgroup's 64 keys x
+    // 64 queries
     float s[NT][4], dp[NT][4];
-    open_products<HD>(s, wK, sQ, dp, wV, sdO);
+    if constexpr (DO_DK) {
+      open_products<HD>(s, wK, sQ, dp, wV, sdO);
+      products_ready<1>(s);
+    } else {
+      vr2::wgmma_fence();
+      wg_rows_by_rows<HD>(s, wK, sQ);
+      vr2::wgmma_commit();
+      products_ready<0>(s);
+    }
 
     // P^T under the forward's mask, into s (while dP^T is multiplied); a
     // tile every key of which every row admits skips the mask
-    products_ready<1>(s);
     const bool full = segb == nullptr && wk0 + BT <= kv_len && q0 + BT <= p.Sq &&
                       (!p.causal || wk0 + BT - 1 <= p.q_offset + q0);
 #pragma unroll
@@ -503,16 +547,23 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
         }
       }
     }
-    // dS^T = P^T (dP^T - delta), into dp
-    products_ready<0>(dp);
+    if constexpr (DO_DK) {
+      // dS^T = P^T (dP^T - delta), into dp
+      products_ready<0>(dp);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[n][e] = s[n][e] * (dp[n][e] - sDelta[n * 8 + 2 * t + (e & 1)]);
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] = s[n][e] * (dp[n][e] - sDelta[n * 8 + 2 * t + (e & 1)]);
+    }
 
     // dV += P^T dO and dK += dS^T Q (both rounded to bf16 operands)
-    close_products<HD>(dv, s, sdO, dk, dp, sQ);
+    if constexpr (PART == DKV_BOTH)
+      close_products<HD>(dv, s, sdO, dk, dp, sQ);
+    else if constexpr (PART == DKV_DV)
+      close_products<HD>(dv, s, sdO);
+    else
+      close_products<HD>(dk, dp, sQ);
   }
 
   const bool gqa = p.nh != p.kh;  // add into the group's fp32 sums
@@ -522,56 +573,76 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(const FlashBw
     const long long at = (((long long)b * p.Sk + key[ki]) * p.kh + hk) * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
-      const float k0v = dk[d][2 * ki] * p.scale, k1v = dk[d][2 * ki + 1] * p.scale;
-      if (gqa) {
-        atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at + d * 8),
-                  make_float2(k0v, k1v));
-        atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at + d * 8),
-                  make_float2(dv[d][2 * ki], dv[d][2 * ki + 1]));
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + at + d * 8) =
-            __floats2bfloat162_rn(k0v, k1v);
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + at + d * 8) =
-            __floats2bfloat162_rn(dv[d][2 * ki], dv[d][2 * ki + 1]);
+      if constexpr (DO_DK) {
+        const float k0v = dk[d][2 * ki] * p.scale, k1v = dk[d][2 * ki + 1] * p.scale;
+        if (gqa)
+          atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at + d * 8),
+                    make_float2(k0v, k1v));
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + at + d * 8) =
+              __floats2bfloat162_rn(k0v, k1v);
+      }
+      if constexpr (DO_DV) {
+        if (gqa)
+          atomicAdd(reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at + d * 8),
+                    make_float2(dv[d][2 * ki], dv[d][2 * ki + 1]));
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + at + d * 8) =
+              __floats2bfloat162_rn(dv[d][2 * ki], dv[d][2 * ki + 1]);
       }
     }
   }
 }
 
-template <int HD>
-cudaError_t set_smem(bool dkv) {
-  return dkv ? cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    DkvSmem<HD>::BYTES)
-             : cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    DqSmem<HD>::BYTES);
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// the dk/dv instance of a part at head dim HD, launched on the grid of the
+// key blocks
+template <int HD, int PART>
+cudaError_t launch_dkv(const FlashBwdParams& p, cudaStream_t stream) {
+  cudaError_t err = set_smem(flash_bwd_dkv_kernel<HD, PART>, DkvSmem<HD>::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sk + resident_rows<HD>() - 1) / resident_rows<HD>() * p.nh * p.B);
+  flash_bwd_dkv_kernel<HD, PART><<<grid, threads<HD>(), DkvSmem<HD>::BYTES, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const FlashBwdParams& p, bool dkv, cudaStream_t stream) {
-  cudaError_t err = set_smem<HD>(dkv);
+  if (dkv) {
+    if constexpr (HD > 128) {
+      const cudaError_t err = launch_dkv<HD, DKV_DV>(p, stream);
+      return err != cudaSuccess ? err : launch_dkv<HD, DKV_DK>(p, stream);
+    } else {
+      return launch_dkv<HD, DKV_BOTH>(p, stream);
+    }
+  }
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<HD>, DqSmem<HD>::BYTES);
   if (err != cudaSuccess) return err;
-  const int tiles = ((dkv ? p.Sk : p.Sq) + RB - 1) / RB;
-  const dim3 grid(tiles * p.nh * p.B);
-  if (dkv)
-    flash_bwd_dkv_kernel<HD><<<grid, THREADS, DkvSmem<HD>::BYTES, stream>>>(p);
-  else
-    flash_bwd_dq_kernel<HD><<<grid, THREADS, DqSmem<HD>::BYTES, stream>>>(p);
+  const dim3 grid((p.Sq + resident_rows<HD>() - 1) / resident_rows<HD>() * p.nh * p.B);
+  flash_bwd_dq_kernel<HD><<<grid, threads<HD>(), DqSmem<HD>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
-// (rows of a block, warpgroups of a block, blocks resident on an SM)
+// (rows of a block, warpgroups of a block, blocks resident on an SM; at
+// head dim 256 the dK launch's, which has the dV launch's shared memory and
+// more registers)
 template <int HD>
 int layout(bool dkv, int* out) {
-  if (set_smem<HD>(dkv) != cudaSuccess) return -1;
-  const cudaError_t err =
-      dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dkv_kernel<HD>,
-                                                          THREADS, DkvSmem<HD>::BYTES)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_bwd_dq_kernel<HD>,
-                                                          THREADS, DqSmem<HD>::BYTES);
-  out[0] = RB;
-  out[1] = WGS;
+  constexpr int PART = HD > 128 ? DKV_DK : DKV_BOTH;
+  cudaError_t err =
+      dkv ? set_smem(flash_bwd_dkv_kernel<HD, PART>, DkvSmem<HD>::BYTES)
+          : set_smem(flash_bwd_dq_kernel<HD>, DqSmem<HD>::BYTES);
+  if (err != cudaSuccess) return -1;
+  err = dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &out[2], flash_bwd_dkv_kernel<HD, PART>, threads<HD>(), DkvSmem<HD>::BYTES)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &out[2], flash_bwd_dq_kernel<HD>, threads<HD>(), DqSmem<HD>::BYTES);
+  out[0] = resident_rows<HD>();
+  out[1] = wgs<HD>();
   return int(err);
 }
 
@@ -582,6 +653,7 @@ int dispatch(const FlashBwdParams& p, int hd, bool dkv, void* stream) {
     case 64: return launch<64>(p, dkv, st);
     case 80: return launch<80>(p, dkv, st);
     case 128: return launch<128>(p, dkv, st);
+    case 256: return launch<256>(p, dkv, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -834,7 +906,8 @@ F32BwdParams make_f32_params(const void* q, const void* k, const void* v, const 
 
 // Plain C entry points, loaded with ctypes. q / k / v are read by stride
 // (elements); dout is a contiguous [B, Sq, nh, hd]; lse and delta are fp32
-// [B, nh, Sq]. bf16 (hd 64, 80 or 128): dq is written as a contiguous bf16
+// [B, nh, Sq]. bf16 (hd 64, 80, 128 or 256; at 256 the dk/dv entry makes two
+// launches, dV then dK): dq is written as a contiguous bf16
 // [B, Sq, nh, hd]; dk / dv with nh == kh a contiguous bf16 [B, Sk, kh, hd],
 // under GQA (nh > kh) contiguous fp32 [B, Sk, kh, hd] that the caller zeroes
 // and the kernel adds every query head of the group into. fp32 (fp32 != 0,
@@ -885,6 +958,7 @@ extern "C" int vr2_flash_attention_bwd_layout(int hd, int dkv, int* out) {
     case 64: return layout<64>(dkv != 0, out);
     case 80: return layout<80>(dkv != 0, out);
     case 128: return layout<128>(dkv != 0, out);
+    case 256: return layout<256>(dkv != 0, out);
     default: return int(cudaErrorInvalidValue);
   }
 }

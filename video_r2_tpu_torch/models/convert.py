@@ -15,7 +15,12 @@ quantized tree (8-bit {kernel_q, scale}, 4-bit {kernel_q4, scale4}) load
 into a model quantized alike (models/quant.py), int8 copied as int8 and the
 scales as fp32. `load_jax_next_params` carries the Qwen3-Next tree
 (``models/qwen3_next.py``: leaves under ``groups/lin`` stacked [G, 3, ...],
-under ``groups/full`` [G, ...]) into the port's Qwen3Next the same way.
+under ``groups/full`` [G, ...]) into the port's Qwen3Next the same way, and
+`load_jax_next_lora` its adapter tree (``{"a": [G, 3, in, r], "b":
+[G, 3, r, out]}`` under each adapted ``lin`` kernel, [G, ...] under ``full``)
+onto the port's per-layer adapters; `next_lora_tree` stacks the port's
+adapters, or their gradients, back into that tree, so the tests compare
+like with like.
 """
 
 from __future__ import annotations
@@ -112,8 +117,48 @@ def load_jax_lora(module: nn.Module, lora_tree: dict) -> nn.Module:
     """Copy a JAX adapter tree (``jax.tree.map(np.asarray, lora)``) into the
     adapters attached to `module` (train/lora.py::attach_lora); the two sets
     of adapted kernels must be the same. Returns `module`."""
+    return _copy_lora(module, flatten_jax_tree(lora_tree))
+
+
+@torch.no_grad()
+def load_jax_next_lora(module: nn.Module, lora_tree: dict) -> nn.Module:
+    """load_jax_lora for a Qwen3-Next adapter tree (stacked as the
+    parameters are: flatten_next_tree) onto a Qwen3Next's attached
+    adapters. Returns `module`."""
+    return _copy_lora(module, flatten_next_tree(lora_tree))
+
+
+def next_lora_tree(named: dict) -> dict:
+    """{port adapter name: tensor} (``groups.{g}.lin.{s}.qkvz.lora_a``, ...;
+    the adapters or their gradients) -> the JAX package's Qwen3-Next
+    adapter tree of fp32 numpy arrays: {"a", "b"} under each adapted
+    kernel, stacked [G, 3, ...] under ``groups/lin`` and [G, ...] under
+    ``groups/full`` (the inverse of load_jax_next_lora's split)."""
+    stacks: dict[tuple, dict] = {}
+    for name, t in named.items():
+        mod, leaf = name.rsplit(".", 1)
+        parts = mod.split(".")
+        if parts[0] != "groups" or leaf not in ("lora_a", "lora_b"):
+            raise KeyError(f"{name}: not an adapter of a Qwen3-Next layer")
+        at = 4 if parts[2] == "lin" else 3          # groups.{g}.lin.{s}. / groups.{g}.full.
+        path = ("groups", parts[2], *parts[at:], "kernel", leaf[len("lora_"):])
+        index = tuple(int(i) for i in parts[1:at] if i.isdigit())
+        stacks.setdefault(path, {})[index] = t.detach().float().cpu().numpy()
+    tree: dict = {}
+    for path, parts in stacks.items():
+        shape = tuple(max(i[d] for i in parts) + 1 for d in range(len(next(iter(parts)))))
+        arr = np.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
+            shape + next(iter(parts.values())).shape)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def _copy_lora(module: nn.Module, flat_tree: dict[str, np.ndarray]) -> nn.Module:
     flat = {}
-    for name, arr in flatten_jax_tree(lora_tree).items():
+    for name, arr in flat_tree.items():
         kernel, leaf = name.rsplit(".", 1)          # "<module>.kernel", "a" / "b"
         flat[f"{kernel.rsplit('.', 1)[0]}.lora_{leaf}"] = arr
     params = {n: p for n, p in module.named_parameters()

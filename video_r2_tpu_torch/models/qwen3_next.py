@@ -36,8 +36,13 @@ KV strips) and are updated in place. Entry points: `forward`, `prefill`,
 `generate_spec` (n-gram speculative decoding through `_extend_forward`,
 which leaves the recurrent state as it was, and `_commit`, which replays the
 saved streams through the accepted prefix). engine/next_continuous.py is the
-slot engine over these. Training (next_loss, LoRA SFT) and loading HF
-checkpoints are not ported (ROADMAP Queue 1 #7, #9).
+slot engine over these. Training: `next_loss` (the layers under autograd:
+the delta rule's backward is autograd through its torch ops, as the JAX
+package's is autodiff through XLA ops; the full-attention layers through
+the flash training kernels at head dim 256; the MoE through
+models/moe.py::moe_mlp_train) and `make_next_lora_sft_step` over a bf16
+or int8 base (QLoRA). Loading HF checkpoints is not ported (ROADMAP Queue 1
+#9).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from torch import nn
 
 from .decoder import Experts, quantize_kv
 from .layers import MLP, Linear, quantize_act, rotate_half, rotary_inv_freq
-from .moe import moe_mlp
+from .moe import moe_mlp, moe_mlp_train
 
 
 @dataclass(frozen=True)
@@ -596,21 +601,26 @@ def moe_params(p) -> dict:
             "experts": {"gate": ex.gate.leaf(), "up": ex.up.leaf(), "down": ex.down.leaf()}}
 
 
-def _next_mlp(cfg: Qwen3NextConfig, p, x, is_decode: bool):
+def _next_mlp(cfg: Qwen3NextConfig, p, x, is_decode: bool, train: bool = False):
     """Routed experts (models/moe.py: ragged decode at up to RAGGED_MAX_TOKENS
-    tokens, the GMM on prefill, and on decode only with moe_gmm_decode) plus
-    the shared expert scaled by sigmoid(shared_gate(x)). As in the
-    reference the routed experts take no act_quant; the shared expert takes
-    it on prefill."""
+    tokens, the GMM on prefill, and on decode only with moe_gmm_decode;
+    under next_loss, `train`, moe_mlp_train's route) plus the shared expert
+    scaled by sigmoid(shared_gate(x)). As in the reference the routed
+    experts take no act_quant; the shared expert takes it on prefill."""
     aq = None if is_decode else cfg.act_quant
     if cfg.num_experts == 0:
         return p.mlp(x, aq)
-    routed = moe_mlp(moe_params(p), x, cfg.num_experts_per_tok, cfg.norm_topk_prob,
-                     capacity_factor=cfg.moe_capacity_factor,
-                     group_size=cfg.moe_group_size,
-                     ragged_decode=cfg.moe_ragged_decode and is_decode,
-                     gmm_prefill=cfg.moe_gmm_decode if is_decode else cfg.moe_gmm_prefill,
-                     ffn_impl=p.ffn_impl)
+    if train:
+        routed = moe_mlp_train(moe_params(p), x, cfg.num_experts_per_tok,
+                               cfg.norm_topk_prob, cfg.moe_capacity_factor,
+                               cfg.moe_group_size, ffn_impl=p.ffn_impl)
+    else:
+        routed = moe_mlp(moe_params(p), x, cfg.num_experts_per_tok, cfg.norm_topk_prob,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         group_size=cfg.moe_group_size,
+                         ragged_decode=cfg.moe_ragged_decode and is_decode,
+                         gmm_prefill=cfg.moe_gmm_decode if is_decode else cfg.moe_gmm_prefill,
+                         ffn_impl=p.ffn_impl)
     sgate = torch.sigmoid(p.shared_gate(x).float()).to(x.dtype)
     return routed + p.shared(x, aq) * sgate
 
@@ -673,9 +683,10 @@ def _quantize_next_cache(cache: Qwen3NextCache) -> QuantNextCache:
 
 
 def _run_prefill(model: Qwen3Next, cfg: Qwen3NextConfig, h, lengths, chunk_size: int,
-                 want_cache: bool):
+                 want_cache: bool, train: bool = False):
     """The layers over h [B, S, H] from position 0. Returns (final-normed h,
-    a cache of KV width S or None)."""
+    a cache of KV width S or None). train: next_loss's MoE route
+    (moe_mlp_train)."""
     B, S, _ = h.shape
     dev = h.device
     valid = None
@@ -689,14 +700,16 @@ def _run_prefill(model: Qwen3Next, cfg: Qwen3NextConfig, h, lengths, chunk_size:
             out, st = _deltanet_prefill(cfg, lp, rms_norm_zc(lp.in_norm, h, cfg.rms_norm_eps),
                                         valid, lengths, chunk_size, want_cache)
             h = res + out
-            h = h + _next_mlp(cfg, lp, rms_norm_zc(lp.post_norm, h, cfg.rms_norm_eps), False)
+            h = h + _next_mlp(cfg, lp, rms_norm_zc(lp.post_norm, h, cfg.rms_norm_eps), False,
+                              train)
             if want_cache:
                 cache.conv[g, s], cache.rec[g, s] = st
         fp = grp.full
         out, st = _full_attn_prefill(cfg, fp, rms_norm_zc(fp.in_norm, h, cfg.rms_norm_eps),
                                      rope, want_cache, lengths)
         h = h + out
-        h = h + _next_mlp(cfg, fp, rms_norm_zc(fp.post_norm, h, cfg.rms_norm_eps), False)
+        h = h + _next_mlp(cfg, fp, rms_norm_zc(fp.post_norm, h, cfg.rms_norm_eps), False,
+                          train)
         if want_cache:
             cache.k[g], cache.v[g] = st
     h = rms_norm_zc(model.final_norm, h, cfg.rms_norm_eps)
@@ -821,6 +834,80 @@ def generate(model: Qwen3Next, cfg: Qwen3NextConfig, input_ids, lengths,
                         max_new_tokens=max_new_tokens)
     return generate_packed(model, cfg, input_ids, lengths, sp, seed=seed,
                            chunk_size=chunk_size).sequences
+
+
+# ------------------------------------------------------------------ training
+
+
+def next_loss(model: Qwen3Next, cfg: Qwen3NextConfig, input_ids, labels, lengths=None,
+              chunk_size: int = 64) -> torch.Tensor:
+    """Causal-LM loss under autograd: the mean CE over labels != -100 at the
+    same position (the caller shifts), through ops/fused_ce.py (no [N, V]
+    logits). The layers run as a prefill without a cache; the routed
+    experts take moe_mlp_train's route (the reference forces the einsum);
+    the full-attention layers take the flash training kernels where
+    cfg.attn_impl picks flash (a CUDA device under "auto"). An int8
+    lm_head is dequantized once a call for the CE, as the reference does.
+    Returns the fp32 scalar loss."""
+    from ..ops.fused_ce import fused_linear_cross_entropy
+    from .quant import dequantize_kernel
+
+    ids = _ids(model, input_ids)
+    lab = _ids(model, labels)
+    lens = _ids(model, lengths) if lengths is not None else None
+    h, _ = _run_prefill(model, cfg, model.embed(ids), lens, chunk_size, want_cache=False,
+                        train=True)
+    if cfg.tie_word_embeddings:
+        w = model.embed.weight.T
+    elif model.lm_head.kernel is not None:
+        w = model.lm_head.kernel
+    elif model.lm_head.kernel_q is not None:
+        w = dequantize_kernel({"kernel_q": model.lm_head.kernel_q,
+                               "scale": model.lm_head.scale}, dtype=h.dtype)
+    else:
+        raise ValueError("next_loss: the lm_head must be float or int8")
+    return fused_linear_cross_entropy(h.reshape(-1, h.shape[-1]), w, lab.reshape(-1))
+
+
+# LoRA targets of this family (train/lora.py matches module-path suffixes):
+# groups.{g}.lin.{s}.qkvz / .out, groups.{g}.full.q / k / v / o and every
+# layer's shared expert; never the routed experts or the router
+NEXT_LORA_TARGETS = (
+    ("qkvz", "kernel"), ("out", "kernel"),
+    ("q", "kernel"), ("k", "kernel"), ("v", "kernel"), ("o", "kernel"),
+    ("shared", "gate", "kernel"), ("shared", "up", "kernel"),
+    ("shared", "down", "kernel"),
+)
+
+
+def make_next_lora_sft_step(model: Qwen3Next, cfg: Qwen3NextConfig):
+    """The SFT step where only the adapters attached to `model`
+    (train/lora.py::attach_lora over NEXT_LORA_TARGETS; init_lora_for_quantized
+    over an int8 base: QLoRA) train, the reference's make_next_lora_sft_step
+    in the port's form (train/sft.py::make_lora_sft_step): step(state,
+    batch) -> (state, {"loss", "grad_norm"}), state a train/sft.py TrainState
+    over the adapters, batch {input_ids, labels[, lengths]} (tensors or
+    arrays). The base's parameters must not require gradients (ValueError
+    otherwise), so no base gradient is formed."""
+    from ..train.optim import global_norm
+
+    if not any(n.endswith(".lora_a") for n, _ in model.named_parameters()):
+        raise ValueError("no adapters attached (train/lora.py::attach_lora)")
+    trains = [n for n, p in model.named_parameters()
+              if p.requires_grad and not n.endswith((".lora_a", ".lora_b"))]
+    if trains:
+        raise ValueError(f"base parameters require grad: {trains[:3]}...")
+
+    def step(state, batch):
+        state.optimizer.zero_grad()
+        loss = next_loss(model, cfg, batch["input_ids"], batch["labels"], batch.get("lengths"))
+        loss.backward()
+        grad_norm = global_norm(p.grad for p in state.params.values() if p.grad is not None)
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
 
 
 # ----------------------------------------------- prefix reuse / continue

@@ -8,10 +8,11 @@ the FA2 recompute backward from it (``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``). On CUDA tensors every step launches a
 hand-written Hopper kernel (``csrc/flash_attn.cu``, ``csrc/flash_attn_bwd.cu``)
 and raises on anything the kernels do not take: `kernel_instance` routes
-bf16 operands to the tensor-core kernels (head dims 64 / 80 / 128, and 256
-for the serving forward alone: the Qwen3-Next judge's gated attention) and
-fp32 operands to their fp32 instances on the CUDA cores (any head dim up to
-128); other dtypes raise TypeError. On CPU tensors the same Function runs
+bf16 operands to the tensor-core kernels (head dims 64 / 80 / 128, and 256,
+the Qwen3-Next judge's gated attention, served and trained: the forward,
+the forward with LSE and both backward kernels; the ViT window kernels
+stop at 128) and fp32 operands to their fp32 instances on the CUDA cores
+(any head dim up to 128); other dtypes raise TypeError. On CPU tensors the same Function runs
 the plain PyTorch versions (`flash_attention_fwd_lse_plain`,
 `flash_attention_bwd_plain`), which the CPU tests hold against the JAX
 kernels in interpret mode.
@@ -31,25 +32,25 @@ import torch
 from .cuda_build import check, kernels
 
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)   # the bf16 kernels'
-SERVING_ONLY_HEAD_DIMS = (256,)   # the serving forward's alone: no LSE, backward or window
+FLASH_ONLY_HEAD_DIMS = (256,)   # the flash kernels' (forward, LSE, backward) alone: no window
 FP32_MAX_HEAD_DIM = 128             # the fp32 instances take any head dim up to it
 NO_KEY_LSE = 1e30   # LSE of a row that admits no key: exp(s - lse) == 0
 
 
-def kernel_instance(dtype: torch.dtype, hd: int, serving: bool = False) -> str:
-    """The instance of the attention kernels (flash and window, forward and
-    backward) that takes operands of `dtype` at head dim `hd`: "bf16" (the
-    tensor-core kernels; head dims in KERNEL_HEAD_DIMS, those in
-    SERVING_ONLY_HEAD_DIMS only for the flash serving forward, `serving`)
-    or "fp32" (their fp32 instances on the CUDA cores; any head dim up to
-    FP32_MAX_HEAD_DIM). Raises TypeError on any other dtype and ValueError
-    on a head dim the instance does not take."""
+def kernel_instance(dtype: torch.dtype, hd: int, window: bool = False) -> str:
+    """The instance of the attention kernels (flash, or the ViT window
+    kernels with `window`; forward and backward) that takes operands of
+    `dtype` at head dim `hd`: "bf16" (the tensor-core kernels; head dims in
+    KERNEL_HEAD_DIMS, those in FLASH_ONLY_HEAD_DIMS not for the window
+    kernels) or "fp32" (their fp32 instances on the CUDA cores; any head dim
+    up to FP32_MAX_HEAD_DIM). Raises TypeError on any other dtype and
+    ValueError on a head dim the instance does not take."""
     if dtype == torch.bfloat16:
         if hd not in KERNEL_HEAD_DIMS:
             raise ValueError(f"attention kernel: bf16 head dim {hd} not in {KERNEL_HEAD_DIMS}")
-        if hd in SERVING_ONLY_HEAD_DIMS and not serving:
-            raise ValueError(f"attention kernel: bf16 head dim {hd} has the flash serving "
-                             f"forward alone (no LSE, backward or window instance)")
+        if hd in FLASH_ONLY_HEAD_DIMS and window:
+            raise ValueError(f"attention kernel: bf16 head dim {hd} has flash instances "
+                             f"alone (no window instance)")
         return "bf16"
     if dtype == torch.float32:
         if not 0 < hd <= FP32_MAX_HEAD_DIM:
@@ -230,12 +231,12 @@ def _check_operand(name: str, x: torch.Tensor, device, dtype) -> None:
                          f"strides {x.stride()}")
 
 
-def _kernel_inputs(q, k, v, kv_lengths, segment_ids, serving: bool = False):
+def _kernel_inputs(q, k, v, kv_lengths, segment_ids):
     """Check the operands; (lengths int32 [B], segments int32 [B, Sk] or
-    None), contiguous on q's device. serving: for the serving forward."""
+    None), contiguous on q's device."""
     B, Sq, nh, hd = q.shape
     Sk, kh = k.shape[1], k.shape[2]
-    kernel_instance(q.dtype, hd, serving)
+    kernel_instance(q.dtype, hd)
     if k.shape != (B, Sk, kh, hd) or v.shape != k.shape:
         raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -262,7 +263,7 @@ def _flash_cuda(q, k, v, kv_lengths, causal, q_offset, segment_ids,
     """Launch csrc/flash_attn.cu: (out, lse or None)."""
     B, Sq, nh, hd = q.shape
     Sk, kh = k.shape[1], k.shape[2]
-    lengths, seg = _kernel_inputs(q, k, v, kv_lengths, segment_ids, serving=not with_lse)
+    lengths, seg = _kernel_inputs(q, k, v, kv_lengths, segment_ids)
     out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -337,8 +338,10 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, kv_lengths, causal=True,
     """Launch the dk/dv kernel (csrc/flash_attn_bwd.cu): dk, dv
     [B, Sk, kh, hd], the GQA group summed. The bf16 kernel runs one block
     per (key rows, query head): under GQA it adds each head into zeroed
-    fp32 sums, rounded to the operands' dtype here. The fp32 instance walks
-    the group's heads in one block and writes dk / dv once."""
+    fp32 sums, rounded to the operands' dtype here. At head dim 256 the
+    entry point makes two launches, dV then dK (one count here). The fp32
+    instance walks the group's heads in one block and writes dk / dv
+    once."""
     lengths, seg, dout, lse, delta = _bwd_operands(q, k, v, dout, lse, delta,
                                                    kv_lengths, segment_ids)
     gqa = q.shape[2] != k.shape[2] and q.dtype == torch.bfloat16

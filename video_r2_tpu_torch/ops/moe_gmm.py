@@ -33,8 +33,17 @@ versions. The rounding points are the kernels', in the working type of x
 before the products that consume them; every sum is fp32, dX comes out
 fp32 and each dW in its weight's dtype, rounded once from the fp32 sum
 (the reference's dwg.astype(wg.dtype)) by the kernel itself.
-int8 and W8A8 expert weights have no backward, as in the reference. The
-sharded variant waits for the parallelism port.
+int8 expert weights (a QLoRA base) train through the same Function with
+no weight gradient: the forward and the d_topv recompute run the grouped
+FFN's int8-weight instance (the counterpart of ``_ffn_kernel_q``, the
+scales on the fp32 sums, as the reference's einsum factors them onto the
+outputs), and dX runs the bf16 dX kernel over the layer's experts
+dequantized for that call (W_q times its per-column scale, rounded to x's
+dtype; 3.2 GB at E 512, H 2048, I 512), freed before the call returns and
+never saved for the backward. The reference has no such path: its
+next_loss takes the einsum, which this one equals at capacity factor 0
+(models/moe.py::moe_mlp_train). W8A8 has no backward. The sharded variant
+waits for the parallelism port.
 """
 
 from __future__ import annotations
@@ -390,42 +399,59 @@ def sorted_dy(dy_slot, topv, dst, shape, dtype) -> torch.Tensor:
     return dY.to(dtype).reshape(shape)
 
 
+def _leaves(w, scale) -> dict:
+    """An expert leaf: {kernel} for float weights, {kernel_q, scale} for
+    int8 ones (scale [E, N])."""
+    return {"kernel": w} if scale is None else {"kernel_q": w, "scale": scale}
+
+
 class _GmmExpertFFN(torch.autograd.Function):
     """The exact MoE FFN over sorted expert groups with the recompute
     backward (the reference's gmm_expert_ffn_diff). Float weights wg / wu
-    [E, H, I], wd [E, I, H]; topi gets no gradient."""
+    [E, H, I], wd [E, I, H] without scales; or int8 weights with their
+    scales sg / su [E, I], sd [E, H], which get no gradient (dX through the
+    weights dequantized for the call). topi gets no gradient."""
 
     @staticmethod
-    def forward(ctx, xt, topv, topi, wg, wu, wd, block_rows: int, ffn_impl: str):
-        ctx.save_for_backward(xt, topv, topi, wg, wu, wd)
+    def forward(ctx, xt, topv, topi, wg, wu, wd, block_rows: int, ffn_impl: str, sg=None,
+                su=None, sd=None):
+        ctx.save_for_backward(xt, topv, topi, wg, wu, wd, sg, su, sd)
         ctx.block_rows, ctx.ffn_impl = block_rows, ffn_impl
-        return _gmm_apply(xt, topv, topi, wg.shape[0], {"kernel": wg}, {"kernel": wu},
-                          {"kernel": wd}, block_rows, ffn_impl=ffn_impl)
+        return _gmm_apply(xt, topv, topi, wg.shape[0], _leaves(wg, sg), _leaves(wu, su),
+                          _leaves(wd, sd), block_rows, ffn_impl=ffn_impl)
 
     @staticmethod
     def backward(ctx, dy):
-        xt, topv, topi, wg, wu, wd = ctx.saved_tensors
+        xt, topv, topi, wg, wu, wd, sg, su, sd = ctx.saved_tensors
         T, H = xt.shape
         k = topi.shape[-1]
         E = wg.shape[0]
         bm = ctx.block_rows
         kernel = ctx.ffn_impl == "kernel"
+        quant = sg is not None
         xs, ids, valid, dst = gmm_layout(xt, topi, E, bm)
         R_pad = xs.shape[0] * bm
 
         # d_topv needs the unweighted per-slot outputs: one forward recompute
         ffn = ragged_expert_ffn if kernel else _plain_ffn
-        y = ffn(xs, ids, {"kernel": wg}, {"kernel": wu}, {"kernel": wd}, blk_valid=valid)
+        y = ffn(xs, ids, _leaves(wg, sg), _leaves(wu, su), _leaves(wd, sd), blk_valid=valid)
         dy_slot = dy.float().repeat_interleave(k, dim=0)                # [T k, H]
         d_topv = (dy_slot * y.reshape(R_pad, H)[dst].float()).sum(-1).reshape(T, k)
         del y
         dYs = sorted_dy(dy_slot, topv, dst, xs.shape, xs.dtype)
         del dy_slot
 
-        need_w = ctx.needs_input_grad[3:6]
+        need_w = (False,) * 3 if quant else ctx.needs_input_grad[3:6]
         bwd = (gmm_bwd_dx, gmm_bwd_dw, gmm_bwd_dwd) if kernel else (
             gmm_bwd_dx_plain, gmm_bwd_dw_plain, gmm_bwd_dwd_plain)
+        if quant:   # the layer's experts for this call alone
+            from ..models.quant import dequantize_kernel
+
+            wg, wu, wd = (dequantize_kernel(_leaves(w, s), xs.dtype)
+                          for w, s in ((wg, sg), (wu, su), (wd, sd)))
         dx, dg, du, h = bwd[0](xs, dYs, ids, valid, wg, wu, wd, keep_h=need_w[2])
+        if quant:
+            del wg, wu, wd
         # each token's k slots summed (the reference's index-add over tok_of_flat)
         d_xt = dx.reshape(R_pad, H)[dst].reshape(T, k, H).sum(1).to(xt.dtype)
         del dx
@@ -436,17 +462,21 @@ class _GmmExpertFFN(torch.autograd.Function):
                                            need_w))
         if need_w[2]:
             dwd = bwd[2](h, dYs, ids, valid, E, wd.dtype)
-        return d_xt, d_topv.to(topv.dtype), None, dwg, dwu, dwd, None, None
+        # the scales' Nones past the float call's inputs are dropped by autograd
+        return (d_xt, d_topv.to(topv.dtype), None, dwg, dwu, dwd, None, None, None, None,
+                None)
 
 
 def moe_mlp_gmm_diff(p: dict, xt: torch.Tensor, k: int, norm_topk_prob: bool,
                      block_rows: int | None = None, ffn_impl: str = "kernel") -> torch.Tensor:
-    """The exact MoE forward over sorted expert groups, differentiable (float
-    expert weights): routing through autograd (the router's gradient flows
-    through topv's), the FFN through _GmmExpertFFN. The backward reuses the
-    forward's layout (block_rows, auto_block_rows by default): bm changes
-    only the order of fp32 sums. ffn_impl="plain" runs the forward FFN and
-    the backward through their plain versions on any device."""
+    """The exact MoE forward over sorted expert groups, differentiable: float
+    expert leaves {kernel} (their gradients when they require one) or int8
+    leaves {kernel_q, scale} (none). Routing through autograd (the router's
+    gradient flows through topv's), the FFN through _GmmExpertFFN. The
+    backward reuses the forward's layout (block_rows, auto_block_rows by
+    default): bm changes only the order of fp32 sums. ffn_impl="plain" runs
+    the forward FFN and the backward through their plain versions on any
+    device."""
     from ..models.moe import route
 
     E = p["router"]["kernel"].shape[-1]
@@ -454,5 +484,7 @@ def moe_mlp_gmm_diff(p: dict, xt: torch.Tensor, k: int, norm_topk_prob: bool,
         block_rows = auto_block_rows(xt.shape[0] * k, E)
     topv, topi = route(p["router"]["kernel"], xt, k, norm_topk_prob)
     ex = p["experts"]
-    return _GmmExpertFFN.apply(xt, topv, topi, ex["gate"]["kernel"], ex["up"]["kernel"],
-                               ex["down"]["kernel"], block_rows, ffn_impl)
+    quant = "kernel_q" in ex["gate"]
+    w = [ex[n]["kernel_q" if quant else "kernel"] for n in ("gate", "up", "down")]
+    s = [ex[n]["scale"] if quant else None for n in ("gate", "up", "down")]
+    return _GmmExpertFFN.apply(xt, topv, topi, *w, block_rows, ffn_impl, *s)

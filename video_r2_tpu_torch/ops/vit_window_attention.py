@@ -130,7 +130,7 @@ def _window_operands(q, k, v, valid, wp):
     S, nh, hd = q.shape
     if wp != WINDOW:
         raise ValueError(f"window kernel: window {wp} != {WINDOW}")
-    kernel_instance(q.dtype, hd)
+    kernel_instance(q.dtype, hd, window=True)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"window kernel: q/k/v shapes differ: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
